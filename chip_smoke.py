@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Smoke run of incflo_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # the whole run, one card
+    python3 chip_smoke.py --profile  # also print the device time of the
+                                     # n = 128 and 256 steps (torch.profiler)
+
+Phases (any failure ends the run with a non-zero exit):
+  1. build   the CUDA kernels of incflo_torch/csrc/godunov.cu with nvcc.
+  2. kernels each kernel against its plain PyTorch version on the card:
+             float64 (relative error <= 1e-10) and float32 at the n = 128
+             shear3d shapes (within 2e-5 / 3e-4 of the field's max for
+             predict / advect), PPM and PLM, with forces, iconserv 0 and
+             1; each kernel and its plain version timed on the card.
+  3. paths   the whole shear3d step on cuda (kernels) and on cpu (plain
+             versions), float64, 32x32x8, 3 steps from one state; velocity,
+             p and gp agree to 1e-9 relative.
+  4. main    shear3d through incflo_torch.Simulation on cuda, float32:
+             n = 128 (128x128x32), 20 warm-up + 20 timed steps, and
+             n = 256 (256x256x64), 2 warm-up + 5 timed steps.  The kernels'
+             launch counters are zeroed just before each run and must equal
+             the per-step launches times the steps just after; the final
+             velocity is finite and the projection is exact to rounding.
+Then one JSON line of kernel results, the card's name and power limit,
+and, last, {"ok": true, "device": {...}}.
+
+It imports neither JAX nor incflo_tpu and writes its own deck text (the
+shear3d deck of bench.py).  Without a CUDA device, or outside a checkout
+of the repository, it exits non-zero and prints no result.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and the
+# float32/float64 rates outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+
+PER_STEP = {"uad": 1, "predict_d": 3, "advect": 3}
+TOL = {"uad": 2e-5, "predict_d": 2e-5, "advect": 3e-4}
+TOL_F64 = 1e-10
+
+
+def shear3d_deck(n, dtype):
+    """The shear3d deck of bench.py:_deck (probtype 21, Godunov PPM,
+    Crank-Nicolson tensor diffusion, fully periodic)."""
+    tol = "1e-11" if dtype == "float64" else "1e-5"
+    atol = "1e-14" if dtype == "float64" else "1e-7"
+    nz = max(n // 4, 8)
+    return f"""
+incflo.initial_iterations = 0
+incflo.dtype = {dtype}
+mac_proj.mg_rtol = {tol}
+mac_proj.mg_atol = {atol}
+nodal_proj.mg_rtol = {tol}
+nodal_proj.mg_atol = {atol}
+scalar_diffusion.mg_rtol = {tol}
+scalar_diffusion.mg_atol = {atol}
+tensor_diffusion.mg_rtol = {tol}
+tensor_diffusion.mg_atol = {atol}
+stop_time = -1
+max_step = 1000000
+amr.n_cell = {n} {n} {nz}
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = 1. 1. 0.25
+geometry.is_periodic = 1 1 1
+incflo.probtype = 21
+incflo.mu = 0.0002
+incflo.cfl = 0.9
+incflo.init_shrink = 1.0
+incflo.use_godunov = true
+incflo.diffusion_type = 1
+"""
+
+
+# ---------------------------------------------------------------------
+# measurement helpers
+# ---------------------------------------------------------------------
+
+def device_ms(fn, reps=25, warm=3):
+    """Median device time of fn() in ms: fn is captured once in a CUDA
+    graph and each replay is bracketed by CUDA events, so the host's
+    Python overhead is not in the number."""
+    import torch
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(warm):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    for _ in range(warm):
+        g.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def count_ops(fn):
+    """Arithmetic, compare and select operations of fn(): the elements
+    produced by each such aten op (clamp counts 2)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    names = {"add", "sub", "mul", "div", "neg", "abs", "sign", "minimum",
+             "maximum", "where", "gt", "ge", "lt", "le", "eq", "ne",
+             "logical_and", "logical_or", "logical_not", "bitwise_and",
+             "bitwise_or", "bitwise_not", "rsub", "reciprocal", "clamp"}
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if name in names and isinstance(out, torch.Tensor):
+                self.ops += out.numel() * (2 if name == "clamp" else 1)
+            return out
+
+    with Count() as c:
+        fn()
+    return c.ops
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def abs_err(a, b):
+    return float((a - b).abs().max())
+
+
+# ---------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------
+
+def phase_build(gk):
+    t0 = time.time()
+    path = gk.build()
+    s = time.time() - t0
+    print(f"[build] {os.path.relpath(path, HERE)} in {s:.1f} s", flush=True)
+    return s
+
+
+def smooth_fields(shape, ncomp, seed, dtype, device):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    xs = [np.linspace(0, 2 * np.pi, n, endpoint=False) for n in shape]
+    X, Y, Z = np.meshgrid(*xs, indexing="ij")
+    out = []
+    for c in range(ncomp):
+        a, b, d = rng.normal(size=3)
+        out.append(a * np.sin(X + c) + b * np.cos(2 * Y - c)
+                   + d * np.sin(Z + 0.3 * c)
+                   + 0.1 * rng.standard_normal(X.shape))
+    return torch.as_tensor(np.stack(out, -1), dtype=dtype).to(device)
+
+
+def kernel_inputs(grid, dtype, dev):
+    import torch
+    vel = smooth_fields(grid.n_cell, 3, 1, dtype, dev)
+    forces = 0.3 * smooth_fields(grid.n_cell, 3, 2, dtype, dev)
+    q = smooth_fields(grid.n_cell, 3, 3, dtype, dev)
+    # a CFL-limited dt for |u| ~ 1 on the n = 128 grid
+    dt = torch.tensor(0.9 * min(grid.dx) / float(vel.abs().max()),
+                      dtype=dtype, device=dev)
+    return vel, forces, q, dt
+
+
+def phase_kernels(gk, grid_of, torch):
+    """Errors of every kernel against its plain version on the card, then
+    the f32 times at the n = 128 shapes."""
+    dev = torch.device("cuda")
+    grid = grid_of(128)
+    res = {k: {"max_abs_err": 0.0, "max_rel_err_f32": 0.0,
+               "max_rel_err_f64": 0.0} for k in PER_STEP}
+    for dtype, key in ((torch.float64, "max_rel_err_f64"),
+                       (torch.float32, "max_rel_err_f32")):
+        vel, forces, q, dt = kernel_inputs(grid, dtype, dev)
+        for ppm in (True, False):
+            u_k = gk.uad(grid, vel, dt, ppm)
+            u_p = gk.uad_plain(grid, vel, dt, ppm)
+            for a, b in zip(u_k, u_p):
+                res["uad"][key] = max(res["uad"][key], rel_err(a, b))
+                if dtype == torch.float32:
+                    res["uad"]["max_abs_err"] = max(
+                        res["uad"]["max_abs_err"], abs_err(a, b))
+            for with_f in (True, False):
+                f = forces if with_f else None
+                for d in range(3):
+                    a = gk.predict_d(grid, vel, u_p, f, dt, d, ppm)
+                    b = gk.predict_d_plain(
+                        grid, vel, u_p, None if f is None else f[..., d],
+                        dt, d, ppm)
+                    r = res["predict_d"]
+                    r[key] = max(r[key], rel_err(a, b))
+                    if dtype == torch.float32:
+                        r["max_abs_err"] = max(r["max_abs_err"],
+                                               abs_err(a, b))
+            umac = gk.predict_plain(grid, vel, forces, dt, ppm)
+            for icons in (0, 1):
+                for n in range(3):
+                    a = gk.advect_comp(grid, q, n, umac, forces, dt,
+                                       bool(icons), ppm)
+                    b = gk.advect_comp_plain(grid, q[..., n], umac,
+                                             forces[..., n], dt,
+                                             bool(icons), ppm)
+                    r = res["advect"]
+                    r[key] = max(r[key], rel_err(a, b))
+                    if dtype == torch.float32:
+                        r["max_abs_err"] = max(r["max_abs_err"],
+                                               abs_err(a, b))
+    torch.cuda.synchronize()
+    for k, r in res.items():
+        print(f"[kernels] {k}: f64 rel {r['max_rel_err_f64']:.3e} "
+              f"(tol {TOL_F64:g}), f32 rel {r['max_rel_err_f32']:.3e} "
+              f"(tol {TOL[k]:g})", flush=True)
+        if not r["max_rel_err_f64"] <= TOL_F64:
+            raise AssertionError(f"{k}: float64 disagrees with the plain "
+                                 f"version ({r['max_rel_err_f64']:.3e})")
+        if not r["max_rel_err_f32"] <= TOL[k]:
+            raise AssertionError(f"{k}: float32 disagrees with the plain "
+                                 f"version ({r['max_rel_err_f32']:.3e})")
+
+    # times at the main path's shapes and type: f32, PPM, with forces,
+    # convective form (iconserv 0), as the shear3d step calls them
+    vel, forces, q, dt = kernel_inputs(grid, torch.float32, dev)
+    cells = grid.n_cell[0] * grid.n_cell[1] * grid.n_cell[2]
+    isz = 4
+    u_p = gk.uad_plain(grid, vel, dt, True)
+    umac = gk.predict_plain(grid, vel, forces, dt, True)
+    f0 = forces[..., 0].contiguous()
+    calls = {
+        "uad": (lambda: gk.uad(grid, vel, dt, True),
+                lambda: gk.uad_plain(grid, vel, dt, True), 6),
+        "predict_d": (lambda: gk.predict_d(grid, vel, u_p, forces, dt, 0,
+                                           True),
+                      lambda: gk.predict_d_plain(grid, vel, u_p, f0, dt, 0,
+                                                 True), 8),
+        "advect": (lambda: gk.advect_comp(grid, vel, 0, umac, forces, dt,
+                                          False, True),
+                   lambda: gk.advect_comp_plain(grid, vel[..., 0], umac,
+                                                f0, dt, False, True), 6),
+    }
+    saved = dict(gk.LAUNCHES)
+    for k, (kern, plain, nfields) in calls.items():
+        r = res[k]
+        r["ms"] = device_ms(kern)
+        r["plain_ms"] = device_ms(plain)
+        r["bytes"] = nfields * cells * isz
+        r["ops"] = count_ops(plain)
+        t_bytes = r["bytes"] / PEAK_BYTES * 1e3
+        t_ops = r["ops"] / PEAK_OPS["float32"] * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"[kernels] {k}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['bytes']} B, {r['ops']} ops)",
+              flush=True)
+    gk.LAUNCHES.update(saved)      # comparison launches do not count
+    return res
+
+
+def rel_state_err(a, b):
+    import torch
+    a = a.detach().cpu().to(torch.float64)
+    b = b.detach().cpu().to(torch.float64)
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-300))
+
+
+def phase_paths(incflo_torch, torch):
+    """The step on cuda (kernels) and on cpu (plain versions), f64."""
+    from incflo_torch import state as st
+    cfg = incflo_torch.IncfloConfig.from_text(shear3d_deck(32, "float64"))
+    sim_c = incflo_torch.Simulation(cfg, device="cpu")
+    sim_g = incflo_torch.Simulation(cfg, device="cuda")
+    s_c = sim_c.init_state()
+    s_g = st.sim_from_numpy(st.sim_to_numpy(s_c), "cuda", torch.float64)
+    for _ in range(3):
+        s_c = sim_c.advance(s_c)
+        s_g = sim_g.advance(s_g)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for f in ("velocity", "p", "gp"):
+        e = rel_state_err(getattr(s_g.level, f), getattr(s_c.level, f))
+        print(f"[paths] {f}: cuda vs cpu relative {e:.3e} (tol 1e-9)",
+              flush=True)
+        worst = max(worst, e)
+        if not e <= 1e-9:
+            raise AssertionError(f"cuda and cpu steps disagree in {f}: "
+                                 f"{e:.3e}")
+    return worst
+
+
+def projection_check(sim, s, torch):
+    """Project the final velocity once more with the port's own nodal
+    operator L.  The direct solve's residual |L phi - D u| is at the
+    rounding of the operator: it is reported relative to |L| |phi|,
+    with |L| the magnitude of L's highest (checkerboard) mode.  D u
+    itself -- the approximate projection leaves an O(h^2) nodal
+    divergence -- is reported relative to |u| / dx."""
+    from incflo_torch.ops import multigrid as mg
+    grid = sim.grid
+    u = s.level.velocity
+    upads = sim._pad_vel_for_divergence(u, 1.0)
+    solver = sim._nodal_hat
+    lev = solver.levels[0]
+    rhs = mg._nodes_unique(mg.nodal_divergence(upads, grid.dx), lev)
+    rhs = rhs - rhs.mean()
+    phi = solver.solve(rhs)
+    idx = torch.meshgrid(*[torch.arange(n, device=u.device)
+                           for n in rhs.shape], indexing="ij")
+    cb = (1 - 2 * ((idx[0] + idx[1] + idx[2]) % 2)).to(u.dtype)
+    lam_max = float(mg.nodal_apply(cb, lev).abs().max())
+    resid = float((mg.nodal_apply(phi, lev) - rhs).abs().max()
+                  / (lam_max * phi.abs().max()))
+    div_rel = float(rhs.abs().max() * min(grid.dx) / u.abs().max())
+    return resid, div_rel
+
+
+def phase_main(incflo_torch, gk, torch, n, warm, steps):
+    cfg = incflo_torch.IncfloConfig.from_text(shear3d_deck(n, "float32"))
+    sim = incflo_torch.Simulation(cfg)
+    s = sim.init_state()
+    torch.cuda.synchronize()
+    gk.reset_launches()
+    s = sim.advance_n(s, warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = sim.advance_n(s, steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(gk.LAUNCHES)
+    total = warm + steps
+    for k, per in PER_STEP.items():
+        if launches[k] != per * total:
+            raise AssertionError(f"n={n}: kernel {k} launched "
+                                 f"{launches[k]} times in {total} steps, "
+                                 f"expected {per * total}")
+    vel = s.level.velocity
+    if not bool(torch.isfinite(vel).all()):
+        raise AssertionError(f"n={n}: non-finite velocity")
+    cells = 1
+    for c in cfg.grid.n_cell:
+        cells *= c
+    ms = (t1 - t0) / steps * 1e3
+    resid, div_rel = projection_check(sim, s, torch)
+    if not resid <= 1e-5:
+        raise AssertionError(f"n={n}: nodal solve residual {resid:.3e}")
+    if not div_rel <= 1e-2:
+        raise AssertionError(f"n={n}: |div u| dx/|u| = {div_rel:.3e}")
+    print(f"[main] shear3d n={n} {cfg.grid.n_cell} f32: {ms:.3f} ms/step, "
+          f"{cells / (ms * 1e-3):.4e} cells/s over {steps} steps after "
+          f"{warm} warm-up; t={float(s.t):.6f} dt={float(s.dt):.6e} "
+          f"max|u|={float(vel.abs().max()):.6f}; nodal residual "
+          f"{resid:.2e}, |div u| dx/|u| {div_rel:.2e}; launches {launches}",
+          flush=True)
+    return {"n": n, "n_cell": list(cfg.grid.n_cell), "ms_per_step": ms,
+            "cells_per_s": cells / (ms * 1e-3), "steps": steps,
+            "warmup": warm, "launches": launches, "nodal_residual": resid,
+            "div_rel": div_rel}, sim, s
+
+
+def phase_profile(sim, s, torch, n, wall_ms, steps=5):
+    """Device time of `steps` steps by torch.profiler: the busy time per
+    step against the step's wall time (from the unprofiled timed run),
+    split into the Godunov kernels, matrix products and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s = sim.advance_n(s, steps)
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    print(rows.table(sort_by="cuda_time_total", row_limit=30))
+    groups = {"godunov": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in rows:
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us <= 0 or e.key.startswith("aten::"):
+            continue
+        k = e.key
+        if any(t in k for t in ("uad_kernel", "predict_", "advect_")):
+            groups["godunov"] += us
+        elif "gemm" in k or "xmma" in k or "sgemm" in k:
+            groups["matmul"] += us
+        else:
+            groups["other"] += us
+    busy = sum(groups.values()) / steps / 1e3
+    print(f"[profile] n={n}: device busy {busy:.3f} ms/step of "
+          f"{wall_ms:.3f} ms/step wall (idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.2f}); godunov kernels "
+          f"{groups['godunov'] / steps / 1e3:.3f}, matmul "
+          f"{groups['matmul'] / steps / 1e3:.3f}, other "
+          f"{groups['other'] / steps / 1e3:.3f} ms/step", flush=True)
+
+
+def card_line():
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def main(argv):
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available; this run needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "incflo_torch")):
+        print("chip_smoke: run it from a checkout of the repository "
+              "(incflo_torch/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import incflo_torch
+    from incflo_torch.grid import Grid
+    from incflo_torch.ops import godunov_kernels as gk
+
+    def grid_of(n):
+        nz = max(n // 4, 8)
+        return Grid((n, n, nz), (0.0, 0.0, 0.0), (1.0, 1.0, 0.25),
+                    (True, True, True))
+
+    t_start = time.time()
+    name = torch.cuda.get_device_name(0)
+    print(f"[device] {name}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+    build_s = phase_build(gk)
+    kres = phase_kernels(gk, grid_of, torch)
+    phase_paths(incflo_torch, torch)
+    main128, sim, s = phase_main(incflo_torch, gk, torch, 128, 20, 20)
+    if "--profile" in argv:
+        phase_profile(sim, s, torch, 128, main128["ms_per_step"])
+    del sim, s
+    main256, sim, s = phase_main(incflo_torch, gk, torch, 256, 2, 5)
+    if "--profile" in argv:
+        phase_profile(sim, s, torch, 256, main256["ms_per_step"])
+    del sim, s
+
+    kernels = []
+    for k in PER_STEP:
+        r = kres[k]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": "incflo_torch/csrc/godunov.cu",
+            "replaces": gk.REPLACES[k],
+            "launches": main128["launches"][k],
+            "launches_per_step": PER_STEP[k],
+            "max_abs_err": r["max_abs_err"],
+            "max_rel_err_f32": r["max_rel_err_f32"], "tol_f32": TOL[k],
+            "max_rel_err_f64": r["max_rel_err_f64"], "tol_f64": TOL_F64,
+            "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bytes": r["bytes"], "ops": r["ops"], "library_ms": None})
+    print(json.dumps({"kernels": kernels, "build_s": build_s,
+                      "main": [main128, main256],
+                      "seconds": time.time() - t_start}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,29 @@
+"""incflo_torch: the PyTorch/CUDA port of incflo_tpu.
+
+The same incompressible Navier-Stokes engine (Godunov advection, MAC and
+nodal projections, Crank-Nicolson tensor diffusion), written with
+PyTorch tensors and hand-written CUDA kernels for NVIDIA Hopper
+(csrc/godunov.cu).  It imports neither JAX nor incflo_tpu.
+
+Scope today: shear3d-class decks -- 3D, fully periodic, one level,
+constant density, Newtonian, Godunov + Crank-Nicolson.  Other decks
+raise NotImplementedError naming the ROADMAP item that ports them.
+
+Float32 matrix products run in full precision: importing the package
+sets `torch.backends.cuda.matmul.allow_tf32 = False` and
+`torch.set_float32_matmul_precision("highest")` (the direct solves of
+ops/spectral.py lose their accuracy under TF32).
+"""
+
+__version__ = "0.1.0"
+
+from incflo_torch.ops.spectral import set_matmul_precision
+
+set_matmul_precision()
+
+from incflo_torch.parmparse import ParmParse  # noqa: E402
+from incflo_torch.grid import Grid  # noqa: E402
+from incflo_torch.config import IncfloConfig  # noqa: E402
+from incflo_torch.simulation import Simulation  # noqa: E402
+
+__all__ = ["ParmParse", "Grid", "IncfloConfig", "Simulation"]

@@ -1,0 +1,69 @@
+"""Godunov (corner-transport-upwind) advection: port of
+incflo_tpu/ops/godunov.py:127-803 for fully periodic 3D grids.
+
+  predict():  half-time face-normal velocities for the MAC projection.
+  advect():   dq/dt = -div(umac q) (iconserv) or -(u.grad)q with full
+              corner-transport transverse corrections.
+
+On fully periodic grids the chain has no boundary forms, so both
+dispatch to ops/godunov_kernels (the CUDA kernels on the card, their
+plain PyTorch versions on the CPU).  The wall and extdir forms,
+use_forces_in_trans and the use_mac_phi_in_godunov warm start wait for
+ROADMAP A8/A9 and raise.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from incflo_torch.grid import Grid
+from incflo_torch.ops import godunov_kernels as gk
+from incflo_torch.ops.stencil import inner
+
+
+class GodunovScheme:
+    def __init__(self, grid: Grid, use_ppm: bool, use_forces_in_trans: bool):
+        self.grid = grid
+        self.use_ppm = use_ppm
+        self.uft = use_forces_in_trans
+        self.nd = grid.ndim
+
+    def _check(self):
+        if self.nd != 3 or not all(self.grid.periodic):
+            raise NotImplementedError(
+                "incflo_torch GodunovScheme covers 3D fully periodic grids; "
+                "2D and the wall/extdir forms come with ROADMAP A8/A9")
+        if self.uft:
+            raise NotImplementedError(
+                "godunov_use_forces_in_trans is not ported yet (ROADMAP A8)")
+
+    def predict(self, vel_g: torch.Tensor, forces_g: Optional[torch.Tensor],
+                dt, ng: int, bcrecs: np.ndarray,
+                gmacphi: Optional[List[torch.Tensor]] = None
+                ) -> List[torch.Tensor]:
+        """vel_g grown by ng, forces_g grown by 1 (or None).  Returns the
+        three MAC face arrays (n+1 along their own axis)."""
+        self._check()
+        if gmacphi is not None:
+            raise NotImplementedError(
+                "use_mac_phi_in_godunov is not ported yet (ROADMAP A8)")
+        vel = inner(vel_g, ng, self.nd)
+        forces = inner(forces_g, 1, self.nd) if forces_g is not None \
+            else None
+        return gk.predict(self.grid, vel, forces, dt, self.use_ppm)
+
+    def advect(self, q_g: torch.Tensor, umac: Sequence[torch.Tensor],
+               forces_g: Optional[torch.Tensor], dt, ng: int,
+               bcrecs: np.ndarray, iconserv: Sequence[int],
+               is_velocity: bool) -> torch.Tensor:
+        """q_g grown by ng; umac interior face arrays (n+1 own axis).
+        Returns dq/dt on the interior."""
+        self._check()
+        q = inner(q_g, ng, self.nd)
+        forces = inner(forces_g, 1, self.nd) if forces_g is not None \
+            else None
+        return gk.advect(self.grid, q, umac, forces, dt,
+                         tuple(int(i) for i in iconserv), self.use_ppm)

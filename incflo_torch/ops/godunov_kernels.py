@@ -1,0 +1,576 @@
+"""Godunov corner-transport-upwind chain on fully periodic 3D grids: the
+three hand-written CUDA kernels of incflo_torch/csrc/godunov.cu and
+their plain PyTorch versions.
+
+Contract (the same as incflo_tpu/ops/pallas_godunov.py:391-448):
+  predict(grid, vel, forces, dt, use_ppm) -> [umac_x, umac_y, umac_z]
+      vel (nx,ny,nz,3) interior cells, forces the same or None.  Face
+      arrays in the standard layout, n+1 along their own axis, with the
+      periodic face n equal to face 0.
+  advect(grid, q, umac, forces, dt, iconserv, use_ppm) -> dq/dt
+      q (nx,ny,nz,ncomp); umac as predict returns it (face n is not
+      read: it coincides with face 0); forces (nx,ny,nz,ncomp) or None.
+  dt is a 0-d tensor (a float is accepted and converted); the kernels
+  read it from device memory, so a step never syncs for it.
+
+Kernels (one wrapper and one launch counter each; the counter counts
+calls of the wrapper that reach the card):
+
+  uad        replaces pallas_godunov.py:_uad_kernel (:195).  For each
+             axis, PPM/PLM traces of that velocity component at its own
+             speed and a Riemann select -> transverse face velocity.
+  predict_d  replaces pallas_godunov.py:_predict_d_kernel (:210).  MAC
+             face velocity for direction d: traces on three axes,
+             u_ad-upwinded edges, dt/6 corner and dt/4 transverse
+             corrections, +0.5 dt forces, Riemann select.
+  advect     replaces pallas_godunov.py:_advect_kernel (:264).  dq/dt of
+             one component: traces at the MAC speeds, corner-transport
+             corrections (conservative or convective form), upwinded
+             faces, flux divergence.
+
+What bounds them on an H100: bytes, nearly.  Each is a stencil chain of
+400-550 operations per cell over 6-8 fields (uad 6, predict_d 8 with
+forces, advect 6 with forces); at 128x128x32 f32 one field is 2.1 MB,
+so the memory floor is 3.8-5.0 us per launch, and the operations at the
+f32 peak take about as long (advect's slightly longer).  Design: one
+thread per cell with z fastest, so a warp reads 32 consecutive z values;
+periodic neighbours come from index arithmetic on compile-time axes, so
+no padded copies are made.  The chain reaches 3-4 cells along every
+axis, so each kernel runs as a sequence of `__global__` stages (uad 1,
+predict_d 4, advect 6) and each stage stores one intermediate (traces,
+corner corrections, corner-coupled states, transverse corrections, face
+states) in a scratch plane instead of recomputing its neighbours'.
+These scratch round trips through L2/HBM keep the kernels 9-19x above
+the floor (chip_smoke.py measures it); fusing the stages through
+shared-memory tiles is later work.  The TPU-only parts of the Pallas
+design (merged (y,z) lane layout, x-slab DMA, the 4-launch split forced
+by 16 MB of VMEM, the m % 128 == 0 scope rule) do not carry over.
+
+Every wrapper takes the plain version only for tensors on the CPU.  On
+a CUDA tensor it launches the kernel or raises: outside the kernels'
+scope (not 3D, not fully periodic, use_forces_in_trans, a dtype other
+than float32/float64) there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List, Sequence
+
+import torch
+
+from incflo_torch.grid import Grid
+
+SMALL_VEL = 1.0e-8          # reference incflo_godunov_ppm.H:16
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "godunov.cu"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+
+# launch counters: one per kernel, raised by the wrapper where it
+# launches the kernel and nowhere else
+LAUNCHES = {"uad": 0, "predict_d": 0, "advect": 0}
+
+# TPU kernel each CUDA kernel replaces (file:line of the Pallas body)
+REPLACES = {
+    "uad": "incflo_tpu/ops/pallas_godunov.py:195",
+    "predict_d": "incflo_tpu/ops/pallas_godunov.py:210",
+    "advect": "incflo_tpu/ops/pallas_godunov.py:264",
+}
+
+# scratch planes each kernel's stages keep (cell-shaped; the layouts
+# are kPredictPlanes and kAdvectPlanes in csrc/godunov.cu)
+_SCRATCH = {"predict_d": 10, "advect": 24}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------
+# plain PyTorch versions: the periodic algebra of pallas_godunov._traces,
+# _riemann, _upwind and the three kernel bodies, on (nx, ny, nz) tensors
+# ---------------------------------------------------------------------
+
+def _sh(a, ax, s):
+    """a(idx + s e_ax), periodic."""
+    return a if s == 0 else torch.roll(a, -s, dims=ax)
+
+
+def _van_leer(a, b, c):
+    """vanLeer(center, plus, minus) (godunov_ppm.H:18-28)."""
+    dsc = 0.5 * (b - c)
+    dsl = 2.0 * (a - c)
+    dsr = 2.0 * (b - a)
+    lim = torch.sign(dsc) * torch.minimum(
+        dsc.abs(), torch.minimum(dsl.abs(), dsr.abs()))
+    return torch.where(dsl * dsr > 1.0e-20, lim, 0.0)
+
+
+def _mc2_parts(a, b, c):
+    dl = 2.0 * (b - a)
+    dr = 2.0 * (c - b)
+    dc = 0.5 * (c - a)
+    dlim = torch.where(dl * dr >= 0.0, torch.minimum(dl.abs(), dr.abs()),
+                       0.0)
+    return dc, dlim
+
+
+def _mc4(qm2, qm1, q0, qp1, qp2):
+    """Order-4 MC slope (amrex_calc_xslope order 4, periodic interior)."""
+    dcm, dlimm = _mc2_parts(qm2, qm1, q0)
+    sm = torch.sign(dcm) * torch.minimum(dcm.abs(), dlimm)
+    dcp, dlimp = _mc2_parts(q0, qp1, qp2)
+    sp = torch.sign(dcp) * torch.minimum(dcp.abs(), dlimp)
+    dc, dlim = _mc2_parts(qm1, q0, qp1)
+    dq = (4.0 / 3.0) * dc - (1.0 / 6.0) * (sp + sm)
+    return torch.sign(dq) * torch.minimum(dq.abs(), dlim)
+
+
+def _upwind(lo, hi, w):
+    st = torch.where(w >= 0.0, lo, hi)
+    return torch.where(w.abs() < SMALL_VEL, 0.5 * (hi + lo), st)
+
+
+def _riemann(stl, sth):
+    st = torch.where(stl + sth >= 0.0, stl, sth)
+    ltm = ((stl <= 0.0) & (sth >= 0.0)) | ((stl + sth).abs() < SMALL_VEL)
+    return torch.where(ltm, 0.0, st)
+
+
+def _traces(q, ax, wlo, whi, dtdx, use_ppm):
+    """Per-cell characteristic traces (Im, Ip) along `ax` with wave speeds
+    wlo/whi at the cell's lo/hi faces."""
+    sm2, sm1, s0, sp1, sp2 = (_sh(q, ax, s) for s in (-2, -1, 0, 1, 2))
+    if not use_ppm:
+        slp = _mc4(sm2, sm1, s0, sp1, sp2)
+        Im = s0 + 0.5 * (-1.0 - wlo * dtdx) * slp
+        Ip = s0 + 0.5 * (1.0 - whi * dtdx) * slp
+        return Im, Ip
+    d1 = _van_leer(s0, sp1, sm1)
+    d2 = _van_leer(sm1, s0, sm2)
+    sedge1 = 0.5 * (s0 + sm1) - (1.0 / 6.0) * (d1 - d2)
+    sedge1 = torch.clamp(sedge1, torch.minimum(s0, sm1),
+                         torch.maximum(s0, sm1))
+    d1p = _van_leer(sp1, sp2, s0)
+    sedge2 = 0.5 * (sp1 + s0) - (1.0 / 6.0) * (d1p - d1)
+    sedge2 = torch.clamp(sedge2, torch.minimum(s0, sp1),
+                         torch.maximum(s0, sp1))
+    flat = (sedge2 - s0) * (s0 - sedge1) < 0.0
+    big_p = (sedge2 - s0).abs() >= 2.0 * (sedge1 - s0).abs()
+    big_m = (sedge1 - s0).abs() >= 2.0 * (sedge2 - s0).abs()
+    sp = torch.where(flat, s0,
+                     torch.where(big_p, 3.0 * s0 - 2.0 * sedge1, sedge2))
+    sm = torch.where(flat, s0,
+                     torch.where(~big_p & big_m, 3.0 * s0 - 2.0 * sedge2,
+                                 sedge1))
+    s6 = 6.0 * s0 - 3.0 * (sm + sp)
+    sig_p = whi.abs() * dtdx
+    sig_m = wlo.abs() * dtdx
+    Ip = torch.where(whi > SMALL_VEL,
+                     sp - 0.5 * sig_p * ((sp - sm)
+                                         - (1.0 - 2.0 / 3.0 * sig_p) * s6),
+                     s0)
+    Im = torch.where(wlo < -SMALL_VEL,
+                     sm + 0.5 * sig_m * ((sp - sm)
+                                         + (1.0 - 2.0 / 3.0 * sig_m) * s6),
+                     s0)
+    return Im, Ip
+
+
+def _faces_full(a, d):
+    """Cell-shaped lo-face array -> standard n+1 layout along d."""
+    return torch.cat([a, a.narrow(d, 0, 1)], dim=d)
+
+
+def uad_plain(grid: Grid, vel, dt, use_ppm: bool) -> List[torch.Tensor]:
+    """Plain version of the `uad` kernel: three cell-shaped face arrays
+    (entry i = the lo face of cell i)."""
+    out = []
+    for ax in range(3):
+        v = vel[..., ax]
+        Im, Ip = _traces(v, ax, v, v, dt / grid.dx[ax], use_ppm)
+        out.append(_riemann(_sh(Ip, ax, -1), Im))
+    return out
+
+
+def predict_d_plain(grid: Grid, vel, uad, force_d, dt, d: int,
+                    use_ppm: bool) -> torch.Tensor:
+    """Plain version of the `predict_d` kernel: the MAC face velocity of
+    direction d in the standard n+1 layout."""
+    dx = grid.dx
+    comp = [vel[..., c] for c in range(3)]
+    xlo, xhi, edge = {}, {}, {}
+    for ax in range(3):
+        Im, Ip = _traces(comp[d], ax, comp[ax], comp[ax], dt / dx[ax],
+                         use_ppm)
+        xlo[ax] = _sh(Ip, ax, -1)
+        xhi[ax] = Im
+        edge[ax] = _upwind(xlo[ax], xhi[ax], uad[ax])
+    stl, sth = xlo[d], xhi[d]
+    for t in (a for a in range(3) if a != d):
+        o = 3 - d - t
+        corr_o = (dt / (6.0 * dx[o]) * (_sh(uad[o], o, 1) + uad[o])
+                  * (_sh(edge[o], o, 1) - edge[o]))
+        inter = _upwind(xlo[t] - _sh(corr_o, t, -1), xhi[t] - corr_o,
+                        uad[t])
+        corr_t = (dt / (4.0 * dx[t]) * (_sh(uad[t], t, 1) + uad[t])
+                  * (_sh(inter, t, 1) - inter))
+        stl = stl - _sh(corr_t, d, -1)
+        sth = sth - corr_t
+    if force_d is not None:
+        stl = stl + 0.5 * dt * _sh(force_d, d, -1)
+        sth = sth + 0.5 * dt * force_d
+    return _faces_full(_riemann(stl, sth), d)
+
+
+def advect_comp_plain(grid: Grid, q, umac, force_q, dt, icons: bool,
+                      use_ppm: bool) -> torch.Tensor:
+    """Plain version of the `advect` kernel: dq/dt of one component."""
+    dx = grid.dx
+    mac = [umac[ax].narrow(ax, 0, grid.n_cell[ax]) for ax in range(3)]
+    mac_hi = [_sh(mac[ax], ax, 1) for ax in range(3)]
+    xlo, xhi, edge = {}, {}, {}
+    for ax in range(3):
+        Im, Ip = _traces(q, ax, mac[ax], mac_hi[ax], dt / dx[ax], use_ppm)
+        xlo[ax] = _sh(Ip, ax, -1)
+        xhi[ax] = Im
+        edge[ax] = _upwind(xlo[ax], xhi[ax], mac[ax])
+    rate = None
+    for d in range(3):
+        stl, sth = xlo[d], xhi[d]
+        for t in (a for a in range(3) if a != d):
+            o = 3 - d - t
+            e_lo, e_hi = edge[o], _sh(edge[o], o, 1)
+            if icons:
+                corr_o = (dt / (3.0 * dx[o])
+                          * ((e_hi * mac_hi[o] - e_lo * mac[o])
+                             - q * (mac_hi[o] - mac[o])))
+            else:
+                corr_o = (dt / (6.0 * dx[o])
+                          * (mac_hi[o] + mac[o]) * (e_hi - e_lo))
+            inter = _upwind(xlo[t] - _sh(corr_o, t, -1), xhi[t] - corr_o,
+                            mac[t])
+            i_hi = _sh(inter, t, 1)
+            if icons:
+                corr_t = (dt / (2.0 * dx[t])
+                          * ((i_hi * mac_hi[t] - inter * mac[t])
+                             - q * (mac_hi[t] - mac[t])))
+            else:
+                corr_t = (dt / (4.0 * dx[t])
+                          * (mac_hi[t] + mac[t]) * (i_hi - inter))
+            stl = stl - _sh(corr_t, d, -1)
+            sth = sth - corr_t
+        if force_q is not None:
+            stl = stl + 0.5 * dt * _sh(force_q, d, -1)
+            sth = sth + 0.5 * dt * force_q
+        qf = _upwind(stl, sth, mac[d])
+        qf_hi = _sh(qf, d, 1)
+        if icons:
+            term = (mac[d] * qf - mac_hi[d] * qf_hi) / dx[d]
+        else:
+            term = 0.5 * (mac[d] + mac_hi[d]) * (qf - qf_hi) / dx[d]
+        rate = term if rate is None else rate + term
+    return rate
+
+
+def predict_plain(grid: Grid, vel, forces, dt, use_ppm: bool
+                  ) -> List[torch.Tensor]:
+    """Plain version of predict(): uad, then predict_d for d = 0, 1, 2."""
+    _check_scope(grid, vel)
+    dt = _dt_tensor(dt, vel)
+    uad = uad_plain(grid, vel, dt, use_ppm)
+    return [predict_d_plain(grid, vel, uad,
+                            None if forces is None else forces[..., d],
+                            dt, d, use_ppm) for d in range(3)]
+
+
+def advect_plain(grid: Grid, q, umac, forces, dt, iconserv: Sequence[int],
+                 use_ppm: bool) -> torch.Tensor:
+    """Plain version of advect(): one advect per component."""
+    _check_scope(grid, q)
+    dt = _dt_tensor(dt, q)
+    return torch.stack(
+        [advect_comp_plain(grid, q[..., n], umac,
+                           None if forces is None else forces[..., n], dt,
+                           bool(iconserv[n]), use_ppm)
+         for n in range(q.shape[-1])], dim=-1)
+
+
+# ---------------------------------------------------------------------
+# scope and argument checks
+# ---------------------------------------------------------------------
+
+def _check_scope(grid: Grid, field, use_forces_in_trans: bool = False):
+    if grid.ndim != 3 or not all(grid.periodic):
+        raise NotImplementedError(
+            "incflo_torch Godunov kernels cover 3D fully periodic grids; "
+            "the wall and extdir forms come with ROADMAP A8/A9")
+    if use_forces_in_trans:
+        raise NotImplementedError(
+            "use_forces_in_trans is not ported yet (ROADMAP A8)")
+    if field.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"Godunov kernels take float32/float64, got "
+                        f"{field.dtype}")
+    if tuple(field.shape[:3]) != tuple(grid.n_cell):
+        raise ValueError(f"field shape {tuple(field.shape)} does not match "
+                         f"the grid {grid.n_cell}")
+
+
+def _dt_tensor(dt, like):
+    if isinstance(dt, torch.Tensor):
+        return dt.to(device=like.device, dtype=like.dtype).reshape(())
+    return torch.tensor(dt, dtype=like.dtype, device=like.device)
+
+
+def _check_index_range(grid, ncomp):
+    """The kernels index with 32-bit integers."""
+    n = 1
+    for m in grid.n_cell:
+        n *= m + 1
+    if n * max(ncomp, 1) >= 2 ** 31:
+        raise ValueError(f"grid {grid.n_cell} x {ncomp} components is too "
+                         "large for the kernels' 32-bit indices")
+
+
+def _cuda_checked(name, t, shape, dtype, device):
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype} on {device}, got "
+                         f"{t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    return t.contiguous()
+
+
+# ---------------------------------------------------------------------
+# build and bind (nvcc into a shared library with a C interface, loaded
+# with ctypes); built at first use, keyed on a hash of the source
+# ---------------------------------------------------------------------
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              # no FMA contraction: each operation rounds as the plain
+              # version's does, so the two agree to the last bits
+              "-fmad=false"]
+
+_LIB = None
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        exe = "/usr/local/cuda/bin/nvcc"
+    if exe is None:
+        raise RuntimeError("nvcc not found: the Godunov kernels are built "
+                           "on a host with the CUDA toolkit")
+    return exe
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"libgodunov_{digest[:16]}.so"
+
+
+def build(ptxas_verbose: bool = False) -> Path:
+    """Compile csrc/godunov.cu unless this source's library exists.
+    Returns the library path; with ptxas_verbose the compiler's
+    register/spill report is printed."""
+    out = library_path()
+    if out.exists() and not ptxas_verbose:
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    if ptxas_verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    if ptxas_verbose:
+        print(r.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        geo = [I, I, I, D, D, D]
+        lib.godunov_uad.argtypes = [I, P, I, P, P, P, P] + geo + [I, P]
+        lib.godunov_predict_d.argtypes = (
+            [I, I, P, I, P, P, P, P, I, P, P, P] + geo + [I, P])
+        lib.godunov_advect.argtypes = (
+            [I, P, I, P, P, P, P, I, P, I, P, P] + geo + [I, I, P])
+        for f in (lib.godunov_uad, lib.godunov_predict_d,
+                  lib.godunov_advect):
+            f.restype = I
+        _LIB = lib
+    return _LIB
+
+
+def _check_rc(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+
+
+def _geo(grid):
+    return (*grid.n_cell, *(float(d) for d in grid.dx))
+
+
+def _ptr(t, comp=0):
+    return ctypes.c_void_p(t.data_ptr() + comp * t.element_size())
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+_DT_CODE = {torch.float32: 0, torch.float64: 1}
+
+
+# ---------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------
+
+def uad(grid: Grid, vel, dt, use_ppm: bool) -> List[torch.Tensor]:
+    """`uad` kernel: the three transverse face velocities, cell-shaped."""
+    _check_scope(grid, vel)
+    dt = _dt_tensor(dt, vel)
+    if vel.device.type == "cpu":
+        return uad_plain(grid, vel, dt, use_ppm)
+    _check_index_range(grid, 3)
+    vel = _cuda_checked("vel", vel, grid.n_cell + (3,), vel.dtype,
+                        vel.device)
+    out = [torch.empty(grid.n_cell, dtype=vel.dtype, device=vel.device)
+           for _ in range(3)]
+    rc = _lib().godunov_uad(_DT_CODE[vel.dtype], _ptr(vel), 3,
+                            *(_ptr(u) for u in out), _ptr(dt), *_geo(grid),
+                            int(use_ppm), _stream(vel))
+    _check_rc("uad", rc)
+    LAUNCHES["uad"] += 1
+    return out
+
+
+def predict_d(grid: Grid, vel, uad_faces, forces, dt, d: int,
+              use_ppm: bool) -> torch.Tensor:
+    """`predict_d` kernel: MAC face velocity of direction d (n+1 layout).
+    `forces` is the full (nx,ny,nz,3) force field or None."""
+    _check_scope(grid, vel)
+    dt = _dt_tensor(dt, vel)
+    if vel.device.type == "cpu":
+        return predict_d_plain(grid, vel, uad_faces,
+                               None if forces is None else forces[..., d],
+                               dt, d, use_ppm)
+    dev, dty = vel.device, vel.dtype
+    _check_index_range(grid, 3)
+    vel = _cuda_checked("vel", vel, grid.n_cell + (3,), dty, dev)
+    uad_faces = [_cuda_checked("uad", u, grid.n_cell, dty, dev)
+                 for u in uad_faces]
+    if forces is not None:
+        forces = _cuda_checked("forces", forces, grid.n_cell + (3,), dty,
+                               dev)
+    shape = tuple(n + (1 if a == d else 0) for a, n in enumerate(grid.n_cell))
+    out = torch.empty(shape, dtype=dty, device=dev)
+    scratch = torch.empty((_SCRATCH["predict_d"],) + grid.n_cell,
+                          dtype=dty, device=dev)
+    fptr = _ptr(forces, d) if forces is not None else None
+    rc = _lib().godunov_predict_d(_DT_CODE[dty], d, _ptr(vel), 3,
+                                  *(_ptr(u) for u in uad_faces), fptr, 3,
+                                  _ptr(out), _ptr(scratch), _ptr(dt),
+                                  *_geo(grid), int(use_ppm), _stream(vel))
+    _check_rc("predict_d", rc)
+    LAUNCHES["predict_d"] += 1
+    return out
+
+
+def advect_comp(grid: Grid, q, n: int, umac, forces, dt, icons: bool,
+                use_ppm: bool, out=None) -> torch.Tensor:
+    """`advect` kernel: dq/dt of component n of q (nx,ny,nz,ncomp).  On
+    the card it writes into out[..., n] when `out` is given and returns
+    the (nx,ny,nz) result."""
+    _check_scope(grid, q)
+    dt = _dt_tensor(dt, q)
+    if q.device.type == "cpu":
+        r = advect_comp_plain(grid, q[..., n], umac,
+                              None if forces is None else forces[..., n],
+                              dt, icons, use_ppm)
+        if out is not None:
+            out[..., n] = r
+        return r
+    dev, dty = q.device, q.dtype
+    ncomp = q.shape[-1]
+    _check_index_range(grid, ncomp)
+    q = _cuda_checked("q", q, grid.n_cell + (ncomp,), dty, dev)
+    mac = []
+    for ax in range(3):
+        shape = tuple(m + (1 if a == ax else 0)
+                      for a, m in enumerate(grid.n_cell))
+        mac.append(_cuda_checked(f"umac[{ax}]", umac[ax], shape, dty, dev))
+    if forces is not None:
+        forces = _cuda_checked("forces", forces, grid.n_cell + (ncomp,),
+                               dty, dev)
+    if out is None:
+        out = torch.empty(grid.n_cell + (ncomp,), dtype=dty, device=dev)
+    elif not (out.is_contiguous() and tuple(out.shape) == tuple(q.shape)
+              and out.dtype == dty and out.device == dev):
+        raise ValueError("advect_comp: `out` must be a contiguous tensor "
+                         "shaped like q")
+    scratch = torch.empty((_SCRATCH["advect"],) + grid.n_cell, dtype=dty,
+                          device=dev)
+    fptr = _ptr(forces, n) if forces is not None else None
+    rc = _lib().godunov_advect(_DT_CODE[dty], _ptr(q, n), ncomp,
+                               *(_ptr(m) for m in mac), fptr, ncomp,
+                               _ptr(out, n), ncomp, _ptr(scratch), _ptr(dt),
+                               *_geo(grid), int(use_ppm), int(icons),
+                               _stream(q))
+    _check_rc("advect", rc)
+    LAUNCHES["advect"] += 1
+    return out[..., n]
+
+
+def predict(grid: Grid, vel, forces, dt, use_ppm: bool,
+            use_forces_in_trans: bool = False) -> List[torch.Tensor]:
+    """Half-time MAC velocities: one `uad` launch, then three
+    `predict_d` launches (d = 0, 1, 2)."""
+    _check_scope(grid, vel, use_forces_in_trans)
+    if vel.device.type == "cpu":
+        return predict_plain(grid, vel, forces, dt, use_ppm)
+    dt = _dt_tensor(dt, vel)
+    vel = vel.contiguous()
+    if forces is not None:
+        forces = forces.contiguous()
+    u = uad(grid, vel, dt, use_ppm)
+    return [predict_d(grid, vel, u, forces, dt, d, use_ppm)
+            for d in range(3)]
+
+
+def advect(grid: Grid, q, umac, forces, dt, iconserv: Sequence[int],
+           use_ppm: bool, use_forces_in_trans: bool = False
+           ) -> torch.Tensor:
+    """dq/dt on the interior: one `advect` launch per component."""
+    _check_scope(grid, q, use_forces_in_trans)
+    if q.device.type == "cpu":
+        return advect_plain(grid, q, umac, forces, dt, iconserv, use_ppm)
+    dt = _dt_tensor(dt, q)
+    q = q.contiguous()
+    if forces is not None:
+        forces = forces.contiguous()
+    out = torch.empty_like(q)
+    for n in range(q.shape[-1]):
+        advect_comp(grid, q, n, umac, forces, dt, bool(iconserv[n]),
+                    use_ppm, out=out)
+    return out

@@ -1,0 +1,417 @@
+"""The time integrator (port of incflo_tpu/simulation.py for the
+shear3d class of decks): Advance = ComputeDt -> ApplyPredictor ->
+nodal projection, run eagerly as PyTorch ops on one device.
+
+Orchestration mirrors reference src/incflo_advance.cpp,
+src/incflo_apply_predictor.cpp, src/incflo_compute_dt.cpp,
+src/incflo_compute_forces.cpp and
+src/projection/incflo_apply_nodal_projection.cpp: state tensors carry no
+ghosts, old/new pairs are function inputs/outputs.  The Godunov chain
+runs through the CUDA kernels of csrc/godunov.cu on the card (their
+plain PyTorch versions on the CPU); the MAC, Helmholtz and nodal systems
+are solved directly (ops/spectral.py).
+
+Scope of this port: 3D, every axis periodic, one level, no EB, constant
+density, no tracer advection, Newtonian fluid, Godunov advection,
+Crank-Nicolson diffusion.  Any other deck raises NotImplementedError
+naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from incflo_torch import bcs, probs
+from incflo_torch.config import DiffusionType, FluidModel, IncfloConfig
+from incflo_torch.ops import diffusion, godunov, mac_projection
+from incflo_torch.ops import multigrid as mg
+from incflo_torch.ops import rheology
+from incflo_torch.ops.stencil import inner
+from incflo_torch.state import LevelState, SimState
+
+
+def _unsupported(cfg: IncfloConfig):
+    """(reason, ROADMAP item) for a deck outside this port, else None."""
+    g = cfg.grid
+    checks = [
+        (g.ndim != 3, "2D decks", "A8"),
+        (cfg.eb_geometry not in ("", "all_regular", "null"),
+         "embedded boundaries", "A11"),
+        (not cfg.use_godunov, "MOL advection", "A8"),
+        (not cfg.constant_density, "variable density", "A9"),
+        (cfg.advect_tracer, "tracer advection", "A9"),
+        (not all(g.periodic), "non-periodic axes", "A9"),
+        (cfg.fluid_model != FluidModel.Newtonian, "non-Newtonian fluids",
+         "A9"),
+        (cfg.use_mac_phi_in_godunov, "use_mac_phi_in_godunov", "A8"),
+        (cfg.godunov_use_forces_in_trans, "godunov_use_forces_in_trans",
+         "A8"),
+        (cfg.diff_type != DiffusionType.Crank_Nicolson,
+         "explicit or implicit diffusion", "A9"),
+        (cfg.max_level > 0, "AMR", "A13"),
+    ]
+    for bad, what, item in checks:
+        if bad:
+            return what, item
+    return None
+
+
+class Simulation:
+    """Single-level incompressible Navier-Stokes engine on one device.
+
+    device None means "cuda"; pass device="cpu" to run on the CPU with
+    the kernels' plain versions.  Asking for the card where there is
+    none raises."""
+
+    def __init__(self, cfg: IncfloConfig, device=None):
+        why = _unsupported(cfg)
+        if why is not None:
+            raise NotImplementedError(
+                f"incflo_torch does not run {why[0]} yet "
+                f"(ROADMAP {why[1]}); this slice runs shear3d-class decks")
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("incflo_torch.Simulation: CUDA device "
+                               "requested but torch.cuda is not available")
+        self.device = device
+        self.dtype = getattr(torch, cfg.dtype)
+        self.cfg = cfg
+        self.grid = cfg.grid
+        self.vel_bcrec = cfg.velocity_bcrecs()
+        self.den_bcrec = cfg.density_bcrecs()
+        self.vel_ev = cfg.velocity_ext_values()
+        self.den_ev = cfg.density_ext_values()
+        self.force_bcrec = cfg.force_bcrecs(max(cfg.ntrac, cfg.ndim))
+        self.godunov = godunov.GodunovScheme(
+            cfg.grid, cfg.godunov_ppm, cfg.godunov_use_forces_in_trans)
+        nd = cfg.grid.ndim
+        self._gravity = self._vec(cfg.gravity[:nd])
+        self._gp0 = self._vec(cfg.gp0[:nd])
+        self._dxinv = self._vec([1.0 / d for d in cfg.grid.dx])
+        # constant density: the MAC and nodal operators are dt-independent
+        # up to a scalar and Newtonian diffusion re-scales beta = dt, so
+        # all three are built once, on the CPU, and moved to the device
+        self._build_static_solvers()
+
+    # ------------------------------------------------------------------
+    def _full(self, shape, val):
+        return torch.full(shape, val, dtype=self.dtype)
+
+    def _build_static_solvers(self):
+        cfg = self.cfg
+        grid = self.grid
+        inv_rho = 1.0 / cfg.ro_0
+        beta = []
+        for d in range(grid.ndim):
+            shape = tuple(n + (1 if ax == d else 0)
+                          for ax, n in enumerate(grid.cell_shape))
+            beta.append(self._full(shape, inv_rho))
+        bc_lo, bc_hi = mac_projection.projection_solver_bc(cfg.bc_kind, grid)
+        mac = mg.CellSolver(grid.dx, bc_lo, bc_hi, alpha=0.0, beta=1.0,
+                            acoef=None, bcoef=tuple(beta))
+        # sigma-hat = 1/rho0; the in-step operator with sigma =
+        # scaling/rho0 is this one scaled by `scaling`
+        nodal = mg.NodalSolver(grid.dx, grid.periodic, bc_lo, bc_hi,
+                               self._full(grid.cell_shape, inv_rho))
+        bcs_all = [diffusion.velocity_solver_bc(cfg, c)
+                   for c in range(grid.ndim)]
+        eta_b = []
+        for d in range(grid.ndim):
+            shape = tuple(n + (1 if ax == d else 0)
+                          for ax, n in enumerate(grid.cell_shape))
+            scale = torch.ones((grid.ndim,), dtype=self.dtype)
+            if cfg.use_tensor_solve:
+                scale[d] = 2.0
+            eta_b.append(self._full(shape, cfg.mu)[..., None] * scale)
+        acoef = self._full(grid.cell_shape, cfg.ro_0)
+        blo, bhi = bcs_all[0]
+        diff = mg.CellSolver(grid.dx, blo, bhi, alpha=1.0, beta=1.0,
+                             acoef=acoef[..., None], bcoef=tuple(eta_b))
+        self._mac_solver = mac.to(self.device)
+        self._nodal_hat = nodal.to(self.device)
+        self._diff_proto = diff.to(self.device)
+
+    # ------------------------------------------------------------------
+    # ghost fills (physical BCs only, one level)
+    # ------------------------------------------------------------------
+    def grow_vel(self, vel, ng):
+        return bcs.grow(vel, ng, self.grid, self.vel_bcrec, self.vel_ev)
+
+    def grow_rho(self, rho, ng):
+        return bcs.grow_scalar(rho, ng, self.grid, self.den_bcrec,
+                               self.den_ev)
+
+    def grow_vel_hom(self, v, ng):
+        """Homogeneous velocity ghost fill (ext_dir ghosts = 0)."""
+        return bcs.grow(v, ng, self.grid, self.vel_bcrec)
+
+    def grow_force(self, f, ng=1):
+        ncomp = f.shape[-1]
+        return bcs.grow(f, ng, self.grid, self.force_bcrec[:ncomp])
+
+    # ------------------------------------------------------------------
+    # forces (reference incflo_compute_forces.cpp)
+    # ------------------------------------------------------------------
+    def _vec(self, vals):
+        return torch.as_tensor(list(vals), dtype=self.dtype,
+                               device=self.device)
+
+    def compute_vel_forces(self, rho, gp):
+        return -(gp + self._gp0) * (1.0 / rho)[..., None] + self._gravity
+
+    # ------------------------------------------------------------------
+    # dt (reference incflo_compute_dt.cpp: Kang et al. CFL formula)
+    # ------------------------------------------------------------------
+    def compute_dt(self, vel, rho, vel_forces, s: SimState,
+                   initialization=False):
+        cfg = self.cfg
+        dxinv = self._dxinv
+        conv_cfl = torch.max(torch.abs(vel) * dxinv)
+        forc_cfl = torch.max(torch.abs(vel_forces) * dxinv)
+        cd_cfl = conv_cfl          # Crank-Nicolson: no diffusive CFL term
+        comb_cfl = cd_cfl + torch.sqrt(cd_cfl * cd_cfl + 4.0 * forc_cfl)
+        dt_new = 2.0 * cfg.cfl / torch.clamp_min(comb_cfl, 1e-300)
+        if initialization:
+            dt_new = dt_new * cfg.init_shrink
+        eps = torch.finfo(self.dtype).eps
+        # from-rest bootstrap (see incflo_tpu compute_dt)
+        diff_any = (torch.max(1.0 / rho) * cfg.mu * 2.0
+                    * torch.sum(dxinv * dxinv))
+        fallback = torch.where(
+            diff_any > eps, cfg.cfl / torch.clamp_min(diff_any, 1e-300),
+            torch.full_like(diff_any, cfg.stop_time / 100.0
+                            if cfg.stop_time > 0 else 1.0))
+        dt_new = torch.where(comb_cfl <= eps,
+                             torch.where(s.dt > 0, 0.5 * s.dt, fallback),
+                             dt_new)
+        # 10% growth limiter
+        factor = 1.1
+        if cfg.plot_per_exact > 0:
+            cap_base = torch.where(s.prev_dt < s.prev_prev_dt,
+                                   torch.maximum(s.prev_dt, s.prev_prev_dt),
+                                   s.dt)
+        else:
+            cap_base = s.dt
+        grow_cap = factor * cap_base
+        dt_new = torch.where(s.dt > 0.0, torch.minimum(dt_new, grow_cap),
+                             dt_new)
+        # don't overshoot plot_per_exact times
+        if cfg.plot_per_exact > 0:
+            per = cfg.plot_per_exact
+            crossing = (torch.trunc((s.t + dt_new + eps) / per)
+                        > torch.trunc((s.t + eps) / per))
+            dt_clamped = torch.trunc((s.t + dt_new) / per) * per - s.t
+            dt_new = torch.where(crossing, dt_clamped, dt_new)
+        # don't overshoot stop_time
+        if (not cfg.steady_state) and cfg.stop_time > 0.0:
+            dt_new = torch.where(s.t + dt_new > cfg.stop_time,
+                                 cfg.stop_time - s.t, dt_new)
+        dt_new = torch.where(dt_new < eps, 0.5 * s.dt, dt_new)
+        if cfg.fixed_dt > 0.0:
+            return torch.tensor(cfg.fixed_dt, dtype=self.dtype,
+                                device=self.device)
+        return dt_new.to(self.dtype)
+
+    # ------------------------------------------------------------------
+    # convective term (reference compute_convective_term, Godunov path)
+    # ------------------------------------------------------------------
+    def convective_term_godunov(self, vel, rho, mac_phi0, gp, divtau_o,
+                                dt):
+        """Predict half-time MAC velocities, project them, then advect
+        (incflo_compute_advection_term.cpp:37-114).  Returns (dq/dt of
+        the velocity, mac_phi).  Without use_mac_phi_in_godunov the
+        prediction and the advection take the same forces."""
+        cfg = self.cfg
+        grid = self.grid
+        ng = cfg.nghost_state()
+        vel_g = self.grow_vel(vel, ng)
+        rho_g = self.grow_rho(rho, ng)
+
+        vf = self.compute_vel_forces(rho, gp)
+        if cfg.godunov_include_diff_in_forcing and divtau_o is not None:
+            vf = vf + divtau_o
+        vf_g = self.grow_force(vf)
+
+        rho_g1 = inner(rho_g, ng - 1, grid.ndim)
+        beta = mac_projection.inv_rho_on_faces(rho_g1, grid)
+
+        umac = self.godunov.predict(vel_g, vf_g, dt, ng, self.vel_bcrec)
+        umac, mac_phi = mac_projection.project_mac_velocities(
+            umac, beta, grid, cfg.bc_kind, prebuilt_solver=self._mac_solver)
+        conv_u = self.godunov.advect(vel_g, umac, vf_g, dt, ng,
+                                     self.vel_bcrec, [0] * grid.ndim, True)
+        return conv_u, mac_phi
+
+    # ------------------------------------------------------------------
+    # nodal projection (reference incflo_apply_nodal_projection.cpp),
+    # the constant-density branch on the prebuilt sigma-hat operator
+    # ------------------------------------------------------------------
+    def apply_projection(self, vel, vel_o, rho_proj, gp, p, scaling,
+                         incremental: bool, small_dt_flag):
+        """Returns (velocity, p, gp) after the projection."""
+        grid = self.grid
+        if not incremental:
+            vel = vel + gp * (scaling / rho_proj)[..., None]
+        if incremental:
+            vel_in = vel - vel_o
+            inflow_scale = torch.zeros((), dtype=self.dtype,
+                                       device=self.device)
+        else:
+            vel_in = vel - small_dt_flag * vel_o
+            inflow_scale = 1.0 - small_dt_flag
+        sigma = scaling / rho_proj
+        upads = self._pad_vel_for_divergence(vel_in, inflow_scale)
+        solver = self._nodal_hat
+        # sigma = scaling * sigma_hat: the prebuilt operator solves the
+        # scaled system L_hat phi = rhs / scaling
+        rhs = mg._nodes_unique(mg.nodal_divergence(upads, grid.dx),
+                               solver.levels[0]) / scaling
+        phi = solver.solve(rhs)
+        gphi = solver.grad_at_cells(phi)
+        vel_new = vel - sigma[..., None] * gphi
+        if incremental:
+            p_new, gp_new = p + phi, gp + gphi
+        else:
+            p_new, gp_new = phi, gphi
+        return vel_new, p_new, gp_new
+
+    def _pad_vel_for_divergence(self, vel, inflow_scale):
+        """One ghost per axis: wrap on periodic axes (the mass-inflow
+        bands of walled decks come with ROADMAP A9)."""
+        grid = self.grid
+        upads = []
+        for c in range(grid.ndim):
+            u = vel[..., c]
+            for ax in range(grid.ndim):
+                u = mg._wrap_pad(u, ax) if grid.periodic[ax] \
+                    else mg._zero_pad(u, ax)
+            upads.append(u)
+        return upads
+
+    # ------------------------------------------------------------------
+    # predictor (reference incflo_apply_predictor.cpp)
+    # ------------------------------------------------------------------
+    def _viscosity(self, vel_g, ng):
+        """eta grown by 1."""
+        return rheology.compute_viscosity(vel_g, self.grid, ng, self.cfg,
+                                          out_ng=1)
+
+    def apply_predictor(self, old: LevelState, dt, incremental: bool,
+                        small_dt_flag):
+        cfg = self.cfg
+        grid = self.grid
+        ng = cfg.nghost_state()
+        vel_o, rho_o = old.velocity, old.density
+
+        vel_g = self.grow_vel(vel_o, ng)
+        eta_g1 = self._viscosity(vel_g, ng)
+        eta_faces = diffusion.eta_to_faces(eta_g1, grid)
+
+        divtau_o = None
+        if cfg.need_divtau() or cfg.use_tensor_correction:
+            divtau_o = diffusion.compute_divtau(vel_o, vel_g, rho_o,
+                                                eta_faces, eta_g1, cfg,
+                                                grid, ng)
+        conv_u, mac_phi = self.convective_term_godunov(
+            vel_o, rho_o, old.mac_phi, old.gp, divtau_o, dt)
+
+        # constant density
+        rho_new, rho_nph = rho_o, rho_o
+
+        # velocity update (Crank-Nicolson)
+        vel_f = self.compute_vel_forces(rho_nph, old.gp)
+        dv = conv_u + vel_f + 0.5 * divtau_o
+        vel_new = vel_o + dt * dv
+        dt_diff = 0.5 * dt
+        vel_new = diffusion.diffuse_velocity(
+            vel_new, rho_new, eta_faces, dt_diff, cfg, grid,
+            eta_g1=eta_g1, grow_fn=lambda v: self.grow_vel(v, ng), ng=ng,
+            grow_hom_fn=lambda v: self.grow_vel_hom(v, ng),
+            prebuilt_solver=self._diff_proto)
+
+        vel_new, p_new, gp_new = self.apply_projection(
+            vel_new, vel_o, rho_nph, old.gp, old.p, dt, incremental,
+            small_dt_flag)
+        return LevelState(velocity=vel_new, density=rho_new,
+                          tracer=old.tracer, gp=gp_new, p=p_new,
+                          mac_phi=mac_phi)
+
+    # ------------------------------------------------------------------
+    # one full step
+    # ------------------------------------------------------------------
+    def advance(self, s: SimState) -> SimState:
+        """One time step."""
+        old = s.level
+        vf = self.compute_vel_forces(old.density, old.gp)
+        dt = self.compute_dt(old.velocity, old.density, vf, s)
+        small_dt = torch.where((s.t > 0.0) & (dt < 0.1 * s.dt), 1.0,
+                               0.0).to(self.dtype)
+        new = self.apply_predictor(old, dt, False, small_dt)
+        return SimState(level=new, t=s.t + dt, dt=dt, prev_dt=s.dt,
+                        prev_prev_dt=s.prev_dt, step=s.step + 1)
+
+    def advance_n(self, s: SimState, n: int) -> SimState:
+        """n time steps."""
+        for _ in range(n):
+            s = self.advance(s)
+        return s
+
+    # ------------------------------------------------------------------
+    # initialization (reference InitData / InitialProjection /
+    # InitialIterations, setup/init.cpp:228-300)
+    # ------------------------------------------------------------------
+    def _initial_projection(self, level: LevelState) -> LevelState:
+        one = torch.ones((), dtype=self.dtype, device=self.device)
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        vel, _, _ = self.apply_projection(
+            level.velocity, level.velocity, level.density, level.gp,
+            level.p, one, False, zero)
+        # p and gp are reset to zero after the initial projection
+        return level._replace(velocity=vel, p=torch.zeros_like(level.p),
+                              gp=torch.zeros_like(level.gp))
+
+    def _initial_iteration(self, s: SimState) -> SimState:
+        """One pressure iteration: predictor in incremental mode, then
+        discard the state update, keeping p/gp."""
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        star = self.apply_predictor(s.level, s.dt, True, zero)
+        lvl = s.level._replace(p=star.p, gp=star.gp, mac_phi=star.mac_phi)
+        return s._replace(level=lvl)
+
+    def init_state(self) -> SimState:
+        cfg = self.cfg
+        level = probs.init_fluid(cfg, self.grid, self.dtype, self.device)
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        s = SimState(level=level, t=zero, dt=zero, prev_dt=zero,
+                     prev_prev_dt=zero,
+                     step=torch.zeros((), dtype=torch.int32,
+                                      device=self.device))
+        if cfg.do_initial_proj:
+            s = s._replace(level=self._initial_projection(s.level))
+        if cfg.initial_iterations > 0:
+            vf = self.compute_vel_forces(s.level.density, s.level.gp)
+            dt0 = self.compute_dt(s.level.velocity, s.level.density, vf, s,
+                                  initialization=True)
+            s = s._replace(dt=dt0)
+            for _ in range(cfg.initial_iterations):
+                s = self._initial_iteration(s)
+        return s
+
+    # ------------------------------------------------------------------
+    def evolve(self, max_steps: Optional[int] = None, callback=None):
+        """Main loop (reference incflo::Evolve).  Returns the final state."""
+        cfg = self.cfg
+        s = self.init_state()
+        nmax = cfg.max_step if max_steps is None else max_steps
+        while True:
+            t, step = float(s.t), int(s.step)
+            if cfg.stop_time >= 0 and t >= cfg.stop_time - 1e-15:
+                break
+            if nmax >= 0 and step >= nmax:
+                break
+            s = self.advance(s)
+            if callback is not None:
+                callback(s)
+        return s

@@ -1,0 +1,93 @@
+"""Simulation state of torch tensors (port of incflo_tpu/state.py).
+
+One dense tensor per field, no ghost cells stored, old/new pairs handled
+functionally by the step.  Field layout (C order, x index first,
+components last), the same as incflo_tpu:
+  velocity : (*cell_shape, ndim)
+  density  : (*cell_shape)
+  tracer   : (*cell_shape, ntrac)
+  gp       : (*cell_shape, ndim)   lagged pressure gradient (state!)
+  p        : (*node_shape)         node-centred pressure
+  mac_phi  : (*cell_shape)         MAC-projection potential (warm start)
+
+`level_from_numpy` / `sim_from_numpy` take a dict of numpy arrays keyed
+by the field names (e.g. `np.asarray(jax_state.level.velocity)`), so a
+run can start from another package's state; the `*_to_numpy` pair goes
+the other way.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from incflo_torch.grid import Grid
+
+
+class LevelState(NamedTuple):
+    velocity: torch.Tensor
+    density: torch.Tensor
+    tracer: torch.Tensor
+    gp: torch.Tensor
+    p: torch.Tensor
+    mac_phi: torch.Tensor
+
+
+class SimState(NamedTuple):
+    """Whole-simulation state advanced by one step.  The scalars are 0-d
+    tensors on the state's device, so a step never syncs for them."""
+    level: LevelState
+    t: torch.Tensor
+    dt: torch.Tensor
+    prev_dt: torch.Tensor
+    prev_prev_dt: torch.Tensor
+    step: torch.Tensor          # int32
+
+
+_SCALARS = ("t", "dt", "prev_dt", "prev_prev_dt")
+
+
+def zeros_level(grid: Grid, ntrac: int, dtype, device) -> LevelState:
+    cs = grid.cell_shape
+    ns = grid.node_shape
+    d = grid.ndim
+    z = lambda shape: torch.zeros(shape, dtype=dtype, device=device)
+    return LevelState(
+        velocity=z(cs + (d,)),
+        density=torch.ones(cs, dtype=dtype, device=device),
+        tracer=z(cs + (ntrac,)),
+        gp=z(cs + (d,)),
+        p=z(ns),
+        mac_phi=z(cs),
+    )
+
+
+def level_from_numpy(d: Dict[str, np.ndarray], device,
+                     dtype) -> LevelState:
+    return LevelState(**{
+        k: torch.tensor(np.asarray(d[k]), dtype=dtype).to(device)
+        for k in LevelState._fields})
+
+
+def level_to_numpy(level: LevelState) -> Dict[str, np.ndarray]:
+    return {k: getattr(level, k).detach().cpu().numpy()
+            for k in LevelState._fields}
+
+
+def sim_from_numpy(d: Dict[str, np.ndarray], device, dtype) -> SimState:
+    """`d` holds the LevelState fields and t, dt, prev_dt, prev_prev_dt,
+    step."""
+    sc = {k: torch.tensor(np.asarray(d[k]), dtype=dtype).to(device)
+          for k in _SCALARS}
+    step = torch.tensor(np.asarray(d["step"]), dtype=torch.int32).to(device)
+    return SimState(level=level_from_numpy(d, device, dtype), step=step,
+                    **sc)
+
+
+def sim_to_numpy(s: SimState) -> Dict[str, np.ndarray]:
+    out = level_to_numpy(s.level)
+    for k in _SCALARS + ("step",):
+        out[k] = getattr(s, k).detach().cpu().numpy()
+    return out

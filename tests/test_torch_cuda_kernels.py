@@ -1,0 +1,106 @@
+"""The CUDA Godunov kernels (incflo_torch/csrc/godunov.cu) against their
+plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU and nvcc; they skip where
+torch.cuda.is_available() is false.  Run them on a GPU host with
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+(--noconftest because tests/conftest.py imports JAX, which a GPU host
+need not have).
+
+Tolerances: float64 1e-10 relative to the field's max (the kernels repeat
+the plain version's operations with no FMA contraction, so they agree to
+rounding); float32 2e-5 (predict) and 3e-4 (advect) of the field's max,
+the tolerances of tests/test_pallas_godunov.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from incflo_torch.grid import Grid
+from incflo_torch.ops import godunov_kernels as gk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gk.build()
+    return torch.device("cuda")
+
+
+def _grid(n=(16, 8, 12)):
+    return Grid(n_cell=n, prob_lo=(0.0,) * 3, prob_hi=(1.0, 0.5, 0.75),
+                periodic=(True,) * 3)
+
+
+def _fields(grid, ncomp, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    xs = [np.linspace(0, 2 * np.pi, n, endpoint=False) for n in grid.n_cell]
+    X, Y, Z = np.meshgrid(*xs, indexing="ij")
+    out = []
+    for c in range(ncomp):
+        a, b, d = rng.normal(size=3)
+        out.append(a * np.sin(X + c) + b * np.cos(2 * Y - c)
+                   + d * np.sin(Z + 0.3 * c)
+                   + 0.1 * rng.standard_normal(X.shape))
+    return torch.as_tensor(np.stack(out, -1), dtype=dtype, device=device)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 2e-5)])
+@pytest.mark.parametrize("use_ppm", [True, False])
+@pytest.mark.parametrize("with_forces", [True, False])
+def test_predict_kernel_matches_plain(cuda, dtype, tol, use_ppm,
+                                      with_forces):
+    grid = _grid()
+    vel = _fields(grid, 3, 1, dtype, cuda)
+    forces = 0.3 * _fields(grid, 3, 2, dtype, cuda) if with_forces else None
+    dt = torch.tensor(0.01, dtype=dtype, device=cuda)
+    n0 = dict(gk.LAUNCHES)
+    got = gk.predict(grid, vel, forces, dt, use_ppm)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["uad"] == n0["uad"] + 1
+    assert gk.LAUNCHES["predict_d"] == n0["predict_d"] + 3
+    ref = gk.predict_plain(grid, vel, forces, dt, use_ppm)
+    for d in range(3):
+        assert got[d].shape == ref[d].shape
+        assert _rel(got[d], ref[d]) <= tol, d
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 3e-4)])
+@pytest.mark.parametrize("use_ppm", [True, False])
+@pytest.mark.parametrize("iconserv", [(0, 0, 0), (1, 1, 1)])
+def test_advect_kernel_matches_plain(cuda, dtype, tol, use_ppm, iconserv):
+    grid = _grid()
+    q = _fields(grid, 3, 3, dtype, cuda)
+    forces = 0.2 * _fields(grid, 3, 4, dtype, cuda)
+    vel = _fields(grid, 3, 5, dtype, cuda)
+    dt = torch.tensor(0.01, dtype=dtype, device=cuda)
+    umac = gk.predict_plain(grid, vel, None, dt, use_ppm)
+    n0 = gk.LAUNCHES["advect"]
+    got = gk.advect(grid, q, umac, forces, dt, iconserv, use_ppm)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["advect"] == n0 + 3
+    ref = gk.advect_plain(grid, q, umac, forces, dt, iconserv, use_ppm)
+    assert _rel(got, ref) <= tol
+
+
+def test_kernels_raise_outside_scope(cuda):
+    walled = Grid(n_cell=(8, 8, 8), prob_lo=(0.0,) * 3, prob_hi=(1.0,) * 3,
+                  periodic=(True, True, False))
+    vel = torch.zeros((8, 8, 8, 3), device=cuda)
+    with pytest.raises(NotImplementedError):
+        gk.predict(walled, vel, None, 0.01, True)
+    with pytest.raises(NotImplementedError):
+        gk.predict(_grid((8, 8, 8)), vel, None, 0.01, True,
+                   use_forces_in_trans=True)
+    with pytest.raises(TypeError):
+        gk.uad(_grid((8, 8, 8)), vel.half(), 0.01, True)

@@ -1,0 +1,195 @@
+"""incflo_torch Godunov chain (the plain PyTorch versions of the CUDA
+kernels) against incflo_tpu.
+
+Two references, the same inputs (smooth O(1) fields from a numpy seed):
+  * the jnp path GodunovScheme._predict / advect (Pallas dispatch
+    bypassed as tests/test_pallas_godunov.py does), float64, to 1e-11
+    relative: the same algebra in another order of evaluation, so the
+    two agree to rounding;
+  * the Pallas kernels in interpret mode (INTERPRET monkeypatched as
+    tests/test_pallas_godunov.py does), float32 at 16x8x16, within 2e-5
+    (predict) and 3e-4 (advect) of the field's max: the Pallas test
+    tolerances.
+On the CPU the kernel wrappers take the plain versions, and their launch
+counters do not move.
+"""
+
+import unittest.mock as mock
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from incflo_tpu import bcs as jbcs
+from incflo_tpu.bcs import BCType
+from incflo_tpu.grid import Grid as JGrid
+from incflo_tpu.ops import godunov as jgod
+from incflo_tpu.ops import pallas_godunov as pg
+
+from incflo_torch.grid import Grid as TGrid
+from incflo_torch.ops import godunov as tgod
+from incflo_torch.ops import godunov_kernels as gk
+
+
+def _grids(n_cell, prob_hi):
+    kw = dict(n_cell=n_cell, prob_lo=(0.0,) * 3, prob_hi=prob_hi,
+              periodic=(True,) * 3)
+    return JGrid(**kw), TGrid(**kw)
+
+
+def _bcrec(ncomp):
+    return np.full((ncomp, 3, 2), int(BCType.int_dir), np.int32)
+
+
+def _smooth(shape, ncomp, seed):
+    rng = np.random.default_rng(seed)
+    xs = [np.linspace(0, 2 * np.pi, n, endpoint=False) for n in shape]
+    X, Y, Z = np.meshgrid(*xs, indexing="ij")
+    out = []
+    for c in range(ncomp):
+        a, b, d = rng.normal(size=3)
+        out.append(a * np.sin(X + c) + b * np.cos(2 * Y - c)
+                   + d * np.sin(Z + 0.3 * c) + 0.1 * rng.normal())
+    return np.stack(out, axis=-1)
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+N64 = (16, 8, 12)
+HI64 = (1.0, 0.5, 0.75)
+DT = 0.01
+
+
+@pytest.mark.parametrize("use_ppm", [True, False])
+@pytest.mark.parametrize("with_forces", [True, False])
+def test_predict_plain_matches_jnp(use_ppm, with_forces):
+    jg, tg = _grids(N64, HI64)
+    vel = _smooth(N64, 3, 1)
+    forces = 0.3 * _smooth(N64, 3, 2) if with_forces else None
+    ng = 4
+    scheme = jgod.GodunovScheme(jg, use_ppm, False)
+    ref = scheme._predict(
+        jbcs.grow(jnp.asarray(vel), ng, jg, _bcrec(3)),
+        jbcs.grow(jnp.asarray(forces), 1, jg, _bcrec(3))
+        if with_forces else None, DT, ng, _bcrec(3))
+    n0 = dict(gk.LAUNCHES)
+    got = gk.predict(tg, torch.as_tensor(vel),
+                     None if forces is None else torch.as_tensor(forces),
+                     torch.tensor(DT, dtype=torch.float64), use_ppm)
+    assert gk.LAUNCHES == n0           # plain versions on the CPU
+    for d in range(3):
+        assert _rel(got[d].numpy(), ref[d]) <= 1e-11, d
+
+
+@pytest.mark.parametrize("use_ppm", [True, False])
+@pytest.mark.parametrize("iconserv", [(0, 0, 0), (1, 1, 1)])
+def test_advect_plain_matches_jnp(use_ppm, iconserv):
+    jg, tg = _grids(N64, HI64)
+    q, vel = _smooth(N64, 3, 3), _smooth(N64, 3, 5)
+    forces = 0.2 * _smooth(N64, 3, 4)
+    ng = 4
+    scheme = jgod.GodunovScheme(jg, use_ppm, False)
+    umac = scheme._predict(jbcs.grow(jnp.asarray(vel), ng, jg, _bcrec(3)),
+                           None, DT, ng, _bcrec(3))
+    with mock.patch.object(pg, "enabled", return_value=False):
+        ref = scheme.advect(jbcs.grow(jnp.asarray(q), ng, jg, _bcrec(3)),
+                            umac, jbcs.grow(jnp.asarray(forces), 1, jg,
+                                            _bcrec(3)),
+                            DT, ng, _bcrec(3), list(iconserv), True)
+    got = gk.advect(tg, torch.as_tensor(q),
+                    [torch.tensor(np.asarray(u)) for u in umac],
+                    torch.as_tensor(forces), DT, iconserv, use_ppm)
+    assert _rel(got.numpy(), ref) <= 1e-11
+
+
+def test_scheme_dispatch_matches_jnp_scalar_advect():
+    """GodunovScheme on grown fields, one conserved scalar, no forces."""
+    jg, tg = _grids(N64, HI64)
+    rho = 1.0 + 0.1 * _smooth(N64, 1, 6)
+    vel = _smooth(N64, 3, 7)
+    ng = 3
+    js = jgod.GodunovScheme(jg, True, False)
+    ts = tgod.GodunovScheme(tg, True, False)
+    umac_j = js._predict(jbcs.grow(jnp.asarray(vel), ng, jg, _bcrec(3)),
+                         None, DT, ng, _bcrec(3))
+    umac_t = ts.predict(torch.tensor(np.asarray(
+        jbcs.grow(jnp.asarray(vel), ng, jg, _bcrec(3)))), None, DT, ng,
+        _bcrec(3))
+    for d in range(3):
+        assert _rel(umac_t[d].numpy(), umac_j[d]) <= 1e-11
+    rho_g = jbcs.grow(jnp.asarray(rho), ng, jg, _bcrec(1))
+    with mock.patch.object(pg, "enabled", return_value=False):
+        ref = js.advect(rho_g, umac_j, None, DT, ng, _bcrec(1), [1], False)
+    got = ts.advect(torch.tensor(np.asarray(rho_g)), umac_t, None, DT,
+                    ng, _bcrec(1), [1], False)
+    assert _rel(got.numpy(), ref) <= 1e-11
+
+
+# ---------------------------------------------------------------------
+# against the Pallas kernels in interpret mode (float32)
+# ---------------------------------------------------------------------
+
+NI = (16, 8, 16)          # m = ny*nz = 128, nx % 8 == 0: Pallas scope
+HII = (1.0, 0.5, 1.0)
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setattr(pg, "INTERPRET", True)
+
+
+def _f32(a):
+    return np.asarray(a, np.float32)
+
+
+@pytest.mark.parametrize("use_ppm", [True, False])
+def test_predict_plain_matches_pallas_interpret(interpret, use_ppm):
+    jg, tg = _grids(NI, HII)
+    vel, forces = _f32(_smooth(NI, 3, 1)), _f32(0.3 * _smooth(NI, 3, 2))
+    ref = pg.predict(jg, jnp.asarray(vel), jnp.asarray(forces), DT, use_ppm)
+    got = gk.predict(tg, torch.as_tensor(vel), torch.as_tensor(forces),
+                     DT, use_ppm)
+    for d in range(3):
+        assert _rel(got[d].numpy(), ref[d]) <= 2e-5, d
+
+
+@pytest.mark.parametrize("use_ppm,iconserv", [(True, (0, 0, 0)),
+                                              (True, (1, 1, 1)),
+                                              (False, (0, 0, 0))])
+def test_advect_plain_matches_pallas_interpret(interpret, use_ppm,
+                                               iconserv):
+    jg, tg = _grids(NI, HII)
+    q, vel = _f32(_smooth(NI, 3, 3)), _f32(_smooth(NI, 3, 5))
+    forces = _f32(0.2 * _smooth(NI, 3, 4))
+    umac = pg.predict(jg, jnp.asarray(vel), None, DT, use_ppm)
+    ref = pg.advect(jg, jnp.asarray(q), umac, jnp.asarray(forces), DT,
+                    iconserv, use_ppm)
+    got = gk.advect(tg, torch.as_tensor(q),
+                    [torch.tensor(np.asarray(u)) for u in umac],
+                    torch.as_tensor(forces), DT, iconserv, use_ppm)
+    assert _rel(got.numpy(), ref) <= 3e-4
+
+
+def test_wrappers_raise_outside_scope():
+    walled = TGrid(n_cell=(8, 8, 8), prob_lo=(0.0,) * 3, prob_hi=(1.0,) * 3,
+                   periodic=(True, False, True))
+    vel = torch.zeros((8, 8, 8, 3), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="A8/A9"):
+        gk.predict(walled, vel, None, DT, True)
+    flat = TGrid(n_cell=(8, 8), prob_lo=(0.0,) * 2, prob_hi=(1.0,) * 2,
+                 periodic=(True, True))
+    with pytest.raises(NotImplementedError):
+        tgod.GodunovScheme(flat, True, False).predict(
+            torch.zeros((8, 8, 2), dtype=torch.float64), None, DT, 0,
+            _bcrec(2))
+    _, tg = _grids(N64, HI64)
+    with pytest.raises(NotImplementedError, match="A8"):
+        tgod.GodunovScheme(tg, True, True).predict(
+            torch.zeros(N64 + (3,), dtype=torch.float64), None, DT, 0,
+            _bcrec(3))

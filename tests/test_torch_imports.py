@@ -1,0 +1,121 @@
+"""incflo_torch stands alone: it imports neither JAX nor incflo_tpu, it
+runs on the card unless the CPU is asked for, and decks outside its
+slice raise and name the ROADMAP item that ports them."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import bench
+import incflo_torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "incflo_tpu")
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_no_forbidden_imports_in_source():
+    files = sorted((ROOT / "incflo_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) >= 15
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(path.name, a.name) for a in node.names
+                        if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                if _forbidden(node.module):
+                    bad.append((path.name, node.module))
+    assert not bad, bad
+
+
+def test_import_leaves_no_jax_in_modules():
+    code = ("import sys, incflo_torch, incflo_torch.simulation, "
+            "incflo_torch.ops.godunov_kernels\n"
+            "bad = [m for m in sys.modules if any(m == f or "
+            "m.startswith(f + '.') for f in ('jax', 'jaxlib', "
+            "'incflo_tpu'))]\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_matmul_precision_is_full_f32():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def _cfg(extra="", config="shear3d"):
+    text, _ = bench._deck(config, 16, "float64")
+    return incflo_torch.IncfloConfig.from_text(text + extra)
+
+
+def test_simulation_needs_the_card_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        incflo_torch.Simulation(_cfg())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        incflo_torch.Simulation(_cfg(), device="cuda")
+    sim = incflo_torch.Simulation(_cfg(), device="cpu")
+    assert sim.device.type == "cpu"
+
+
+class _KernelReached(Exception):
+    pass
+
+
+def test_kernel_wrappers_never_fall_back_off_the_cpu(monkeypatch):
+    """Only a CPU tensor gets the plain version.  Any other tensor (here
+    one on the meta device) goes for the kernel library, stubbed to raise,
+    and outside the kernels' scope the wrapper raises before that."""
+    from incflo_torch.grid import Grid
+    from incflo_torch.ops import godunov_kernels as gk
+
+    def no_library():
+        raise _KernelReached
+    monkeypatch.setattr(gk, "_lib", no_library)
+    n = (8, 4, 6)
+    grid = Grid(n_cell=n, prob_lo=(0.0,) * 3, prob_hi=(1.0, 0.5, 0.75),
+                periodic=(True,) * 3)
+    vel = torch.zeros(n + (3,), dtype=torch.float32, device="meta")
+    umac = [torch.zeros(tuple(m + (a == d) for a, m in enumerate(n)),
+                        dtype=torch.float32, device="meta") for d in range(3)]
+    before = dict(gk.LAUNCHES)
+    with pytest.raises(_KernelReached):
+        gk.predict(grid, vel, None, 0.01, True)
+    with pytest.raises(_KernelReached):
+        gk.advect(grid, vel, umac, vel, 0.01, (0, 0, 0), True)
+    walled = Grid(n_cell=n, prob_lo=(0.0,) * 3, prob_hi=(1.0, 0.5, 0.75),
+                  periodic=(True, False, True))
+    with pytest.raises(NotImplementedError):
+        gk.predict(walled, vel, None, 0.01, True)
+    with pytest.raises(NotImplementedError):
+        gk.advect(grid, vel, umac, None, 0.01, (0, 0, 0), True,
+                  use_forces_in_trans=True)
+    with pytest.raises(TypeError):
+        gk.uad(grid, vel.half(), 0.01, True)
+    assert gk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("config,extra,item", [
+    ("tgv2d", "", "A8"),
+    ("shear3d", "incflo.use_godunov = false\nincflo.cfl = 0.5\n", "A8"),
+    ("rt", "", "A9"),
+    ("channel_cyl", "", "A11"),
+    ("shear3d", "incflo.diffusion_type = 2\n", "A9"),
+    ("shear3d", "incflo.use_mac_phi_in_godunov = true\n", "A8"),
+    ("shear3d", "amr.max_level = 1\n", "A13"),
+])
+def test_decks_outside_the_slice_raise(config, extra, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        incflo_torch.Simulation(_cfg(extra, config), device="cpu")
