@@ -6,27 +6,44 @@
                                      # n = 128 and 256 steps (torch.profiler)
 
 Phases (any failure ends the run with a non-zero exit):
-  1. build   the CUDA kernels of incflo_torch/csrc/godunov.cu with nvcc.
-  2. kernels each kernel against its plain PyTorch version on the card:
-             float64 (relative error <= 1e-10) and float32 at the n = 128
-             shear3d shapes (within 2e-5 / 3e-4 of the field's max for
-             predict / advect), PPM and PLM, with forces, iconserv 0 and
-             1; each kernel and its plain version timed on the card.
-  3. paths   the whole shear3d step on cuda (kernels) and on cpu (plain
-             versions), float64, 32x32x8, 3 steps from one state; velocity,
-             p and gp agree to 1e-9 relative.
-  4. main    shear3d through incflo_torch.Simulation on cuda, float32:
+  1. build   the CUDA kernels of incflo_torch/csrc/godunov.cu and
+             csrc/smoothers.cu with nvcc, one process each, together.
+  2. kernels each kernel against its plain PyTorch version on the card.
+             Godunov: float64 (relative error <= 1e-10) and float32 at the
+             n = 128 shear3d shapes (within 2e-5 / 3e-4 of the field's max
+             for predict / advect), PPM and PLM, with forces, iconserv 0
+             and 1.  Smoothers: a coarse-level shape (64x64x16) and the
+             fine-level shape (128x128x32), 2 sweeps and 8 (cell bottom) /
+             24 (nodal bottom), with and without the residual, variable
+             coefficients from a seed, the cell smoother also with three
+             components; float64 to 1e-12 relative, float32 to 2e-6 (x)
+             and 5e-4 (residual) of max(1, the field's max).  Each kernel
+             and its plain version timed on the card.
+  3. solvers CellSolver.solve and NodalSolver.solve (V-cycles) on cuda
+             against cpu, float64, 32x32x8, random coefficients: the same
+             iteration count, the solution to 1e-9.
+  4. paths   the whole step on cuda (kernels) and on cpu (plain
+             versions), float64, 32x32x8, 3 steps from one state: shear3d
+             (velocity, p, gp), and shear3d_vd from both of its starts
+             (also density, tracer, mac_phi); agreement to 1e-9 relative.
+  5. main    through incflo_torch.Simulation on cuda, float32.  shear3d:
              n = 128 (128x128x32), 20 warm-up + 20 timed steps, and
-             n = 256 (256x256x64), 2 warm-up + 5 timed steps.  The kernels'
-             launch counters are zeroed just before each run and must equal
-             the per-step launches times the steps just after; the final
-             velocity is finite and the projection is exact to rounding.
+             n = 256 (256x256x64), 2 warm-up + 3 timed steps.  shear3d_vd
+             (variable density, tracer; multigrid V-cycles) at 128x128x32
+             from init_state and from a density perturbed by +-40%, 2
+             warm-up + 5 timed steps each.  The kernels' launch counters
+             are zeroed just before each run and read just after: the
+             Godunov counts must equal the per-step launches times the
+             steps, the smoother counts must be positive; the final fields
+             are finite and the projection has converged.
 Then one JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 
 It imports neither JAX nor incflo_tpu and writes its own deck text (the
-shear3d deck of bench.py).  Without a CUDA device, or outside a checkout
-of the repository, it exits non-zero and prints no result.
+shear3d deck of bench.py; shear3d_vd adds constant_density = false,
+advect_tracer = true and mu_s = 0.0002).  Without a CUDA device, or
+outside a checkout of the repository, it exits non-zero and prints no
+result.
 """
 
 import json
@@ -44,13 +61,25 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 
 PER_STEP = {"uad": 1, "predict_d": 3, "advect": 3}
+# shear3d_vd also advects the density and rho*tracer
+PER_STEP_VD = {"uad": 1, "predict_d": 3, "advect": 5}
 TOL = {"uad": 2e-5, "predict_d": 2e-5, "advect": 3e-4}
 TOL_F64 = 1e-10
+SMOOTHERS = ("cell_smooth", "nodal_smooth")
+# smoothers, float32: errors in x and in the residual over max(1, |field|)
+TOL_SMOOTH_X, TOL_SMOOTH_RES = 2e-6, 5e-4
+TOL_SMOOTH_F64 = 1e-12
+VD_KEYS = """
+incflo.constant_density = false
+incflo.advect_tracer = true
+incflo.mu_s = 0.0002
+"""
 
 
-def shear3d_deck(n, dtype):
+def shear3d_deck(n, dtype, vd=False):
     """The shear3d deck of bench.py:_deck (probtype 21, Godunov PPM,
-    Crank-Nicolson tensor diffusion, fully periodic)."""
+    Crank-Nicolson tensor diffusion, fully periodic); vd adds variable
+    density and tracer advection (shear3d_vd)."""
     tol = "1e-11" if dtype == "float64" else "1e-5"
     atol = "1e-14" if dtype == "float64" else "1e-7"
     nz = max(n // 4, 8)
@@ -77,7 +106,7 @@ incflo.cfl = 0.9
 incflo.init_shrink = 1.0
 incflo.use_godunov = true
 incflo.diffusion_type = 1
-"""
+""" + (VD_KEYS if vd else "")
 
 
 # ---------------------------------------------------------------------
@@ -150,11 +179,13 @@ def abs_err(a, b):
 # phases
 # ---------------------------------------------------------------------
 
-def phase_build(gk):
+def phase_build(cuda_build, sources):
     t0 = time.time()
-    path = gk.build()
+    paths = cuda_build.build_all(sources)
     s = time.time() - t0
-    print(f"[build] {os.path.relpath(path, HERE)} in {s:.1f} s", flush=True)
+    for path in paths.values():
+        print(f"[build] {os.path.relpath(path, HERE)}", flush=True)
+    print(f"[build] {len(paths)} libraries in {s:.1f} s", flush=True)
     return s
 
 
@@ -278,6 +309,167 @@ def phase_kernels(gk, grid_of, torch):
     return res
 
 
+P3 = (0, 0, 0)
+
+
+def vd_operators(mg, shape, dx, dtype, dev, seed, max_levels=1):
+    """The operators the shear3d_vd step solves, built by the solvers'
+    own constructors from seeded variable coefficients: the MAC Poisson
+    operator (1/rho on faces), the batched velocity Helmholtz operator
+    (rho, eta, beta = dt/2) and the nodal sigma-Poisson operator
+    (sigma = dt/rho).  max_levels = 1 stops at the level itself."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype).to(dev)
+
+    def faces(lo, hi, comp=()):
+        out = []
+        for ax in range(3):
+            f = lo + (hi - lo) * rng.random(shape + comp)
+            out.append(t(np.concatenate([f, f.take([0], axis=ax)], axis=ax)))
+        return tuple(out)
+
+    dt = 0.9 * min(dx)
+    mac = mg.CellSolver(dx, P3, P3, alpha=0.0, beta=1.0, acoef=None,
+                        bcoef=faces(0.7, 1.7), max_levels=max_levels,
+                        direct=False)
+    rho = t(0.6 + 0.8 * rng.random(shape))
+    vel = mg.CellSolver(dx, P3, P3, alpha=1.0, beta=0.5 * dt,
+                        acoef=rho[..., None],
+                        bcoef=faces(1e-4, 3e-4, (3,)), max_levels=max_levels,
+                        direct=False)
+    nodal = mg.NodalSolver(dx, (True,) * 3, P3, P3, dt / rho,
+                           max_levels=max_levels, direct=False)
+    return mac, vel, nodal
+
+
+def smoother_calls(sk, mg, shape, dx, dtype, dev, seed):
+    """{case: (kernel(n, res), plain(n, res))} on one level's inputs."""
+    import numpy as np
+    import torch
+    mac, vel, nodal = vd_operators(mg, shape, dx, dtype, dev, seed)
+    rng = np.random.default_rng(seed + 1)
+    t = lambda a: torch.as_tensor(a, dtype=dtype).to(dev)
+    out = {}
+    for name, cs, comp in (("cell_smooth", mac, ()),
+                           ("cell_smooth/3comp", vel, (3,))):
+        dinvs, fhis = cs.smoother_coefs()
+        args = (t(rng.standard_normal(shape + comp)),
+                t(rng.standard_normal(shape + comp)), cs.diags[0], dinvs[0],
+                fhis[0])
+        out[name] = (
+            lambda n, r, a=args: sk.cell_smooth(*a, n, r),
+            lambda n, r, a=args: sk.cell_smooth_plain(*a, n, r))
+    args = (t(rng.standard_normal(shape)), t(rng.standard_normal(shape)),
+            nodal.sigmas[0], nodal.dinvs[0], dx)
+    out["nodal_smooth"] = (
+        lambda n, r, a=args: sk.nodal_smooth(*a, n, r),
+        lambda n, r, a=args: sk.nodal_smooth_plain(*a, n, r))
+    return out
+
+
+def phase_smoothers(sk, mg, grid_of, torch):
+    """Errors of the two smoother kernels against their plain versions
+    at a coarse-level and the fine-level shape of the n = 128 hierarchy,
+    then the f32 times of a 2-sweep call with residual at both."""
+    dev = torch.device("cuda")
+    levels = {}
+    for n in (64, 128):
+        g = grid_of(n)
+        levels["x".join(str(c) for c in g.n_cell)] = (g.n_cell, g.dx)
+    res = {k: {"max_abs_err": 0.0, "max_err_x_f32": 0.0,
+               "max_err_res_f32": 0.0, "max_rel_err_f64": 0.0}
+           for k in SMOOTHERS}
+    for dtype in (torch.float64, torch.float32):
+        for shape, dx in levels.values():
+            calls = smoother_calls(sk, mg, shape, dx, dtype, dev, 11)
+            for case, (kern, plain) in calls.items():
+                r = res[case.split("/")[0]]
+                bottom = 24 if case == "nodal_smooth" else 8
+                for nsw in (2, bottom):
+                    xp, rp = plain(nsw, True)
+                    for want in (True, False):
+                        xk, rk = kern(nsw, want)
+                        if (rk is None) == want:
+                            raise AssertionError(f"{case}: residual returned "
+                                                 f"{rk is not None}, asked "
+                                                 f"{want}")
+                        pairs = [("x", xk, xp)] + (
+                            [("res", rk, rp)] if want else [])
+                        for what, a, b in pairs:
+                            if dtype == torch.float64:
+                                r["max_rel_err_f64"] = max(
+                                    r["max_rel_err_f64"], rel_err(a, b))
+                                continue
+                            e = abs_err(a, b)
+                            scaled = e / max(1.0, float(b.abs().max()))
+                            key = f"max_err_{what}_f32"
+                            r[key] = max(r[key], scaled)
+                            if what == "x":
+                                r["max_abs_err"] = max(r["max_abs_err"], e)
+    torch.cuda.synchronize()
+    for k, r in res.items():
+        print(f"[smoothers] {k}: f64 rel {r['max_rel_err_f64']:.3e} (tol "
+              f"{TOL_SMOOTH_F64:g}), f32 x {r['max_err_x_f32']:.3e} (tol "
+              f"{TOL_SMOOTH_X:g}), f32 residual {r['max_err_res_f32']:.3e} "
+              f"(tol {TOL_SMOOTH_RES:g})", flush=True)
+        if not r["max_rel_err_f64"] <= TOL_SMOOTH_F64:
+            raise AssertionError(f"{k}: float64 disagrees with the plain "
+                                 f"version ({r['max_rel_err_f64']:.3e})")
+        if not (r["max_err_x_f32"] <= TOL_SMOOTH_X
+                and r["max_err_res_f32"] <= TOL_SMOOTH_RES):
+            raise AssertionError(f"{k}: float32 disagrees with the plain "
+                                 "version")
+
+    # times: f32, 2 sweeps + residual, scalar fields, at both shapes; each
+    # input read once and each output written once per call
+    narrays = {"cell_smooth": 9, "nodal_smooth": 6}
+    saved = dict(sk.LAUNCHES)
+    for tag, (shape, dx) in levels.items():
+        calls = smoother_calls(sk, mg, shape, dx, torch.float32, dev, 11)
+        cells = shape[0] * shape[1] * shape[2]
+        for k in SMOOTHERS:
+            kern, plain = calls[k]
+            m = {"ms": device_ms(lambda: kern(2, True)),
+                 "plain_ms": device_ms(lambda: plain(2, True)),
+                 "bytes": narrays[k] * cells * 4,
+                 "ops": count_ops(lambda: plain(2, True))}
+            t_bytes = m["bytes"] / PEAK_BYTES * 1e3
+            t_ops = m["ops"] / PEAK_OPS["float32"] * 1e3
+            m["bound_ms"] = max(t_bytes, t_ops)
+            m["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            res[k][tag] = m
+            print(f"[smoothers] {k} {tag}: kernel {m['ms']:.4f} ms, plain "
+                  f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+                  f"({m['bound_by']}: {m['bytes']} B, {m['ops']} ops)",
+                  flush=True)
+    sk.LAUNCHES.update(saved)      # comparison launches do not count
+    return res
+
+
+def phase_solvers(mg, torch):
+    """The V-cycle solvers on cuda against cpu, f64, 32x32x8, random
+    coefficients: same iteration count, solution to 1e-9."""
+    import numpy as np
+    shape = (32, 32, 8)
+    dx = (1.0 / 32, 1.0 / 32, 0.25 / 8)
+    mac, vel, nodal = vd_operators(mg, shape, dx, torch.float64, "cpu", 3,
+                                   max_levels=30)
+    rng = np.random.default_rng(5)
+    for name, solver, comp in (("cell poisson", mac, ()),
+                               ("cell helmholtz x3", vel, (3,)),
+                               ("nodal", nodal, ())):
+        rhs = torch.as_tensor(rng.standard_normal(shape + comp))
+        x_c, _, it_c = solver.solve_info(rhs)
+        x_g, _, it_g = solver.to("cuda").solve_info(rhs.to("cuda"))
+        e = rel_state_err(x_g, x_c)
+        print(f"[solvers] {name}: {it_g} iterations on cuda, {it_c} on "
+              f"cpu; solution relative {e:.3e} (tol 1e-9)", flush=True)
+        if it_g != it_c or it_g < 2 or not e <= 1e-9:
+            raise AssertionError(f"{name}: cuda and cpu solves disagree")
+
+
 def rel_state_err(a, b):
     import torch
     a = a.detach().cpu().to(torch.float64)
@@ -285,27 +477,55 @@ def rel_state_err(a, b):
     return float((a - b).abs().max() / max(float(b.abs().max()), 1e-300))
 
 
-def phase_paths(incflo_torch, torch):
+def perturbed_density(grid):
+    """1 + 0.4 sin(2 pi x) sin(2 pi y) cos(8 pi z) at the cell centres."""
+    import numpy as np
+    c = [lo + (np.arange(n) + 0.5) * d
+         for n, lo, d in zip(grid.n_cell, grid.prob_lo, grid.dx)]
+    x, y, z = np.meshgrid(*c, indexing="ij")
+    return 1.0 + 0.4 * (np.sin(2 * np.pi * x) * np.sin(2 * np.pi * y)
+                        * np.cos(8 * np.pi * z))
+
+
+def vd_start(sim, start, torch):
+    """The two starts of shear3d_vd: init_state, or that state with the
+    density replaced by perturbed_density (a 0.6-1.4 contrast)."""
+    from incflo_torch import state as st
+    s = sim.init_state()
+    if start == "perturbed_density":
+        d = st.sim_to_numpy(s)
+        d["density"] = perturbed_density(sim.grid)
+        s = st.sim_from_numpy(d, sim.device, sim.dtype)
+    return s
+
+
+def phase_paths(incflo_torch, torch, vd=False):
     """The step on cuda (kernels) and on cpu (plain versions), f64."""
     from incflo_torch import state as st
-    cfg = incflo_torch.IncfloConfig.from_text(shear3d_deck(32, "float64"))
+    name = "shear3d_vd" if vd else "shear3d"
+    cfg = incflo_torch.IncfloConfig.from_text(
+        shear3d_deck(32, "float64", vd))
     sim_c = incflo_torch.Simulation(cfg, device="cpu")
     sim_g = incflo_torch.Simulation(cfg, device="cuda")
-    s_c = sim_c.init_state()
-    s_g = st.sim_from_numpy(st.sim_to_numpy(s_c), "cuda", torch.float64)
-    for _ in range(3):
-        s_c = sim_c.advance(s_c)
-        s_g = sim_g.advance(s_g)
-    torch.cuda.synchronize()
+    fields = ("velocity", "p", "gp") + (
+        ("density", "tracer", "mac_phi") if vd else ())
     worst = 0.0
-    for f in ("velocity", "p", "gp"):
-        e = rel_state_err(getattr(s_g.level, f), getattr(s_c.level, f))
-        print(f"[paths] {f}: cuda vs cpu relative {e:.3e} (tol 1e-9)",
-              flush=True)
-        worst = max(worst, e)
-        if not e <= 1e-9:
-            raise AssertionError(f"cuda and cpu steps disagree in {f}: "
-                                 f"{e:.3e}")
+    starts = ("init_state", "perturbed_density") if vd else ("init_state",)
+    for start in starts:
+        s_c = vd_start(sim_c, start, torch)
+        s_g = st.sim_from_numpy(st.sim_to_numpy(s_c), "cuda", torch.float64)
+        for _ in range(3):
+            s_c = sim_c.advance(s_c)
+            s_g = sim_g.advance(s_g)
+        torch.cuda.synchronize()
+        for f in fields:
+            e = rel_state_err(getattr(s_g.level, f), getattr(s_c.level, f))
+            print(f"[paths] {name} from {start}, {f}: cuda vs cpu relative "
+                  f"{e:.3e} (tol 1e-9)", flush=True)
+            worst = max(worst, e)
+            if not e <= 1e-9:
+                raise AssertionError(f"{name} from {start}: cuda and cpu "
+                                     f"steps disagree in {f}: {e:.3e}")
     return worst
 
 
@@ -378,10 +598,105 @@ def phase_main(incflo_torch, gk, torch, n, warm, steps):
             "div_rel": div_rel}, sim, s
 
 
+def vd_projection_check(sim, s, mg, torch):
+    """The nodal projection of the final velocity once more, at the full
+    size on the card: sigma = dt/rho, V-cycles from zero to the deck's
+    tolerance.  Returns (residual / tolerance, V-cycles, max |D u|,
+    max |D u| dx / |u|)."""
+    grid, cfg = sim.grid, sim.cfg
+    u = s.level.velocity
+    solver = mg.NodalSolver(grid.dx, grid.periodic, P3, P3,
+                            s.dt / s.level.density, direct=False)
+    rhs = mg._nodes_unique(
+        mg.nodal_divergence(sim._pad_vel_for_divergence(u, 1.0), grid.dx),
+        solver.levels[0])
+    _, res, it = solver.solve_info(rhs, rtol=cfg.nodal_mg_rtol,
+                                   atol=cfg.nodal_mg_atol,
+                                   maxiter=cfg.nodal_mg_maxiter)
+    tol = max(cfg.nodal_mg_rtol * float((rhs - rhs.mean()).abs().max()),
+              cfg.nodal_mg_atol)
+    div = float(rhs.abs().max())
+    return (float(res) / tol, it, div,
+            div * min(grid.dx) / float(u.abs().max()))
+
+
+def phase_main_vd(incflo_torch, gk, sk, mg, torch, start, warm=2, steps=5):
+    """shear3d_vd at 128x128x32 f32 on the card from one of its starts."""
+    cfg = incflo_torch.IncfloConfig.from_text(
+        shear3d_deck(128, "float32", vd=True))
+    sim = incflo_torch.Simulation(cfg)
+    s = vd_start(sim, start, torch)
+    torch.cuda.synchronize()
+    gk.reset_launches()
+    sk.reset_launches()
+    mg.reset_counts()
+    s = sim.advance_n(s, warm)
+    torch.cuda.synchronize()
+    warm_counts = {**mg.COUNTS, **sk.LAUNCHES}
+    t0 = time.perf_counter()
+    s = sim.advance_n(s, steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {**gk.LAUNCHES, **sk.LAUNCHES}
+    per_step = {k: (v - warm_counts[k]) / steps
+                for k, v in {**mg.COUNTS, **sk.LAUNCHES}.items()}
+    total = warm + steps
+    for k, per in PER_STEP_VD.items():
+        if launches[k] != per * total:
+            raise AssertionError(f"shear3d_vd from {start}: kernel {k} "
+                                 f"launched {launches[k]} times in {total} "
+                                 f"steps, expected {per * total}")
+    for k in SMOOTHERS:
+        if not per_step[k] > 0:
+            raise AssertionError(f"shear3d_vd from {start}: kernel {k} was "
+                                 "not launched in the timed steps")
+    lvl = s.level
+    for f in ("velocity", "density", "tracer", "p", "gp", "mac_phi"):
+        if not bool(torch.isfinite(getattr(lvl, f)).all()):
+            raise AssertionError(f"shear3d_vd from {start}: non-finite {f}")
+    rho_lo, rho_hi = float(lvl.density.min()), float(lvl.density.max())
+    if not 0.5 < rho_lo <= rho_hi < 1.5:
+        raise AssertionError(f"shear3d_vd from {start}: density left "
+                             f"[0.5, 1.5]: {rho_lo}, {rho_hi}")
+    cells = 1
+    for c in cfg.grid.n_cell:
+        cells *= c
+    ms = (t1 - t0) / steps * 1e3
+    res_over_tol, cycles, div, div_rel = vd_projection_check(sim, s, mg,
+                                                             torch)
+    if not res_over_tol <= 1.0:
+        raise AssertionError(f"shear3d_vd from {start}: the nodal V-cycles "
+                             f"stopped at {res_over_tol:.2f} x tolerance")
+    if not div_rel <= 1e-2:
+        raise AssertionError(f"shear3d_vd from {start}: |div u| dx/|u| = "
+                             f"{div_rel:.3e}")
+    print(f"[main] shear3d_vd from {start} {cfg.grid.n_cell} f32: "
+          f"{ms:.3f} ms/step, {cells / (ms * 1e-3):.4e} cells/s over "
+          f"{steps} steps after {warm} warm-up; per step: "
+          f"{per_step['cell_iters']:.1f} CG iterations in "
+          f"{per_step['cell_solves']:.1f} cell solves, "
+          f"{per_step['nodal_cycles']:.1f} nodal V-cycles, "
+          f"{per_step['cell_smooth']:.1f} + {per_step['nodal_smooth']:.1f} "
+          f"smoother launches, {per_step['host_syncs']:.1f} host syncs; "
+          f"t={float(s.t):.6f} dt={float(s.dt):.6e} "
+          f"max|u|={float(lvl.velocity.abs().max()):.6f} rho in "
+          f"[{rho_lo:.4f}, {rho_hi:.4f}]; max|div u| {div:.3e} "
+          f"(dx/|u|: {div_rel:.2e}), re-projection residual "
+          f"{res_over_tol:.2f} x tol in {cycles} V-cycles; launches "
+          f"{launches}", flush=True)
+    return {"deck": "shear3d_vd", "start": start,
+            "n_cell": list(cfg.grid.n_cell), "ms_per_step": ms,
+            "cells_per_s": cells / (ms * 1e-3), "steps": steps,
+            "warmup": warm, "launches": launches, "per_step": per_step,
+            "max_div_u": div, "div_rel": div_rel,
+            "reprojection_res_over_tol": res_over_tol}, sim, s
+
+
 def phase_profile(sim, s, torch, n, wall_ms, steps=5):
     """Device time of `steps` steps by torch.profiler: the busy time per
     step against the step's wall time (from the unprofiled timed run),
-    split into the Godunov kernels, matrix products and the rest."""
+    split into the Godunov kernels, the smoother kernels, matrix products
+    and the rest."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -389,7 +704,7 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5):
         torch.cuda.synchronize()
     rows = prof.key_averages()
     print(rows.table(sort_by="cuda_time_total", row_limit=30))
-    groups = {"godunov": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"godunov": 0.0, "smoothers": 0.0, "matmul": 0.0, "other": 0.0}
     for e in rows:
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
@@ -398,6 +713,9 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5):
         k = e.key
         if any(t in k for t in ("uad_kernel", "predict_", "advect_")):
             groups["godunov"] += us
+        elif any(t in k for t in ("cell_pass", "cell_residual",
+                                  "nodal_pass", "nodal_residual")):
+            groups["smoothers"] += us
         elif "gemm" in k or "xmma" in k or "sgemm" in k:
             groups["matmul"] += us
         else:
@@ -406,7 +724,8 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5):
     print(f"[profile] n={n}: device busy {busy:.3f} ms/step of "
           f"{wall_ms:.3f} ms/step wall (idle share "
           f"{max(0.0, 1 - busy / wall_ms):.2f}); godunov kernels "
-          f"{groups['godunov'] / steps / 1e3:.3f}, matmul "
+          f"{groups['godunov'] / steps / 1e3:.3f}, smoother kernels "
+          f"{groups['smoothers'] / steps / 1e3:.3f}, matmul "
           f"{groups['matmul'] / steps / 1e3:.3f}, other "
           f"{groups['other'] / steps / 1e3:.3f} ms/step", flush=True)
 
@@ -431,7 +750,10 @@ def main(argv):
     sys.path.insert(0, HERE)
     import incflo_torch
     from incflo_torch.grid import Grid
+    from incflo_torch.ops import cuda_build
     from incflo_torch.ops import godunov_kernels as gk
+    from incflo_torch.ops import multigrid as mg
+    from incflo_torch.ops import smoother_kernels as sk
 
     def grid_of(n):
         nz = max(n // 4, 8)
@@ -439,21 +761,36 @@ def main(argv):
                     (True, True, True))
 
     t_start = time.time()
+    profile = "--profile" in argv
     name = torch.cuda.get_device_name(0)
     print(f"[device] {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    build_s = phase_build(gk)
+    build_s = phase_build(cuda_build, [gk.SOURCE, sk.SOURCE])
     kres = phase_kernels(gk, grid_of, torch)
+    sres = phase_smoothers(sk, mg, grid_of, torch)
+    phase_solvers(mg, torch)
     phase_paths(incflo_torch, torch)
+    phase_paths(incflo_torch, torch, vd=True)
     main128, sim, s = phase_main(incflo_torch, gk, torch, 128, 20, 20)
-    if "--profile" in argv:
+    if profile:
         phase_profile(sim, s, torch, 128, main128["ms_per_step"])
     del sim, s
-    main256, sim, s = phase_main(incflo_torch, gk, torch, 256, 2, 5)
-    if "--profile" in argv:
+    main256, sim, s = phase_main(incflo_torch, gk, torch, 256, 2, 3)
+    if profile:
         phase_profile(sim, s, torch, 256, main256["ms_per_step"])
     del sim, s
+    main_vd = []
+    for start in ("init_state", "perturbed_density"):
+        r, sim, s = phase_main_vd(incflo_torch, gk, sk, mg, torch, start)
+        if profile:
+            phase_profile(sim, s, torch, f"128 shear3d_vd from {start}",
+                          r["ms_per_step"])
+        main_vd.append(r)
+        del sim, s
 
+    # `launches` is the count over the kernel's own main path: shear3d
+    # n = 128 for the Godunov kernels (their count in shear3d_vd beside
+    # it), shear3d_vd from init_state for the smoothers
     kernels = []
     for k in PER_STEP:
         r = kres[k]
@@ -463,14 +800,37 @@ def main(argv):
             "replaces": gk.REPLACES[k],
             "launches": main128["launches"][k],
             "launches_per_step": PER_STEP[k],
+            "launches_shear3d_vd": [m["launches"][k] for m in main_vd],
             "max_abs_err": r["max_abs_err"],
             "max_rel_err_f32": r["max_rel_err_f32"], "tol_f32": TOL[k],
             "max_rel_err_f64": r["max_rel_err_f64"], "tol_f64": TOL_F64,
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "bytes": r["bytes"], "ops": r["ops"], "library_ms": None})
+    for k in SMOOTHERS:
+        r = sres[k]
+        fine = r["128x128x32"]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": "incflo_torch/csrc/smoothers.cu",
+            "replaces": sk.REPLACES[k],
+            "also_replaces": sk.ALSO_REPLACES[k],
+            "launches": main_vd[0]["launches"][k],
+            "launches_per_step": main_vd[0]["per_step"][k],
+            "launches_shear3d_vd": [m["launches"][k] for m in main_vd],
+            "max_abs_err": r["max_abs_err"],
+            "max_err_x_f32": r["max_err_x_f32"], "tol_x_f32": TOL_SMOOTH_X,
+            "max_err_res_f32": r["max_err_res_f32"],
+            "tol_res_f32": TOL_SMOOTH_RES,
+            "max_rel_err_f64": r["max_rel_err_f64"],
+            "tol_f64": TOL_SMOOTH_F64,
+            "shape": "128x128x32, 2 sweeps + residual, float32",
+            "ms": fine["ms"], "plain_ms": fine["plain_ms"],
+            "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
+            "bytes": fine["bytes"], "ops": fine["ops"], "library_ms": None,
+            "at_64x64x16": r["64x64x16"]})
     print(json.dumps({"kernels": kernels, "build_s": build_s,
-                      "main": [main128, main256],
+                      "main": [main128, main256] + main_vd,
                       "seconds": time.time() - t_start}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

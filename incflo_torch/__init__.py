@@ -3,10 +3,12 @@
 The same incompressible Navier-Stokes engine (Godunov advection, MAC and
 nodal projections, Crank-Nicolson tensor diffusion), written with
 PyTorch tensors and hand-written CUDA kernels for NVIDIA Hopper
-(csrc/godunov.cu).  It imports neither JAX nor incflo_tpu.
+(csrc/godunov.cu, csrc/smoothers.cu).  It imports neither JAX nor
+incflo_tpu.
 
-Scope today: shear3d-class decks -- 3D, fully periodic, one level,
-constant density, Newtonian, Godunov + Crank-Nicolson.  Other decks
+Scope today: 3D, fully periodic, one level, Newtonian, Godunov +
+Crank-Nicolson decks -- shear3d with constant density (direct solves)
+or with variable density and tracers (multigrid V-cycles).  Other decks
 raise NotImplementedError naming the ROADMAP item that ports them.
 
 Float32 matrix products run in full precision: importing the package

@@ -5,12 +5,15 @@ runs; reference DiffusionTensorOp, src/diffusion/*.cpp):
   eta_to_faces     : eta grown by 1 -> face averages
   compute_divtau   : div(tau)/rho, tau = eta(grad u + grad u^T) (tensor)
                      or eta grad u (scalar mode)
+  compute_laps     : div(mu_s grad s) per tracer
   diffuse_velocity : (rho - dt div(eta (grad + grad^T))) u = rho u*, the
-                     batched branch with a prebuilt constant-coefficient
-                     solver and the tensor CG on the cross coupling.
+                     batched branch (prebuilt constant-coefficient solver
+                     or one built from the current rho and eta) and the
+                     tensor CG on the cross coupling.
+  diffuse_scalar   : (rho - dt div(mu_s grad)) s = rho s* per tracer.
 
-The EB forms (ROADMAP A11), the per-component branch for mixed velocity
-BCs and the scalar solves (ROADMAP A9) are not ported yet and raise.
+The EB forms (ROADMAP A11) and the per-component branch for mixed
+velocity BCs (ROADMAP A9b) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -50,6 +53,19 @@ def velocity_solver_bc(cfg: IncfloConfig, comp: int):
     return lo, hi
 
 
+def scalar_solver_bc(cfg: IncfloConfig):
+    lo, hi = [], []
+    for ax in range(cfg.ndim):
+        for side, out in ((0, lo), (1, hi)):
+            if cfg.grid.periodic[ax]:
+                out.append(mg.SolverBC.PERIODIC)
+                continue
+            k = BCKind(int(cfg.bc_kind[ax, side]))
+            out.append(mg.SolverBC.DIRICHLET if k == BCKind.mass_inflow
+                       else mg.SolverBC.NEUMANN)
+    return lo, hi
+
+
 def velocity_bvals(cfg: IncfloConfig, comp: int, dtype,
                    device=None) -> Dict:
     """Dirichlet face values for velocity component `comp`, including the
@@ -66,6 +82,18 @@ def velocity_bvals(cfg: IncfloConfig, comp: int, dtype,
             if val.dim() > cfg.ndim:   # drop the component axis
                 val = val[..., 0]
             out[(ax, side)] = val
+    return out
+
+
+def tracer_bvals(cfg: IncfloConfig, comp: int, dtype, device=None) -> Dict:
+    out = {}
+    for ax in range(cfg.ndim):
+        if cfg.grid.periodic[ax]:
+            continue
+        for side in range(2):
+            out[(ax, side)] = torch.tensor(
+                float(cfg.bc_tracer[ax, side, comp]), dtype=dtype,
+                device=device)
     return out
 
 
@@ -113,6 +141,22 @@ def eta_to_faces(eta_g1: torch.Tensor, grid: Grid) -> List[torch.Tensor]:
 # ---------------------------------------------------------------------
 # explicit applies
 # ---------------------------------------------------------------------
+
+def compute_laps(tracer: torch.Tensor, eta_faces_per_comp,
+                 cfg: IncfloConfig, grid: Grid) -> torch.Tensor:
+    """div(mu_s grad s) per tracer component (inhomogeneous BCs)."""
+    bc_lo, bc_hi = scalar_solver_bc(cfg)
+    out = []
+    for n in range(tracer.shape[-1]):
+        lev = mg.CellLevel(grid.dx, tuple(bc_lo), tuple(bc_hi),
+                           alpha=0.0, beta=1.0, acoef=None,
+                           bcoef=tuple(eta_faces_per_comp[n]))
+        # L = -div(mu grad); laps = -L
+        out.append(-mg.cell_apply_inhom(
+            tracer[..., n], lev,
+            tracer_bvals(cfg, n, tracer.dtype, tracer.device)))
+    return torch.stack(out, dim=-1)
+
 
 def compute_divtau(vel: torch.Tensor, vel_g: torch.Tensor,
                    rho: torch.Tensor, eta_faces, eta_g1: torch.Tensor,
@@ -193,12 +237,13 @@ def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
 
         A(u) = aniso_helmholtz(u) - dt * cross_transpose(u)
 
-    preconditioned by the EXACT inverse of the anisotropic part (its
-    fast-diagonalization symbol).  Residuals use the inhomogeneous ghost
+    preconditioned by the EXACT inverse of the anisotropic part where it
+    has a fast-diagonalization symbol (constant coefficients), else by
+    the anisotropic solver's V-cycle.  Residuals use the inhomogeneous ghost
     fill (grow_fn), Krylov directions the homogeneous one (grow_hom_fn),
     which keeps A linear.  Adaptive loop of incflo_tpu/ops/diffusion.py
     :670-704: stop when the best residual is under tol, after maxiter,
-    or after 5 non-improving iterations.  Each iteration reads one bool
+    or after 5 non-improving iterations.  Each loop test reads one bool
     back to the host."""
     lev0 = solver.levels[0]
     ndim = grid.ndim
@@ -217,15 +262,15 @@ def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
     direct = (sym is not None and sym.fwd is not None
               and tuple(rhs.shape[:ndim]) == sym.cells
               and (rhs.dim() > ndim or not sym.batched))
-    if not direct:
-        raise NotImplementedError(mg._VCYCLE)
 
     def prec(r):
-        return spectral.solve(sym, r, lev0.alpha, lev0.beta, False)
+        if direct:
+            return spectral.solve(sym, r, lev0.alpha, lev0.beta, False)
+        return solver._vcycle(torch.zeros_like(r), r)[0]
 
     r0 = residual(x0)
     res0 = mg._maxnorm(r0)
-    if not bool(res0 > tol):
+    if not mg.host_bool(res0 > tol):
         return (x0, res0) if with_res else x0
     x, r = x0, r0
     p = prec(r0)
@@ -233,7 +278,7 @@ def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
     xb, rb = x0, res0
     bad = torch.zeros((), dtype=torch.int32, device=x0.device)
     it = 0
-    while it < maxiter and bool((rb > tol) & (bad < 5)):
+    while it < maxiter and mg.host_bool((rb > tol) & (bad < 5)):
         Ap = A_lin(p)
         denom = _dot(p, Ap)
         alpha = rz / torch.where(denom == 0, 1.0, denom)
@@ -256,21 +301,26 @@ def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
 def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
                      dt_diff, cfg: IncfloConfig, grid: Grid,
                      eta_g1=None, grow_fn=None, ng=None, grow_hom_fn=None,
-                     prebuilt_solver=None, return_tensor_res=False):
+                     prebuilt_solver=None, return_tensor_res=False,
+                     direct=True):
     """(rho - dt div(eta (grad + grad^T))) u = rho u*  (reference
     DiffusionTensorOp::diffuse_velocity).  Every component has the same
     operator here, so the components are one batched solve; the diagonal
     part of the transpose term (the 2*eta doubling of each component's
     own-axis flux) is folded into an anisotropic coefficient, and the
     remaining cross coupling is converged by the tensor CG, whose
-    Krylov directions take the homogeneous ghost fill grow_hom_fn."""
+    Krylov directions take the homogeneous ghost fill grow_hom_fn.
+    Without a prebuilt solver one is built from rho and eta_faces
+    (`direct` as for mg.CellSolver) and iterates from the warm start
+    `vel` after 4 fine-level sweeps: at CFL-limited dt the operator is
+    diagonally dominant and those often reach the tolerance alone."""
     dtype = vel.dtype
     acoef = rho
     bcs_all = [velocity_solver_bc(cfg, c) for c in range(grid.ndim)]
     if not all(b == bcs_all[0] for b in bcs_all):
         raise NotImplementedError(
             "per-component velocity solves (mixed wall BCs) are not "
-            "ported yet (ROADMAP A9)")
+            "ported yet (ROADMAP A9b)")
     tensor = (cfg.use_tensor_solve and grow_fn is not None
               and eta_g1 is not None)
     if prebuilt_solver is not None:
@@ -287,7 +337,7 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
         bc_lo, bc_hi = bcs_all[0]
         solver = mg.CellSolver(grid.dx, bc_lo, bc_hi, alpha=1.0,
                                beta=dt_diff, acoef=acoef[..., None],
-                               bcoef=tuple(eta_b))
+                               bcoef=tuple(eta_b), direct=direct)
     bvals = {}
     for ax in range(cfg.ndim):
         if grid.periodic[ax]:
@@ -298,7 +348,9 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
             vals = torch.broadcast_tensors(*vals)
             bvals[(ax, side)] = torch.stack(vals, dim=-1)
     rhs = acoef[..., None] * vel
-    out = solver.solve_inhom(rhs, bvals)
+    out = solver.solve_inhom(rhs, bvals, x0=vel, rtol=cfg.tensor_mg_rtol,
+                             atol=cfg.tensor_mg_atol,
+                             maxiter=cfg.tensor_mg_maxiter, presmooth=4)
     if tensor:
         cg_tol = torch.clamp_min(cfg.tensor_mg_rtol * mg._maxnorm(rhs),
                                  cfg.tensor_mg_atol)
@@ -314,3 +366,25 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
         return out, z, torch.full((), float("inf"), dtype=dtype,
                                   device=vel.device)
     return out
+
+
+def diffuse_scalar(tracer: torch.Tensor, rho: torch.Tensor,
+                   eta_faces_per_comp, dt_diff, cfg: IncfloConfig,
+                   grid: Grid) -> torch.Tensor:
+    """(rho - dt div(mu_s grad)) s = rho s* per tracer, from the warm
+    start s* after 4 fine-level sweeps.  The solver is built from the
+    step's rho and never looks for a direct solve (as incflo_tpu's,
+    built inside a trace)."""
+    bc_lo, bc_hi = scalar_solver_bc(cfg)
+    comps = []
+    for n in range(tracer.shape[-1]):
+        solver = mg.CellSolver(grid.dx, bc_lo, bc_hi, alpha=1.0,
+                               beta=dt_diff, acoef=rho,
+                               bcoef=tuple(eta_faces_per_comp[n]),
+                               direct=False)
+        comps.append(solver.solve_inhom(
+            rho * tracer[..., n],
+            tracer_bvals(cfg, n, tracer.dtype, tracer.device),
+            x0=tracer[..., n], rtol=cfg.diff_mg_rtol, atol=cfg.diff_mg_atol,
+            maxiter=cfg.diff_mg_maxiter, presmooth=4))
+    return torch.stack(comps, dim=-1)

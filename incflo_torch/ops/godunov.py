@@ -9,7 +9,7 @@ On fully periodic grids the chain has no boundary forms, so both
 dispatch to ops/godunov_kernels (the CUDA kernels on the card, their
 plain PyTorch versions on the CPU).  The wall and extdir forms,
 use_forces_in_trans and the use_mac_phi_in_godunov warm start wait for
-ROADMAP A8/A9 and raise.
+ROADMAP A8/A9b and raise.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ class GodunovScheme:
         if self.nd != 3 or not all(self.grid.periodic):
             raise NotImplementedError(
                 "incflo_torch GodunovScheme covers 3D fully periodic grids; "
-                "2D and the wall/extdir forms come with ROADMAP A8/A9")
+                "2D and the wall/extdir forms come with ROADMAP A8/A9b")
         if self.uft:
             raise NotImplementedError(
                 "godunov_use_forces_in_trans is not ported yet (ROADMAP A8)")

@@ -55,22 +55,21 @@ than float32/float64) there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import List, Sequence
 
 import torch
 
 from incflo_torch.grid import Grid
+from incflo_torch.ops import cuda_build
+from incflo_torch.ops.cuda_build import DT_CODE as _DT_CODE
+from incflo_torch.ops.cuda_build import check_rc
+from incflo_torch.ops.cuda_build import ptr as _ptr
+from incflo_torch.ops.cuda_build import stream as _stream
 
 SMALL_VEL = 1.0e-8          # reference incflo_godunov_ppm.H:16
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "godunov.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCE = cuda_build.CSRC_DIR / "godunov.cu"
 
 # launch counters: one per kernel, raised by the wrapper where it
 # launches the kernel and nowhere else
@@ -311,7 +310,7 @@ def _check_scope(grid: Grid, field, use_forces_in_trans: bool = False):
     if grid.ndim != 3 or not all(grid.periodic):
         raise NotImplementedError(
             "incflo_torch Godunov kernels cover 3D fully periodic grids; "
-            "the wall and extdir forms come with ROADMAP A8/A9")
+            "the wall and extdir forms come with ROADMAP A8/A9b")
     if use_forces_in_trans:
         raise NotImplementedError(
             "use_forces_in_trans is not ported yet (ROADMAP A8)")
@@ -350,63 +349,21 @@ def _cuda_checked(name, t, shape, dtype, device):
 
 
 # ---------------------------------------------------------------------
-# build and bind (nvcc into a shared library with a C interface, loaded
-# with ctypes); built at first use, keyed on a hash of the source
+# build and bind (ops/cuda_build.py): built at first use
 # ---------------------------------------------------------------------
-
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
-              # no FMA contraction: each operation rounds as the plain
-              # version's does, so the two agree to the last bits
-              "-fmad=false"]
 
 _LIB = None
 
 
-def _nvcc() -> str:
-    exe = shutil.which("nvcc")
-    if exe is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        exe = "/usr/local/cuda/bin/nvcc"
-    if exe is None:
-        raise RuntimeError("nvcc not found: the Godunov kernels are built "
-                           "on a host with the CUDA toolkit")
-    return exe
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libgodunov_{digest[:16]}.so"
-
-
 def build(ptxas_verbose: bool = False) -> Path:
-    """Compile csrc/godunov.cu unless this source's library exists.
-    Returns the library path; with ptxas_verbose the compiler's
-    register/spill report is printed."""
-    out = library_path()
-    if out.exists() and not ptxas_verbose:
-        return out
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    if ptxas_verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    if ptxas_verbose:
-        print(r.stderr)
-    os.replace(tmp, out)
-    return out
+    """Compile csrc/godunov.cu unless this source's library exists."""
+    return cuda_build.build(SOURCE, ptxas_verbose)
 
 
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = cuda_build.load(SOURCE)
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         geo = [I, I, I, D, D, D]
         lib.godunov_uad.argtypes = [I, P, I, P, P, P, P] + geo + [I, P]
@@ -421,25 +378,8 @@ def _lib():
     return _LIB
 
 
-def _check_rc(name, rc):
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {rc}")
-
-
 def _geo(grid):
     return (*grid.n_cell, *(float(d) for d in grid.dx))
-
-
-def _ptr(t, comp=0):
-    return ctypes.c_void_p(t.data_ptr() + comp * t.element_size())
-
-
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-_DT_CODE = {torch.float32: 0, torch.float64: 1}
 
 
 # ---------------------------------------------------------------------
@@ -460,7 +400,7 @@ def uad(grid: Grid, vel, dt, use_ppm: bool) -> List[torch.Tensor]:
     rc = _lib().godunov_uad(_DT_CODE[vel.dtype], _ptr(vel), 3,
                             *(_ptr(u) for u in out), _ptr(dt), *_geo(grid),
                             int(use_ppm), _stream(vel))
-    _check_rc("uad", rc)
+    check_rc("uad", rc)
     LAUNCHES["uad"] += 1
     return out
 
@@ -492,7 +432,7 @@ def predict_d(grid: Grid, vel, uad_faces, forces, dt, d: int,
                                   *(_ptr(u) for u in uad_faces), fptr, 3,
                                   _ptr(out), _ptr(scratch), _ptr(dt),
                                   *_geo(grid), int(use_ppm), _stream(vel))
-    _check_rc("predict_d", rc)
+    check_rc("predict_d", rc)
     LAUNCHES["predict_d"] += 1
     return out
 
@@ -537,7 +477,7 @@ def advect_comp(grid: Grid, q, n: int, umac, forces, dt, icons: bool,
                                _ptr(out, n), ncomp, _ptr(scratch), _ptr(dt),
                                *_geo(grid), int(use_ppm), int(icons),
                                _stream(q))
-    _check_rc("advect", rc)
+    check_rc("advect", rc)
     LAUNCHES["advect"] += 1
     return out[..., n]
 

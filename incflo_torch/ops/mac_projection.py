@@ -67,15 +67,21 @@ def mac_divergence(umac: Sequence[torch.Tensor], grid: Grid) -> torch.Tensor:
 
 def project_mac_velocities(umac: List[torch.Tensor],
                            beta: List[torch.Tensor], grid: Grid,
-                           bc_kind: np.ndarray, prebuilt_solver=None):
-    """Returns (umac_projected, phi), phi by a direct solve.  The EB and
-    coarse-fine forms of incflo_tpu come with ROADMAP A11/A13."""
+                           bc_kind: np.ndarray, phi0=None, rtol=1e-11,
+                           atol=1e-14, maxiter=200, prebuilt_solver=None,
+                           direct=True):
+    """Returns (umac_projected, phi).  With a prebuilt solver (constant
+    density) phi comes from its direct solve; otherwise a CellSolver is
+    built from `beta` and, unless its coefficients are constant and
+    `direct` lets it look, iterates from the warm start `phi0` to
+    rtol/atol.  The EB and coarse-fine forms of incflo_tpu come with
+    ROADMAP A11/A13."""
     bc_lo, bc_hi = projection_solver_bc(bc_kind, grid)
     solver = prebuilt_solver if prebuilt_solver is not None else \
         mg.CellSolver(grid.dx, bc_lo, bc_hi, alpha=0.0, beta=1.0,
-                      acoef=None, bcoef=beta)
+                      acoef=None, bcoef=beta, direct=direct)
     # L = -div(beta grad phi); solve L phi = -div(u)
     rhs = -mac_divergence(umac, grid)
-    phi = solver.solve(rhs)
+    phi = solver.solve(rhs, x0=phi0, rtol=rtol, atol=atol, maxiter=maxiter)
     fluxes = mg.cell_fluxes(phi, solver.levels[0])   # beta grad phi
     return [umac[d] - fluxes[d] for d in range(grid.ndim)], phi

@@ -1,5 +1,5 @@
 """Cell-centred and nodal operators and their solvers (port of the parts
-of incflo_tpu/ops/multigrid.py that the shear3d step runs).
+of incflo_tpu/ops/multigrid.py that fully periodic one-level steps run).
 
 Two operator families:
 
@@ -10,11 +10,19 @@ Two operator families:
   NodalLevel : the Q1 finite-element nodal sigma-Poisson operator of the
                approximate projection (AMReX MLNodeLaplacian).
 
-CellSolver and NodalSolver take the direct path only: constant-coefficient
-operators with every axis <= 256 cells are solved by per-axis fast
-diagonalization (ops/spectral.py), longer periodic axes by rfftn.  Where
-the JAX package would run a multigrid V-cycle they raise; the V-cycles,
-the PCG and the smoother kernels come with ROADMAP A9.
+CellSolver and NodalSolver solve constant-coefficient operators directly
+(per-axis fast diagonalization for axes <= 256 cells, rfftn for longer
+periodic axes; ops/spectral.py) and everything else by geometric
+multigrid: V-cycles over the coarsened hierarchy (2^D cell averaging /
+nodal full weighting down, (bi/tri)linear prolongation up), red-black
+Gauss-Seidel with analytic diagonals as the smoother.  The cell solver
+wraps the V-cycle in conjugate gradients, the nodal solver iterates it.
+
+JAX's lax.while_loop / lax.cond are Python loops here that read one bool
+per iteration back to the host; COUNTS tallies those reads, the solves
+and their iterations.  The smoother runs through ops/smoother_kernels
+(CUDA kernels on the card, their plain versions on the CPU), which cover
+fully periodic 3D levels; walled levels raise until ROADMAP A9b.
 """
 
 from __future__ import annotations
@@ -33,8 +41,26 @@ class SolverBC(enum.IntEnum):
     DIRICHLET = 2   # value on the domain face
 
 
-_VCYCLE = ("multigrid V-cycles are not ported yet (ROADMAP A9): "
-           "incflo_torch solves constant-coefficient systems directly")
+_WALLED = ("multigrid smoothing of walled or 2D levels is not ported yet "
+           "(ROADMAP A9b): the smoother kernels cover fully periodic 3D "
+           "levels")
+
+# host-side tallies of the iterative solves since reset_counts(): solves
+# that iterated, their CG iterations / V-cycles, and the bools read back
+# from the device to steer the loops
+COUNTS = {"cell_solves": 0, "cell_iters": 0, "nodal_solves": 0,
+          "nodal_cycles": 0, "host_syncs": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def host_bool(flag) -> bool:
+    """Read a 0-d bool tensor back to the host (one device sync)."""
+    COUNTS["host_syncs"] += 1
+    return bool(flag)
 
 
 # =====================================================================
@@ -68,6 +94,12 @@ def _zero_pad(x, axis, lo=1, hi=1):
     if hi:
         shape[axis] = hi
         parts.append(x.new_zeros(shape))
+    return torch.cat(parts, dim=axis)
+
+
+def _edge_pad(x, axis, lo=1, hi=1):
+    n = x.shape[axis]
+    parts = [x.narrow(axis, 0, 1)] * lo + [x] + [x.narrow(axis, n - 1, 1)] * hi
     return torch.cat(parts, dim=axis)
 
 
@@ -262,13 +294,51 @@ def _coarsen_face(b, axis, ndim):
     return b
 
 
+def _interleave(even, odd, axis):
+    st = torch.stack([even, odd], dim=axis + 1)
+    shape = list(even.shape)
+    shape[axis] *= 2
+    return st.reshape(shape)
+
+
+def _prolong_cells(c, lev: CellLevel):
+    """(Bi/tri)linear cell-centred prolongation of a correction:
+    fine[2i] = 0.75*c[i] + 0.25*c[i-1], fine[2i+1] = 0.75*c[i] + 0.25*c[i+1]
+    with ghost = wrap (periodic), edge (Neumann), zero (Dirichlet)."""
+    for ax in range(len(lev.dx)):
+        if lev.bc_lo[ax] == SolverBC.PERIODIC:
+            cp = _wrap_pad(c, ax)
+        else:
+            lo_pad = _edge_pad if lev.bc_lo[ax] == SolverBC.NEUMANN \
+                else _zero_pad
+            hi_pad = _edge_pad if lev.bc_hi[ax] == SolverBC.NEUMANN \
+                else _zero_pad
+            cp = hi_pad(lo_pad(c, ax, lo=1, hi=0), ax, lo=0, hi=1)
+        n = cp.shape[ax]
+        mid = cp.narrow(ax, 1, n - 2)
+        even = 0.75 * mid + 0.25 * cp.narrow(ax, 0, n - 2)
+        odd = 0.75 * mid + 0.25 * cp.narrow(ax, 2, n - 2)
+        c = _interleave(even, odd, ax)
+    return c
+
+
 class CellSolver:
-    """Solver for the cell-centred operator on one grid (direct path)."""
+    """Geometric multigrid (and, for constant coefficients, a direct
+    solve) for the cell-centred operator on one grid.
+
+    direct=False skips the search for a constant-coefficient direct
+    solve, which reads the coefficients back to the host: the solvers a
+    variable-density step builds from its current state pass it, as
+    incflo_tpu's are built inside a trace and never find one."""
 
     def __init__(self, dx, bc_lo, bc_hi, alpha, beta, acoef, bcoef,
-                 max_levels=30, ebc=None):
+                 max_levels=30, nu1=1, nu2=1, nu_bottom=8, ebc=None,
+                 direct=True):
+        # V(1,1) + 8 bottom sweeps: CG acceleration tolerates the weaker
+        # preconditioner
         ndim = len(dx)
         self.ndim = ndim
+        self.nu1, self.nu2, self.nu_bottom = nu1, nu2, nu_bottom
         if ebc is not None:
             raise NotImplementedError("EB wall coefficients come with "
                                       "ROADMAP A11")
@@ -278,8 +348,6 @@ class CellSolver:
                         acoef, tuple(bcoef), None)
         cells = tuple(acoef.shape[:ndim]) if acoef is not None else tuple(
             bcoef[0].shape[ax] - (1 if ax == 0 else 0) for ax in range(ndim))
-        # the coarsened hierarchy the V-cycles of ROADMAP A9 will run on;
-        # with_beta rescales its diagonals
         while True:
             levels.append(lev)
             if len(levels) >= max_levels:
@@ -295,21 +363,51 @@ class CellSolver:
                       for ax in range(ndim)), None)
         self.levels = levels
         self.diags = [cell_diag(l) for l in levels]
+        self._coefs = None
         self.singular = (alpha == 0.0) and all(
             b != SolverBC.DIRICHLET for b in list(bc_lo) + list(bc_hi))
-        from incflo_torch.ops import spectral
-        self.symbol = spectral.cell_symbol(levels[0])
+        self.symbol = None
+        if direct:
+            from incflo_torch.ops import spectral
+            self.symbol = spectral.cell_symbol(levels[0])
+
+    def smoother_coefs(self):
+        """(dinvs, fhis): per level, what the smoother kernel reads beside
+        diag -- the guarded reciprocal of the diagonal (from its global
+        max, so it is taken once per hierarchy and not in every call) and
+        the cell-shaped high-face coefficients scaled by beta/dx^2.  Built
+        at the first smooth: a solver that only ever solves directly
+        never pays for them."""
+        if self._coefs is None:
+            from incflo_torch.ops import smoother_kernels as sk
+            lev0 = self.levels[0]
+            if self.ndim != 3 or any(b != SolverBC.PERIODIC
+                                     for b in lev0.bc_lo + lev0.bc_hi):
+                raise NotImplementedError(_WALLED)
+            dinvs = [sk.guarded_reciprocal(d) for d in self.diags]
+            fhis = []
+            for lev, diag in zip(self.levels, self.diags):
+                fh = []
+                for ax in range(3):
+                    b = lev.bcoef[ax]
+                    hi = b.narrow(ax, 1, b.shape[ax] - 1)
+                    scaled = (lev.beta / (lev.dx[ax] * lev.dx[ax])) * hi
+                    fh.append(scaled.expand_as(diag).contiguous())
+                fhis.append(tuple(fh))
+            self._coefs = (dinvs, fhis)
+        return self._coefs
 
     def to(self, device) -> "CellSolver":
         out = copy.copy(self)
         out.levels = [_move(l, device) for l in self.levels]
-        out.diags = [d.to(device) for d in self.diags]
-        out.symbol = _move(self.symbol, device)
+        out.diags, out._coefs, out.symbol = _move(
+            [self.diags, self._coefs, self.symbol], device)
         return out
 
     def with_beta(self, beta):
         """Same coefficient hierarchy, new beta scalar (beta = dt per
-        step); only the beta-scaled diagonals are recomputed."""
+        step); only the beta-scaled diagonals are recomputed here, and
+        the smoother's coefficients when a smooth next needs them."""
         out = copy.copy(self)
         out.levels = [dataclasses.replace(l, beta=beta) for l in self.levels]
         out.diags = []
@@ -318,28 +416,103 @@ class CellSolver:
                                   else 0.0)
             faceparts = (d_old - base) / l_old.beta
             out.diags.append(base + beta * faceparts)
+        out._coefs = None
         return out
 
-    def solve(self, rhs):
-        """x = L^{-1} rhs by the direct solve (exact to rounding, so no
-        tolerance or iteration count applies)."""
+    # -- smoother and V-cycle ------------------------------------------
+    def _smooth_res(self, x, b, li, n, want_residual):
+        """n red-black sweeps (+ the residual b - L(x)) on level li, in
+        the kernel's diag-extracted form on either device."""
+        from incflo_torch.ops import smoother_kernels as sk
+        dinvs, fhis = self.smoother_coefs()
+        return sk.cell_smooth(x, b, self.diags[li], dinvs[li], fhis[li], n,
+                              want_residual)
+
+    def _smooth(self, x, b, li, n):
+        return self._smooth_res(x, b, li, n, False)[0]
+
+    def _vcycle(self, x, b, li=0, want_residual=False):
+        if li == len(self.levels) - 1:
+            return self._smooth_res(x, b, li, self.nu_bottom, want_residual)
+        x, r = self._smooth_res(x, b, li, self.nu1, True)
+        rc = _coarsen_cells(r, self.ndim)
+        ec, _ = self._vcycle(torch.zeros_like(rc), rc, li + 1)
+        x = x + _prolong_cells(ec, self.levels[li + 1])
+        return self._smooth_res(x, b, li, self.nu2, want_residual)
+
+    def solve_info(self, rhs, x0=None, rtol=1e-11, atol=1e-14, maxiter=200,
+                   presmooth=0):
+        """(x, resnorm, iters) with L x = rhs.  Constant-coefficient
+        operators are solved directly (iters = 1, resnorm not computed).
+        Otherwise V-cycle-preconditioned conjugate gradients from x0,
+        ended by the tolerance max(rtol*|rhs|, atol) on the max-norm
+        residual, by maxiter, or by stagnation (5 iterations without
+        improving the best residual: the floor of the working precision);
+        the best iterate is returned.  presmooth > 0 runs that many
+        fine-level sweeps first and skips the CG when they already reach
+        the tolerance (the diagonally dominant Helmholtz solves from a
+        warm start).  Each loop test reads one bool back to the host."""
         lev = self.levels[0]
-        sym = self.symbol
         if self.singular:
             rhs = rhs - torch.mean(rhs)
-        if not (sym is not None
+        sym = self.symbol
+        if (sym is not None
                 and tuple(rhs.shape[:self.ndim]) == sym.cells
                 and (rhs.dim() > self.ndim or not sym.batched)):
-            raise NotImplementedError(_VCYCLE)
-        from incflo_torch.ops import spectral
-        return spectral.solve(sym, rhs, lev.alpha, lev.beta, self.singular)
+            from incflo_torch.ops import spectral
+            x = spectral.solve(sym, rhs, lev.alpha, lev.beta, self.singular)
+            return x, torch.zeros((), dtype=rhs.dtype, device=rhs.device), 1
+        if x0 is None:
+            x0 = torch.zeros_like(rhs)
+        tol = torch.clamp_min(rtol * _maxnorm(rhs), atol)
+        r0 = rhs - cell_apply(x0, lev)
+        res0 = _maxnorm(r0)
+        if presmooth > 0 and host_bool(res0 > tol):
+            x0 = self._smooth(x0, rhs, 0, presmooth)
+            r0 = rhs - cell_apply(x0, lev)
+            res0 = _maxnorm(r0)
+        x, res, it = x0, res0, 0
+        if host_bool(res0 > tol):
+            COUNTS["cell_solves"] += 1
+            r = r0
+            p, _ = self._vcycle(torch.zeros_like(r0), r0)
+            rz = torch.sum(r0 * p)
+            # CG's max-norm residual is non-monotone: track the best
+            # iterate and stop only after several non-improving iterations
+            xb, rb = x0, res0
+            bad = torch.zeros((), dtype=torch.int32, device=rhs.device)
+            while it < maxiter and host_bool((rb > tol) & (bad < 5)):
+                Ap = cell_apply(p, lev)
+                denom = torch.sum(p * Ap)
+                a = rz / torch.where(denom == 0, 1.0, denom)
+                x = x + a * p
+                r = r - a * Ap
+                z, _ = self._vcycle(torch.zeros_like(r), r)
+                rz_new = torch.sum(r * z)
+                p = z + (rz_new / torch.where(rz == 0, 1.0, rz)) * p
+                rz = rz_new
+                new_res = _maxnorm(r)
+                improved = new_res < 0.999 * rb
+                xb = torch.where(improved, x, xb)
+                rb = torch.minimum(rb, new_res)
+                bad = torch.where(improved, 0, bad + 1)
+                it += 1
+            COUNTS["cell_iters"] += it
+            x, res = xb, rb
+        if self.singular:
+            x = x - torch.mean(x)
+        return x, res, it
 
-    def solve_inhom(self, rhs, bvals):
+    def solve(self, rhs, **kw):
+        """x of solve_info."""
+        return self.solve_info(rhs, **kw)[0]
+
+    def solve_inhom(self, rhs, bvals, **kw):
         """Solve with inhomogeneous Dirichlet face values `bvals`
         ((axis, side) -> value), folded into the RHS."""
         offset = cell_apply_inhom(torch.zeros_like(rhs), self.levels[0],
                                   bvals)
-        return self.solve(rhs - offset)
+        return self.solve(rhs - offset, **kw)
 
 
 # =====================================================================
@@ -506,19 +679,81 @@ def nodal_apply(phi, lev: NodalLevel):
     return _apply_dirichlet_mask(t[()], lev, identity_from=phi)
 
 
-class NodalSolver:
-    """Solver for the nodal sigma-Poisson system (direct path)."""
+def _nodal_weight0(lev: NodalLevel) -> float:
+    """Q1 stencil weight of the node itself (Delta = 0):
+    -(1/V) sum_d (1/h_d) prod_{d' != d} (h_d'/3)."""
+    ndim = len(lev.dx)
+    vol = 1.0
+    for d in lev.dx:
+        vol *= d
+    w = 0.0
+    for d in range(ndim):
+        term = 1.0 / lev.dx[d]
+        for dp in range(ndim):
+            if dp != d:
+                term *= lev.dx[dp] / 3.0
+        w += term
+    return -w / vol
 
-    def __init__(self, dx, periodic, bc_lo, bc_hi, sigma, max_levels=30):
+
+def nodal_diag(lev: NodalLevel):
+    """diag(L): the Delta = 0 stencil coefficient times the box-sum of the
+    2^D sigmas around the node; 1 on Dirichlet rows."""
+    ndim = len(lev.dx)
+    s0 = lev.sigma_pad
+    for ax in range(ndim):
+        n_nodes = lev.cells[ax] + 1
+        s0 = s0.narrow(ax, 0, n_nodes) + s0.narrow(ax, 1, n_nodes)
+    s0 = _nodes_unique(s0, lev)
+    d = _nodal_weight0(lev) * s0
+    return _apply_dirichlet_mask(d, lev, identity_from=torch.ones_like(d))
+
+
+def _restrict_nodal(r, lev_f: NodalLevel):
+    """Full weighting (1/4, 1/2, 1/4)^D onto coincident coarse nodes."""
+    for ax in range(len(lev_f.dx)):
+        rp = _wrap_pad(r, ax) if lev_f.periodic[ax] else _zero_pad(r, ax)
+        n = rp.shape[ax]
+        fw = (0.25 * rp.narrow(ax, 0, n - 2) + 0.5 * rp.narrow(ax, 1, n - 2)
+              + 0.25 * rp.narrow(ax, 2, n - 2))
+        r = _slice_axis(fw, ax, slice(0, fw.shape[ax], 2))
+    return r
+
+
+def _prolong_nodal(c, lev_f: NodalLevel):
+    """Linear nodal prolongation: even fine nodes copy, odd average."""
+    for ax in range(len(lev_f.dx)):
+        n = c.shape[ax]
+        if lev_f.periodic[ax]:
+            cp = _wrap_pad(c, ax, lo=0, hi=1)
+            even = cp.narrow(ax, 0, n)
+            odd = 0.5 * (cp.narrow(ax, 0, n) + cp.narrow(ax, 1, n))
+            c = _interleave(even, odd, ax)
+        else:
+            odd = 0.5 * (c.narrow(ax, 0, n - 1) + c.narrow(ax, 1, n - 1))
+            body = _interleave(c.narrow(ax, 0, n - 1), odd, ax)
+            c = torch.cat([body, c.narrow(ax, n - 1, 1)], dim=ax)
+    return c
+
+
+class NodalSolver:
+    """Geometric multigrid (and, for constant sigma, a direct solve) for
+    the nodal sigma-Poisson system.  direct=False as for CellSolver."""
+
+    def __init__(self, dx, periodic, bc_lo, bc_hi, sigma, max_levels=30,
+                 nu1=2, nu2=2, nu_bottom=24, direct=True):
         ndim = len(dx)
         self.ndim = ndim
+        self.nu1, self.nu2, self.nu_bottom = nu1, nu2, nu_bottom
         levels: List[NodalLevel] = []
+        sigmas = []
         lev = NodalLevel(tuple(dx), tuple(periodic),
                          tuple(int(b) for b in bc_lo),
                          tuple(int(b) for b in bc_hi), sigma)
         cells = tuple(sigma.shape)
         while True:
             levels.append(lev.with_stencil())
+            sigmas.append(lev.sigma.contiguous())
             if len(levels) >= max_levels:
                 break
             if any(n % 2 != 0 or n < 4 for n in cells):
@@ -528,28 +763,83 @@ class NodalSolver:
                              lev.bc_lo, lev.bc_hi,
                              _coarsen_cells(lev.sigma, ndim))
         self.levels = levels
+        self.sigmas = sigmas    # interior (unpadded) sigma of each level
+        self.diags = [nodal_diag(l) for l in levels]
+        # guarded: nodes surrounded by (near-)zero sigma get no update
+        from incflo_torch.ops import smoother_kernels as sk
+        self.dinvs = [sk.guarded_reciprocal(d) for d in self.diags]
         self.singular = all(
             b != SolverBC.DIRICHLET for b in list(bc_lo) + list(bc_hi))
-        from incflo_torch.ops import spectral
-        self.symbol = spectral.nodal_symbol(levels[0])
+        self.symbol = None
+        if direct:
+            from incflo_torch.ops import spectral
+            self.symbol = spectral.nodal_symbol(levels[0])
 
     def to(self, device) -> "NodalSolver":
         out = copy.copy(self)
         out.levels = [_move(l, device) for l in self.levels]
-        out.symbol = _move(self.symbol, device)
+        out.sigmas, out.diags, out.dinvs, out.symbol = _move(
+            [self.sigmas, self.diags, self.dinvs, self.symbol], device)
         return out
 
-    def solve(self, rhs):
-        """x = L^{-1} rhs by the direct solve (exact to rounding)."""
+    # -- smoother and V-cycle ------------------------------------------
+    def _smooth_res(self, x, b, li, n, want_residual):
+        """n red-black sweeps (+ the residual b - L(x)) on level li."""
+        lev = self.levels[li]
+        if self.ndim != 3 or not all(lev.periodic):
+            raise NotImplementedError(_WALLED)
+        from incflo_torch.ops import smoother_kernels as sk
+        return sk.nodal_smooth(x, b, self.sigmas[li], self.dinvs[li], lev.dx,
+                               n, want_residual)
+
+    def _vcycle(self, x, b, li=0, want_residual=False):
+        lev = self.levels[li]
+        if li == len(self.levels) - 1:
+            return self._smooth_res(x, b, li, self.nu_bottom, want_residual)
+        x, r = self._smooth_res(x, b, li, self.nu1, True)
+        rc = _restrict_nodal(_zero_dirichlet(r, lev), lev)
+        rc = _zero_dirichlet(rc, self.levels[li + 1])
+        ec, _ = self._vcycle(torch.zeros_like(rc), rc, li + 1)
+        x = x + _prolong_nodal(ec, lev)
+        return self._smooth_res(x, b, li, self.nu2, want_residual)
+
+    def solve_info(self, rhs, x0=None, rtol=1e-11, atol=1e-14, maxiter=100):
+        """(x, resnorm, cycles) with L x = rhs.  Constant sigma is solved
+        directly (cycles = 1, resnorm not computed).  Otherwise V-cycles
+        from x0 until the max-norm residual is under max(rtol*|rhs|, atol),
+        maxiter is reached, or a cycle gains less than 0.1% (true
+        stagnation at the rounding floor: stiff variable-coefficient
+        problems legitimately converge at 0.95-0.99 per cycle and must
+        not be cut off early).  Each loop test reads one bool back to the
+        host."""
         lev = self.levels[0]
         if self.singular:
             rhs = rhs - torch.mean(rhs)
         rhs = _zero_dirichlet(rhs, lev)
-        if not (self.symbol is not None
-                and tuple(rhs.shape) == self.symbol.cells):
-            raise NotImplementedError(_VCYCLE)
-        from incflo_torch.ops import spectral
-        return spectral.solve(self.symbol, rhs, 0.0, 1.0, self.singular)
+        if self.symbol is not None and tuple(rhs.shape) == self.symbol.cells:
+            from incflo_torch.ops import spectral
+            x = spectral.solve(self.symbol, rhs, 0.0, 1.0, self.singular)
+            return x, torch.zeros((), dtype=rhs.dtype, device=rhs.device), 1
+        if x0 is None:
+            x0 = torch.zeros_like(rhs)
+        tol = torch.clamp_min(rtol * _maxnorm(rhs), atol)
+        x, it = x0, 0
+        res = _maxnorm(rhs - nodal_apply(x0, lev))
+        prev = torch.full_like(res, float("inf"))
+        while it < maxiter and host_bool((res > tol) & (res < 0.999 * prev)):
+            x, r = self._vcycle(x, rhs, want_residual=True)
+            prev, res = res, _maxnorm(r)
+            it += 1
+        if it:
+            COUNTS["nodal_solves"] += 1
+            COUNTS["nodal_cycles"] += it
+        if self.singular:
+            x = x - torch.mean(x)
+        return x, res, it
+
+    def solve(self, rhs, **kw):
+        """x of solve_info."""
+        return self.solve_info(rhs, **kw)[0]
 
     def grad_at_cells(self, phi):
         """Gradient of nodal phi at cell centres, components last."""

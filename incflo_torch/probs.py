@@ -20,8 +20,8 @@ from incflo_torch.state import LevelState, zeros_level
 
 TWOPI = 2.0 * math.pi
 
-_LATER = {1: "A8", 2: "A8", 3: "A8", 4: "A8", 5: "A9", 11: "A9",
-          111: "A9", 112: "A9", 113: "A9", 12: "A9", 6: "A11"}
+_LATER = {1: "A8", 2: "A8", 3: "A8", 4: "A8", 5: "A9b", 11: "A9b",
+          111: "A9b", 112: "A9b", 113: "A9b", 12: "A9b", 6: "A11"}
 
 
 def _coords_no_offset(grid: Grid, dtype, device):
@@ -41,7 +41,7 @@ def init_fluid(cfg: IncfloConfig, grid: Grid, dtype, device) -> LevelState:
     """prob_init_fluid: the t=0 LevelState on `grid`."""
     pt = cfg.probtype
     if pt != 21:
-        item = _LATER.get(pt, "A8/A9/A11")
+        item = _LATER.get(pt, "A8/A9b/A11")
         raise NotImplementedError(
             f"incflo_torch: probtype {pt} is not ported yet "
             f"(ROADMAP {item}); this slice runs probtype 21")

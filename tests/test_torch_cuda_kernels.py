@@ -1,5 +1,5 @@
-"""The CUDA Godunov kernels (incflo_torch/csrc/godunov.cu) against their
-plain PyTorch versions, on the card.
+"""The CUDA kernels (incflo_torch/csrc/godunov.cu, csrc/smoothers.cu)
+against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc; they skip where
 torch.cuda.is_available() is false.  Run them on a GPU host with
@@ -10,7 +10,10 @@ need not have).
 Tolerances: float64 1e-10 relative to the field's max (the kernels repeat
 the plain version's operations with no FMA contraction, so they agree to
 rounding); float32 2e-5 (predict) and 3e-4 (advect) of the field's max,
-the tolerances of tests/test_pallas_godunov.py.
+the tolerances of tests/test_pallas_godunov.py.  The smoothers: float64
+1e-12 relative; float32 2e-6 absolute on x and 5e-4 on the residual for
+O(1) fields on a unit-spaced level scale (the limits of
+tests/test_pallas_kernels.py).
 """
 
 import numpy as np
@@ -18,7 +21,9 @@ import pytest
 import torch
 
 from incflo_torch.grid import Grid
+from incflo_torch.ops import cuda_build
 from incflo_torch.ops import godunov_kernels as gk
+from incflo_torch.ops import smoother_kernels as sk
 
 pytestmark = pytest.mark.cuda
 
@@ -27,7 +32,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    gk.build()
+    cuda_build.build_all([gk.SOURCE, sk.SOURCE])
     return torch.device("cuda")
 
 
@@ -104,3 +109,76 @@ def test_kernels_raise_outside_scope(cuda):
                    use_forces_in_trans=True)
     with pytest.raises(TypeError):
         gk.uad(_grid((8, 8, 8)), vel.half(), 0.01, True)
+
+
+# (8, 4, 2): two cells along z; (9, 5, 7): odd sizes, ragged last block
+SMOOTH_SHAPES = [(16, 8, 16), (32, 8, 16), (8, 4, 2), (9, 5, 7)]
+
+
+def _smooth_check(got, ref, dtype):
+    for (a, b), atol in zip(zip(got, ref), (2e-6, 5e-4)):
+        if dtype == torch.float64:
+            assert _rel(a, b) <= 1e-12
+        else:
+            assert float((a - b).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", SMOOTH_SHAPES)
+@pytest.mark.parametrize("ncomp", [0, 3])
+@pytest.mark.parametrize("nsweeps", [0, 2, 8])
+def test_cell_smooth_kernel_matches_plain(cuda, dtype, shape, ncomp,
+                                          nsweeps):
+    rng = np.random.default_rng(6)
+    full = shape + ((ncomp,) if ncomp else ())
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    F = [t(0.5 + rng.random(full)) for _ in range(3)]
+    diag = t(1.0 + rng.random(full)) + sum(
+        f + torch.roll(f, 1, dims=ax) for ax, f in enumerate(F))
+    dinv = sk.guarded_reciprocal(diag)
+    x, b = t(rng.standard_normal(full)), t(rng.standard_normal(full))
+    x_in = x.clone()
+    n0 = sk.LAUNCHES["cell_smooth"]
+    got = sk.cell_smooth(x, b, diag, dinv, F, nsweeps, True)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["cell_smooth"] == n0 + 1
+    assert torch.equal(x, x_in)          # the input is not smoothed in place
+    _smooth_check(got, sk.cell_smooth_plain(x, b, diag, dinv, F, nsweeps,
+                                            True), dtype)
+    only_x, none = sk.cell_smooth(x, b, diag, dinv, F, nsweeps, False)
+    assert none is None and torch.equal(only_x, got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", SMOOTH_SHAPES)
+@pytest.mark.parametrize("nsweeps", [0, 2, 24])
+def test_nodal_smooth_kernel_matches_plain(cuda, dtype, shape, nsweeps):
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    sigma = t(0.6 + 0.8 * rng.random(shape))
+    dx = (1.0, 0.5, 0.25)
+    box = sigma
+    for ax in range(3):
+        box = box + torch.roll(box, 1, dims=ax)
+    w0 = -sum(1.0 / d ** 2 for d in dx) / 9.0
+    dinv = sk.guarded_reciprocal(w0 * box)
+    x, b = t(rng.standard_normal(shape)), t(rng.standard_normal(shape))
+    n0 = sk.LAUNCHES["nodal_smooth"]
+    got = sk.nodal_smooth(x, b, sigma, dinv, dx, nsweeps, True)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["nodal_smooth"] == n0 + 1
+    _smooth_check(got, sk.nodal_smooth_plain(x, b, sigma, dinv, dx, nsweeps,
+                                             True), dtype)
+    only_x, none = sk.nodal_smooth(x, b, sigma, dinv, dx, nsweeps, False)
+    assert none is None and torch.equal(only_x, got[0])
+
+
+def test_smoothers_raise_outside_scope(cuda):
+    m = torch.zeros((8, 4, 6), device=cuda)
+    with pytest.raises(NotImplementedError):
+        sk.nodal_smooth(m[0], m[0], m[0], m[0], (1.0, 1.0, 1.0), 2, True)
+    with pytest.raises(TypeError):
+        sk.cell_smooth(m.half(), m.half(), m.half(), m.half(),
+                       (m.half(),) * 3, 2, True)
+    with pytest.raises(ValueError):
+        sk.cell_smooth(m, m, m, m.cpu(), (m, m, m), 2, True)

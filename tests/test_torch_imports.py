@@ -24,7 +24,8 @@ def _forbidden(name):
 def test_no_forbidden_imports_in_source():
     files = sorted((ROOT / "incflo_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 15
+    assert len(files) >= 17
+    assert any(p.name == "smoother_kernels.py" for p in files)
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -40,7 +41,9 @@ def test_no_forbidden_imports_in_source():
 
 def test_import_leaves_no_jax_in_modules():
     code = ("import sys, incflo_torch, incflo_torch.simulation, "
-            "incflo_torch.ops.godunov_kernels\n"
+            "incflo_torch.ops.godunov_kernels, "
+            "incflo_torch.ops.smoother_kernels, "
+            "incflo_torch.ops.cuda_build\n"
             "bad = [m for m in sys.modules if any(m == f or "
             "m.startswith(f + '.') for f in ('jax', 'jaxlib', "
             "'incflo_tpu'))]\n"
@@ -119,3 +122,15 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu(monkeypatch):
 def test_decks_outside_the_slice_raise(config, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         incflo_torch.Simulation(_cfg(extra, config), device="cpu")
+
+
+def test_variable_density_periodic_deck_is_accepted():
+    """Fully periodic 3D decks run with variable density and tracers,
+    with no prebuilt direct solvers; the walled rt deck of the same
+    physics still waits for ROADMAP A9b."""
+    vd = ("incflo.constant_density = false\nincflo.advect_tracer = true\n"
+          "incflo.mu_s = 0.0002\n")
+    sim = incflo_torch.Simulation(_cfg(vd), device="cpu")
+    assert sim._mac_solver is None and sim._diff_proto is None
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
+        incflo_torch.Simulation(_cfg("", "rt"), device="cpu")
