@@ -17,8 +17,17 @@ import numpy as np
 import pytest
 import torch
 
+import bench
+from incflo_tpu import bcs as jbcs
+from incflo_tpu.config import IncfloConfig as JConfig
+from incflo_tpu.ops import diffusion as jdiff
+from incflo_tpu.ops import mac_projection as jmac
 from incflo_tpu.ops import multigrid as jmg
 
+from incflo_torch import bcs as tbcs
+from incflo_torch.config import IncfloConfig as TConfig
+from incflo_torch.ops import diffusion as tdiff
+from incflo_torch.ops import mac_projection as tmac
 from incflo_torch.ops import multigrid as tmg
 
 N = (16, 16, 8)
@@ -46,9 +55,9 @@ def _faces(rng, comp=()):
 CELL_CASES = {
     # the MAC projection: singular Poisson, 1/rho on faces
     "poisson_singular": dict(alpha=0.0, beta=1.0, acoef=False, comp=()),
-    # tracer diffusion: Helmholtz, acoef = rho, beta = dt
-    "helmholtz": dict(alpha=1.0, beta=0.02, acoef=True, comp=()),
-    # velocity diffusion: three components in one solve
+    # velocity diffusion: Helmholtz (acoef = rho, beta = dt), three
+    # components in one solve; the scalar Helmholtz solve of the tracer
+    # is held through diffuse_scalar below
     "helmholtz_batched": dict(alpha=1.0, beta=0.02, acoef=True, comp=(3,)),
 }
 
@@ -260,3 +269,105 @@ def test_walled_levels_raise_and_name_the_roadmap():
                         acoef=None, bcoef=tuple(bco))
     with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
         cs.solve(torch.rand(N, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------
+# the step's three variable-coefficient solves, module by module
+# ---------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def vd_cfgs():
+    text = bench._deck("shear3d", 16, "float64")[0] + (
+        "incflo.constant_density = false\nincflo.advect_tracer = true\n"
+        "incflo.mu_s = 0.05\nincflo.mu = 0.5\n")
+    return JConfig.from_text(text), TConfig.from_text(text)
+
+
+def _rho(rng, grow=0):
+    """Smooth periodic density in [0.6, 1.4] on the 16x16x8 grid, grown
+    by `grow` periodic ghosts."""
+    c = [(np.arange(-grow, n + grow) + 0.5) / n for n in N]
+    x, y, z = np.meshgrid(*c, indexing="ij")
+    return 1.0 + 0.4 * (np.sin(2 * np.pi * x) * np.sin(2 * np.pi * y)
+                        * np.cos(4 * np.pi * z))
+
+
+def test_mac_projection_variable_density_matches(vd_cfgs):
+    jcfg, tcfg = vd_cfgs
+    rng = np.random.default_rng(20)
+    umac = []
+    for d in range(3):
+        a = rng.standard_normal(N)
+        umac.append(np.concatenate([a, a.take([0], axis=d)], axis=d))
+    rho_g1 = _rho(rng, 1)
+    phi0 = 1e-3 * rng.standard_normal(N)
+    bc_kind = np.zeros((3, 2), np.int32)
+    jbeta = jmac.inv_rho_on_faces(jnp.asarray(rho_g1), jcfg.grid)
+    tbeta = tmac.inv_rho_on_faces(torch.as_tensor(rho_g1), tcfg.grid)
+    ju, jphi, _, jit = jmac.project_mac_velocities(
+        [jnp.asarray(u) for u in umac], jbeta, jcfg.grid, bc_kind,
+        phi0=jnp.asarray(phi0))
+    before = tmg.COUNTS["cell_iters"]
+    tu, tphi = tmac.project_mac_velocities(
+        [torch.as_tensor(u) for u in umac], tbeta, tcfg.grid, bc_kind,
+        phi0=torch.as_tensor(phi0))
+    assert tmg.COUNTS["cell_iters"] - before == int(jit) > 1
+    assert _rel(tphi, jphi) <= 1e-10
+    for a, b in zip(tu, ju):
+        assert _rel(a, b) <= 1e-10
+    div = tmac.mac_divergence(tu, tcfg.grid).abs().max()
+    assert float(div) <= 1e-10 * 16.0
+
+
+def test_diffusion_variable_density_matches(vd_cfgs):
+    """diffuse_velocity (mu = 0.5: the tensor CG iterates, preconditioned
+    by the V-cycle of the anisotropic solver) and diffuse_scalar with a
+    variable rho."""
+    jcfg, tcfg = vd_cfgs
+    jg, tg = jcfg.grid, tcfg.grid
+    ng = 3
+    rng = np.random.default_rng(21)
+    vel = rng.standard_normal(N + (3,))
+    tra = rng.random(N + (1,))
+    rho = _rho(rng)
+    eta_g1 = np.full(tuple(n + 2 for n in N), 0.5)
+    dt_diff = 0.5 * 0.05
+    jrec, trec = jcfg.velocity_bcrecs(), tcfg.velocity_bcrecs()
+    jev, tev = jcfg.velocity_ext_values(), tcfg.velocity_ext_values()
+    jeta = jdiff.eta_to_faces(jnp.asarray(eta_g1), jg)
+    teta = tdiff.eta_to_faces(torch.as_tensor(eta_g1), tg)
+    jout, jres, jtol = jdiff.diffuse_velocity(
+        jnp.asarray(vel), jnp.asarray(rho), jeta, dt_diff, jcfg, jg,
+        eta_g1=jnp.asarray(eta_g1), ng=ng,
+        grow_fn=lambda v: jbcs.grow(v, ng, jg, jrec, jev),
+        grow_hom_fn=lambda v: jbcs.grow(v, ng, jg, jrec),
+        return_tensor_res=True)
+    syncs = tmg.COUNTS["host_syncs"]
+    tout, tres, ttol = tdiff.diffuse_velocity(
+        torch.as_tensor(vel), torch.as_tensor(rho), teta,
+        torch.tensor(dt_diff, dtype=torch.float64), tcfg, tg,
+        eta_g1=torch.as_tensor(eta_g1), ng=ng,
+        grow_fn=lambda v: tbcs.grow(v, ng, tg, trec, tev),
+        grow_hom_fn=lambda v: tbcs.grow(v, ng, tg, trec),
+        return_tensor_res=True)
+    assert tmg.COUNTS["host_syncs"] - syncs >= 6     # the tensor CG looped
+    assert float(tres) <= float(ttol)
+    assert _rel(ttol, jtol) <= 1e-12
+    assert _rel(tout, jout) <= 1e-10
+
+    mu_faces = [[np.full(tuple(n + (a == d) for a, n in enumerate(N)), 0.05)
+                 for d in range(3)]]
+    js = jdiff.diffuse_scalar(
+        jnp.asarray(tra), jnp.asarray(rho),
+        [[jnp.asarray(f) for f in mu_faces[0]]], dt_diff, jcfg, jg)
+    ts = tdiff.diffuse_scalar(
+        torch.as_tensor(tra), torch.as_tensor(rho),
+        [[torch.as_tensor(f) for f in mu_faces[0]]],
+        torch.tensor(dt_diff, dtype=torch.float64), tcfg, tg)
+    assert _rel(ts, js) <= 1e-10
+    jl = jdiff.compute_laps(jnp.asarray(tra),
+                            [[jnp.asarray(f) for f in mu_faces[0]]], jcfg, jg)
+    tl = tdiff.compute_laps(torch.as_tensor(tra),
+                            [[torch.as_tensor(f) for f in mu_faces[0]]],
+                            tcfg, tg)
+    assert _rel(tl, jl) <= 1e-13
