@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # the whole run, one card
     python3 chip_smoke.py --profile  # also print the device time of the
-                                     # n = 128 and 256 steps (torch.profiler)
+                                     # steps (torch.profiler) and where the
+                                     # rt step's time goes by section
 
 Phases (any failure ends the run with a non-zero exit):
   1. build   the CUDA kernels of incflo_torch/csrc/godunov.cu and
@@ -17,31 +18,45 @@ Phases (any failure ends the run with a non-zero exit):
              24 (nodal bottom), with and without the residual, variable
              coefficients from a seed, the cell smoother also with three
              components; float64 to 1e-12 relative, float32 to 2e-6 (x)
-             and 5e-4 (residual) of max(1, the field's max).  Each kernel
+             and 5e-4 (residual) of max(1, the field's max).  The walled
+             cell smoother: Neumann and Dirichlet sides in five
+             combinations (those of the rt deck, those of
+             tests/test_pallas_smoother.py, one with a non-periodic x) at
+             the rt fine level 64x64x128 and a coarse 8x8x16, 2 and 8
+             sweeps, with and without the residual, one and three
+             components; float64 to 1e-13, float32 as above.  Each kernel
              and its plain version timed on the card.
   3. solvers CellSolver.solve and NodalSolver.solve (V-cycles) on cuda
-             against cpu, float64, 32x32x8, random coefficients: the same
-             iteration count, the solution to 1e-9.
+             against cpu, float64, random coefficients: 32x32x8 fully
+             periodic (same iteration count, solution to 1e-9), and
+             16x16x32 with the rt deck's walls on z (same iteration count,
+             solution to 1e-12).
   4. paths   the whole step on cuda (kernels) and on cpu (plain
-             versions), float64, 32x32x8, 3 steps from one state: shear3d
-             (velocity, p, gp), and shear3d_vd from both of its starts
-             (also density, tracer, mac_phi); agreement to 1e-9 relative.
+             versions), float64, 3 steps from one state: shear3d
+             (velocity, p, gp) and shear3d_vd from both of its starts
+             (also density, tracer, mac_phi) at 32x32x8, and rt at
+             16x16x32; agreement to 1e-9 relative.
   5. main    through incflo_torch.Simulation on cuda, float32.  shear3d:
              n = 128 (128x128x32), 20 warm-up + 20 timed steps, and
              n = 256 (256x256x64), 2 warm-up + 3 timed steps.  shear3d_vd
              (variable density, tracer; multigrid V-cycles) at 128x128x32
              from init_state and from a density perturbed by +-40%, 2
-             warm-up + 5 timed steps each.  The kernels' launch counters
-             are zeroed just before each run and read just after: the
-             Godunov counts must equal the per-step launches times the
-             steps, the smoother counts must be positive; the final fields
-             are finite and the projection has converged.
+             warm-up + 5 timed steps each.  rt (Rayleigh-Taylor: slip
+             walls on z, gravity, variable density, a tracer) at
+             64x64x128, 2 warm-up + 5 timed steps.  The kernels' launch
+             counters are zeroed just before each run and read just after:
+             the Godunov counts must equal the per-step launches times the
+             steps (none on the walled rt grid, which takes the plain wall
+             forms by design), the smoother counts must be positive (on rt
+             the walled cell smoother; its nodal levels are smoothed in
+             plain PyTorch by design); the final fields are finite and the
+             projection has converged.
 Then one JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 
 It imports neither JAX nor incflo_tpu and writes its own deck text (the
-shear3d deck of bench.py; shear3d_vd adds constant_density = false,
-advect_tracer = true and mu_s = 0.0002).  Without a CUDA device, or
+shear3d and rt decks of bench.py; shear3d_vd adds constant_density =
+false, advect_tracer = true and mu_s = 0.0002).  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
@@ -66,6 +81,17 @@ PER_STEP_VD = {"uad": 1, "predict_d": 3, "advect": 5}
 TOL = {"uad": 2e-5, "predict_d": 2e-5, "advect": 3e-4}
 TOL_F64 = 1e-10
 SMOOTHERS = ("cell_smooth", "nodal_smooth")
+WALLED = "cell_smooth_walled"
+TOL_WALLED_F64 = 1e-13
+# (lo, hi) BC codes per axis of the walled smoother cases: 0 periodic,
+# 1 Neumann, 2 Dirichlet
+WALL_BCS = {
+    "rt scalar (p, p, neumann)": ((0, 0, 1), (0, 0, 1)),
+    "rt normal velocity (p, p, dirichlet)": ((0, 0, 2), (0, 0, 2)),
+    "(p, dirichlet, neumann)": ((0, 2, 1), (0, 2, 1)),
+    "(p, neumann, p)": ((0, 1, 0), (0, 1, 0)),
+    "walled x (dirichlet|neumann, neumann, p)": ((2, 1, 0), (1, 1, 0)),
+}
 # smoothers, float32: errors in x and in the residual over max(1, |field|)
 TOL_SMOOTH_X, TOL_SMOOTH_RES = 2e-6, 5e-4
 TOL_SMOOTH_F64 = 1e-12
@@ -76,13 +102,9 @@ incflo.mu_s = 0.0002
 """
 
 
-def shear3d_deck(n, dtype, vd=False):
-    """The shear3d deck of bench.py:_deck (probtype 21, Godunov PPM,
-    Crank-Nicolson tensor diffusion, fully periodic); vd adds variable
-    density and tracer advection (shear3d_vd)."""
+def deck_header(dtype):
     tol = "1e-11" if dtype == "float64" else "1e-5"
     atol = "1e-14" if dtype == "float64" else "1e-7"
-    nz = max(n // 4, 8)
     return f"""
 incflo.initial_iterations = 0
 incflo.dtype = {dtype}
@@ -96,6 +118,40 @@ tensor_diffusion.mg_rtol = {tol}
 tensor_diffusion.mg_atol = {atol}
 stop_time = -1
 max_step = 1000000
+"""
+
+
+def rt_deck(n, dtype):
+    """The rt deck of bench.py:_deck (probtype 5, Rayleigh-Taylor):
+    n/2 x n/2 x n cells, periodic in x and y, slip walls on z, gravity,
+    variable density, one advected and diffused tracer, Godunov PPM,
+    Crank-Nicolson diffusion."""
+    return deck_header(dtype) + f"""
+amr.n_cell = {n // 2} {n // 2} {n}
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = 0.5 0.5 1.0
+geometry.is_periodic = 1 1 0
+zlo.type = "sw"
+zhi.type = "sw"
+incflo.probtype = 5
+incflo.gravity = 0. 0. -0.1
+incflo.use_godunov = true
+incflo.constant_density = false
+incflo.advect_tracer = true
+incflo.mu = 0.001
+incflo.mu_s = 0.001
+incflo.diffusion_type = 1
+incflo.cfl = 0.9
+incflo.init_shrink = 1.0
+"""
+
+
+def shear3d_deck(n, dtype, vd=False):
+    """The shear3d deck of bench.py:_deck (probtype 21, Godunov PPM,
+    Crank-Nicolson tensor diffusion, fully periodic); vd adds variable
+    density and tracer advection (shear3d_vd)."""
+    nz = max(n // 4, 8)
+    return deck_header(dtype) + f"""
 amr.n_cell = {n} {n} {nz}
 geometry.prob_lo = 0. 0. 0.
 geometry.prob_hi = 1. 1. 0.25
@@ -354,7 +410,7 @@ def smoother_calls(sk, mg, shape, dx, dtype, dev, seed):
     out = {}
     for name, cs, comp in (("cell_smooth", mac, ()),
                            ("cell_smooth/3comp", vel, (3,))):
-        dinvs, fhis = cs.smoother_coefs()
+        dinvs, fhis = cs.smoother_coefs()[:2]
         args = (t(rng.standard_normal(shape + comp)),
                 t(rng.standard_normal(shape + comp)), cs.diags[0], dinvs[0],
                 fhis[0])
@@ -369,6 +425,65 @@ def smoother_calls(sk, mg, shape, dx, dtype, dev, seed):
     return out
 
 
+def compare_smoother(r, case, kern, plain, sweeps, dtype, torch):
+    """Hold kern(n, want_residual) against plain(n, True) for each n of
+    `sweeps`, with and without the residual; the worst errors go into r."""
+    for nsw in sweeps:
+        xp, rp = plain(nsw, True)
+        for want in (True, False):
+            xk, rk = kern(nsw, want)
+            if (rk is None) == want:
+                raise AssertionError(f"{case}: residual returned "
+                                     f"{rk is not None}, asked {want}")
+            pairs = [("x", xk, xp)] + ([("res", rk, rp)] if want else [])
+            for what, a, b in pairs:
+                r["cases"] += 1
+                if dtype == torch.float64:
+                    r["max_rel_err_f64"] = max(r["max_rel_err_f64"],
+                                               rel_err(a, b))
+                    continue
+                e = abs_err(a, b)
+                key = f"max_err_{what}_f32"
+                r[key] = max(r[key], e / max(1.0, float(b.abs().max())))
+                if what == "x":
+                    r["max_abs_err"] = max(r["max_abs_err"], e)
+
+
+def smoother_verdict(name, r, tol_f64):
+    print(f"[smoothers] {name}: {r['cases']} comparisons, f64 rel "
+          f"{r['max_rel_err_f64']:.3e} (tol {tol_f64:g}), f32 x "
+          f"{r['max_err_x_f32']:.3e} (tol {TOL_SMOOTH_X:g}), f32 residual "
+          f"{r['max_err_res_f32']:.3e} (tol {TOL_SMOOTH_RES:g})", flush=True)
+    if not r["max_rel_err_f64"] <= tol_f64:
+        raise AssertionError(f"{name}: float64 disagrees with the plain "
+                             f"version ({r['max_rel_err_f64']:.3e})")
+    if not (r["max_err_x_f32"] <= TOL_SMOOTH_X
+            and r["max_err_res_f32"] <= TOL_SMOOTH_RES):
+        raise AssertionError(f"{name}: float32 disagrees with the plain "
+                             "version")
+
+
+def time_smoother(name, tag, kern, plain, nbytes):
+    """f32 times of a 2-sweep call with residual and its bound; nbytes =
+    each input read once and each output written once per call."""
+    m = {"ms": device_ms(lambda: kern(2, True)),
+         "plain_ms": device_ms(lambda: plain(2, True)), "bytes": nbytes,
+         "ops": count_ops(lambda: plain(2, True))}
+    t_bytes = m["bytes"] / PEAK_BYTES * 1e3
+    t_ops = m["ops"] / PEAK_OPS["float32"] * 1e3
+    m["bound_ms"] = max(t_bytes, t_ops)
+    m["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[smoothers] {name} {tag}: kernel {m['ms']:.4f} ms, plain "
+          f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+          f"({m['bound_by']}: {m['bytes']} B, {m['ops']} ops)", flush=True)
+    return m
+
+
+def new_smoother_result():
+    return {"max_abs_err": 0.0, "max_err_x_f32": 0.0, "max_err_res_f32": 0.0,
+            "max_rel_err_f64": 0.0, "cases": 0}
+
+
 def phase_smoothers(sk, mg, grid_of, torch):
     """Errors of the two smoother kernels against their plain versions
     at a coarse-level and the fine-level shape of the n = 128 hierarchy,
@@ -378,74 +493,156 @@ def phase_smoothers(sk, mg, grid_of, torch):
     for n in (64, 128):
         g = grid_of(n)
         levels["x".join(str(c) for c in g.n_cell)] = (g.n_cell, g.dx)
-    res = {k: {"max_abs_err": 0.0, "max_err_x_f32": 0.0,
-               "max_err_res_f32": 0.0, "max_rel_err_f64": 0.0}
-           for k in SMOOTHERS}
+    res = {k: new_smoother_result() for k in SMOOTHERS}
     for dtype in (torch.float64, torch.float32):
         for shape, dx in levels.values():
             calls = smoother_calls(sk, mg, shape, dx, dtype, dev, 11)
             for case, (kern, plain) in calls.items():
-                r = res[case.split("/")[0]]
                 bottom = 24 if case == "nodal_smooth" else 8
-                for nsw in (2, bottom):
-                    xp, rp = plain(nsw, True)
-                    for want in (True, False):
-                        xk, rk = kern(nsw, want)
-                        if (rk is None) == want:
-                            raise AssertionError(f"{case}: residual returned "
-                                                 f"{rk is not None}, asked "
-                                                 f"{want}")
-                        pairs = [("x", xk, xp)] + (
-                            [("res", rk, rp)] if want else [])
-                        for what, a, b in pairs:
-                            if dtype == torch.float64:
-                                r["max_rel_err_f64"] = max(
-                                    r["max_rel_err_f64"], rel_err(a, b))
-                                continue
-                            e = abs_err(a, b)
-                            scaled = e / max(1.0, float(b.abs().max()))
-                            key = f"max_err_{what}_f32"
-                            r[key] = max(r[key], scaled)
-                            if what == "x":
-                                r["max_abs_err"] = max(r["max_abs_err"], e)
+                compare_smoother(res[case.split("/")[0]], case, kern, plain,
+                                 (2, bottom), dtype, torch)
     torch.cuda.synchronize()
     for k, r in res.items():
-        print(f"[smoothers] {k}: f64 rel {r['max_rel_err_f64']:.3e} (tol "
-              f"{TOL_SMOOTH_F64:g}), f32 x {r['max_err_x_f32']:.3e} (tol "
-              f"{TOL_SMOOTH_X:g}), f32 residual {r['max_err_res_f32']:.3e} "
-              f"(tol {TOL_SMOOTH_RES:g})", flush=True)
-        if not r["max_rel_err_f64"] <= TOL_SMOOTH_F64:
-            raise AssertionError(f"{k}: float64 disagrees with the plain "
-                                 f"version ({r['max_rel_err_f64']:.3e})")
-        if not (r["max_err_x_f32"] <= TOL_SMOOTH_X
-                and r["max_err_res_f32"] <= TOL_SMOOTH_RES):
-            raise AssertionError(f"{k}: float32 disagrees with the plain "
-                                 "version")
+        smoother_verdict(k, r, TOL_SMOOTH_F64)
 
-    # times: f32, 2 sweeps + residual, scalar fields, at both shapes; each
-    # input read once and each output written once per call
+    # times: f32, 2 sweeps + residual, scalar fields, at both shapes
     narrays = {"cell_smooth": 9, "nodal_smooth": 6}
     saved = dict(sk.LAUNCHES)
     for tag, (shape, dx) in levels.items():
         calls = smoother_calls(sk, mg, shape, dx, torch.float32, dev, 11)
         cells = shape[0] * shape[1] * shape[2]
         for k in SMOOTHERS:
-            kern, plain = calls[k]
-            m = {"ms": device_ms(lambda: kern(2, True)),
-                 "plain_ms": device_ms(lambda: plain(2, True)),
-                 "bytes": narrays[k] * cells * 4,
-                 "ops": count_ops(lambda: plain(2, True))}
-            t_bytes = m["bytes"] / PEAK_BYTES * 1e3
-            t_ops = m["ops"] / PEAK_OPS["float32"] * 1e3
-            m["bound_ms"] = max(t_bytes, t_ops)
-            m["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            res[k][tag] = m
-            print(f"[smoothers] {k} {tag}: kernel {m['ms']:.4f} ms, plain "
-                  f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-                  f"({m['bound_by']}: {m['bytes']} B, {m['ops']} ops)",
-                  flush=True)
+            res[k][tag] = time_smoother(k, tag, *calls[k],
+                                        narrays[k] * cells * 4)
     sk.LAUNCHES.update(saved)      # comparison launches do not count
     return res
+
+
+def walled_operator(mg, shape, dx, bc, comp, dtype, dev, seed):
+    """A one-level CellSolver with walls and seeded variable coefficients
+    whose face terms are as large as its diagonal term, so that the wall
+    cells' coefficients matter: the MAC Poisson operator (comp = ()) or a
+    batched Helmholtz operator (comp = (3,))."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype).to(dev)
+    bcoef = []
+    for ax in range(3):
+        fs = tuple(n + (1 if a == ax else 0) for a, n in enumerate(shape))
+        f = 0.5 + 1.5 * rng.random(fs + comp)
+        if bc[0][ax] == 0:          # the periodic face n is face 0
+            f = np.concatenate([f.take(range(shape[ax]), axis=ax),
+                                f.take([0], axis=ax)], axis=ax)
+        bcoef.append(t(f))
+    if not comp:
+        return mg.CellSolver(dx, bc[0], bc[1], alpha=0.0, beta=1.0,
+                             acoef=None, bcoef=tuple(bcoef), max_levels=1,
+                             direct=False)
+    return mg.CellSolver(dx, bc[0], bc[1], alpha=1.0,
+                         beta=0.3 * min(dx) ** 2,
+                         acoef=t(0.5 + 1.5 * rng.random(shape + (1,))),
+                         bcoef=tuple(bcoef), max_levels=1, direct=False)
+
+
+def walled_calls(sk, mg, shape, dx, bc, comp, dtype, dev, seed):
+    """(kernel(n, res), plain(n, res), wall plane bytes) on one level."""
+    import numpy as np
+    import torch
+    cs = walled_operator(mg, shape, dx, bc, comp, dtype, dev, seed)
+    dinvs, fhis, fwalls = cs.smoother_coefs()
+    rng = np.random.default_rng(seed + 1)
+    t = lambda a: torch.as_tensor(a, dtype=dtype).to(dev)
+    args = (t(rng.standard_normal(shape + comp)),
+            t(rng.standard_normal(shape + comp)), cs.diags[0], dinvs[0],
+            fhis[0])
+    kw = dict(bc=bc, Fwall=fwalls[0])
+    plane_bytes = sum(w.numel() * w.element_size() for w in fwalls[0]
+                      if w is not None)
+    return (lambda n, r: sk.cell_smooth(*args, n, r, **kw),
+            lambda n, r: sk.cell_smooth_plain(*args, n, r, **kw),
+            plane_bytes)
+
+
+def phase_walled_smoother(sk, mg, torch):
+    """The walled cell smoother against its plain version on the card at
+    the rt deck's fine level and a coarse one, then its f32 time for a
+    2-sweep call with residual (rt's scalar BCs) at both."""
+    dev = torch.device("cuda")
+    levels = {"64x64x128": ((64, 64, 128), (0.5 / 64, 0.5 / 64, 1.0 / 128)),
+              "8x8x16": ((8, 8, 16), (0.5 / 8, 0.5 / 8, 1.0 / 16))}
+    r = new_smoother_result()
+    n0 = sk.LAUNCHES[WALLED]
+    for dtype in (torch.float64, torch.float32):
+        for shape, dx in levels.values():
+            for bcname, bc in WALL_BCS.items():
+                for comp in ((), (3,)):
+                    kern, plain, _ = walled_calls(sk, mg, shape, dx, bc, comp,
+                                                  dtype, dev, 21)
+                    compare_smoother(r, f"{WALLED} {bcname}", kern, plain,
+                                     (2, 8), dtype, torch)
+    torch.cuda.synchronize()
+    if sk.LAUNCHES[WALLED] == n0:
+        raise AssertionError(f"{WALLED}: the wrapper launched no kernel")
+    smoother_verdict(WALLED, r, TOL_WALLED_F64)
+    saved = dict(sk.LAUNCHES)
+    bc = WALL_BCS["rt scalar (p, p, neumann)"]
+    for tag, (shape, dx) in levels.items():
+        kern, plain, plane_bytes = walled_calls(sk, mg, shape, dx, bc, (),
+                                                torch.float32, dev, 21)
+        cells = shape[0] * shape[1] * shape[2]
+        # x, b, diag, dinv, three face arrays in, x and the residual out,
+        # and the low wall planes
+        r[tag] = time_smoother(WALLED, tag, kern, plain,
+                               9 * cells * 4 + plane_bytes)
+    sk.LAUNCHES.update(saved)      # comparison launches do not count
+    return r
+
+
+def phase_solvers_walled(mg, torch):
+    """The V-cycle solvers with the rt deck's walls on cuda against cpu,
+    f64, 16x16x32, random coefficients: the same iteration count, the
+    solution to 1e-12."""
+    import numpy as np
+    shape = (16, 16, 32)
+    dx = (0.5 / 16, 0.5 / 16, 1.0 / 32)
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    neu, dirich = ((0, 0, 1), (0, 0, 1)), ((0, 0, 2), (0, 0, 2))
+
+    def faces(lo, hi):
+        out = []
+        for ax in range(3):
+            f = lo + (hi - lo) * rng.random(
+                tuple(n + (1 if a == ax else 0)
+                      for a, n in enumerate(shape)))
+            if ax < 2:
+                f = np.concatenate([f.take(range(shape[ax]), axis=ax),
+                                    f.take([0], axis=ax)], axis=ax)
+            out.append(t(f))
+        return tuple(out)
+
+    rho = t(0.5 + 1.5 * rng.random(shape))
+    dt = 0.9 * min(dx)
+    cases = (
+        ("walled cell poisson (neumann z)",
+         mg.CellSolver(dx, *neu, alpha=0.0, beta=1.0, acoef=None,
+                       bcoef=faces(0.5, 2.0), direct=False), shape),
+        ("walled cell helmholtz (dirichlet z)",
+         mg.CellSolver(dx, *dirich, alpha=1.0, beta=0.5 * dt, acoef=rho,
+                       bcoef=faces(0.5, 2.0), direct=False), shape),
+        ("walled nodal (neumann z)",
+         mg.NodalSolver(dx, (True, True, False), *neu, dt / rho,
+                        direct=False), (16, 16, 33)))
+    for name, solver, rshape in cases:
+        rhs = t(rng.standard_normal(rshape))
+        x_c, _, it_c = solver.solve_info(rhs)
+        x_g, _, it_g = solver.to("cuda").solve_info(rhs.to("cuda"))
+        e = rel_state_err(x_g, x_c)
+        print(f"[solvers] {name}: {it_g} iterations on cuda, {it_c} on "
+              f"cpu; solution relative {e:.3e} (tol 1e-12)", flush=True)
+        if it_g != it_c or it_g < 2 or not e <= 1e-12:
+            raise AssertionError(f"{name}: cuda and cpu solves disagree")
 
 
 def phase_solvers(mg, torch):
@@ -499,16 +696,16 @@ def vd_start(sim, start, torch):
     return s
 
 
-def phase_paths(incflo_torch, torch, vd=False):
+def phase_paths(incflo_torch, torch, vd=False, rt=False):
     """The step on cuda (kernels) and on cpu (plain versions), f64."""
     from incflo_torch import state as st
-    name = "shear3d_vd" if vd else "shear3d"
+    name = "rt" if rt else "shear3d_vd" if vd else "shear3d"
     cfg = incflo_torch.IncfloConfig.from_text(
-        shear3d_deck(32, "float64", vd))
+        rt_deck(32, "float64") if rt else shear3d_deck(32, "float64", vd))
     sim_c = incflo_torch.Simulation(cfg, device="cpu")
     sim_g = incflo_torch.Simulation(cfg, device="cuda")
     fields = ("velocity", "p", "gp") + (
-        ("density", "tracer", "mac_phi") if vd else ())
+        ("density", "tracer", "mac_phi") if vd or rt else ())
     worst = 0.0
     starts = ("init_state", "perturbed_density") if vd else ("init_state",)
     for start in starts:
@@ -603,9 +800,11 @@ def vd_projection_check(sim, s, mg, torch):
     size on the card: sigma = dt/rho, V-cycles from zero to the deck's
     tolerance.  Returns (residual / tolerance, V-cycles, max |D u|,
     max |D u| dx / |u|)."""
+    from incflo_torch.ops import mac_projection
     grid, cfg = sim.grid, sim.cfg
     u = s.level.velocity
-    solver = mg.NodalSolver(grid.dx, grid.periodic, P3, P3,
+    bc_lo, bc_hi = mac_projection.projection_solver_bc(cfg.bc_kind, grid)
+    solver = mg.NodalSolver(grid.dx, grid.periodic, bc_lo, bc_hi,
                             s.dt / s.level.density, direct=False)
     rhs = mg._nodes_unique(
         mg.nodal_divergence(sim._pad_vel_for_divergence(u, 1.0), grid.dx),
@@ -692,6 +891,118 @@ def phase_main_vd(incflo_torch, gk, sk, mg, torch, start, warm=2, steps=5):
             "reprojection_res_over_tol": res_over_tol}, sim, s
 
 
+def phase_main_rt(incflo_torch, gk, sk, mg, torch, warm=2, steps=5):
+    """rt at its bench size, 64x64x128 f32, on the card from init_state."""
+    cfg = incflo_torch.IncfloConfig.from_text(rt_deck(128, "float32"))
+    sim = incflo_torch.Simulation(cfg)
+    s = sim.init_state()
+    torch.cuda.synchronize()
+    gk.reset_launches()
+    sk.reset_launches()
+    mg.reset_counts()
+    s = sim.advance_n(s, warm)
+    torch.cuda.synchronize()
+    warm_counts = {**mg.COUNTS, **sk.LAUNCHES}
+    t0 = time.perf_counter()
+    s = sim.advance_n(s, steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {**gk.LAUNCHES, **sk.LAUNCHES}
+    per_step = {k: (v - warm_counts[k]) / steps
+                for k, v in {**mg.COUNTS, **sk.LAUNCHES}.items()}
+    if not per_step[WALLED] > 0:
+        raise AssertionError(f"rt: kernel {WALLED} was not launched in the "
+                             "timed steps")
+    # by design: every cell level of this deck has walls, its nodal levels
+    # are smoothed in plain PyTorch and its Godunov chain takes the plain
+    # wall forms, so no other kernel may have run
+    others = {k: v for k, v in launches.items() if k != WALLED and v}
+    if others:
+        raise AssertionError(f"rt: unexpected kernel launches {others}")
+    lvl = s.level
+    for f in ("velocity", "density", "tracer", "p", "gp", "mac_phi"):
+        if not bool(torch.isfinite(getattr(lvl, f)).all()):
+            raise AssertionError(f"rt: non-finite {f}")
+    if tuple(lvl.p.shape) != (64, 64, 129):
+        raise AssertionError(f"rt: nodal pressure shape {tuple(lvl.p.shape)}")
+    rho_lo, rho_hi = float(lvl.density.min()), float(lvl.density.max())
+    if not 0.45 < rho_lo <= rho_hi < 2.05:
+        raise AssertionError(f"rt: density left [0.45, 2.05]: {rho_lo}, "
+                             f"{rho_hi}")
+    wall_w = float(lvl.velocity[:, :, (0, -1), 2].abs().max())
+    cells = 1
+    for c in cfg.grid.n_cell:
+        cells *= c
+    ms = (t1 - t0) / steps * 1e3
+    res_over_tol, cycles, div, _ = vd_projection_check(sim, s, mg, torch)
+    if not res_over_tol <= 1.0:
+        raise AssertionError(f"rt: the nodal V-cycles stopped at "
+                             f"{res_over_tol:.2f} x tolerance")
+    print(f"[main] rt {cfg.grid.n_cell} f32: {ms:.3f} ms/step, "
+          f"{cells / (ms * 1e-3):.4e} cells/s over {steps} steps after "
+          f"{warm} warm-up; per step: {per_step['cell_iters']:.1f} CG "
+          f"iterations in {per_step['cell_solves']:.1f} cell solves, "
+          f"{per_step['nodal_cycles']:.1f} nodal V-cycles, "
+          f"{per_step[WALLED]:.1f} {WALLED} launches, "
+          f"{per_step['host_syncs']:.1f} host syncs; t={float(s.t):.6f} "
+          f"dt={float(s.dt):.6e} max|u|={float(lvl.velocity.abs().max()):.3e}"
+          f" max|w| beside the walls {wall_w:.3e} rho in [{rho_lo:.4f}, "
+          f"{rho_hi:.4f}]; max|div u| {div:.3e}, re-projection residual "
+          f"{res_over_tol:.2f} x tol in {cycles} V-cycles; launches "
+          f"{launches}", flush=True)
+    return {"deck": "rt", "start": "init_state",
+            "n_cell": list(cfg.grid.n_cell), "ms_per_step": ms,
+            "cells_per_s": cells / (ms * 1e-3), "steps": steps,
+            "warmup": warm, "launches": launches, "per_step": per_step,
+            "max_div_u": div,
+            "reprojection_res_over_tol": res_over_tol}, sim, s
+
+
+def phase_rt_sections(sim, s, mg, torch, steps=3):
+    """Where an rt step's wall time goes: `steps` more steps with the
+    plain walled nodal smooth, the plain walled Godunov calls and the
+    walled cell smoother each bracketed by device synchronisations and
+    the host clock.  The synchronisations lengthen the step, so the
+    sections are reported as shares of this instrumented run."""
+    from incflo_torch.ops import smoother_kernels as sk
+    spent = {"nodal_smooth_walled (plain)": 0.0,
+             "walled Godunov predict + advect (plain)": 0.0,
+             "cell_smooth_walled (kernel)": 0.0}
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    keys = list(spent)
+    saved = (mg.nodal_smooth_walled, sim.godunov.predict, sim.godunov.advect,
+             sk.cell_smooth)
+    mg.nodal_smooth_walled = timed(keys[0], saved[0])
+    sim.godunov.predict = timed(keys[1], saved[1])
+    sim.godunov.advect = timed(keys[1], saved[2])
+    sk.cell_smooth = timed(keys[2], saved[3])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = sim.advance_n(s, steps)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        mg.nodal_smooth_walled = saved[0]
+        sim.godunov.predict, sim.godunov.advect = saved[1], saved[2]
+        sk.cell_smooth = saved[3]
+    parts = ", ".join(f"{k} {v / steps * 1e3:.2f} ms ({v / total:.2f})"
+                      for k, v in spent.items())
+    print(f"[sections] rt, {steps} instrumented steps of "
+          f"{total / steps * 1e3:.2f} ms: {parts}", flush=True)
+    return s
+
+
 def phase_profile(sim, s, torch, n, wall_ms, steps=5):
     """Device time of `steps` steps by torch.profiler: the busy time per
     step against the step's wall time (from the unprofiled timed run),
@@ -768,9 +1079,12 @@ def main(argv):
     build_s = phase_build(cuda_build, [gk.SOURCE, sk.SOURCE])
     kres = phase_kernels(gk, grid_of, torch)
     sres = phase_smoothers(sk, mg, grid_of, torch)
+    wres = phase_walled_smoother(sk, mg, torch)
     phase_solvers(mg, torch)
+    phase_solvers_walled(mg, torch)
     phase_paths(incflo_torch, torch)
     phase_paths(incflo_torch, torch, vd=True)
+    phase_paths(incflo_torch, torch, rt=True)
     main128, sim, s = phase_main(incflo_torch, gk, torch, 128, 20, 20)
     if profile:
         phase_profile(sim, s, torch, 128, main128["ms_per_step"])
@@ -787,10 +1101,16 @@ def main(argv):
                           r["ms_per_step"])
         main_vd.append(r)
         del sim, s
+    main_rt, sim, s = phase_main_rt(incflo_torch, gk, sk, mg, torch)
+    if profile:
+        phase_profile(sim, s, torch, "128 rt", main_rt["ms_per_step"])
+        phase_rt_sections(sim, s, mg, torch)
+    del sim, s
 
     # `launches` is the count over the kernel's own main path: shear3d
     # n = 128 for the Godunov kernels (their count in shear3d_vd beside
-    # it), shear3d_vd from init_state for the smoothers
+    # it), shear3d_vd from init_state for the periodic smoothers, rt for
+    # the walled cell smoother
     kernels = []
     for k in PER_STEP:
         r = kres[k]
@@ -829,8 +1149,27 @@ def main(argv):
             "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
             "bytes": fine["bytes"], "ops": fine["ops"], "library_ms": None,
             "at_64x64x16": r["64x64x16"]})
+    fine = wres["64x64x128"]
+    kernels.append({
+        "name": WALLED, "route": "cuda",
+        "source": "incflo_torch/csrc/smoothers.cu",
+        "replaces": sk.REPLACES[WALLED],
+        "launches": main_rt["launches"][WALLED],
+        "launches_per_step": main_rt["per_step"][WALLED],
+        "max_abs_err": wres["max_abs_err"],
+        "max_err_x_f32": wres["max_err_x_f32"], "tol_x_f32": TOL_SMOOTH_X,
+        "max_err_res_f32": wres["max_err_res_f32"],
+        "tol_res_f32": TOL_SMOOTH_RES,
+        "max_rel_err_f64": wres["max_rel_err_f64"],
+        "tol_f64": TOL_WALLED_F64,
+        "shape": "64x64x128, periodic x and y, Neumann z, 2 sweeps + "
+                 "residual, float32",
+        "ms": fine["ms"], "plain_ms": fine["plain_ms"],
+        "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
+        "bytes": fine["bytes"], "ops": fine["ops"], "library_ms": None,
+        "at_8x8x16": wres["8x8x16"]})
     print(json.dumps({"kernels": kernels, "build_s": build_s,
-                      "main": [main128, main256] + main_vd,
+                      "main": [main128, main256] + main_vd + [main_rt],
                       "seconds": time.time() - t_start}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

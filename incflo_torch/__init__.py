@@ -6,10 +6,13 @@ PyTorch tensors and hand-written CUDA kernels for NVIDIA Hopper
 (csrc/godunov.cu, csrc/smoothers.cu).  It imports neither JAX nor
 incflo_tpu.
 
-Scope today: 3D, fully periodic, one level, Newtonian, Godunov +
-Crank-Nicolson decks -- shear3d with constant density (direct solves)
-or with variable density and tracers (multigrid V-cycles).  Other decks
-raise NotImplementedError naming the ROADMAP item that ports them.
+Scope today: 3D, one level, Newtonian, Godunov + Crank-Nicolson decks
+whose axes are periodic or end in slip or no-slip walls -- shear3d with
+constant density (direct solves) or with variable density and tracers
+(multigrid V-cycles), and the walled Rayleigh-Taylor deck rt (gravity,
+variable density, a tracer; multigrid on levels with walls).  Other
+decks raise NotImplementedError naming the ROADMAP item that ports
+them.
 
 Float32 matrix products run in full precision: importing the package
 sets `torch.backends.cuda.matmul.allow_tf32 = False` and

@@ -1,11 +1,14 @@
-// Red-black multigrid smoothers on fully periodic 3D grids, for NVIDIA
-// Hopper (sm_90a).  Two kernel families with a plain C interface, bound
-// from incflo_torch/ops/smoother_kernels.py with ctypes:
+// Red-black multigrid smoothers on 3D grids, for NVIDIA Hopper (sm_90a).
+// Two kernel families with a plain C interface, bound from
+// incflo_torch/ops/smoother_kernels.py with ctypes:
 //
 //   smoother_cell   replaces incflo_tpu/ops/pallas_cell.py:_smooth_kernel
 //                   and :_tiled_kernel (one function at two sizes there)
+//                   on fully periodic levels, and
+//                   incflo_tpu/ops/pallas_smoother.py:_rb_kernel on levels
+//                   with a Neumann or Dirichlet side on any axis
 //   smoother_nodal  replaces incflo_tpu/ops/pallas_nodal.py:_smooth_kernel
-//                   and :_tiled_kernel
+//                   and :_tiled_kernel (fully periodic levels)
 //
 // Each entry runs `nsweeps` red-black sweeps and, when `res` is not null,
 // the residual b - L(x), as a sequence of launches on the caller's
@@ -23,9 +26,30 @@
 // i + e_ax, so the low face of i is F_ax(i - e_ax)):
 //     L(x) = diag*x - sum_ax (F_ax(i) x(i+e_ax) + F_ax(i-e_ax) x(i-e_ax))
 // A cell's 7-point stencil touches only the other colour, so a pass
-// updates in place.  Arrays are (nx, ny, nz, nc) with the nc components
+// updates in place -- except across the wrap of a periodic axis with an
+// odd number of cells, whose first and last cell share a colour: such a
+// level is smoothed out of place, between two buffers.  Arrays are (nx, ny, nz, nc) with the nc components
 // last and uncoloured; one thread per element, so neighbouring threads
 // read neighbouring addresses for any nc.
+//
+// Walls (the kWalls instantiation).  Each side of each axis is periodic
+// (0), Neumann (1) or Dirichlet (2).  In the diag-extracted form a wall
+// changes only the two neighbour coefficients of the cells that touch
+// it; `diag` already carries the wall face with factor 0 (Neumann) or 3
+// (Dirichlet, from the maxorder-3 ghost -2*x0 + x1/3):
+//     Neumann:   no neighbour across the wall (coefficient 0);
+//     Dirichlet: none either, and the ghost's x1/3 adds a third of the
+//                wall face's coefficient to the OPPOSITE neighbour.
+// The opposite neighbour has the other colour, so a pass still updates in
+// place, on every axis alike: the ghosts a pass sees are always those of
+// the current iterate.  F_ax(n-1) is the high wall face; the low wall
+// face, which the wrap of a periodic axis would find at F_ax(n-1), comes
+// as a separate plane W_ax of shape (.., 1, ..).  The Pallas kernel's
+// merged (y, z) lane axis, its x slabs of TBx+8 rows at 8-aligned
+// offsets, its nine DMA copies and its red pass on a slab+1 ring answer
+// VMEM and Mosaic's tiling rules and have no counterpart here; nor has
+// its stale ghost at a non-periodic x boundary, which that x tiling
+// caused.
 //
 // Nodal operator (Q1 finite elements, sigma at cells, phi at nodes; node
 // i is the low corner of cell i):
@@ -51,6 +75,9 @@ namespace {
 
 constexpr int kBlock = 256;
 constexpr int kNoColor = 2;  // a pass that updates nothing: a copy
+constexpr int kPeriodic = 0;
+constexpr int kDirichlet = 2;
+constexpr double kThird = 1.0 / 3.0;
 
 struct Dim {
   int n[3];
@@ -92,10 +119,23 @@ struct CellArgs {
   const T* diag;
   const T* dinv;
   const T* F[3];
+  const T* W[3];  // low wall face plane of a walled axis, else null
+  int bc[3][2];   // [axis][lo, hi]: 0 periodic, 1 Neumann, 2 Dirichlet
   int color;
 };
 
+// element of the plane W_ax (extent 1 along ax) under cell p
 template <typename T>
+__device__ __forceinline__ int wall_elem(const CellArgs<T>& a, int ax,
+                                         const int p[3], int c) {
+  const Dim& g = a.g;
+  const int n1 = ax == 1 ? 1 : g.n[1], n2 = ax == 2 ? 1 : g.n[2];
+  const int i = ax == 0 ? 0 : p[0], j = ax == 1 ? 0 : p[1],
+            k = ax == 2 ? 0 : p[2];
+  return ((i * n1 + j) * n2 + k) * g.nc + c;
+}
+
+template <typename T, bool kWalls>
 __device__ __forceinline__ T cell_apply(const CellArgs<T>& a, const T* x,
                                         int e, const int p[3], int c) {
   const Dim& g = a.g;
@@ -107,28 +147,44 @@ __device__ __forceinline__ T cell_apply(const CellArgs<T>& a, const T* x,
     const int eE = elem(g, q[0], q[1], q[2], c);
     q[ax] = dn(p[ax], g.n[ax]);
     const int eW = elem(g, q[0], q[1], q[2], c);
-    out = out - (a.F[ax][e] * x[eE] + a.F[ax][eW] * x[eW]);
+    T chi = a.F[ax][e];    // coefficient of x(i + e_ax)
+    T clo = a.F[ax][eW];   // coefficient of x(i - e_ax)
+    if (kWalls && a.bc[ax][0] != kPeriodic) {
+      // the wrapped neighbour of a wall cell is still read, times 0
+      if (p[ax] == g.n[ax] - 1) {
+        const T fwall = chi;
+        chi = T(0);
+        if (a.bc[ax][1] == kDirichlet) clo = clo + fwall * T(kThird);
+      }
+      if (p[ax] == 0) {
+        clo = T(0);
+        if (a.bc[ax][0] == kDirichlet)
+          chi = chi + a.W[ax][wall_elem(a, ax, p, c)] * T(kThird);
+      }
+    }
+    out = out - (chi * x[eE] + clo * x[eW]);
   }
   return out;
 }
 
-template <typename T>
+template <typename T, bool kWalls>
 __global__ void __launch_bounds__(kBlock) cell_pass(const CellArgs<T> a) {
   int e, p[3], c;
   if (!thread_elem(a.g, e, p, c)) return;
   if (((p[0] + p[1] + p[2]) & 1) == a.color) {
     const T x = a.src[e];
-    a.dst[e] = x + (a.b[e] - cell_apply(a, a.src, e, p, c)) * a.dinv[e];
+    a.dst[e] =
+        x + (a.b[e] - cell_apply<T, kWalls>(a, a.src, e, p, c)) * a.dinv[e];
   } else if (a.src != a.dst) {
     a.dst[e] = a.src[e];
   }
 }
 
-template <typename T>
+template <typename T, bool kWalls>
 __global__ void __launch_bounds__(kBlock) cell_residual(const CellArgs<T> a) {
   int e, p[3], c;
   if (!thread_elem(a.g, e, p, c)) return;
-  a.dst[e] = a.b[e] - cell_apply(a, a.src, e, p, c);
+  a.dst[e] = a.b[e] - cell_apply<T, kWalls>(a, a.src, e, p, c);
 }
 
 // ---------------------------------------------------------------------
@@ -254,12 +310,18 @@ int launch(void (*kernel)(Args), const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kWalls>
 int run_cell(const void* x, const void* b, const void* diag, const void* dinv,
-             const void* f0, const void* f1, const void* f2, void* out,
+             const void* f0, const void* f1, const void* f2,
+             const void* const w[3], const int* bc, void* out, void* tmp,
              void* res, const Dim& g, int nsweeps, cudaStream_t st) {
   CellArgs<T> a;
   a.g = g;
+  for (int ax = 0; ax < 3; ++ax) {
+    a.W[ax] = static_cast<const T*>(w[ax]);
+    a.bc[ax][0] = bc[2 * ax];
+    a.bc[ax][1] = bc[2 * ax + 1];
+  }
   a.b = static_cast<const T*>(b);
   a.diag = static_cast<const T*>(diag);
   a.dinv = static_cast<const T*>(dinv);
@@ -271,21 +333,48 @@ int run_cell(const void* x, const void* b, const void* diag, const void* dinv,
   int rc = 0;
   if (nsweeps == 0) {
     a.color = kNoColor;
-    rc = launch(cell_pass<T>, a, st);
+    rc = launch(cell_pass<T, kWalls>, a, st);
   }
   // the first pass copies the other colour from x to out; later passes
-  // update out in place
+  // update out in place.  With `tmp` (an odd periodic axis, where the
+  // wrap couples two cells of one colour) every pass writes the other
+  // buffer instead, tmp for s even and out for s odd, so that it reads
+  // the previous pass's values everywhere, as the plain version does.
+  T* bufs[2] = {static_cast<T*>(tmp ? tmp : out), static_cast<T*>(out)};
   for (int s = 0; s < 2 * nsweeps && !rc; ++s) {
     a.color = s & 1;
-    rc = launch(cell_pass<T>, a, st);
+    a.dst = bufs[s & 1];
+    rc = launch(cell_pass<T, kWalls>, a, st);
     a.src = a.dst;
   }
   if (!rc && res) {
     a.src = static_cast<const T*>(out);
     a.dst = static_cast<T*>(res);
-    rc = launch(cell_residual<T>, a, st);
+    rc = launch(cell_residual<T, kWalls>, a, st);
   }
   return rc;
+}
+
+// bc holds (lo, hi) per axis.  A walled axis is non-periodic on both
+// sides, has at least 2 cells, and brings its low wall plane when that
+// side is Dirichlet.  Sets `walls` when any axis is walled and `odd_wrap`
+// when a periodic axis has an odd number (> 1) of cells.
+bool check_bc(const int* bc, const void* const w[3], const Dim& g,
+              bool& walls, bool& odd_wrap) {
+  walls = odd_wrap = false;
+  for (int ax = 0; ax < 3; ++ax) {
+    const int lo = bc[2 * ax], hi = bc[2 * ax + 1];
+    if (lo < 0 || lo > 2 || hi < 0 || hi > 2) return false;
+    if ((lo == kPeriodic) != (hi == kPeriodic)) return false;
+    if (lo == kPeriodic) {
+      if (g.n[ax] > 1 && g.n[ax] % 2) odd_wrap = true;
+      continue;
+    }
+    walls = true;
+    if (g.n[ax] < 2) return false;
+    if (lo == kDirichlet && !w[ax]) return false;
+  }
+  return true;
 }
 
 template <typename T>
@@ -334,23 +423,39 @@ bool make_dim(int nx, int ny, int nz, int nc, Dim& g) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64.  All arrays are dense (nx, ny, nz, nc);
-// `res` may be null (no residual); `out` and `res` alias no input.  The
-// caller guarantees nx*ny*nz*nc < 2^31.  Returns a cudaError_t value.
+// `res` may be null (no residual); `out` and `res` alias no input.  `bc`
+// points at 6 ints on the host, (lo, hi) per axis; w0..w2 are the low
+// wall face planes of the walled axes, dense with extent 1 along their
+// axis, and may be null on periodic axes.  `tmp` is scratch of the size
+// of x, needed (and used) only when a periodic axis has an odd number of
+// cells and nsweeps > 0.  The caller guarantees nx*ny*nz*nc < 2^31.
+// Returns a cudaError_t value.
 extern "C" int smoother_cell(int dtype, const void* x, const void* b,
                              const void* diag, const void* dinv,
                              const void* f0, const void* f1, const void* f2,
-                             void* out, void* res, int nx, int ny, int nz,
-                             int nc, int nsweeps, void* stream) {
+                             const void* w0, const void* w1, const void* w2,
+                             const int* bc, void* out, void* tmp, void* res,
+                             int nx, int ny, int nz, int nc, int nsweeps,
+                             void* stream) {
   Dim g;
-  if (!make_dim(nx, ny, nz, nc, g) || nsweeps < 0)
+  const void* const w[3] = {w0, w1, w2};
+  bool walls = false, odd_wrap = false;
+  if (!make_dim(nx, ny, nz, nc, g) || nsweeps < 0 || !bc ||
+      !check_bc(bc, w, g, walls, odd_wrap))
     return (int)cudaErrorInvalidValue;
+  if (odd_wrap && nsweeps > 0 && !tmp) return (int)cudaErrorInvalidValue;
+  if (!odd_wrap) tmp = nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return run_cell<float>(x, b, diag, dinv, f0, f1, f2, out, res, g,
-                           nsweeps, st);
+    return walls ? run_cell<float, true>(x, b, diag, dinv, f0, f1, f2, w, bc,
+                                         out, tmp, res, g, nsweeps, st)
+                 : run_cell<float, false>(x, b, diag, dinv, f0, f1, f2, w,
+                                          bc, out, tmp, res, g, nsweeps, st);
   if (dtype == 1)
-    return run_cell<double>(x, b, diag, dinv, f0, f1, f2, out, res, g,
-                            nsweeps, st);
+    return walls ? run_cell<double, true>(x, b, diag, dinv, f0, f1, f2, w,
+                                          bc, out, tmp, res, g, nsweeps, st)
+                 : run_cell<double, false>(x, b, diag, dinv, f0, f1, f2, w,
+                                           bc, out, tmp, res, g, nsweeps, st);
   return (int)cudaErrorInvalidValue;
 }
 

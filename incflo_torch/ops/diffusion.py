@@ -1,19 +1,23 @@
 """Viscous terms: explicit divtau and the implicit tensor velocity solve
-(port of the parts of incflo_tpu/ops/diffusion.py that the shear3d step
-runs; reference DiffusionTensorOp, src/diffusion/*.cpp):
+(port of the parts of incflo_tpu/ops/diffusion.py that Newtonian
+Crank-Nicolson steps without embedded boundaries run; reference
+DiffusionTensorOp, src/diffusion/*.cpp):
 
   eta_to_faces     : eta grown by 1 -> face averages
   compute_divtau   : div(tau)/rho, tau = eta(grad u + grad u^T) (tensor)
                      or eta grad u (scalar mode)
   compute_laps     : div(mu_s grad s) per tracer
-  diffuse_velocity : (rho - dt div(eta (grad + grad^T))) u = rho u*, the
-                     batched branch (prebuilt constant-coefficient solver
-                     or one built from the current rho and eta) and the
-                     tensor CG on the cross coupling.
+  diffuse_velocity : (rho - dt div(eta (grad + grad^T))) u = rho u*.
+                     Where every component has the same solver BCs
+                     (periodic boxes, no-slip walls): the batched branch
+                     (prebuilt constant-coefficient solver or one built
+                     from the current rho and eta) and the tensor CG on
+                     the cross coupling.  Where they differ (a slip wall:
+                     Dirichlet for the normal component, Neumann for the
+                     tangential ones): one scalar solve per component.
   diffuse_scalar   : (rho - dt div(mu_s grad)) s = rho s* per tracer.
 
-The EB forms (ROADMAP A11) and the per-component branch for mixed
-velocity BCs (ROADMAP A9b) are not ported yet and raise.
+The EB forms (ROADMAP A11) are not ported yet.
 """
 
 from __future__ import annotations
@@ -304,8 +308,8 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
                      prebuilt_solver=None, return_tensor_res=False,
                      direct=True):
     """(rho - dt div(eta (grad + grad^T))) u = rho u*  (reference
-    DiffusionTensorOp::diffuse_velocity).  Every component has the same
-    operator here, so the components are one batched solve; the diagonal
+    DiffusionTensorOp::diffuse_velocity).  Where every component has the
+    same solver BCs the components are one batched solve; the diagonal
     part of the transpose term (the 2*eta doubling of each component's
     own-axis flux) is folded into an anisotropic coefficient, and the
     remaining cross coupling is converged by the tensor CG, whose
@@ -313,14 +317,34 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
     Without a prebuilt solver one is built from rho and eta_faces
     (`direct` as for mg.CellSolver) and iterates from the warm start
     `vel` after 4 fine-level sweeps: at CFL-limited dt the operator is
-    diagonally dominant and those often reach the tolerance alone."""
+    diagonally dominant and those often reach the tolerance alone.
+
+    Where the components' BCs differ (slip walls) each component is a
+    scalar solve of (rho - dt div(eta grad)) with its own BCs, and no
+    tensor CG runs, as in incflo_tpu/ops/diffusion.py:844-866;
+    return_tensor_res then gives (0, inf), which says that no CG ran,
+    not that one converged."""
     dtype = vel.dtype
     acoef = rho
     bcs_all = [velocity_solver_bc(cfg, c) for c in range(grid.ndim)]
     if not all(b == bcs_all[0] for b in bcs_all):
-        raise NotImplementedError(
-            "per-component velocity solves (mixed wall BCs) are not "
-            "ported yet (ROADMAP A9b)")
+        comps = []
+        for c in range(grid.ndim):
+            bc_lo, bc_hi = bcs_all[c]
+            solver = mg.CellSolver(grid.dx, bc_lo, bc_hi, alpha=1.0,
+                                   beta=dt_diff, acoef=acoef,
+                                   bcoef=tuple(eta_faces), direct=direct)
+            comps.append(solver.solve_inhom(
+                acoef * vel[..., c],
+                velocity_bvals(cfg, c, dtype, vel.device), x0=vel[..., c],
+                rtol=cfg.tensor_mg_rtol, atol=cfg.tensor_mg_atol,
+                maxiter=cfg.tensor_mg_maxiter, presmooth=4))
+        out = torch.stack(comps, dim=-1)
+        if return_tensor_res:
+            z = torch.zeros((), dtype=dtype, device=vel.device)
+            return out, z, torch.full((), float("inf"), dtype=dtype,
+                                      device=vel.device)
+        return out
     tensor = (cfg.use_tensor_solve and grow_fn is not None
               and eta_g1 is not None)
     if prebuilt_solver is not None:

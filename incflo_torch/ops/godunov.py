@@ -1,5 +1,5 @@
 """Godunov (corner-transport-upwind) advection: port of
-incflo_tpu/ops/godunov.py:127-803 for fully periodic 3D grids.
+incflo_tpu/ops/godunov.py:127-803 for 3D grids.
 
   predict():  half-time face-normal velocities for the MAC projection.
   advect():   dq/dt = -div(umac q) (iconserv) or -(u.grad)q with full
@@ -7,9 +7,12 @@ incflo_tpu/ops/godunov.py:127-803 for fully periodic 3D grids.
 
 On fully periodic grids the chain has no boundary forms, so both
 dispatch to ops/godunov_kernels (the CUDA kernels on the card, their
-plain PyTorch versions on the CPU).  The wall and extdir forms,
-use_forces_in_trans and the use_mac_phi_in_godunov warm start wait for
-ROADMAP A8/A9b and raise.
+plain PyTorch versions on the CPU).  A grid with a non-periodic axis
+takes the wall forms of the plain versions (ops/godunov_walls.py) on
+either device, as incflo_tpu runs such grids through its jnp Godunov and
+not through its Pallas kernels: the choice is made here, by the grid's
+periodicity alone.  2D, use_forces_in_trans and the
+use_mac_phi_in_godunov warm start wait for ROADMAP A8 and raise.
 """
 
 from __future__ import annotations
@@ -32,10 +35,10 @@ class GodunovScheme:
         self.nd = grid.ndim
 
     def _check(self):
-        if self.nd != 3 or not all(self.grid.periodic):
+        if self.nd != 3:
             raise NotImplementedError(
-                "incflo_torch GodunovScheme covers 3D fully periodic grids; "
-                "2D and the wall/extdir forms come with ROADMAP A8/A9b")
+                "incflo_torch GodunovScheme covers 3D grids; 2D comes with "
+                "ROADMAP A8")
         if self.uft:
             raise NotImplementedError(
                 "godunov_use_forces_in_trans is not ported yet (ROADMAP A8)")
@@ -50,6 +53,9 @@ class GodunovScheme:
         if gmacphi is not None:
             raise NotImplementedError(
                 "use_mac_phi_in_godunov is not ported yet (ROADMAP A8)")
+        if not all(self.grid.periodic):
+            return gk.predict_plain(self.grid, vel_g, forces_g, dt,
+                                    self.use_ppm, bcrecs=bcrecs, ng=ng)
         vel = inner(vel_g, ng, self.nd)
         forces = inner(forces_g, 1, self.nd) if forces_g is not None \
             else None
@@ -62,6 +68,11 @@ class GodunovScheme:
         """q_g grown by ng; umac interior face arrays (n+1 own axis).
         Returns dq/dt on the interior."""
         self._check()
+        if not all(self.grid.periodic):
+            return gk.advect_plain(self.grid, q_g, umac, forces_g, dt,
+                                   tuple(int(i) for i in iconserv),
+                                   self.use_ppm, bcrecs=bcrecs, ng=ng,
+                                   is_velocity=is_velocity)
         q = inner(q_g, ng, self.nd)
         forces = inner(forces_g, 1, self.nd) if forces_g is not None \
             else None

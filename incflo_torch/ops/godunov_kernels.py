@@ -1,6 +1,7 @@
-"""Godunov corner-transport-upwind chain on fully periodic 3D grids: the
-three hand-written CUDA kernels of incflo_torch/csrc/godunov.cu and
-their plain PyTorch versions.
+"""Godunov corner-transport-upwind chain on 3D grids: the three
+hand-written CUDA kernels of incflo_torch/csrc/godunov.cu for fully
+periodic grids, and the plain PyTorch versions for periodic and walled
+grids.
 
 Contract (the same as incflo_tpu/ops/pallas_godunov.py:391-448):
   predict(grid, vel, forces, dt, use_ppm) -> [umac_x, umac_y, umac_z]
@@ -50,6 +51,14 @@ Every wrapper takes the plain version only for tensors on the CPU.  On
 a CUDA tensor it launches the kernel or raises: outside the kernels'
 scope (not 3D, not fully periodic, use_forces_in_trans, a dtype other
 than float32/float64) there is no fallback.
+
+Grids with a wall: predict_plain and advect_plain, given arrays grown by
+ng ghost cells and the components' BC records, run the wall forms of the
+chain (ops/godunov_walls.py) on either device.  incflo_tpu runs walled
+decks through its jnp Godunov, never through the Pallas kernels, so no
+TPU kernel stands behind that path; ops/godunov.py takes it openly for
+every grid that is not fully periodic, and the wrappers above go on
+refusing such a grid.  Walls in csrc/godunov.cu are open work.
 """
 
 from __future__ import annotations
@@ -279,9 +288,31 @@ def advect_comp_plain(grid: Grid, q, umac, force_q, dt, icons: bool,
     return rate
 
 
-def predict_plain(grid: Grid, vel, forces, dt, use_ppm: bool
-                  ) -> List[torch.Tensor]:
-    """Plain version of predict(): uad, then predict_d for d = 0, 1, 2."""
+def _check_walled(grid: Grid, field, ng: int, bcrecs):
+    if grid.ndim != 3:
+        raise NotImplementedError(
+            "incflo_torch Godunov covers 3D grids; 2D comes with ROADMAP A8")
+    if bcrecs is None or ng < 3:
+        raise ValueError("the wall forms need the components' BC records "
+                         "and fields grown by ng >= 3 ghost cells")
+    if field.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"Godunov takes float32/float64, got {field.dtype}")
+    if tuple(field.shape[:3]) != tuple(n + 2 * ng for n in grid.n_cell):
+        raise ValueError(f"field shape {tuple(field.shape)} is not the "
+                         f"grid {grid.n_cell} grown by {ng}")
+
+
+def predict_plain(grid: Grid, vel, forces, dt, use_ppm: bool,
+                  bcrecs=None, ng: int = 0) -> List[torch.Tensor]:
+    """Plain version of predict(): uad, then predict_d for d = 0, 1, 2.
+    With ng > 0 the wall forms: `vel` is grown by ng >= 3 ghost cells
+    filled by the physical BCs, `forces` by 1, and `bcrecs` (3, 3, 2)
+    holds the BCType of each component on each side of each axis."""
+    if ng > 0 or not all(grid.periodic):
+        from incflo_torch.ops.godunov_walls import WindowedGodunov
+        _check_walled(grid, vel, ng, bcrecs)
+        return WindowedGodunov(grid, use_ppm).predict(
+            vel, forces, _dt_tensor(dt, vel), ng, bcrecs)
     _check_scope(grid, vel)
     dt = _dt_tensor(dt, vel)
     uad = uad_plain(grid, vel, dt, use_ppm)
@@ -291,8 +322,17 @@ def predict_plain(grid: Grid, vel, forces, dt, use_ppm: bool
 
 
 def advect_plain(grid: Grid, q, umac, forces, dt, iconserv: Sequence[int],
-                 use_ppm: bool) -> torch.Tensor:
-    """Plain version of advect(): one advect per component."""
+                 use_ppm: bool, bcrecs=None, ng: int = 0,
+                 is_velocity: bool = False) -> torch.Tensor:
+    """Plain version of advect(): one advect per component.  With ng > 0
+    the wall forms, on grown arrays as for predict_plain; `is_velocity`
+    then selects the normal-velocity forms at ext_dir faces."""
+    if ng > 0 or not all(grid.periodic):
+        from incflo_torch.ops.godunov_walls import WindowedGodunov
+        _check_walled(grid, q, ng, bcrecs)
+        return WindowedGodunov(grid, use_ppm).advect(
+            q, umac, forces, _dt_tensor(dt, q), ng, bcrecs, iconserv,
+            is_velocity)
     _check_scope(grid, q)
     dt = _dt_tensor(dt, q)
     return torch.stack(
@@ -310,7 +350,8 @@ def _check_scope(grid: Grid, field, use_forces_in_trans: bool = False):
     if grid.ndim != 3 or not all(grid.periodic):
         raise NotImplementedError(
             "incflo_torch Godunov kernels cover 3D fully periodic grids; "
-            "the wall and extdir forms come with ROADMAP A8/A9b")
+            "walled grids take predict_plain / advect_plain on grown "
+            "arrays, 2D comes with ROADMAP A8")
     if use_forces_in_trans:
         raise NotImplementedError(
             "use_forces_in_trans is not ported yet (ROADMAP A8)")

@@ -1,5 +1,6 @@
 """Cell-centred and nodal operators and their solvers (port of the parts
-of incflo_tpu/ops/multigrid.py that fully periodic one-level steps run).
+of incflo_tpu/ops/multigrid.py that one-level steps without embedded
+boundaries run: periodic, Neumann and Dirichlet sides on any axis).
 
 Two operator families:
 
@@ -20,9 +21,13 @@ wraps the V-cycle in conjugate gradients, the nodal solver iterates it.
 
 JAX's lax.while_loop / lax.cond are Python loops here that read one bool
 per iteration back to the host; COUNTS tallies those reads, the solves
-and their iterations.  The smoother runs through ops/smoother_kernels
-(CUDA kernels on the card, their plain versions on the CPU), which cover
-fully periodic 3D levels; walled levels raise until ROADMAP A9b.
+and their iterations.  The smoothers run through ops/smoother_kernels
+(CUDA kernels on the card, their plain versions on the CPU): the cell
+smoother on every 3D level, walls included, the nodal smoother on fully
+periodic 3D levels.  A nodal level with a non-periodic axis is smoothed
+by nodal_smooth_walled, plain PyTorch on either device, as incflo_tpu
+smooths such levels in plain jnp; which of the two a level takes is
+decided by its BCs alone.  2D levels raise until ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -41,9 +46,8 @@ class SolverBC(enum.IntEnum):
     DIRICHLET = 2   # value on the domain face
 
 
-_WALLED = ("multigrid smoothing of walled or 2D levels is not ported yet "
-           "(ROADMAP A9b): the smoother kernels cover fully periodic 3D "
-           "levels")
+_NOT_3D = ("multigrid smoothing of 2D levels is not ported yet (ROADMAP "
+           "A8): the smoother kernels cover 3D levels")
 
 # host-side tallies of the iterative solves since reset_counts(): solves
 # that iterated, their CG iterations / V-cycles, and the bools read back
@@ -372,29 +376,40 @@ class CellSolver:
             self.symbol = spectral.cell_symbol(levels[0])
 
     def smoother_coefs(self):
-        """(dinvs, fhis): per level, what the smoother kernel reads beside
-        diag -- the guarded reciprocal of the diagonal (from its global
-        max, so it is taken once per hierarchy and not in every call) and
-        the cell-shaped high-face coefficients scaled by beta/dx^2.  Built
-        at the first smooth: a solver that only ever solves directly
-        never pays for them."""
+        """(dinvs, fhis, fwalls): per level, what the smoother kernel
+        reads beside diag -- the guarded reciprocal of the diagonal (from
+        its global max, so it is taken once per hierarchy and not in
+        every call), the cell-shaped high-face coefficients scaled by
+        beta/dx^2 (faces 1..n of each axis: on a walled axis the last is
+        the high wall face) and, per walled axis, the low wall face
+        (face 0, which the wrap of a periodic axis finds at face n) as a
+        plane of extent 1, else None.  cell_diag's factor 3 of a
+        Dirichlet wall and the smoother's one-third term are taken from
+        this same face coefficient on every level.  Built at the first
+        smooth: a solver that only ever solves directly never pays for
+        them."""
         if self._coefs is None:
             from incflo_torch.ops import smoother_kernels as sk
-            lev0 = self.levels[0]
-            if self.ndim != 3 or any(b != SolverBC.PERIODIC
-                                     for b in lev0.bc_lo + lev0.bc_hi):
-                raise NotImplementedError(_WALLED)
+            if self.ndim != 3:
+                raise NotImplementedError(_NOT_3D)
             dinvs = [sk.guarded_reciprocal(d) for d in self.diags]
-            fhis = []
+            fhis, fwalls = [], []
             for lev, diag in zip(self.levels, self.diags):
-                fh = []
+                fh, fw = [], []
                 for ax in range(3):
                     b = lev.bcoef[ax]
-                    hi = b.narrow(ax, 1, b.shape[ax] - 1)
-                    scaled = (lev.beta / (lev.dx[ax] * lev.dx[ax])) * hi
-                    fh.append(scaled.expand_as(diag).contiguous())
+                    scale = lev.beta / (lev.dx[ax] * lev.dx[ax])
+                    hi = scale * b.narrow(ax, 1, b.shape[ax] - 1)
+                    fh.append(hi.expand_as(diag).contiguous())
+                    if lev.bc_lo[ax] == SolverBC.PERIODIC:
+                        fw.append(None)
+                    else:
+                        lo = scale * b.narrow(ax, 0, 1)
+                        fw.append(lo.expand_as(diag.narrow(ax, 0, 1))
+                                  .contiguous())
                 fhis.append(tuple(fh))
-            self._coefs = (dinvs, fhis)
+                fwalls.append(tuple(fw))
+            self._coefs = (dinvs, fhis, fwalls)
         return self._coefs
 
     def to(self, device) -> "CellSolver":
@@ -424,9 +439,11 @@ class CellSolver:
         """n red-black sweeps (+ the residual b - L(x)) on level li, in
         the kernel's diag-extracted form on either device."""
         from incflo_torch.ops import smoother_kernels as sk
-        dinvs, fhis = self.smoother_coefs()
+        dinvs, fhis, fwalls = self.smoother_coefs()
+        lev = self.levels[li]
         return sk.cell_smooth(x, b, self.diags[li], dinvs[li], fhis[li], n,
-                              want_residual)
+                              want_residual, bc=(lev.bc_lo, lev.bc_hi),
+                              Fwall=fwalls[li])
 
     def _smooth(self, x, b, li, n):
         return self._smooth_res(x, b, li, n, False)[0]
@@ -736,6 +753,25 @@ def _prolong_nodal(c, lev_f: NodalLevel):
     return c
 
 
+def nodal_smooth_walled(x, b, lev: NodalLevel, dinv, nsweeps: int,
+                        want_residual: bool = False):
+    """nsweeps red-black sweeps (+ the residual b - L(x)) of nodal_apply
+    on a level with a non-periodic axis: plain PyTorch on either device.
+    incflo_tpu smooths such levels in plain jnp (its Pallas nodal kernels
+    take fully periodic levels only), and so far no CUDA kernel does
+    either: ops/smoother_kernels.nodal_smooth covers the periodic levels.
+    Dirichlet rows are identity rows of nodal_apply, so they relax to b
+    like any other."""
+    from incflo_torch.ops import smoother_kernels as sk
+    isred = sk.checkerboard(x.shape, x.device)
+    red = isred.to(x.dtype)
+    black = (~isred).to(x.dtype)
+    for _ in range(nsweeps):
+        x = x + red * (b - nodal_apply(x, lev)) * dinv
+        x = x + black * (b - nodal_apply(x, lev)) * dinv
+    return x, (b - nodal_apply(x, lev)) if want_residual else None
+
+
 class NodalSolver:
     """Geometric multigrid (and, for constant sigma, a direct solve) for
     the nodal sigma-Poisson system.  direct=False as for CellSolver."""
@@ -786,8 +822,11 @@ class NodalSolver:
     def _smooth_res(self, x, b, li, n, want_residual):
         """n red-black sweeps (+ the residual b - L(x)) on level li."""
         lev = self.levels[li]
-        if self.ndim != 3 or not all(lev.periodic):
-            raise NotImplementedError(_WALLED)
+        if self.ndim != 3:
+            raise NotImplementedError(_NOT_3D)
+        if not all(lev.periodic):
+            return nodal_smooth_walled(x, b, lev, self.dinvs[li], n,
+                                       want_residual)
         from incflo_torch.ops import smoother_kernels as sk
         return sk.nodal_smooth(x, b, self.sigmas[li], self.dinvs[li], lev.dx,
                                n, want_residual)
@@ -822,7 +861,9 @@ class NodalSolver:
             return x, torch.zeros((), dtype=rhs.dtype, device=rhs.device), 1
         if x0 is None:
             x0 = torch.zeros_like(rhs)
-        tol = torch.clamp_min(rtol * _maxnorm(rhs), atol)
+        tol = rtol * _maxnorm(rhs)
+        tol = torch.maximum(tol, atol.to(tol.dtype)) \
+            if isinstance(atol, torch.Tensor) else torch.clamp_min(tol, atol)
         x, it = x0, 0
         res = _maxnorm(rhs - nodal_apply(x0, lev))
         prev = torch.full_like(res, float("inf"))

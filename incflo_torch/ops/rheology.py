@@ -5,7 +5,7 @@ Reference: src/rheology/incflo_rheology.cpp:8-140 (NonNewtonianViscosity
 functor with Papanastasiou regularisation) and src/derive/incflo_derive_K.H
 (incflo_strainrate: ||2S|| via central differences).  Only the Newtonian
 model runs in a Simulation today; the others need the variable-
-coefficient solves of ROADMAP A9b.
+coefficient solves of ROADMAP A9c.
 """
 
 from __future__ import annotations

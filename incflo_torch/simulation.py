@@ -1,24 +1,29 @@
-"""The time integrator (port of incflo_tpu/simulation.py for fully
-periodic 3D decks): Advance = ComputeDt -> ApplyPredictor -> nodal
+"""The time integrator (port of incflo_tpu/simulation.py for 3D decks
+whose axes are periodic or end in slip or no-slip walls): Advance = ComputeDt -> ApplyPredictor -> nodal
 projection, run eagerly as PyTorch ops on one device.
 
 Orchestration mirrors reference src/incflo_advance.cpp,
 src/incflo_apply_predictor.cpp, src/incflo_compute_dt.cpp,
 src/incflo_compute_forces.cpp and
 src/projection/incflo_apply_nodal_projection.cpp: state tensors carry no
-ghosts, old/new pairs are function inputs/outputs.  The Godunov chain
-runs through the CUDA kernels of csrc/godunov.cu on the card (their
-plain PyTorch versions on the CPU).  With constant density the MAC,
+ghosts, old/new pairs are function inputs/outputs.  On a fully periodic
+grid the Godunov chain runs through the CUDA kernels of csrc/godunov.cu
+on the card (their plain PyTorch versions on the CPU); on a grid with
+walls it takes the wall forms of the plain versions on either device
+(ops/godunov.py).  With constant density the MAC,
 Helmholtz and nodal systems are prebuilt and solved directly
 (ops/spectral.py); with variable density they are rebuilt from the
 current density every step and solved by multigrid V-cycles
 (ops/multigrid.py) whose smoothers are the CUDA kernels of
-csrc/smoothers.cu.
+csrc/smoothers.cu: the cell smoother on every level, walls included,
+the nodal smoother on fully periodic levels (a walled nodal level is
+smoothed in plain PyTorch, ops/multigrid.nodal_smooth_walled).
 
-Scope of this port: 3D, every axis periodic, one level, no EB, constant
-or variable density, tracer advection and diffusion, Newtonian fluid,
-Godunov advection, Crank-Nicolson diffusion.  Any other deck raises
-NotImplementedError naming the ROADMAP item that ports it.
+Scope of this port: 3D, each axis periodic or between slip / no-slip
+walls, one level, no EB, constant or variable density, gravity, tracer
+advection and diffusion, Newtonian fluid, Godunov advection,
+Crank-Nicolson diffusion.  Any other deck raises NotImplementedError
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Optional
 import torch
 
 from incflo_torch import bcs, probs
+from incflo_torch.bcs import BCKind
 from incflo_torch.config import DiffusionType, FluidModel, IncfloConfig
 from incflo_torch.ops import diffusion, godunov, mac_projection
 from incflo_torch.ops import multigrid as mg
@@ -39,20 +45,25 @@ from incflo_torch.state import LevelState, SimState
 def _unsupported(cfg: IncfloConfig):
     """(reason, ROADMAP item) for a deck outside this port, else None."""
     g = cfg.grid
+    walls_only = all(
+        BCKind(int(cfg.bc_kind[ax, side])) in (BCKind.slip_wall,
+                                               BCKind.no_slip_wall)
+        for ax in range(g.ndim) if not g.periodic[ax] for side in range(2))
     checks = [
         (g.ndim != 3, "2D decks", "A8"),
         (cfg.eb_geometry not in ("", "all_regular", "null"),
          "embedded boundaries", "A11"),
         (not cfg.use_godunov, "MOL advection", "A8"),
-        (not all(g.periodic), "non-periodic axes", "A9b"),
+        (g.ndim == 3 and not walls_only,
+         "mass inflow and pressure inflow/outflow boundaries", "A9c"),
         (cfg.fluid_model != FluidModel.Newtonian, "non-Newtonian fluids",
-         "A9b"),
-        (cfg.use_boussinesq, "Boussinesq buoyancy", "A9b"),
+         "A9c"),
+        (cfg.use_boussinesq, "Boussinesq buoyancy", "A9c"),
         (cfg.use_mac_phi_in_godunov, "use_mac_phi_in_godunov", "A8"),
         (cfg.godunov_use_forces_in_trans, "godunov_use_forces_in_trans",
          "A8"),
         (cfg.diff_type != DiffusionType.Crank_Nicolson,
-         "explicit or implicit diffusion", "A9b"),
+         "explicit or implicit diffusion", "A9c"),
         (cfg.max_level > 0, "AMR", "A13"),
     ]
     for bad, what, item in checks:
@@ -73,8 +84,8 @@ class Simulation:
         if why is not None:
             raise NotImplementedError(
                 f"incflo_torch does not run {why[0]} yet "
-                f"(ROADMAP {why[1]}); it runs fully periodic 3D Godunov "
-                f"decks")
+                f"(ROADMAP {why[1]}); it runs 3D Godunov decks whose axes "
+                f"are periodic or end in slip or no-slip walls")
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("incflo_torch.Simulation: CUDA device "
@@ -124,8 +135,12 @@ class Simulation:
         # scaling/rho0 is this one scaled by `scaling`
         nodal = mg.NodalSolver(grid.dx, grid.periodic, bc_lo, bc_hi,
                                self._full(grid.cell_shape, inv_rho))
+        self._mac_solver = mac.to(self.device)
+        self._nodal_hat = nodal.to(self.device)
         bcs_all = [diffusion.velocity_solver_bc(cfg, c)
                    for c in range(grid.ndim)]
+        if not all(b == bcs_all[0] for b in bcs_all):
+            return      # slip walls: per-component solves, built per step
         eta_b = []
         for d in range(grid.ndim):
             shape = tuple(n + (1 if ax == d else 0)
@@ -138,8 +153,6 @@ class Simulation:
         blo, bhi = bcs_all[0]
         diff = mg.CellSolver(grid.dx, blo, bhi, alpha=1.0, beta=1.0,
                              acoef=acoef[..., None], bcoef=tuple(eta_b))
-        self._mac_solver = mac.to(self.device)
-        self._nodal_hat = nodal.to(self.device)
         self._diff_proto = diff.to(self.device)
 
     # ------------------------------------------------------------------
@@ -172,8 +185,9 @@ class Simulation:
 
     def compute_vel_forces(self, rho, tra_o, tra_n, gp,
                            include_pressure_gradient=True):
-        """tra_o/tra_n feed the Boussinesq buoyancy, which no deck the
-        port accepts turns on yet (ROADMAP A9b)."""
+        """-(gp + gp0)/rho + gravity.  tra_o/tra_n feed the Boussinesq
+        buoyancy, which no deck the port accepts turns on yet (ROADMAP
+        A9c)."""
         rhoinv = (1.0 / rho)[..., None]
         if include_pressure_gradient:
             return -(gp + self._gp0) * rhoinv + self._gravity
@@ -314,7 +328,12 @@ class Simulation:
             solver = self._nodal_hat
             rhs = mg._nodes_unique(mg.nodal_divergence(upads, grid.dx),
                                    solver.levels[0]) / scaling
-            phi = solver.solve(rhs)
+            # a direct solve ignores the start and the tolerances; with
+            # walls the prebuilt operator iterates V-cycles to them
+            phi = solver.solve(rhs, x0=None if incremental else p,
+                               rtol=self.cfg.nodal_mg_rtol,
+                               atol=self.cfg.nodal_mg_atol / scaling,
+                               maxiter=self.cfg.nodal_mg_maxiter)
         else:
             bc_lo, bc_hi = mac_projection.projection_solver_bc(
                 self.cfg.bc_kind, grid)
@@ -336,8 +355,8 @@ class Simulation:
         return vel_new, p_new, gp_new
 
     def _pad_vel_for_divergence(self, vel, inflow_scale):
-        """One ghost per axis: wrap on periodic axes (the mass-inflow
-        bands of walled decks come with ROADMAP A9b)."""
+        """One ghost per axis: wrap on periodic axes, zero beyond a wall
+        (the mass-inflow bands come with ROADMAP A9c)."""
         grid = self.grid
         upads = []
         for c in range(grid.ndim):

@@ -13,7 +13,9 @@ rounding); float32 2e-5 (predict) and 3e-4 (advect) of the field's max,
 the tolerances of tests/test_pallas_godunov.py.  The smoothers: float64
 1e-12 relative; float32 2e-6 absolute on x and 5e-4 on the residual for
 O(1) fields on a unit-spaced level scale (the limits of
-tests/test_pallas_kernels.py).
+tests/test_pallas_kernels.py).  The walled cell smoother is held to the
+same limits on every level of a CellSolver hierarchy with Neumann and
+Dirichlet sides.
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ import torch
 from incflo_torch.grid import Grid
 from incflo_torch.ops import cuda_build
 from incflo_torch.ops import godunov_kernels as gk
+from incflo_torch.ops import multigrid as mg
 from incflo_torch.ops import smoother_kernels as sk
 
 pytestmark = pytest.mark.cuda
@@ -111,8 +114,9 @@ def test_kernels_raise_outside_scope(cuda):
         gk.uad(_grid((8, 8, 8)), vel.half(), 0.01, True)
 
 
-# (8, 4, 2): two cells along z; (9, 5, 7): odd sizes, ragged last block
-SMOOTH_SHAPES = [(16, 8, 16), (32, 8, 16), (8, 4, 2), (9, 5, 7)]
+# (8, 4, 2): two cells along z; (9, 5, 7): odd sizes, ragged last block;
+# (33, 8, 16): an odd periodic axis whose wrap spans thread blocks
+SMOOTH_SHAPES = [(16, 8, 16), (32, 8, 16), (8, 4, 2), (9, 5, 7), (33, 8, 16)]
 
 
 def _smooth_check(got, ref, dtype):
@@ -173,6 +177,105 @@ def test_nodal_smooth_kernel_matches_plain(cuda, dtype, shape, nsweeps):
     assert none is None and torch.equal(only_x, got[0])
 
 
+# (lo, hi) BC codes per axis: 0 periodic, 1 Neumann, 2 Dirichlet
+P, N, D = 0, 1, 2
+WALL_BCS = {
+    "pallas_pdn": ((P, D, N), (P, D, N)),
+    "pallas_pnp": ((P, N, P), (P, N, P)),
+    "rt_scalar": ((P, P, N), (P, P, N)),
+    "rt_normal_velocity": ((P, P, D), (P, P, D)),
+    "walled_x": ((D, N, P), (D, N, P)),
+    "all_dirichlet": ((D, D, D), (D, D, D)),
+    "mixed_sides": ((N, D, N), (D, N, D)),
+}
+
+
+def _walled_solver(shape, bc, ncomp, dtype, device, seed=8):
+    """A Helmholtz CellSolver with random coefficients and the given
+    BCs; its levels, diags and smoother_coefs are what a V-cycle hands
+    the kernel.  Sizes with an odd or 2-cell axis have one level."""
+    rng = np.random.default_rng(seed)
+    tail = (ncomp,) if ncomp else ()
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    bcoef = []
+    for ax in range(3):
+        fs = tuple(n + (1 if a == ax else 0) for a, n in enumerate(shape))
+        b = t(0.5 + rng.random(fs + tail))
+        if bc[0][ax] == P:      # the periodic face n is face 0
+            b = torch.cat([b.narrow(ax, 0, shape[ax]), b.narrow(ax, 0, 1)],
+                          dim=ax)
+        bcoef.append(b)
+    acoef = t(1.0 + rng.random(shape + tail))
+    return mg.CellSolver((1.0, 0.5, 0.25), bc[0], bc[1], alpha=1.0, beta=0.3,
+                         acoef=acoef, bcoef=tuple(bcoef), direct=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(16, 8, 16), (8, 4, 2), (9, 5, 7)])
+@pytest.mark.parametrize("ncomp", [0, 3])
+@pytest.mark.parametrize("nsweeps", [0, 2, 8])
+@pytest.mark.parametrize("bcname", sorted(WALL_BCS))
+def test_walled_cell_smooth_kernel_matches_plain(cuda, dtype, shape, ncomp,
+                                                 nsweeps, bcname):
+    bc = WALL_BCS[bcname]
+    solver = _walled_solver(shape, bc, ncomp, dtype, cuda)
+    dinvs, fhis, fwalls = solver.smoother_coefs()
+    rng = np.random.default_rng(9)
+    for li, diag in enumerate(solver.diags):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+        x = t(rng.standard_normal(tuple(diag.shape)))
+        b = t(rng.standard_normal(tuple(diag.shape)))
+        args = (x, b, diag, dinvs[li], fhis[li], nsweeps)
+        kw = dict(bc=bc, Fwall=fwalls[li])
+        n0 = dict(sk.LAUNCHES)
+        got = sk.cell_smooth(*args, True, **kw)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES["cell_smooth_walled"] == n0["cell_smooth_walled"] + 1
+        assert sk.LAUNCHES["cell_smooth"] == n0["cell_smooth"]
+        _smooth_check(got, sk.cell_smooth_plain(*args, True, **kw), dtype)
+        only_x, none = sk.cell_smooth(*args, False, **kw)
+        assert none is None and torch.equal(only_x, got[0])
+
+
+def test_walled_cell_smooth_two_cell_dirichlet_axis(cuda):
+    """Dirichlet on both sides of a 2-cell axis: each cell is the other's
+    opposite neighbour, and both walls add their third to the one
+    coupling between them."""
+    bc = ((P, P, D), (P, P, D))
+    solver = _walled_solver((4, 4, 2), bc, 0, torch.float64, cuda)
+    dinvs, fhis, fwalls = solver.smoother_coefs()
+    rng = np.random.default_rng(10)
+    x = torch.as_tensor(rng.standard_normal((4, 4, 2)), device=cuda)
+    b = torch.as_tensor(rng.standard_normal((4, 4, 2)), device=cuda)
+    args = (x, b, solver.diags[0], dinvs[0], fhis[0], 4, True)
+    kw = dict(bc=bc, Fwall=fwalls[0])
+    got = sk.cell_smooth(*args, **kw)
+    ref = sk.cell_smooth_plain(*args, **kw)
+    assert _rel(got[0], ref[0]) <= 1e-13 and _rel(got[1], ref[1]) <= 1e-13
+    # and both equal the flux form of the operator
+    r = b - mg.cell_apply(got[0], solver.levels[0])
+    assert _rel(got[1], r) <= 1e-12
+
+
+def test_walled_solves_match_cpu(cuda):
+    """A walled CellSolver and NodalSolver on the card against the CPU:
+    same iterations, solutions to 1e-12."""
+    bc = WALL_BCS["rt_scalar"]
+    cpu = _walled_solver((16, 16, 32), bc, 0, torch.float64, "cpu")
+    rng = np.random.default_rng(11)
+    rhs = torch.as_tensor(rng.standard_normal((16, 16, 32)))
+    xc, _, itc = cpu.solve_info(rhs)
+    xg, _, itg = cpu.to(cuda).solve_info(rhs.to(cuda))
+    assert itc == itg > 1 and _rel(xg.cpu(), xc) <= 1e-12
+    sigma = torch.as_tensor(0.5 + rng.random((16, 16, 32)))
+    nod = mg.NodalSolver((1.0, 0.5, 0.25), (True, True, False), bc[0],
+                         bc[1], sigma, direct=False)
+    nrhs = torch.as_tensor(rng.standard_normal((16, 16, 33)))
+    xc, _, itc = nod.solve_info(nrhs)
+    xg, _, itg = nod.to(cuda).solve_info(nrhs.to(cuda))
+    assert itc == itg > 1 and _rel(xg.cpu(), xc) <= 1e-12
+
+
 def test_smoothers_raise_outside_scope(cuda):
     m = torch.zeros((8, 4, 6), device=cuda)
     with pytest.raises(NotImplementedError):
@@ -182,3 +285,9 @@ def test_smoothers_raise_outside_scope(cuda):
                        (m.half(),) * 3, 2, True)
     with pytest.raises(ValueError):
         sk.cell_smooth(m, m, m, m.cpu(), (m, m, m), 2, True)
+    with pytest.raises(ValueError):     # walled axis without its wall plane
+        sk.cell_smooth(m, m, m, m, (m, m, m), 2, True,
+                       bc=((P, P, N), (P, P, N)))
+    with pytest.raises(ValueError):     # periodic on one side only
+        sk.cell_smooth(m, m, m, m, (m, m, m), 2, True,
+                       bc=((P, P, N), (P, P, P)), Fwall=(None, None, m[..., :1]))

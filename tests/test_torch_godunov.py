@@ -12,6 +12,11 @@ Two references, the same inputs (smooth O(1) fields from a numpy seed):
     tolerances.
 On the CPU the kernel wrappers take the plain versions, and their launch
 counters do not move.
+
+Walls: predict_plain / advect_plain on ghost-filled arrays of a grid
+with slip or no-slip walls on z (and one with walls on x and z) against
+the same jnp path, float64, to 1e-11 relative, from random fields, which
+exercise every limiter branch and the one-sided forms at the walls.
 """
 
 import unittest.mock as mock
@@ -132,6 +137,94 @@ def test_scheme_dispatch_matches_jnp_scalar_advect():
 
 
 # ---------------------------------------------------------------------
+# walls: the wall forms of the plain versions against the jnp path
+# ---------------------------------------------------------------------
+
+NW = (8, 6, 12)
+HIW = (1.0, 0.8, 1.5)
+WALL_DECKS = {
+    # (periodic, BCKind per (axis, side)); kinds as in incflo_tpu.bcs
+    "slip_z": ((True, True, False), {2: "slip_wall"}),
+    "noslip_z": ((True, True, False), {2: "no_slip_wall"}),
+    "noslip_x_slip_z": ((False, True, False),
+                        {0: "no_slip_wall", 2: "slip_wall"}),
+}
+
+
+def _walled_setup(name):
+    periodic, walls = WALL_DECKS[name]
+    kw = dict(n_cell=NW, prob_lo=(0.0,) * 3, prob_hi=HIW, periodic=periodic)
+    kind = np.zeros((3, 2), np.int32)
+    for ax, k in walls.items():
+        kind[ax, :] = int(getattr(jbcs.BCKind, k))
+    return (JGrid(**kw), TGrid(**kw), jbcs.velocity_bcrecs(kind, 3),
+            jbcs.scalar_bcrecs(kind, 1, 3), jbcs.force_bcrecs(kind, 3, 3))
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+@pytest.mark.parametrize("deck,use_ppm", [
+    ("slip_z", True), ("slip_z", False), ("noslip_z", True),
+    ("noslip_x_slip_z", False)],
+    ids=["slip_z-ppm", "slip_z-plm", "noslip_z-ppm", "noslip_x_slip_z-plm"])
+def test_walled_predict_and_advect_plain_match_jnp(deck, use_ppm):
+    jg, tg, vb, sb, fb = _walled_setup(deck)
+    rng = np.random.default_rng(40)
+    vel = 0.5 * rng.standard_normal(NW + (3,))
+    forces = rng.standard_normal(NW + (3,))
+    rho = 2.0 + rng.standard_normal(NW + (1,))
+    ng = 4
+    vel_g = jbcs.grow(jnp.asarray(vel), ng, jg, vb)
+    f_g = jbcs.grow(jnp.asarray(forces), 1, jg, fb)
+    rho_g = jbcs.grow(jnp.asarray(rho), ng, jg, sb)
+    js = jgod.GodunovScheme(jg, use_ppm, False)
+    ju = js._predict(vel_g, f_g, 0.02, ng, vb)
+    n0 = dict(gk.LAUNCHES)
+    tu = gk.predict_plain(tg, _t(vel_g), _t(f_g), 0.02, use_ppm,
+                          bcrecs=np.asarray(vb), ng=ng)
+    for d in range(3):
+        assert tu[d].shape == ju[d].shape
+        assert _rel(tu[d].numpy(), ju[d]) <= 1e-11, d
+    if not jg.periodic[2]:      # no flow through a wall
+        assert float(tu[2][:, :, 0].abs().max()) == 0.0
+        assert float(tu[2][:, :, -1].abs().max()) == 0.0
+    ja = js.advect(vel_g, ju, f_g, 0.02, ng, vb, [0] * 3, True)
+    ta = gk.advect_plain(tg, _t(vel_g), tu, _t(f_g), 0.02, (0, 0, 0),
+                         use_ppm, bcrecs=np.asarray(vb), ng=ng,
+                         is_velocity=True)
+    assert _rel(ta.numpy(), ja) <= 1e-11
+    jr = js.advect(rho_g, ju, None, 0.02, ng, sb, [1], False)
+    tr = gk.advect_plain(tg, _t(rho_g), tu, None, 0.02, (1,), use_ppm,
+                         bcrecs=np.asarray(sb), ng=ng)
+    assert _rel(tr.numpy(), jr) <= 1e-11
+    assert gk.LAUNCHES == n0
+
+
+def test_walled_scheme_takes_plain_path_by_periodicity():
+    """GodunovScheme picks the wall forms from the grid alone, and gives
+    what predict_plain / advect_plain give."""
+    jg, tg, vb, sb, fb = _walled_setup("slip_z")
+    rng = np.random.default_rng(41)
+    ng = 3
+    vel_g = _t(jbcs.grow(jnp.asarray(0.5 * rng.standard_normal(NW + (3,))),
+                         ng, jg, vb))
+    ts = tgod.GodunovScheme(tg, True, False)
+    got = ts.predict(vel_g, None, 0.02, ng, np.asarray(vb))
+    want = gk.predict_plain(tg, vel_g, None, 0.02, True,
+                            bcrecs=np.asarray(vb), ng=ng)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    a = ts.advect(vel_g, got, None, 0.02, ng, np.asarray(vb), [0] * 3, True)
+    b = gk.advect_plain(tg, vel_g, got, None, 0.02, (0, 0, 0), True,
+                        bcrecs=np.asarray(vb), ng=ng, is_velocity=True)
+    assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="A8"):
+        ts.predict(vel_g, None, 0.02, ng, np.asarray(vb),
+                   gmacphi=[None] * 3)
+
+
+# ---------------------------------------------------------------------
 # against the Pallas kernels in interpret mode (float32)
 # ---------------------------------------------------------------------
 
@@ -180,8 +273,11 @@ def test_wrappers_raise_outside_scope():
     walled = TGrid(n_cell=(8, 8, 8), prob_lo=(0.0,) * 3, prob_hi=(1.0,) * 3,
                    periodic=(True, False, True))
     vel = torch.zeros((8, 8, 8, 3), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="A8/A9"):
+    # the kernel wrappers refuse a walled grid and name the plain path
+    with pytest.raises(NotImplementedError, match="predict_plain"):
         gk.predict(walled, vel, None, DT, True)
+    with pytest.raises(ValueError, match="grown"):   # no ghosts, no bcrecs
+        gk.predict_plain(walled, vel, None, DT, True)
     flat = TGrid(n_cell=(8, 8), prob_lo=(0.0,) * 2, prob_hi=(1.0,) * 2,
                  periodic=(True, True))
     with pytest.raises(NotImplementedError):

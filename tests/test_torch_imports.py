@@ -26,6 +26,7 @@ def test_no_forbidden_imports_in_source():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) >= 17
     assert any(p.name == "smoother_kernels.py" for p in files)
+    assert any(p.name == "godunov_walls.py" for p in files)
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -43,6 +44,7 @@ def test_import_leaves_no_jax_in_modules():
     code = ("import sys, incflo_torch, incflo_torch.simulation, "
             "incflo_torch.ops.godunov_kernels, "
             "incflo_torch.ops.smoother_kernels, "
+            "incflo_torch.ops.godunov_walls, "
             "incflo_torch.ops.cuda_build\n"
             "bad = [m for m in sys.modules if any(m == f or "
             "m.startswith(f + '.') for f in ('jax', 'jaxlib', "
@@ -113,7 +115,10 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu(monkeypatch):
 @pytest.mark.parametrize("config,extra,item", [
     ("tgv2d", "", "A8"),
     ("shear3d", "incflo.use_godunov = false\nincflo.cfl = 0.5\n", "A8"),
-    ("rt", "", "A9"),
+    ("shear3d", 'geometry.is_periodic = 0 1 1\nxlo.type = "mi"\n'
+     'xlo.velocity = 1. 0. 0.\nxhi.type = "po"\nxhi.pressure = 0.\n',
+     "A9c"),
+    ("shear3d", "incflo.fluid_model = powerlaw\nincflo.n = 0.5\n", "A9c"),
     ("channel_cyl", "", "A11"),
     ("shear3d", "incflo.diffusion_type = 2\n", "A9"),
     ("shear3d", "incflo.use_mac_phi_in_godunov = true\n", "A8"),
@@ -126,11 +131,18 @@ def test_decks_outside_the_slice_raise(config, extra, item):
 
 def test_variable_density_periodic_deck_is_accepted():
     """Fully periodic 3D decks run with variable density and tracers,
-    with no prebuilt direct solvers; the walled rt deck of the same
-    physics still waits for ROADMAP A9b."""
+    with no prebuilt direct solvers; so does the rt deck of the same
+    physics between slip walls, and a constant-density deck between
+    slip walls prebuilds the projections but no batched velocity solver
+    (its components have different BCs)."""
     vd = ("incflo.constant_density = false\nincflo.advect_tracer = true\n"
           "incflo.mu_s = 0.0002\n")
     sim = incflo_torch.Simulation(_cfg(vd), device="cpu")
     assert sim._mac_solver is None and sim._diff_proto is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        incflo_torch.Simulation(_cfg("", "rt"), device="cpu")
+    sim = incflo_torch.Simulation(_cfg("", "rt"), device="cpu")
+    assert sim._mac_solver is None and sim._diff_proto is None
+    assert sim.grid.periodic == (True, True, False)
+    slip = 'geometry.is_periodic = 1 1 0\nzlo.type = "sw"\nzhi.type = "sw"\n'
+    sim = incflo_torch.Simulation(_cfg(slip), device="cpu")
+    assert sim._mac_solver is not None and sim._nodal_hat is not None
+    assert sim._diff_proto is None

@@ -1,14 +1,17 @@
 """incflo_torch's multigrid (ops/multigrid.py: hierarchies, transfer
 operators, V-cycles, the V-cycle-preconditioned CG and the nodal V-cycle
-iteration) against incflo_tpu, float64, 16x16x8, fully periodic, random
-positive coefficients from a seed.
+iteration) against incflo_tpu, float64, 16x16x8, random positive
+coefficients from a seed: fully periodic levels, and levels with Neumann
+and Dirichlet walls (the rt deck's BC sets among them).
 
 Tolerances: coefficients, diagonals and transfer operators 1e-13 (the
 same sums in the same order); one V-cycle 1e-12; a whole solve the same
 iteration count and the solution to 1e-10 of its max (rtol 1e-11: the
 two smoothers differ by rounding -- incflo_tpu's jnp loop applies the
 flux form of the cell operator, the port the kernels' diag-extracted
-form -- and the iterations carry that rounding to about 1e-13).
+form -- and the iterations carry that rounding to about 1e-13).  The
+walled solves are held to the same limits and must reach rtol 1e-11 /
+atol 1e-14, as tests/test_multigrid.py asks of incflo_tpu.
 """
 
 import jax
@@ -93,7 +96,7 @@ def test_cell_hierarchy_matches(cell_pair):
     assert len(ts.levels) == len(js.levels) == 3      # 16x16x8 -> 4x4x2
     assert ts.symbol is None and js.symbol is None
     assert ts.singular == js.singular
-    dinvs, fhis = ts.smoother_coefs()
+    dinvs, fhis = ts.smoother_coefs()[:2]
     for li, (tl, jl) in enumerate(zip(ts.levels, js.levels)):
         assert tl.dx == jl.dx
         for a, b in zip(tl.bcoef, jl.bcoef):
@@ -114,7 +117,7 @@ def test_cell_with_beta_rebuilds_smoother_coefs(cell_pair):
     js, ts, _ = cell_pair
     ts.smoother_coefs()
     js2, ts2 = js.with_beta(0.37), ts.with_beta(0.37)
-    dinvs, fhis = ts2.smoother_coefs()
+    dinvs, fhis = ts2.smoother_coefs()[:2]
     for li, jd in enumerate(js2.diags):
         assert _rel(ts2.diags[li], jd) <= 1e-13
         assert _rel(dinvs[li], 1.0 / np.asarray(jd)) <= 1e-12
@@ -170,7 +173,7 @@ def test_cell_solver_to_moves_every_tensor(cell_pair):
     _, ts, rhs = cell_pair
     ts.smoother_coefs()
     moved = ts.to("meta")
-    dinvs, fhis = moved.smoother_coefs()
+    dinvs, fhis = moved.smoother_coefs()[:2]
     tensors = list(moved.diags) + list(dinvs) + [f for t in fhis for f in t]
     for lev in moved.levels:
         tensors += list(lev.bcoef) + ([lev.acoef] if lev.acoef is not None
@@ -258,17 +261,248 @@ def test_nodal_solve_matches(nodal_pair):
 
 
 def test_walled_levels_raise_and_name_the_roadmap():
+    """Walled 3D levels smooth and solve (they raised until the wall
+    forms were ported); what still raises is a 2D level, naming its
+    ROADMAP item."""
     sigma = torch.ones(N, dtype=torch.float64)
     ns = tmg.NodalSolver(DX, (True, True, False), (0, 0, 1), (0, 0, 1),
                          sigma * (1 + torch.rand(N, dtype=torch.float64)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        ns.solve(torch.rand(16, 16, 9, dtype=torch.float64))
+    x = ns.solve(torch.rand(16, 16, 9, dtype=torch.float64))
+    assert x.shape == (16, 16, 9) and bool(torch.isfinite(x).all())
     rng = np.random.default_rng(13)
     bco = [torch.as_tensor(b) for b in _faces(rng)]
     cs = tmg.CellSolver(DX, (0, 0, 1), (0, 0, 1), alpha=0.0, beta=1.0,
                         acoef=None, bcoef=tuple(bco))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        cs.solve(torch.rand(N, dtype=torch.float64))
+    x = cs.solve(torch.rand(N, dtype=torch.float64))
+    assert x.shape == N and bool(torch.isfinite(x).all())
+    one = torch.ones((8, 9), dtype=torch.float64)
+    cs2 = tmg.CellSolver(DX[:2], (0, 1), (0, 1), alpha=1.0, beta=1.0,
+                         acoef=torch.ones((8, 8), dtype=torch.float64),
+                         bcoef=(one.T.contiguous(), one), direct=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        cs2.solve(torch.rand((8, 8), dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------
+# walls: Neumann and Dirichlet sides on the cell and nodal hierarchies
+# ---------------------------------------------------------------------
+
+NEU, DIR = 1, 2
+
+WALL_CASES = {
+    # rt's MAC projection: singular Poisson, periodic x/y, Neumann z
+    "mac_neumann_z": dict(alpha=0.0, beta=1.0, acoef=False,
+                          lo=(0, 0, NEU), hi=(0, 0, NEU)),
+    # rt's normal-velocity Helmholtz solve: Dirichlet z (its tangential
+    # and tracer solves, Helmholtz with Neumann z, run in the rt step of
+    # tests/test_torch_step.py)
+    "helmholtz_dirichlet_z": dict(alpha=1.0, beta=0.02, acoef=True,
+                                  lo=(0, 0, DIR), hi=(0, 0, DIR)),
+    # a non-periodic x and a different kind on each side
+    "poisson_mixed_sides": dict(alpha=0.0, beta=1.0, acoef=False,
+                                lo=(NEU, 0, DIR), hi=(DIR, 0, NEU)),
+}
+
+
+def _walled_faces(rng, lo):
+    out = []
+    for ax in range(3):
+        shape = tuple(n + (1 if a == ax else 0) for a, n in enumerate(N))
+        f = 0.5 + rng.random(shape)
+        if lo[ax] == 0:
+            f = np.concatenate([f.take(range(N[ax]), axis=ax),
+                                f.take([0], axis=ax)], axis=ax)
+        out.append(f)
+    return out
+
+
+@pytest.fixture(scope="module", params=sorted(WALL_CASES))
+def walled_cell_pair(request):
+    c = WALL_CASES[request.param]
+    rng = np.random.default_rng(30)
+    bco = _walled_faces(rng, c["lo"])
+    ac = (0.6 + rng.random(N)) if c["acoef"] else None
+    kw = dict(alpha=c["alpha"], beta=c["beta"])
+    js = jmg.CellSolver(DX, c["lo"], c["hi"], acoef=None if ac is None
+                        else jnp.asarray(ac),
+                        bcoef=tuple(jnp.asarray(b) for b in bco), **kw)
+    ts = tmg.CellSolver(DX, c["lo"], c["hi"], acoef=None if ac is None
+                        else torch.as_tensor(ac),
+                        bcoef=tuple(torch.as_tensor(b) for b in bco), **kw)
+    return js, ts, rng.standard_normal(N), c
+
+
+def test_walled_cell_hierarchy_matches(walled_cell_pair):
+    """Diagonals (factor 0 on a Neumann wall face, 3 on a Dirichlet one)
+    and the wall planes of every coarsened level."""
+    js, ts, _, c = walled_cell_pair
+    assert len(ts.levels) == len(js.levels) == 3
+    assert ts.symbol is None and js.symbol is None
+    assert ts.singular == js.singular
+    _, fhis, fwalls = ts.smoother_coefs()
+    for li, jl in enumerate(js.levels):
+        assert _rel(ts.diags[li], js.diags[li]) <= 1e-13
+        for ax in range(3):
+            jb = np.asarray(jl.bcoef[ax]) * (jl.beta / jl.dx[ax] ** 2)
+            assert _rel(fhis[li][ax],
+                        jb.take(range(1, jb.shape[ax]), axis=ax)) <= 1e-13
+            if c["lo"][ax] == 0:
+                assert fwalls[li][ax] is None
+            else:
+                assert _rel(fwalls[li][ax], jb.take([0], axis=ax)) <= 1e-13
+
+
+def test_walled_cell_vcycle_matches(walled_cell_pair):
+    js, ts, rhs, _ = walled_cell_pair
+    xj, rj = jax.jit(lambda b: js._vcycle(jnp.zeros_like(b), b,
+                                          want_residual=True))(
+        jnp.asarray(rhs))
+    xt, rt = ts._vcycle(torch.zeros(N, dtype=torch.float64),
+                        torch.as_tensor(rhs), want_residual=True)
+    assert _rel(xt, xj) <= 1e-12
+    assert _rel(rt, rj) <= 1e-12
+
+
+def test_walled_cell_solve_matches(walled_cell_pair):
+    js, ts, rhs, _ = walled_cell_pair
+    xj, resj, itj = js.solve(jnp.asarray(rhs))
+    xt, rest, itt = ts.solve_info(torch.as_tensor(rhs))
+    assert itt == int(itj) and itt > 1
+    assert _rel(xt, xj) <= 1e-10
+    r = rhs - rhs.mean() if ts.singular else rhs
+    assert float(rest) <= max(1e-11 * np.abs(r).max(), 1e-14)
+    true_res = r - tmg.cell_apply(xt, ts.levels[0]).numpy()
+    assert np.abs(true_res).max() <= 1e-10 * np.abs(r).max()
+
+
+def test_walled_cell_solve_inhom_matches(walled_cell_pair):
+    """Inhomogeneous Dirichlet face values (a scalar on one side, a
+    plane on the other), folded into the right-hand side.  A plane has
+    the ghosts of the axes padded before its own, as the slabs of
+    diffusion.velocity_bvals have.  A case without a Dirichlet side
+    takes no values and solves the homogeneous system."""
+    js, ts, rhs, c = walled_cell_pair
+    rng = np.random.default_rng(31)
+    jb, tb = {}, {}
+    for ax in range(3):
+        plane = tuple(1 if a == ax else n + (2 if a < ax else 0)
+                      for a, n in enumerate(N))
+        for side, code in ((0, c["lo"][ax]), (1, c["hi"][ax])):
+            if code != DIR:
+                continue
+            v = 0.7 if side == 0 else rng.standard_normal(plane)
+            jb[(ax, side)] = v if side == 0 else jnp.asarray(v)
+            tb[(ax, side)] = v if side == 0 else torch.as_tensor(v)
+    xj, _, itj = js.solve_inhom(jnp.asarray(rhs), jb)
+    before = tmg.COUNTS["cell_iters"]
+    xt = ts.solve_inhom(torch.as_tensor(rhs), tb)
+    assert tmg.COUNTS["cell_iters"] - before == int(itj) > 1
+    assert _rel(xt, xj) <= 1e-10
+    lev = ts.levels[0]
+    rhs_t = torch.as_tensor(rhs)
+    folded = rhs_t - tmg.cell_apply_inhom(torch.zeros_like(rhs_t), lev, tb)
+    r = rhs_t - tmg.cell_apply_inhom(xt, lev, tb)
+    if ts.singular:
+        folded, r = folded - folded.mean(), r - r.mean()
+    assert float(r.abs().max()) <= 1e-10 * float(folded.abs().max())
+
+
+def test_walled_cell_solve_through_rb_kernel(monkeypatch):
+    """The same solve with incflo_tpu's opt-in Pallas smoother switched
+    on in interpret mode, so that the JAX side really smooths its fine
+    level through pallas_smoother._rb_kernel (the coarser levels, whose
+    ny*nz is no multiple of 128, stay on the jnp loop)."""
+    from incflo_tpu.ops import pallas_guard
+    from incflo_tpu.ops import pallas_smoother as psm
+    monkeypatch.setattr(psm, "ENABLED", True)
+    monkeypatch.setattr(psm, "INTERPRET", True)
+    monkeypatch.setattr(pallas_guard, "_sharded", False)
+    calls = []
+    real = psm.rb_sweep_3d
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+    monkeypatch.setattr(psm, "rb_sweep_3d", counted)
+    c = WALL_CASES["helmholtz_dirichlet_z"]
+    rng = np.random.default_rng(32)
+    bco = _walled_faces(rng, c["lo"])
+    ac = 0.6 + rng.random(N)
+    kw = dict(alpha=c["alpha"], beta=c["beta"])
+    js = jmg.CellSolver(DX, c["lo"], c["hi"], acoef=jnp.asarray(ac),
+                        bcoef=tuple(jnp.asarray(b) for b in bco), **kw)
+    ts = tmg.CellSolver(DX, c["lo"], c["hi"], acoef=torch.as_tensor(ac),
+                        bcoef=tuple(torch.as_tensor(b) for b in bco), **kw)
+    rhs = rng.standard_normal(N)
+    xj, rj = jax.jit(lambda b: js._vcycle(jnp.zeros_like(b), b,
+                                          want_residual=True))(
+        jnp.asarray(rhs))
+    assert calls and all(shape == N for shape in calls)
+    xt, rt = ts._vcycle(torch.zeros(N, dtype=torch.float64),
+                        torch.as_tensor(rhs), want_residual=True)
+    assert _rel(xt, xj) <= 1e-12
+    assert _rel(rt, rj) <= 1e-12
+    xj, _, itj = js.solve(jnp.asarray(rhs))
+    xt, _, itt = ts.solve_info(torch.as_tensor(rhs))
+    assert itt == int(itj) and itt > 1
+    assert _rel(xt, xj) <= 1e-10
+
+
+WALLED_NODAL = {
+    # rt's nodal projection: 16x16x9 nodes, singular
+    "rt_neumann_z": ((True, True, False), (0, 0, NEU), (0, 0, NEU)),
+    # a Dirichlet side (identity rows) and a non-periodic x
+    "dirichlet_side": ((False, True, False), (NEU, 0, NEU), (DIR, 0, NEU)),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(WALLED_NODAL))
+def walled_nodal_pair(request):
+    periodic, lo, hi = WALLED_NODAL[request.param]
+    rng = np.random.default_rng(33)
+    sigma = 0.6 + 0.8 * rng.random(N)
+    js = jmg.NodalSolver(DX, periodic, lo, hi, jnp.asarray(sigma))
+    ts = tmg.NodalSolver(DX, periodic, lo, hi, torch.as_tensor(sigma))
+    nodes = tuple(n + (0 if p else 1) for n, p in zip(N, periodic))
+    return js, ts, rng.standard_normal(nodes)
+
+
+def test_walled_nodal_hierarchy_matches(walled_nodal_pair):
+    js, ts, rhs = walled_nodal_pair
+    assert len(ts.levels) == len(js.levels) == 3
+    assert ts.symbol is None and js.symbol is None
+    assert ts.singular == js.singular
+    assert ts.diags[0].shape == rhs.shape != ts.sigmas[0].shape
+    for li in range(3):
+        assert _rel(ts.diags[li], js.diags[li]) <= 1e-13
+        assert _rel(ts.dinvs[li], js.dinvs[li]) <= 1e-13
+    x = np.random.default_rng(34).standard_normal(rhs.shape)
+    assert _rel(tmg.nodal_apply(torch.as_tensor(x), ts.levels[0]),
+                jmg.nodal_apply(jnp.asarray(x), js.levels[0])) <= 1e-13
+
+
+def test_walled_nodal_vcycle_matches(walled_nodal_pair):
+    js, ts, rhs = walled_nodal_pair
+    rhs_t = tmg._zero_dirichlet(torch.as_tensor(rhs), ts.levels[0])
+    xj, rj = jax.jit(lambda b: js._vcycle(jnp.zeros_like(b), b,
+                                          want_residual=True))(
+        jnp.asarray(rhs_t.numpy()))
+    xt, rt = ts._vcycle(torch.zeros_like(rhs_t), rhs_t, want_residual=True)
+    assert _rel(xt, xj) <= 1e-12
+    assert _rel(rt, rj) <= 1e-12
+
+
+def test_walled_nodal_solve_matches(walled_nodal_pair):
+    js, ts, rhs = walled_nodal_pair
+    xj, resj, itj = js.solve(jnp.asarray(rhs))
+    xt, rest, itt = ts.solve_info(torch.as_tensor(rhs))
+    assert itt == int(itj) and itt > 1
+    assert _rel(xt, xj) <= 1e-10
+    r = torch.as_tensor(rhs - rhs.mean() if ts.singular else rhs)
+    r = tmg._zero_dirichlet(r, ts.levels[0])
+    assert float(rest) <= max(1e-11 * float(r.abs().max()), 1e-14)
+    true_res = r - tmg.nodal_apply(xt, ts.levels[0])
+    assert float(true_res.abs().max()) <= 1e-10 * float(r.abs().max())
 
 
 # ---------------------------------------------------------------------

@@ -9,6 +9,13 @@ residual (the limits of tests/test_pallas_kernels.py: same operator form,
 another association of the sums); float64 against the jnp loops 1e-12 of
 the field's max (the jnp cell loop smooths with the flux form, the
 kernels with the diag-extracted form: they differ by rounding).
+
+Walls: cell_smooth_plain with BC codes against
+pallas_smoother.rb_sweep_3d in interpret mode (float64, 16x16x8, the BC
+triples of tests/test_pallas_smoother.py, which are periodic in x) to
+1e-12 of the field's max, and against the jnp sweep on the whole domain
+for BCs with a non-periodic x, where the Pallas kernel's black pass sees
+a stale ghost and the port, by design, does not.
 """
 
 import jax.numpy as jnp
@@ -66,7 +73,7 @@ def _cell_solvers(shape, acoef, bcoef, beta, np_dtype):
 
 
 def _cell_plain(ts, x, b, n, np_dtype):
-    dinvs, fhis = ts.smoother_coefs()
+    dinvs, fhis = ts.smoother_coefs()[:2]
     return sk.cell_smooth_plain(torch.as_tensor(x.astype(np_dtype)),
                                 torch.as_tensor(b.astype(np_dtype)),
                                 ts.diags[0], dinvs[0], fhis[0], n, True)
@@ -229,3 +236,159 @@ def test_wrappers_use_plain_version_on_cpu_only(monkeypatch):
     with pytest.raises(ValueError):
         sk.cell_smooth(m, m, m, m[:4], (m, m, m), 2, True)
     assert sk.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------
+# walls: the port's counterpart of pallas_smoother._rb_kernel
+# ---------------------------------------------------------------------
+
+PER, NEU, DIR = 0, 1, 2
+
+
+@pytest.fixture
+def psm_interpret():
+    """Run pallas_smoother on the CPU, as tests/test_pallas_smoother.py
+    does, and put its switch back."""
+    from incflo_tpu.ops import pallas_smoother as psm
+    old = psm.INTERPRET
+    psm.INTERPRET = True
+    yield psm
+    psm.INTERPRET = old
+
+
+def _walled_pair(bc_lo, bc_hi, seed=0, shape=(16, 16, 8), beta=0.01):
+    """The set-up of tests/test_pallas_smoother.py in both packages:
+    (jax level, port solver, x0, rhs) with random coefficients."""
+    rng = np.random.RandomState(seed)
+    nx, ny, nz = shape
+    acoef = 1.0 + rng.rand(nx, ny, nz)
+    b = [0.5 + rng.rand(nx + 1, ny, nz), 0.5 + rng.rand(nx, ny + 1, nz),
+         0.5 + rng.rand(nx, ny, nz + 1)]
+    for ax in range(3):
+        if bc_lo[ax] == PER:      # the periodic face n is face 0
+            idx = [slice(None)] * 3
+            idx[ax] = -1
+            b[ax][tuple(idx)] = b[ax].take(0, axis=ax)
+    rhs, x0 = rng.randn(nx, ny, nz), rng.randn(nx, ny, nz)
+    jlev = jmg.CellLevel(_dx(shape), tuple(bc_lo), tuple(bc_hi), 1.0, beta,
+                         jnp.asarray(acoef),
+                         tuple(jnp.asarray(v) for v in b))
+    ts = tmg.CellSolver(_dx(shape), bc_lo, bc_hi, alpha=1.0, beta=beta,
+                        acoef=torch.as_tensor(acoef),
+                        bcoef=tuple(torch.as_tensor(v) for v in b),
+                        max_levels=1, direct=False)
+    return jlev, ts, x0, rhs
+
+
+def _port_sweeps(ts, x0, rhs, n, want_residual=False):
+    dinvs, fhis, fwalls = ts.smoother_coefs()
+    lev = ts.levels[0]
+    return sk.cell_smooth_plain(
+        torch.as_tensor(x0), torch.as_tensor(rhs), ts.diags[0], dinvs[0],
+        fhis[0], n, want_residual, bc=(lev.bc_lo, lev.bc_hi),
+        Fwall=fwalls[0])
+
+
+def _jnp_walled_sweep(x, rhs, jlev, inv):
+    red, black = jmg._checkerboards(x.shape, x.dtype, 3)
+    x = x + red * (rhs - jmg.cell_apply(x, jlev)) * inv
+    return x + black * (rhs - jmg.cell_apply(x, jlev)) * inv
+
+
+@pytest.mark.parametrize("bcs", [(PER, PER, PER), (PER, DIR, NEU),
+                                 (PER, NEU, PER)],
+                         ids=["periodic", "p-dirichlet-neumann",
+                              "p-neumann-p"])
+def test_walled_cell_plain_matches_rb_kernel_interpret(psm_interpret, bcs):
+    psm = psm_interpret
+    jlev, ts, x0, rhs = _walled_pair(bcs, bcs)
+    inv = 1.0 / jmg.cell_diag(jlev)
+    x = jnp.asarray(x0)
+    assert psm.supported(x, jlev)
+    want = x
+    for _ in range(2):
+        want = psm.rb_sweep_3d(want, jnp.asarray(rhs), inv, jlev.acoef,
+                               jlev.bcoef, jlev)
+    got, _ = _port_sweeps(ts, x0, rhs, 2)
+    assert _rel(got.numpy(), want) <= 1e-12
+
+
+@pytest.mark.parametrize("bc_lo,bc_hi", [
+    ((DIR, NEU, PER), (DIR, NEU, PER)),      # tests/test_pallas_smoother.py
+    ((NEU, DIR, DIR), (DIR, NEU, DIR)),      # a different kind on each side
+    ((PER, PER, NEU), (PER, PER, NEU)),      # rt: scalars, MAC, tangential
+    ((PER, PER, DIR), (PER, PER, DIR)),      # rt: normal velocity
+], ids=["walled-x", "mixed-sides", "rt-neumann", "rt-dirichlet"])
+def test_walled_cell_plain_matches_jnp_sweep_whole_domain(bc_lo, bc_hi):
+    """Fresh ghosts on every axis, x included: equal to the jnp sweep on
+    the whole domain, boundary rings and all; the residual too."""
+    jlev, ts, x0, rhs = _walled_pair(bc_lo, bc_hi, seed=1)
+    inv = 1.0 / jmg.cell_diag(jlev)
+    want = jnp.asarray(x0)
+    for _ in range(3):
+        want = _jnp_walled_sweep(want, jnp.asarray(rhs), jlev, inv)
+    got, res = _port_sweeps(ts, x0, rhs, 3, True)
+    assert _rel(got.numpy(), want) <= 1e-12
+    assert _rel(res.numpy(),
+                jnp.asarray(rhs) - jmg.cell_apply(want, jlev)) <= 1e-12
+
+
+def test_walled_cell_plain_two_cell_dirichlet_axis():
+    """Dirichlet on both sides of a 2-cell axis: each cell is the other's
+    opposite neighbour for both walls."""
+    bcs = (PER, NEU, DIR)
+    jlev, ts, x0, rhs = _walled_pair(bcs, bcs, seed=2, shape=(8, 4, 2),
+                                     beta=0.3)
+    inv = 1.0 / jmg.cell_diag(jlev)
+    want = jnp.asarray(x0)
+    for _ in range(4):
+        want = _jnp_walled_sweep(want, jnp.asarray(rhs), jlev, inv)
+    got, _ = _port_sweeps(ts, x0, rhs, 4)
+    assert _rel(got.numpy(), want) <= 1e-12
+
+
+def test_walled_nodal_smooth_matches_jnp_loop():
+    """nodal_smooth_walled (plain PyTorch on either device) against the
+    jnp loop that incflo_tpu runs on a level with walls: rt's BCs, and a
+    Dirichlet side."""
+    shape = (8, 8, 16)
+    rng = np.random.RandomState(5)
+    sigma = 0.5 + rng.rand(*shape)
+    for bc_lo, bc_hi in (((PER, PER, NEU), (PER, PER, NEU)),
+                         ((NEU, PER, NEU), (DIR, PER, NEU))):
+        periodic = tuple(b == PER for b in bc_lo)
+        nodes = tuple(n + (0 if p else 1) for n, p in zip(shape, periodic))
+        x, b = rng.randn(*nodes), rng.randn(*nodes)
+        js = jmg.NodalSolver(_dx(shape), periodic, bc_lo, bc_hi,
+                             jnp.asarray(sigma), max_levels=1)
+        ts = tmg.NodalSolver(_dx(shape), periodic, bc_lo, bc_hi,
+                             torch.as_tensor(sigma), max_levels=1,
+                             direct=False)
+        xr, rr = _jnp_nodal_loop(js, jnp.asarray(x), jnp.asarray(b), 3)
+        got, gres = ts._smooth_res(torch.as_tensor(x), torch.as_tensor(b),
+                                   0, 3, True)
+        assert got.shape == nodes
+        assert _rel(got.numpy(), xr) <= 1e-12
+        assert _rel(gres.numpy(), rr) <= 1e-12
+
+
+def test_walled_cell_smooth_argument_checks():
+    one = torch.ones((8, 4, 6))
+    F = (one, one, one)
+    wall_z = (None, None, one[..., :1])
+    bc = ((PER, PER, NEU), (PER, PER, NEU))
+    x, _ = sk.cell_smooth(one, one, one, one, F, 1, False, bc=bc,
+                          Fwall=wall_z)
+    assert x.shape == one.shape
+    with pytest.raises(ValueError):     # walled axis without its plane
+        sk.cell_smooth(one, one, one, one, F, 1, False, bc=bc)
+    with pytest.raises(ValueError):     # periodic on one side only
+        sk.cell_smooth(one, one, one, one, F, 1, False,
+                       bc=((PER, PER, NEU), (PER, PER, PER)), Fwall=wall_z)
+    with pytest.raises(ValueError):     # a plane of the wrong shape
+        sk.cell_smooth(one, one, one, one, F, 1, False, bc=bc,
+                       Fwall=(None, None, one))
+    with pytest.raises(ValueError):     # a 1-cell walled axis
+        thin = torch.ones((8, 4, 1))
+        sk.cell_smooth(thin, thin, thin, thin, (thin,) * 3, 1, False, bc=bc,
+                       Fwall=(None, None, thin))

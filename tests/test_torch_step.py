@@ -19,6 +19,16 @@ tracer, p, gp, mac_phi and dt agree to 1e-10 relative to each field's max
 (measured about 3e-14: the iterative solves end on the same iteration in
 both packages, so only rounding differs; a solve that ended one
 iteration apart would show as about 100 * rtol = 1e-9 and fail here).
+
+rt: the Rayleigh-Taylor deck of bench.py at 8x8x16 (periodic x and y,
+slip walls on z, gravity, variable density, one tracer): init and 3 steps
+from the port's own init and from incflo_tpu's carried state, every field
+to 1e-10 relative to its max.  The velocity starts at rest and stays
+under 1e-4, the small difference of the buoyancy and the pressure
+gradient (both about 0.1), so its relative error (measured 2e-11) is an
+absolute error of 1e-16.  shear3d_nsw: shear3d between no-slip walls on
+z with constant density, where the prebuilt cell solvers solve directly
+with walls and the prebuilt nodal operator iterates V-cycles.
 """
 
 import numpy as np
@@ -221,3 +231,102 @@ def test_vel_forces_match(deck, with_gp):
                                   torch.as_tensor(tra), torch.as_tensor(gp),
                                   include_pressure_gradient=with_gp)
     assert _rel(got.numpy(), np.asarray(want)) <= 1e-14
+
+
+# ---------------------------------------------------------------------
+# walls: the rt deck (slip walls, variable density, gravity) and
+# shear3d between no-slip walls (constant density)
+# ---------------------------------------------------------------------
+
+WALL_STEPS = 3
+NSW_KEYS = """
+geometry.is_periodic = 1 1 0
+zlo.type = "nsw"
+zhi.type = "nsw"
+"""
+
+
+def _wall_deck(name):
+    if name == "rt":
+        return bench._deck("rt", 16, "float64")[0]         # 8 x 8 x 16
+    return bench._deck("shear3d", 16, "float64")[0] + NSW_KEYS
+
+
+@pytest.fixture(scope="module", params=["rt", "shear3d_nsw"])
+def wall_reference(request):
+    text = _wall_deck(request.param)
+    sim = JSim(JConfig.from_text(text))
+    s = sim.init_state()
+    states = [_np_state(s)]
+    for _ in range(WALL_STEPS if request.param == "rt" else 2):
+        s = sim.advance(s)
+        states.append(_np_state(s))
+    return request.param, text, states
+
+
+@pytest.mark.parametrize("start", ["own_init", "carried_state"])
+def test_walled_deck_matches(wall_reference, start):
+    from incflo_torch.ops import multigrid as tmg
+    name, text, ref = wall_reference
+    sim = incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(text),
+                                  device="cpu")
+    if start == "own_init":
+        s = sim.init_state()
+    else:
+        s = tstate.sim_from_numpy(ref[0], "cpu", torch.float64)
+    tmg.reset_counts()
+    for i, want in enumerate(ref):
+        if i > 0:
+            s = sim.advance(s)
+        got = tstate.sim_to_numpy(s)
+        for f in VD_FIELDS + ("dt",):
+            assert got[f].shape == want[f].shape, (i, f)
+            assert _rel(got[f], want[f]) <= 1e-10, (i, f, _rel(got[f],
+                                                               want[f]))
+    steps = len(ref) - 1
+    assert tmg.COUNTS["nodal_solves"] == steps
+    assert bool(torch.isfinite(s.level.velocity).all())
+    # no flow through the walls
+    assert float(s.level.velocity[:, :, (0, -1), 2].abs().max()) < 0.1
+    if name == "rt":
+        assert s.level.p.shape == (8, 8, 17)        # nodes: n+1 on z only
+        assert sim._mac_solver is None and sim._diff_proto is None
+        # the MAC solve and the Helmholtz solves iterated on walled levels
+        assert tmg.COUNTS["cell_solves"] >= steps
+        assert 0.49 < float(s.level.density.min()) < 0.51
+        assert 1.99 < float(s.level.density.max()) < 2.01
+    else:
+        # constant density: direct cell solves with walls, no CG
+        assert sim._mac_solver.symbol is not None
+        assert tmg.COUNTS["cell_solves"] == 0
+
+
+def test_rt_init_matches_reference_profile():
+    """probtype 5 alone: density, tracer and the zero velocity."""
+    from incflo_tpu import probs as jprobs
+    import jax.numpy as jnp
+    text = _wall_deck("rt")
+    jcfg = JConfig.from_text(text)
+    tcfg = incflo_torch.IncfloConfig.from_text(text)
+    want = jprobs.init_fluid(jcfg, jcfg.grid, jnp.float64)
+    got = incflo_torch.probs.init_fluid(tcfg, tcfg.grid, torch.float64, "cpu")
+    for f in ("density", "tracer"):
+        assert _rel(getattr(got, f).numpy(),
+                    np.asarray(getattr(want, f))) <= 1e-14
+    assert float(np.abs(np.asarray(want.velocity)).max()) == 0.0
+    assert float(got.velocity.abs().max()) == 0.0
+    assert float(got.density.min()) < 0.51 and float(got.density.max()) > 1.99
+
+
+def test_unsupported_walled_decks_name_the_roadmap():
+    """Mass inflow / pressure outflow go on raising, now naming A9c."""
+    text = bench._deck("shear3d", 16, "float64")[0] + """
+geometry.is_periodic = 0 1 1
+xlo.type = "mi"
+xlo.velocity = 1. 0. 0.
+xhi.type = "po"
+xhi.pressure = 0.
+"""
+    with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
+        incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(text),
+                                device="cpu")
