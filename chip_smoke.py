@@ -5,10 +5,16 @@
     python3 chip_smoke.py --profile  # also print the device time of the
                                      # steps (torch.profiler) and where the
                                      # rt step's time goes by section
+    python3 chip_smoke.py --step2d-graphs   # (run by the script itself, in
+                                     # a child process) time step_plain and
+                                     # the fused step kernel under CUDA-graph
+                                     # replay at tgv2d 128^2 f32
 
 Phases (any failure ends the run with a non-zero exit):
-  1. build   the CUDA kernels of incflo_torch/csrc/godunov.cu and
-             csrc/smoothers.cu with nvcc, one process each, together.
+  1. build   the CUDA kernels of incflo_torch/csrc/godunov.cu,
+             csrc/smoothers.cu and csrc/step2d.cu with nvcc, one process
+             each, together; ptxas's registers, stack and spills of each
+             kernel are printed.
   2. kernels each kernel against its plain PyTorch version on the card.
              Godunov: float64 (relative error <= 1e-10) and float32 at the
              n = 128 shear3d shapes (within 2e-5 / 3e-4 of the field's max
@@ -26,6 +32,18 @@ Phases (any failure ends the run with a non-zero exit):
              sweeps, with and without the residual, one and three
              components; float64 to 1e-13, float32 as above.  Each kernel
              and its plain version timed on the card.
+  2b. step2d the fused step kernel (csrc/step2d.cu, one cooperative launch
+             a step) against its plain version step2d_kernels.step_plain on
+             the card, tgv2d from init_state over 1 and 3 steps at 32^2 and
+             128^2: float32 within rtol 1e-4 / atol 1e-5 on every field
+             (velocity, p, gp, mac_phi, dt) relative to the field's max,
+             the elementwise form printed beside it; float64 to 1e-9
+             relative; each
+             velocity solve's best tensor-CG residual must be under its
+             tolerance, in the kernel as in the plain version.  Then its
+             time at 128^2 f32 (CUDA events over back-to-back launches),
+             the plain step's under CUDA-graph replay (in a child process,
+             which also tries to capture the kernel), and the bound.
   3. solvers CellSolver.solve and NodalSolver.solve (V-cycles) on cuda
              against cpu, float64, random coefficients: 32x32x8 fully
              periodic (same iteration count, solution to 1e-9), and
@@ -35,7 +53,8 @@ Phases (any failure ends the run with a non-zero exit):
              versions), float64, 3 steps from one state: shear3d
              (velocity, p, gp) and shear3d_vd from both of its starts
              (also density, tracer, mac_phi) at 32x32x8, and rt at
-             16x16x32; agreement to 1e-9 relative.
+             16x16x32, and tgv2d at 32^2 with fused_step=False (velocity,
+             p, gp, mac_phi); agreement to 1e-9 relative.
   5. main    through incflo_torch.Simulation on cuda, float32.  shear3d:
              n = 128 (128x128x32), 20 warm-up + 20 timed steps, and
              n = 256 (256x256x64), 2 warm-up + 3 timed steps.  shear3d_vd
@@ -55,8 +74,8 @@ Then one JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 
 It imports neither JAX nor incflo_tpu and writes its own deck text (the
-shear3d and rt decks of bench.py; shear3d_vd adds constant_density =
-false, advect_tracer = true and mu_s = 0.0002).  Without a CUDA device, or
+shear3d, rt and tgv2d decks of bench.py; shear3d_vd adds
+constant_density = false, advect_tracer = true and mu_s = 0.0002).  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
@@ -146,6 +165,21 @@ incflo.init_shrink = 1.0
 """
 
 
+def tgv2d_deck(n, dtype):
+    """The tgv2d deck of bench.py:_deck (probtype 1, the 2D Taylor-Green
+    vortex): n x n fully periodic, MOL advection, implicit tensor
+    diffusion (the defaults), mu = 0.01, cfl = 0.45."""
+    return deck_header(dtype) + f"""
+amr.n_cell = {n} {n}
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 1. 1.
+geometry.is_periodic = 1 1
+incflo.probtype = 1
+incflo.mu = 0.01
+incflo.cfl = 0.45
+"""
+
+
 def shear3d_deck(n, dtype, vd=False):
     """The shear3d deck of bench.py:_deck (probtype 21, Godunov PPM,
     Crank-Nicolson tensor diffusion, fully periodic); vd adds variable
@@ -200,7 +234,8 @@ def device_ms(fn, reps=25, warm=3):
 
 def count_ops(fn):
     """Arithmetic, compare and select operations of fn(): the elements
-    produced by each such aten op (clamp counts 2)."""
+    produced by each such aten op (clamp counts 2), and 2*M*N*K for each
+    matrix product (mm, bmm) of M x K by K x N."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     names = {"add", "sub", "mul", "div", "neg", "abs", "sign", "minimum",
@@ -214,7 +249,9 @@ def count_ops(fn):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = func.overloadpacket.__name__.rstrip("_")
-            if name in names and isinstance(out, torch.Tensor):
+            if name in ("mm", "bmm"):
+                self.ops += 2 * out.numel() * args[0].shape[-1]
+            elif name in names and isinstance(out, torch.Tensor):
                 self.ops += out.numel() * (2 if name == "clamp" else 1)
             return out
 
@@ -237,7 +274,7 @@ def abs_err(a, b):
 
 def phase_build(cuda_build, sources):
     t0 = time.time()
-    paths = cuda_build.build_all(sources)
+    paths = cuda_build.build_all(sources, ptxas_verbose=True)
     s = time.time() - t0
     for path in paths.values():
         print(f"[build] {os.path.relpath(path, HERE)}", flush=True)
@@ -696,16 +733,20 @@ def vd_start(sim, start, torch):
     return s
 
 
-def phase_paths(incflo_torch, torch, vd=False, rt=False):
-    """The step on cuda (kernels) and on cpu (plain versions), f64."""
+def phase_paths(incflo_torch, torch, vd=False, rt=False, tgv=False):
+    """The step on cuda (kernels) and on cpu (plain versions), f64; tgv2d
+    with fused_step=False on both (its plain step on the card)."""
     from incflo_torch import state as st
-    name = "rt" if rt else "shear3d_vd" if vd else "shear3d"
+    name = "rt" if rt else "shear3d_vd" if vd else "tgv2d" if tgv \
+        else "shear3d"
     cfg = incflo_torch.IncfloConfig.from_text(
-        rt_deck(32, "float64") if rt else shear3d_deck(32, "float64", vd))
-    sim_c = incflo_torch.Simulation(cfg, device="cpu")
-    sim_g = incflo_torch.Simulation(cfg, device="cuda")
+        rt_deck(32, "float64") if rt else tgv2d_deck(32, "float64") if tgv
+        else shear3d_deck(32, "float64", vd))
+    sim_c = incflo_torch.Simulation(cfg, device="cpu", fused_step=False)
+    sim_g = incflo_torch.Simulation(cfg, device="cuda", fused_step=False)
     fields = ("velocity", "p", "gp") + (
-        ("density", "tracer", "mac_phi") if vd or rt else ())
+        ("density", "tracer", "mac_phi") if vd or rt else
+        ("mac_phi",) if tgv else ())
     worst = 0.0
     starts = ("init_state", "perturbed_density") if vd else ("init_state",)
     for start in starts:
@@ -726,6 +767,285 @@ def phase_paths(incflo_torch, torch, vd=False, rt=False):
     return worst
 
 
+TOL_STEP2D_F32 = (1e-4, 1e-5)     # rtol, atol (tests/test_pallas_step2d.py)
+TOL_STEP2D_F64 = 1e-9
+STEP2D_FIELDS = ("velocity", "p", "gp", "mac_phi", "dt")
+
+
+def step2d_err(a, b, dtype, torch):
+    """(error, elementwise error).  float32: max |a - b| / (atol + rtol
+    max |b|), which passes at <= 1, and beside it the elementwise form
+    max(|a - b| / (atol + rtol |b|)) of numpy's allclose; float64: max
+    |a - b| / max |b| for both.  float32 is held to the field's max: gp is
+    a difference of neighbouring nodal phi values over dx, so at 128^2 each
+    implementation's last-bit noise in phi reaches gp 128-fold, where gp
+    crosses zero the elementwise bound is at that floor (1.35 measured,
+    while float64 agrees to 4e-14)."""
+    a = a.detach().double()
+    b = b.detach().double()
+    if dtype == torch.float32:
+        rtol, atol = TOL_STEP2D_F32
+        d = (a - b).abs()
+        return (float(d.max() / (atol + rtol * b.abs().max())),
+                float((d / (atol + rtol * b.abs())).max()))
+    e = float((a - b).abs().max() / max(float(b.abs().max()), 1e-300))
+    return e, e
+
+
+def events_ms(fn, reps=20, warm=3):
+    """Device time of fn() in ms from CUDA events around `reps`
+    back-to-back calls (no graph): the card's time per call as long as
+    the host enqueues faster than the card runs."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def step2d_graphs():
+    """Child-process mode (--step2d-graphs): step_plain, then the fused
+    kernel, at tgv2d 128^2 f32 from init_state under CUDA-graph replay;
+    prints one JSON line with each time or the error of its capture.  A
+    child, so that a capture the driver refuses cannot disturb the run."""
+    import torch
+    sys.path.insert(0, HERE)
+    import incflo_torch
+    from incflo_torch.ops import step2d_kernels as s2
+    cfg = incflo_torch.IncfloConfig.from_text(tgv2d_deck(128, "float32"))
+    sim = incflo_torch.Simulation(cfg, device="cuda", fused_step=False)
+    s = sim.init_state()
+    fs = s2.FusedStep(sim)
+    out = {}
+    for key, fn in (("plain", lambda: s2.step_plain(sim, s)),
+                    ("kernel", lambda: fs.step(s))):
+        try:
+            out[f"{key}_graph_ms"] = device_ms(fn)
+        except Exception as e:      # reported, not hidden: see the row
+            out[f"{key}_graph_error"] = f"{type(e).__name__}: {e}"[:400]
+    print(json.dumps(out))
+    return 0
+
+
+def phase_step2d(incflo_torch, s2, torch):
+    """The fused step kernel against step_plain on the card, tgv2d from
+    init_state, 3 steps (compared after each), 32^2 and 128^2, f64 and
+    f32; then its f32 time at 128^2 and the plain step's."""
+    res = {"max_abs_err": 0.0, "max_err_f32": 0.0, "max_rel_err_f64": 0.0,
+           "max_elementwise_err_f32": 0.0, "cases": 0,
+           "worst_cg_res_over_tol": 0.0}
+    saved = dict(s2.LAUNCHES)
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for n in (32, 128):
+            cfg = incflo_torch.IncfloConfig.from_text(tgv2d_deck(n, name))
+            sim = incflo_torch.Simulation(cfg, device="cuda",
+                                          fused_step=False)
+            fs = s2.FusedStep(sim)
+            sk = sp = sim.init_state()
+            for k in range(1, 4):
+                n0 = s2.LAUNCHES["step2d"]
+                sk, cg_k = fs.step(sk)
+                cg_p = []
+                sp = s2.step_plain(sim, sp, cg_p)
+                torch.cuda.synchronize()
+                if s2.LAUNCHES["step2d"] != n0 + 1:
+                    raise AssertionError("step2d: the wrapper launched no "
+                                         "kernel")
+                errs, elem = {}, {}
+                for f in STEP2D_FIELDS:
+                    a = getattr(sk, f) if f == "dt" else getattr(sk.level, f)
+                    b = getattr(sp, f) if f == "dt" else getattr(sp.level, f)
+                    errs[f], elem[f] = step2d_err(a, b, dtype, torch)
+                    res["cases"] += 1
+                    if dtype == torch.float32:
+                        res["max_abs_err"] = max(res["max_abs_err"],
+                                                 abs_err(a.double(),
+                                                         b.double()))
+                worst = max(errs.values())
+                key = "max_err_f32" if dtype == torch.float32 \
+                    else "max_rel_err_f64"
+                res[key] = max(res[key], worst)
+                if dtype == torch.float32:
+                    res["max_elementwise_err_f32"] = max(
+                        res["max_elementwise_err_f32"], max(elem.values()))
+                cg_k = [float(v) for v in cg_k]
+                cg_p = [float(v) for pair in cg_p for v in pair]
+                ratio = max(cg_k[0] / cg_k[1], cg_k[2] / cg_k[3],
+                            cg_p[0] / cg_p[1], cg_p[2] / cg_p[3])
+                res["worst_cg_res_over_tol"] = max(
+                    res["worst_cg_res_over_tol"], ratio)
+                barriers, t0, t1 = (int(v) for v in fs.diag.tolist())
+                print(f"[step2d] {name} {n}^2 step {k}: "
+                      + ", ".join(f"{f} {e:.2e}" for f, e in errs.items())
+                      + (" (elementwise " + ", ".join(
+                          f"{e:.2e}" for e in elem.values()) + ")"
+                         if dtype == torch.float32 else "")
+                      + f"; CG residual/tolerance kernel {cg_k[0]:.3e}/"
+                      f"{cg_k[1]:.3e}, {cg_k[2]:.3e}/{cg_k[3]:.3e}, plain "
+                      f"{cg_p[0]:.3e}/{cg_p[1]:.3e}, {cg_p[2]:.3e}/"
+                      f"{cg_p[3]:.3e}; {t0} + {t1} CG trips, {barriers} "
+                      f"grid barriers, {fs.blocks} blocks", flush=True)
+                if ratio > 1.0:
+                    raise AssertionError(f"step2d {name} {n}^2 step {k}: "
+                                         f"a tensor CG missed its tolerance")
+                if dtype == torch.float32 and not worst <= 1.0:
+                    raise AssertionError(f"step2d {name} {n}^2 step {k}: "
+                                         f"the kernel and step_plain differ "
+                                         f"beyond rtol 1e-4 / atol 1e-5 of "
+                                         f"the field's max")
+                if dtype == torch.float64 and not worst <= TOL_STEP2D_F64:
+                    raise AssertionError(f"step2d {name} {n}^2 step {k}: "
+                                         f"the kernel and step_plain differ "
+                                         f"by {worst:.3e}")
+    # the time at the main path's shapes, tgv2d f32 from init_state: the
+    # row's at 128^2, and 256^2 for the profile of the 256^2 cell
+    res["ms_by_n"] = {}
+    for n in (256, 128):
+        cfg = incflo_torch.IncfloConfig.from_text(tgv2d_deck(n, "float32"))
+        sim = incflo_torch.Simulation(cfg, device="cuda", fused_step=False)
+        s0 = sim.init_state()
+        fs = s2.FusedStep(sim)
+        res["ms_by_n"][n] = events_ms(lambda: fs.step(s0))
+    res["ms"] = res["ms_by_n"][128]
+    res["timing"] = "CUDA events over 20 back-to-back launches"
+    res["barriers_per_step"], res["trips_pred"], res["trips_corr"] = (
+        int(v) for v in fs.diag.tolist())
+    res["grid_blocks"] = fs.blocks
+    res["max_blocks"] = s2.max_blocks(torch.float32)
+    s2.LAUNCHES.update(saved)      # comparison launches do not count
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--step2d-graphs"], capture_output=True,
+                           text=True, cwd=HERE, timeout=600)
+    graphs = {}
+    if child.returncode == 0 and child.stdout.strip():
+        graphs = json.loads(child.stdout.strip().splitlines()[-1])
+    else:
+        graphs["child_error"] = (child.stderr or child.stdout)[-400:]
+    res["graphs"] = graphs
+    if "plain_graph_ms" in graphs:
+        res["plain_ms"] = graphs["plain_graph_ms"]
+        res["plain_timing"] = "CUDA-graph replay, median of 25"
+    else:
+        res["plain_ms"] = events_ms(lambda: s2.step_plain(sim, s0))
+        res["plain_timing"] = "CUDA events over 20 back-to-back calls"
+    n = 128 * 128
+    isz = 4
+    # the state read once and written once: velocity, density, gp in;
+    # velocity, gp, p, mac_phi out; the scalars and the CG record
+    res["bytes"] = 11 * n * isz + 13 * isz + 8
+    # what this state needs: the adaptive plain step runs the CG trips
+    # the kernel runs (the same live rule), not all FIXED_TRIPS
+    res["ops"] = count_ops(lambda: sim._advance_impl(s0))
+    t_bytes = res["bytes"] / PEAK_BYTES * 1e3
+    t_ops = res["ops"] / PEAK_OPS["float32"] * 1e3
+    res["bound_ms"] = max(t_bytes, t_ops)
+    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[step2d] f32 256^2: kernel {res['ms_by_n'][256]:.4f} ms",
+          flush=True)
+    print(f"[step2d] f32 128^2: kernel {res['ms']:.4f} ms ({res['timing']}), "
+          f"plain {res['plain_ms']:.4f} ms ({res['plain_timing']}), bound "
+          f"{res['bound_ms']:.5f} ms ({res['bound_by']}: {res['bytes']} B, "
+          f"{res['ops']} ops); {res['barriers_per_step']} grid barriers and "
+          f"{res['trips_pred']} + {res['trips_corr']} CG trips a step, "
+          f"{res['grid_blocks']} blocks of at most {res['max_blocks']}; "
+          f"graph capture: {graphs}", flush=True)
+    return res
+
+
+def decay_check(sim, s, a0, torch):
+    """|u| amplitude over its start against the exact Taylor-Green decay
+    exp(-8 pi^2 mu t / rho0): returns the relative difference."""
+    import math
+    cfg = sim.cfg
+    amp = float(s.level.velocity.abs().max()) / a0
+    exact = math.exp(-8.0 * math.pi ** 2 * cfg.mu / cfg.ro_0 * float(s.t))
+    return abs(amp / exact - 1.0)
+
+
+def run_tgv2d(incflo_torch, mods, torch, n, fused, warm, steps):
+    """One timed tgv2d run at n^2 f32, fused or not; launch counters set
+    to 0 just before its steps and read just after."""
+    cfg = incflo_torch.IncfloConfig.from_text(tgv2d_deck(n, "float32"))
+    sim = incflo_torch.Simulation(cfg, fused_step=fused)
+    s = sim.init_state()
+    a0 = float(s.level.velocity.abs().max())
+    torch.cuda.synchronize()
+    for m in mods:
+        m.reset_launches()
+    s = sim.advance_n(s, warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = sim.advance_n(s, steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {}
+    for m in mods:
+        launches.update(m.LAUNCHES)
+    total = warm + steps
+    tag = f"tgv2d {n}^2 {'fused' if fused else 'unfused'}"
+    want = {k: (total if fused and k == "step2d" else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    for f in ("velocity", "p", "gp", "mac_phi"):
+        if not bool(torch.isfinite(getattr(s.level, f)).all()):
+            raise AssertionError(f"{tag}: non-finite {f}")
+    decay = decay_check(sim, s, a0, torch)
+    if not decay <= 1e-3:
+        raise AssertionError(f"{tag}: amplitude off the exact decay by "
+                             f"{decay:.3e}")
+    resid, div_rel = projection_check(sim, s, torch)
+    if not resid <= 1e-5:
+        raise AssertionError(f"{tag}: nodal solve residual {resid:.3e}")
+    if not div_rel <= 1e-2:
+        raise AssertionError(f"{tag}: |div u| dx/|u| = {div_rel:.3e}")
+    ms = (t1 - t0) / steps * 1e3
+    diag = None
+    if fused:
+        diag = [int(v) for v in sim._fused.diag.tolist()]
+    print(f"[main] {tag} f32: {ms:.3f} ms/step, {n * n / (ms * 1e-3):.4e} "
+          f"cells/s over {steps} steps after {warm} warm-up; launches per "
+          f"step {launches.get('step2d', 0) / total:g} step2d; "
+          f"t={float(s.t):.6f} dt={float(s.dt):.6e}; amplitude vs exact "
+          f"decay {decay:.2e}; nodal residual {resid:.2e}, |div u| dx/|u| "
+          f"{div_rel:.2e}" + (f"; last step: {diag[0]} grid barriers, "
+                              f"{diag[1]} + {diag[2]} CG trips"
+                              if diag else ""), flush=True)
+    return {"deck": "tgv2d", "fused": fused, "n_cell": [n, n],
+            "ms_per_step": ms, "cells_per_s": n * n / (ms * 1e-3),
+            "steps": steps, "warmup": warm, "launches": launches,
+            "launches_per_step": launches.get("step2d", 0) / total,
+            "decay_err": decay, "nodal_residual": resid, "div_rel": div_rel,
+            "last_step_barriers_trips": diag}, sim, s
+
+
+def phase_main_tgv2d(incflo_torch, mods, torch, profile, kernel_ms,
+                     warm=2, steps=20):
+    """tgv2d at 128^2 and 256^2, fused and unfused in turns; kernel_ms
+    holds the fused kernel's event time at each n for the profile."""
+    rows, profiled = [], set()
+    for n in (128, 256):
+        for fused in (True, False, False, True):
+            r, sim, s = run_tgv2d(incflo_torch, mods, torch, n, fused, warm,
+                                  steps)
+            rows.append(r)
+            if profile and (n, fused) not in profiled:
+                profiled.add((n, fused))
+                phase_profile(sim, s, torch,
+                              f"{n} tgv2d {'fused' if fused else 'unfused'}",
+                              r["ms_per_step"],
+                              kernel_ms=kernel_ms[n] if fused else None)
+            del sim, s
+    return rows
+
+
 def projection_check(sim, s, torch):
     """Project the final velocity once more with the port's own nodal
     operator L.  The direct solve's residual |L phi - D u| is at the
@@ -744,7 +1064,7 @@ def projection_check(sim, s, torch):
     phi = solver.solve(rhs)
     idx = torch.meshgrid(*[torch.arange(n, device=u.device)
                            for n in rhs.shape], indexing="ij")
-    cb = (1 - 2 * ((idx[0] + idx[1] + idx[2]) % 2)).to(u.dtype)
+    cb = (1 - 2 * (sum(idx) % 2)).to(u.dtype)
     lam_max = float(mg.nodal_apply(cb, lev).abs().max())
     resid = float((mg.nodal_apply(phi, lev) - rhs).abs().max()
                   / (lam_max * phi.abs().max()))
@@ -1003,11 +1323,14 @@ def phase_rt_sections(sim, s, mg, torch, steps=3):
     return s
 
 
-def phase_profile(sim, s, torch, n, wall_ms, steps=5):
+def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None):
     """Device time of `steps` steps by torch.profiler: the busy time per
     step against the step's wall time (from the unprofiled timed run),
-    split into the Godunov kernels, the smoother kernels, matrix products
-    and the rest."""
+    split into the Godunov kernels, the smoother kernels, the fused step
+    kernel, matrix products and the rest.  The profiler records no device
+    activity for the cooperative launch of the fused step (only the host's
+    cudaLaunchCooperativeKernel call): there kernel_ms, its CUDA-event
+    time, stands in for each launch, and the line says so."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1015,7 +1338,8 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5):
         torch.cuda.synchronize()
     rows = prof.key_averages()
     print(rows.table(sort_by="cuda_time_total", row_limit=30))
-    groups = {"godunov": 0.0, "smoothers": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"godunov": 0.0, "smoothers": 0.0, "step2d": 0.0,
+              "matmul": 0.0, "other": 0.0}
     for e in rows:
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
@@ -1027,18 +1351,27 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5):
         elif any(t in k for t in ("cell_pass", "cell_residual",
                                   "nodal_pass", "nodal_residual")):
             groups["smoothers"] += us
+        elif "step2d_kernel" in k:
+            groups["step2d"] += us
         elif "gemm" in k or "xmma" in k or "sgemm" in k:
             groups["matmul"] += us
         else:
             groups["other"] += us
+    note = ""
+    coop = [e.count for e in rows if e.key == "cudaLaunchCooperativeKernel"]
+    if kernel_ms is not None and coop and groups["step2d"] == 0.0:
+        groups["step2d"] = kernel_ms * 1e3 * coop[0]
+        note = (f" (step2d not in the trace: {coop[0]} launches x "
+                f"{kernel_ms:.4f} ms from CUDA events)")
     busy = sum(groups.values()) / steps / 1e3
     print(f"[profile] n={n}: device busy {busy:.3f} ms/step of "
           f"{wall_ms:.3f} ms/step wall (idle share "
           f"{max(0.0, 1 - busy / wall_ms):.2f}); godunov kernels "
           f"{groups['godunov'] / steps / 1e3:.3f}, smoother kernels "
-          f"{groups['smoothers'] / steps / 1e3:.3f}, matmul "
+          f"{groups['smoothers'] / steps / 1e3:.3f}, step2d kernel "
+          f"{groups['step2d'] / steps / 1e3:.3f}, matmul "
           f"{groups['matmul'] / steps / 1e3:.3f}, other "
-          f"{groups['other'] / steps / 1e3:.3f} ms/step", flush=True)
+          f"{groups['other'] / steps / 1e3:.3f} ms/step{note}", flush=True)
 
 
 def card_line():
@@ -1050,6 +1383,8 @@ def card_line():
 
 def main(argv):
     import torch
+    if "--step2d-graphs" in argv and torch.cuda.is_available():
+        return step2d_graphs()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this run needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -1065,6 +1400,7 @@ def main(argv):
     from incflo_torch.ops import godunov_kernels as gk
     from incflo_torch.ops import multigrid as mg
     from incflo_torch.ops import smoother_kernels as sk
+    from incflo_torch.ops import step2d_kernels as s2
 
     def grid_of(n):
         nz = max(n // 4, 8)
@@ -1076,15 +1412,17 @@ def main(argv):
     name = torch.cuda.get_device_name(0)
     print(f"[device] {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    build_s = phase_build(cuda_build, [gk.SOURCE, sk.SOURCE])
+    build_s = phase_build(cuda_build, [gk.SOURCE, sk.SOURCE, s2.SOURCE])
     kres = phase_kernels(gk, grid_of, torch)
     sres = phase_smoothers(sk, mg, grid_of, torch)
     wres = phase_walled_smoother(sk, mg, torch)
+    s2res = phase_step2d(incflo_torch, s2, torch)
     phase_solvers(mg, torch)
     phase_solvers_walled(mg, torch)
     phase_paths(incflo_torch, torch)
     phase_paths(incflo_torch, torch, vd=True)
     phase_paths(incflo_torch, torch, rt=True)
+    phase_paths(incflo_torch, torch, tgv=True)
     main128, sim, s = phase_main(incflo_torch, gk, torch, 128, 20, 20)
     if profile:
         phase_profile(sim, s, torch, 128, main128["ms_per_step"])
@@ -1106,11 +1444,14 @@ def main(argv):
         phase_profile(sim, s, torch, "128 rt", main_rt["ms_per_step"])
         phase_rt_sections(sim, s, mg, torch)
     del sim, s
+    main_tgv = phase_main_tgv2d(incflo_torch, (gk, sk, s2), torch, profile,
+                                s2res["ms_by_n"])
 
     # `launches` is the count over the kernel's own main path: shear3d
     # n = 128 for the Godunov kernels (their count in shear3d_vd beside
     # it), shear3d_vd from init_state for the periodic smoothers, rt for
-    # the walled cell smoother
+    # the walled cell smoother, the first fused tgv2d run at 128^2 for
+    # the fused step
     kernels = []
     for k in PER_STEP:
         r = kres[k]
@@ -1168,8 +1509,35 @@ def main(argv):
         "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
         "bytes": fine["bytes"], "ops": fine["ops"], "library_ms": None,
         "at_8x8x16": wres["8x8x16"]})
+    tgv_main = main_tgv[0]
+    kernels.append({
+        "name": "step2d", "route": "cuda",
+        "source": "incflo_torch/csrc/step2d.cu",
+        "replaces": s2.REPLACES["step2d"],
+        "launches": tgv_main["launches"]["step2d"],
+        "launches_per_step": tgv_main["launches_per_step"],
+        "max_abs_err": s2res["max_abs_err"],
+        "max_err_f32": s2res["max_err_f32"],
+        "tol_f32": "rtol 1e-4, atol 1e-5 of each field's max "
+                   "(max_err_f32 <= 1)",
+        "max_elementwise_err_f32": s2res["max_elementwise_err_f32"],
+        "max_rel_err_f64": s2res["max_rel_err_f64"],
+        "tol_f64": TOL_STEP2D_F64,
+        "worst_cg_res_over_tol": s2res["worst_cg_res_over_tol"],
+        "shape": "tgv2d 128x128, one step from init_state, float32",
+        "ms": s2res["ms"], "timing": s2res["timing"],
+        "ms_256": s2res["ms_by_n"][256],
+        "plain_ms": s2res["plain_ms"], "plain_timing": s2res["plain_timing"],
+        "graphs": s2res["graphs"],
+        "bound_ms": s2res["bound_ms"], "bound_by": s2res["bound_by"],
+        "bytes": s2res["bytes"], "ops": s2res["ops"], "library_ms": None,
+        "barriers_per_step": s2res["barriers_per_step"],
+        "cg_trips": [s2res["trips_pred"], s2res["trips_corr"]],
+        "grid_blocks": s2res["grid_blocks"],
+        "max_blocks": s2res["max_blocks"]})
     print(json.dumps({"kernels": kernels, "build_s": build_s,
-                      "main": [main128, main256] + main_vd + [main_rt],
+                      "main": [main128, main256] + main_vd + [main_rt]
+                      + main_tgv,
                       "seconds": time.time() - t_start}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

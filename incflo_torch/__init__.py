@@ -1,18 +1,19 @@
 """incflo_torch: the PyTorch/CUDA port of incflo_tpu.
 
-The same incompressible Navier-Stokes engine (Godunov advection, MAC and
-nodal projections, Crank-Nicolson tensor diffusion), written with
-PyTorch tensors and hand-written CUDA kernels for NVIDIA Hopper
-(csrc/godunov.cu, csrc/smoothers.cu).  It imports neither JAX nor
-incflo_tpu.
+The same incompressible Navier-Stokes engine (Godunov and MOL advection,
+MAC and nodal projections, Crank-Nicolson and implicit tensor
+diffusion), written with PyTorch tensors and hand-written CUDA kernels
+for NVIDIA Hopper (csrc/godunov.cu, csrc/smoothers.cu, csrc/step2d.cu).
+It imports neither JAX nor incflo_tpu.
 
-Scope today: 3D, one level, Newtonian, Godunov + Crank-Nicolson decks
-whose axes are periodic or end in slip or no-slip walls -- shear3d with
-constant density (direct solves) or with variable density and tracers
-(multigrid V-cycles), and the walled Rayleigh-Taylor deck rt (gravity,
-variable density, a tracer; multigrid on levels with walls).  Other
-decks raise NotImplementedError naming the ROADMAP item that ports
-them.
+Scope today: one level, Newtonian.  3D Godunov decks whose axes are
+periodic or end in slip or no-slip walls -- shear3d with constant density
+(direct solves) or with variable density and tracers (multigrid
+V-cycles), and the walled Rayleigh-Taylor deck rt (gravity, variable
+density, a tracer; multigrid on levels with walls).  2D fully periodic
+constant-density MOL decks -- tgv2d, whose step on the card is one launch
+of the fused step kernel.  Other decks raise NotImplementedError naming
+the ROADMAP item that ports them.
 
 Float32 matrix products run in full precision: importing the package
 sets `torch.backends.cuda.matmul.allow_tf32 = False` and

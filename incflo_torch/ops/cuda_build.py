@@ -11,6 +11,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -48,10 +49,25 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
 
 
+def _ptxas_summary(name: str, stderr: str) -> str:
+    """One line per kernel of nvcc's -Xptxas -v report: its registers,
+    stack and spills."""
+    lines, entry = [], None
+    for line in stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        elif entry and "Used" in line and "registers" in line:
+            lines.append(f"[ptxas] {name} {entry}: {line.split(':', 1)[1].strip()}")
+        elif entry and "spill" in line:
+            lines.append(f"[ptxas] {name} {entry}: {line.strip()}")
+    return "\n".join(lines)
+
+
 def build(source: Path, ptxas_verbose: bool = False) -> Path:
     """Compile `source` unless this source's library exists.  Returns the
-    library path; with ptxas_verbose the compiler's register/spill report
-    is printed."""
+    library path; with ptxas_verbose it is compiled in any case and each
+    kernel's registers, stack and spills are printed."""
     out = library_path(source)
     if out.exists() and not ptxas_verbose:
         return out
@@ -68,7 +84,7 @@ def build(source: Path, ptxas_verbose: bool = False) -> Path:
         raise RuntimeError(f"nvcc failed ({r.returncode}) on {source.name}:"
                            f"\n{r.stderr}")
     if ptxas_verbose:
-        print(r.stderr)
+        print(_ptxas_summary(source.name, r.stderr), flush=True)
     os.replace(tmp, out)
     return out
 

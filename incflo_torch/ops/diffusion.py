@@ -1,7 +1,7 @@
 """Viscous terms: explicit divtau and the implicit tensor velocity solve
 (port of the parts of incflo_tpu/ops/diffusion.py that Newtonian
-Crank-Nicolson steps without embedded boundaries run; reference
-DiffusionTensorOp, src/diffusion/*.cpp):
+Crank-Nicolson and implicit steps without embedded boundaries run;
+reference DiffusionTensorOp, src/diffusion/*.cpp):
 
   eta_to_faces     : eta grown by 1 -> face averages
   compute_divtau   : div(tau)/rho, tau = eta(grad u + grad u^T) (tensor)
@@ -12,7 +12,8 @@ DiffusionTensorOp, src/diffusion/*.cpp):
                      (periodic boxes, no-slip walls): the batched branch
                      (prebuilt constant-coefficient solver or one built
                      from the current rho and eta) and the tensor CG on
-                     the cross coupling.  Where they differ (a slip wall:
+                     the cross coupling, adaptive or with a fixed number
+                     of masked trips (the fused 2D step's form).  Where they differ (a slip wall:
                      Dirichlet for the normal component, Neumann for the
                      tangential ones): one scalar solve per component.
   diffuse_scalar   : (rho - dt div(mu_s grad)) s = rho s* per tracer.
@@ -236,7 +237,8 @@ def _dot(a, b):
 
 
 def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
-                grow_fn, grow_hom_fn, tol, maxiter, with_res=False):
+                grow_fn, grow_hom_fn, tol, maxiter, with_res=False,
+                fixed_trips=None):
     """CG on the full coupled tensor Helmholtz operator
 
         A(u) = aniso_helmholtz(u) - dt * cross_transpose(u)
@@ -248,7 +250,13 @@ def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
     which keeps A linear.  Adaptive loop of incflo_tpu/ops/diffusion.py
     :670-704: stop when the best residual is under tol, after maxiter,
     or after 5 non-improving iterations.  Each loop test reads one bool
-    back to the host."""
+    back to the host.
+
+    fixed_trips = k runs instead exactly k masked trips of the same
+    iteration and reads nothing back (the kernel-mode form of
+    incflo_tpu/ops/diffusion.py:627-667): a trip changes the state only
+    while the best residual is above tol and fewer than 5 trips in a row
+    failed to improve it, so a converged solve stops changing."""
     lev0 = solver.levels[0]
     ndim = grid.ndim
 
@@ -274,6 +282,9 @@ def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
 
     r0 = residual(x0)
     res0 = mg._maxnorm(r0)
+    if fixed_trips is not None:
+        xb, rb = _fixed_trip_cg(x0, r0, res0, tol, A_lin, prec, fixed_trips)
+        return (xb, rb) if with_res else xb
     if not mg.host_bool(res0 > tol):
         return (x0, res0) if with_res else x0
     x, r = x0, r0
@@ -302,11 +313,40 @@ def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
     return (xb, rb) if with_res else xb
 
 
+def _fixed_trip_cg(x0, r0, res0, tol, A_lin, prec, trips):
+    """(best iterate, best residual) of `trips` masked CG trips."""
+    x, r, p = x0, r0, prec(r0)
+    rz = _dot(r0, p)
+    xb, rb = x0, res0
+    bad = torch.zeros((), dtype=torch.int32, device=x0.device)
+    for _ in range(trips):
+        live = (rb > tol) & (bad < 5)
+        Ap = A_lin(p)
+        denom = _dot(p, Ap)
+        alpha = rz / torch.where(denom == 0, 1.0, denom)
+        xn = x + alpha * p
+        rn = r - alpha * Ap
+        z = prec(rn)
+        rzn = _dot(rn, z)
+        beta = rzn / torch.where(rz == 0, 1.0, rz)
+        pn = z + beta * p
+        new_res = mg._maxnorm(rn)
+        improved = new_res < 0.999 * rb
+        xb = torch.where(live & improved, xn, xb)
+        x = torch.where(live, xn, x)
+        r = torch.where(live, rn, r)
+        p = torch.where(live, pn, p)
+        rz = torch.where(live, rzn, rz)
+        rb = torch.where(live, torch.minimum(rb, new_res), rb)
+        bad = torch.where(live, torch.where(improved, 0, bad + 1), bad)
+    return xb, rb
+
+
 def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
                      dt_diff, cfg: IncfloConfig, grid: Grid,
                      eta_g1=None, grow_fn=None, ng=None, grow_hom_fn=None,
                      prebuilt_solver=None, return_tensor_res=False,
-                     direct=True):
+                     direct=True, fixed_trips=None):
     """(rho - dt div(eta (grad + grad^T))) u = rho u*  (reference
     DiffusionTensorOp::diffuse_velocity).  Where every component has the
     same solver BCs the components are one batched solve; the diagonal
@@ -318,6 +358,7 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
     (`direct` as for mg.CellSolver) and iterates from the warm start
     `vel` after 4 fine-level sweeps: at CFL-limited dt the operator is
     diagonally dominant and those often reach the tolerance alone.
+    fixed_trips as for _tensor_pcg.
 
     Where the components' BCs differ (slip walls) each component is a
     scalar solve of (rho - dt div(eta grad)) with its own BCs, and no
@@ -381,7 +422,8 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
         out = _tensor_pcg(out, rhs, bvals, solver, dt_diff, eta_g1, grid,
                           ng, grow_fn, grow_hom_fn, tol=cg_tol,
                           maxiter=cfg.tensor_mg_maxiter,
-                          with_res=return_tensor_res)
+                          with_res=return_tensor_res,
+                          fixed_trips=fixed_trips)
         if return_tensor_res:
             out, cg_res = out
             return out, cg_res, cg_tol

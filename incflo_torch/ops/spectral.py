@@ -282,6 +282,14 @@ def _contract(h, m, axis):
     return torch.movedim(out, -1, axis)
 
 
+def _origin_mask(shape, ndim, dtype, device):
+    """1.0 at the spatial origin, 0 elsewhere, broadcastable against a
+    tensor of `shape` (spatial axes first)."""
+    m = torch.zeros(tuple(shape[:ndim]), dtype=dtype, device=device)
+    m.view(-1)[0].fill_(1.0)    # a fill, not a copy: capturable in a graph
+    return m.reshape(tuple(shape[:ndim]) + (1,) * (len(shape) - ndim))
+
+
 def solve(sym: Symbol, rhs, alpha, beta, singular: bool):
     """x = L^{-1} rhs, exact up to rounding.  alpha/beta may be 0-d
     tensors (CellSolver.with_beta rescales beta = dt every step).  For
@@ -305,10 +313,11 @@ def solve(sym: Symbol, rhs, alpha, beta, singular: bool):
         for d, f in enumerate(sym.fwd):
             h = _contract(h, f, d)
         if singular:
-            s = s.clone()
-            s[zero] = 1.0
-            h = h.clone()
-            h[zero] = 0.0
+            # mask form of the zero mode: the same arithmetic as the
+            # step2d kernel's, which sets no element
+            m = _origin_mask(s.shape, ndim, s.dtype, s.device)
+            s = s * (1.0 - m) + m
+            h = h * (1.0 - _origin_mask(h.shape, ndim, h.dtype, h.device))
         h = h / s
         for d, b in enumerate(sym.inv):
             h = _contract(h, b, d)

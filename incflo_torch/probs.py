@@ -1,9 +1,11 @@
 """Initial conditions keyed by incflo.probtype (port of
 incflo_tpu/probs.py:50-294; reference src/prob/prob_init_fluid.cpp).
 
-Ported: probtype 21, the double shear layer of the shear3d deck, and
-probtype 5, the Rayleigh-Taylor interface of the rt deck.  The other
-probtypes raise and name the ROADMAP item that ports them.
+Ported: probtype 21, the double shear layer of the shear3d deck,
+probtype 5, the Rayleigh-Taylor interface of the rt deck, and the 2D
+vortices of probtypes 1 (Taylor-Green, the tgv2d deck) and 2 (the
+decaying Taylor vortex).  The other probtypes raise and name the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ TWOPI = 2.0 * math.pi
 
 PI = math.pi
 
-_LATER = {1: "A8", 2: "A8", 3: "A8", 4: "A8", 11: "A9c", 111: "A9c",
+_LATER = {3: "A8", 4: "A8", 11: "A9c", 111: "A9c",
           112: "A9c", 113: "A9c", 12: "A9c", 6: "A11"}
 
 
@@ -81,15 +83,39 @@ def _init_rayleigh_taylor(cfg, grid, st, dtype, device) -> LevelState:
     return st._replace(velocity=velocity, density=density, tracer=tracer)
 
 
+def _init_vortex(cfg, grid, st, dtype, device) -> LevelState:
+    """probtype 1, the Taylor-Green vortex u = sin(2 pi x) cos(2 pi y),
+    v = -cos(2 pi x) sin(2 pi y); probtype 2, the decaying Taylor vortex
+    u = 1 - cos(pi x) sin(pi y), v = 1 + sin(pi x) cos(pi y).  A third
+    velocity component is zero."""
+    cs = grid.cell_shape
+    x, y = _coords_no_offset(grid, dtype, device)[:2]
+    if cfg.probtype == 1:
+        u = torch.sin(TWOPI * x) * torch.cos(TWOPI * y)
+        v = -torch.cos(TWOPI * x) * torch.sin(TWOPI * y)
+    else:
+        u = 1.0 - torch.cos(PI * x) * torch.sin(PI * y)
+        v = 1.0 + torch.sin(PI * x) * torch.cos(PI * y)
+    comps = [torch.broadcast_to(u, cs), torch.broadcast_to(v, cs)]
+    if grid.ndim == 3:
+        comps.append(torch.zeros(cs, dtype=dtype, device=device))
+    return st._replace(
+        velocity=torch.stack(comps, dim=-1).contiguous(),
+        density=torch.full(cs, cfg.ro_0, dtype=dtype, device=device))
+
+
 def init_fluid(cfg: IncfloConfig, grid: Grid, dtype, device) -> LevelState:
     """prob_init_fluid: the t=0 LevelState on `grid`."""
     pt = cfg.probtype
-    if pt not in (5, 21):
+    if pt not in (1, 2, 5, 21):
         item = _LATER.get(pt, "A8/A9c/A11")
         raise NotImplementedError(
             f"incflo_torch: probtype {pt} is not ported yet "
-            f"(ROADMAP {item}); this package runs probtypes 5 and 21")
+            f"(ROADMAP {item}); this package runs probtypes 1, 2, 5 and "
+            f"21")
     st = zeros_level(grid, cfg.ntrac, dtype, device)
+    if pt in (1, 2):
+        return _init_vortex(cfg, grid, st, dtype, device)
     if pt == 5:
         return _init_rayleigh_taylor(cfg, grid, st, dtype, device)
     cs = grid.cell_shape

@@ -1,29 +1,38 @@
-"""The time integrator (port of incflo_tpu/simulation.py for 3D decks
-whose axes are periodic or end in slip or no-slip walls): Advance = ComputeDt -> ApplyPredictor -> nodal
+"""The time integrator (port of incflo_tpu/simulation.py): Advance =
+ComputeDt -> ApplyPredictor [-> ApplyCorrector (MOL)] -> nodal
 projection, run eagerly as PyTorch ops on one device.
 
 Orchestration mirrors reference src/incflo_advance.cpp,
-src/incflo_apply_predictor.cpp, src/incflo_compute_dt.cpp,
-src/incflo_compute_forces.cpp and
+src/incflo_apply_predictor.cpp, src/incflo_apply_corrector.cpp,
+src/incflo_compute_dt.cpp, src/incflo_compute_forces.cpp and
 src/projection/incflo_apply_nodal_projection.cpp: state tensors carry no
-ghosts, old/new pairs are function inputs/outputs.  On a fully periodic
-grid the Godunov chain runs through the CUDA kernels of csrc/godunov.cu
-on the card (their plain PyTorch versions on the CPU); on a grid with
-walls it takes the wall forms of the plain versions on either device
-(ops/godunov.py).  With constant density the MAC,
-Helmholtz and nodal systems are prebuilt and solved directly
-(ops/spectral.py); with variable density they are rebuilt from the
-current density every step and solved by multigrid V-cycles
-(ops/multigrid.py) whose smoothers are the CUDA kernels of
-csrc/smoothers.cu: the cell smoother on every level, walls included,
-the nodal smoother on fully periodic levels (a walled nodal level is
+ghosts, old/new pairs are function inputs/outputs.
+
+3D decks advect by Godunov.  On a fully periodic grid the Godunov chain
+runs through the CUDA kernels of csrc/godunov.cu on the card (their plain
+PyTorch versions on the CPU); on a grid with walls it takes the wall
+forms of the plain versions on either device (ops/godunov.py).  With
+constant density the MAC, Helmholtz and nodal systems are prebuilt and
+solved directly (ops/spectral.py); with variable density they are
+rebuilt from the current density every step and solved by multigrid
+V-cycles (ops/multigrid.py) whose smoothers are the CUDA kernels of
+csrc/smoothers.cu: the cell smoother on every level, walls included, the
+nodal smoother on fully periodic levels (a walled nodal level is
 smoothed in plain PyTorch, ops/multigrid.nodal_smooth_walled).
 
-Scope of this port: 3D, each axis periodic or between slip / no-slip
-walls, one level, no EB, constant or variable density, gravity, tracer
-advection and diffusion, Newtonian fluid, Godunov advection,
-Crank-Nicolson diffusion.  Any other deck raises NotImplementedError
-naming the ROADMAP item that ports it.
+2D decks are fully periodic, constant-density MOL decks (tgv2d): the
+predictor and corrector of ops/mol.py with direct solves.  On the card a
+2D step is one launch of the fused step kernel (ops/step2d_kernels.py,
+csrc/step2d.cu) when the deck qualifies (step2d_kernels.supported) and
+its fixed-trip tensor CG converges at the first dt; `fused_step=False`
+runs the plain step instead.
+
+Scope of this port: one level, no EB, Newtonian fluid, Crank-Nicolson
+or implicit diffusion.  3D: Godunov advection, each axis periodic or
+between slip / no-slip walls, constant or variable density, gravity,
+tracer advection and diffusion.  2D: MOL advection, fully periodic,
+constant density, no tracer advection.  Any other deck raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import torch
 from incflo_torch import bcs, probs
 from incflo_torch.bcs import BCKind
 from incflo_torch.config import DiffusionType, FluidModel, IncfloConfig
-from incflo_torch.ops import diffusion, godunov, mac_projection
+from incflo_torch.ops import diffusion, godunov, mac_projection, mol
 from incflo_torch.ops import multigrid as mg
 from incflo_torch.ops import rheology
 from incflo_torch.ops.stencil import inner
@@ -49,12 +58,19 @@ def _unsupported(cfg: IncfloConfig):
         BCKind(int(cfg.bc_kind[ax, side])) in (BCKind.slip_wall,
                                                BCKind.no_slip_wall)
         for ax in range(g.ndim) if not g.periodic[ax] for side in range(2))
+    nd = g.ndim
     checks = [
-        (g.ndim != 3, "2D decks", "A8"),
+        (nd not in (2, 3), f"{nd}D decks", "A8"),
         (cfg.eb_geometry not in ("", "all_regular", "null"),
          "embedded boundaries", "A11"),
-        (not cfg.use_godunov, "MOL advection", "A8"),
-        (g.ndim == 3 and not walls_only,
+        (nd == 2 and cfg.use_godunov, "2D Godunov advection", "A8"),
+        (nd == 2 and not all(g.periodic), "2D decks with walls", "A8"),
+        (nd == 2 and not cfg.constant_density,
+         "2D variable density (2D multigrid)", "A8"),
+        (nd == 2 and cfg.advect_tracer,
+         "2D tracer advection (2D multigrid)", "A8"),
+        (nd == 3 and not cfg.use_godunov, "3D MOL advection", "A8"),
+        (nd == 3 and not walls_only,
          "mass inflow and pressure inflow/outflow boundaries", "A9c"),
         (cfg.fluid_model != FluidModel.Newtonian, "non-Newtonian fluids",
          "A9c"),
@@ -62,8 +78,8 @@ def _unsupported(cfg: IncfloConfig):
         (cfg.use_mac_phi_in_godunov, "use_mac_phi_in_godunov", "A8"),
         (cfg.godunov_use_forces_in_trans, "godunov_use_forces_in_trans",
          "A8"),
-        (cfg.diff_type != DiffusionType.Crank_Nicolson,
-         "explicit or implicit diffusion", "A9c"),
+        (cfg.diff_type == DiffusionType.Explicit, "explicit diffusion",
+         "A9c"),
         (cfg.max_level > 0, "AMR", "A13"),
     ]
     for bad, what, item in checks:
@@ -77,15 +93,18 @@ class Simulation:
 
     device None means "cuda"; pass device="cpu" to run on the CPU with
     the kernels' plain versions.  Asking for the card where there is
-    none raises."""
+    none raises.  fused_step=False keeps a 2D deck on the plain step on
+    the card too (the counterpart of incflo_tpu's INCFLO_PALLAS_STEP=0)."""
 
-    def __init__(self, cfg: IncfloConfig, device=None):
+    def __init__(self, cfg: IncfloConfig, device=None,
+                 fused_step: bool = True):
         why = _unsupported(cfg)
         if why is not None:
             raise NotImplementedError(
                 f"incflo_torch does not run {why[0]} yet "
                 f"(ROADMAP {why[1]}); it runs 3D Godunov decks whose axes "
-                f"are periodic or end in slip or no-slip walls")
+                f"are periodic or end in slip or no-slip walls and 2D "
+                f"periodic constant-density MOL decks")
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("incflo_torch.Simulation: CUDA device "
@@ -101,8 +120,12 @@ class Simulation:
         self.den_ev = cfg.density_ext_values()
         self.tra_ev = cfg.tracer_ext_values()
         self.force_bcrec = cfg.force_bcrecs(max(cfg.ntrac, cfg.ndim))
-        self.godunov = godunov.GodunovScheme(
-            cfg.grid, cfg.godunov_ppm, cfg.godunov_use_forces_in_trans)
+        if cfg.use_godunov:
+            self.godunov = godunov.GodunovScheme(
+                cfg.grid, cfg.godunov_ppm, cfg.godunov_use_forces_in_trans)
+        self.fused_step = fused_step
+        self._fused = None          # step2d_kernels.FusedStep, built lazily
+        self._fused_ok = None       # the CG probe's verdict
         nd = cfg.grid.ndim
         self._gravity = self._vec(cfg.gravity[:nd])
         self._gp0 = self._vec(cfg.gp0[:nd])
@@ -137,23 +160,29 @@ class Simulation:
                                self._full(grid.cell_shape, inv_rho))
         self._mac_solver = mac.to(self.device)
         self._nodal_hat = nodal.to(self.device)
+        # the constant coefficients, as Python floats, for the fused step
+        # kernel: the MAC face coefficient, the velocity operator's acoef
+        # and its face coefficient per (axis, component)
+        self._static_coefs = {"mac_b": inv_rho, "diff_a": cfg.ro_0}
         bcs_all = [diffusion.velocity_solver_bc(cfg, c)
                    for c in range(grid.ndim)]
         if not all(b == bcs_all[0] for b in bcs_all):
             return      # slip walls: per-component solves, built per step
-        eta_b = []
+        eta_b, diff_b = [], []
         for d in range(grid.ndim):
             shape = tuple(n + (1 if ax == d else 0)
                           for ax, n in enumerate(grid.cell_shape))
-            scale = torch.ones((grid.ndim,), dtype=self.dtype)
-            if cfg.use_tensor_solve:
-                scale[d] = 2.0
-            eta_b.append(self._full(shape, cfg.mu)[..., None] * scale)
+            scale = [2.0 if cfg.use_tensor_solve and c == d else 1.0
+                     for c in range(grid.ndim)]
+            diff_b.append([cfg.mu * f for f in scale])
+            eta_b.append(self._full(shape, cfg.mu)[..., None]
+                         * torch.tensor(scale, dtype=self.dtype))
         acoef = self._full(grid.cell_shape, cfg.ro_0)
         blo, bhi = bcs_all[0]
         diff = mg.CellSolver(grid.dx, blo, bhi, alpha=1.0, beta=1.0,
                              acoef=acoef[..., None], bcoef=tuple(eta_b))
         self._diff_proto = diff.to(self.device)
+        self._static_coefs["diff_b"] = diff_b
 
     # ------------------------------------------------------------------
     # ghost fills (physical BCs only, one level)
@@ -208,7 +237,7 @@ class Simulation:
         dxinv = self._dxinv
         conv_cfl = torch.max(torch.abs(vel) * dxinv)
         forc_cfl = torch.max(torch.abs(vel_forces) * dxinv)
-        cd_cfl = conv_cfl          # Crank-Nicolson: no diffusive CFL term
+        cd_cfl = conv_cfl   # Crank-Nicolson or implicit: no diffusive CFL
         comb_cfl = cd_cfl + torch.sqrt(cd_cfl * cd_cfl + 4.0 * forc_cfl)
         dt_new = 2.0 * cfg.cfl / torch.clamp_min(comb_cfl, 1e-300)
         if initialization:
@@ -303,6 +332,41 @@ class Simulation:
             conv_t = torch.zeros_like(tra)
         return conv_u, conv_r, conv_t, mac_phi
 
+    def convective_term_mol(self, vel, rho, tra, mac_phi0):
+        """MOL path (incflo_compute_advection_term.cpp, MOL branch):
+        upwind face velocities, MAC projection, then the upwind flux
+        divergence of velocity, density and rho*tracer.  Returns (conv_u,
+        conv_r, conv_t, mac_phi)."""
+        cfg = self.cfg
+        grid = self.grid
+        ng = cfg.nghost_state()
+        vel_g = self.grow_vel(vel, ng)
+        rho_g = self.grow_rho(rho, ng)
+        umac = mol.predict_vels_on_faces(vel_g, grid, ng, self.vel_bcrec)
+        beta = mac_projection.inv_rho_on_faces(inner(rho_g, ng - 1, grid.ndim),
+                                               grid)
+        umac, mac_phi = mac_projection.project_mac_velocities(
+            umac, beta, grid, cfg.bc_kind, phi0=mac_phi0,
+            rtol=cfg.mac_mg_rtol, atol=cfg.mac_mg_atol,
+            maxiter=cfg.mac_mg_maxiter, prebuilt_solver=self._mac_solver,
+            direct=False)
+
+        def rate(q_g, bcrec):
+            return mol.convective_rate(mol.compute_convective_fluxes(
+                q_g, umac, grid, ng, bcrec), grid)
+
+        conv_u = rate(vel_g, self.vel_bcrec)
+        if cfg.constant_density:
+            conv_r = torch.zeros_like(rho)
+        else:
+            conv_r = rate(rho_g[..., None], self.den_bcrec)[..., 0]
+        if cfg.advect_tracer:
+            conv_t = rate(rho_g[..., None] * self.grow_tra(tra, ng),
+                          self.tra_bcrec)
+        else:
+            conv_t = torch.zeros_like(tra)
+        return conv_u, conv_r, conv_t, mac_phi
+
     # ------------------------------------------------------------------
     # nodal projection (reference incflo_apply_nodal_projection.cpp)
     # ------------------------------------------------------------------
@@ -389,12 +453,35 @@ class Simulation:
             out.append(faces)
         return out
 
+    def _dt_diff(self, dt):
+        return dt if self.cfg.diff_type == DiffusionType.Implicit \
+            else 0.5 * dt
+
+    def _diffuse_vel(self, vel_new, rho_new, eta_faces, eta_g1, dt_diff,
+                     fixed_trips, cg):
+        """The implicit velocity solve; with a list `cg` the tensor CG's
+        best residual and its tolerance are appended to it."""
+        ng = self.cfg.nghost_state()
+        out = diffusion.diffuse_velocity(
+            vel_new, rho_new, eta_faces, dt_diff, self.cfg, self.grid,
+            eta_g1=eta_g1, grow_fn=lambda v: self.grow_vel(v, ng), ng=ng,
+            grow_hom_fn=lambda v: self.grow_vel_hom(v, ng),
+            prebuilt_solver=self._diff_proto, direct=False,
+            return_tensor_res=cg is not None, fixed_trips=fixed_trips)
+        if cg is None:
+            return out
+        cg.append(out[1:])
+        return out[0]
+
     def apply_predictor(self, old: LevelState, dt, incremental: bool,
-                        small_dt_flag):
+                        small_dt_flag, fixed_trips=None, cg=None):
+        """Returns (new LevelState, aux): aux holds the old-time terms the
+        MOL corrector reuses."""
         cfg = self.cfg
         grid = self.grid
         ng = cfg.nghost_state()
         vel_o, rho_o, tra_o = old.velocity, old.density, old.tracer
+        cn = cfg.diff_type == DiffusionType.Crank_Nicolson
 
         vel_g = self.grow_vel(vel_o, ng)
         eta_g1 = self._viscosity(vel_g, ng)
@@ -411,8 +498,13 @@ class Simulation:
             if cfg.need_divtau():
                 laps_o = diffusion.compute_laps(tra_o, tra_eta_faces, cfg,
                                                 grid)
-        conv_u, conv_r, conv_t, mac_phi = self.convective_term_godunov(
-            vel_o, rho_o, tra_o, old.mac_phi, old.gp, divtau_o, laps_o, dt)
+        if cfg.use_godunov:
+            conv_u, conv_r, conv_t, mac_phi = self.convective_term_godunov(
+                vel_o, rho_o, tra_o, old.mac_phi, old.gp, divtau_o, laps_o,
+                dt)
+        else:
+            conv_u, conv_r, conv_t, mac_phi = self.convective_term_mol(
+                vel_o, rho_o, tra_o, old.mac_phi)
 
         # density update + half-time density
         if cfg.constant_density:
@@ -420,50 +512,142 @@ class Simulation:
         else:
             rho_new = rho_o + dt * conv_r
             rho_nph = 0.5 * (rho_o + rho_new)
-        dt_diff = 0.5 * dt
+        dt_diff = self._dt_diff(dt)
 
-        # tracer update (for rho*s; then divide by rho_new), Crank-Nicolson
+        # tracer update (for rho*s; then divide by rho_new)
         tra_new = tra_o
         if cfg.advect_tracer:
             rhs = rho_o[..., None] * tra_o + dt * (
                 conv_t + self.compute_tra_forces(rho_nph))
-            if laps_o is not None:
+            if cn and laps_o is not None:
                 rhs = rhs + dt * 0.5 * laps_o
             tra_new = diffusion.diffuse_scalar(
                 rhs / rho_new[..., None], rho_new, tra_eta_faces, dt_diff,
                 cfg, grid)
 
-        # velocity update (Crank-Nicolson)
+        # velocity update
         vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, old.gp)
-        dv = conv_u + vel_f + 0.5 * divtau_o
-        vel_new = vel_o + dt * dv
-        vel_new = diffusion.diffuse_velocity(
-            vel_new, rho_new, eta_faces, dt_diff, cfg, grid,
-            eta_g1=eta_g1, grow_fn=lambda v: self.grow_vel(v, ng), ng=ng,
-            grow_hom_fn=lambda v: self.grow_vel_hom(v, ng),
-            prebuilt_solver=self._diff_proto, direct=False)
+        dv = conv_u + vel_f
+        if cn:
+            dv = dv + 0.5 * divtau_o
+        elif cfg.use_tensor_correction:
+            dv = dv + divtau_o   # difference of tensor and scalar divtau
+        vel_new = self._diffuse_vel(vel_o + dt * dv, rho_new, eta_faces,
+                                    eta_g1, dt_diff, fixed_trips, cg)
 
         vel_new, p_new, gp_new = self.apply_projection(
             vel_new, vel_o, rho_nph, old.gp, old.p, dt, incremental,
             small_dt_flag)
-        return LevelState(velocity=vel_new, density=rho_new,
-                          tracer=tra_new, gp=gp_new, p=p_new,
-                          mac_phi=mac_phi)
+        new = LevelState(velocity=vel_new, density=rho_new, tracer=tra_new,
+                         gp=gp_new, p=p_new, mac_phi=mac_phi)
+        return new, dict(conv_u=conv_u, conv_r=conv_r, conv_t=conv_t,
+                         divtau_o=divtau_o, laps_o=laps_o)
+
+    # ------------------------------------------------------------------
+    # corrector (MOL; reference incflo_apply_corrector.cpp)
+    # ------------------------------------------------------------------
+    def apply_corrector(self, old: LevelState, star: LevelState, aux,
+                        dt, small_dt_flag, fixed_trips=None, cg=None):
+        """The second MOL stage: the convective term of the predicted
+        state averaged with the old one (incflo_tpu/simulation.py:800-882,
+        the no-EB branch; explicit diffusion is not ported)."""
+        cfg = self.cfg
+        grid = self.grid
+        ng = cfg.nghost_state()
+        vel_o, rho_o, tra_o = old.velocity, old.density, old.tracer
+        cn = cfg.diff_type == DiffusionType.Crank_Nicolson
+
+        conv_u, conv_r, conv_t, mac_phi = self.convective_term_mol(
+            star.velocity, star.density, star.tracer, star.mac_phi)
+
+        vel_g = self.grow_vel(star.velocity, ng)
+        eta_g1 = self._viscosity(vel_g, ng)
+        eta_faces = diffusion.eta_to_faces(eta_g1, grid)
+        divtau = None
+        if cfg.use_tensor_correction:
+            divtau = diffusion.compute_divtau(star.velocity, vel_g,
+                                              star.density, eta_faces,
+                                              eta_g1, cfg, grid, ng)
+
+        if cfg.constant_density:
+            rho_new, rho_nph = rho_o, rho_o
+        else:
+            rho_new = rho_o + dt * 0.5 * (conv_r + aux["conv_r"])
+            rho_nph = 0.5 * (rho_o + rho_new)
+        dt_diff = self._dt_diff(dt)
+
+        tra_new = tra_o
+        if cfg.advect_tracer:
+            rhs = rho_o[..., None] * tra_o + dt * (
+                0.5 * (conv_t + aux["conv_t"])
+                + self.compute_tra_forces(rho_nph))
+            if cn:
+                rhs = rhs + dt * 0.5 * aux["laps_o"]
+            tra_new = diffusion.diffuse_scalar(
+                rhs / rho_new[..., None], rho_new, self._tracer_eta_faces(),
+                dt_diff, cfg, grid)
+
+        vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, star.gp)
+        dv = 0.5 * (conv_u + aux["conv_u"]) + vel_f
+        if cn:
+            dv = dv + 0.5 * aux["divtau_o"]
+        elif cfg.use_tensor_correction:
+            dv = dv + divtau
+        vel_new = self._diffuse_vel(vel_o + dt * dv, rho_new, eta_faces,
+                                    eta_g1, dt_diff, fixed_trips, cg)
+
+        vel_new, p_new, gp_new = self.apply_projection(
+            vel_new, vel_o, rho_nph, star.gp, old.p, dt, False,
+            small_dt_flag)
+        return LevelState(velocity=vel_new, density=rho_new, tracer=tra_new,
+                          gp=gp_new, p=p_new, mac_phi=mac_phi)
 
     # ------------------------------------------------------------------
     # one full step
     # ------------------------------------------------------------------
-    def advance(self, s: SimState) -> SimState:
-        """One time step."""
+    def _advance_impl(self, s: SimState, fixed_trips=None,
+                      cg=None) -> SimState:
+        """One plain step (incflo_tpu Simulation._advance_impl).
+        fixed_trips: the tensor CG runs that many masked trips
+        (diffusion.diffuse_velocity) instead of its adaptive loop; cg: a
+        list that gathers each velocity solve's (best residual,
+        tolerance).  The predictor and corrector pass both through."""
         old = s.level
         vf = self.compute_vel_forces(old.density, old.tracer, old.tracer,
                                      old.gp)
         dt = self.compute_dt(old.velocity, old.density, vf, s)
         small_dt = torch.where((s.t > 0.0) & (dt < 0.1 * s.dt), 1.0,
                                0.0).to(self.dtype)
-        new = self.apply_predictor(old, dt, False, small_dt)
+        new, aux = self.apply_predictor(old, dt, False, small_dt,
+                                        fixed_trips, cg)
+        if not self.cfg.use_godunov:
+            new = self.apply_corrector(old, new, aux, dt, small_dt,
+                                       fixed_trips, cg)
         return SimState(level=new, t=s.t + dt, dt=dt, prev_dt=s.dt,
                         prev_prev_dt=s.prev_dt, step=s.step + 1)
+
+    def _fused_step(self, s: SimState):
+        """The fused step kernel of this deck on the card, or None: on
+        the CPU, with fused_step=False, outside step2d_kernels.supported,
+        or when the fixed-trip tensor CG misses its tolerance at the
+        first dt (incflo_tpu/simulation.py:981-991).  A kernel that fails
+        to build or launch raises: there is no fallback."""
+        if self.device.type != "cuda" or not self.fused_step:
+            return None
+        if self._fused is None and self._fused_ok is None:
+            from incflo_torch.ops import step2d_kernels
+            if not step2d_kernels.supported(self):
+                self._fused_ok = False
+            else:
+                self._fused_ok = step2d_kernels.cg_probe_ok(self, s)
+                if self._fused_ok:
+                    self._fused = step2d_kernels.FusedStep(self)
+        return self._fused
+
+    def advance(self, s: SimState) -> SimState:
+        """One time step."""
+        fused = self._fused_step(s)
+        return fused(s) if fused is not None else self._advance_impl(s)
 
     def advance_n(self, s: SimState, n: int) -> SimState:
         """n time steps."""
@@ -489,7 +673,7 @@ class Simulation:
         """One pressure iteration: predictor in incremental mode, then
         discard the state update, keeping p/gp."""
         zero = torch.zeros((), dtype=self.dtype, device=self.device)
-        star = self.apply_predictor(s.level, s.dt, True, zero)
+        star, _ = self.apply_predictor(s.level, s.dt, True, zero)
         lvl = s.level._replace(p=star.p, gp=star.gp, mac_phi=star.mac_phi)
         return s._replace(level=lvl)
 

@@ -116,6 +116,6 @@ def test_state_round_trip_and_init_fluid():
 
 def test_other_probtypes_raise():
     text, _ = bench._deck("tgv2d", 16, "float64")
-    cfg = TConfig.from_text(text)
+    cfg = TConfig.from_text(text + "incflo.probtype = 3\n")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         tprobs.init_fluid(cfg, cfg.grid, torch.float64, "cpu")

@@ -1,5 +1,5 @@
-"""The CUDA kernels (incflo_torch/csrc/godunov.cu, csrc/smoothers.cu)
-against their plain PyTorch versions, on the card.
+"""The CUDA kernels (incflo_torch/csrc/godunov.cu, csrc/smoothers.cu,
+csrc/step2d.cu) against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc; they skip where
 torch.cuda.is_available() is false.  Run them on a GPU host with
@@ -15,18 +15,26 @@ the tolerances of tests/test_pallas_godunov.py.  The smoothers: float64
 O(1) fields on a unit-spaced level scale (the limits of
 tests/test_pallas_kernels.py).  The walled cell smoother is held to the
 same limits on every level of a CellSolver hierarchy with Neumann and
-Dirichlet sides.
+Dirichlet sides.  The fused step kernel: float64 1e-9 relative to each
+field's max, float32 within rtol 1e-4 / atol 1e-5 (the bounds of
+tests/test_pallas_step2d.py): its transforms and dots sum in another
+order than cuBLAS and torch.sum, so the tensor CG may stop a trip apart
+from step_plain, within the solve's tolerance.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import bench
+import incflo_torch
+
 from incflo_torch.grid import Grid
 from incflo_torch.ops import cuda_build
 from incflo_torch.ops import godunov_kernels as gk
 from incflo_torch.ops import multigrid as mg
 from incflo_torch.ops import smoother_kernels as sk
+from incflo_torch.ops import step2d_kernels as s2
 
 pytestmark = pytest.mark.cuda
 
@@ -35,7 +43,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    cuda_build.build_all([gk.SOURCE, sk.SOURCE])
+    cuda_build.build_all([gk.SOURCE, sk.SOURCE, s2.SOURCE])
     return torch.device("cuda")
 
 
@@ -291,3 +299,101 @@ def test_smoothers_raise_outside_scope(cuda):
     with pytest.raises(ValueError):     # periodic on one side only
         sk.cell_smooth(m, m, m, m, (m, m, m), 2, True,
                        bc=((P, P, N), (P, P, P)), Fwall=(None, None, m[..., :1]))
+
+
+# the fused 2D step: tgv2d and its variants (Crank-Nicolson, no tensor
+# solve, the tensor correction, a non-square grid driven by delp)
+STEP2D_DECKS = {
+    "tgv2d": "",
+    "crank_nicolson": "incflo.diffusion_type = 1\n",
+    "no_tensor_solve": "incflo.use_tensor_solve = false\n",
+    "tensor_correction": ("incflo.use_tensor_solve = false\n"
+                          "incflo.use_tensor_correction = true\n"),
+    "delp_24x16": ("amr.n_cell = 24 16\ngeometry.prob_hi = 1.5 1.\n"
+                   "incflo.delp = 0.3 0.\n"),
+}
+
+
+def _tgv_sim(extra, dtype, device, n=16, **kw):
+    text, _ = bench._deck("tgv2d", n, dtype)
+    cfg = incflo_torch.IncfloConfig.from_text(text + extra)
+    return incflo_torch.Simulation(cfg, device=device, **kw)
+
+
+def _step2d_check(a, b, dtype):
+    a, b = a.double().cpu(), b.double().cpu()
+    d = float((a - b).abs().max())
+    if dtype == "float64":
+        assert d <= 1e-9 * max(float(b.abs().max()), 1e-300)
+    else:
+        assert bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("deck", sorted(STEP2D_DECKS))
+def test_step2d_kernel_matches_plain(cuda, dtype, deck):
+    sim = _tgv_sim(STEP2D_DECKS[deck], dtype, cuda, fused_step=False)
+    fs = s2.FusedStep(sim)
+    sk_, sp = sim.init_state(), None
+    sp = sk_
+    for _ in range(3):
+        n0 = s2.LAUNCHES["step2d"]
+        sk_, cg = fs.step(sk_)
+        assert s2.LAUNCHES["step2d"] == n0 + 1
+        res = []
+        sp = s2.step_plain(sim, sp, res)
+        torch.cuda.synchronize()
+        for f in ("velocity", "p", "gp", "mac_phi"):
+            _step2d_check(getattr(sk_.level, f), getattr(sp.level, f), dtype)
+        for f in ("t", "dt", "prev_dt", "prev_prev_dt"):
+            _step2d_check(getattr(sk_, f), getattr(sp, f), dtype)
+        assert int(sk_.step) == int(sp.step)
+        cg = cg.cpu()
+        assert float(cg[0]) <= float(cg[1]) and float(cg[2]) <= float(cg[3])
+        barriers, t0, t1 = fs.diag.tolist()
+        assert 0 <= t0 <= s2.FIXED_TRIPS and 0 <= t1 <= s2.FIXED_TRIPS
+        assert barriers > 0
+
+
+def test_step2d_is_deterministic(cuda):
+    """Two launches on one state give the same bits (no float atomics,
+    every block combines the partials in one order)."""
+    sim = _tgv_sim("", "float32", cuda, n=64, fused_step=False)
+    fs = s2.FusedStep(sim)
+    s = sim.init_state()
+    a, _ = fs.step(s)
+    b, _ = fs.step(s)
+    assert torch.equal(a.level.velocity, b.level.velocity)
+    assert torch.equal(a.level.p, b.level.p)
+
+
+def test_advance_dispatches_the_fused_kernel(cuda):
+    sim = _tgv_sim("", "float32", cuda)
+    s = sim.init_state()
+    n0 = s2.LAUNCHES["step2d"]
+    s = sim.advance_n(s, 3)
+    assert s2.LAUNCHES["step2d"] == n0 + 3 and int(s.step) == 3
+    plain = _tgv_sim("", "float32", cuda, fused_step=False)
+    n0 = s2.LAUNCHES["step2d"]
+    plain.advance(plain.init_state())
+    assert s2.LAUNCHES["step2d"] == n0
+    # float64 is not fused by Simulation (supported() says no)
+    sim64 = _tgv_sim("", "float64", cuda)
+    sim64.advance(sim64.init_state())
+    assert s2.LAUNCHES["step2d"] == n0
+
+
+def test_step2d_raises_outside_scope(cuda):
+    text, _ = bench._deck("shear3d", 16, "float32")
+    sim3 = incflo_torch.Simulation(
+        incflo_torch.IncfloConfig.from_text(text), device=cuda)
+    with pytest.raises(NotImplementedError):
+        s2.FusedStep(sim3)
+    sim = _tgv_sim("", "float32", cuda, fused_step=False)
+    fs = s2.FusedStep(sim)
+    s = sim.init_state()
+    bad = s._replace(level=s.level._replace(velocity=s.level.velocity.double()))
+    n0 = s2.LAUNCHES["step2d"]
+    with pytest.raises(ValueError):
+        fs.step(bad)
+    assert s2.LAUNCHES["step2d"] == n0

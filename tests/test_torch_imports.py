@@ -24,9 +24,10 @@ def _forbidden(name):
 def test_no_forbidden_imports_in_source():
     files = sorted((ROOT / "incflo_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 17
-    assert any(p.name == "smoother_kernels.py" for p in files)
-    assert any(p.name == "godunov_walls.py" for p in files)
+    assert len(files) >= 19
+    for name in ("smoother_kernels.py", "godunov_walls.py", "mol.py",
+                 "step2d_kernels.py"):
+        assert any(p.name == name for p in files), name
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -45,6 +46,7 @@ def test_import_leaves_no_jax_in_modules():
             "incflo_torch.ops.godunov_kernels, "
             "incflo_torch.ops.smoother_kernels, "
             "incflo_torch.ops.godunov_walls, "
+            "incflo_torch.ops.mol, incflo_torch.ops.step2d_kernels, "
             "incflo_torch.ops.cuda_build\n"
             "bad = [m for m in sys.modules if any(m == f or "
             "m.startswith(f + '.') for f in ('jax', 'jaxlib', "
@@ -113,20 +115,37 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("config,extra,item", [
-    ("tgv2d", "", "A8"),
+    ("tgv2d", "incflo.use_godunov = true\n", "A8"),
+    ("tgv2d", 'geometry.is_periodic = 1 0\nylo.type = "nsw"\n'
+     'yhi.type = "nsw"\n', "A8"),
+    ("tgv2d", "incflo.constant_density = false\n", "A8"),
+    ("tgv2d", "incflo.advect_tracer = true\n", "A8"),
+    ("tgv2d", "incflo.diffusion_type = 0\n", "A9c"),
     ("shear3d", "incflo.use_godunov = false\nincflo.cfl = 0.5\n", "A8"),
     ("shear3d", 'geometry.is_periodic = 0 1 1\nxlo.type = "mi"\n'
      'xlo.velocity = 1. 0. 0.\nxhi.type = "po"\nxhi.pressure = 0.\n',
      "A9c"),
     ("shear3d", "incflo.fluid_model = powerlaw\nincflo.n = 0.5\n", "A9c"),
     ("channel_cyl", "", "A11"),
-    ("shear3d", "incflo.diffusion_type = 2\n", "A9"),
+    ("shear3d", "incflo.diffusion_type = 0\n", "A9"),
     ("shear3d", "incflo.use_mac_phi_in_godunov = true\n", "A8"),
     ("shear3d", "amr.max_level = 1\n", "A13"),
 ])
 def test_decks_outside_the_slice_raise(config, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         incflo_torch.Simulation(_cfg(extra, config), device="cpu")
+
+
+def test_tgv2d_deck_is_accepted():
+    """The 2D periodic MOL deck with implicit diffusion builds its three
+    direct solvers, and fuses its step on the card unless told not to."""
+    sim = incflo_torch.Simulation(_cfg("", "tgv2d"), device="cpu")
+    assert sim.grid.ndim == 2 and not sim.cfg.use_godunov
+    for solver in (sim._mac_solver, sim._diff_proto, sim._nodal_hat):
+        assert solver.symbol is not None and solver.symbol.fwd is not None
+    assert sim.fused_step is True
+    assert incflo_torch.Simulation(_cfg("", "tgv2d"), device="cpu",
+                                   fused_step=False).fused_step is False
 
 
 def test_variable_density_periodic_deck_is_accepted():
