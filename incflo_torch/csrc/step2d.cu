@@ -52,8 +52,8 @@
 // f32) would take 0.2 us and the operations (0.28 GFLOP, nearly all in
 // the transforms) 4 us.  Elementwise parts repeat the
 // plain version's operation order and are built without FMA contraction,
-// so they round as it does; the transforms and reductions sum in another
-// order than cuBLAS and torch.sum.
+// so they round as it does; the reductions sum in another order than
+// torch.sum, and the transforms' dots accumulate in double (contract0).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -232,24 +232,31 @@ struct Step {
   // ------------------------------------------------------------------
   // per-axis transforms of the fast diagonalization
   // ------------------------------------------------------------------
+  // The dots accumulate in double whatever T is: one float accumulator
+  // over n terms gathers ~sqrt(n) ulps, which at 256^2 left the float
+  // step's gp three times further from a double step than step_plain's
+  // (cuBLAS sums in blocks); a product of two floats is exact in double,
+  // so the float dot is rounded once.
   // out[k, j, c] = sum_i M[k, i] (in[i, j, c] - sub)
   template <int C>
   __device__ void contract0(const T* M, const T* in, T* out, T sub) {
     for (int idx = gtid; idx < n; idx += gstride) {
       const int k = idx / ny, j = idx - k * ny;
       const T* m = M + (size_t)k * nx;
-      T acc[C];
+      double acc[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = T(0);
+      for (int c = 0; c < C; ++c) acc[c] = 0.0;
 #pragma unroll 4
       for (int i = 0; i < nx; ++i) {
-        const T mv = m[i];
+        const double mv = m[i];
         const T* h = in + ((size_t)i * ny + j) * C;
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] = acc[c] + mv * (h[c] - sub);
+        for (int c = 0; c < C; ++c)
+          acc[c] = acc[c] + mv * static_cast<double>(h[c] - sub);
       }
 #pragma unroll
-      for (int c = 0; c < C; ++c) out[(size_t)idx * C + c] = acc[c];
+      for (int c = 0; c < C; ++c)
+        out[(size_t)idx * C + c] = static_cast<T>(acc[c]);
     }
   }
 
@@ -263,18 +270,19 @@ struct Step {
     for (int idx = gtid; idx < n; idx += gstride) {
       const int i = idx / ny, k = idx - i * ny;
       const T* h = in + (size_t)i * ny * C;
-      T acc[C];
+      double acc[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = T(0);
+      for (int c = 0; c < C; ++c) acc[c] = 0.0;
 #pragma unroll 4
       for (int j = 0; j < ny; ++j) {
-        const T mv = Mt[(size_t)j * ny + k];
+        const double mv = Mt[(size_t)j * ny + k];
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] = acc[c] + mv * h[j * C + c];
+        for (int c = 0; c < C; ++c)
+          acc[c] = acc[c] + mv * static_cast<double>(h[j * C + c]);
       }
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        T v = acc[c];
+        T v = static_cast<T>(acc[c]);
         if (mode == 1) {
           const T m = idx == 0 ? T(1) : T(0);
           const T s = T(1) * lam[idx];

@@ -69,6 +69,8 @@ class Symbol:
                or None (rfftn form).
     cells    : spatial shape the symbol was built for.
     batched  : symbol carries a trailing component axis.
+    origin   : bool mask of `cells`, True at the spatial origin (the zero
+               mode of a singular solve; fast diagonalization only).
     """
     sym_face: torch.Tensor
     a0: Optional[torch.Tensor]
@@ -76,6 +78,7 @@ class Symbol:
     inv: Optional[Tuple[torch.Tensor, ...]]
     cells: Tuple[int, ...]
     batched: bool
+    origin: Optional[torch.Tensor] = None
 
 
 def _real_fourier_basis(n: int, dtype):
@@ -243,7 +246,7 @@ def cell_symbol(lev) -> Optional[Symbol]:
     if fd is not None:
         fwd, inv, lam = fd
         return Symbol(sym_face=lam, a0=a0t, fwd=fwd, inv=inv, cells=cells,
-                      batched=batched)
+                      batched=batched, origin=_origin(cells))
     all_periodic = all(b == mg.SolverBC.PERIODIC
                        for b in list(lev.bc_lo) + list(lev.bc_hi))
     if not all_periodic:
@@ -271,7 +274,7 @@ def nodal_symbol(lev) -> Optional[Symbol]:
     if fd is not None:
         fwd, inv, lam = fd
         return Symbol(sym_face=lam, a0=None, fwd=fwd, inv=inv,
-                      cells=cells, batched=False)
+                      cells=cells, batched=False, origin=_origin(cells))
     return Symbol(sym_face=_rfft_sym(resp, ndim), a0=None, fwd=None,
                   inv=None, cells=cells, batched=False)
 
@@ -282,12 +285,16 @@ def _contract(h, m, axis):
     return torch.movedim(out, -1, axis)
 
 
-def _origin_mask(shape, ndim, dtype, device):
-    """1.0 at the spatial origin, 0 elsewhere, broadcastable against a
-    tensor of `shape` (spatial axes first)."""
-    m = torch.zeros(tuple(shape[:ndim]), dtype=dtype, device=device)
-    m.view(-1)[0].fill_(1.0)    # a fill, not a copy: capturable in a graph
-    return m.reshape(tuple(shape[:ndim]) + (1,) * (len(shape) - ndim))
+def _origin(cells):
+    """Bool mask of `cells`, True at the spatial origin only."""
+    m = torch.zeros(cells, dtype=torch.bool)
+    m[(0,) * len(cells)] = True
+    return m
+
+
+def _at_origin(sym: Symbol, x):
+    """sym.origin broadcastable against x (spatial axes first)."""
+    return sym.origin.reshape(sym.cells + (1,) * (x.dim() - len(sym.cells)))
 
 
 def solve(sym: Symbol, rhs, alpha, beta, singular: bool):
@@ -313,11 +320,10 @@ def solve(sym: Symbol, rhs, alpha, beta, singular: bool):
         for d, f in enumerate(sym.fwd):
             h = _contract(h, f, d)
         if singular:
-            # mask form of the zero mode: the same arithmetic as the
-            # step2d kernel's, which sets no element
-            m = _origin_mask(s.shape, ndim, s.dtype, s.device)
-            s = s * (1.0 - m) + m
-            h = h * (1.0 - _origin_mask(h.shape, ndim, h.dtype, h.device))
+            # mask form of the zero mode, as in the step2d kernel: no
+            # element is set, so the solve captures in a CUDA graph
+            s = torch.where(_at_origin(sym, s), 1.0, s)
+            h = torch.where(_at_origin(sym, h), 0.0, h)
         h = h / s
         for d, b in enumerate(sym.inv):
             h = _contract(h, b, d)

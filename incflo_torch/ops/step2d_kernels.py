@@ -2,6 +2,7 @@
 tgv2d class): the hand-written cooperative CUDA kernel of
 incflo_torch/csrc/step2d.cu and its plain PyTorch version.
 
+  out_of_scope(sim)   why the kernel cannot run sim's step, or None
   supported(sim)      the gating of incflo_tpu/ops/pallas_step2d.py:84-109
   cg_probe_ok(sim, s) the setup-time check of the fixed-trip tensor CG
                       (pallas_step2d._cg_probe_ok, :586-625)
@@ -20,13 +21,8 @@ incflo_torch/csrc/step2d.cu and its plain PyTorch version.
                       no host sync.
 
 The kernel's design, and what bounds it, is in the note at the top of
-csrc/step2d.cu.  Its scope: 2D, fully periodic, at most MAX_CELLS cells
-and at least 4 per axis, constant density, Crank-Nicolson or implicit
-diffusion with direct (fast-diagonalization) symbols for the MAC,
-Helmholtz and nodal systems, float32 or float64 (Simulation dispatches
-float32 only, as supported() says; float64 is there for the tight check
-of the kernel against step_plain).  Outside it the kernel's Python entry
-raises.
+csrc/step2d.cu; its scope is what out_of_scope(sim) checks, and
+FusedStep raises outside it.
 
 On a CPU state FusedStep runs step_plain; on a CUDA state it launches the
 kernel or raises: there is no fallback to the plain step.
@@ -123,23 +119,41 @@ def _sym_direct(solver) -> bool:
     return sym is not None and sym.fwd is not None
 
 
-def supported(sim) -> bool:
-    """Whether `sim`'s step may run as the fused kernel: 2D, float32,
-    constant density, fully periodic, at most MAX_CELLS cells, and the
-    MAC, velocity and nodal systems all solved by fast diagonalization
-    (pallas_step2d.supported without its environment switches)."""
-    grid = sim.grid
-    if grid.ndim != 2 or sim.dtype != torch.float32:
-        return False
-    if not sim.cfg.constant_density or not all(grid.periodic):
-        return False
+def out_of_scope(sim) -> Optional[str]:
+    """Why `sim`'s step is outside the kernel's scope, or None: the kernel
+    runs 2D, fully periodic grids of at most MAX_CELLS cells and at least
+    4 per axis, constant density without a tracer, MOL advection,
+    Crank-Nicolson or implicit diffusion, float32 or float64, with the
+    MAC, velocity and nodal systems all solved by fast diagonalization."""
+    grid, cfg = sim.grid, sim.cfg
+    if grid.ndim != 2:
+        return f"{grid.ndim}D grids"
+    if not all(grid.periodic):
+        return "grids with walls"
     if grid.n_cell[0] * grid.n_cell[1] > MAX_CELLS:
-        return False
-    if not _sym_direct(sim._mac_solver):
-        return False
-    if sim._diff_proto is not None and not _sym_direct(sim._diff_proto):
-        return False
-    return _sym_direct(sim._nodal_hat)
+        return f"more than {MAX_CELLS} cells"
+    if min(grid.n_cell) < 4:
+        return "axes of fewer than 4 cells"
+    if not cfg.constant_density or cfg.advect_tracer:
+        return "variable density or tracer advection"
+    if cfg.diff_type not in (DiffusionType.Crank_Nicolson,
+                             DiffusionType.Implicit):
+        return "explicit diffusion"
+    if cfg.use_godunov:
+        return "Godunov advection"
+    if sim.dtype not in DT_CODE:
+        return f"{sim.dtype}"
+    if not all(_sym_direct(s) for s in (sim._mac_solver, sim._diff_proto,
+                                         sim._nodal_hat)):
+        return "solvers without a fast-diagonalization symbol"
+    return None
+
+
+def supported(sim) -> bool:
+    """Whether Simulation runs `sim`'s step as the fused kernel: in its
+    scope and float32 (pallas_step2d.supported without its environment
+    switches; float64 is for the tight check against step_plain)."""
+    return sim.dtype == torch.float32 and out_of_scope(sim) is None
 
 
 def cg_probe_ok(sim, s: SimState) -> bool:
@@ -178,40 +192,14 @@ def step_plain(sim, s: SimState,
     return sim._advance_impl(s, fixed_trips=FIXED_TRIPS, cg=cg)
 
 
-def _scope(sim) -> None:
-    """Raise for a Simulation outside the kernel's scope."""
-    grid, cfg = sim.grid, sim.cfg
-    why = None
-    if grid.ndim != 2:
-        why = f"{grid.ndim}D grids"
-    elif not all(grid.periodic):
-        why = "grids with walls"
-    elif grid.n_cell[0] * grid.n_cell[1] > MAX_CELLS:
-        why = f"more than {MAX_CELLS} cells"
-    elif min(grid.n_cell) < 4:
-        why = "axes of fewer than 4 cells"
-    elif not cfg.constant_density or cfg.advect_tracer:
-        why = "variable density or tracer advection"
-    elif cfg.diff_type not in (DiffusionType.Crank_Nicolson,
-                               DiffusionType.Implicit):
-        why = "explicit diffusion"
-    elif cfg.use_godunov:
-        why = "Godunov advection"
-    elif sim.dtype not in DT_CODE:
-        why = f"{sim.dtype}"
-    elif not (_sym_direct(sim._mac_solver) and _sym_direct(sim._diff_proto)
-              and _sym_direct(sim._nodal_hat)):
-        why = "solvers without a fast-diagonalization symbol"
-    if why is not None:
-        raise NotImplementedError(f"step2d kernel: {why} are outside its "
-                                  f"scope")
-
-
 class FusedStep:
     """The fused step of one Simulation (see the module docstring)."""
 
     def __init__(self, sim):
-        _scope(sim)
+        why = out_of_scope(sim)
+        if why is not None:
+            raise NotImplementedError(f"step2d kernel: {why} are outside "
+                                      f"its scope")
         self.sim = sim
         cfg, grid = sim.cfg, sim.grid
         dev, dt = sim.device, sim.dtype

@@ -24,8 +24,8 @@ smoothed in plain PyTorch, ops/multigrid.nodal_smooth_walled).
 predictor and corrector of ops/mol.py with direct solves.  On the card a
 2D step is one launch of the fused step kernel (ops/step2d_kernels.py,
 csrc/step2d.cu) when the deck qualifies (step2d_kernels.supported) and
-its fixed-trip tensor CG converges at the first dt; `fused_step=False`
-runs the plain step instead.
+its fixed-trip tensor CG converges at the first dt; `_advance_impl` is
+the plain step.
 
 Scope of this port: one level, no EB, Newtonian fluid, Crank-Nicolson
 or implicit diffusion.  3D: Godunov advection, each axis periodic or
@@ -93,11 +93,9 @@ class Simulation:
 
     device None means "cuda"; pass device="cpu" to run on the CPU with
     the kernels' plain versions.  Asking for the card where there is
-    none raises.  fused_step=False keeps a 2D deck on the plain step on
-    the card too (the counterpart of incflo_tpu's INCFLO_PALLAS_STEP=0)."""
+    none raises."""
 
-    def __init__(self, cfg: IncfloConfig, device=None,
-                 fused_step: bool = True):
+    def __init__(self, cfg: IncfloConfig, device=None):
         why = _unsupported(cfg)
         if why is not None:
             raise NotImplementedError(
@@ -123,7 +121,6 @@ class Simulation:
         if cfg.use_godunov:
             self.godunov = godunov.GodunovScheme(
                 cfg.grid, cfg.godunov_ppm, cfg.godunov_use_forces_in_trans)
-        self.fused_step = fused_step
         self._fused = None          # step2d_kernels.FusedStep, built lazily
         self._fused_ok = None       # the CG probe's verdict
         nd = cfg.grid.ndim
@@ -628,11 +625,11 @@ class Simulation:
 
     def _fused_step(self, s: SimState):
         """The fused step kernel of this deck on the card, or None: on
-        the CPU, with fused_step=False, outside step2d_kernels.supported,
-        or when the fixed-trip tensor CG misses its tolerance at the
-        first dt (incflo_tpu/simulation.py:981-991).  A kernel that fails
-        to build or launch raises: there is no fallback."""
-        if self.device.type != "cuda" or not self.fused_step:
+        the CPU, outside step2d_kernels.supported, or when the fixed-trip
+        tensor CG misses its tolerance at the first dt
+        (incflo_tpu/simulation.py:981-991).  A kernel that fails to build
+        or launch raises: there is no fallback."""
+        if self.device.type != "cuda":
             return None
         if self._fused is None and self._fused_ok is None:
             from incflo_torch.ops import step2d_kernels

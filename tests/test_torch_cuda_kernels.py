@@ -314,10 +314,10 @@ STEP2D_DECKS = {
 }
 
 
-def _tgv_sim(extra, dtype, device, n=16, **kw):
+def _tgv_sim(extra, dtype, device, n=16):
     text, _ = bench._deck("tgv2d", n, dtype)
     cfg = incflo_torch.IncfloConfig.from_text(text + extra)
-    return incflo_torch.Simulation(cfg, device=device, **kw)
+    return incflo_torch.Simulation(cfg, device=device)
 
 
 def _step2d_check(a, b, dtype):
@@ -332,7 +332,7 @@ def _step2d_check(a, b, dtype):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("deck", sorted(STEP2D_DECKS))
 def test_step2d_kernel_matches_plain(cuda, dtype, deck):
-    sim = _tgv_sim(STEP2D_DECKS[deck], dtype, cuda, fused_step=False)
+    sim = _tgv_sim(STEP2D_DECKS[deck], dtype, cuda)
     fs = s2.FusedStep(sim)
     sk_, sp = sim.init_state(), None
     sp = sk_
@@ -358,7 +358,7 @@ def test_step2d_kernel_matches_plain(cuda, dtype, deck):
 def test_step2d_is_deterministic(cuda):
     """Two launches on one state give the same bits (no float atomics,
     every block combines the partials in one order)."""
-    sim = _tgv_sim("", "float32", cuda, n=64, fused_step=False)
+    sim = _tgv_sim("", "float32", cuda, n=64)
     fs = s2.FusedStep(sim)
     s = sim.init_state()
     a, _ = fs.step(s)
@@ -373,9 +373,9 @@ def test_advance_dispatches_the_fused_kernel(cuda):
     n0 = s2.LAUNCHES["step2d"]
     s = sim.advance_n(s, 3)
     assert s2.LAUNCHES["step2d"] == n0 + 3 and int(s.step) == 3
-    plain = _tgv_sim("", "float32", cuda, fused_step=False)
+    # the plain step on the card launches no kernel
     n0 = s2.LAUNCHES["step2d"]
-    plain.advance(plain.init_state())
+    sim._advance_impl(sim.init_state())
     assert s2.LAUNCHES["step2d"] == n0
     # float64 is not fused by Simulation (supported() says no)
     sim64 = _tgv_sim("", "float64", cuda)
@@ -389,7 +389,7 @@ def test_step2d_raises_outside_scope(cuda):
         incflo_torch.IncfloConfig.from_text(text), device=cuda)
     with pytest.raises(NotImplementedError):
         s2.FusedStep(sim3)
-    sim = _tgv_sim("", "float32", cuda, fused_step=False)
+    sim = _tgv_sim("", "float32", cuda)
     fs = s2.FusedStep(sim)
     s = sim.init_state()
     bad = s._replace(level=s.level._replace(velocity=s.level.velocity.double()))

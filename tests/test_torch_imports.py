@@ -138,14 +138,12 @@ def test_decks_outside_the_slice_raise(config, extra, item):
 
 def test_tgv2d_deck_is_accepted():
     """The 2D periodic MOL deck with implicit diffusion builds its three
-    direct solvers, and fuses its step on the card unless told not to."""
+    direct solvers; on the CPU it never takes the fused step kernel."""
     sim = incflo_torch.Simulation(_cfg("", "tgv2d"), device="cpu")
     assert sim.grid.ndim == 2 and not sim.cfg.use_godunov
     for solver in (sim._mac_solver, sim._diff_proto, sim._nodal_hat):
         assert solver.symbol is not None and solver.symbol.fwd is not None
-    assert sim.fused_step is True
-    assert incflo_torch.Simulation(_cfg("", "tgv2d"), device="cpu",
-                                   fused_step=False).fused_step is False
+    assert sim._fused_step(sim.init_state()) is None
 
 
 def test_variable_density_periodic_deck_is_accepted():

@@ -16,7 +16,8 @@ against incflo_tpu, on the CPU.
     Pallas interpret mode: rtol 1e-4 / atol 1e-5, the bounds of
     tests/test_pallas_step2d.py (float32 rounding through the same
     algorithm, the CG may stop a trip apart).
-  * supported() and cg_probe_ok() answer as incflo_tpu's do.
+  * supported() and cg_probe_ok() answer as incflo_tpu's do; out_of_scope()
+    names why a deck is not the kernel's, and FusedStep raises with it.
   * implicit diffusion on a 3D Godunov deck (shear3d 8x8x8, float64, 2
     steps) to 1e-10, now that the implicit branch is ported.
 
@@ -170,6 +171,42 @@ def test_supported_matches_pallas_step2d(case, interpret, monkeypatch):
     jsim = JSim(JConfig.from_text(text))
     assert pallas_step2d.supported(jsim) is want
     assert s2.supported(sim) is want
+
+
+SCOPE_CASES = {
+    "tgv2d_f32": ("tgv2d", 16, "float32", "", None),
+    "tgv2d_f64": ("tgv2d", 16, "float64", "", None),
+    "crank_nicolson": ("tgv2d", 16, "float32", "incflo.diffusion_type = 1\n",
+                       None),
+    "3d_deck": ("shear3d", 8, "float32", "", "3D grids"),
+    "walls_y": ("tgv2d", 16, "float32", WALLS_Y, "walls"),
+    "variable_density": ("tgv2d", 16, "float32",
+                         "incflo.constant_density = false\n",
+                         "variable density"),
+    "tracer": ("tgv2d", 16, "float32", "incflo.advect_tracer = true\n",
+               "tracer"),
+    "512x512": ("tgv2d", 512, "float32", "", "cells"),
+}
+
+
+@pytest.mark.parametrize("case", list(SCOPE_CASES))
+def test_fused_step_scope(case, monkeypatch):
+    """out_of_scope names why the kernel cannot run a deck; FusedStep
+    raises with that reason, and supported() also wants float32."""
+    deck, n, dtype, extra, why = SCOPE_CASES[case]
+    monkeypatch.setattr(tsim, "_unsupported", lambda cfg: None)
+    sim = incflo_torch.Simulation(
+        incflo_torch.IncfloConfig.from_text(_text(deck, n, dtype, extra)),
+        device="cpu")
+    got = s2.out_of_scope(sim)
+    assert s2.supported(sim) is (why is None and dtype == "float32")
+    if why is None:
+        assert got is None
+        s2.FusedStep(sim)
+        return
+    assert why in got
+    with pytest.raises(NotImplementedError, match=f"step2d kernel: .*{why}"):
+        s2.FusedStep(sim)
 
 
 @pytest.mark.parametrize("trips,mu,want", [(12, 0.01, True), (1, 0.5, False)])
