@@ -15,19 +15,28 @@ Phases (any failure ends the run with a non-zero exit):
              Godunov: float64 (relative error <= 1e-10) and float32 at the
              n = 128 shear3d shapes (within 2e-5 / 3e-4 of the field's max
              for predict / advect), PPM and PLM, with forces, iconserv 0
-             and 1.  Smoothers: a coarse-level shape (64x64x16) and the
-             fine-level shape (128x128x32), 2 sweeps and 8 (cell bottom) /
-             24 (nodal bottom), with and without the residual, variable
-             coefficients from a seed, the cell smoother also with three
-             components; float64 to 1e-12 relative, float32 to 2e-6 (x)
-             and 5e-4 (residual) of max(1, the field's max).  The walled
-             cell smoother: Neumann and Dirichlet sides in five
-             combinations (those of the rt deck, those of
-             tests/test_pallas_smoother.py, one with a non-periodic x) at
-             the rt fine level 64x64x128 and a coarse 8x8x16, 2 and 8
-             sweeps, with and without the residual, one and three
-             components; float64 to 1e-13, float32 as above.  Each kernel
-             and its plain version timed on the card.
+             and 1.  Smoothers (one launch a call): a coarse-level shape
+             (64x64x16) and the fine-level shape (128x128x32), 2 sweeps
+             and 8 (cell bottom) / 24 (nodal bottom), with and without the
+             residual, variable coefficients from a seed, the cell
+             smoother also with three components.  The walled cell
+             smoother: Neumann and Dirichlet sides in five combinations
+             (those of the rt deck, those of tests/test_pallas_smoother.py,
+             one with a non-periodic x) at the rt fine level 64x64x128 and
+             a coarse 8x8x16, 2 and 8 sweeps, with and without the
+             residual, one and three components.  The walled nodal
+             smoother: rt's sides, a Dirichlet side and a walled x at
+             64x64x129 and 8x8x17 nodes, 2 and 24 sweeps, with and without
+             the residual.  Every smoother case bit-equal in float32 and
+             within 1e-13 relative in float64, and every wrapper call one
+             device launch (sk.DEVICE_LAUNCHES == sk.LAUNCHES).  Each
+             kernel and its plain version timed on the card.
+  2a. levels every level of the shear3d_vd and rt hierarchies at the call
+             its V-cycles make there (cell 1 sweep + residual, 8 at the
+             bottom; nodal 2 + residual, 24 at the bottom), f32, through
+             the solvers' own _smooth_res: bit-equal to the plain version;
+             kernel ms in the regime it chooses and in the other one
+             where the level fits one CTA, plain ms, bound ms.
   2b. step2d the fused step kernel (csrc/step2d.cu, one cooperative launch
              a step) against its plain version step2d_kernels.step_plain on
              the card, tgv2d from init_state, compared after each of 3
@@ -64,8 +73,10 @@ Phases (any failure ends the run with a non-zero exit):
              the Godunov counts must equal the per-step launches times the
              steps (none on the walled rt grid, which takes the plain wall
              forms by design), the smoother counts must be positive (on rt
-             the walled cell smoother; its nodal levels are smoothed in
-             plain PyTorch by design); the final fields are finite and the
+             the walled cell and nodal smoothers), each smoother call one
+             device launch, and the per-step tallies of shear3d_vd and rt
+             (CG iterations, V-cycles, smoother calls, host syncs) those
+             of TALLIES to the digit; the final fields are finite and the
              projection has converged.  tgv2d at 128^2 and 256^2, 2
              warm-up + 20 timed steps, fused (Simulation.advance_n: exactly
              one step2d launch a step) and the plain step
@@ -102,6 +113,7 @@ TOL = {"uad": 2e-5, "predict_d": 2e-5, "advect": 3e-4}
 TOL_F64 = 1e-10
 SMOOTHERS = ("cell_smooth", "nodal_smooth")
 WALLED = "cell_smooth_walled"
+WALLED_NODAL = "nodal_smooth_walled"
 TOL_WALLED_F64 = 1e-13
 # (lo, hi) BC codes per axis of the walled smoother cases: 0 periodic,
 # 1 Neumann, 2 Dirichlet
@@ -112,9 +124,30 @@ WALL_BCS = {
     "(p, neumann, p)": ((0, 1, 0), (0, 1, 0)),
     "walled x (dirichlet|neumann, neumann, p)": ((2, 1, 0), (1, 1, 0)),
 }
-# smoothers, float32: errors in x and in the residual over max(1, |field|)
-TOL_SMOOTH_X, TOL_SMOOTH_RES = 2e-6, 5e-4
-TOL_SMOOTH_F64 = 1e-12
+# walled nodal smoother cases: rt's sides, a Dirichlet side, a walled x
+WALL_NODAL_BCS = {
+    "rt (p, p, neumann)": ((0, 0, 1), (0, 0, 1)),
+    "dirichlet side (p, p, dirichlet|neumann)": ((0, 0, 2), (0, 0, 1)),
+    "walled x (neumann, p, neumann)": ((1, 0, 1), (1, 0, 1)),
+}
+# smoothers, float32: errors in x and in the residual over max(1, |field|):
+# the kernels repeat their plain versions' operations, so none is allowed
+TOL_SMOOTH_X, TOL_SMOOTH_RES = 0.0, 0.0
+TOL_SMOOTH_F64 = 1e-13
+# per-step tallies of the shear3d_vd and rt cells (f32, the deck's
+# tolerances): the kernels are bit-equal to their plain versions, so the
+# solvers take the same iterations as before the smoothers were redesigned
+TALLIES = {
+    "shear3d_vd init_state": {"cell_iters": 6.0, "nodal_cycles": 4.8,
+                              "cell_smooth": 65.0, "nodal_smooth": 43.2,
+                              "host_syncs": 18.8},
+    "shear3d_vd perturbed_density": {"cell_iters": 5.6, "nodal_cycles": 5.6,
+                                     "cell_smooth": 61.4,
+                                     "nodal_smooth": 50.4,
+                                     "host_syncs": 19.2},
+    "rt": {"cell_iters": 25.2, "nodal_cycles": 5.8, WALLED: 336.2,
+           "host_syncs": 46.0},
+}
 VD_KEYS = """
 incflo.constant_density = false
 incflo.advect_tracer = true
@@ -204,10 +237,22 @@ incflo.diffusion_type = 1
 # measurement helpers
 # ---------------------------------------------------------------------
 
+# A graph replay bracketed by events also measures the host's submission
+# of the graph, during which the card idles: one short call per graph
+# would time that.  So fn is captured as many
+# times in one graph as make a replay last about MIN_GRAPH_MS, and a
+# replay's time is divided by that count.
+MIN_GRAPH_MS = 1.0
+MAX_CALLS = 200
+
+
 def device_ms(fn, reps=25, warm=3):
-    """Median device time of fn() in ms: fn is captured once in a CUDA
-    graph and each replay is bracketed by CUDA events, so the host's
-    Python overhead is not in the number."""
+    """Median device time of one fn() call in ms: fn is captured in a
+    CUDA graph k times back to back (k from a first single-call replay,
+    so that a replay lasts about MIN_GRAPH_MS), each replay is bracketed
+    by CUDA events and its time divided by k, so neither the host's
+    Python overhead nor its graph submission is in the number."""
+    import math
     import torch
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
@@ -216,21 +261,34 @@ def device_ms(fn, reps=25, warm=3):
             fn()
     torch.cuda.current_stream().wait_stream(s)
     torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        fn()
-    for _ in range(warm):
-        g.replay()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+
+    def capture(k):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(k):
+                fn()
+        for _ in range(warm):
+            g.replay()
+        return g
+
+    def replay_ms(g, n):
+        times = []
+        for _ in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    g = capture(1)
+    k = min(MAX_CALLS, max(1, math.ceil(MIN_GRAPH_MS / replay_ms(g, 5))))
+    if k == 1:
+        return replay_ms(g, reps)
+    del g
+    return replay_ms(capture(k), reps) / k
 
 
 def count_ops(fn):
@@ -490,8 +548,9 @@ def compare_smoother(r, case, kern, plain, sweeps, dtype, torch):
 def smoother_verdict(name, r, tol_f64):
     print(f"[smoothers] {name}: {r['cases']} comparisons, f64 rel "
           f"{r['max_rel_err_f64']:.3e} (tol {tol_f64:g}), f32 x "
-          f"{r['max_err_x_f32']:.3e} (tol {TOL_SMOOTH_X:g}), f32 residual "
-          f"{r['max_err_res_f32']:.3e} (tol {TOL_SMOOTH_RES:g})", flush=True)
+          f"{r['max_err_x_f32']:.3e}, f32 residual "
+          f"{r['max_err_res_f32']:.3e} (float32 must be bit-equal)",
+          flush=True)
     if not r["max_rel_err_f64"] <= tol_f64:
         raise AssertionError(f"{name}: float64 disagrees with the plain "
                              f"version ({r['max_rel_err_f64']:.3e})")
@@ -501,20 +560,42 @@ def smoother_verdict(name, r, tol_f64):
                              "version")
 
 
+def bound(nbytes, ops, dtype="float32"):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def time_smoother(name, tag, kern, plain, nbytes):
     """f32 times of a 2-sweep call with residual and its bound; nbytes =
     each input read once and each output written once per call."""
     m = {"ms": device_ms(lambda: kern(2, True)),
          "plain_ms": device_ms(lambda: plain(2, True)), "bytes": nbytes,
          "ops": count_ops(lambda: plain(2, True))}
-    t_bytes = m["bytes"] / PEAK_BYTES * 1e3
-    t_ops = m["ops"] / PEAK_OPS["float32"] * 1e3
-    m["bound_ms"] = max(t_bytes, t_ops)
-    m["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    m["bound_ms"], m["bound_by"] = bound(m["bytes"], m["ops"])
     print(f"[smoothers] {name} {tag}: kernel {m['ms']:.4f} ms, plain "
-          f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+          f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.5f} ms "
           f"({m['bound_by']}: {m['bytes']} B, {m['ops']} ops)", flush=True)
     return m
+
+
+def check_one_launch(sk, tag):
+    """Each wrapper call of every smoother family was one device launch."""
+    if sk.DEVICE_LAUNCHES != sk.LAUNCHES:
+        raise AssertionError(f"{tag}: device launches {sk.DEVICE_LAUNCHES} "
+                             f"differ from wrapper calls {sk.LAUNCHES}")
+
+
+def save_launches(sk):
+    return dict(sk.LAUNCHES), dict(sk.DEVICE_LAUNCHES)
+
+
+def restore_launches(sk, saved):
+    """Comparison launches do not count."""
+    sk.LAUNCHES.update(saved[0])
+    sk.DEVICE_LAUNCHES.update(saved[1])
 
 
 def new_smoother_result():
@@ -532,6 +613,7 @@ def phase_smoothers(sk, mg, grid_of, torch):
         g = grid_of(n)
         levels["x".join(str(c) for c in g.n_cell)] = (g.n_cell, g.dx)
     res = {k: new_smoother_result() for k in SMOOTHERS}
+    saved = save_launches(sk)
     for dtype in (torch.float64, torch.float32):
         for shape, dx in levels.values():
             calls = smoother_calls(sk, mg, shape, dx, dtype, dev, 11)
@@ -540,19 +622,19 @@ def phase_smoothers(sk, mg, grid_of, torch):
                 compare_smoother(res[case.split("/")[0]], case, kern, plain,
                                  (2, bottom), dtype, torch)
     torch.cuda.synchronize()
+    check_one_launch(sk, "smoothers")
     for k, r in res.items():
         smoother_verdict(k, r, TOL_SMOOTH_F64)
 
     # times: f32, 2 sweeps + residual, scalar fields, at both shapes
     narrays = {"cell_smooth": 9, "nodal_smooth": 6}
-    saved = dict(sk.LAUNCHES)
     for tag, (shape, dx) in levels.items():
         calls = smoother_calls(sk, mg, shape, dx, torch.float32, dev, 11)
         cells = shape[0] * shape[1] * shape[2]
         for k in SMOOTHERS:
             res[k][tag] = time_smoother(k, tag, *calls[k],
                                         narrays[k] * cells * 4)
-    sk.LAUNCHES.update(saved)      # comparison launches do not count
+    restore_launches(sk, saved)
     return res
 
 
@@ -610,6 +692,7 @@ def phase_walled_smoother(sk, mg, torch):
     levels = {"64x64x128": ((64, 64, 128), (0.5 / 64, 0.5 / 64, 1.0 / 128)),
               "8x8x16": ((8, 8, 16), (0.5 / 8, 0.5 / 8, 1.0 / 16))}
     r = new_smoother_result()
+    saved = save_launches(sk)
     n0 = sk.LAUNCHES[WALLED]
     for dtype in (torch.float64, torch.float32):
         for shape, dx in levels.values():
@@ -622,8 +705,8 @@ def phase_walled_smoother(sk, mg, torch):
     torch.cuda.synchronize()
     if sk.LAUNCHES[WALLED] == n0:
         raise AssertionError(f"{WALLED}: the wrapper launched no kernel")
+    check_one_launch(sk, WALLED)
     smoother_verdict(WALLED, r, TOL_WALLED_F64)
-    saved = dict(sk.LAUNCHES)
     bc = WALL_BCS["rt scalar (p, p, neumann)"]
     for tag, (shape, dx) in levels.items():
         kern, plain, plane_bytes = walled_calls(sk, mg, shape, dx, bc, (),
@@ -633,8 +716,203 @@ def phase_walled_smoother(sk, mg, torch):
         # and the low wall planes
         r[tag] = time_smoother(WALLED, tag, kern, plain,
                                9 * cells * 4 + plane_bytes)
-    sk.LAUNCHES.update(saved)      # comparison launches do not count
+    restore_launches(sk, saved)
     return r
+
+
+RT_DX = (0.5 / 64, 0.5 / 64, 1.0 / 128)
+
+
+def walled_nodal_calls(sk, mg, cells, dx, bc, dtype, dev, seed):
+    """(kernel(n, res), plain(n, res), sigma bytes) on one walled nodal
+    level: sigma = dt / rho with rho in [0.5, 2] from a seed, x and b at
+    the nodes (one more than cells along each walled axis)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype).to(dev)
+    periodic = tuple(c == 0 for c in bc[0])
+    rho = 0.5 + 1.5 * rng.random(cells)
+    ns = mg.NodalSolver(dx, periodic, bc[0], bc[1], t(0.9 * min(dx) / rho),
+                        max_levels=1, direct=False)
+    nodes = tuple(ns.dinvs[0].shape)
+    args = (t(rng.standard_normal(nodes)), t(rng.standard_normal(nodes)),
+            ns.sigmas[0], ns.dinvs[0], ns.levels[0].dx)
+    return (lambda n, r: sk.nodal_smooth(*args, n, r, bc=bc),
+            lambda n, r: sk.nodal_smooth_plain(*args, n, r, bc=bc),
+            ns.sigmas[0].numel() * ns.sigmas[0].element_size())
+
+
+def phase_walled_nodal(sk, mg, torch):
+    """The walled nodal smoother against its plain version on the card
+    at the rt deck's fine level (64x64x129 nodes) and a coarse one
+    (8x8x17): rt's sides, a Dirichlet side and a walled x, 2 and 24
+    sweeps, with and without the residual; then its f32 time for a
+    2-sweep call with residual (rt's sides) at both."""
+    dev = torch.device("cuda")
+    levels = {"64x64x129": ((64, 64, 128), RT_DX),
+              "8x8x17": ((8, 8, 16), tuple(8 * d for d in RT_DX))}
+    r = new_smoother_result()
+    saved = save_launches(sk)
+    for dtype in (torch.float64, torch.float32):
+        for cells, dx in levels.values():
+            for bcname, bc in WALL_NODAL_BCS.items():
+                kern, plain, _ = walled_nodal_calls(sk, mg, cells, dx, bc,
+                                                    dtype, dev, 23)
+                compare_smoother(r, f"{WALLED_NODAL} {bcname}", kern, plain,
+                                 (2, 24), dtype, torch)
+    torch.cuda.synchronize()
+    if sk.LAUNCHES[WALLED_NODAL] == saved[0][WALLED_NODAL]:
+        raise AssertionError(f"{WALLED_NODAL}: the wrapper launched no "
+                             "kernel")
+    check_one_launch(sk, WALLED_NODAL)
+    smoother_verdict(WALLED_NODAL, r, TOL_SMOOTH_F64)
+    bc = WALL_NODAL_BCS["rt (p, p, neumann)"]
+    for tag, (cells, dx) in levels.items():
+        kern, plain, sig_bytes = walled_nodal_calls(sk, mg, cells, dx, bc,
+                                                    torch.float32, dev, 23)
+        nodes = cells[0] * cells[1] * (cells[2] + 1)
+        # x, b, dinv at the nodes and sigma in, x and the residual out
+        r[tag] = time_smoother(WALLED_NODAL, tag, kern, plain,
+                               5 * nodes * 4 + sig_bytes)
+    restore_launches(sk, saved)
+    return r
+
+
+def rt_operators(mg, cells, dtype, dev, seed):
+    """The two operators the rt step solves by V-cycles on every level,
+    built by the solvers' own constructors from seeded variable
+    coefficients, with rt's sides (periodic x and y, Neumann z): the MAC
+    Poisson operator (1/rho on faces) and the nodal sigma-Poisson one
+    (sigma = dt/rho)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype).to(dev)
+    lo = hi = (0, 0, 1)
+    dx = (0.5 / cells[0], 0.5 / cells[1], 1.0 / cells[2])
+    faces = []
+    for ax in range(3):
+        f = 0.5 + 1.5 * rng.random(tuple(
+            n + (1 if a == ax else 0) for a, n in enumerate(cells)))
+        if ax < 2:              # the periodic face n is face 0
+            f = np.concatenate([f.take(range(cells[ax]), axis=ax),
+                                f.take([0], axis=ax)], axis=ax)
+        faces.append(t(f))
+    mac = mg.CellSolver(dx, lo, hi, alpha=0.0, beta=1.0, acoef=None,
+                        bcoef=tuple(faces), direct=False)
+    rho = 0.5 + 1.5 * rng.random(cells)
+    nodal = mg.NodalSolver(dx, (True, True, False), lo, hi,
+                           t(0.9 * min(dx) / rho), direct=False)
+    return mac, nodal
+
+
+def hierarchy_cases(mg, torch, dtype, dev):
+    """Every level of the shear3d_vd (128x128x32) and rt (64x64x128)
+    hierarchies at the call its V-cycles make there: the pre-smooth with
+    the residual (cell 1 sweep, nodal 2) above the bottom, the bottom
+    smooth (cell 8 sweeps, nodal 24) at it.  [(deck, family, li, solver,
+    x, b, nsweeps, want_residual)] with x and b from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(31)
+    mac, vel, nodal = vd_operators(mg, (128, 128, 32),
+                                   (1.0 / 128, 1.0 / 128, 0.25 / 32), dtype,
+                                   dev, 29, max_levels=30)
+    rt_mac, rt_nodal = rt_operators(mg, (64, 64, 128), dtype, dev, 30)
+    out = []
+    for deck, family, solver in (
+            ("shear3d_vd", "cell_smooth", mac),
+            ("shear3d_vd", "cell_smooth/3comp", vel),
+            ("shear3d_vd", "nodal_smooth", nodal),
+            ("rt", WALLED, rt_mac), ("rt", WALLED_NODAL, rt_nodal)):
+        last = len(solver.levels) - 1
+        for li in range(last + 1):
+            shape = tuple(solver.diags[li].shape)
+            x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                                device=dev)
+            b = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                                device=dev)
+            n = solver.nu_bottom if li == last else solver.nu1
+            out.append((deck, family, li, solver, x, b, n, li < last))
+    return out
+
+
+def plain_smooth(sk, mg, solver, li, x, b, n, want):
+    """The plain version of solver._smooth_res(x, b, li, n, want)."""
+    lev = solver.levels[li]
+    if isinstance(solver, mg.CellSolver):
+        dinvs, fhis, fwalls = solver.smoother_coefs()
+        return sk.cell_smooth_plain(x, b, solver.diags[li], dinvs[li],
+                                    fhis[li], n, want,
+                                    bc=(lev.bc_lo, lev.bc_hi),
+                                    Fwall=fwalls[li])
+    return sk.nodal_smooth_plain(x, b, solver.sigmas[li], solver.dinvs[li],
+                                 lev.dx, n, want, bc=(lev.bc_lo, lev.bc_hi))
+
+
+def smooth_bytes(mg, solver, li, x, want):
+    """Bytes of one smoother call: each input read once (x, b and the
+    coefficients) and each output written once (x and the residual)."""
+    isz = x.element_size()
+    if isinstance(solver, mg.CellSolver):
+        dinvs, fhis, fwalls = solver.smoother_coefs()
+        coefs = [solver.diags[li], dinvs[li], *fhis[li]] + [
+            w for w in fwalls[li] if w is not None]
+    else:
+        coefs = [solver.sigmas[li], solver.dinvs[li]]
+    return isz * ((3 + want) * x.numel() + sum(c.numel() for c in coefs))
+
+
+def phase_levels(sk, mg, torch):
+    """Per-level table, f32: every level shape of the shear3d_vd and rt
+    hierarchies at the call the V-cycles make there, through the solvers'
+    own _smooth_res: the kernel's time (CUDA-graph replay) in the regime
+    it chooses and, where the level fits one CTA, in the other regime;
+    the plain version's; the bound; what was launched."""
+    dev = torch.device("cuda")
+    rows = []
+    saved = save_launches(sk)
+    for deck, family, li, solver, x, b, n, want in hierarchy_cases(
+            mg, torch, torch.float32, dev):
+        name = family.split("/")[0]
+        call = lambda: solver._smooth_res(x, b, li, n, want)
+        plain = lambda: plain_smooth(sk, mg, solver, li, x, b, n, want)
+        got, ref = call(), plain()
+        if not all(torch.equal(u, v) for u, v in zip(got, ref)
+                   if v is not None):
+            raise AssertionError(f"{family} level {li}: kernel and plain "
+                                 "version differ")
+        plan = sk.LAST_PLAN[name]
+        row = {"deck": deck, "family": family, "level": li,
+               "shape": "x".join(str(v) for v in x.shape),
+               "call": f"{n} sweeps" + (" + residual" if want else ""),
+               "regime": "resident" if plan[0] == 1 else "grid",
+               "ctas": plan[1], "threads": plan[2], "held": plan[3],
+               "ms": device_ms(call), "plain_ms": device_ms(plain),
+               "bytes": smooth_bytes(mg, solver, li, x, want),
+               "ops": count_ops(plain)}
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"])
+        other = 2 if plan[0] == 1 else 1
+        sk.REGIME = other
+        try:
+            call()
+            row["other_regime_ms"] = device_ms(call)
+        except RuntimeError:          # the level does not fit one CTA
+            row["other_regime_ms"] = None
+        finally:
+            sk.REGIME = 0
+        rows.append(row)
+        o = row["other_regime_ms"]
+        print(f"[levels] {deck} {family} level {li} {row['shape']}, "
+              f"{row['call']}: kernel {row['ms']:.4f} ms ({row['regime']}, "
+              f"{row['ctas']} CTAs of {row['threads']}, held {row['held']}),"
+              f" other regime " + (f"{o:.4f} ms" if o is not None else "n/a")
+              + f", plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
+    torch.cuda.synchronize()
+    check_one_launch(sk, "levels")
+    restore_launches(sk, saved)
+    return rows
 
 
 def phase_solvers_walled(mg, torch):
@@ -1150,6 +1428,14 @@ def vd_projection_check(sim, s, mg, torch):
             div * min(grid.dx) / float(u.abs().max()))
 
 
+def check_tallies(tag, per_step):
+    """The per-step tallies of a multigrid cell, to the digit."""
+    got = {k: round(per_step[k], 1) for k in TALLIES[tag]}
+    if got != TALLIES[tag]:
+        raise AssertionError(f"{tag}: per-step tallies {got}, expected "
+                             f"{TALLIES[tag]}")
+
+
 def phase_main_vd(incflo_torch, gk, sk, mg, torch, start, warm=2, steps=5):
     """shear3d_vd at 128x128x32 f32 on the card from one of its starts."""
     cfg = incflo_torch.IncfloConfig.from_text(
@@ -1180,6 +1466,8 @@ def phase_main_vd(incflo_torch, gk, sk, mg, torch, start, warm=2, steps=5):
         if not per_step[k] > 0:
             raise AssertionError(f"shear3d_vd from {start}: kernel {k} was "
                                  "not launched in the timed steps")
+    check_one_launch(sk, f"shear3d_vd from {start}")
+    check_tallies(f"shear3d_vd {start}", per_step)
     lvl = s.level
     for f in ("velocity", "density", "tracer", "p", "gp", "mac_phi"):
         if not bool(torch.isfinite(getattr(lvl, f)).all()):
@@ -1241,15 +1529,19 @@ def phase_main_rt(incflo_torch, gk, sk, mg, torch, warm=2, steps=5):
     launches = {**gk.LAUNCHES, **sk.LAUNCHES}
     per_step = {k: (v - warm_counts[k]) / steps
                 for k, v in {**mg.COUNTS, **sk.LAUNCHES}.items()}
-    if not per_step[WALLED] > 0:
-        raise AssertionError(f"rt: kernel {WALLED} was not launched in the "
-                             "timed steps")
-    # by design: every cell level of this deck has walls, its nodal levels
-    # are smoothed in plain PyTorch and its Godunov chain takes the plain
-    # wall forms, so no other kernel may have run
-    others = {k: v for k, v in launches.items() if k != WALLED and v}
+    for k in (WALLED, WALLED_NODAL):
+        if not per_step[k] > 0:
+            raise AssertionError(f"rt: kernel {k} was not launched in the "
+                                 "timed steps")
+    # by design: every cell and nodal level of this deck has walls and its
+    # Godunov chain takes the plain wall forms, so no other kernel may
+    # have run
+    others = {k: v for k, v in launches.items()
+              if k not in (WALLED, WALLED_NODAL) and v}
     if others:
         raise AssertionError(f"rt: unexpected kernel launches {others}")
+    check_one_launch(sk, "rt")
+    check_tallies("rt", per_step)
     lvl = s.level
     for f in ("velocity", "density", "tracer", "p", "gp", "mac_phi"):
         if not bool(torch.isfinite(getattr(lvl, f)).all()):
@@ -1274,7 +1566,8 @@ def phase_main_rt(incflo_torch, gk, sk, mg, torch, warm=2, steps=5):
           f"{warm} warm-up; per step: {per_step['cell_iters']:.1f} CG "
           f"iterations in {per_step['cell_solves']:.1f} cell solves, "
           f"{per_step['nodal_cycles']:.1f} nodal V-cycles, "
-          f"{per_step[WALLED]:.1f} {WALLED} launches, "
+          f"{per_step[WALLED]:.1f} {WALLED} + {per_step[WALLED_NODAL]:.1f} "
+          f"{WALLED_NODAL} launches, "
           f"{per_step['host_syncs']:.1f} host syncs; t={float(s.t):.6f} "
           f"dt={float(s.dt):.6e} max|u|={float(lvl.velocity.abs().max()):.3e}"
           f" max|w| beside the walls {wall_w:.3e} rho in [{rho_lo:.4f}, "
@@ -1289,14 +1582,13 @@ def phase_main_rt(incflo_torch, gk, sk, mg, torch, warm=2, steps=5):
             "reprojection_res_over_tol": res_over_tol}, sim, s
 
 
-def phase_rt_sections(sim, s, mg, torch, steps=3):
+def phase_rt_sections(sim, s, sk, torch, steps=3):
     """Where an rt step's wall time goes: `steps` more steps with the
-    plain walled nodal smooth, the plain walled Godunov calls and the
-    walled cell smoother each bracketed by device synchronisations and
-    the host clock.  The synchronisations lengthen the step, so the
-    sections are reported as shares of this instrumented run."""
-    from incflo_torch.ops import smoother_kernels as sk
-    spent = {"nodal_smooth_walled (plain)": 0.0,
+    walled nodal smoother, the plain walled Godunov calls and the walled
+    cell smoother each bracketed by device synchronisations and the host
+    clock.  The synchronisations lengthen the step, so the sections are
+    reported as shares of this instrumented run."""
+    spent = {"nodal_smooth_walled (kernel)": 0.0,
              "walled Godunov predict + advect (plain)": 0.0,
              "cell_smooth_walled (kernel)": 0.0}
 
@@ -1311,9 +1603,9 @@ def phase_rt_sections(sim, s, mg, torch, steps=3):
         return wrapper
 
     keys = list(spent)
-    saved = (mg.nodal_smooth_walled, sim.godunov.predict, sim.godunov.advect,
+    saved = (sk.nodal_smooth, sim.godunov.predict, sim.godunov.advect,
              sk.cell_smooth)
-    mg.nodal_smooth_walled = timed(keys[0], saved[0])
+    sk.nodal_smooth = timed(keys[0], saved[0])
     sim.godunov.predict = timed(keys[1], saved[1])
     sim.godunov.advect = timed(keys[1], saved[2])
     sk.cell_smooth = timed(keys[2], saved[3])
@@ -1324,7 +1616,7 @@ def phase_rt_sections(sim, s, mg, torch, steps=3):
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
-        mg.nodal_smooth_walled = saved[0]
+        sk.nodal_smooth = saved[0]
         sim.godunov.predict, sim.godunov.advect = saved[1], saved[2]
         sk.cell_smooth = saved[3]
     parts = ", ".join(f"{k} {v / steps * 1e3:.2f} ms ({v / total:.2f})"
@@ -1334,25 +1626,75 @@ def phase_rt_sections(sim, s, mg, torch, steps=3):
     return s
 
 
+class SmootherCalls:
+    """Records each smoother wrapper call made while active, grouped by
+    what decides its time (family, level shape, type, sweeps, residual,
+    sides), with the arguments of its first call; then times each group
+    once under CUDA-graph replay.  The profiler records no device
+    activity for a cooperative launch, which is how a smoother call above
+    the resident size runs."""
+
+    def __init__(self, sk):
+        self.sk = sk
+        self.calls = {}
+
+    def __enter__(self):
+        self.saved = (self.sk.cell_smooth, self.sk.nodal_smooth)
+        for fn in self.saved:
+            setattr(self.sk, fn.__name__, self._record(fn))
+        return self
+
+    def __exit__(self, *exc):
+        self.sk.cell_smooth, self.sk.nodal_smooth = self.saved
+
+    def _record(self, fn):
+        def wrapper(*args, **kw):
+            x = args[0]
+            key = (fn.__name__, tuple(x.shape), str(x.dtype), args[5],
+                   args[6], repr(kw.get("bc")))
+            entry = self.calls.setdefault(key, [0, fn, args, kw])
+            entry[0] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    def device_ms(self):
+        """Sum over the groups of calls x graph-replay ms, and the calls."""
+        total, count = 0.0, 0
+        saved = save_launches(self.sk)
+        for n, fn, args, kw in self.calls.values():
+            total += n * device_ms(lambda: fn(*args, **kw))
+            count += n
+        restore_launches(self.sk, saved)
+        return total, count
+
+
+SMOOTHER_KERNELS = ("cell_kernel", "nodal_resident", "nodal_grid")
+
+
 def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
                   run=None):
     """Device time of `steps` steps by torch.profiler: the busy time per
     step against the step's wall time (from the unprofiled timed run),
     split into the Godunov kernels, the smoother kernels, the fused step
     kernel, matrix products and the rest.  The profiler records no device
-    activity for the cooperative launch of the fused step (only the host's
-    cudaLaunchCooperativeKernel call): there kernel_ms, its time under
-    graph replay, stands in for each launch, and the line says so.
-    `run(s, k)` takes the steps (sim.advance_n unless given)."""
+    activity for a cooperative launch (only the host's
+    cudaLaunchCooperativeKernel call): for the fused step kernel_ms, its
+    time under graph replay, stands in for each launch; for the smoothers
+    each call made in the profiled steps is timed under graph replay
+    (SmootherCalls), and what the profiler saw of them, the resident
+    launches, is printed beside it; the line says so.  `run(s, k)` takes
+    the steps (sim.advance_n unless given)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from incflo_torch.ops import smoother_kernels as sk
+    with SmootherCalls(sk) as smooth, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         s = (run or sim.advance_n)(s, steps)
         torch.cuda.synchronize()
     rows = prof.key_averages()
     print(rows.table(sort_by="cuda_time_total", row_limit=30))
     groups = {"godunov": 0.0, "smoothers": 0.0, "step2d": 0.0,
               "matmul": 0.0, "other": 0.0}
+    seen_smoothers = 0.0
     for e in rows:
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
@@ -1361,9 +1703,8 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
         k = e.key
         if any(t in k for t in ("uad_kernel", "predict_", "advect_")):
             groups["godunov"] += us
-        elif any(t in k for t in ("cell_pass", "cell_residual",
-                                  "nodal_pass", "nodal_residual")):
-            groups["smoothers"] += us
+        elif any(t in k for t in SMOOTHER_KERNELS):
+            seen_smoothers += us
         elif "step2d_kernel" in k:
             groups["step2d"] += us
         elif "gemm" in k or "xmma" in k or "sgemm" in k:
@@ -1376,6 +1717,13 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
         groups["step2d"] = kernel_ms * 1e3 * coop[0]
         note = (f" (step2d not in the trace: {coop[0]} launches x "
                 f"{kernel_ms:.4f} ms from graph replay)")
+    smooth_ms, ncalls = smooth.device_ms()
+    groups["smoothers"] = smooth_ms * 1e3
+    if ncalls:
+        note += (f" (smoothers: {ncalls} calls in {len(smooth.calls)} kinds, "
+                 f"each kind timed under graph replay; the trace saw "
+                 f"{seen_smoothers / steps / 1e3:.3f} ms/step of them, the "
+                 f"resident launches)")
     busy = sum(groups.values()) / steps / 1e3
     print(f"[profile] n={n}: device busy {busy:.3f} ms/step of "
           f"{wall_ms:.3f} ms/step wall (idle share "
@@ -1385,6 +1733,8 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
           f"{groups['step2d'] / steps / 1e3:.3f}, matmul "
           f"{groups['matmul'] / steps / 1e3:.3f}, other "
           f"{groups['other'] / steps / 1e3:.3f} ms/step{note}", flush=True)
+    return {"busy_ms": busy, "idle_share": max(0.0, 1 - busy / wall_ms),
+            **{k: v / steps / 1e3 for k, v in groups.items()}}
 
 
 def card_line():
@@ -1427,6 +1777,8 @@ def main(argv):
     kres = phase_kernels(gk, grid_of, torch)
     sres = phase_smoothers(sk, mg, grid_of, torch)
     wres = phase_walled_smoother(sk, mg, torch)
+    wnres = phase_walled_nodal(sk, mg, torch)
+    levels = phase_levels(sk, mg, torch)
     s2res = phase_step2d(incflo_torch, s2, torch)
     phase_solvers(mg, torch)
     phase_solvers_walled(mg, torch)
@@ -1453,7 +1805,7 @@ def main(argv):
     main_rt, sim, s = phase_main_rt(incflo_torch, gk, sk, mg, torch)
     if profile:
         phase_profile(sim, s, torch, "128 rt", main_rt["ms_per_step"])
-        phase_rt_sections(sim, s, mg, torch)
+        phase_rt_sections(sim, s, sk, torch)
     del sim, s
     main_tgv = phase_main_tgv2d(incflo_torch, (gk, sk, s2), torch, profile,
                                 s2res["ms_by_n"])
@@ -1461,8 +1813,8 @@ def main(argv):
     # `launches` is the count over the kernel's own main path: shear3d
     # n = 128 for the Godunov kernels (their count in shear3d_vd beside
     # it), shear3d_vd from init_state for the periodic smoothers, rt for
-    # the walled cell smoother, the first fused tgv2d run at 128^2 for
-    # the fused step
+    # the walled cell and nodal smoothers, the first fused tgv2d run at
+    # 128^2 for the fused step
     kernels = []
     for k in PER_STEP:
         r = kres[k]
@@ -1488,6 +1840,7 @@ def main(argv):
             "replaces": sk.REPLACES[k],
             "also_replaces": sk.ALSO_REPLACES[k],
             "launches": main_vd[0]["launches"][k],
+            "device_launches_per_call": 1,
             "launches_per_step": main_vd[0]["per_step"][k],
             "launches_shear3d_vd": [m["launches"][k] for m in main_vd],
             "max_abs_err": r["max_abs_err"],
@@ -1508,6 +1861,7 @@ def main(argv):
         "replaces": sk.REPLACES[WALLED],
         "launches": main_rt["launches"][WALLED],
         "launches_per_step": main_rt["per_step"][WALLED],
+        "device_launches_per_call": 1,
         "max_abs_err": wres["max_abs_err"],
         "max_err_x_f32": wres["max_err_x_f32"], "tol_x_f32": TOL_SMOOTH_X,
         "max_err_res_f32": wres["max_err_res_f32"],
@@ -1520,6 +1874,26 @@ def main(argv):
         "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
         "bytes": fine["bytes"], "ops": fine["ops"], "library_ms": None,
         "at_8x8x16": wres["8x8x16"]})
+    fine = wnres["64x64x129"]
+    kernels.append({
+        "name": WALLED_NODAL, "route": "cuda",
+        "source": "incflo_torch/csrc/smoothers.cu",
+        "replaces": sk.REPLACES[WALLED_NODAL] + " (jnp; no Pallas body)",
+        "launches": main_rt["launches"][WALLED_NODAL],
+        "launches_per_step": main_rt["per_step"][WALLED_NODAL],
+        "device_launches_per_call": 1,
+        "max_abs_err": wnres["max_abs_err"],
+        "max_err_x_f32": wnres["max_err_x_f32"], "tol_x_f32": TOL_SMOOTH_X,
+        "max_err_res_f32": wnres["max_err_res_f32"],
+        "tol_res_f32": TOL_SMOOTH_RES,
+        "max_rel_err_f64": wnres["max_rel_err_f64"],
+        "tol_f64": TOL_SMOOTH_F64,
+        "shape": "64x64x129 nodes, periodic x and y, Neumann z, 2 sweeps + "
+                 "residual, float32",
+        "ms": fine["ms"], "plain_ms": fine["plain_ms"],
+        "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
+        "bytes": fine["bytes"], "ops": fine["ops"], "library_ms": None,
+        "at_8x8x17": wnres["8x8x17"]})
     tgv_main = main_tgv[0]
     kernels.append({
         "name": "step2d", "route": "cuda",
@@ -1540,7 +1914,8 @@ def main(argv):
         "worst_cg_res_over_tol": s2res["worst_cg_res_over_tol"],
         "shape": "tgv2d 128x128, one step from init_state, float32",
         "ms": s2res["ms"], "plain_ms": s2res["plain_ms"],
-        "timing": "CUDA-graph replay, median of 25",
+        "timing": "CUDA-graph replay, median of 25, calls per graph "
+                  "to last ~1 ms",
         "ms_256": s2res["ms_by_n"][256],
         "plain_ms_256": s2res["plain_ms_by_n"][256],
         "by_shape": s2res["by_n"],
@@ -1550,7 +1925,8 @@ def main(argv):
         "cg_trips": [s2res["trips_pred"], s2res["trips_corr"]],
         "grid_blocks": s2res["grid_blocks"],
         "max_blocks": s2res["max_blocks"]})
-    print(json.dumps({"kernels": kernels, "build_s": build_s,
+    print(json.dumps({"kernels": kernels, "levels": levels,
+                      "build_s": build_s,
                       "main": [main128, main256] + main_vd + [main_rt]
                       + main_tgv,
                       "seconds": time.time() - t_start}))

@@ -22,12 +22,9 @@ wraps the V-cycle in conjugate gradients, the nodal solver iterates it.
 JAX's lax.while_loop / lax.cond are Python loops here that read one bool
 per iteration back to the host; COUNTS tallies those reads, the solves
 and their iterations.  The smoothers run through ops/smoother_kernels
-(CUDA kernels on the card, their plain versions on the CPU): the cell
-smoother on every 3D level, walls included, the nodal smoother on fully
-periodic 3D levels.  A nodal level with a non-periodic axis is smoothed
-by nodal_smooth_walled, plain PyTorch on either device, as incflo_tpu
-smooths such levels in plain jnp; which of the two a level takes is
-decided by its BCs alone.  2D levels raise until ROADMAP A8.
+(CUDA kernels on the card, one launch a call; their plain versions on
+the CPU): the cell and the nodal smoother on every 3D level, walls
+included.  2D levels raise until ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -753,25 +750,6 @@ def _prolong_nodal(c, lev_f: NodalLevel):
     return c
 
 
-def nodal_smooth_walled(x, b, lev: NodalLevel, dinv, nsweeps: int,
-                        want_residual: bool = False):
-    """nsweeps red-black sweeps (+ the residual b - L(x)) of nodal_apply
-    on a level with a non-periodic axis: plain PyTorch on either device.
-    incflo_tpu smooths such levels in plain jnp (its Pallas nodal kernels
-    take fully periodic levels only), and so far no CUDA kernel does
-    either: ops/smoother_kernels.nodal_smooth covers the periodic levels.
-    Dirichlet rows are identity rows of nodal_apply, so they relax to b
-    like any other."""
-    from incflo_torch.ops import smoother_kernels as sk
-    isred = sk.checkerboard(x.shape, x.device)
-    red = isred.to(x.dtype)
-    black = (~isred).to(x.dtype)
-    for _ in range(nsweeps):
-        x = x + red * (b - nodal_apply(x, lev)) * dinv
-        x = x + black * (b - nodal_apply(x, lev)) * dinv
-    return x, (b - nodal_apply(x, lev)) if want_residual else None
-
-
 class NodalSolver:
     """Geometric multigrid (and, for constant sigma, a direct solve) for
     the nodal sigma-Poisson system.  direct=False as for CellSolver."""
@@ -820,16 +798,17 @@ class NodalSolver:
 
     # -- smoother and V-cycle ------------------------------------------
     def _smooth_res(self, x, b, li, n, want_residual):
-        """n red-black sweeps (+ the residual b - L(x)) on level li."""
+        """n red-black sweeps (+ the residual b - L(x)) on level li,
+        walls included, on either device."""
         lev = self.levels[li]
         if self.ndim != 3:
             raise NotImplementedError(_NOT_3D)
-        if not all(lev.periodic):
-            return nodal_smooth_walled(x, b, lev, self.dinvs[li], n,
-                                       want_residual)
         from incflo_torch.ops import smoother_kernels as sk
+        bc = tuple(tuple(SolverBC.PERIODIC if per else code
+                         for per, code in zip(lev.periodic, codes))
+                   for codes in (lev.bc_lo, lev.bc_hi))
         return sk.nodal_smooth(x, b, self.sigmas[li], self.dinvs[li], lev.dx,
-                               n, want_residual)
+                               n, want_residual, bc=bc)
 
     def _vcycle(self, x, b, li=0, want_residual=False):
         lev = self.levels[li]

@@ -32,38 +32,47 @@ incflo_torch/csrc/smoothers.cu and their plain PyTorch versions.
       non-periodic x boundary, every pass here sees the ghosts of the
       current iterate on every axis, as the jnp smoother does.
 
-  nodal_smooth(x, b, sigma, dinv, dx, nsweeps, want_residual) -> (x, res)
+  nodal_smooth(x, b, sigma, dinv, dx, nsweeps, want_residual,
+               bc=None) -> (x, res)
       replaces incflo_tpu/ops/pallas_nodal.py:_smooth_kernel (:133) and
-      :_tiled_kernel (:221).  The same sweeps of the Q1 finite-element
-      nodal sigma-Poisson operator in its 7 rank-1 terms
-      (multigrid.nodal_apply): sigma at cells, x/b/dinv at nodes, all
-      (nx, ny, nz).  Fully periodic levels only: levels with walls take
-      multigrid.nodal_smooth_walled, plain PyTorch on either device.
+      :_tiled_kernel (:221) on fully periodic levels ("nodal_smooth"),
+      and the jnp sweep incflo_tpu runs on levels with walls
+      (incflo_tpu/ops/multigrid.py:1018; "nodal_smooth_walled").  The
+      same sweeps of the Q1 finite-element nodal sigma-Poisson operator
+      in its 7 rank-1 terms (multigrid.nodal_apply): x/b/dinv at the
+      nodes (nx, ny, nz), sigma at the cells.  On a walled axis (bc as
+      for cell_smooth, at least 2 cells) the level has one node more
+      than cells, sigma outside the domain is zero and a node on a
+      Dirichlet side is an identity row.
 
-What bounds them on an H100: bytes.  A colour pass moves 8 (cell) or 5
-(nodal) arrays for 20 or ~400 operations per point, so a 2-sweep call
-with residual is 5 passes over the level.  Each wrapper call is one C
-call that enqueues 2*nsweeps + 1 launches (a launch is the grid-wide
-barrier a colour pass needs); fusing them into one cooperative launch
-with the coefficients held on chip is later work.  The TPU kernels'
-whole-level-in-VMEM form, their x-slab tiles with a shrinking halo and
-the (8, 128) shape rules are answers to that machine's fast memory and
-do not carry over: one kernel family covers every level size, odd sizes
-and an axis of 2 cells included.  Nor do the walled Pallas kernel's
-merged (y, z) lane axis, its x slabs of TBx+8 rows and its padded x
-ghosts: with one launch per colour pass a wall is two compares per axis
-in the thread of a boundary cell, on x as on y and z.
+What bounds them on an H100 is latency: a 2-sweep call moves a few MB
+at the fine level and far less below it, against microseconds a launch
+or a grid barrier.  So a call is one launch, in two regimes
+(csrc/smoothers.cu): on a small level (up to 1024 cells or 128 nodes of
+each colour) one CTA runs every colour pass and the residual with block
+barriers between them, the iterate in shared memory; above it a
+cooperative launch of the co-resident CTAs does, with grid barriers, the
+cell coefficients held in shared memory and the nodal stencil evaluated
+in shared-memory bricks.  A pass enumerates only the points of the
+colour it updates.  The TPU kernels' whole-level-in-VMEM form, their
+x-slab tiles with a shrinking halo, the (8, 128) shape rules and the
+walled kernel's merged (y, z) lane axis answer that machine's fast
+memory and do not carry over: odd sizes, an axis of 2 cells and walls
+on any axis take the same kernels.
 
 The cell pass updates in place (a cell's stencil touches only the other
 colour; a level with an odd periodic axis, whose wrap joins two cells of
 one colour, goes between two buffers instead); the nodal stencil couples
 nodes of one colour and the update reads the old x everywhere, so a
-nodal pass writes a second buffer.
-Both kernels repeat the plain versions' operation order and are built
-without FMA contraction, so kernel and plain version agree to rounding.
+nodal pass writes a second buffer.  Both kernels repeat the plain
+versions' operation order and are built without FMA contraction, so
+kernel and plain version agree to the last bit.
 
-Every wrapper takes the plain version only for tensors on the CPU.  On
-a CUDA tensor it launches the kernel or raises: there is no fallback.
+LAUNCHES counts the wrapper calls that launched a kernel, per family;
+DEVICE_LAUNCHES the device launches they enqueued (one each); LAST_PLAN
+what the last call of a family launched.  Every wrapper takes the plain
+version only for tensors on the CPU.  On a CUDA tensor it launches the
+kernel or raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -81,8 +90,19 @@ from incflo_torch.ops.cuda_build import DT_CODE, check_rc, ptr, stream
 SOURCE = cuda_build.CSRC_DIR / "smoothers.cu"
 
 # launch counters: one per kernel family, raised by the wrapper where it
-# launches the kernel and nowhere else
-LAUNCHES = {"cell_smooth": 0, "cell_smooth_walled": 0, "nodal_smooth": 0}
+# launches the kernel and nowhere else; DEVICE_LAUNCHES by the number of
+# device launches the C entry reports it enqueued
+LAUNCHES = {"cell_smooth": 0, "cell_smooth_walled": 0, "nodal_smooth": 0,
+            "nodal_smooth_walled": 0}
+DEVICE_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+# per family, the last call's (regime: 1 resident / 2 grid, CTAs, threads
+# per CTA, coefficient slots held per colour (cell) or 1 when every CTA
+# holds its brick (nodal))
+LAST_PLAN = {}
+
+# regime of the kernels: 0 chooses (resident up to 1024 cells or 128 nodes
+# of each colour), 1 resident, 2 grid
+REGIME = 0
 
 # TPU kernels each CUDA kernel family replaces (file:line of the Pallas
 # body): the whole-level kernel, and its x-slab tiled form for levels
@@ -91,6 +111,8 @@ REPLACES = {
     "cell_smooth": "incflo_tpu/ops/pallas_cell.py:65",
     "cell_smooth_walled": "incflo_tpu/ops/pallas_smoother.py:71",
     "nodal_smooth": "incflo_tpu/ops/pallas_nodal.py:133",
+    # no Pallas body: incflo_tpu smooths walled nodal levels in jnp
+    "nodal_smooth_walled": "incflo_tpu/ops/multigrid.py:1018",
 }
 ALSO_REPLACES = {
     "cell_smooth": "incflo_tpu/ops/pallas_cell.py:191",
@@ -101,6 +123,7 @@ ALSO_REPLACES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        DEVICE_LAUNCHES[k] = 0
 
 
 def guarded_reciprocal(diag: torch.Tensor) -> torch.Tensor:
@@ -201,42 +224,67 @@ def cell_smooth_plain(x, b, diag, dinv, F, nsweeps: int,
     return x, res
 
 
-def nodal_apply_plain(phi, sigma, coefs):
-    """L(phi) of the periodic Q1 nodal operator: contraction tree down
-    the axes, C_p*sigma, scatter tree back up with
-    S^T(ts) + D^T(td) = (ts + td) + shift(ts - td)."""
-    parts = {(): phi}
+def nodal_apply_plain(phi, sigma, coefs, bc=None):
+    """L(phi) of the Q1 nodal operator in multigrid.nodal_apply's
+    operation order: phi wrapped by one node on each periodic axis, the
+    contraction tree down the axes, C_p*sigma, the scatter tree back up
+    with S^T(ts) + D^T(td) = (ts + td) + shift(ts - td) -- the shift
+    wraps on a periodic axis and brings in exact zeros at both ends of a
+    walled one -- and identity rows on Dirichlet sides."""
+    lo, hi = _bc_codes(bc)
+    p = phi
+    for ax in range(3):
+        if lo[ax] == PERIODIC:
+            p = torch.cat([p, p.narrow(ax, 0, 1)], dim=ax)
+    parts = {(): p}
     for ax in range(3):
         new = {}
         for key, v in parts.items():
-            hi = torch.roll(v, -1, dims=ax)
-            new[key + (0,)] = v + hi
-            new[key + (1,)] = v - hi
+            m = v.shape[ax]
+            a, b = v.narrow(ax, 0, m - 1), v.narrow(ax, 1, m - 1)
+            new[key + (0,)] = a + b
+            new[key + (1,)] = a - b
         parts = new
-    t = {p: (coefs[p[0] * 4 + p[1] * 2 + p[2]] * sigma * v) if any(p)
-         else None for p, v in parts.items()}
+    t = {pat: (coefs[pat[0] * 4 + pat[1] * 2 + pat[2]] * sigma * v)
+         if any(pat) else None for pat, v in parts.items()}
     for ax in (2, 1, 0):
         new = {}
         for key in {k[:-1] for k in t}:
             ts, td = t[key + (0,)], t[key + (1,)]
             s0 = 0.0 if ts is None else ts
-            new[key] = (s0 + td) + torch.roll(s0 - td, 1, dims=ax)
+            a, b = s0 + td, s0 - td
+            m = a.shape[ax]
+            if lo[ax] == PERIODIC:
+                new[key] = a + torch.cat([b.narrow(ax, m - 1, 1),
+                                          b.narrow(ax, 0, m - 1)], dim=ax)
+            else:
+                zero = torch.zeros_like(a.narrow(ax, 0, 1))
+                new[key] = (torch.cat([a, zero], dim=ax)
+                            + torch.cat([zero, b], dim=ax))
         t = new
-    return t[()]
+    out = t[()]
+    for ax in range(3):
+        n = out.shape[ax]
+        for side, code in ((0, lo[ax]), (n - 1, hi[ax])):
+            if code == DIRICHLET:
+                out = out.clone()
+                out.narrow(ax, side, 1).copy_(phi.narrow(ax, side, 1))
+    return out
 
 
 def nodal_smooth_plain(x, b, sigma, dinv, dx, nsweeps: int,
-                       want_residual: bool = False):
-    """Plain version of the `nodal_smooth` kernel."""
-    _check_nodal(x, b, sigma, dinv, dx, nsweeps)
+                       want_residual: bool = False, bc=None):
+    """Plain version of the `nodal_smooth` kernel, walls included."""
+    _check_nodal(x, b, sigma, dinv, dx, nsweeps, bc)
     coefs = nodal_coefs(dx)
     isred = checkerboard(x.shape, x.device)
     red = isred.to(x.dtype)
     black = (~isred).to(x.dtype)
     for _ in range(nsweeps):
-        x = x + red * (b - nodal_apply_plain(x, sigma, coefs)) * dinv
-        x = x + black * (b - nodal_apply_plain(x, sigma, coefs)) * dinv
-    res = (b - nodal_apply_plain(x, sigma, coefs)) if want_residual else None
+        x = x + red * (b - nodal_apply_plain(x, sigma, coefs, bc)) * dinv
+        x = x + black * (b - nodal_apply_plain(x, sigma, coefs, bc)) * dinv
+    res = ((b - nodal_apply_plain(x, sigma, coefs, bc)) if want_residual
+           else None)
     return x, res
 
 
@@ -244,11 +292,13 @@ def nodal_smooth_plain(x, b, sigma, dinv, dx, nsweeps: int,
 # scope and argument checks
 # ---------------------------------------------------------------------
 
-def _check_same(name, t, like):
-    if not isinstance(t, torch.Tensor) or t.shape != like.shape \
+def _check_same(name, t, like, shape=None):
+    """t has like's dtype and device, and like's shape or `shape`."""
+    shape = tuple(like.shape) if shape is None else tuple(shape)
+    if not isinstance(t, torch.Tensor) or tuple(t.shape) != shape \
             or t.dtype != like.dtype or t.device != like.device:
         raise ValueError(
-            f"{name}: expected {like.dtype} {tuple(like.shape)} on "
+            f"{name}: expected {like.dtype} {shape} on "
             f"{like.device}, got {getattr(t, 'dtype', type(t))} "
             f"{tuple(getattr(t, 'shape', ()))} on "
             f"{getattr(t, 'device', None)}")
@@ -280,16 +330,11 @@ def _bc_codes(bc):
     return lo, hi
 
 
-def _check_cell(x, b, diag, dinv, F, nsweeps, bc=None, Fwall=None):
-    """Argument checks of cell_smooth; True when an axis has walls."""
-    _check_common(x, nsweeps, (3, 4))
-    if len(F) != 3:
-        raise ValueError("F must hold one face coefficient per axis")
-    for name, t in (("b", b), ("diag", diag), ("dinv", dinv), ("F0", F[0]),
-                    ("F1", F[1]), ("F2", F[2])):
-        _check_same(name, t, x)
+def _check_bc(bc, shape, min_walled, what):
+    """The walled axes of bc on a level of `shape` (at least `min_walled`
+    `what` along each)."""
     lo, hi = _bc_codes(bc)
-    walls = False
+    walled = []
     for ax in range(3):
         codes = (lo[ax], hi[ax])
         if any(c not in (PERIODIC, NEUMANN, DIRICHLET) for c in codes):
@@ -298,23 +343,41 @@ def _check_cell(x, b, diag, dinv, F, nsweeps, bc=None, Fwall=None):
             raise ValueError(f"axis {ax}: periodic on one side only")
         if lo[ax] == PERIODIC:
             continue
-        walls = True
-        if x.shape[ax] < 2:
-            raise ValueError(f"axis {ax}: a walled axis needs >= 2 cells")
+        if shape[ax] < min_walled:
+            raise ValueError(f"axis {ax}: a walled axis needs >= "
+                             f"{min_walled} {what}")
+        walled.append(ax)
+    return walled
+
+
+def _check_cell(x, b, diag, dinv, F, nsweeps, bc=None, Fwall=None):
+    """Argument checks of cell_smooth; True when an axis has walls."""
+    _check_common(x, nsweeps, (3, 4))
+    if len(F) != 3:
+        raise ValueError("F must hold one face coefficient per axis")
+    for name, t in (("b", b), ("diag", diag), ("dinv", dinv), ("F0", F[0]),
+                    ("F1", F[1]), ("F2", F[2])):
+        _check_same(name, t, x)
+    walled = _check_bc(bc, x.shape, 2, "cells")
+    for ax in walled:
         if Fwall is None or Fwall[ax] is None:
             raise ValueError(f"axis {ax}: walled, but Fwall[{ax}] (its low "
                              "wall face coefficients) is missing")
-        plane = x.narrow(ax, 0, 1)
-        _check_same(f"Fwall[{ax}]", Fwall[ax], plane)
-    return walls
+        _check_same(f"Fwall[{ax}]", Fwall[ax], x.narrow(ax, 0, 1))
+    return bool(walled)
 
 
-def _check_nodal(x, b, sigma, dinv, dx, nsweeps):
+def _check_nodal(x, b, sigma, dinv, dx, nsweeps, bc=None):
+    """Argument checks of nodal_smooth; True when an axis has walls."""
     _check_common(x, nsweeps, (3,))
     if len(dx) != 3:
         raise ValueError("dx must hold one spacing per axis")
-    for name, t in (("b", b), ("sigma", sigma), ("dinv", dinv)):
+    for name, t in (("b", b), ("dinv", dinv)):
         _check_same(name, t, x)
+    walled = _check_bc(bc, x.shape, 3, "nodes (2 cells)")
+    cells = tuple(n - (ax in walled) for ax, n in enumerate(x.shape))
+    _check_same("sigma", sigma, x, cells)
+    return bool(walled)
 
 
 # ---------------------------------------------------------------------
@@ -334,13 +397,16 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load(SOURCE)
         P, I = ctypes.c_void_p, ctypes.c_int
+        IP = ctypes.POINTER(I)
         lib.smoother_cell.argtypes = (
-            [I] + [P] * 10 + [ctypes.POINTER(I)] + [P] * 3 + [I] * 5 + [P])
+            [I] + [P] * 10 + [IP] + [P] * 3 + [I] * 6 + [IP, IP, P])
         lib.smoother_nodal.argtypes = (
-            [I] + [P] * 4 + [ctypes.POINTER(ctypes.c_double)] + [P] * 3
-            + [I] * 4 + [P])
+            [I] + [P] * 4 + [ctypes.POINTER(ctypes.c_double), IP] + [P] * 3
+            + [I] * 5 + [IP, IP, P])
+        lib.smoother_graph_kernels.argtypes = [P, IP]
         lib.smoother_cell.restype = I
         lib.smoother_nodal.restype = I
+        lib.smoother_graph_kernels.restype = I
         _LIB = lib
     return _LIB
 
@@ -348,6 +414,18 @@ def _lib():
 # ---------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------
+
+def _bc_array(bc):
+    lo, hi = _bc_codes(bc)
+    return (ctypes.c_int * 6)(*(c for ax in range(3) for c in (lo[ax], hi[ax])))
+
+
+def _launched(name, rc, launches, plan):
+    check_rc(name, rc)
+    LAUNCHES[name] += 1
+    DEVICE_LAUNCHES[name] += launches.value
+    LAST_PLAN[name] = tuple(plan)
+
 
 def cell_smooth(x, b, diag, dinv, F, nsweeps: int,
                 want_residual: bool = False, bc=None, Fwall=None
@@ -360,11 +438,9 @@ def cell_smooth(x, b, diag, dinv, F, nsweeps: int,
                                  bc, Fwall)
     x, b, diag, dinv = (t.contiguous() for t in (x, b, diag, dinv))
     F = [f.contiguous() for f in F]
-    lo, hi = _bc_codes(bc)
+    lo, _ = _bc_codes(bc)
     planes = [Fwall[ax].contiguous() if lo[ax] != PERIODIC else None
               for ax in range(3)]
-    codes = (ctypes.c_int * 6)(*(c for ax in range(3)
-                                 for c in (lo[ax], hi[ax])))
     out = torch.empty_like(x)
     res = torch.empty_like(x) if want_residual else None
     # the wrap of an odd periodic axis couples two cells of one colour:
@@ -373,36 +449,47 @@ def cell_smooth(x, b, diag, dinv, F, nsweeps: int,
                    and x.shape[ax] % 2 for ax in range(3))
     tmp = torch.empty_like(x) if odd_wrap and nsweeps > 0 else None
     nc = x.shape[3] if x.dim() == 4 else 1
-    name = "cell_smooth_walled" if walls else "cell_smooth"
+    launches, plan = ctypes.c_int(0), (ctypes.c_int * 4)()
     rc = _lib().smoother_cell(
         DT_CODE[x.dtype], ptr(x), ptr(b), ptr(diag), ptr(dinv),
         ptr(F[0]), ptr(F[1]), ptr(F[2]),
-        *(None if w is None else ptr(w) for w in planes), codes, ptr(out),
-        None if tmp is None else ptr(tmp),
+        *(None if w is None else ptr(w) for w in planes), _bc_array(bc),
+        ptr(out), None if tmp is None else ptr(tmp),
         ptr(res) if want_residual else None, *x.shape[:3], nc,
-        int(nsweeps), stream(x))
-    check_rc(name, rc)
-    LAUNCHES[name] += 1
+        int(nsweeps), REGIME, ctypes.byref(launches), plan, stream(x))
+    _launched("cell_smooth_walled" if walls else "cell_smooth", rc, launches,
+              plan)
     return out, res
 
 
 def nodal_smooth(x, b, sigma, dinv, dx, nsweeps: int,
-                 want_residual: bool = False
+                 want_residual: bool = False, bc=None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """`nodal_smooth` kernel: nsweeps red-black sweeps (+ the residual)."""
-    _check_nodal(x, b, sigma, dinv, dx, nsweeps)
+    """`nodal_smooth` kernel: nsweeps red-black sweeps (+ the residual),
+    periodic, Neumann or Dirichlet on each side of each axis."""
+    walls = _check_nodal(x, b, sigma, dinv, dx, nsweeps, bc)
     if x.device.type == "cpu":
         return nodal_smooth_plain(x, b, sigma, dinv, dx, nsweeps,
-                                  want_residual)
+                                  want_residual, bc)
     x, b, sigma, dinv = (t.contiguous() for t in (x, b, sigma, dinv))
     out = torch.empty_like(x)
     tmp = torch.empty_like(x)
     res = torch.empty_like(x) if want_residual else None
     coefs = (ctypes.c_double * 8)(*nodal_coefs([float(d) for d in dx]))
+    launches, plan = ctypes.c_int(0), (ctypes.c_int * 4)()
     rc = _lib().smoother_nodal(
         DT_CODE[x.dtype], ptr(x), ptr(b), ptr(sigma), ptr(dinv), coefs,
-        ptr(out), ptr(tmp), ptr(res) if want_residual else None,
-        *x.shape, int(nsweeps), stream(x))
-    check_rc("nodal_smooth", rc)
-    LAUNCHES["nodal_smooth"] += 1
+        _bc_array(bc), ptr(out), ptr(tmp),
+        ptr(res) if want_residual else None, *x.shape, int(nsweeps), REGIME,
+        ctypes.byref(launches), plan, stream(x))
+    _launched("nodal_smooth_walled" if walls else "nodal_smooth", rc,
+              launches, plan)
     return out, res
+
+
+def graph_kernels(graph: "torch.cuda.CUDAGraph") -> int:
+    """Kernel nodes of a CUDA graph captured with keep_graph=True."""
+    n = ctypes.c_int(0)
+    check_rc("smoother_graph_kernels", _lib().smoother_graph_kernels(
+        ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.byref(n)))
+    return n.value

@@ -16,9 +16,8 @@ constant density the MAC, Helmholtz and nodal systems are prebuilt and
 solved directly (ops/spectral.py); with variable density they are
 rebuilt from the current density every step and solved by multigrid
 V-cycles (ops/multigrid.py) whose smoothers are the CUDA kernels of
-csrc/smoothers.cu: the cell smoother on every level, walls included, the
-nodal smoother on fully periodic levels (a walled nodal level is
-smoothed in plain PyTorch, ops/multigrid.nodal_smooth_walled).
+csrc/smoothers.cu: the cell and the nodal smoother on every level,
+walls included, one launch a call.
 
 2D decks are fully periodic, constant-density MOL decks (tgv2d): the
 predictor and corrector of ops/mol.py with direct solves.  On the card a

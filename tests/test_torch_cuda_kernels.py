@@ -15,7 +15,11 @@ the tolerances of tests/test_pallas_godunov.py.  The smoothers: float64
 O(1) fields on a unit-spaced level scale (the limits of
 tests/test_pallas_kernels.py).  The walled cell smoother is held to the
 same limits on every level of a CellSolver hierarchy with Neumann and
-Dirichlet sides.  The fused step kernel: float64 1e-9 relative to each
+Dirichlet sides.  Since the smoothers became one launch a call, they are
+also held to bit-equality with their plain versions in float32 and to
+1e-13 relative in float64, in both regimes (REGIME forced to resident
+and to grid), on either side of the resident size, walled nodal levels
+included; and a call captured in a CUDA graph is one kernel node.  The fused step kernel: float64 1e-9 relative to each
 field's max, float32 within rtol 1e-4 / atol 1e-5 (the bounds of
 tests/test_pallas_step2d.py): its transforms and dots sum in another
 order than cuBLAS and torch.sum, so the tensor CG may stop a trip apart
@@ -299,6 +303,211 @@ def test_smoothers_raise_outside_scope(cuda):
     with pytest.raises(ValueError):     # periodic on one side only
         sk.cell_smooth(m, m, m, m, (m, m, m), 2, True,
                        bc=((P, P, N), (P, P, P)), Fwall=(None, None, m[..., :1]))
+    n0 = dict(sk.LAUNCHES)
+    with pytest.raises(ValueError):     # a walled nodal axis of one cell
+        sk.nodal_smooth(m[..., :2], m[..., :2], m[..., :1], m[..., :2],
+                        (1.0, 1.0, 1.0), 2, True, bc=((P, P, N), (P, P, N)))
+    with pytest.raises(ValueError):     # sigma with as many cells as nodes
+        sk.nodal_smooth(m, m, m, m, (1.0, 1.0, 1.0), 2, True,
+                        bc=((P, P, N), (P, P, N)))
+    assert sk.LAUNCHES == n0
+
+
+# ---------------------------------------------------------------------
+# the smoothers, one launch a call: bit-equal to the plain versions in
+# float32 and within 1e-13 relative in float64, in both regimes
+# ---------------------------------------------------------------------
+
+REGIMES = {"resident": 1, "grid": 2}
+
+
+@pytest.fixture(params=sorted(REGIMES))
+def regime(request, monkeypatch):
+    monkeypatch.setattr(sk, "REGIME", REGIMES[request.param])
+    return REGIMES[request.param]
+
+
+def _bit_check(got, ref, dtype):
+    for a, b in zip(got, ref):
+        if b is None:
+            assert a is None
+        elif dtype == torch.float32:
+            assert torch.equal(a, b)
+        else:
+            assert _rel(a, b) <= 1e-13
+
+
+def _cell_case(shape, ncomp, bc, dtype, device, seed):
+    """Wrapper arguments of a one-level walled or periodic CellSolver
+    with random coefficients (bc = None: periodic)."""
+    bc = bc or ((P, P, P), (P, P, P))
+    solver = _walled_solver(shape, bc, ncomp, dtype, device, seed)
+    dinvs, fhis, fwalls = solver.smoother_coefs()
+    rng = np.random.default_rng(seed + 1)
+    full = tuple(solver.diags[0].shape)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return ((t(rng.standard_normal(full)), t(rng.standard_normal(full)),
+             solver.diags[0], dinvs[0], fhis[0]),
+            dict(bc=bc, Fwall=fwalls[0]))
+
+
+# (8, 4, 2): 2 cells along z; (9, 5, 7): odd sizes, an odd periodic
+# wrap; (33, 8, 16): an odd wrap across CTAs; (2, 6, 4): 2 cells along x
+REDESIGN_SHAPES = [(8, 4, 2), (9, 5, 7), (33, 8, 16), (2, 6, 4),
+                   (16, 8, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", REDESIGN_SHAPES)
+@pytest.mark.parametrize("ncomp", [0, 3])
+@pytest.mark.parametrize("nsweeps", [0, 1, 8])
+@pytest.mark.parametrize("bcname", ["periodic", "rt_scalar",
+                                    "rt_normal_velocity", "mixed_sides"])
+def test_cell_smooth_bit_equal_both_regimes(cuda, regime, dtype, shape,
+                                            ncomp, nsweeps, bcname):
+    bc = None if bcname == "periodic" else WALL_BCS[bcname]
+    args, kw = _cell_case(shape, ncomp, bc, dtype, cuda, 12)
+    name = "cell_smooth" if bc is None else "cell_smooth_walled"
+    for want in (True, False):
+        n0 = sk.DEVICE_LAUNCHES[name]
+        got = sk.cell_smooth(*args, nsweeps, want, **kw)
+        torch.cuda.synchronize()
+        assert sk.DEVICE_LAUNCHES[name] == n0 + 1
+        assert sk.LAST_PLAN[name][0] == regime
+        _bit_check(got, sk.cell_smooth_plain(*args, nsweeps, want, **kw),
+                   dtype)
+
+
+NODAL_BCS = {
+    "periodic": ((P, P, P), (P, P, P)),
+    "rt": ((P, P, N), (P, P, N)),
+    "dirichlet_side": ((N, P, N), (D, P, N)),
+    "walled_x": ((D, N, P), (N, D, P)),
+    "all_walls": ((D, N, D), (N, D, N)),
+}
+
+
+def _nodal_case(cells, bc, dtype, device, seed):
+    """Wrapper arguments on a one-level NodalSolver with random sigma:
+    nodes = cells, + 1 along a walled axis."""
+    rng = np.random.default_rng(seed)
+    periodic = tuple(c == P for c in bc[0])
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    solver = mg.NodalSolver((1.0, 0.5, 0.25), periodic, bc[0], bc[1],
+                            t(0.6 + 0.8 * rng.random(cells)), max_levels=1,
+                            direct=False)
+    nodes = tuple(solver.dinvs[0].shape)
+    return (t(rng.standard_normal(nodes)), t(rng.standard_normal(nodes)),
+            solver.sigmas[0], solver.dinvs[0], solver.levels[0].dx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cells", [(8, 4, 2), (9, 5, 7), (2, 6, 4),
+                                   (16, 8, 16), (20, 12, 34)])
+@pytest.mark.parametrize("nsweeps", [0, 2, 24])
+@pytest.mark.parametrize("bcname", sorted(NODAL_BCS))
+def test_nodal_smooth_bit_equal_both_regimes(cuda, regime, dtype, cells,
+                                             nsweeps, bcname):
+    bc = NODAL_BCS[bcname]
+    args = _nodal_case(cells, bc, dtype, cuda, 13)
+    name = "nodal_smooth" if bcname == "periodic" else "nodal_smooth_walled"
+    for want in (True, False):
+        n0 = sk.DEVICE_LAUNCHES[name]
+        got = sk.nodal_smooth(*args, nsweeps, want, bc=bc)
+        torch.cuda.synchronize()
+        assert sk.DEVICE_LAUNCHES[name] == n0 + 1
+        assert sk.LAST_PLAN[name][0] == regime
+        _bit_check(got, sk.nodal_smooth_plain(*args, nsweeps, want, bc=bc),
+                   dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("above", [False, True], ids=["under", "over"])
+def test_smoothers_either_side_of_the_resident_threshold(cuda, dtype,
+                                                         above):
+    """The regime the kernels choose by themselves, and bit-equality
+    there, on the levels just within and just past the resident size:
+    1024 cells or 128 nodes of each colour."""
+    cells = (16, 16, 10 if above else 8)     # 1280 or 1024 of each colour
+    args, kw = _cell_case(cells, 0, WALL_BCS["rt_scalar"], dtype, cuda, 14)
+    got = sk.cell_smooth(*args, 2, True, **kw)
+    assert sk.LAST_PLAN["cell_smooth_walled"][0] == (2 if above else 1)
+    _bit_check(got, sk.cell_smooth_plain(*args, 2, True, **kw), dtype)
+    # one node more than cells along the walled z: 8x4x10 or 8x4x8
+    cells = (8, 4, 9 if above else 7)       # 160 or 128 of each colour
+    bc = NODAL_BCS["rt"]
+    args = _nodal_case(cells, bc, dtype, cuda, 15)
+    got = sk.nodal_smooth(*args, 2, True, bc=bc)
+    assert sk.LAST_PLAN["nodal_smooth_walled"][0] == (2 if above else 1)
+    _bit_check(got, sk.nodal_smooth_plain(*args, 2, True, bc=bc), dtype)
+
+
+def _capture(fn):
+    """fn() captured in a CUDA graph that keeps its cudaGraph_t."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        out = fn()
+    return g, out
+
+
+def _smoother_calls(dtype, device, cells):
+    """{name: call} for each family at one level size."""
+    cargs, ckw = _cell_case(cells, 3, None, dtype, device, 16)
+    wargs, wkw = _cell_case(cells, 0, WALL_BCS["rt_scalar"], dtype, device,
+                            17)
+    nargs = _nodal_case(cells, NODAL_BCS["periodic"], dtype, device, 18)
+    rt = NODAL_BCS["rt"]
+    wnargs = _nodal_case(cells, rt, dtype, device, 19)
+    return {
+        "cell_smooth": lambda: sk.cell_smooth(*cargs, 2, True, **ckw),
+        "cell_smooth_walled": lambda: sk.cell_smooth(*wargs, 8, True, **wkw),
+        "nodal_smooth": lambda: sk.nodal_smooth(*nargs, 2, True),
+        "nodal_smooth_walled": lambda: sk.nodal_smooth(*wnargs, 24, True,
+                                                       bc=rt),
+    }
+
+
+@pytest.mark.parametrize("cells", [(4, 4, 8), (64, 64, 32)],
+                         ids=["resident", "grid"])
+def test_smoother_call_is_one_device_launch(cuda, cells):
+    """Captured in a CUDA graph, each wrapper call is exactly one kernel
+    node; the C entry reports one launch; replays give the eager
+    result."""
+    for name, call in _smoother_calls(torch.float32, cuda, cells).items():
+        eager = call()
+        n0 = sk.DEVICE_LAUNCHES[name]
+        g, out = _capture(call)
+        assert sk.DEVICE_LAUNCHES[name] == n0 + 2    # warm-up + capture
+        assert sk.graph_kernels(g) == 1, name
+        for _ in range(2):
+            g.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out[0], eager[0]) and torch.equal(out[1],
+                                                                 eager[1])
+
+
+def test_walled_nodal_solve_runs_through_the_kernel(cuda):
+    """A walled NodalSolver on the card smooths every level through the
+    walled nodal kernel, one device launch a call."""
+    rng = np.random.default_rng(20)
+    bc = NODAL_BCS["rt"]
+    sigma = torch.as_tensor(0.5 + rng.random((16, 16, 32)), device=cuda)
+    nod = mg.NodalSolver((1.0, 0.5, 0.25), (True, True, False), bc[0], bc[1],
+                         sigma, direct=False)
+    rhs = torch.as_tensor(rng.standard_normal((16, 16, 33)), device=cuda)
+    n0 = dict(sk.LAUNCHES)
+    d0 = dict(sk.DEVICE_LAUNCHES)
+    _, _, it = nod.solve_info(rhs)
+    calls = sk.LAUNCHES["nodal_smooth_walled"] - n0["nodal_smooth_walled"]
+    assert it > 1 and calls >= it * (2 * len(nod.levels) - 1)
+    assert sk.DEVICE_LAUNCHES["nodal_smooth_walled"] - d0[
+        "nodal_smooth_walled"] == calls
+    assert sk.LAUNCHES["nodal_smooth"] == n0["nodal_smooth"]
 
 
 # the fused 2D step: tgv2d and its variants (Crank-Nicolson, no tensor

@@ -505,6 +505,38 @@ def test_walled_nodal_solve_matches(walled_nodal_pair):
     assert float(true_res.abs().max()) <= 1e-10 * float(r.abs().max())
 
 
+def test_walled_nodal_levels_smooth_through_the_kernel_wrapper(monkeypatch):
+    """NodalSolver._smooth_res sends every 3D level, walled or periodic,
+    through smoother_kernels.nodal_smooth with the level's sides (plain on
+    the CPU, the kernel on the card): a V-cycle of a walled hierarchy
+    calls it on each level, and it still matches incflo_tpu."""
+    from incflo_torch.ops import smoother_kernels as sk
+    calls = []
+    real = sk.nodal_smooth
+
+    def counted(x, *a, bc=None, **k):
+        calls.append((tuple(x.shape), bc))
+        return real(x, *a, bc=bc, **k)
+    monkeypatch.setattr(sk, "nodal_smooth", counted)
+    periodic, lo, hi = WALLED_NODAL["rt_neumann_z"]
+    rng = np.random.default_rng(35)
+    sigma = 0.6 + 0.8 * rng.random(N)
+    js = jmg.NodalSolver(DX, periodic, lo, hi, jnp.asarray(sigma))
+    ts = tmg.NodalSolver(DX, periodic, lo, hi, torch.as_tensor(sigma))
+    rhs = tmg._zero_dirichlet(torch.as_tensor(
+        rng.standard_normal((16, 16, 9))), ts.levels[0])
+    xt, rt = ts._vcycle(torch.zeros_like(rhs), rhs, want_residual=True)
+    nlev = len(ts.levels)
+    assert len(calls) == 2 * nlev - 1
+    assert {shape for shape, _ in calls} == {
+        tuple(d.shape) for d in ts.diags}
+    assert all(bc == (lo, hi) for _, bc in calls)
+    xj, rj = jax.jit(lambda b: js._vcycle(jnp.zeros_like(b), b,
+                                          want_residual=True))(
+        jnp.asarray(rhs.numpy()))
+    assert _rel(xt, xj) <= 1e-12 and _rel(rt, rj) <= 1e-12
+
+
 # ---------------------------------------------------------------------
 # the step's three variable-coefficient solves, module by module
 # ---------------------------------------------------------------------

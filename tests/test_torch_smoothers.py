@@ -15,7 +15,10 @@ pallas_smoother.rb_sweep_3d in interpret mode (float64, 16x16x8, the BC
 triples of tests/test_pallas_smoother.py, which are periodic in x) to
 1e-12 of the field's max, and against the jnp sweep on the whole domain
 for BCs with a non-periodic x, where the Pallas kernel's black pass sees
-a stale ghost and the port, by design, does not.
+a stale ghost and the port, by design, does not.  The walled nodal
+smoother (sk.nodal_smooth with bc) against incflo_tpu's jnp loop on
+levels with walls, float64, 1e-12; its plain operator equals the
+solver's multigrid.nodal_apply bit for bit.
 """
 
 import jax.numpy as jnp
@@ -347,29 +350,93 @@ def test_walled_cell_plain_two_cell_dirichlet_axis():
     assert _rel(got.numpy(), want) <= 1e-12
 
 
-def test_walled_nodal_smooth_matches_jnp_loop():
-    """nodal_smooth_walled (plain PyTorch on either device) against the
-    jnp loop that incflo_tpu runs on a level with walls: rt's BCs, and a
-    Dirichlet side."""
-    shape = (8, 8, 16)
-    rng = np.random.RandomState(5)
+WALLED_NODAL_BCS = {
+    # rt's nodal projection: periodic x and y, Neumann z
+    "rt": ((PER, PER, NEU), (PER, PER, NEU)),
+    # a Dirichlet side (identity rows) and a non-periodic x
+    "dirichlet-side": ((NEU, PER, NEU), (DIR, PER, NEU)),
+    # walls on every axis, a different kind on each side
+    "all-walls": ((DIR, NEU, DIR), (NEU, DIR, NEU)),
+}
+
+
+def _walled_nodal_pair(bc_lo, bc_hi, shape=(8, 8, 16), seed=5):
+    """Both packages' one-level walled NodalSolvers on random sigma, and
+    x, b at the nodes (one more than cells along each walled axis)."""
+    rng = np.random.RandomState(seed)
     sigma = 0.5 + rng.rand(*shape)
-    for bc_lo, bc_hi in (((PER, PER, NEU), (PER, PER, NEU)),
-                         ((NEU, PER, NEU), (DIR, PER, NEU))):
-        periodic = tuple(b == PER for b in bc_lo)
-        nodes = tuple(n + (0 if p else 1) for n, p in zip(shape, periodic))
-        x, b = rng.randn(*nodes), rng.randn(*nodes)
-        js = jmg.NodalSolver(_dx(shape), periodic, bc_lo, bc_hi,
-                             jnp.asarray(sigma), max_levels=1)
-        ts = tmg.NodalSolver(_dx(shape), periodic, bc_lo, bc_hi,
-                             torch.as_tensor(sigma), max_levels=1,
-                             direct=False)
-        xr, rr = _jnp_nodal_loop(js, jnp.asarray(x), jnp.asarray(b), 3)
-        got, gres = ts._smooth_res(torch.as_tensor(x), torch.as_tensor(b),
-                                   0, 3, True)
-        assert got.shape == nodes
-        assert _rel(got.numpy(), xr) <= 1e-12
-        assert _rel(gres.numpy(), rr) <= 1e-12
+    periodic = tuple(b == PER for b in bc_lo)
+    nodes = tuple(n + (0 if p else 1) for n, p in zip(shape, periodic))
+    x, b = rng.randn(*nodes), rng.randn(*nodes)
+    js = jmg.NodalSolver(_dx(shape), periodic, bc_lo, bc_hi,
+                         jnp.asarray(sigma), max_levels=1)
+    ts = tmg.NodalSolver(_dx(shape), periodic, bc_lo, bc_hi,
+                         torch.as_tensor(sigma), max_levels=1, direct=False)
+    return js, ts, x, b, nodes
+
+
+@pytest.mark.parametrize("bcname", sorted(WALLED_NODAL_BCS))
+def test_walled_nodal_smooth_matches_jnp_loop(bcname):
+    """The wrapper's CPU path on a walled nodal level,
+    sk.nodal_smooth(..., bc=...), and the solver's own _smooth_res,
+    against the jnp loop that incflo_tpu runs on a level with walls."""
+    bc_lo, bc_hi = WALLED_NODAL_BCS[bcname]
+    js, ts, x, b, nodes = _walled_nodal_pair(bc_lo, bc_hi)
+    xr, rr = _jnp_nodal_loop(js, jnp.asarray(x), jnp.asarray(b), 3)
+    got, gres = sk.nodal_smooth(torch.as_tensor(x), torch.as_tensor(b),
+                                ts.sigmas[0], ts.dinvs[0], ts.levels[0].dx,
+                                3, True, bc=(bc_lo, bc_hi))
+    assert got.shape == nodes
+    assert _rel(got.numpy(), xr) <= 1e-12
+    assert _rel(gres.numpy(), rr) <= 1e-12
+    sx, sres = ts._smooth_res(torch.as_tensor(x), torch.as_tensor(b), 0, 3,
+                              True)
+    assert torch.equal(sx, got) and torch.equal(sres, gres)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bcname", sorted(WALLED_NODAL_BCS))
+def test_plain_walled_nodal_apply_is_the_solver_operator(bcname, dtype):
+    """The plain version of the walled nodal kernel repeats
+    multigrid.nodal_apply's operations bit for bit (the operator of the
+    solver's residual and of its earlier smoother), in both types."""
+    bc_lo, bc_hi = WALLED_NODAL_BCS[bcname]
+    _, ts, x, _, _ = _walled_nodal_pair(bc_lo, bc_hi, shape=(6, 4, 10))
+    lev = tmg.NodalLevel(ts.levels[0].dx, ts.levels[0].periodic, bc_lo,
+                         bc_hi, ts.sigmas[0].to(dtype)).with_stencil()
+    xt = torch.as_tensor(x, dtype=dtype)
+    want = tmg.nodal_apply(xt, lev)
+    got = sk.nodal_apply_plain(xt, ts.sigmas[0].to(dtype),
+                               sk.nodal_coefs(lev.dx), (bc_lo, bc_hi))
+    assert torch.equal(got, want)
+
+
+def test_walled_nodal_argument_checks():
+    """bc of nodal_smooth: codes, both sides of an axis, 2 cells (3 nodes)
+    on a walled axis, and sigma with one cell fewer than nodes there."""
+    nodes = torch.ones((8, 4, 7))
+    sigma = torch.ones((8, 4, 6))
+    rt = ((PER, PER, NEU), (PER, PER, NEU))
+    dx = (1.0, 1.0, 1.0)
+    x, r = sk.nodal_smooth(nodes, nodes, sigma, nodes, dx, 1, True, bc=rt)
+    assert x.shape == r.shape == nodes.shape
+    with pytest.raises(ValueError):     # sigma with as many cells as nodes
+        sk.nodal_smooth(nodes, nodes, nodes, nodes, dx, 1, True, bc=rt)
+    with pytest.raises(ValueError):     # periodic on one side only
+        sk.nodal_smooth(nodes, nodes, sigma, nodes, dx, 1, True,
+                        bc=((PER, PER, NEU), (PER, PER, PER)))
+    with pytest.raises(ValueError):     # an unknown code
+        sk.nodal_smooth(nodes, nodes, sigma, nodes, dx, 1, True,
+                        bc=((PER, PER, 3), (PER, PER, NEU)))
+    with pytest.raises(ValueError):     # a walled axis of one cell
+        two = torch.ones((8, 4, 2))
+        sk.nodal_smooth(two, two, two[..., :1], two, dx, 1, True, bc=rt)
+    with pytest.raises(NotImplementedError):    # a 2D level
+        sk.nodal_smooth(nodes[0], nodes[0], sigma[0], nodes[0], dx, 1, True,
+                        bc=rt)
+    with pytest.raises(ValueError):     # bc must name three axes
+        sk.nodal_smooth(nodes, nodes, sigma, nodes, dx, 1, True,
+                        bc=((PER, PER), (PER, PER)))
 
 
 def test_walled_cell_smooth_argument_checks():
