@@ -29,14 +29,18 @@ Phases (any failure ends the run with a non-zero exit):
              64x64x129 and 8x8x17 nodes, 2 and 24 sweeps, with and without
              the residual.  Every smoother case bit-equal in float32 and
              within 1e-13 relative in float64, and every wrapper call one
-             device launch (sk.DEVICE_LAUNCHES == sk.LAUNCHES).  Each
-             kernel and its plain version timed on the card.
+             device launch as the C entries count them at their launch
+             sites (sk.DEVICE_LAUNCHES == sk.LAUNCHES).  Each kernel and
+             its plain version timed on the card.
   2a. levels every level of the shear3d_vd and rt hierarchies at the call
              its V-cycles make there (cell 1 sweep + residual, 8 at the
              bottom; nodal 2 + residual, 24 at the bottom), f32, through
              the solvers' own _smooth_res: bit-equal to the plain version;
-             kernel ms in the regime it chooses and in the other one
-             where the level fits one CTA, plain ms, bound ms.
+             one call captured in a CUDA graph is one kernel node (the
+             measured device launches of the kernels line); kernel ms in
+             the regime it chooses and in the other one, forced, where
+             the level fits one CTA's shared memory (decided before the
+             call), plain ms, bound ms.
   2b. step2d the fused step kernel (csrc/step2d.cu, one cooperative launch
              a step) against its plain version step2d_kernels.step_plain on
              the card, tgv2d from init_state, compared after each of 3
@@ -837,17 +841,57 @@ def hierarchy_cases(mg, torch, dtype, dev):
     return out
 
 
-def plain_smooth(sk, mg, solver, li, x, b, n, want):
-    """The plain version of solver._smooth_res(x, b, li, n, want)."""
+def level_args(mg, solver, li):
+    """(coefficients, keywords) of level li as solver._smooth_res passes
+    them to its wrapper, after x, b and before nsweeps."""
     lev = solver.levels[li]
     if isinstance(solver, mg.CellSolver):
         dinvs, fhis, fwalls = solver.smoother_coefs()
-        return sk.cell_smooth_plain(x, b, solver.diags[li], dinvs[li],
-                                    fhis[li], n, want,
-                                    bc=(lev.bc_lo, lev.bc_hi),
-                                    Fwall=fwalls[li])
-    return sk.nodal_smooth_plain(x, b, solver.sigmas[li], solver.dinvs[li],
-                                 lev.dx, n, want, bc=(lev.bc_lo, lev.bc_hi))
+        return ((solver.diags[li], dinvs[li], fhis[li]),
+                dict(bc=(lev.bc_lo, lev.bc_hi), Fwall=fwalls[li]))
+    bc = tuple(tuple(0 if per else code
+                     for per, code in zip(lev.periodic, codes))
+               for codes in (lev.bc_lo, lev.bc_hi))
+    return (solver.sigmas[li], solver.dinvs[li], lev.dx), dict(bc=bc)
+
+
+# shared memory a CTA may opt in to on an H100 (compute capability 9.0)
+SMEM_OPTIN = 227 * 1024
+
+
+def resident_fits(x, cell, bc, nsweeps):
+    """Whether a level fits the resident regime's shared memory, by the
+    rule of csrc/smoothers.cu (run_cell, run_nodal): the cell iterate,
+    twice where a periodic axis is odd; the nodal iterate twice beside
+    the tiles of its smallest brick (8x8x8, balanced against the
+    level)."""
+    import math
+    isz = x.element_size()
+    if cell:
+        odd = nsweeps > 0 and any(lo == 0 and n > 1 and n % 2
+                                  for lo, n in zip(bc[0], x.shape))
+        return (2 if odd else 1) * x.numel() * isz <= SMEM_OPTIN
+    brick = [-(-n // -(-n // 8)) for n in x.shape]
+    tile = (math.prod(v + 2 for v in brick)
+            + 9 * math.prod(v + 1 for v in brick))
+    return (2 * x.numel() + tile) * isz <= SMEM_OPTIN
+
+
+def graph_launches(sk, fn):
+    """Device launches of one fn() call: the kernel nodes of a CUDA graph
+    that captured it (after a warm-up call on the capture stream)."""
+    import torch
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    n = sk.graph_kernels(g)
+    del g
+    return n
 
 
 def smooth_bytes(mg, solver, li, x, want):
@@ -866,17 +910,24 @@ def smooth_bytes(mg, solver, li, x, want):
 def phase_levels(sk, mg, torch):
     """Per-level table, f32: every level shape of the shear3d_vd and rt
     hierarchies at the call the V-cycles make there, through the solvers'
-    own _smooth_res: the kernel's time (CUDA-graph replay) in the regime
-    it chooses and, where the level fits one CTA, in the other regime;
-    the plain version's; the bound; what was launched."""
+    own _smooth_res: bit-equal to the plain version; the device launches
+    of one call, counted in a CUDA graph that captured it, must be 1; the
+    kernel's time (CUDA-graph replay) in the regime it chooses and in the
+    other one, forced, unless that is the resident regime and the level
+    does not fit its shared memory (decided before the call); the plain
+    version's time; the bound; what was launched."""
     dev = torch.device("cuda")
     rows = []
     saved = save_launches(sk)
     for deck, family, li, solver, x, b, n, want in hierarchy_cases(
             mg, torch, torch.float32, dev):
         name = family.split("/")[0]
+        cell = isinstance(solver, mg.CellSolver)
+        coefs, kw = level_args(mg, solver, li)
+        kern = sk.cell_smooth if cell else sk.nodal_smooth
+        plain_fn = sk.cell_smooth_plain if cell else sk.nodal_smooth_plain
         call = lambda: solver._smooth_res(x, b, li, n, want)
-        plain = lambda: plain_smooth(sk, mg, solver, li, x, b, n, want)
+        plain = lambda: plain_fn(x, b, *coefs, n, want, **kw)
         got, ref = call(), plain()
         if not all(torch.equal(u, v) for u, v in zip(got, ref)
                    if v is not None):
@@ -888,31 +939,55 @@ def phase_levels(sk, mg, torch):
                "call": f"{n} sweeps" + (" + residual" if want else ""),
                "regime": "resident" if plan[0] == 1 else "grid",
                "ctas": plan[1], "threads": plan[2], "held": plan[3],
+               "device_launches": graph_launches(sk, call),
                "ms": device_ms(call), "plain_ms": device_ms(plain),
                "bytes": smooth_bytes(mg, solver, li, x, want),
                "ops": count_ops(plain)}
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"])
         other = 2 if plan[0] == 1 else 1
-        sk.REGIME = other
-        try:
-            call()
-            row["other_regime_ms"] = device_ms(call)
-        except RuntimeError:          # the level does not fit one CTA
-            row["other_regime_ms"] = None
-        finally:
-            sk.REGIME = 0
+        row["other_regime_ms"] = row["other_regime_device_launches"] = None
+        if other == 2 or resident_fits(x, cell, kw["bc"], n):
+            forced = lambda: kern(x, b, *coefs, n, want, **kw,
+                                  _regime=other)
+            got = forced()
+            if sk.LAST_PLAN[name][0] != other or not all(
+                    torch.equal(u, v) for u, v in zip(got, ref)
+                    if v is not None):
+                raise AssertionError(f"{family} level {li}: the forced "
+                                     "regime differs from the plain version")
+            row["other_regime_device_launches"] = graph_launches(sk, forced)
+            row["other_regime_ms"] = device_ms(forced)
+        for k in ("device_launches", "other_regime_device_launches"):
+            if row[k] not in (1, None):
+                raise AssertionError(f"{family} level {li}: one call is "
+                                     f"{row[k]} device launches ({k})")
         rows.append(row)
         o = row["other_regime_ms"]
         print(f"[levels] {deck} {family} level {li} {row['shape']}, "
               f"{row['call']}: kernel {row['ms']:.4f} ms ({row['regime']}, "
-              f"{row['ctas']} CTAs of {row['threads']}, held {row['held']}),"
-              f" other regime " + (f"{o:.4f} ms" if o is not None else "n/a")
+              f"{row['ctas']} CTAs of {row['threads']}, held {row['held']},"
+              f" {row['device_launches']} device launch), other regime "
+              + (f"{o:.4f} ms" if o is not None else "does not fit")
               + f", plain {row['plain_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
     torch.cuda.synchronize()
     check_one_launch(sk, "levels")
     restore_launches(sk, saved)
     return rows
+
+
+def launch_keys(levels, family):
+    """The kernels line's measured device launches of a family: the most
+    over its level rows, both regimes, each one call captured in a CUDA
+    graph (phase "levels")."""
+    vals = [r[k] for r in levels if r["family"].split("/")[0] == family
+            for k in ("device_launches", "other_regime_device_launches")
+            if r[k] is not None]
+    return {"device_launches_per_call": max(vals),
+            "device_launches_calls_measured": len(vals),
+            "device_launches_measured_by": "kernel nodes of one call "
+            "captured in a CUDA graph, every level of the shear3d_vd and "
+            "rt hierarchies at the V-cycles' calls, both regimes"}
 
 
 def phase_solvers_walled(mg, torch):
@@ -1840,7 +1915,7 @@ def main(argv):
             "replaces": sk.REPLACES[k],
             "also_replaces": sk.ALSO_REPLACES[k],
             "launches": main_vd[0]["launches"][k],
-            "device_launches_per_call": 1,
+            **launch_keys(levels, k),
             "launches_per_step": main_vd[0]["per_step"][k],
             "launches_shear3d_vd": [m["launches"][k] for m in main_vd],
             "max_abs_err": r["max_abs_err"],
@@ -1861,7 +1936,7 @@ def main(argv):
         "replaces": sk.REPLACES[WALLED],
         "launches": main_rt["launches"][WALLED],
         "launches_per_step": main_rt["per_step"][WALLED],
-        "device_launches_per_call": 1,
+        **launch_keys(levels, WALLED),
         "max_abs_err": wres["max_abs_err"],
         "max_err_x_f32": wres["max_err_x_f32"], "tol_x_f32": TOL_SMOOTH_X,
         "max_err_res_f32": wres["max_err_res_f32"],
@@ -1881,7 +1956,7 @@ def main(argv):
         "replaces": sk.REPLACES[WALLED_NODAL] + " (jnp; no Pallas body)",
         "launches": main_rt["launches"][WALLED_NODAL],
         "launches_per_step": main_rt["per_step"][WALLED_NODAL],
-        "device_launches_per_call": 1,
+        **launch_keys(levels, WALLED_NODAL),
         "max_abs_err": wnres["max_abs_err"],
         "max_err_x_f32": wnres["max_err_x_f32"], "tol_x_f32": TOL_SMOOTH_X,
         "max_err_res_f32": wnres["max_err_res_f32"],

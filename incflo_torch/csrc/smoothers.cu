@@ -841,7 +841,8 @@ constexpr long long held_bytes() {
 }
 
 template <typename T, bool kWalls>
-int run_cell(CellArgs<T> a, int regime, int* plan, cudaStream_t st) {
+int run_cell(CellArgs<T> a, int regime, int* launches, int* plan,
+             cudaStream_t st) {
   const Dim& g = a.g;
   DeviceInfo d;
   int dev = 0, per_sm = 0, rc = device_info(d, dev);
@@ -868,8 +869,10 @@ int run_cell(CellArgs<T> a, int regime, int* plan, cudaStream_t st) {
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     a.keep = keep;
     cell_kernel<T, kWalls, true><<<1, threads, smem, st>>>(a);
+    if ((rc = (int)cudaGetLastError())) return rc;
+    ++*launches;
     set_plan(plan, kResident, 1, threads, keep);
-    return (int)cudaGetLastError();
+    return 0;
   }
   // grid: CTAs of 1024 threads where the level gives every SM one, else
   // of 64 to 256, enough of them to spread over the SMs
@@ -901,8 +904,9 @@ int run_cell(CellArgs<T> a, int regime, int* plan, cudaStream_t st) {
   cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(nblk), dim3(threads),
                                               args, smem, st);
   if (e != cudaSuccess) return (int)e;
+  ++*launches;
   set_plan(plan, kGrid, nblk, threads, keep);
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 // largest extent <= bmax that splits n into equal bricks but the last
@@ -929,7 +933,8 @@ void set_bricks(NodalArgs<T>& a, const int shape[3]) {
 }
 
 template <typename T>
-int run_nodal(NodalArgs<T> a, int regime, int* plan, cudaStream_t st) {
+int run_nodal(NodalArgs<T> a, int regime, int* launches, int* plan,
+              cudaStream_t st) {
   const Dim& g = a.g;
   DeviceInfo d;
   int dev = 0, per_sm = 0, rc = device_info(d, dev);
@@ -960,8 +965,10 @@ int run_nodal(NodalArgs<T> a, int regime, int* plan, cudaStream_t st) {
     if ((rc = occupancy(fn, dev, d, threads, (int)smem, per_sm))) return rc;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     nodal_kernel<T, true><<<1, threads, (int)smem, st>>>(a);
+    if ((rc = (int)cudaGetLastError())) return rc;
+    ++*launches;
     set_plan(plan, kResident, 1, threads, a.hold);
-    return (int)cudaGetLastError();
+    return 0;
   }
   // grid: of the brick shapes that give each co-resident CTA one brick,
   // the one with the most bricks; else the shape with the least tile work
@@ -1003,8 +1010,9 @@ int run_nodal(NodalArgs<T> a, int regime, int* plan, cudaStream_t st) {
   cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(best_blk), dim3(best_thr),
                                               args, best_smem, st);
   if (e != cudaSuccess) return (int)e;
+  ++*launches;
   set_plan(plan, kGrid, best_blk, best_thr, best.hold);
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 bool make_dim(int nx, int ny, int nz, int nc, Dim& g) {
@@ -1049,8 +1057,9 @@ bool check_bc(const int* bc, const Dim& g, int min_walled, bool& walls,
 // axis, and may be null on periodic axes.  `tmp` is scratch of the size
 // of x, needed when a periodic axis has an odd number of cells and
 // nsweeps > 0.  `regime`: 0 chooses (resident where one CTA's threads
-// own at most one point of each colour), 1 resident, 2 grid.
-// `launches` (required) receives the launches enqueued; `plan` (4 ints,
+// own at most one point of each colour); 1 (resident) and 2 (grid) force
+// a regime for tests and measurements.  `launches` (required) is set to
+// 0 and raised by one at each launch enqueued; `plan` (4 ints,
 // may be null) what was launched.  The caller guarantees
 // nx*ny*nz*nc < 2^31.  Returns a cudaError_t value.
 extern "C" int smoother_cell(int dtype, const void* x, const void* b,
@@ -1097,17 +1106,16 @@ extern "C" int smoother_cell(int dtype, const void* x, const void* b,
   a.keep = 0;
   if (dtype == 0) {
     CELL_ARGS(float)
-    rc = walls ? run_cell<float, true>(a, regime, plan, st)
-               : run_cell<float, false>(a, regime, plan, st);
+    rc = walls ? run_cell<float, true>(a, regime, launches, plan, st)
+               : run_cell<float, false>(a, regime, launches, plan, st);
   } else if (dtype == 1) {
     CELL_ARGS(double)
-    rc = walls ? run_cell<double, true>(a, regime, plan, st)
-               : run_cell<double, false>(a, regime, plan, st);
+    rc = walls ? run_cell<double, true>(a, regime, launches, plan, st)
+               : run_cell<double, false>(a, regime, launches, plan, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
 #undef CELL_ARGS
-  if (!rc) *launches = 1;
   return rc;
 }
 
@@ -1154,15 +1162,14 @@ extern "C" int smoother_nodal(int dtype, const void* x, const void* b,
   a.hold = 0;
   if (dtype == 0) {
     NODAL_ARGS(float)
-    rc = run_nodal<float>(a, regime, plan, st);
+    rc = run_nodal<float>(a, regime, launches, plan, st);
   } else if (dtype == 1) {
     NODAL_ARGS(double)
-    rc = run_nodal<double>(a, regime, plan, st);
+    rc = run_nodal<double>(a, regime, launches, plan, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
 #undef NODAL_ARGS
-  if (!rc) *launches = 1;
   return rc;
 }
 

@@ -69,10 +69,12 @@ versions' operation order and are built without FMA contraction, so
 kernel and plain version agree to the last bit.
 
 LAUNCHES counts the wrapper calls that launched a kernel, per family;
-DEVICE_LAUNCHES the device launches they enqueued (one each); LAST_PLAN
-what the last call of a family launched.  Every wrapper takes the plain
-version only for tensors on the CPU.  On a CUDA tensor it launches the
-kernel or raises: there is no fallback.
+DEVICE_LAUNCHES the device launches they enqueued, as the C entry counts
+them at its launch sites (one each); LAST_PLAN what the last call of a
+family launched.  A wrapper's keyword `_regime` forces the resident (1)
+or grid (2) regime, for tests and measurements only.  Every wrapper
+takes the plain version only for tensors on the CPU.  On a CUDA tensor
+it launches the kernel or raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -91,7 +93,7 @@ SOURCE = cuda_build.CSRC_DIR / "smoothers.cu"
 
 # launch counters: one per kernel family, raised by the wrapper where it
 # launches the kernel and nowhere else; DEVICE_LAUNCHES by the number of
-# device launches the C entry reports it enqueued
+# device launches the C entry counts at its launch sites
 LAUNCHES = {"cell_smooth": 0, "cell_smooth_walled": 0, "nodal_smooth": 0,
             "nodal_smooth_walled": 0}
 DEVICE_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
@@ -99,10 +101,6 @@ DEVICE_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 # per CTA, coefficient slots held per colour (cell) or 1 when every CTA
 # holds its brick (nodal))
 LAST_PLAN = {}
-
-# regime of the kernels: 0 chooses (resident up to 1024 cells or 128 nodes
-# of each colour), 1 resident, 2 grid
-REGIME = 0
 
 # TPU kernels each CUDA kernel family replaces (file:line of the Pallas
 # body): the whole-level kernel, and its x-slab tiled form for levels
@@ -428,10 +426,13 @@ def _launched(name, rc, launches, plan):
 
 
 def cell_smooth(x, b, diag, dinv, F, nsweeps: int,
-                want_residual: bool = False, bc=None, Fwall=None
+                want_residual: bool = False, bc=None, Fwall=None, *,
+                _regime: int = 0
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """`cell_smooth` kernel: nsweeps red-black sweeps (+ the residual),
-    periodic, Neumann or Dirichlet on each side of each axis."""
+    periodic, Neumann or Dirichlet on each side of each axis.  `_regime`:
+    0 lets the kernel choose by the level's size (resident up to 1024
+    cells of each colour), 1 forces resident, 2 grid."""
     walls = _check_cell(x, b, diag, dinv, F, nsweeps, bc, Fwall)
     if x.device.type == "cpu":
         return cell_smooth_plain(x, b, diag, dinv, F, nsweeps, want_residual,
@@ -456,17 +457,18 @@ def cell_smooth(x, b, diag, dinv, F, nsweeps: int,
         *(None if w is None else ptr(w) for w in planes), _bc_array(bc),
         ptr(out), None if tmp is None else ptr(tmp),
         ptr(res) if want_residual else None, *x.shape[:3], nc,
-        int(nsweeps), REGIME, ctypes.byref(launches), plan, stream(x))
+        int(nsweeps), int(_regime), ctypes.byref(launches), plan, stream(x))
     _launched("cell_smooth_walled" if walls else "cell_smooth", rc, launches,
               plan)
     return out, res
 
 
 def nodal_smooth(x, b, sigma, dinv, dx, nsweeps: int,
-                 want_residual: bool = False, bc=None
+                 want_residual: bool = False, bc=None, *, _regime: int = 0
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """`nodal_smooth` kernel: nsweeps red-black sweeps (+ the residual),
-    periodic, Neumann or Dirichlet on each side of each axis."""
+    periodic, Neumann or Dirichlet on each side of each axis.  `_regime`
+    as for cell_smooth (resident up to 128 nodes of each colour)."""
     walls = _check_nodal(x, b, sigma, dinv, dx, nsweeps, bc)
     if x.device.type == "cpu":
         return nodal_smooth_plain(x, b, sigma, dinv, dx, nsweeps,
@@ -480,8 +482,8 @@ def nodal_smooth(x, b, sigma, dinv, dx, nsweeps: int,
     rc = _lib().smoother_nodal(
         DT_CODE[x.dtype], ptr(x), ptr(b), ptr(sigma), ptr(dinv), coefs,
         _bc_array(bc), ptr(out), ptr(tmp),
-        ptr(res) if want_residual else None, *x.shape, int(nsweeps), REGIME,
-        ctypes.byref(launches), plan, stream(x))
+        ptr(res) if want_residual else None, *x.shape, int(nsweeps),
+        int(_regime), ctypes.byref(launches), plan, stream(x))
     _launched("nodal_smooth_walled" if walls else "nodal_smooth", rc,
               launches, plan)
     return out, res

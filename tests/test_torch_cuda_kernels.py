@@ -17,9 +17,10 @@ tests/test_pallas_kernels.py).  The walled cell smoother is held to the
 same limits on every level of a CellSolver hierarchy with Neumann and
 Dirichlet sides.  Since the smoothers became one launch a call, they are
 also held to bit-equality with their plain versions in float32 and to
-1e-13 relative in float64, in both regimes (REGIME forced to resident
-and to grid), on either side of the resident size, walled nodal levels
-included; and a call captured in a CUDA graph is one kernel node.  The fused step kernel: float64 1e-9 relative to each
+1e-13 relative in float64, in both regimes (the wrappers' `_regime`
+forced to resident and to grid), on either side of the resident size,
+walled nodal levels included; and a call captured in a CUDA graph is one
+kernel node.  The fused step kernel: float64 1e-9 relative to each
 field's max, float32 within rtol 1e-4 / atol 1e-5 (the bounds of
 tests/test_pallas_step2d.py): its transforms and dots sum in another
 order than cuBLAS and torch.sum, so the tensor CG may stop a trip apart
@@ -322,8 +323,7 @@ REGIMES = {"resident": 1, "grid": 2}
 
 
 @pytest.fixture(params=sorted(REGIMES))
-def regime(request, monkeypatch):
-    monkeypatch.setattr(sk, "REGIME", REGIMES[request.param])
+def regime(request):
     return REGIMES[request.param]
 
 
@@ -370,7 +370,7 @@ def test_cell_smooth_bit_equal_both_regimes(cuda, regime, dtype, shape,
     name = "cell_smooth" if bc is None else "cell_smooth_walled"
     for want in (True, False):
         n0 = sk.DEVICE_LAUNCHES[name]
-        got = sk.cell_smooth(*args, nsweeps, want, **kw)
+        got = sk.cell_smooth(*args, nsweeps, want, **kw, _regime=regime)
         torch.cuda.synchronize()
         assert sk.DEVICE_LAUNCHES[name] == n0 + 1
         assert sk.LAST_PLAN[name][0] == regime
@@ -413,7 +413,7 @@ def test_nodal_smooth_bit_equal_both_regimes(cuda, regime, dtype, cells,
     name = "nodal_smooth" if bcname == "periodic" else "nodal_smooth_walled"
     for want in (True, False):
         n0 = sk.DEVICE_LAUNCHES[name]
-        got = sk.nodal_smooth(*args, nsweeps, want, bc=bc)
+        got = sk.nodal_smooth(*args, nsweeps, want, bc=bc, _regime=regime)
         torch.cuda.synchronize()
         assert sk.DEVICE_LAUNCHES[name] == n0 + 1
         assert sk.LAST_PLAN[name][0] == regime
