@@ -86,6 +86,27 @@ Phases (any failure ends the run with a non-zero exit):
              one step2d launch a step) and the plain step
              (Simulation._advance_impl: none) in turns; the amplitude
              follows the exact Taylor-Green decay to 1e-3.
+  6. sharded the x-slab mesh of incflo_torch/parallel and the halo-slab
+             Godunov kernels (B8).  First the kernels in one process (after
+             phase 2): the shear3d n = 128 level cut into 2 slabs (nxl 64)
+             and 4 (nxl 32) from a seeded field, float32 and float64,
+             every uad_halo, predict_d_halo and advect_halo output against
+             its slab plain version and against the unsharded kernel's
+             output on the same rows, bit-equal in float32 and within
+             1e-14 relative in float64; their times at nxl 64 and 32.
+             Then shear3d n = 128 through Simulation(mesh=...) on 2
+             spawned ranks (incflo_torch.parallel.launch): NCCL with one
+             GPU a rank where the host has two, else gloo with both ranks
+             on cuda:0 (printed).  float64 init + 3 steps against the
+             1-rank step from the same start, to 1e-11 relative, with
+             equal tensor-CG iterations; float32 2 warm-up + 5 timed
+             steps, the launch counts zeroed just before them and read
+             after (1 uad_halo, 3 predict_d_halo, 3 advect_halo wrapper
+             calls per rank and step, no unsharded Godunov launch), the
+             state after 7 steps held against a 1-rank float64 run beside
+             the 1-rank float32 run (at most twice its error + 4 ulps on
+             every field); ms/step; then 3 instrumented steps that time
+             each exchange (halo, all-reduce, reduce-scatter ms/step).
 Then one JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 
@@ -1812,6 +1833,294 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
             **{k: v / steps / 1e3 for k, v in groups.items()}}
 
 
+# ---------------------------------------------------------------------
+# sharded: the x-slab mesh (incflo_torch/parallel) and the halo-slab
+# Godunov kernels (B8)
+# ---------------------------------------------------------------------
+
+HALO_KERNELS = ("uad_halo", "predict_d_halo", "advect_halo")
+# wrapper calls of the halo-slab kernels per rank and step of shear3d
+PER_STEP_HALO = {"uad_halo": 1, "predict_d_halo": 3, "advect_halo": 3}
+SHARD_RANKS = 2
+# the 2-rank sharded step against the 1-rank step from the same start:
+# float64 to 1e-11 relative to each field's max after each step, with
+# equal tensor-CG iterations.  float32 after 2 + 5 steps: each field's
+# error against the 1-rank float64 run at most twice the 1-rank float32
+# run's own error + 4 ulps (relative to the field's max).  A
+# reduce-scatter sums the x transform in another order, and in float32
+# that rounding, carried through 7 steps of direct solves, is as large as
+# the 1-rank run's own (mac_phi, a singular solve's potential, differs
+# between the two float32 runs by about 1e-3 of its max): the float64
+# witness tells rounding from a fault, as chip_smoke "step2d" does.
+TOL_SHARD_F64 = 1e-11
+TOL_SHARD_F32_FACTOR, TOL_SHARD_F32_ULPS = 2.0, 4
+SHARD_FIELDS = ("velocity", "p", "gp", "mac_phi", "dt")
+
+
+def halo_rows(full, x0, nxl, halo):
+    """Rows [x0 - halo, x0 + nxl + halo) of a whole-level array, wrapped:
+    the padded slab a rank holds after its x exchange."""
+    import torch
+    idx = torch.arange(x0 - halo, x0 + nxl + halo,
+                       device=full.device) % full.shape[0]
+    return full.index_select(0, idx).contiguous()
+
+
+def slab_grid(grid, nranks):
+    from incflo_torch.parallel.mesh import SlabGrid
+    nx = grid.n_cell[0]
+    return SlabGrid(n_cell=(nx // nranks,) + tuple(grid.n_cell[1:]),
+                    prob_lo=grid.prob_lo, prob_hi=grid.prob_hi,
+                    periodic=grid.periodic, nx_full=nx)
+
+
+def phase_halo_kernels(gk, grid_of, torch):
+    """The halo-slab kernels at the shear3d n = 128 level cut into 2 slabs
+    (nxl 64) and 4 (nxl 32), float32 and float64: every launch against
+    its slab plain version and against the unsharded kernel's output on
+    the same rows, bit-equal in float32 and within 1e-14 relative in
+    float64.  Then their times at nxl 64 and 32, f32."""
+    dev = torch.device("cuda")
+    grid = grid_of(128)
+    res = {k: {"max_abs_err": 0.0, "max_rel_err_f64": 0.0, "checked": 0}
+           for k in HALO_KERNELS}
+
+    def check(k, a, b, dtype):
+        r = res[k]
+        r["checked"] += 1
+        if dtype == torch.float32:
+            err = abs_err(a, b)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if err != 0.0:
+                raise AssertionError(f"{k}: float32 differs from its "
+                                     f"reference by {err:.3e}")
+        else:
+            err = rel_err(a, b)
+            r["max_rel_err_f64"] = max(r["max_rel_err_f64"], err)
+            if not err <= 1e-14:
+                raise AssertionError(f"{k}: float64 differs from its "
+                                     f"reference by {err:.3e} relative")
+
+    saved = dict(gk.LAUNCHES)
+    for dtype in (torch.float64, torch.float32):
+        vel, forces, q, dt = kernel_inputs(grid, dtype, dev)
+        uad = gk.uad(grid, vel, dt, True)
+        umac = [gk.predict_d(grid, vel, uad, forces, dt, d, True)
+                for d in range(3)]
+        rates = [gk.advect_comp(grid, q, n, umac, forces, dt, bool(n % 2),
+                                True) for n in range(3)]
+        mac_lo = [umac[0].narrow(0, 0, grid.n_cell[0])] + umac[1:]
+        for nranks in (2, 4):
+            slab = slab_grid(grid, nranks)
+            nxl = slab.n_cell[0]
+            for r in range(nranks):
+                x0 = r * nxl
+
+                def pad(a):
+                    return halo_rows(a, x0, nxl, gk.HALO)
+
+                def rows(a):
+                    return a.narrow(0, x0, nxl)
+
+                vel_p, f_p, q_p = pad(vel), pad(forces), pad(q)
+                uad_p = [pad(u) for u in uad]
+                mac_p = [pad(m) for m in mac_lo]
+                got = gk.uad_halo(slab, vel_p, dt, True)
+                plain = gk.uad_slab_plain(slab, vel_p, dt, True)
+                for a, b, c in zip(got, plain, uad):
+                    check("uad_halo", a, b, dtype)
+                    check("uad_halo", a, rows(c), dtype)
+                for d in range(3):
+                    got = gk.predict_d_halo(slab, vel_p, uad_p, f_p, dt, d,
+                                            True)
+                    check("predict_d_halo", got, gk.predict_d_slab_plain(
+                        slab, vel_p, uad_p, f_p[..., d], dt, d, True), dtype)
+                    check("predict_d_halo", got, rows(umac[d]), dtype)
+                for n in range(3):
+                    got = gk.advect_comp_halo(slab, q_p, n, mac_p, f_p, dt,
+                                              bool(n % 2), True)
+                    check("advect_halo", got, gk.advect_comp_slab_plain(
+                        slab, q_p[..., n], mac_p, f_p[..., n], dt,
+                        bool(n % 2), True), dtype)
+                    check("advect_halo", got, rows(rates[n]), dtype)
+    torch.cuda.synchronize()
+    for k, r in res.items():
+        print(f"[sharded] {k}: {r['checked']} outputs at 128x128x32 in 2 "
+              f"and 4 slabs equal their slab plain version and the "
+              f"unsharded kernel's rows (f32 max abs diff "
+              f"{r['max_abs_err']:.1e}, f64 max rel {r['max_rel_err_f64']:.1e})",
+              flush=True)
+
+    # times, f32, PPM, with forces, the convective form, as the sharded
+    # shear3d step calls them
+    vel, forces, q, dt = kernel_inputs(grid, torch.float32, dev)
+    uad = gk.uad_plain(grid, vel, dt, True)
+    umac = gk.predict_plain(grid, vel, forces, dt, True)
+    mac_lo = [umac[0].narrow(0, 0, grid.n_cell[0])] + umac[1:]
+    for nranks in (2, 4):
+        slab = slab_grid(grid, nranks)
+        nxl = slab.n_cell[0]
+        pad = lambda a: halo_rows(a, 0, nxl, gk.HALO)
+        vel_p, f_p = pad(vel), pad(forces)
+        uad_p = [pad(u) for u in uad]
+        mac_p = [pad(m) for m in mac_lo]
+        f0 = f_p[..., 0].contiguous()
+        m = grid.n_cell[1] * grid.n_cell[2]
+        rows_in, rows_out = nxl + 2 * gk.HALO, nxl
+        calls = {
+            "uad_halo": (lambda: gk.uad_halo(slab, vel_p, dt, True),
+                         lambda: gk.uad_slab_plain(slab, vel_p, dt, True),
+                         3, 3),
+            "predict_d_halo": (
+                lambda: gk.predict_d_halo(slab, vel_p, uad_p, f_p, dt, 0,
+                                          True),
+                lambda: gk.predict_d_slab_plain(slab, vel_p, uad_p, f0, dt,
+                                                0, True), 7, 1),
+            "advect_halo": (
+                lambda: gk.advect_comp_halo(slab, vel_p, 0, mac_p, f_p, dt,
+                                            False, True),
+                lambda: gk.advect_comp_slab_plain(slab, vel_p[..., 0], mac_p,
+                                                  f0, dt, False, True),
+                5, 1),
+        }
+        for k, (kern, plain, n_in, n_out) in calls.items():
+            t = {"ms": device_ms(kern), "plain_ms": device_ms(plain),
+                 "bytes": (n_in * rows_in + n_out * rows_out) * m * 4,
+                 "ops": count_ops(plain)}
+            t_bytes = t["bytes"] / PEAK_BYTES * 1e3
+            t_ops = t["ops"] / PEAK_OPS["float32"] * 1e3
+            t["bound_ms"] = max(t_bytes, t_ops)
+            t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            res[k][f"nxl{nxl}"] = t
+            print(f"[sharded] {k} nxl {nxl}: kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+                  f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops)",
+                  flush=True)
+    gk.LAUNCHES.update(saved)      # comparison launches do not count
+    return res
+
+
+def one_rank_steps(incflo_torch, torch, deck, nsteps):
+    """The unsharded port from init_state: the state after each step (as
+    numpy) and the tensor CG's iterations in each."""
+    from incflo_torch import state
+    from incflo_torch.ops import multigrid as mg
+    sim = incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(deck))
+    s = sim.init_state()
+    states, trips = [state.sim_to_numpy(s)], []
+    for _ in range(nsteps):
+        before = mg.COUNTS["tensor_cg_iters"]
+        s = sim.advance(s)
+        trips.append(mg.COUNTS["tensor_cg_iters"] - before)
+        states.append(state.sim_to_numpy(s))
+    torch.cuda.synchronize()
+    return states, trips
+
+
+def state_errs(a, b):
+    import numpy as np
+    return {f: float(np.abs(a[f] - b[f]).max()
+                     / max(float(np.abs(b[f]).max()), 1e-300))
+            for f in SHARD_FIELDS}
+
+
+def phase_sharded_step(incflo_torch, gk, torch, n=128, steps64=3, warm=2,
+                       steps=5, instrumented=3):
+    """shear3d n = 128 split over 2 ranks through Simulation(mesh=...):
+    float64 init + steps64 steps held to the 1-rank port step to 1e-11
+    with equal tensor-CG iterations; float32 warm + steps timed steps (the
+    halo-slab launch counts zeroed just before them) held against a
+    1-rank float64 run beside the 1-rank float32 run, then instrumented
+    steps that time each exchange."""
+    import numpy as np
+    from incflo_torch.parallel import launch
+    deck64 = shear3d_deck(n, "float64")
+    deck32 = shear3d_deck(n, "float32")
+    ref64, trips64 = one_rank_steps(incflo_torch, torch, deck64,
+                                    warm + steps)
+    trips1 = trips64[:steps64]
+    ref32, _ = one_rank_steps(incflo_torch, torch, deck32, warm + steps)
+    t0 = time.time()
+    r64 = launch.run("incflo_torch.parallel.workers:steps", SHARD_RANKS,
+                     dict(deck=deck64, nsteps=steps64), device="cuda",
+                     timeout=600)
+    r32 = launch.run("incflo_torch.parallel.workers:timed_steps",
+                     SHARD_RANKS, dict(deck=deck32, warm=warm, nsteps=steps,
+                                       instrumented=instrumented),
+                     device="cuda", timeout=600)
+    spawn_s = time.time() - t0
+    print(f"[sharded] ranks: {r32[0]['mesh']}", flush=True)
+    worst64 = {f: 0.0 for f in SHARD_FIELDS}
+    for i, (a, b) in enumerate(zip(r64[0]["states"], ref64)):
+        for f, e in state_errs(a, b).items():
+            worst64[f] = max(worst64[f], e)
+            if not e <= TOL_SHARD_F64:
+                raise AssertionError(f"sharded f64 step {i}: {f} differs "
+                                     f"from the 1-rank step by {e:.3e}")
+    for r in r64:
+        if r["cg_trips"] != trips1:
+            raise AssertionError(f"sharded f64: tensor-CG iterations "
+                                 f"{r['cg_trips']} per step, 1 rank "
+                                 f"{trips1}")
+    err32 = state_errs(r32[0]["state"], ref32[-1])
+    witness = ref64[-1]
+    own32 = state_errs(ref32[-1], witness)
+    shard32 = state_errs(r32[0]["state"], witness)
+    ulp = float(np.finfo(np.float32).eps)
+    bound32 = {f: TOL_SHARD_F32_FACTOR * own32[f] + TOL_SHARD_F32_ULPS * ulp
+               for f in SHARD_FIELDS}
+    for f in SHARD_FIELDS:
+        if not shard32[f] <= bound32[f]:
+            raise AssertionError(
+                f"sharded f32 after {warm + steps} steps: {f} is "
+                f"{shard32[f]:.3e} from the float64 run, the 1-rank f32 "
+                f"run {own32[f]:.3e} (bound {bound32[f]:.3e})")
+    vel = r32[0]["state"]["velocity"]
+    if not np.isfinite(vel).all():
+        raise AssertionError("sharded f32: non-finite velocity")
+    per_rank = []
+    for rank, r in enumerate(r32):
+        got = {k: r["launches"][k] / steps for k in HALO_KERNELS}
+        if got != PER_STEP_HALO or any(r["launches"][k]
+                                       for k in PER_STEP):
+            raise AssertionError(f"sharded rank {rank}: launches "
+                                 f"{r['launches']} in {steps} steps, "
+                                 f"expected {PER_STEP_HALO} a step")
+        per_rank.append(r["launches"])
+    ms = max(r["ms_per_step"] for r in r32)
+    comm = {k: max(r["comm"][k]["ms_per_step"] for r in r32)
+            for k in r32[0]["comm"]}
+    inst = max(r["instrumented_ms_per_step"] for r in r32)
+    print(f"[sharded] shear3d n={n} f64 over {SHARD_RANKS} ranks: init + "
+          f"{steps64} steps, worst rel err against 1 rank "
+          + ", ".join(f"{f} {e:.2e}" for f, e in worst64.items())
+          + f" (tol {TOL_SHARD_F64:g}); tensor-CG iterations {trips1} in "
+          f"both", flush=True)
+    print(f"[sharded] shear3d n={n} f32 over {SHARD_RANKS} ranks: "
+          f"{ms:.3f} ms/step over {steps} steps after {warm} warm-up "
+          f"(slowest rank); after {warm + steps} steps, rel err against "
+          "the f64 run (2 ranks / 1 rank) "
+          + ", ".join(f"{f} {shard32[f]:.2e} / {own32[f]:.2e}"
+                      for f in SHARD_FIELDS)
+          + "; against the 1-rank f32 run "
+          + ", ".join(f"{f} {e:.2e}" for f, e in err32.items())
+          + f"; per rank per step {PER_STEP_HALO} halo-slab wrapper calls "
+          f"(1 + 12 + 18 device launches); instrumented "
+          f"{inst:.3f} ms/step, of it exchanges (ms/step) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in comm.items())
+          + f"; spawns {spawn_s:.1f} s", flush=True)
+    return {"n": n, "ranks": SHARD_RANKS, "mesh": r32[0]["mesh"],
+            "ms_per_step": ms, "steps": steps, "warmup": warm,
+            "instrumented_ms_per_step": inst,
+            "comm_ms_per_step": comm,
+            "comm": r32[0]["comm"], "launches_per_rank": per_rank,
+            "f64_max_rel_err": worst64, "f64_tol": TOL_SHARD_F64,
+            "cg_trips_per_step": trips1,
+            "f32_rel_err_vs_f64": shard32,
+            "f32_one_rank_rel_err_vs_f64": own32, "f32_bound": bound32,
+            "f32_rel_err_vs_one_rank_f32": err32, "spawn_s": spawn_s}
+
+
 def card_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1850,6 +2159,7 @@ def main(argv):
           f"{torch.version.cuda}", flush=True)
     build_s = phase_build(cuda_build, [gk.SOURCE, sk.SOURCE, s2.SOURCE])
     kres = phase_kernels(gk, grid_of, torch)
+    hres = phase_halo_kernels(gk, grid_of, torch)
     sres = phase_smoothers(sk, mg, grid_of, torch)
     wres = phase_walled_smoother(sk, mg, torch)
     wnres = phase_walled_nodal(sk, mg, torch)
@@ -1884,12 +2194,14 @@ def main(argv):
     del sim, s
     main_tgv = phase_main_tgv2d(incflo_torch, (gk, sk, s2), torch, profile,
                                 s2res["ms_by_n"])
+    shard = phase_sharded_step(incflo_torch, gk, torch)
 
     # `launches` is the count over the kernel's own main path: shear3d
     # n = 128 for the Godunov kernels (their count in shear3d_vd beside
     # it), shear3d_vd from init_state for the periodic smoothers, rt for
     # the walled cell and nodal smoothers, the first fused tgv2d run at
-    # 128^2 for the fused step
+    # 128^2 for the fused step, the sharded shear3d n = 128 run (rank 0;
+    # every rank's beside it) for the halo-slab kernels
     kernels = []
     for k in PER_STEP:
         r = kres[k]
@@ -1969,6 +2281,25 @@ def main(argv):
         "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
         "bytes": fine["bytes"], "ops": fine["ops"], "library_ms": None,
         "at_8x8x17": wnres["8x8x17"]})
+    for k in HALO_KERNELS:
+        r = hres[k]
+        t = r["nxl64"]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": "incflo_torch/csrc/godunov.cu",
+            "replaces": gk.REPLACES[k] + " (per shard, with _halo_x :502)",
+            "launches": shard["launches_per_rank"][0][k],
+            "launches_per_rank": [c[k] for c in shard["launches_per_rank"]],
+            "launches_per_step": PER_STEP_HALO[k],
+            "max_abs_err": r["max_abs_err"], "tol_f32": 0.0,
+            "max_rel_err_f64": r["max_rel_err_f64"], "tol_f64": 1e-14,
+            "outputs_checked": r["checked"],
+            "shape": "shear3d 128x128x32 in 2 slabs (nxl 64, + 4 halo rows "
+                     "a side), float32",
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bytes": t["bytes"], "ops": t["ops"], "library_ms": None,
+            "at_nxl32": r["nxl32"]})
     tgv_main = main_tgv[0]
     kernels.append({
         "name": "step2d", "route": "cuda",
@@ -2003,7 +2334,7 @@ def main(argv):
     print(json.dumps({"kernels": kernels, "levels": levels,
                       "build_s": build_s,
                       "main": [main128, main256] + main_vd + [main_rt]
-                      + main_tgv,
+                      + main_tgv, "sharded": shard,
                       "seconds": time.time() - t_start}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from incflo_torch.grid import Grid
+from incflo_torch.parallel.mesh import mesh_of
 
 
 class BCType(enum.IntEnum):
@@ -194,16 +195,24 @@ def grow(field: torch.Tensor, ng, grid: Grid, bcrecs: BCRecs,
 
     `ng` is an int or per-axis sequence.  Axes are filled in order (x then
     y then z) so that later axes re-fill the corners of earlier ghosts,
-    matching AMReX filcc + physbc-functor order."""
+    matching AMReX filcc + physbc-functor order.  On an x slab of a mesh
+    (grid.mesh, parallel/mesh.py) the x ghosts come from the neighbouring
+    ranks (SlabMesh.halo_x)."""
     ndim = grid.ndim
     assert field.dim() == ndim + 1, "grow() expects a trailing component axis"
     ncomp = field.shape[-1]
     ngs = [ng] * ndim if np.isscalar(ng) else list(ng)
     pads = [0] * ndim
 
+    mesh = mesh_of(grid)
     for ax in range(ndim):
         g = ngs[ax]
         if g == 0:
+            continue
+        if ax == 0 and mesh is not None:
+            # an x slab: the periodic ghosts are the neighbours' rows
+            field = mesh.halo_x(field, g)
+            pads[ax] = g
             continue
         if grid.periodic[ax]:
             n = field.shape[ax]

@@ -17,6 +17,23 @@
 // element stride (3 for a velocity component inside (nx,ny,nz,3)); face
 // arrays are the standard (n+1)-along-own-axis tensors.  One thread per
 // cell; periodic neighbours by index arithmetic on compile-time axes.
+//
+// Halo-slab mode (Geo::halo > 0; replaces the per-shard kernel calls of
+// incflo_tpu/ops/pallas_godunov.py:predict_sharded (:525) and
+// advect_sharded (:572)): one rank's x slab of a periodic level, its
+// inputs grown by `halo` rows of each x neighbour (nxl + 2 halo rows, an
+// x face array holding the low face of each of those rows).  x does not
+// wrap: the x neighbour of row i at offset s is row i + s, clamped to the
+// padded rows.  The intermediate stages sweep every padded row; the CTU
+// chain reaches 3 cells along x (4 with the halo'd uad), so the clamped
+// values of the outermost rows feed no output.  The output stages (uad,
+// the last predict and advect stages) sweep the nxl rows of the slab
+// [halo, nxl + halo) and write (nxl, ny, nz)-shaped outputs: the x face
+// array gets the slab's nxl low faces (its high face is the right
+// neighbour's face 0), the y and z face arrays their wrap faces as in
+// the periodic mode.  y and z stay periodic.  Each output equals the
+// periodic kernels' output on the same rows bit for bit, as the same
+// operations run on the same values.
 // The floor on an H100 is memory traffic (400-550 operations per cell
 // over 6-8 fields: 3.8-5.0 us per launch at 128x128x32 f32).  The CTU
 // chain reaches 3-4 cells along every axis, so each kernel runs as a
@@ -40,24 +57,33 @@ namespace {
 constexpr int kBlock = 256;
 
 struct Geo {
-  int n[3];
+  int n[3];      // extents of the planes the stages sweep (x: padded rows
+                 // in halo-slab mode)
   double dx[3];
-  int ncell;
+  int ncell;     // n[0] n[1] n[2]
+  int halo;      // 0: x periodic; > 0: halo slab, outputs rows
+                 // [halo, n[0] - halo)
+  int nout;      // cells an output stage writes
 };
 
 struct Pos {
   int c[3];
 };
 
-// neighbour along compile-time axis AX, periodic; |s| <= 2 * n
+// neighbour along compile-time axis AX: periodic (|s| <= 2 * n), or
+// along x of a halo slab clamped to the padded rows
 template <int AX>
 __device__ __forceinline__ Pos sh(const Geo& g, Pos p, int s) {
   const int n = g.n[AX];
   int v = p.c[AX] + s;
-  v = v < 0 ? v + n : v;
-  v = v < 0 ? v + n : v;
-  v = v >= n ? v - n : v;
-  v = v >= n ? v - n : v;
+  if (AX == 0 && g.halo > 0) {
+    v = v < 0 ? 0 : (v >= n ? n - 1 : v);
+  } else {
+    v = v < 0 ? v + n : v;
+    v = v < 0 ? v + n : v;
+    v = v >= n ? v - n : v;
+    v = v >= n ? v - n : v;
+  }
   p.c[AX] = v;
   return p;
 }
@@ -94,6 +120,18 @@ __device__ __forceinline__ bool thread_cell(const Geo& g, Pos& p, int& i) {
   const int r = i / g.n[2];
   p.c[1] = r % g.n[1];
   p.c[0] = r / g.n[1];
+  return true;
+}
+
+// the output cell of an output stage's thread: p in the planes' rows, o
+// its index in the (n[0] - 2 halo, n[1], n[2]) output
+__device__ __forceinline__ bool thread_out(const Geo& g, Pos& p, int& o) {
+  o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= g.nout) return false;
+  p.c[2] = o % g.n[2];
+  const int r = o / g.n[2];
+  p.c[1] = r % g.n[1];
+  p.c[0] = r / g.n[1] + g.halo;
   return true;
 }
 
@@ -239,7 +277,7 @@ template <typename T>
 __global__ void uad_kernel(UadArgs<T> a) {
   Pos p;
   int i;
-  if (!thread_cell(a.g, p, i)) return;
+  if (!thread_out(a.g, p, i)) return;
   const T dt = *a.dt;
   static_for<0, 3>([&](auto ax) {
     constexpr int AX = decltype(ax)::value;
@@ -335,7 +373,7 @@ template <typename T, int D>
 __global__ void predict_final(PredictArgs<T> a) {
   Pos p;
   int i;
-  if (!thread_cell(a.g, p, i)) return;
+  if (!thread_out(a.g, p, i)) return;
   const T dt = *a.dt;
   const Geo& g = a.g;
   const Pos pm = sh<D>(g, p, -1);
@@ -361,11 +399,12 @@ __global__ void predict_final(PredictArgs<T> a) {
     sth = sth + T(0.5) * dt * a.force(g, p);
   }
   const T v = riemann(stl, sth);
-  a.out[face_index<D>(g, p)] = v;
-  if (p.c[D] == 0) {  // periodic face n == face 0
-    Pos pn = p;
-    pn.c[D] = g.n[D];
-    a.out[face_index<D>(g, pn)] = v;
+  Pos q = p;  // output rows
+  q.c[0] -= g.halo;
+  a.out[face_index<D>(g, q)] = v;
+  if (q.c[D] == 0 && (D != 0 || g.halo == 0)) {  // periodic face n == face 0
+    q.c[D] = g.n[D];
+    a.out[face_index<D>(g, q)] = v;
   }
 }
 
@@ -528,7 +567,7 @@ template <typename T>
 __global__ void advect_rate(AdvectArgs<T> a) {
   Pos p;
   int i;
-  if (!thread_cell(a.g, p, i)) return;
+  if (!thread_out(a.g, p, i)) return;
   const Geo& g = a.g;
   T rate = T(0);
   static_for<0, 3>([&](auto d_c) {
@@ -549,7 +588,9 @@ __global__ void advect_rate(AdvectArgs<T> a) {
 // host entries
 // ---------------------------------------------------------------------
 
-Geo make_geo(int nx, int ny, int nz, double dx0, double dx1, double dx2) {
+// nx counts the padded rows of a halo slab (halo > 0)
+Geo make_geo(int nx, int ny, int nz, double dx0, double dx1, double dx2,
+             int halo) {
   Geo g;
   g.n[0] = nx;
   g.n[1] = ny;
@@ -558,17 +599,20 @@ Geo make_geo(int nx, int ny, int nz, double dx0, double dx1, double dx2) {
   g.dx[1] = dx1;
   g.dx[2] = dx2;
   g.ncell = nx * ny * nz;
+  g.halo = halo;
+  g.nout = (nx - 2 * halo) * ny * nz;
   return g;
 }
 
-unsigned int nblocks(const Geo& g) {
-  return (unsigned int)((g.ncell + kBlock - 1) / kBlock);
-}
+enum Sweep { kPlanes, kOutput };
 
-// launch one stage, one thread per cell, on the caller's stream
+// launch one stage on the caller's stream, one thread per cell of the
+// planes (intermediate stages) or of the output (output stages)
 template <typename Args>
-int launch(void (*kernel)(Args), const Args& a, cudaStream_t st) {
-  kernel<<<nblocks(a.g), kBlock, 0, st>>>(a);
+int launch(void (*kernel)(Args), const Args& a, cudaStream_t st,
+           Sweep sweep = kPlanes) {
+  const int cells = sweep == kPlanes ? a.g.ncell : a.g.nout;
+  kernel<<<(unsigned int)((cells + kBlock - 1) / kBlock), kBlock, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -584,7 +628,7 @@ int run_uad(const void* vel, int vs, void* u0, void* u1, void* u2,
   a.out[2] = static_cast<T*>(u2);
   a.dt = static_cast<const T*>(dt);
   a.ppm = ppm != 0;
-  return launch(uad_kernel<T>, a, st);
+  return launch(uad_kernel<T>, a, st, kOutput);
 }
 
 template <typename T, int D>
@@ -592,7 +636,7 @@ int run_predict(const PredictArgs<T>& a, cudaStream_t st) {
   int rc = launch(predict_traces<T, D>, a, st);
   if (!rc) rc = launch(predict_corner<T, D>, a, st);
   if (!rc) rc = launch(predict_inter<T, D>, a, st);
-  if (!rc) rc = launch(predict_final<T, D>, a, st);
+  if (!rc) rc = launch(predict_final<T, D>, a, st, kOutput);
   return rc;
 }
 
@@ -643,19 +687,22 @@ int run_advect(const void* q, int qs, const void* m0, const void* m1,
   if (!rc) rc = launch(advect_inter<T>, a, st);
   if (!rc) rc = launch(advect_trans<T>, a, st);
   if (!rc) rc = launch(advect_faces<T>, a, st);
-  if (!rc) rc = launch(advect_rate<T>, a, st);
+  if (!rc) rc = launch(advect_rate<T>, a, st, kOutput);
   return rc;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64.  Returns a cudaError_t value.  The
-// caller guarantees ncell * stride < 2^31 (32-bit indices).
+// dtype: 0 = float32, 1 = float64.  halo: 0 for a periodic level, else
+// the x halo rows of a halo slab, whose nx counts its padded rows.
+// Returns a cudaError_t value.  The caller guarantees ncell * stride <
+// 2^31 (32-bit indices).
 extern "C" int godunov_uad(int dtype, const void* vel, int vs, void* u0,
                            void* u1, void* u2, const void* dt, int nx,
                            int ny, int nz, double dx0, double dx1,
-                           double dx2, int use_ppm, void* stream) {
-  const Geo g = make_geo(nx, ny, nz, dx0, dx1, dx2);
+                           double dx2, int halo, int use_ppm,
+                           void* stream) {
+  const Geo g = make_geo(nx, ny, nz, dx0, dx1, dx2, halo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return run_uad<float>(vel, vs, u0, u1, u2, dt, g, use_ppm, st);
   if (dtype == 1) return run_uad<double>(vel, vs, u0, u1, u2, dt, g, use_ppm, st);
@@ -667,9 +714,9 @@ extern "C" int godunov_predict_d(int dtype, int d, const void* vel, int vs,
                                  const void* u2, const void* force, int fs,
                                  void* out, void* scratch, const void* dt,
                                  int nx, int ny, int nz, double dx0,
-                                 double dx1, double dx2, int use_ppm,
-                                 void* stream) {
-  const Geo g = make_geo(nx, ny, nz, dx0, dx1, dx2);
+                                 double dx1, double dx2, int halo,
+                                 int use_ppm, void* stream) {
+  const Geo g = make_geo(nx, ny, nz, dx0, dx1, dx2, halo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d < 0 || d > 2) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
@@ -686,8 +733,9 @@ extern "C" int godunov_advect(int dtype, const void* q, int qs,
                               const void* force, int fs, void* out, int os,
                               void* scratch, const void* dt, int nx, int ny,
                               int nz, double dx0, double dx1, double dx2,
-                              int use_ppm, int icons, void* stream) {
-  const Geo g = make_geo(nx, ny, nz, dx0, dx1, dx2);
+                              int halo, int use_ppm, int icons,
+                              void* stream) {
+  const Geo g = make_geo(nx, ny, nz, dx0, dx1, dx2, halo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run_advect<float>(q, qs, m0, m1, m2, force, fs, out, os, scratch,

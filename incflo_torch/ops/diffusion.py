@@ -18,6 +18,10 @@ reference DiffusionTensorOp, src/diffusion/*.cpp):
                      tangential ones): one scalar solve per component.
   diffuse_scalar   : (rho - dt div(mu_s grad)) s = rho s* per tracer.
 
+On an x slab of a mesh (grid.mesh, parallel/mesh.py) the operators pad
+x from the neighbouring ranks and the CG's dots and norms are global, so
+each loop test decides on the whole level's residual.
+
 The EB forms (ROADMAP A11) are not ported yet.
 """
 
@@ -34,6 +38,7 @@ from incflo_torch.grid import Grid
 from incflo_torch.ops import multigrid as mg
 from incflo_torch.ops import spectral
 from incflo_torch.ops.stencil import window
+from incflo_torch.parallel.mesh import mesh_of
 
 
 # ---------------------------------------------------------------------
@@ -155,7 +160,8 @@ def compute_laps(tracer: torch.Tensor, eta_faces_per_comp,
     for n in range(tracer.shape[-1]):
         lev = mg.CellLevel(grid.dx, tuple(bc_lo), tuple(bc_hi),
                            alpha=0.0, beta=1.0, acoef=None,
-                           bcoef=tuple(eta_faces_per_comp[n]))
+                           bcoef=tuple(eta_faces_per_comp[n]),
+                           mesh=mesh_of(grid))
         # L = -div(mu grad); laps = -L
         out.append(-mg.cell_apply_inhom(
             tracer[..., n], lev,
@@ -177,7 +183,7 @@ def compute_divtau(vel: torch.Tensor, vel_g: torch.Tensor,
         bc_lo, bc_hi = velocity_solver_bc(cfg, c)
         lev = mg.CellLevel(grid.dx, tuple(bc_lo), tuple(bc_hi),
                            alpha=0.0, beta=1.0, acoef=None,
-                           bcoef=tuple(eta_faces))
+                           bcoef=tuple(eta_faces), mesh=mesh_of(grid))
         lap = -mg.cell_apply_inhom(vel[..., c], lev,
                                    velocity_bvals(cfg, c, vel.dtype,
                                                   vel.device))
@@ -232,8 +238,9 @@ def _transpose_term(vel_g: torch.Tensor, eta_g1: torch.Tensor, grid: Grid,
 # implicit solves
 # ---------------------------------------------------------------------
 
-def _dot(a, b):
-    return torch.sum(a * b)
+def _dot(a, b, mesh=None):
+    d = torch.sum(a * b)
+    return d if mesh is None else mesh.all_reduce_sum(d)
 
 
 def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
@@ -259,6 +266,7 @@ def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
     failed to improve it, so a converged solve stops changing."""
     lev0 = solver.levels[0]
     ndim = grid.ndim
+    mesh = mesh_of(grid)
 
     def _cross(ug):
         return _transpose_term(ug, eta_g1, grid, ng, cross_only=True)
@@ -280,57 +288,66 @@ def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
             return spectral.solve(sym, r, lev0.alpha, lev0.beta, False)
         return solver._vcycle(torch.zeros_like(r), r)[0]
 
+    def dot(a, b):
+        return _dot(a, b, mesh)
+
+    def norm(r):
+        return mg._maxnorm(r, mesh)
+
     r0 = residual(x0)
-    res0 = mg._maxnorm(r0)
+    res0 = norm(r0)
     if fixed_trips is not None:
-        xb, rb = _fixed_trip_cg(x0, r0, res0, tol, A_lin, prec, fixed_trips)
+        xb, rb = _fixed_trip_cg(x0, r0, res0, tol, A_lin, prec, fixed_trips,
+                                dot, norm)
         return (xb, rb) if with_res else xb
     if not mg.host_bool(res0 > tol):
         return (x0, res0) if with_res else x0
     x, r = x0, r0
     p = prec(r0)
-    rz = _dot(r0, p)
+    rz = dot(r0, p)
     xb, rb = x0, res0
     bad = torch.zeros((), dtype=torch.int32, device=x0.device)
     it = 0
     while it < maxiter and mg.host_bool((rb > tol) & (bad < 5)):
         Ap = A_lin(p)
-        denom = _dot(p, Ap)
+        denom = dot(p, Ap)
         alpha = rz / torch.where(denom == 0, 1.0, denom)
         x = x + alpha * p
         r = r - alpha * Ap
         z = prec(r)
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / torch.where(rz == 0, 1.0, rz)
         p = z + beta * p
         rz = rz_new
-        new_res = mg._maxnorm(r)
+        new_res = norm(r)
         improved = new_res < 0.999 * rb
         xb = torch.where(improved, x, xb)
         rb = torch.minimum(rb, new_res)
         bad = torch.where(improved, 0, bad + 1)
         it += 1
+    mg.COUNTS["tensor_cg_iters"] += it
     return (xb, rb) if with_res else xb
 
 
-def _fixed_trip_cg(x0, r0, res0, tol, A_lin, prec, trips):
+def _fixed_trip_cg(x0, r0, res0, tol, A_lin, prec, trips, dot=_dot,
+                   norm=mg._maxnorm):
     """(best iterate, best residual) of `trips` masked CG trips."""
     x, r, p = x0, r0, prec(r0)
-    rz = _dot(r0, p)
+    rz = dot(r0, p)
     xb, rb = x0, res0
     bad = torch.zeros((), dtype=torch.int32, device=x0.device)
     for _ in range(trips):
         live = (rb > tol) & (bad < 5)
         Ap = A_lin(p)
-        denom = _dot(p, Ap)
+        denom = dot(p, Ap)
         alpha = rz / torch.where(denom == 0, 1.0, denom)
         xn = x + alpha * p
         rn = r - alpha * Ap
         z = prec(rn)
-        rzn = _dot(rn, z)
+        rzn = dot(rn, z)
         beta = rzn / torch.where(rz == 0, 1.0, rz)
         pn = z + beta * p
-        new_res = mg._maxnorm(rn)
+        new_res = norm(rn)
         improved = new_res < 0.999 * rb
         xb = torch.where(live & improved, xn, xb)
         x = torch.where(live, xn, x)
@@ -417,8 +434,9 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
                              atol=cfg.tensor_mg_atol,
                              maxiter=cfg.tensor_mg_maxiter, presmooth=4)
     if tensor:
-        cg_tol = torch.clamp_min(cfg.tensor_mg_rtol * mg._maxnorm(rhs),
-                                 cfg.tensor_mg_atol)
+        cg_tol = torch.clamp_min(
+            cfg.tensor_mg_rtol * mg._maxnorm(rhs, mesh_of(grid)),
+            cfg.tensor_mg_atol)
         out = _tensor_pcg(out, rhs, bvals, solver, dt_diff, eta_g1, grid,
                           ng, grow_fn, grow_hom_fn, tol=cg_tol,
                           maxiter=cfg.tensor_mg_maxiter,

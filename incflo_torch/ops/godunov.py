@@ -11,8 +11,11 @@ plain PyTorch versions on the CPU).  A grid with a non-periodic axis
 takes the wall forms of the plain versions (ops/godunov_walls.py) on
 either device, as incflo_tpu runs such grids through its jnp Godunov and
 not through its Pallas kernels: the choice is made here, by the grid's
-periodicity alone.  2D, use_forces_in_trans and the
-use_mac_phi_in_godunov warm start wait for ROADMAP A8 and raise.
+periodicity alone.  On an x slab of a mesh (grid.mesh) both take the
+halo-slab forms, predict_sharded and advect_sharded, as
+incflo_tpu/ops/godunov.py:482-491 and :657-667 dispatch to
+pallas_godunov's.  2D, use_forces_in_trans and the use_mac_phi_in_godunov
+warm start wait for ROADMAP A8 and raise.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from incflo_torch.grid import Grid
 from incflo_torch.ops import godunov_kernels as gk
 from incflo_torch.ops.stencil import inner
+from incflo_torch.parallel.mesh import mesh_of
 
 
 class GodunovScheme:
@@ -59,6 +63,9 @@ class GodunovScheme:
         vel = inner(vel_g, ng, self.nd)
         forces = inner(forces_g, 1, self.nd) if forces_g is not None \
             else None
+        if mesh_of(self.grid) is not None:
+            return gk.predict_sharded(self.grid, vel, forces, dt,
+                                      self.use_ppm)
         return gk.predict(self.grid, vel, forces, dt, self.use_ppm)
 
     def advect(self, q_g: torch.Tensor, umac: Sequence[torch.Tensor],
@@ -76,5 +83,9 @@ class GodunovScheme:
         q = inner(q_g, ng, self.nd)
         forces = inner(forces_g, 1, self.nd) if forces_g is not None \
             else None
-        return gk.advect(self.grid, q, umac, forces, dt,
-                         tuple(int(i) for i in iconserv), self.use_ppm)
+        iconserv = tuple(int(i) for i in iconserv)
+        if mesh_of(self.grid) is not None:
+            return gk.advect_sharded(self.grid, q, umac, forces, dt,
+                                     iconserv, self.use_ppm)
+        return gk.advect(self.grid, q, umac, forces, dt, iconserv,
+                         self.use_ppm)

@@ -47,6 +47,21 @@ shared-memory tiles is later work.  The TPU-only parts of the Pallas
 design (merged (y,z) lane layout, x-slab DMA, the 4-launch split forced
 by 16 MB of VMEM, the m % 128 == 0 scope rule) do not carry over.
 
+Halo-slab kernels (B8: pallas_godunov.py:predict_sharded (:525),
+advect_sharded (:572) and _halo_x (:502)).  On a level split along x
+over the ranks of a SlabMesh (incflo_torch/parallel/mesh.py), each rank
+runs the same three kernels in the halo-slab mode of csrc/godunov.cu on
+its (nxl + 2 HALO)-row slab after a HALO-row x exchange with its
+neighbours: uad_halo, predict_d_halo and advect_comp_halo, whose plain
+versions uad_slab_plain, predict_d_slab_plain and advect_comp_slab_plain
+run the periodic algebra above on the padded rows (their x neighbours
+wrap inside the padded slab, which only the outermost rows see; no output
+row reads those).  predict_sharded and advect_sharded are the per-rank
+schedule of the reference: halo the velocity, uad on the slab, halo uad,
+predict_d three times; halo q, the MAC velocities and the forces, then
+advect each component.  Every output row equals the unsharded kernel's
+(and the unsharded plain version's) on the same row bit for bit.
+
 Every wrapper takes the plain version only for tensors on the CPU.  On
 a CUDA tensor it launches the kernel or raises: outside the kernels'
 scope (not 3D, not fully periodic, use_forces_in_trans, a dtype other
@@ -80,15 +95,23 @@ SMALL_VEL = 1.0e-8          # reference incflo_godunov_ppm.H:16
 
 SOURCE = cuda_build.CSRC_DIR / "godunov.cu"
 
-# launch counters: one per kernel, raised by the wrapper where it
-# launches the kernel and nowhere else
-LAUNCHES = {"uad": 0, "predict_d": 0, "advect": 0}
+# x halo rows of a slab (pallas_godunov.HALO): the CTU chain's reach
+HALO = 4
 
-# TPU kernel each CUDA kernel replaces (file:line of the Pallas body)
+# launch counters: one per kernel, raised by the wrapper where it
+# launches the kernel and nowhere else; *_halo count the halo-slab mode
+LAUNCHES = {"uad": 0, "predict_d": 0, "advect": 0,
+            "uad_halo": 0, "predict_d_halo": 0, "advect_halo": 0}
+
+# TPU kernel each CUDA kernel replaces (file:line of the Pallas body; the
+# halo-slab mode: of the sharded wrapper that runs it per shard)
 REPLACES = {
     "uad": "incflo_tpu/ops/pallas_godunov.py:195",
     "predict_d": "incflo_tpu/ops/pallas_godunov.py:210",
     "advect": "incflo_tpu/ops/pallas_godunov.py:264",
+    "uad_halo": "incflo_tpu/ops/pallas_godunov.py:525",
+    "predict_d_halo": "incflo_tpu/ops/pallas_godunov.py:525",
+    "advect_halo": "incflo_tpu/ops/pallas_godunov.py:572",
 }
 
 # scratch planes each kernel's stages keep (cell-shaped; the layouts
@@ -109,6 +132,13 @@ def reset_launches() -> None:
 def _sh(a, ax, s):
     """a(idx + s e_ax), periodic."""
     return a if s == 0 else torch.roll(a, -s, dims=ax)
+
+
+def _div(a, c):
+    """a / c for a Python float c, as the kernels divide: PyTorch divides
+    a CUDA tensor by a Python float as a product with its reciprocal,
+    which rounds differently; by a 0-d tensor it divides."""
+    return a / torch.full((), c, dtype=a.dtype, device=a.device)
 
 
 def _van_leer(a, b, c):
@@ -203,7 +233,7 @@ def uad_plain(grid: Grid, vel, dt, use_ppm: bool) -> List[torch.Tensor]:
     out = []
     for ax in range(3):
         v = vel[..., ax]
-        Im, Ip = _traces(v, ax, v, v, dt / grid.dx[ax], use_ppm)
+        Im, Ip = _traces(v, ax, v, v, _div(dt, grid.dx[ax]), use_ppm)
         out.append(_riemann(_sh(Ip, ax, -1), Im))
     return out
 
@@ -216,7 +246,7 @@ def predict_d_plain(grid: Grid, vel, uad, force_d, dt, d: int,
     comp = [vel[..., c] for c in range(3)]
     xlo, xhi, edge = {}, {}, {}
     for ax in range(3):
-        Im, Ip = _traces(comp[d], ax, comp[ax], comp[ax], dt / dx[ax],
+        Im, Ip = _traces(comp[d], ax, comp[ax], comp[ax], _div(dt, dx[ax]),
                          use_ppm)
         xlo[ax] = _sh(Ip, ax, -1)
         xhi[ax] = Im
@@ -224,11 +254,11 @@ def predict_d_plain(grid: Grid, vel, uad, force_d, dt, d: int,
     stl, sth = xlo[d], xhi[d]
     for t in (a for a in range(3) if a != d):
         o = 3 - d - t
-        corr_o = (dt / (6.0 * dx[o]) * (_sh(uad[o], o, 1) + uad[o])
+        corr_o = (_div(dt, 6.0 * dx[o]) * (_sh(uad[o], o, 1) + uad[o])
                   * (_sh(edge[o], o, 1) - edge[o]))
         inter = _upwind(xlo[t] - _sh(corr_o, t, -1), xhi[t] - corr_o,
                         uad[t])
-        corr_t = (dt / (4.0 * dx[t]) * (_sh(uad[t], t, 1) + uad[t])
+        corr_t = (_div(dt, 4.0 * dx[t]) * (_sh(uad[t], t, 1) + uad[t])
                   * (_sh(inter, t, 1) - inter))
         stl = stl - _sh(corr_t, d, -1)
         sth = sth - corr_t
@@ -246,7 +276,8 @@ def advect_comp_plain(grid: Grid, q, umac, force_q, dt, icons: bool,
     mac_hi = [_sh(mac[ax], ax, 1) for ax in range(3)]
     xlo, xhi, edge = {}, {}, {}
     for ax in range(3):
-        Im, Ip = _traces(q, ax, mac[ax], mac_hi[ax], dt / dx[ax], use_ppm)
+        Im, Ip = _traces(q, ax, mac[ax], mac_hi[ax], _div(dt, dx[ax]),
+                         use_ppm)
         xlo[ax] = _sh(Ip, ax, -1)
         xhi[ax] = Im
         edge[ax] = _upwind(xlo[ax], xhi[ax], mac[ax])
@@ -257,21 +288,21 @@ def advect_comp_plain(grid: Grid, q, umac, force_q, dt, icons: bool,
             o = 3 - d - t
             e_lo, e_hi = edge[o], _sh(edge[o], o, 1)
             if icons:
-                corr_o = (dt / (3.0 * dx[o])
+                corr_o = (_div(dt, 3.0 * dx[o])
                           * ((e_hi * mac_hi[o] - e_lo * mac[o])
                              - q * (mac_hi[o] - mac[o])))
             else:
-                corr_o = (dt / (6.0 * dx[o])
+                corr_o = (_div(dt, 6.0 * dx[o])
                           * (mac_hi[o] + mac[o]) * (e_hi - e_lo))
             inter = _upwind(xlo[t] - _sh(corr_o, t, -1), xhi[t] - corr_o,
                             mac[t])
             i_hi = _sh(inter, t, 1)
             if icons:
-                corr_t = (dt / (2.0 * dx[t])
+                corr_t = (_div(dt, 2.0 * dx[t])
                           * ((i_hi * mac_hi[t] - inter * mac[t])
                              - q * (mac_hi[t] - mac[t])))
             else:
-                corr_t = (dt / (4.0 * dx[t])
+                corr_t = (_div(dt, 4.0 * dx[t])
                           * (mac_hi[t] + mac[t]) * (i_hi - inter))
             stl = stl - _sh(corr_t, d, -1)
             sth = sth - corr_t
@@ -281,9 +312,9 @@ def advect_comp_plain(grid: Grid, q, umac, force_q, dt, icons: bool,
         qf = _upwind(stl, sth, mac[d])
         qf_hi = _sh(qf, d, 1)
         if icons:
-            term = (mac[d] * qf - mac_hi[d] * qf_hi) / dx[d]
+            term = _div(mac[d] * qf - mac_hi[d] * qf_hi, dx[d])
         else:
-            term = 0.5 * (mac[d] + mac_hi[d]) * (qf - qf_hi) / dx[d]
+            term = _div(0.5 * (mac[d] + mac_hi[d]) * (qf - qf_hi), dx[d])
         rate = term if rate is None else rate + term
     return rate
 
@@ -369,10 +400,10 @@ def _dt_tensor(dt, like):
     return torch.tensor(dt, dtype=like.dtype, device=like.device)
 
 
-def _check_index_range(grid, ncomp):
+def _check_index_range(cells, ncomp):
     """The kernels index with 32-bit integers."""
     n = 1
-    for m in grid.n_cell:
+    for m in cells:
         n *= m + 1
     if n * max(ncomp, 1) >= 2 ** 31:
         raise ValueError(f"grid {grid.n_cell} x {ncomp} components is too "
@@ -406,7 +437,7 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load(SOURCE)
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        geo = [I, I, I, D, D, D]
+        geo = [I, I, I, D, D, D, I]
         lib.godunov_uad.argtypes = [I, P, I, P, P, P, P] + geo + [I, P]
         lib.godunov_predict_d.argtypes = (
             [I, I, P, I, P, P, P, P, I, P, P, P] + geo + [I, P])
@@ -419,13 +450,97 @@ def _lib():
     return _LIB
 
 
-def _geo(grid):
-    return (*grid.n_cell, *(float(d) for d in grid.dx))
+def _geo(grid, halo=0):
+    """(nx, ny, nz, dx, dy, dz, halo) of the C entries: a halo slab
+    passes its padded rows."""
+    n = (grid.n_cell[0] + 2 * halo,) + tuple(grid.n_cell[1:])
+    return (*n, *(float(d) for d in grid.dx), halo)
 
 
 # ---------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------
+
+def _padded(grid, halo):
+    """Cell extents of the arrays a kernel reads: the slab's rows and
+    `halo` rows of each x neighbour."""
+    return (grid.n_cell[0] + 2 * halo,) + tuple(grid.n_cell[1:])
+
+
+def _face_shape(cells, ax, halo):
+    """A face array along ax: n+1 faces on its own axis, but a halo
+    slab's x faces are the low faces of its rows."""
+    own = 0 if (halo and ax == 0) else 1
+    return tuple(m + (own if a == ax else 0) for a, m in enumerate(cells))
+
+
+def _launch_uad(grid, vel, dt, use_ppm, halo, key):
+    pn = _padded(grid, halo)
+    _check_index_range(pn, 3)
+    vel = _cuda_checked("vel", vel, pn + (3,), vel.dtype, vel.device)
+    out = [torch.empty(grid.n_cell, dtype=vel.dtype, device=vel.device)
+           for _ in range(3)]
+    rc = _lib().godunov_uad(_DT_CODE[vel.dtype], _ptr(vel), 3,
+                            *(_ptr(u) for u in out), _ptr(dt),
+                            *_geo(grid, halo), int(use_ppm), _stream(vel))
+    check_rc(key, rc)
+    LAUNCHES[key] += 1
+    return out
+
+
+def _launch_predict_d(grid, vel, uad_faces, forces, dt, d, use_ppm, halo,
+                      key):
+    dev, dty = vel.device, vel.dtype
+    pn = _padded(grid, halo)
+    _check_index_range(pn, 3)
+    vel = _cuda_checked("vel", vel, pn + (3,), dty, dev)
+    uad_faces = [_cuda_checked("uad", u, pn, dty, dev) for u in uad_faces]
+    if forces is not None:
+        forces = _cuda_checked("forces", forces, pn + (3,), dty, dev)
+    out = torch.empty(_face_shape(grid.n_cell, d, halo), dtype=dty,
+                      device=dev)
+    scratch = torch.empty((_SCRATCH["predict_d"],) + pn, dtype=dty,
+                          device=dev)
+    fptr = _ptr(forces, d) if forces is not None else None
+    rc = _lib().godunov_predict_d(_DT_CODE[dty], d, _ptr(vel), 3,
+                                  *(_ptr(u) for u in uad_faces), fptr, 3,
+                                  _ptr(out), _ptr(scratch), _ptr(dt),
+                                  *_geo(grid, halo), int(use_ppm),
+                                  _stream(vel))
+    check_rc(key, rc)
+    LAUNCHES[key] += 1
+    return out
+
+
+def _launch_advect(grid, q, n, umac, forces, dt, icons, use_ppm, out, halo,
+                   key):
+    dev, dty = q.device, q.dtype
+    ncomp = q.shape[-1]
+    pn = _padded(grid, halo)
+    _check_index_range(pn, ncomp)
+    q = _cuda_checked("q", q, pn + (ncomp,), dty, dev)
+    mac = [_cuda_checked(f"umac[{ax}]", umac[ax], _face_shape(pn, ax, halo),
+                         dty, dev) for ax in range(3)]
+    if forces is not None:
+        forces = _cuda_checked("forces", forces, pn + (ncomp,), dty, dev)
+    shape = tuple(grid.n_cell) + (ncomp,)
+    if out is None:
+        out = torch.empty(shape, dtype=dty, device=dev)
+    elif not (out.is_contiguous() and tuple(out.shape) == shape
+              and out.dtype == dty and out.device == dev):
+        raise ValueError(f"{key}: `out` must be a contiguous {dty} tensor "
+                         f"of shape {shape} on {dev}")
+    scratch = torch.empty((_SCRATCH["advect"],) + pn, dtype=dty, device=dev)
+    fptr = _ptr(forces, n) if forces is not None else None
+    rc = _lib().godunov_advect(_DT_CODE[dty], _ptr(q, n), ncomp,
+                               *(_ptr(m) for m in mac), fptr, ncomp,
+                               _ptr(out, n), ncomp, _ptr(scratch), _ptr(dt),
+                               *_geo(grid, halo), int(use_ppm), int(icons),
+                               _stream(q))
+    check_rc(key, rc)
+    LAUNCHES[key] += 1
+    return out[..., n]
+
 
 def uad(grid: Grid, vel, dt, use_ppm: bool) -> List[torch.Tensor]:
     """`uad` kernel: the three transverse face velocities, cell-shaped."""
@@ -433,17 +548,7 @@ def uad(grid: Grid, vel, dt, use_ppm: bool) -> List[torch.Tensor]:
     dt = _dt_tensor(dt, vel)
     if vel.device.type == "cpu":
         return uad_plain(grid, vel, dt, use_ppm)
-    _check_index_range(grid, 3)
-    vel = _cuda_checked("vel", vel, grid.n_cell + (3,), vel.dtype,
-                        vel.device)
-    out = [torch.empty(grid.n_cell, dtype=vel.dtype, device=vel.device)
-           for _ in range(3)]
-    rc = _lib().godunov_uad(_DT_CODE[vel.dtype], _ptr(vel), 3,
-                            *(_ptr(u) for u in out), _ptr(dt), *_geo(grid),
-                            int(use_ppm), _stream(vel))
-    check_rc("uad", rc)
-    LAUNCHES["uad"] += 1
-    return out
+    return _launch_uad(grid, vel, dt, use_ppm, 0, "uad")
 
 
 def predict_d(grid: Grid, vel, uad_faces, forces, dt, d: int,
@@ -456,26 +561,8 @@ def predict_d(grid: Grid, vel, uad_faces, forces, dt, d: int,
         return predict_d_plain(grid, vel, uad_faces,
                                None if forces is None else forces[..., d],
                                dt, d, use_ppm)
-    dev, dty = vel.device, vel.dtype
-    _check_index_range(grid, 3)
-    vel = _cuda_checked("vel", vel, grid.n_cell + (3,), dty, dev)
-    uad_faces = [_cuda_checked("uad", u, grid.n_cell, dty, dev)
-                 for u in uad_faces]
-    if forces is not None:
-        forces = _cuda_checked("forces", forces, grid.n_cell + (3,), dty,
-                               dev)
-    shape = tuple(n + (1 if a == d else 0) for a, n in enumerate(grid.n_cell))
-    out = torch.empty(shape, dtype=dty, device=dev)
-    scratch = torch.empty((_SCRATCH["predict_d"],) + grid.n_cell,
-                          dtype=dty, device=dev)
-    fptr = _ptr(forces, d) if forces is not None else None
-    rc = _lib().godunov_predict_d(_DT_CODE[dty], d, _ptr(vel), 3,
-                                  *(_ptr(u) for u in uad_faces), fptr, 3,
-                                  _ptr(out), _ptr(scratch), _ptr(dt),
-                                  *_geo(grid), int(use_ppm), _stream(vel))
-    check_rc("predict_d", rc)
-    LAUNCHES["predict_d"] += 1
-    return out
+    return _launch_predict_d(grid, vel, uad_faces, forces, dt, d, use_ppm,
+                             0, "predict_d")
 
 
 def advect_comp(grid: Grid, q, n: int, umac, forces, dt, icons: bool,
@@ -492,35 +579,155 @@ def advect_comp(grid: Grid, q, n: int, umac, forces, dt, icons: bool,
         if out is not None:
             out[..., n] = r
         return r
-    dev, dty = q.device, q.dtype
-    ncomp = q.shape[-1]
-    _check_index_range(grid, ncomp)
-    q = _cuda_checked("q", q, grid.n_cell + (ncomp,), dty, dev)
-    mac = []
-    for ax in range(3):
-        shape = tuple(m + (1 if a == ax else 0)
-                      for a, m in enumerate(grid.n_cell))
-        mac.append(_cuda_checked(f"umac[{ax}]", umac[ax], shape, dty, dev))
+    return _launch_advect(grid, q, n, umac, forces, dt, icons, use_ppm, out,
+                          0, "advect")
+
+
+# ---------------------------------------------------------------------
+# the halo-slab kernels (B8) and their plain versions.  `grid` is the
+# slab's geometry: n_cell its cells (nxl along x), dx the level's (a
+# parallel.mesh.SlabGrid).  The inputs carry HALO extra x rows on each
+# side; an x face array holds the low face of each of its rows.
+# ---------------------------------------------------------------------
+
+class _Rows:
+    """The padded rows of a slab as a periodic grid of the plain
+    versions, which read only n_cell and dx."""
+
+    def __init__(self, grid):
+        self.n_cell = _padded(grid, HALO)
+        self.dx = tuple(grid.dx)
+
+
+def _slab_rows(a, grid):
+    return a.narrow(0, HALO, grid.n_cell[0])
+
+
+def uad_slab_plain(grid, vel_p, dt, use_ppm: bool) -> List[torch.Tensor]:
+    """Plain version of `uad_halo`: uad_plain on the padded rows, the
+    slab's rows kept."""
+    return [_slab_rows(u, grid)
+            for u in uad_plain(_Rows(grid), vel_p, dt, use_ppm)]
+
+
+def predict_d_slab_plain(grid, vel_p, uad_p, force_p, dt, d: int,
+                         use_ppm: bool) -> torch.Tensor:
+    """Plain version of `predict_d_halo` (force_p: component d or
+    None): the slab's rows of predict_d_plain on the padded rows."""
+    return _slab_rows(predict_d_plain(_Rows(grid), vel_p, uad_p, force_p,
+                                      dt, d, use_ppm), grid)
+
+
+def advect_comp_slab_plain(grid, q_p, mac_p, force_p, dt, icons: bool,
+                           use_ppm: bool) -> torch.Tensor:
+    """Plain version of `advect_comp_halo` on one component's padded
+    plane q_p (force_p likewise or None)."""
+    return _slab_rows(advect_comp_plain(_Rows(grid), q_p, mac_p, force_p,
+                                        dt, icons, use_ppm), grid)
+
+
+def _check_slab(grid, field):
+    if grid.ndim != 3 or not all(grid.periodic):
+        raise NotImplementedError(
+            "the halo-slab Godunov kernels cover x slabs of 3D fully "
+            "periodic levels; other sharded decks come with ROADMAP A14")
+    if field.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"Godunov kernels take float32/float64, got "
+                        f"{field.dtype}")
+    if tuple(field.shape[:3]) != _padded(grid, HALO):
+        raise ValueError(f"halo slab shape {tuple(field.shape)} is not the "
+                         f"slab {grid.n_cell} grown by {HALO} x rows a side")
+
+
+def uad_halo(grid, vel_p, dt, use_ppm: bool) -> List[torch.Tensor]:
+    """`uad` in the halo-slab mode: vel_p (nxl + 2 HALO, ny, nz, 3) ->
+    the three (nxl, ny, nz) face arrays of the slab's rows."""
+    _check_slab(grid, vel_p)
+    dt = _dt_tensor(dt, vel_p)
+    if vel_p.device.type == "cpu":
+        return uad_slab_plain(grid, vel_p, dt, use_ppm)
+    return _launch_uad(grid, vel_p, dt, use_ppm, HALO, "uad_halo")
+
+
+def predict_d_halo(grid, vel_p, uad_p, forces_p, dt, d: int,
+                   use_ppm: bool) -> torch.Tensor:
+    """`predict_d` in the halo-slab mode: padded velocity, uad and forces
+    (all components, or None) -> the MAC velocity of direction d on the
+    slab's rows: x faces (nxl, ny, nz), the slab's low faces; y and z
+    faces with their wrap face."""
+    _check_slab(grid, vel_p)
+    dt = _dt_tensor(dt, vel_p)
+    if vel_p.device.type == "cpu":
+        return predict_d_slab_plain(
+            grid, vel_p, uad_p, None if forces_p is None else forces_p[..., d],
+            dt, d, use_ppm)
+    return _launch_predict_d(grid, vel_p, uad_p, forces_p, dt, d, use_ppm,
+                             HALO, "predict_d_halo")
+
+
+def advect_comp_halo(grid, q_p, n: int, mac_p, forces_p, dt, icons: bool,
+                     use_ppm: bool, out=None) -> torch.Tensor:
+    """`advect` in the halo-slab mode: dq/dt of component n of the padded
+    q_p (nxl + 2 HALO, ny, nz, ncomp) on the slab's rows.  mac_p: the
+    padded x faces (one per row), y and z faces (with their wrap face);
+    forces_p padded like q_p or None.  On the card it writes into
+    out[..., n] when `out` is given."""
+    _check_slab(grid, q_p)
+    dt = _dt_tensor(dt, q_p)
+    if q_p.device.type == "cpu":
+        r = advect_comp_slab_plain(
+            grid, q_p[..., n], mac_p,
+            None if forces_p is None else forces_p[..., n], dt, icons,
+            use_ppm)
+        if out is not None:
+            out[..., n] = r
+        return r
+    return _launch_advect(grid, q_p, n, mac_p, forces_p, dt, icons, use_ppm,
+                          out, HALO, "advect_halo")
+
+
+def predict_sharded(grid, vel, forces, dt, use_ppm: bool
+                    ) -> List[torch.Tensor]:
+    """predict() on this rank's x slab (pallas_godunov.py:525-569): halo
+    the velocity and forces, uad on the slab, halo uad, predict_d for
+    d = 0, 1, 2.  Returns the slab's face arrays: nxl + 1 x faces (the
+    last is the right neighbour's face 0, as the reference appends face
+    n == face 0 outside its shard map), y and z faces with their wrap
+    face.  `grid` is the rank's SlabGrid."""
+    mesh = grid.mesh
+    dt = _dt_tensor(dt, vel)
+    ins = [vel] + ([] if forces is None else [forces])
+    padded = mesh.halo_x(ins, HALO)
+    vel_p = padded[0]
+    forces_p = None if forces is None else padded[1]
+    uad_p = mesh.halo_x(uad_halo(grid, vel_p, dt, use_ppm), HALO)
+    out = [predict_d_halo(grid, vel_p, uad_p, forces_p, dt, d, use_ppm)
+           for d in range(3)]
+    out[0] = mesh.halo_x(out[0], 0, 1)
+    return out
+
+
+def advect_sharded(grid, q, umac, forces, dt, iconserv: Sequence[int],
+                   use_ppm: bool) -> torch.Tensor:
+    """advect() on this rank's x slab (pallas_godunov.py:572-612): umac
+    as predict_sharded returns it; its last x face (the right
+    neighbour's face 0) is dropped, and q, the MAC velocities and the
+    forces are haloed in one exchange, then one advect_halo launch per
+    component."""
+    mesh = grid.mesh
+    dt = _dt_tensor(dt, q)
+    nxl = grid.n_cell[0]
+    ins = [q, umac[0].narrow(0, 0, nxl), umac[1], umac[2]]
     if forces is not None:
-        forces = _cuda_checked("forces", forces, grid.n_cell + (ncomp,),
-                               dty, dev)
-    if out is None:
-        out = torch.empty(grid.n_cell + (ncomp,), dtype=dty, device=dev)
-    elif not (out.is_contiguous() and tuple(out.shape) == tuple(q.shape)
-              and out.dtype == dty and out.device == dev):
-        raise ValueError("advect_comp: `out` must be a contiguous tensor "
-                         "shaped like q")
-    scratch = torch.empty((_SCRATCH["advect"],) + grid.n_cell, dtype=dty,
-                          device=dev)
-    fptr = _ptr(forces, n) if forces is not None else None
-    rc = _lib().godunov_advect(_DT_CODE[dty], _ptr(q, n), ncomp,
-                               *(_ptr(m) for m in mac), fptr, ncomp,
-                               _ptr(out, n), ncomp, _ptr(scratch), _ptr(dt),
-                               *_geo(grid), int(use_ppm), int(icons),
-                               _stream(q))
-    check_rc("advect", rc)
-    LAUNCHES["advect"] += 1
-    return out[..., n]
+        ins.append(forces)
+    padded = mesh.halo_x(ins, HALO)
+    q_p, mac_p = padded[0], padded[1:4]
+    forces_p = None if forces is None else padded[4]
+    out = torch.empty(tuple(q.shape), dtype=q.dtype, device=q.device)
+    for n in range(q.shape[-1]):
+        advect_comp_halo(grid, q_p, n, mac_p, forces_p, dt,
+                         bool(iconserv[n]), use_ppm, out=out)
+    return out
 
 
 def predict(grid: Grid, vel, forces, dt, use_ppm: bool,

@@ -25,6 +25,12 @@ and their iterations.  The smoothers run through ops/smoother_kernels
 (CUDA kernels on the card, one launch a call; their plain versions on
 the CPU): the cell and the nodal smoother on every 3D level, walls
 included.  2D levels raise until ROADMAP A8.
+
+On an x slab of a mesh (parallel/mesh.py) a level carries the mesh: its
+periodic x pads come from the neighbouring ranks, its norms and means
+are global, and its solvers are the whole level's direct solvers cut to
+the slab (CellSolver.shard, NodalSolver.shard; spectral.shard_symbol).
+Multigrid on a sharded level raises until ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -45,12 +51,15 @@ class SolverBC(enum.IntEnum):
 
 _NOT_3D = ("multigrid smoothing of 2D levels is not ported yet (ROADMAP "
            "A8): the smoother kernels cover 3D levels")
+_SHARDED_MG = ("multigrid on a level split over a mesh is not ported yet "
+               "(ROADMAP A14): a sharded level has direct solves only")
 
 # host-side tallies of the iterative solves since reset_counts(): solves
-# that iterated, their CG iterations / V-cycles, and the bools read back
-# from the device to steer the loops
+# that iterated, their CG iterations / V-cycles, the adaptive tensor CG's
+# iterations (ops/diffusion.py), and the bools read back from the device
+# to steer the loops
 COUNTS = {"cell_solves": 0, "cell_iters": 0, "nodal_solves": 0,
-          "nodal_cycles": 0, "host_syncs": 0}
+          "nodal_cycles": 0, "tensor_cg_iters": 0, "host_syncs": 0}
 
 
 def reset_counts() -> None:
@@ -74,7 +83,11 @@ def _slice_axis(x, axis, sl):
     return x[tuple(s)]
 
 
-def _wrap_pad(x, axis, lo=1, hi=1):
+def _wrap_pad(x, axis, lo=1, hi=1, mesh=None):
+    """Periodic pad of lo and hi entries along axis; along x of a slab
+    (mesh given) the neighbouring ranks' entries."""
+    if mesh is not None and axis == 0:
+        return mesh.halo_x(x, lo, hi)
     n = x.shape[axis]
     parts = []
     if lo:
@@ -104,8 +117,15 @@ def _edge_pad(x, axis, lo=1, hi=1):
     return torch.cat(parts, dim=axis)
 
 
-def _maxnorm(x):
-    return torch.max(torch.abs(x))
+def _maxnorm(x, mesh=None):
+    m = torch.max(torch.abs(x))
+    return m if mesh is None else mesh.all_reduce_max(m)
+
+
+def _mean(x, mesh=None):
+    if mesh is None:
+        return torch.mean(x)
+    return mesh.all_reduce_sum(torch.sum(x)) / (x.numel() * mesh.size)
 
 
 def _move(obj, device):
@@ -136,6 +156,7 @@ class CellLevel:
     acoef: Optional[torch.Tensor]          # (cells) or None (== 0)
     bcoef: Tuple[torch.Tensor, ...]        # per axis, faces (n+1 along axis)
     ebc: Optional[torch.Tensor] = None     # EB wall coefficient (A11)
+    mesh: object = None                    # parallel.mesh.SlabMesh of a slab
 
 
 def _cell_pad_hom(x, lev: CellLevel):
@@ -143,7 +164,7 @@ def _cell_pad_hom(x, lev: CellLevel):
     DIRICHLET uses the maxorder-3 ghost g = -2*phi0 + phi1/3."""
     for ax in range(len(lev.dx)):
         if lev.bc_lo[ax] == SolverBC.PERIODIC:
-            x = _wrap_pad(x, ax)
+            x = _wrap_pad(x, ax, mesh=lev.mesh)
             continue
         n = x.shape[ax]
         q0l = x.narrow(ax, 0, 1)
@@ -161,7 +182,7 @@ def _cell_pad_inhom(x, lev: CellLevel, bvals):
     ghost = (8/3) b - 2 phi0 + phi1/3 (maxorder 3)."""
     for ax in range(len(lev.dx)):
         if lev.bc_lo[ax] == SolverBC.PERIODIC:
-            x = _wrap_pad(x, ax)
+            x = _wrap_pad(x, ax, mesh=lev.mesh)
             continue
         n = x.shape[ax]
         q0l = x.narrow(ax, 0, 1)
@@ -416,6 +437,31 @@ class CellSolver:
             [self.diags, self._coefs, self.symbol], device)
         return out
 
+    def shard(self, mesh) -> "CellSolver":
+        """This whole-level direct solver cut to the rank's x slab: the
+        fine level's coefficients on the slab's cells and faces (nxl + 1
+        x faces), the symbol's x transforms on the slab's columns.  A
+        solver without a fast-diagonalization symbol raises (ROADMAP
+        A14)."""
+        from incflo_torch.ops import spectral
+        if self.symbol is None:
+            raise NotImplementedError(_SHARDED_MG)
+        lev = self.levels[0]
+        nxl = (lev.bcoef[0].shape[0] - 1) // mesh.size   # nx + 1 x faces
+        x0 = mesh.rank * nxl
+        rows = lambda a, n: None if a is None else a.narrow(0, x0, n)
+        local = dataclasses.replace(
+            lev, acoef=rows(lev.acoef, nxl),
+            bcoef=tuple(rows(b, nxl + (1 if ax == 0 else 0))
+                        for ax, b in enumerate(lev.bcoef)),
+            mesh=mesh)
+        out = copy.copy(self)
+        out.levels = [local]
+        out.diags = [cell_diag(local)]
+        out._coefs = None
+        out.symbol = spectral.shard_symbol(self.symbol, mesh)
+        return out
+
     def with_beta(self, beta):
         """Same coefficient hierarchy, new beta scalar (beta = dt per
         step); only the beta-scaled diagonals are recomputed here, and
@@ -436,6 +482,8 @@ class CellSolver:
         """n red-black sweeps (+ the residual b - L(x)) on level li, in
         the kernel's diag-extracted form on either device."""
         from incflo_torch.ops import smoother_kernels as sk
+        if self.levels[0].mesh is not None:
+            raise NotImplementedError(_SHARDED_MG)
         dinvs, fhis, fwalls = self.smoother_coefs()
         lev = self.levels[li]
         return sk.cell_smooth(x, b, self.diags[li], dinvs[li], fhis[li], n,
@@ -468,7 +516,7 @@ class CellSolver:
         warm start).  Each loop test reads one bool back to the host."""
         lev = self.levels[0]
         if self.singular:
-            rhs = rhs - torch.mean(rhs)
+            rhs = rhs - _mean(rhs, lev.mesh)
         sym = self.symbol
         if (sym is not None
                 and tuple(rhs.shape[:self.ndim]) == sym.cells
@@ -476,6 +524,8 @@ class CellSolver:
             from incflo_torch.ops import spectral
             x = spectral.solve(sym, rhs, lev.alpha, lev.beta, self.singular)
             return x, torch.zeros((), dtype=rhs.dtype, device=rhs.device), 1
+        if lev.mesh is not None:
+            raise NotImplementedError(_SHARDED_MG)
         if x0 is None:
             x0 = torch.zeros_like(rhs)
         tol = torch.clamp_min(rtol * _maxnorm(rhs), atol)
@@ -542,6 +592,7 @@ class NodalLevel:
     sigma: Optional[torch.Tensor]            # (cells); dropped by with_stencil
     sigma_pad: Optional[torch.Tensor] = None  # padded by 1 per axis
     cells: Optional[Tuple[int, ...]] = None
+    mesh: object = None                       # SlabMesh of a slab
 
     def with_stencil(self):
         s = self.sigma
@@ -558,7 +609,7 @@ def _node_to_cellgrad(phi, lev: NodalLevel, axis):
     p = phi
     for ax in range(ndim):
         if lev.periodic[ax]:
-            p = _wrap_pad(p, ax, lo=0, hi=1)
+            p = _wrap_pad(p, ax, lo=0, hi=1, mesh=lev.mesh)
     n = p.shape[axis]
     g = (p.narrow(axis, 1, n - 1) - p.narrow(axis, 0, n - 1)) / lev.dx[axis]
     for ax in range(ndim):
@@ -640,7 +691,7 @@ def nodal_apply(phi, lev: NodalLevel):
     p = phi
     for ax in range(ndim):
         if lev.periodic[ax]:
-            p = _wrap_pad(p, ax, lo=0, hi=1)
+            p = _wrap_pad(p, ax, lo=0, hi=1, mesh=lev.mesh)
     vol = 1.0
     for d in lev.dx:
         vol *= d
@@ -683,7 +734,7 @@ def nodal_apply(phi, lev: NodalLevel):
             a = (0.0 if ts is None else ts) + (0.0 if td is None else td)
             b = (0.0 if ts is None else ts) - (0.0 if td is None else td)
             if lev.periodic[ax]:
-                bp = _wrap_pad(b, ax, lo=1, hi=0)
+                bp = _wrap_pad(b, ax, lo=1, hi=0, mesh=lev.mesh)
                 new[key] = a + bp.narrow(ax, 0, m)
             else:
                 ap = _zero_pad(a, ax)
@@ -796,6 +847,24 @@ class NodalSolver:
             [self.sigmas, self.diags, self.dinvs, self.symbol], device)
         return out
 
+    def shard(self, mesh) -> "NodalSolver":
+        """This whole-level direct solver cut to the rank's x slab (its
+        nxl unique x nodes; sigma padded by the neighbours' cells); one
+        without a fast-diagonalization symbol raises (ROADMAP A14)."""
+        from incflo_torch.ops import spectral
+        if self.symbol is None:
+            raise NotImplementedError(_SHARDED_MG)
+        lev = self.levels[0]
+        nxl = lev.cells[0] // mesh.size
+        local = dataclasses.replace(
+            lev, sigma_pad=lev.sigma_pad.narrow(0, mesh.rank * nxl, nxl + 2),
+            cells=(nxl,) + tuple(lev.cells[1:]), mesh=mesh)
+        out = copy.copy(self)
+        out.levels = [local]
+        out.sigmas = out.diags = out.dinvs = None
+        out.symbol = spectral.shard_symbol(self.symbol, mesh)
+        return out
+
     # -- smoother and V-cycle ------------------------------------------
     def _smooth_res(self, x, b, li, n, want_residual):
         """n red-black sweeps (+ the residual b - L(x)) on level li,
@@ -803,6 +872,8 @@ class NodalSolver:
         lev = self.levels[li]
         if self.ndim != 3:
             raise NotImplementedError(_NOT_3D)
+        if lev.mesh is not None:
+            raise NotImplementedError(_SHARDED_MG)
         from incflo_torch.ops import smoother_kernels as sk
         bc = tuple(tuple(SolverBC.PERIODIC if per else code
                          for per, code in zip(lev.periodic, codes))
@@ -832,12 +903,14 @@ class NodalSolver:
         host."""
         lev = self.levels[0]
         if self.singular:
-            rhs = rhs - torch.mean(rhs)
+            rhs = rhs - _mean(rhs, lev.mesh)
         rhs = _zero_dirichlet(rhs, lev)
         if self.symbol is not None and tuple(rhs.shape) == self.symbol.cells:
             from incflo_torch.ops import spectral
             x = spectral.solve(self.symbol, rhs, 0.0, 1.0, self.singular)
             return x, torch.zeros((), dtype=rhs.dtype, device=rhs.device), 1
+        if lev.mesh is not None:
+            raise NotImplementedError(_SHARDED_MG)
         if x0 is None:
             x0 = torch.zeros_like(rhs)
         tol = rtol * _maxnorm(rhs)

@@ -14,6 +14,15 @@ SAME discrete operators (multigrid.cell_apply / nodal_apply):
 2. rfftn/irfftn with the DFT symbol of the operator's delta response,
    for fully periodic grids with longer axes.
 
+On an x slab of a mesh (parallel/mesh.py) a fast-diagonalization solve
+runs its x contraction as the scaling-book form that
+incflo_tpu/ops/spectral.py:57-61 names: a local partial product with the
+transform's columns of the slab's rows, then a reduce-scatter that sums
+the partial products over the ranks and leaves each rank its own rows
+(shard_symbol, solve).  The y and z contractions and the eigenvalue
+division stay local, and the zero mode of a singular solve lies on rank
+0.  The rfftn form raises under a mesh (ROADMAP A14).
+
 Matrix products run in full float32 or float64: incflo_torch sets
 `torch.backends.cuda.matmul.allow_tf32 = False` and float32 matmul
 precision "highest" when it is imported (TF32 would wreck these solves).
@@ -71,6 +80,9 @@ class Symbol:
     batched  : symbol carries a trailing component axis.
     origin   : bool mask of `cells`, True at the spatial origin (the zero
                mode of a singular solve; fast diagonalization only).
+    mesh     : the SlabMesh of a slab's symbol (shard_symbol), else None:
+               cells, sym_face and origin are the slab's x rows, fwd[0]
+               and inv[0] the columns of those rows.
     """
     sym_face: torch.Tensor
     a0: Optional[torch.Tensor]
@@ -79,6 +91,7 @@ class Symbol:
     cells: Tuple[int, ...]
     batched: bool
     origin: Optional[torch.Tensor] = None
+    mesh: object = None
 
 
 def _real_fourier_basis(n: int, dtype):
@@ -285,6 +298,27 @@ def _contract(h, m, axis):
     return torch.movedim(out, -1, axis)
 
 
+def shard_symbol(sym: Symbol, mesh) -> Symbol:
+    """The whole level's symbol cut to the rank's x slab: the slab's rows
+    of the eigenvalues and of the zero-mode mask, and the slab's columns
+    of the x transforms (a position j of the forward transform, a mode k
+    of the inverse)."""
+    if sym.fwd is None:
+        raise NotImplementedError(
+            "the rfftn direct solve (axes above 256 cells) on a level split "
+            "over a mesh is not ported yet (ROADMAP A14)")
+    nxl = sym.cells[0] // mesh.size
+    x0 = mesh.rank * nxl
+    cols = lambda m: m.narrow(1, x0, nxl).contiguous()
+    rows = lambda a: a.narrow(0, x0, nxl).contiguous()
+    return dataclasses.replace(
+        sym, sym_face=rows(sym.sym_face),
+        fwd=(cols(sym.fwd[0]),) + tuple(sym.fwd[1:]),
+        inv=(cols(sym.inv[0]),) + tuple(sym.inv[1:]),
+        cells=(nxl,) + tuple(sym.cells[1:]), origin=rows(sym.origin),
+        mesh=mesh)
+
+
 def _origin(cells):
     """Bool mask of `cells`, True at the spatial origin only."""
     m = torch.zeros(cells, dtype=torch.bool)
@@ -315,10 +349,13 @@ def solve(sym: Symbol, rhs, alpha, beta, singular: bool):
     if batched_rhs and not sym.batched:
         s = s[..., None]
     zero = (0,) * ndim
+    mesh = sym.mesh
     if sym.fwd is not None:
         h = rhs
         for d, f in enumerate(sym.fwd):
             h = _contract(h, f, d)
+            if d == 0 and mesh is not None:
+                h = mesh.reduce_scatter_x(h)
         if singular:
             # mask form of the zero mode, as in the step2d kernel: no
             # element is set, so the solve captures in a CUDA graph
@@ -327,6 +364,8 @@ def solve(sym: Symbol, rhs, alpha, beta, singular: bool):
         h = h / s
         for d, b in enumerate(sym.inv):
             h = _contract(h, b, d)
+            if d == 0 and mesh is not None:
+                h = mesh.reduce_scatter_x(h)
         return h.to(rhs.dtype)
     rh = torch.fft.rfftn(rhs, dim=axes)
     if singular:

@@ -26,6 +26,18 @@ csrc/step2d.cu) when the deck qualifies (step2d_kernels.supported) and
 its fixed-trip tensor CG converges at the first dt; `_advance_impl` is
 the plain step.
 
+Sharded: given a mesh (parallel/mesh.py), a shear3d deck -- 3D, periodic
+on every axis, constant density, Godunov, Crank-Nicolson or implicit
+diffusion, direct solves, no tracer advection -- runs split along x over
+the mesh's ranks.  Each rank's Simulation holds its x slab of every field
+(self.grid is a parallel.mesh.SlabGrid) and advance / advance_n do what
+they do on one device: the ghost fills and operator pads exchange x
+halos, the Godunov chain runs the halo-slab kernels
+(godunov_kernels.predict_sharded / advect_sharded), the direct solves
+reduce-scatter their x contraction, and compute_dt and the tensor CG
+reduce over the ranks.  Other decks under a mesh raise and name ROADMAP
+A14.
+
 Scope of this port: one level, no EB, Newtonian fluid, Crank-Nicolson
 or implicit diffusion.  3D: Godunov advection, each axis periodic or
 between slip / no-slip walls, constant or variable density, gravity,
@@ -87,14 +99,32 @@ def _unsupported(cfg: IncfloConfig):
     return None
 
 
+def _unsupported_sharded(cfg: IncfloConfig):
+    """What keeps a deck the port runs from running split over a mesh,
+    or None: the sharded step is shear3d's (ROADMAP A14)."""
+    g = cfg.grid
+    checks = [
+        (g.ndim != 3, "2D decks (the fused 2D step, MOL)"),
+        (not all(g.periodic), "walls, inflow and outflow"),
+        (not cfg.constant_density, "variable density (multigrid)"),
+        (cfg.advect_tracer, "tracer advection (multigrid)"),
+        (not cfg.use_godunov, "MOL advection"),
+    ]
+    for bad, what in checks:
+        if bad:
+            return what
+    return None
+
+
 class Simulation:
-    """Single-level incompressible Navier-Stokes engine on one device.
+    """Single-level incompressible Navier-Stokes engine on one device, or
+    on one rank's x slab of a level split over a mesh.
 
-    device None means "cuda"; pass device="cpu" to run on the CPU with
-    the kernels' plain versions.  Asking for the card where there is
-    none raises."""
+    device None means "cuda" (on a mesh "cuda:{rank % device_count}");
+    pass device="cpu" to run on the CPU with the kernels' plain versions.
+    Asking for the card where there is none raises."""
 
-    def __init__(self, cfg: IncfloConfig, device=None):
+    def __init__(self, cfg: IncfloConfig, device=None, mesh=None):
         why = _unsupported(cfg)
         if why is not None:
             raise NotImplementedError(
@@ -102,6 +132,15 @@ class Simulation:
                 f"(ROADMAP {why[1]}); it runs 3D Godunov decks whose axes "
                 f"are periodic or end in slip or no-slip walls and 2D "
                 f"periodic constant-density MOL decks")
+        if mesh is not None:
+            why = _unsupported_sharded(cfg)
+            if why is not None:
+                raise NotImplementedError(
+                    f"incflo_torch does not run {why} split over a mesh yet "
+                    f"(ROADMAP A14); a mesh runs 3D fully periodic "
+                    f"constant-density Godunov decks (shear3d)")
+        if device is None and mesh is not None and torch.cuda.is_available():
+            device = f"cuda:{mesh.rank % torch.cuda.device_count()}"
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("incflo_torch.Simulation: CUDA device "
@@ -109,7 +148,9 @@ class Simulation:
         self.device = device
         self.dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
-        self.grid = cfg.grid
+        self.mesh = mesh
+        # the rank's x slab on a mesh, else the whole level
+        self.grid = cfg.grid if mesh is None else mesh.local_grid(cfg.grid)
         self.vel_bcrec = cfg.velocity_bcrecs()
         self.den_bcrec = cfg.density_bcrecs()
         self.tra_bcrec = cfg.tracer_bcrecs()
@@ -119,7 +160,7 @@ class Simulation:
         self.force_bcrec = cfg.force_bcrecs(max(cfg.ntrac, cfg.ndim))
         if cfg.use_godunov:
             self.godunov = godunov.GodunovScheme(
-                cfg.grid, cfg.godunov_ppm, cfg.godunov_use_forces_in_trans)
+                self.grid, cfg.godunov_ppm, cfg.godunov_use_forces_in_trans)
         self._fused = None          # step2d_kernels.FusedStep, built lazily
         self._fused_ok = None       # the CG probe's verdict
         nd = cfg.grid.ndim
@@ -139,8 +180,9 @@ class Simulation:
         return torch.full(shape, val, dtype=self.dtype)
 
     def _build_static_solvers(self):
+        """On a mesh: the whole level's solvers, cut to the slab."""
         cfg = self.cfg
-        grid = self.grid
+        grid = cfg.grid
         inv_rho = 1.0 / cfg.ro_0
         beta = []
         for d in range(grid.ndim):
@@ -154,6 +196,8 @@ class Simulation:
         # scaling/rho0 is this one scaled by `scaling`
         nodal = mg.NodalSolver(grid.dx, grid.periodic, bc_lo, bc_hi,
                                self._full(grid.cell_shape, inv_rho))
+        if self.mesh is not None:
+            mac, nodal = mac.shard(self.mesh), nodal.shard(self.mesh)
         self._mac_solver = mac.to(self.device)
         self._nodal_hat = nodal.to(self.device)
         # the constant coefficients, as Python floats, for the fused step
@@ -177,6 +221,8 @@ class Simulation:
         blo, bhi = bcs_all[0]
         diff = mg.CellSolver(grid.dx, blo, bhi, alpha=1.0, beta=1.0,
                              acoef=acoef[..., None], bcoef=tuple(eta_b))
+        if self.mesh is not None:
+            diff = diff.shard(self.mesh)
         self._diff_proto = diff.to(self.device)
         self._static_coefs["diff_b"] = diff_b
 
@@ -233,6 +279,10 @@ class Simulation:
         dxinv = self._dxinv
         conv_cfl = torch.max(torch.abs(vel) * dxinv)
         forc_cfl = torch.max(torch.abs(vel_forces) * dxinv)
+        rhoinv_max = torch.max(1.0 / rho)
+        if self.mesh is not None:   # the whole level's maxima
+            conv_cfl, forc_cfl, rhoinv_max = self.mesh.all_reduce_max(
+                torch.stack([conv_cfl, forc_cfl, rhoinv_max])).unbind()
         cd_cfl = conv_cfl   # Crank-Nicolson or implicit: no diffusive CFL
         comb_cfl = cd_cfl + torch.sqrt(cd_cfl * cd_cfl + 4.0 * forc_cfl)
         dt_new = 2.0 * cfg.cfl / torch.clamp_min(comb_cfl, 1e-300)
@@ -240,7 +290,7 @@ class Simulation:
             dt_new = dt_new * cfg.init_shrink
         eps = torch.finfo(self.dtype).eps
         # from-rest bootstrap (see incflo_tpu compute_dt)
-        diff_any = (torch.max(1.0 / rho) * cfg.mu * 2.0
+        diff_any = (rhoinv_max * cfg.mu * 2.0
                     * torch.sum(dxinv * dxinv))
         fallback = torch.where(
             diff_any > eps, cfg.cfl / torch.clamp_min(diff_any, 1e-300),
@@ -415,13 +465,18 @@ class Simulation:
         return vel_new, p_new, gp_new
 
     def _pad_vel_for_divergence(self, vel, inflow_scale):
-        """One ghost per axis: wrap on periodic axes, zero beyond a wall
-        (the mass-inflow bands come with ROADMAP A9c)."""
+        """One ghost per axis: wrap on periodic axes (on a mesh, x from
+        the neighbouring ranks, all components in one exchange), zero
+        beyond a wall (the mass-inflow bands come with ROADMAP A9c)."""
         grid = self.grid
+        first = 0
+        if self.mesh is not None:
+            vel = self.mesh.halo_x(vel, 1)
+            first = 1
         upads = []
         for c in range(grid.ndim):
             u = vel[..., c]
-            for ax in range(grid.ndim):
+            for ax in range(first, grid.ndim):
                 u = mg._wrap_pad(u, ax) if grid.periodic[ax] \
                     else mg._zero_pad(u, ax)
             upads.append(u)
@@ -624,11 +679,11 @@ class Simulation:
 
     def _fused_step(self, s: SimState):
         """The fused step kernel of this deck on the card, or None: on
-        the CPU, outside step2d_kernels.supported, or when the fixed-trip
-        tensor CG misses its tolerance at the first dt
+        the CPU, on a mesh, outside step2d_kernels.supported, or when the
+        fixed-trip tensor CG misses its tolerance at the first dt
         (incflo_tpu/simulation.py:981-991).  A kernel that fails to build
         or launch raises: there is no fallback."""
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.mesh is not None:
             return None
         if self._fused is None and self._fused_ok is None:
             from incflo_torch.ops import step2d_kernels
@@ -674,8 +729,13 @@ class Simulation:
         return s._replace(level=lvl)
 
     def init_state(self) -> SimState:
+        """The t = 0 state after the initial projection and iterations;
+        on a mesh the rank's slab of the whole level's initial fields."""
         cfg = self.cfg
-        level = probs.init_fluid(cfg, self.grid, self.dtype, self.device)
+        level = probs.init_fluid(cfg, cfg.grid, self.dtype, self.device)
+        if self.mesh is not None:
+            level = LevelState(*(self.mesh.slab(f).contiguous()
+                                 for f in level))
         zero = torch.zeros((), dtype=self.dtype, device=self.device)
         s = SimState(level=level, t=zero, dt=zero, prev_dt=zero,
                      prev_prev_dt=zero,

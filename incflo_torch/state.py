@@ -13,7 +13,10 @@ components last), the same as incflo_tpu:
 `level_from_numpy` / `sim_from_numpy` take a dict of numpy arrays keyed
 by the field names (e.g. `np.asarray(jax_state.level.velocity)`), so a
 run can start from another package's state; the `*_to_numpy` pair goes
-the other way.
+the other way.  Given the SlabMesh of a level split along x
+(parallel/mesh.py), `*_from_numpy` keep the rank's x slab of whole-level
+arrays, and `*_to_numpy` gather the whole level from every rank's slab
+(a collective: every rank calls them).
 """
 
 from __future__ import annotations
@@ -64,30 +67,37 @@ def zeros_level(grid: Grid, ntrac: int, dtype, device) -> LevelState:
     )
 
 
-def level_from_numpy(d: Dict[str, np.ndarray], device,
-                     dtype) -> LevelState:
-    return LevelState(**{
-        k: torch.tensor(np.asarray(d[k]), dtype=dtype).to(device)
-        for k in LevelState._fields})
+def level_from_numpy(d: Dict[str, np.ndarray], device, dtype,
+                     mesh=None) -> LevelState:
+    """The level from whole-level arrays; on a mesh the rank's slab."""
+    def field(a):
+        t = torch.tensor(np.asarray(a), dtype=dtype)
+        return t if mesh is None else mesh.slab(t).contiguous()
+    return LevelState(**{k: field(d[k]).to(device)
+                         for k in LevelState._fields})
 
 
-def level_to_numpy(level: LevelState) -> Dict[str, np.ndarray]:
-    return {k: getattr(level, k).detach().cpu().numpy()
+def level_to_numpy(level: LevelState, mesh=None) -> Dict[str, np.ndarray]:
+    """Whole-level arrays; on a mesh gathered from every rank."""
+    def full(t):
+        return t if mesh is None else mesh.gather(t)
+    return {k: full(getattr(level, k).detach()).cpu().numpy()
             for k in LevelState._fields}
 
 
-def sim_from_numpy(d: Dict[str, np.ndarray], device, dtype) -> SimState:
+def sim_from_numpy(d: Dict[str, np.ndarray], device, dtype,
+                   mesh=None) -> SimState:
     """`d` holds the LevelState fields and t, dt, prev_dt, prev_prev_dt,
     step."""
     sc = {k: torch.tensor(np.asarray(d[k]), dtype=dtype).to(device)
           for k in _SCALARS}
     step = torch.tensor(np.asarray(d["step"]), dtype=torch.int32).to(device)
-    return SimState(level=level_from_numpy(d, device, dtype), step=step,
-                    **sc)
+    return SimState(level=level_from_numpy(d, device, dtype, mesh),
+                    step=step, **sc)
 
 
-def sim_to_numpy(s: SimState) -> Dict[str, np.ndarray]:
-    out = level_to_numpy(s.level)
+def sim_to_numpy(s: SimState, mesh=None) -> Dict[str, np.ndarray]:
+    out = level_to_numpy(s.level, mesh)
     for k in _SCALARS + ("step",):
         out[k] = getattr(s, k).detach().cpu().numpy()
     return out

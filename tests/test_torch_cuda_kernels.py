@@ -606,3 +606,110 @@ def test_step2d_raises_outside_scope(cuda):
     with pytest.raises(ValueError):
         fs.step(bad)
     assert s2.LAUNCHES["step2d"] == n0
+
+
+# ---------------------------------------------------------------------
+# the halo-slab Godunov kernels (B8): each rank's x slab of a periodic
+# level, cut here in one process from a whole-level field.  Every output
+# is held bit-equal in float32 (and within 1e-14 in float64) to the slab
+# plain version and to the unsharded kernel's output on the same rows.
+# ---------------------------------------------------------------------
+
+# (shape, ranks): the shear3d n = 128 level in 2 and 4 slabs, and an odd
+# ny * nz (9 x 7) over 3 ranks
+HALO_CASES = [((128, 128, 32), 2), ((128, 128, 32), 4), ((24, 9, 7), 3)]
+
+
+def _slab_grid(grid, nranks):
+    from incflo_torch.parallel.mesh import SlabGrid
+    nx = grid.n_cell[0]
+    return SlabGrid(n_cell=(nx // nranks,) + tuple(grid.n_cell[1:]),
+                    prob_lo=grid.prob_lo, prob_hi=grid.prob_hi,
+                    periodic=grid.periodic, nx_full=nx)
+
+
+def _halo_rows(full, x0, nxl):
+    """Rows [x0 - HALO, x0 + nxl + HALO) of a whole-level array, wrapped."""
+    nx = full.shape[0]
+    idx = torch.arange(x0 - gk.HALO, x0 + nxl + gk.HALO,
+                       device=full.device) % nx
+    return full.index_select(0, idx).contiguous()
+
+
+def _same(a, b, dtype):
+    assert a.shape == b.shape
+    if dtype == torch.float32:
+        assert torch.equal(a, b)
+    else:
+        assert _rel(a, b) <= 1e-14
+
+
+def _halo_case(shape, dtype, dev):
+    grid = Grid(n_cell=shape, prob_lo=(0.0,) * 3, prob_hi=(1.0, 1.0, 0.25),
+                periodic=(True,) * 3)
+    vel = _fields(grid, 3, 1, dtype, dev)
+    forces = 0.3 * _fields(grid, 3, 2, dtype, dev)
+    q = _fields(grid, 3, 3, dtype, dev)
+    dt = torch.tensor(0.9 * min(grid.dx) / float(vel.abs().max()),
+                      dtype=dtype, device=dev)
+    return grid, vel, forces, q, dt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("use_ppm", [True, False])
+@pytest.mark.parametrize("shape,nranks", HALO_CASES)
+def test_halo_kernels_match_slab_plain_and_unsharded_rows(
+        cuda, dtype, use_ppm, shape, nranks):
+    grid, vel, forces, q, dt = _halo_case(shape, dtype, cuda)
+    slab = _slab_grid(grid, nranks)
+    nxl = slab.n_cell[0]
+    uad = gk.uad(grid, vel, dt, use_ppm)
+    umac = [gk.predict_d(grid, vel, uad, forces, dt, d, use_ppm)
+            for d in range(3)]
+    rates = [gk.advect_comp(grid, q, n, umac, forces, dt, bool(n % 2),
+                            use_ppm) for n in range(3)]
+    mac_lo = [umac[0].narrow(0, 0, grid.n_cell[0])] + umac[1:]
+    for r in range(nranks):
+        x0 = r * nxl
+        rows = lambda a: a.narrow(0, x0, nxl)
+        vel_p, f_p, q_p = (_halo_rows(a, x0, nxl) for a in (vel, forces, q))
+        uad_p = [_halo_rows(u, x0, nxl) for u in uad]
+        mac_p = [_halo_rows(m, x0, nxl) for m in mac_lo]
+        n0 = dict(gk.LAUNCHES)
+        got = gk.uad_halo(slab, vel_p, dt, use_ppm)
+        plain = gk.uad_slab_plain(slab, vel_p, dt, use_ppm)
+        for a, b, c in zip(got, plain, uad):
+            _same(a, b, dtype)
+            _same(a, rows(c), dtype)
+        for d in range(3):
+            for fp in (f_p, None):
+                got = gk.predict_d_halo(slab, vel_p, uad_p, fp, dt, d,
+                                        use_ppm)
+                plain = gk.predict_d_slab_plain(
+                    slab, vel_p, uad_p, None if fp is None else fp[..., d],
+                    dt, d, use_ppm)
+                _same(got, plain, dtype)
+            _same(got, rows(gk.predict_d(grid, vel, uad, None, dt, d,
+                                         use_ppm)), dtype)
+        out = torch.empty(slab.n_cell + (3,), dtype=dtype, device=cuda)
+        for n in range(3):
+            got = gk.advect_comp_halo(slab, q_p, n, mac_p, f_p, dt,
+                                      bool(n % 2), use_ppm, out=out)
+            plain = gk.advect_comp_slab_plain(slab, q_p[..., n], mac_p,
+                                              f_p[..., n], dt, bool(n % 2),
+                                              use_ppm)
+            _same(got, plain, dtype)
+            _same(got, rows(rates[n]), dtype)
+        torch.cuda.synchronize()
+        assert gk.LAUNCHES["uad_halo"] == n0["uad_halo"] + 1
+        assert gk.LAUNCHES["predict_d_halo"] == n0["predict_d_halo"] + 6
+        assert gk.LAUNCHES["advect_halo"] == n0["advect_halo"] + 3
+
+
+def test_halo_kernels_raise_outside_scope(cuda):
+    grid, vel, forces, q, dt = _halo_case((16, 8, 8), torch.float32, cuda)
+    slab = _slab_grid(grid, 2)
+    with pytest.raises(ValueError):      # not grown by HALO rows
+        gk.uad_halo(slab, vel[:10].contiguous(), dt, True)
+    with pytest.raises(TypeError):
+        gk.uad_halo(slab, vel.half(), dt, True)

@@ -26,7 +26,7 @@ def test_no_forbidden_imports_in_source():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) >= 19
     for name in ("smoother_kernels.py", "godunov_walls.py", "mol.py",
-                 "step2d_kernels.py"):
+                 "step2d_kernels.py", "mesh.py", "launch.py", "workers.py"):
         assert any(p.name == name for p in files), name
     bad = []
     for path in files:
@@ -47,7 +47,8 @@ def test_import_leaves_no_jax_in_modules():
             "incflo_torch.ops.smoother_kernels, "
             "incflo_torch.ops.godunov_walls, "
             "incflo_torch.ops.mol, incflo_torch.ops.step2d_kernels, "
-            "incflo_torch.ops.cuda_build\n"
+            "incflo_torch.ops.cuda_build, incflo_torch.parallel.mesh, "
+            "incflo_torch.parallel.launch, incflo_torch.parallel.workers\n"
             "bad = [m for m in sys.modules if any(m == f or "
             "m.startswith(f + '.') for f in ('jax', 'jaxlib', "
             "'incflo_tpu'))]\n"
