@@ -1952,11 +1952,22 @@ def phase_halo_kernels(gk, grid_of, torch):
               flush=True)
 
     # times, f32, PPM, with forces, the convective form, as the sharded
-    # shear3d step calls them
+    # shear3d step calls them.  The bound's operations are those of the
+    # slab's nxl output rows: the unsharded plain version's count on the
+    # whole level times nxl / nx (the padded rows' extra work is the
+    # kernel's cost, not the function's)
     vel, forces, q, dt = kernel_inputs(grid, torch.float32, dev)
     uad = gk.uad_plain(grid, vel, dt, True)
     umac = gk.predict_plain(grid, vel, forces, dt, True)
     mac_lo = [umac[0].narrow(0, 0, grid.n_cell[0])] + umac[1:]
+    f0_full = forces[..., 0].contiguous()
+    level_ops = {
+        "uad_halo": count_ops(lambda: gk.uad_plain(grid, vel, dt, True)),
+        "predict_d_halo": count_ops(lambda: gk.predict_d_plain(
+            grid, vel, uad, f0_full, dt, 0, True)),
+        "advect_halo": count_ops(lambda: gk.advect_comp_plain(
+            grid, vel[..., 0], umac, f0_full, dt, False, True)),
+    }
     for nranks in (2, 4):
         slab = slab_grid(grid, nranks)
         nxl = slab.n_cell[0]
@@ -1986,7 +1997,7 @@ def phase_halo_kernels(gk, grid_of, torch):
         for k, (kern, plain, n_in, n_out) in calls.items():
             t = {"ms": device_ms(kern), "plain_ms": device_ms(plain),
                  "bytes": (n_in * rows_in + n_out * rows_out) * m * 4,
-                 "ops": count_ops(plain)}
+                 "ops": level_ops[k] * nxl // grid.n_cell[0]}
             t_bytes = t["bytes"] / PEAK_BYTES * 1e3
             t_ops = t["ops"] / PEAK_OPS["float32"] * 1e3
             t["bound_ms"] = max(t_bytes, t_ops)

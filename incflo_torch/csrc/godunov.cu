@@ -18,18 +18,19 @@
 // arrays are the standard (n+1)-along-own-axis tensors.  One thread per
 // cell; periodic neighbours by index arithmetic on compile-time axes.
 //
-// Halo-slab mode (Geo::halo > 0; replaces the per-shard kernel calls of
-// incflo_tpu/ops/pallas_godunov.py:predict_sharded (:525) and
-// advect_sharded (:572)): one rank's x slab of a periodic level, its
-// inputs grown by `halo` rows of each x neighbour (nxl + 2 halo rows, an
-// x face array holding the low face of each of those rows).  x does not
-// wrap: the x neighbour of row i at offset s is row i + s, clamped to the
-// padded rows.  The intermediate stages sweep every padded row; the CTU
-// chain reaches 3 cells along x (4 with the halo'd uad), so the clamped
-// values of the outermost rows feed no output.  The output stages (uad,
-// the last predict and advect stages) sweep the nxl rows of the slab
-// [halo, nxl + halo) and write (nxl, ny, nz)-shaped outputs: the x face
-// array gets the slab's nxl low faces (its high face is the right
+// Halo-slab mode (Geo<H>, H = kHalo = 4: a compile-time parameter, so the
+// periodic kernels carry no test of the mode; replaces the per-shard
+// kernel calls of incflo_tpu/ops/pallas_godunov.py:predict_sharded
+// (:525) and advect_sharded (:572)): one rank's x slab of a periodic
+// level, its inputs grown by H rows of each x neighbour (nxl + 2 H rows,
+// an x face array holding the low face of each of those rows).  x does
+// not wrap: the x neighbour of row i at offset s is row i + s, clamped to
+// the padded rows.  The intermediate stages sweep every padded row; the
+// CTU chain reaches 3 cells along x (4 with the halo'd uad), so the
+// clamped values of the outermost rows feed no output.  The output
+// stages (uad, the last predict and advect stages) sweep the nxl rows of
+// the slab [H, nxl + H) and write (nxl, ny, nz)-shaped outputs: the x
+// face array gets the slab's nxl low faces (its high face is the right
 // neighbour's face 0), the y and z face arrays their wrap faces as in
 // the periodic mode.  y and z stay periodic.  Each output equals the
 // periodic kernels' output on the same rows bit for bit, as the same
@@ -56,13 +57,16 @@ namespace {
 
 constexpr int kBlock = 256;
 
+constexpr int kHalo = 4;  // x rows of each neighbour in a halo slab
+
+// H = 0: a periodic level.  H = kHalo: a halo slab, whose output stages
+// write the rows [H, n[0] - H).
+template <int H>
 struct Geo {
   int n[3];      // extents of the planes the stages sweep (x: padded rows
-                 // in halo-slab mode)
+                 // of a halo slab)
   double dx[3];
   int ncell;     // n[0] n[1] n[2]
-  int halo;      // 0: x periodic; > 0: halo slab, outputs rows
-                 // [halo, n[0] - halo)
   int nout;      // cells an output stage writes
 };
 
@@ -72,11 +76,11 @@ struct Pos {
 
 // neighbour along compile-time axis AX: periodic (|s| <= 2 * n), or
 // along x of a halo slab clamped to the padded rows
-template <int AX>
-__device__ __forceinline__ Pos sh(const Geo& g, Pos p, int s) {
+template <int AX, int H>
+__device__ __forceinline__ Pos sh(const Geo<H>& g, Pos p, int s) {
   const int n = g.n[AX];
   int v = p.c[AX] + s;
-  if (AX == 0 && g.halo > 0) {
+  if constexpr (AX == 0 && H > 0) {
     v = v < 0 ? 0 : (v >= n ? n - 1 : v);
   } else {
     v = v < 0 ? v + n : v;
@@ -88,13 +92,14 @@ __device__ __forceinline__ Pos sh(const Geo& g, Pos p, int s) {
   return p;
 }
 
-__device__ __forceinline__ int cell_index(const Geo& g, const Pos& p) {
+template <int H>
+__device__ __forceinline__ int cell_index(const Geo<H>& g, const Pos& p) {
   return (p.c[0] * g.n[1] + p.c[1]) * g.n[2] + p.c[2];
 }
 
 // face array with n+1 entries along its own axis AX
-template <int AX>
-__device__ __forceinline__ int face_index(const Geo& g, const Pos& p) {
+template <int AX, int H>
+__device__ __forceinline__ int face_index(const Geo<H>& g, const Pos& p) {
   const int m1 = g.n[1] + (AX == 1), m2 = g.n[2] + (AX == 2);
   return (p.c[0] * m1 + p.c[1]) * m2 + p.c[2];
 }
@@ -103,17 +108,21 @@ template <typename T>
 struct Strided {  // cell field read with an element stride
   const T* p;
   int s;
-  __device__ __forceinline__ T operator()(const Geo& g, const Pos& q) const {
+  template <int H>
+  __device__ __forceinline__ T operator()(const Geo<H>& g,
+                                          const Pos& q) const {
     return p[cell_index(g, q) * s];
   }
 };
 
-template <typename T>
-__device__ __forceinline__ T at(const T* plane, const Geo& g, const Pos& q) {
+template <typename T, int H>
+__device__ __forceinline__ T at(const T* plane, const Geo<H>& g,
+                                const Pos& q) {
   return plane[cell_index(g, q)];
 }
 
-__device__ __forceinline__ bool thread_cell(const Geo& g, Pos& p, int& i) {
+template <int H>
+__device__ __forceinline__ bool thread_cell(const Geo<H>& g, Pos& p, int& i) {
   i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= g.ncell) return false;
   p.c[2] = i % g.n[2];
@@ -124,14 +133,16 @@ __device__ __forceinline__ bool thread_cell(const Geo& g, Pos& p, int& i) {
 }
 
 // the output cell of an output stage's thread: p in the planes' rows, o
-// its index in the (n[0] - 2 halo, n[1], n[2]) output
-__device__ __forceinline__ bool thread_out(const Geo& g, Pos& p, int& o) {
+// its index in the (n[0] - 2 H, n[1], n[2]) output
+template <int H>
+__device__ __forceinline__ bool thread_out(const Geo<H>& g, Pos& p, int& o) {
+  if constexpr (H == 0) return thread_cell(g, p, o);
   o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= g.nout) return false;
   p.c[2] = o % g.n[2];
   const int r = o / g.n[2];
   p.c[1] = r % g.n[1];
-  p.c[0] = r / g.n[1] + g.halo;
+  p.c[0] = r / g.n[1] + H;
   return true;
 }
 
@@ -217,8 +228,8 @@ __device__ __forceinline__ T clip(T x, T lo, T hi) {
 
 // Characteristic traces (Im, Ip) of q at cell p along AX, with wave
 // speeds wlo / whi at the cell's lo / hi faces.
-template <int AX, typename T>
-__device__ __forceinline__ void traces(const Geo& g, const Strided<T>& q,
+template <int AX, typename T, int H>
+__device__ __forceinline__ void traces(const Geo<H>& g, const Strided<T>& q,
                                        const Pos& p, T wlo, T whi, T dtdx,
                                        bool ppm, T& Im, T& Ip) {
   const T sm2 = q(g, sh<AX>(g, p, -2));
@@ -264,17 +275,17 @@ __device__ __forceinline__ void traces(const Geo& g, const Strided<T>& q,
 // uad: Riemann-selected own-component face velocity on every axis
 // ---------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int H>
 struct UadArgs {
-  Geo g;
+  Geo<H> g;
   Strided<T> vel[3];
   T* out[3];
   const T* dt;
   bool ppm;
 };
 
-template <typename T>
-__global__ void uad_kernel(UadArgs<T> a) {
+template <typename T, int H>
+__global__ void uad_kernel(UadArgs<T, H> a) {
   Pos p;
   int i;
   if (!thread_out(a.g, p, i)) return;
@@ -300,9 +311,9 @@ __global__ void uad_kernel(UadArgs<T> a) {
 
 constexpr int kPredictPlanes = 10;
 
-template <typename T>
+template <typename T, int H>
 struct PredictArgs {
-  Geo g;
+  Geo<H> g;
   Strided<T> vel[3];
   const T* uad[3];
   Strided<T> force;  // p == nullptr: no forces
@@ -312,8 +323,8 @@ struct PredictArgs {
   bool ppm;
 };
 
-template <typename T, int D>
-__global__ void predict_traces(PredictArgs<T> a) {
+template <typename T, int D, int H>
+__global__ void predict_traces(PredictArgs<T, H> a) {
   Pos p;
   int i;
   if (!thread_cell(a.g, p, i)) return;
@@ -329,8 +340,8 @@ __global__ void predict_traces(PredictArgs<T> a) {
 }
 
 // dt/6 corner correction of each cell from axis o != D
-template <typename T, int D>
-__global__ void predict_corner(PredictArgs<T> a) {
+template <typename T, int D, int H>
+__global__ void predict_corner(PredictArgs<T, H> a) {
   Pos p;
   int i;
   if (!thread_cell(a.g, p, i)) return;
@@ -338,7 +349,7 @@ __global__ void predict_corner(PredictArgs<T> a) {
   static_for<0, 3>([&](auto o_c) {
     constexpr int O = decltype(o_c)::value;
     if constexpr (O != D) {
-      const Geo& g = a.g;
+      const auto& g = a.g;
       const Pos pm = sh<O>(g, p, -1), ph = sh<O>(g, p, 1);
       const T u_lo = at(a.uad[O], g, p), u_hi = at(a.uad[O], g, ph);
       const T e_lo = upwind(at(a.s[3 + O], g, pm), at(a.s[O], g, p), u_lo);
@@ -350,8 +361,8 @@ __global__ void predict_corner(PredictArgs<T> a) {
 }
 
 // corner-coupled t-face states, upwinded with u_ad
-template <typename T, int D>
-__global__ void predict_inter(PredictArgs<T> a) {
+template <typename T, int D, int H>
+__global__ void predict_inter(PredictArgs<T, H> a) {
   Pos p;
   int i;
   if (!thread_cell(a.g, p, i)) return;
@@ -359,7 +370,7 @@ __global__ void predict_inter(PredictArgs<T> a) {
     constexpr int TT = decltype(t_c)::value;
     if constexpr (TT != D) {
       constexpr int O = 3 - D - TT;
-      const Geo& g = a.g;
+      const auto& g = a.g;
       const T* corr = a.s[6 + tslot(D, O)];
       const Pos pm = sh<TT>(g, p, -1);
       const T lo = at(a.s[3 + TT], g, pm) - at(corr, g, pm);
@@ -369,13 +380,13 @@ __global__ void predict_inter(PredictArgs<T> a) {
   });
 }
 
-template <typename T, int D>
-__global__ void predict_final(PredictArgs<T> a) {
+template <typename T, int D, int H>
+__global__ void predict_final(PredictArgs<T, H> a) {
   Pos p;
   int i;
   if (!thread_out(a.g, p, i)) return;
   const T dt = *a.dt;
-  const Geo& g = a.g;
+  const auto& g = a.g;
   const Pos pm = sh<D>(g, p, -1);
   T stl = at(a.s[3 + D], g, pm);
   T sth = at(a.s[D], g, p);
@@ -400,9 +411,9 @@ __global__ void predict_final(PredictArgs<T> a) {
   }
   const T v = riemann(stl, sth);
   Pos q = p;  // output rows
-  q.c[0] -= g.halo;
+  q.c[0] -= H;
   a.out[face_index<D>(g, q)] = v;
-  if (q.c[D] == 0 && (D != 0 || g.halo == 0)) {  // periodic face n == face 0
+  if (q.c[D] == 0 && (D != 0 || H == 0)) {  // periodic face n == face 0
     q.c[D] = g.n[D];
     a.out[face_index<D>(g, q)] = v;
   }
@@ -418,9 +429,9 @@ __global__ void predict_final(PredictArgs<T> a) {
 constexpr int kAdvectPlanes = 24;
 constexpr int kCorner = 6, kInter = 9, kTrans = 15, kFace = 21;
 
-template <typename T>
+template <typename T, int H>
 struct AdvectArgs {
-  Geo g;
+  Geo<H> g;
   Strided<T> q;
   const T* mac[3];
   Strided<T> force;  // p == nullptr: no forces
@@ -434,13 +445,13 @@ struct AdvectArgs {
 
 // MAC velocity on the lo face of cell p along AX; face n coincides with
 // face 0 and is not read (pallas_godunov.py:435-437)
-template <int AX, typename T>
-__device__ __forceinline__ T mac(const AdvectArgs<T>& a, const Pos& p) {
+template <int AX, typename T, int H>
+__device__ __forceinline__ T mac(const AdvectArgs<T, H>& a, const Pos& p) {
   return a.mac[AX][face_index<AX>(a.g, p)];
 }
 
-template <typename T>
-__global__ void advect_traces(AdvectArgs<T> a) {
+template <typename T, int H>
+__global__ void advect_traces(AdvectArgs<T, H> a) {
   Pos p;
   int i;
   if (!thread_cell(a.g, p, i)) return;
@@ -456,13 +467,13 @@ __global__ void advect_traces(AdvectArgs<T> a) {
 }
 
 // corner correction of each cell from axis o (dt/3 conservative, dt/6 not)
-template <typename T>
-__global__ void advect_corner(AdvectArgs<T> a) {
+template <typename T, int H>
+__global__ void advect_corner(AdvectArgs<T, H> a) {
   Pos p;
   int i;
   if (!thread_cell(a.g, p, i)) return;
   const T dt = *a.dt;
-  const Geo& g = a.g;
+  const auto& g = a.g;
   static_for<0, 3>([&](auto o_c) {
     constexpr int O = decltype(o_c)::value;
     const Pos pm = sh<O>(g, p, -1), ph = sh<O>(g, p, 1);
@@ -480,12 +491,12 @@ __global__ void advect_corner(AdvectArgs<T> a) {
   });
 }
 
-template <typename T>
-__global__ void advect_inter(AdvectArgs<T> a) {
+template <typename T, int H>
+__global__ void advect_inter(AdvectArgs<T, H> a) {
   Pos p;
   int i;
   if (!thread_cell(a.g, p, i)) return;
-  const Geo& g = a.g;
+  const auto& g = a.g;
   static_for<0, 3>([&](auto d_c) {
     constexpr int D = decltype(d_c)::value;
     static_for<0, 3>([&](auto t_c) {
@@ -504,13 +515,13 @@ __global__ void advect_inter(AdvectArgs<T> a) {
 }
 
 // transverse correction of each cell for face direction d from axis t
-template <typename T>
-__global__ void advect_trans(AdvectArgs<T> a) {
+template <typename T, int H>
+__global__ void advect_trans(AdvectArgs<T, H> a) {
   Pos p;
   int i;
   if (!thread_cell(a.g, p, i)) return;
   const T dt = *a.dt;
-  const Geo& g = a.g;
+  const auto& g = a.g;
   static_for<0, 3>([&](auto d_c) {
     constexpr int D = decltype(d_c)::value;
     static_for<0, 3>([&](auto t_c) {
@@ -535,13 +546,13 @@ __global__ void advect_trans(AdvectArgs<T> a) {
 }
 
 // upwinded state on the lo face of each cell along d
-template <typename T>
-__global__ void advect_faces(AdvectArgs<T> a) {
+template <typename T, int H>
+__global__ void advect_faces(AdvectArgs<T, H> a) {
   Pos p;
   int i;
   if (!thread_cell(a.g, p, i)) return;
   const T dt = *a.dt;
-  const Geo& g = a.g;
+  const auto& g = a.g;
   static_for<0, 3>([&](auto d_c) {
     constexpr int D = decltype(d_c)::value;
     const Pos pm = sh<D>(g, p, -1);
@@ -563,12 +574,12 @@ __global__ void advect_faces(AdvectArgs<T> a) {
   });
 }
 
-template <typename T>
-__global__ void advect_rate(AdvectArgs<T> a) {
+template <typename T, int H>
+__global__ void advect_rate(AdvectArgs<T, H> a) {
   Pos p;
   int i;
   if (!thread_out(a.g, p, i)) return;
-  const Geo& g = a.g;
+  const auto& g = a.g;
   T rate = T(0);
   static_for<0, 3>([&](auto d_c) {
     constexpr int D = decltype(d_c)::value;
@@ -588,10 +599,11 @@ __global__ void advect_rate(AdvectArgs<T> a) {
 // host entries
 // ---------------------------------------------------------------------
 
-// nx counts the padded rows of a halo slab (halo > 0)
-Geo make_geo(int nx, int ny, int nz, double dx0, double dx1, double dx2,
-             int halo) {
-  Geo g;
+// nx counts the padded rows of a halo slab (H > 0)
+template <int H>
+Geo<H> make_geo(int nx, int ny, int nz, double dx0, double dx1,
+                double dx2) {
+  Geo<H> g;
   g.n[0] = nx;
   g.n[1] = ny;
   g.n[2] = nz;
@@ -599,9 +611,20 @@ Geo make_geo(int nx, int ny, int nz, double dx0, double dx1, double dx2,
   g.dx[1] = dx1;
   g.dx[2] = dx2;
   g.ncell = nx * ny * nz;
-  g.halo = halo;
-  g.nout = (nx - 2 * halo) * ny * nz;
+  g.nout = (nx - 2 * H) * ny * nz;
   return g;
+}
+
+// f(T(), std::integral_constant<int, H>()) for the element type and the
+// mode asked for
+template <typename F>
+int dispatch(int dtype, int halo, F&& f) {
+  using Periodic = std::integral_constant<int, 0>;
+  using Slab = std::integral_constant<int, kHalo>;
+  if (halo != 0 && halo != kHalo) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return halo ? f(float(), Slab()) : f(float(), Periodic());
+  if (dtype == 1) return halo ? f(double(), Slab()) : f(double(), Periodic());
+  return (int)cudaErrorInvalidValue;
 }
 
 enum Sweep { kPlanes, kOutput };
@@ -616,11 +639,11 @@ int launch(void (*kernel)(Args), const Args& a, cudaStream_t st,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int H>
 int run_uad(const void* vel, int vs, void* u0, void* u1, void* u2,
-            const void* dt, const Geo& g, int ppm, cudaStream_t st) {
+            const void* dt, const Geo<H>& g, int ppm, cudaStream_t st) {
   const T* v = static_cast<const T*>(vel);
-  UadArgs<T> a;
+  UadArgs<T, H> a;
   a.g = g;
   for (int c = 0; c < 3; ++c) a.vel[c] = Strided<T>{v + c, vs};
   a.out[0] = static_cast<T*>(u0);
@@ -628,25 +651,25 @@ int run_uad(const void* vel, int vs, void* u0, void* u1, void* u2,
   a.out[2] = static_cast<T*>(u2);
   a.dt = static_cast<const T*>(dt);
   a.ppm = ppm != 0;
-  return launch(uad_kernel<T>, a, st, kOutput);
+  return launch(uad_kernel<T, H>, a, st, kOutput);
 }
 
-template <typename T, int D>
-int run_predict(const PredictArgs<T>& a, cudaStream_t st) {
-  int rc = launch(predict_traces<T, D>, a, st);
-  if (!rc) rc = launch(predict_corner<T, D>, a, st);
-  if (!rc) rc = launch(predict_inter<T, D>, a, st);
-  if (!rc) rc = launch(predict_final<T, D>, a, st, kOutput);
+template <typename T, int D, int H>
+int run_predict(const PredictArgs<T, H>& a, cudaStream_t st) {
+  int rc = launch(predict_traces<T, D, H>, a, st);
+  if (!rc) rc = launch(predict_corner<T, D, H>, a, st);
+  if (!rc) rc = launch(predict_inter<T, D, H>, a, st);
+  if (!rc) rc = launch(predict_final<T, D, H>, a, st, kOutput);
   return rc;
 }
 
-template <typename T>
+template <typename T, int H>
 int run_predict_d(int d, const void* vel, int vs, const void* u0,
                   const void* u1, const void* u2, const void* force, int fs,
-                  void* out, void* scratch, const void* dt, const Geo& g,
+                  void* out, void* scratch, const void* dt, const Geo<H>& g,
                   int ppm, cudaStream_t st) {
   const T* v = static_cast<const T*>(vel);
-  PredictArgs<T> a;
+  PredictArgs<T, H> a;
   a.g = g;
   for (int c = 0; c < 3; ++c) a.vel[c] = Strided<T>{v + c, vs};
   a.uad[0] = static_cast<const T*>(u0);
@@ -658,17 +681,17 @@ int run_predict_d(int d, const void* vel, int vs, const void* u0,
   a.out = static_cast<T*>(out);
   a.dt = static_cast<const T*>(dt);
   a.ppm = ppm != 0;
-  if (d == 0) return run_predict<T, 0>(a, st);
-  if (d == 1) return run_predict<T, 1>(a, st);
-  return run_predict<T, 2>(a, st);
+  if (d == 0) return run_predict<T, 0, H>(a, st);
+  if (d == 1) return run_predict<T, 1, H>(a, st);
+  return run_predict<T, 2, H>(a, st);
 }
 
-template <typename T>
+template <typename T, int H>
 int run_advect(const void* q, int qs, const void* m0, const void* m1,
                const void* m2, const void* force, int fs, void* out, int os,
-               void* scratch, const void* dt, const Geo& g, int ppm,
+               void* scratch, const void* dt, const Geo<H>& g, int ppm,
                int icons, cudaStream_t st) {
-  AdvectArgs<T> a;
+  AdvectArgs<T, H> a;
   a.g = g;
   a.q = Strided<T>{static_cast<const T*>(q), qs};
   a.mac[0] = static_cast<const T*>(m0);
@@ -682,31 +705,34 @@ int run_advect(const void* q, int qs, const void* m0, const void* m1,
   a.dt = static_cast<const T*>(dt);
   a.ppm = ppm != 0;
   a.icons = icons != 0;
-  int rc = launch(advect_traces<T>, a, st);
-  if (!rc) rc = launch(advect_corner<T>, a, st);
-  if (!rc) rc = launch(advect_inter<T>, a, st);
-  if (!rc) rc = launch(advect_trans<T>, a, st);
-  if (!rc) rc = launch(advect_faces<T>, a, st);
-  if (!rc) rc = launch(advect_rate<T>, a, st, kOutput);
+  int rc = launch(advect_traces<T, H>, a, st);
+  if (!rc) rc = launch(advect_corner<T, H>, a, st);
+  if (!rc) rc = launch(advect_inter<T, H>, a, st);
+  if (!rc) rc = launch(advect_trans<T, H>, a, st);
+  if (!rc) rc = launch(advect_faces<T, H>, a, st);
+  if (!rc) rc = launch(advect_rate<T, H>, a, st, kOutput);
   return rc;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64.  halo: 0 for a periodic level, else
-// the x halo rows of a halo slab, whose nx counts its padded rows.
-// Returns a cudaError_t value.  The caller guarantees ncell * stride <
-// 2^31 (32-bit indices).
+// dtype: 0 = float32, 1 = float64.  halo: 0 for a periodic level, or
+// kHalo for a halo slab, whose nx counts its padded rows.  Returns a
+// cudaError_t value.  The caller guarantees ncell * stride < 2^31
+// (32-bit indices).
 extern "C" int godunov_uad(int dtype, const void* vel, int vs, void* u0,
                            void* u1, void* u2, const void* dt, int nx,
                            int ny, int nz, double dx0, double dx1,
                            double dx2, int halo, int use_ppm,
                            void* stream) {
-  const Geo g = make_geo(nx, ny, nz, dx0, dx1, dx2, halo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run_uad<float>(vel, vs, u0, u1, u2, dt, g, use_ppm, st);
-  if (dtype == 1) return run_uad<double>(vel, vs, u0, u1, u2, dt, g, use_ppm, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, halo, [&](auto t, auto h) {
+    using T = decltype(t);
+    constexpr int H = decltype(h)::value;
+    return run_uad<T, H>(vel, vs, u0, u1, u2, dt,
+                         make_geo<H>(nx, ny, nz, dx0, dx1, dx2), use_ppm,
+                         st);
+  });
 }
 
 extern "C" int godunov_predict_d(int dtype, int d, const void* vel, int vs,
@@ -716,16 +742,16 @@ extern "C" int godunov_predict_d(int dtype, int d, const void* vel, int vs,
                                  int nx, int ny, int nz, double dx0,
                                  double dx1, double dx2, int halo,
                                  int use_ppm, void* stream) {
-  const Geo g = make_geo(nx, ny, nz, dx0, dx1, dx2, halo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d < 0 || d > 2) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return run_predict_d<float>(d, vel, vs, u0, u1, u2, force, fs, out,
-                                scratch, dt, g, use_ppm, st);
-  if (dtype == 1)
-    return run_predict_d<double>(d, vel, vs, u0, u1, u2, force, fs, out,
-                                 scratch, dt, g, use_ppm, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, halo, [&](auto t, auto h) {
+    using T = decltype(t);
+    constexpr int H = decltype(h)::value;
+    return run_predict_d<T, H>(d, vel, vs, u0, u1, u2, force, fs, out,
+                               scratch, dt,
+                               make_geo<H>(nx, ny, nz, dx0, dx1, dx2),
+                               use_ppm, st);
+  });
 }
 
 extern "C" int godunov_advect(int dtype, const void* q, int qs,
@@ -735,13 +761,12 @@ extern "C" int godunov_advect(int dtype, const void* q, int qs,
                               int nz, double dx0, double dx1, double dx2,
                               int halo, int use_ppm, int icons,
                               void* stream) {
-  const Geo g = make_geo(nx, ny, nz, dx0, dx1, dx2, halo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return run_advect<float>(q, qs, m0, m1, m2, force, fs, out, os, scratch,
-                             dt, g, use_ppm, icons, st);
-  if (dtype == 1)
-    return run_advect<double>(q, qs, m0, m1, m2, force, fs, out, os,
-                              scratch, dt, g, use_ppm, icons, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, halo, [&](auto t, auto h) {
+    using T = decltype(t);
+    constexpr int H = decltype(h)::value;
+    return run_advect<T, H>(q, qs, m0, m1, m2, force, fs, out, os, scratch,
+                            dt, make_geo<H>(nx, ny, nz, dx0, dx1, dx2),
+                            use_ppm, icons, st);
+  });
 }

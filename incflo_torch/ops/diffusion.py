@@ -297,8 +297,7 @@ def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
     r0 = residual(x0)
     res0 = norm(r0)
     if fixed_trips is not None:
-        xb, rb = _fixed_trip_cg(x0, r0, res0, tol, A_lin, prec, fixed_trips,
-                                dot, norm)
+        xb, rb = _fixed_trip_cg(x0, r0, res0, tol, A_lin, prec, fixed_trips)
         return (xb, rb) if with_res else xb
     if not mg.host_bool(res0 > tol):
         return (x0, res0) if with_res else x0
@@ -329,25 +328,24 @@ def _tensor_pcg(x0, rhs, bvals, solver, dt_diff, eta_g1, grid, ng,
     return (xb, rb) if with_res else xb
 
 
-def _fixed_trip_cg(x0, r0, res0, tol, A_lin, prec, trips, dot=_dot,
-                   norm=mg._maxnorm):
+def _fixed_trip_cg(x0, r0, res0, tol, A_lin, prec, trips):
     """(best iterate, best residual) of `trips` masked CG trips."""
     x, r, p = x0, r0, prec(r0)
-    rz = dot(r0, p)
+    rz = _dot(r0, p)
     xb, rb = x0, res0
     bad = torch.zeros((), dtype=torch.int32, device=x0.device)
     for _ in range(trips):
         live = (rb > tol) & (bad < 5)
         Ap = A_lin(p)
-        denom = dot(p, Ap)
+        denom = _dot(p, Ap)
         alpha = rz / torch.where(denom == 0, 1.0, denom)
         xn = x + alpha * p
         rn = r - alpha * Ap
         z = prec(rn)
-        rzn = dot(rn, z)
+        rzn = _dot(rn, z)
         beta = rzn / torch.where(rz == 0, 1.0, rz)
         pn = z + beta * p
-        new_res = norm(rn)
+        new_res = mg._maxnorm(rn)
         improved = new_res < 0.999 * rb
         xb = torch.where(live & improved, xn, xb)
         x = torch.where(live, xn, x)

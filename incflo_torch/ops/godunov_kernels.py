@@ -90,13 +90,12 @@ from incflo_torch.ops.cuda_build import DT_CODE as _DT_CODE
 from incflo_torch.ops.cuda_build import check_rc
 from incflo_torch.ops.cuda_build import ptr as _ptr
 from incflo_torch.ops.cuda_build import stream as _stream
+from incflo_torch.parallel.mesh import HALO
 
 SMALL_VEL = 1.0e-8          # reference incflo_godunov_ppm.H:16
 
 SOURCE = cuda_build.CSRC_DIR / "godunov.cu"
 
-# x halo rows of a slab (pallas_godunov.HALO): the CTU chain's reach
-HALO = 4
 
 # launch counters: one per kernel, raised by the wrapper where it
 # launches the kernel and nowhere else; *_halo count the halo-slab mode
@@ -406,8 +405,8 @@ def _check_index_range(cells, ncomp):
     for m in cells:
         n *= m + 1
     if n * max(ncomp, 1) >= 2 ** 31:
-        raise ValueError(f"grid {grid.n_cell} x {ncomp} components is too "
-                         "large for the kernels' 32-bit indices")
+        raise ValueError(f"grid {tuple(cells)} x {ncomp} components is "
+                         "too large for the kernels' 32-bit indices")
 
 
 def _cuda_checked(name, t, shape, dtype, device):

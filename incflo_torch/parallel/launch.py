@@ -2,7 +2,8 @@
 
     from incflo_torch.parallel import launch
     results = launch.run("incflo_torch.parallel.workers:steps", 2,
-                         dict(deck=text, steps=3), device="cpu")
+                         dict(deck=text, nsteps=3))        # on the card
+    results = launch.run(..., device="cpu")                # on the CPU
 
 Each rank is a fresh `python -m incflo_torch.parallel.launch` process.
 It joins a torch.distributed process group through a FileStore in a
@@ -14,7 +15,8 @@ whole run: every rank is killed and run() raises with the ranks' error
 output.  The job is named by its module and function, so a rank imports
 that module and incflo_torch alone (never the caller's module).
 
-Backends: device "cpu" runs gloo.  device "cuda" runs NCCL with one GPU
+Backends: device "cpu" runs gloo.  device None or "cuda" (the default:
+the card, and run() raises where there is none) runs NCCL with one GPU
 a rank where the host has at least R GPUs; with fewer, the ranks share
 the cards (rank r on cuda:{r % count}) and run gloo, whose exchanges go
 through host buffers, and run() prints which one it chose.  Before
@@ -45,15 +47,17 @@ def choose_backend(nranks: int, device: str) -> str:
     if device == "cpu":
         return "gloo"
     if not torch.cuda.is_available():
-        raise RuntimeError("launch: device 'cuda' asked for, but torch.cuda "
-                           "is not available")
+        raise RuntimeError("launch: the ranks run on the card (device "
+                           "'cuda'), but torch.cuda is not available; pass "
+                           "device='cpu' to run them on the CPU")
     return "nccl" if torch.cuda.device_count() >= nranks else "gloo"
 
 
 def run(job: str, nranks: int, kwargs: Optional[Dict[str, Any]] = None,
-        device: str = "cpu", timeout: float = 120.0) -> List[Any]:
-    """job "module:function" on nranks ranks; returns their results.  A
-    CPU rank runs torch on one thread."""
+        device: Optional[str] = None, timeout: float = 120.0) -> List[Any]:
+    """job "module:function" on nranks ranks; returns their results.
+    device None means "cuda".  A CPU rank runs torch on one thread."""
+    device = "cuda" if device is None else device
     if device not in ("cpu", "cuda"):
         raise ValueError(f"launch: device must be 'cpu' or 'cuda', not "
                          f"{device!r}")

@@ -48,8 +48,11 @@ from typing import List, Optional, Sequence, Union
 import torch
 
 from incflo_torch.grid import Grid
-from incflo_torch.ops.godunov_kernels import HALO
 
+# x halo rows of a slab for the Godunov chain (pallas_godunov.HALO; kHalo
+# in csrc/godunov.cu): the CTU chain's reach, and so the narrowest slab a
+# mesh accepts
+HALO = 4
 _KINDS = ("halo", "all_reduce", "reduce_scatter", "gather")
 _HEADER_TAG = 1 << 20
 
@@ -88,7 +91,9 @@ class SlabGrid(Grid):
 class SlabMesh:
     """This process's place in an x-slab mesh of the default
     torch.distributed process group, and the exchanges between its
-    ranks.  `device` is where the rank's fields live."""
+    ranks.  `device` is where the rank's fields live: None means the
+    card, cuda:{rank % device_count} (raises where there is none); pass
+    "cpu" for the CPU."""
 
     def __init__(self, device=None):
         import torch.distributed as dist
@@ -100,7 +105,13 @@ class SlabMesh:
         self.rank = dist.get_rank()
         self.size = dist.get_world_size()
         self.backend = str(dist.get_backend())
-        self.device = torch.device("cpu" if device is None else device)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "SlabMesh: device None means the card, but torch.cuda "
+                    "is not available; pass device='cpu' to run on the CPU")
+            device = f"cuda:{self.rank % torch.cuda.device_count()}"
+        self.device = torch.device(device)
         if self.backend == "nccl" and self.device.type != "cuda":
             raise ValueError("an NCCL mesh keeps its fields on a GPU")
         self.via_host = self.backend != "nccl" and self.device.type != "cpu"

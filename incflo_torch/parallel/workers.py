@@ -71,14 +71,19 @@ def solves(mesh, deck, rhs_cell, rhs_node, rhs_vec, beta):
 def scope_errors(mesh, decks, on_default_device=()):
     """The error each deck raises when a Simulation splits it over this
     mesh ((type name, message), or None if it builds); the decks named in
-    on_default_device are built without a device argument."""
+    on_default_device are built without a device argument.  Under
+    "SlabMesh()": the same for a SlabMesh built without a device."""
     from incflo_torch import IncfloConfig, Simulation
+    from incflo_torch.parallel.mesh import SlabMesh
+    builds = {name: (lambda deck=deck, name=name: Simulation(
+        IncfloConfig.from_text(deck),
+        device=None if name in on_default_device else mesh.device,
+        mesh=mesh)) for name, deck in decks.items()}
+    builds["SlabMesh()"] = SlabMesh
     out = {}
-    for name, deck in decks.items():
-        device = None if name in on_default_device else mesh.device
+    for name, build in builds.items():
         try:
-            Simulation(IncfloConfig.from_text(deck), device=device,
-                       mesh=mesh)
+            build()
             out[name] = None
         except (NotImplementedError, RuntimeError, ValueError) as e:
             out[name] = (type(e).__name__, str(e))

@@ -155,10 +155,10 @@ def two_ranks(jax_reference, godunov_inputs, solve_inputs):
         ("solves", dict(deck=_deck(), **solve_inputs)),
         ("steps", dict(deck=_deck(), nsteps=STEPS)),
     ]
-    own = launch.run(JOB, 2, dict(jobs=jobs), timeout=TIMEOUT)
+    own = launch.run(JOB, 2, dict(jobs=jobs), device="cpu", timeout=TIMEOUT)
     carried = launch.run(JOB, 2, dict(jobs=[("steps", dict(
         deck=_deck(), nsteps=STEPS, start=jax_reference[0]))]),
-        timeout=TIMEOUT)
+        device="cpu", timeout=TIMEOUT)
     return own, carried, field
 
 
@@ -176,7 +176,8 @@ def four_ranks():
             ("steps", dict(deck=_deck((32, 16, 8)), nsteps=STEPS)),
             ("scope_errors", dict(decks={**decks, "no card": _deck()},
                                   on_default_device=("no card",)))]
-    return launch.run(JOB, 4, dict(jobs=jobs), timeout=TIMEOUT), field
+    return (launch.run(JOB, 4, dict(jobs=jobs), device="cpu",
+                       timeout=TIMEOUT), field)
 
 
 # ---------------------------------------------------------------------
@@ -353,3 +354,36 @@ def test_sharded_simulation_needs_a_card_unless_cpu_is_asked(four_ranks):
         err = res["scope_errors"]["no card"]
         assert err is not None and err[0] == "RuntimeError", err
         assert "CUDA" in err[1], err
+
+
+def test_slab_mesh_needs_a_card_unless_a_device_is_given(four_ranks):
+    """SlabMesh() without a device runs on the card (cuda:{rank %
+    count}), and raises where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    for res in four_ranks[0]:
+        err = res["scope_errors"]["SlabMesh()"]
+        assert err is not None and err[0] == "RuntimeError", err
+        assert "torch.cuda is not available" in err[1], err
+
+
+def test_launch_without_a_device_raises_without_a_card():
+    """launch.run's ranks run on the card unless device="cpu" is passed:
+    with no card it raises before it spawns a rank."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError, match="torch.cuda is not available"):
+        launch.run(JOB, 2, dict(jobs=[]), timeout=TIMEOUT)
+    with pytest.raises(RuntimeError, match="torch.cuda is not available"):
+        launch.run(JOB, 2, dict(jobs=[]), device="cuda", timeout=TIMEOUT)
+
+
+def test_oversize_level_raises_value_error():
+    """The Godunov kernels index with 32-bit integers: a level past that
+    raises ValueError naming its shape, periodic and halo-slab alike."""
+    with pytest.raises(ValueError, match=r"\(1024, 1024, 1024\) x 3"):
+        gk._check_index_range((1024, 1024, 1024), 3)
+    slab = (1024 + 2 * gk.HALO, 1024, 1024)
+    with pytest.raises(ValueError, match="32-bit indices"):
+        gk._check_index_range(slab, 3)
+    gk._check_index_range((128 + 2 * gk.HALO, 128, 32), 3)
