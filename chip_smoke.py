@@ -12,10 +12,14 @@ Phases (any failure ends the run with a non-zero exit):
              each, together; ptxas's registers, stack and spills of each
              kernel are printed.
   2. kernels each kernel against its plain PyTorch version on the card.
-             Godunov: float64 (relative error <= 1e-10) and float32 at the
-             n = 128 shear3d shapes (within 2e-5 / 3e-4 of the field's max
-             for predict / advect), PPM and PLM, with forces, iconserv 0
-             and 1.  Smoothers (one launch a call): a coarse-level shape
+             Godunov, at the shear3d levels n = 128 (128x128x32) and 256
+             (256x256x64), PPM and PLM, with and without forces, iconserv
+             0 and 1: predict_d and advect bit-equal in float32 and within
+             1e-14 relative in float64, uad within 2e-5 (float32) and
+             1e-10 (float64) of the field's max; their f32 times at both
+             levels, and the device launches of one call counted as the
+             kernel nodes of a CUDA graph that captured it (predict_d and
+             advect must be one, in the halo-slab mode too).  Smoothers (one launch a call): a coarse-level shape
              (64x64x16) and the fine-level shape (128x128x32), 2 sweeps
              and 8 (cell bottom) / 24 (nodal bottom), with and without the
              residual, variable coefficients from a seed, the cell
@@ -135,6 +139,11 @@ PER_STEP = {"uad": 1, "predict_d": 3, "advect": 3}
 # shear3d_vd also advects the density and rho*tracer
 PER_STEP_VD = {"uad": 1, "predict_d": 3, "advect": 5}
 TOL = {"uad": 2e-5, "predict_d": 2e-5, "advect": 3e-4}
+# the fused kernels: float32 bit for bit, float64 within this, relative
+# to the field's max; one device launch a call
+EXACT = ("predict_d", "advect")
+TOL_EXACT_F64 = 1e-14
+GODUNOV_SIZES = (128, 256)
 TOL_F64 = 1e-10
 SMOOTHERS = ("cell_smooth", "nodal_smooth")
 WALLED = "cell_smooth_walled"
@@ -392,66 +401,58 @@ def kernel_inputs(grid, dtype, dev):
     return vel, forces, q, dt
 
 
-def phase_kernels(gk, grid_of, torch):
-    """Errors of every kernel against its plain version on the card, then
-    the f32 times at the n = 128 shapes."""
+def godunov_errors(gk, grid, dtype, torch, res):
+    """Every Godunov kernel against its plain version on one grid and
+    type: uad within TOL (float32) / TOL_F64; predict_d and advect bit
+    for bit in float32 and within TOL_EXACT_F64 in float64.  PPM and PLM,
+    predict_d with and without forces, advect iconserv 0 and 1."""
     dev = torch.device("cuda")
-    grid = grid_of(128)
-    res = {k: {"max_abs_err": 0.0, "max_rel_err_f32": 0.0,
-               "max_rel_err_f64": 0.0} for k in PER_STEP}
-    for dtype, key in ((torch.float64, "max_rel_err_f64"),
-                       (torch.float32, "max_rel_err_f32")):
-        vel, forces, q, dt = kernel_inputs(grid, dtype, dev)
-        for ppm in (True, False):
-            u_k = gk.uad(grid, vel, dt, ppm)
-            u_p = gk.uad_plain(grid, vel, dt, ppm)
-            for a, b in zip(u_k, u_p):
-                res["uad"][key] = max(res["uad"][key], rel_err(a, b))
-                if dtype == torch.float32:
-                    res["uad"]["max_abs_err"] = max(
-                        res["uad"]["max_abs_err"], abs_err(a, b))
-            for with_f in (True, False):
-                f = forces if with_f else None
-                for d in range(3):
-                    a = gk.predict_d(grid, vel, u_p, f, dt, d, ppm)
-                    b = gk.predict_d_plain(
-                        grid, vel, u_p, None if f is None else f[..., d],
-                        dt, d, ppm)
-                    r = res["predict_d"]
-                    r[key] = max(r[key], rel_err(a, b))
-                    if dtype == torch.float32:
-                        r["max_abs_err"] = max(r["max_abs_err"],
-                                               abs_err(a, b))
-            umac = gk.predict_plain(grid, vel, forces, dt, ppm)
-            for icons in (0, 1):
-                for n in range(3):
-                    a = gk.advect_comp(grid, q, n, umac, forces, dt,
-                                       bool(icons), ppm)
-                    b = gk.advect_comp_plain(grid, q[..., n], umac,
-                                             forces[..., n], dt,
-                                             bool(icons), ppm)
-                    r = res["advect"]
-                    r[key] = max(r[key], rel_err(a, b))
-                    if dtype == torch.float32:
-                        r["max_abs_err"] = max(r["max_abs_err"],
-                                               abs_err(a, b))
-    torch.cuda.synchronize()
-    for k, r in res.items():
-        print(f"[kernels] {k}: f64 rel {r['max_rel_err_f64']:.3e} "
-              f"(tol {TOL_F64:g}), f32 rel {r['max_rel_err_f32']:.3e} "
-              f"(tol {TOL[k]:g})", flush=True)
-        if not r["max_rel_err_f64"] <= TOL_F64:
-            raise AssertionError(f"{k}: float64 disagrees with the plain "
-                                 f"version ({r['max_rel_err_f64']:.3e})")
-        if not r["max_rel_err_f32"] <= TOL[k]:
-            raise AssertionError(f"{k}: float32 disagrees with the plain "
-                                 f"version ({r['max_rel_err_f32']:.3e})")
+    f32 = dtype == torch.float32
+    key = "max_rel_err_f32" if f32 else "max_rel_err_f64"
 
-    # times at the main path's shapes and type: f32, PPM, with forces,
-    # convective form (iconserv 0), as the shear3d step calls them
+    def note(k, a, b):
+        r = res[k]
+        r[key] = max(r[key], rel_err(a, b))
+        if f32:
+            r["max_abs_err"] = max(r["max_abs_err"], abs_err(a, b))
+            if k in EXACT and not torch.equal(a, b):
+                raise AssertionError(f"{k} at {grid.n_cell}: float32 "
+                                     "differs from the plain version by "
+                                     f"{abs_err(a, b):.3e}")
+
+    vel, forces, q, dt = kernel_inputs(grid, dtype, dev)
+    for ppm in (True, False):
+        u_k = gk.uad(grid, vel, dt, ppm)
+        u_p = gk.uad_plain(grid, vel, dt, ppm)
+        for a, b in zip(u_k, u_p):
+            note("uad", a, b)
+        for with_f in (True, False):
+            f = forces if with_f else None
+            for d in range(3):
+                note("predict_d",
+                     gk.predict_d(grid, vel, u_p, f, dt, d, ppm),
+                     gk.predict_d_plain(grid, vel, u_p,
+                                        None if f is None else f[..., d],
+                                        dt, d, ppm))
+        umac = gk.predict_plain(grid, vel, forces, dt, ppm)
+        for icons in (0, 1):
+            for n in range(3):
+                note("advect",
+                     gk.advect_comp(grid, q, n, umac, forces, dt,
+                                    bool(icons), ppm),
+                     gk.advect_comp_plain(grid, q[..., n], umac,
+                                          forces[..., n], dt, bool(icons),
+                                          ppm))
+    torch.cuda.synchronize()
+
+
+def godunov_times(gk, sk, grid, torch):
+    """f32 times, bound and device launches of one call of each Godunov
+    kernel, as the shear3d step calls them: PPM, with forces, the
+    convective form (iconserv 0)."""
+    dev = torch.device("cuda")
     vel, forces, q, dt = kernel_inputs(grid, torch.float32, dev)
     cells = grid.n_cell[0] * grid.n_cell[1] * grid.n_cell[2]
-    isz = 4
     u_p = gk.uad_plain(grid, vel, dt, True)
     umac = gk.predict_plain(grid, vel, forces, dt, True)
     f0 = forces[..., 0].contiguous()
@@ -467,21 +468,57 @@ def phase_kernels(gk, grid_of, torch):
                    lambda: gk.advect_comp_plain(grid, vel[..., 0], umac,
                                                 f0, dt, False, True), 6),
     }
-    saved = dict(gk.LAUNCHES)
+    out = {}
     for k, (kern, plain, nfields) in calls.items():
-        r = res[k]
-        r["ms"] = device_ms(kern)
-        r["plain_ms"] = device_ms(plain)
-        r["bytes"] = nfields * cells * isz
-        r["ops"] = count_ops(plain)
-        t_bytes = r["bytes"] / PEAK_BYTES * 1e3
-        t_ops = r["ops"] / PEAK_OPS["float32"] * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"[kernels] {k}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}: {r['bytes']} B, {r['ops']} ops)",
+        r = {"device_launches": graph_launches(sk, kern),
+             "ms": device_ms(kern), "plain_ms": device_ms(plain),
+             "bytes": nfields * cells * 4, "ops": count_ops(plain)}
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"])
+        # -fmad=false: no add-multiply pair issues as one FMA, so the
+        # reachable rate of these operations is half the f32 peak
+        r["no_fma_bound_ms"] = max(r["bytes"] / PEAK_BYTES,
+                                   2 * r["ops"] / PEAK_OPS["float32"]) * 1e3
+        if k in EXACT and r["device_launches"] != 1:
+            raise AssertionError(f"{k}: one call is {r['device_launches']} "
+                                 "device launches")
+        out[k] = r
+        print(f"[kernels] {k} {'x'.join(map(str, grid.n_cell))}: kernel "
+              f"{r['ms']:.4f} ms ({r['device_launches']} device launch a "
+              f"call), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} B, "
+              f"{r['ops']} ops; {r['no_fma_bound_ms']:.5f} ms without FMA)",
               flush=True)
+    return out
+
+
+def phase_kernels(gk, sk, grid_of, torch):
+    """Errors of every Godunov kernel against its plain version on the
+    card at the shear3d levels n = 128 and 256, float64 and float32, then
+    the f32 times and device launches per call at both."""
+    res = {k: {"max_abs_err": 0.0, "max_rel_err_f32": 0.0,
+               "max_rel_err_f64": 0.0} for k in PER_STEP}
+    saved = dict(gk.LAUNCHES)
+    for n in GODUNOV_SIZES:
+        for dtype in (torch.float64, torch.float32):
+            godunov_errors(gk, grid_of(n), dtype, torch, res)
+    for k, r in res.items():
+        t32, t64 = (0.0, TOL_EXACT_F64) if k in EXACT else (TOL[k], TOL_F64)
+        print(f"[kernels] {k} at n = {', '.join(map(str, GODUNOV_SIZES))}: "
+              f"f64 rel {r['max_rel_err_f64']:.3e} (tol {t64:g}), f32 rel "
+              f"{r['max_rel_err_f32']:.3e} (tol {t32:g})", flush=True)
+        if not r["max_rel_err_f64"] <= t64:
+            raise AssertionError(f"{k}: float64 disagrees with the plain "
+                                 f"version ({r['max_rel_err_f64']:.3e})")
+        if not r["max_rel_err_f32"] <= t32:
+            raise AssertionError(f"{k}: float32 disagrees with the plain "
+                                 f"version ({r['max_rel_err_f32']:.3e})")
+    for n in GODUNOV_SIZES:
+        times = godunov_times(gk, sk, grid_of(n), torch)
+        for k, r in res.items():
+            if n == GODUNOV_SIZES[0]:
+                r.update(times[k])
+            else:
+                r[f"at_{n}"] = times[k]
     gk.LAUNCHES.update(saved)      # comparison launches do not count
     return res
 
@@ -1874,7 +1911,7 @@ def slab_grid(grid, nranks):
                     periodic=grid.periodic, nx_full=nx)
 
 
-def phase_halo_kernels(gk, grid_of, torch):
+def phase_halo_kernels(gk, sk, grid_of, torch):
     """The halo-slab kernels at the shear3d n = 128 level cut into 2 slabs
     (nxl 64) and 4 (nxl 32), float32 and float64: every launch against
     its slab plain version and against the unsharded kernel's output on
@@ -1995,7 +2032,8 @@ def phase_halo_kernels(gk, grid_of, torch):
                 5, 1),
         }
         for k, (kern, plain, n_in, n_out) in calls.items():
-            t = {"ms": device_ms(kern), "plain_ms": device_ms(plain),
+            t = {"device_launches": graph_launches(sk, kern),
+                 "ms": device_ms(kern), "plain_ms": device_ms(plain),
                  "bytes": (n_in * rows_in + n_out * rows_out) * m * 4,
                  "ops": level_ops[k] * nxl // grid.n_cell[0]}
             t_bytes = t["bytes"] / PEAK_BYTES * 1e3
@@ -2003,7 +2041,12 @@ def phase_halo_kernels(gk, grid_of, torch):
             t["bound_ms"] = max(t_bytes, t_ops)
             t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             res[k][f"nxl{nxl}"] = t
-            print(f"[sharded] {k} nxl {nxl}: kernel {t['ms']:.4f} ms, plain "
+            if k != "uad_halo" and t["device_launches"] != 1:
+                raise AssertionError(f"{k}: one call is "
+                                     f"{t['device_launches']} device "
+                                     "launches")
+            print(f"[sharded] {k} nxl {nxl}: kernel {t['ms']:.4f} ms "
+                  f"({t['device_launches']} device launch a call), plain "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
                   f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops)",
                   flush=True)
@@ -2116,7 +2159,7 @@ def phase_sharded_step(incflo_torch, gk, torch, n=128, steps64=3, warm=2,
           + "; against the 1-rank f32 run "
           + ", ".join(f"{f} {e:.2e}" for f, e in err32.items())
           + f"; per rank per step {PER_STEP_HALO} halo-slab wrapper calls "
-          f"(1 + 12 + 18 device launches); instrumented "
+          f"(one device launch each); instrumented "
           f"{inst:.3f} ms/step, of it exchanges (ms/step) "
           + ", ".join(f"{k} {v:.3f}" for k, v in comm.items())
           + f"; spawns {spawn_s:.1f} s", flush=True)
@@ -2169,8 +2212,8 @@ def main(argv):
     print(f"[device] {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     build_s = phase_build(cuda_build, [gk.SOURCE, sk.SOURCE, s2.SOURCE])
-    kres = phase_kernels(gk, grid_of, torch)
-    hres = phase_halo_kernels(gk, grid_of, torch)
+    kres = phase_kernels(gk, sk, grid_of, torch)
+    hres = phase_halo_kernels(gk, sk, grid_of, torch)
     sres = phase_smoothers(sk, mg, grid_of, torch)
     wres = phase_walled_smoother(sk, mg, torch)
     wnres = phase_walled_nodal(sk, mg, torch)
@@ -2223,12 +2266,18 @@ def main(argv):
             "launches": main128["launches"][k],
             "launches_per_step": PER_STEP[k],
             "launches_shear3d_vd": [m["launches"][k] for m in main_vd],
+            "device_launches_per_call": r["device_launches"],
             "max_abs_err": r["max_abs_err"],
-            "max_rel_err_f32": r["max_rel_err_f32"], "tol_f32": TOL[k],
-            "max_rel_err_f64": r["max_rel_err_f64"], "tol_f64": TOL_F64,
+            "max_rel_err_f32": r["max_rel_err_f32"],
+            "tol_f32": 0.0 if k in EXACT else TOL[k],
+            "max_rel_err_f64": r["max_rel_err_f64"],
+            "tol_f64": TOL_EXACT_F64 if k in EXACT else TOL_F64,
+            "shape": "shear3d 128x128x32, float32",
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "bytes": r["bytes"], "ops": r["ops"], "library_ms": None})
+            "no_fma_bound_ms": r["no_fma_bound_ms"],
+            "bytes": r["bytes"], "ops": r["ops"], "library_ms": None,
+            "at_256": r["at_256"]})
     for k in SMOOTHERS:
         r = sres[k]
         fine = r["128x128x32"]
@@ -2302,6 +2351,7 @@ def main(argv):
             "launches": shard["launches_per_rank"][0][k],
             "launches_per_rank": [c[k] for c in shard["launches_per_rank"]],
             "launches_per_step": PER_STEP_HALO[k],
+            "device_launches_per_call": t["device_launches"],
             "max_abs_err": r["max_abs_err"], "tol_f32": 0.0,
             "max_rel_err_f64": r["max_rel_err_f64"], "tol_f64": 1e-14,
             "outputs_checked": r["checked"],

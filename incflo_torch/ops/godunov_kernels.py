@@ -29,23 +29,25 @@ calls of the wrapper that reach the card):
              corrections (conservative or convective form), upwinded
              faces, flux divergence.
 
-What bounds them on an H100: bytes, nearly.  Each is a stencil chain of
-400-550 operations per cell over 6-8 fields (uad 6, predict_d 8 with
-forces, advect 6 with forces); at 128x128x32 f32 one field is 2.1 MB,
-so the memory floor is 3.8-5.0 us per launch, and the operations at the
-f32 peak take about as long (advect's slightly longer).  Design: one
-thread per cell with z fastest, so a warp reads 32 consecutive z values;
-periodic neighbours come from index arithmetic on compile-time axes, so
-no padded copies are made.  The chain reaches 3-4 cells along every
-axis, so each kernel runs as a sequence of `__global__` stages (uad 1,
-predict_d 4, advect 6) and each stage stores one intermediate (traces,
-corner corrections, corner-coupled states, transverse corrections, face
-states) in a scratch plane instead of recomputing its neighbours'.
-These scratch round trips through L2/HBM keep the kernels 9-19x above
-the floor (chip_smoke.py measures it); fusing the stages through
-shared-memory tiles is later work.  The TPU-only parts of the Pallas
-design (merged (y,z) lane layout, x-slab DMA, the 4-launch split forced
-by 16 MB of VMEM, the m % 128 == 0 scope rule) do not carry over.
+What bounds them on an H100.  uad: bytes (6 fields at 128x128x32 f32,
+3.8 us at 3.35 TB/s); one thread per cell.  predict_d and advect:
+operations, about 300 and 550 a cell, with no FMA (the build's
+-fmad=false, which bit-equality needs, halves the reachable f32 rate to
+33.5 TFLOP/s).  Design: ONE launch a call, the corner-transport chain
+on chip.  A CTA owns a TILE = 8 x 32 (y, z) column of output cells and
+marches along x over a chunk of output rows, one thread per cell of the
+column and its 1-cell halo; the inputs' x planes arrive by cp.async into
+rings of shared-memory planes ahead of use, and each stage (traces,
+corner corrections, corner-coupled states, faces with their transverse
+corrections, flux divergence or Riemann select) keeps its last few x
+planes in shared memory for the next stages, so no intermediate touches
+device memory.  Halo cells of a tile and a chunk's first planes are
+recomputed, bit-equal to their owners'.  tile_plan is the launch plan
+the wrappers pass (the tile, the x rows a CTA marches over, the
+shared-memory bytes); the C entries check it against csrc/godunov.cu.
+The TPU-only parts of the Pallas design (merged (y,z) lane layout,
+x-slab DMA, the 4-launch split forced by 16 MB of VMEM, the m % 128 == 0
+scope rule) do not carry over.
 
 Halo-slab kernels (B8: pallas_godunov.py:predict_sharded (:525),
 advect_sharded (:572) and _halo_x (:502)).  On a level split along x
@@ -80,7 +82,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -113,9 +115,71 @@ REPLACES = {
     "advect_halo": "incflo_tpu/ops/pallas_godunov.py:572",
 }
 
-# scratch planes each kernel's stages keep (cell-shaped; the layouts
-# are kPredictPlanes and kAdvectPlanes in csrc/godunov.cu)
-_SCRATCH = {"predict_d": 10, "advect": 24}
+# The fused kernels' launch plan (csrc/godunov.cu kTileY, kTileZ and the
+# shared-memory layouts kAdv*, kPr*)
+TILE = (8, 32)            # output cells (y, z) of a CTA's column
+# one thread per cell of a stage's plane ((ty + 2) x (tz + 2)), whole warps
+THREADS = -(-(TILE[0] + 2) * (TILE[1] + 2) // 32) * 32
+# planes of each kind a kernel keeps in shared memory, ring slots x
+# fields summed over its rings: wide (the advected field, (ty + 6) x
+# (tz + 6)), staged inputs ((ty + 3) x (tz + 3): MAC velocities, u_ad,
+# speeds, forces) and stage planes ((ty + 2) x (tz + 2): traces, corner,
+# inter, faces)
+_PLANES = {"advect": (7, 6 + 5 + 5 + 3, 2 * 4 + 4 * 3 + 3 * 2 + 6 * 3
+                      + 3 * 2),
+           "predict_d": (7, 3 * 2 + 6 * 3 + 4, 2 * 4 + 4 * 3 + 2 * 2
+                         + 2 * 3)}
+_MARGIN = 64              # elements before and after the planes
+REACH = 3                 # input rows a chunk reads beyond its output rows
+SMEM_BLOCK = 232448       # H100: shared memory one CTA may take (227 KB)
+SMEM_SM = 233472          # shared memory of a multiprocessor (228 KB)
+SMEM_RESERVED = 1024      # what the runtime keeps of it per CTA
+THREADS_SM = 2048
+SMS = 132                 # multiprocessors of an H100 SXM
+
+
+class Plan(NamedTuple):
+    tile: Tuple[int, int]      # output cells (y, z) of a CTA
+    chunk: int                 # output rows (x) a CTA marches over
+    grid: Tuple[int, int, int]  # CTAs: chunks, y tiles, z tiles
+    smem: int                  # dynamic shared-memory bytes of a CTA
+    ctas_per_sm: int           # as shared memory and threads allow
+
+
+def smem_bytes(kind: str, itemsize: int) -> int:
+    """Dynamic shared memory of a fused kernel's CTA (csrc/godunov.cu
+    smem_bytes): the rings of planes and the y and z wrap tables."""
+    ty, tz = TILE
+    wide, staged, stage = _PLANES[kind]
+    elems = (2 * _MARGIN + wide * (ty + 6) * (tz + 6)
+             + staged * (ty + 3) * (tz + 3) + stage * (ty + 2) * (tz + 2))
+    return itemsize * elems + 4 * ((ty + 6) + (tz + 6))
+
+
+def tile_plan(kind: str, out_cells, itemsize: int, sms: int = SMS) -> Plan:
+    """Launch plan of a fused kernel ("advect" or "predict_d") for an
+    output of out_cells = (rows, ny, nz) cells: one CTA per y-z tile and
+    chunk of rows.  The chunk is the shortest that keeps every CTA slot of
+    the card (sms x CTAs a multiprocessor holds) busy in one wave."""
+    nx, ny, nz = out_cells
+    ty, tz = TILE
+    smem = smem_bytes(kind, itemsize)
+    per_sm = min(THREADS_SM // THREADS, SMEM_SM // (smem + SMEM_RESERVED))
+    tiles = (-(-ny // ty), -(-nz // tz))
+    nchunks = max(1, min(nx, sms * per_sm // (tiles[0] * tiles[1])))
+    chunk = -(-nx // nchunks)
+    return Plan(TILE, chunk, (-(-nx // chunk),) + tiles, smem, per_sm)
+
+
+_SMS = {}
+
+
+def _plan(kind, grid, t):
+    """The plan for the output rows of `grid` (a slab's nxl) on t's card."""
+    dev = t.device
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return tile_plan(kind, grid.n_cell, t.element_size(), _SMS[dev])
 
 
 def reset_launches() -> None:
@@ -437,11 +501,12 @@ def _lib():
         lib = cuda_build.load(SOURCE)
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         geo = [I, I, I, D, D, D, I]
+        plan = [I, I, I, I]     # tile y, tile z, chunk, shared-memory bytes
         lib.godunov_uad.argtypes = [I, P, I, P, P, P, P] + geo + [I, P]
         lib.godunov_predict_d.argtypes = (
-            [I, I, P, I, P, P, P, P, I, P, P, P] + geo + [I, P])
+            [I, I, P, I, P, P, P, P, I, P, P] + geo + [I] + plan + [P])
         lib.godunov_advect.argtypes = (
-            [I, P, I, P, P, P, P, I, P, I, P, P] + geo + [I, I, P])
+            [I, P, I, P, P, P, P, I, P, I, P] + geo + [I, I] + plan + [P])
         for f in (lib.godunov_uad, lib.godunov_predict_d,
                   lib.godunov_advect):
             f.restype = I
@@ -498,13 +563,13 @@ def _launch_predict_d(grid, vel, uad_faces, forces, dt, d, use_ppm, halo,
         forces = _cuda_checked("forces", forces, pn + (3,), dty, dev)
     out = torch.empty(_face_shape(grid.n_cell, d, halo), dtype=dty,
                       device=dev)
-    scratch = torch.empty((_SCRATCH["predict_d"],) + pn, dtype=dty,
-                          device=dev)
+    lib = _lib()
+    pl = _plan("predict_d", grid, vel)
     fptr = _ptr(forces, d) if forces is not None else None
-    rc = _lib().godunov_predict_d(_DT_CODE[dty], d, _ptr(vel), 3,
+    rc = lib.godunov_predict_d(_DT_CODE[dty], d, _ptr(vel), 3,
                                   *(_ptr(u) for u in uad_faces), fptr, 3,
-                                  _ptr(out), _ptr(scratch), _ptr(dt),
-                                  *_geo(grid, halo), int(use_ppm),
+                                  _ptr(out), _ptr(dt), *_geo(grid, halo),
+                                  int(use_ppm), *pl.tile, pl.chunk, pl.smem,
                                   _stream(vel))
     check_rc(key, rc)
     LAUNCHES[key] += 1
@@ -529,13 +594,14 @@ def _launch_advect(grid, q, n, umac, forces, dt, icons, use_ppm, out, halo,
               and out.dtype == dty and out.device == dev):
         raise ValueError(f"{key}: `out` must be a contiguous {dty} tensor "
                          f"of shape {shape} on {dev}")
-    scratch = torch.empty((_SCRATCH["advect"],) + pn, dtype=dty, device=dev)
+    lib = _lib()
+    pl = _plan("advect", grid, q)
     fptr = _ptr(forces, n) if forces is not None else None
-    rc = _lib().godunov_advect(_DT_CODE[dty], _ptr(q, n), ncomp,
+    rc = lib.godunov_advect(_DT_CODE[dty], _ptr(q, n), ncomp,
                                *(_ptr(m) for m in mac), fptr, ncomp,
-                               _ptr(out, n), ncomp, _ptr(scratch), _ptr(dt),
+                               _ptr(out, n), ncomp, _ptr(dt),
                                *_geo(grid, halo), int(use_ppm), int(icons),
-                               _stream(q))
+                               *pl.tile, pl.chunk, pl.smem, _stream(q))
     check_rc(key, rc)
     LAUNCHES[key] += 1
     return out[..., n]

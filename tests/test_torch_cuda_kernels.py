@@ -7,10 +7,10 @@ torch.cuda.is_available() is false.  Run them on a GPU host with
 (--noconftest because tests/conftest.py imports JAX, which a GPU host
 need not have).
 
-Tolerances: float64 1e-10 relative to the field's max (the kernels repeat
-the plain version's operations with no FMA contraction, so they agree to
-rounding); float32 2e-5 (predict) and 3e-4 (advect) of the field's max,
-the tolerances of tests/test_pallas_godunov.py.  The smoothers: float64
+Tolerances: the Godunov kernels repeat the plain version's operations
+with no FMA contraction, in the same order, so they are held bit-equal
+to it in float32 and within 1e-14 of the field's max in float64, at
+ragged and short-axis shapes that cut the fused kernels' 8 x 32 tiles.  The smoothers: float64
 1e-12 relative; float32 2e-6 absolute on x and 5e-4 on the residual for
 O(1) fields on a unit-spaced level scale (the limits of
 tests/test_pallas_kernels.py).  The walled cell smoother is held to the
@@ -74,13 +74,27 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
-                                       (torch.float32, 2e-5)])
+# ragged and short axes: no axis a multiple of the 8 x 32 tile, axes
+# shorter than a tile and its halo (5 x 3 x 2), an odd periodic x
+GODUNOV_SHAPES = [(16, 8, 12), (24, 9, 7), (33, 8, 16), (5, 3, 2)]
+
+
+def _same_bits(got, ref, dtype):
+    """float32 bit for bit; float64 within 1e-14 of the field's max."""
+    assert got.shape == ref.shape
+    if dtype == torch.float32:
+        assert torch.equal(got, ref)
+    else:
+        assert _rel(got, ref) <= 1e-14
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", GODUNOV_SHAPES)
 @pytest.mark.parametrize("use_ppm", [True, False])
 @pytest.mark.parametrize("with_forces", [True, False])
-def test_predict_kernel_matches_plain(cuda, dtype, tol, use_ppm,
+def test_predict_kernel_matches_plain(cuda, dtype, shape, use_ppm,
                                       with_forces):
-    grid = _grid()
+    grid = _grid(shape)
     vel = _fields(grid, 3, 1, dtype, cuda)
     forces = 0.3 * _fields(grid, 3, 2, dtype, cuda) if with_forces else None
     dt = torch.tensor(0.01, dtype=dtype, device=cuda)
@@ -91,27 +105,32 @@ def test_predict_kernel_matches_plain(cuda, dtype, tol, use_ppm,
     assert gk.LAUNCHES["predict_d"] == n0["predict_d"] + 3
     ref = gk.predict_plain(grid, vel, forces, dt, use_ppm)
     for d in range(3):
-        assert got[d].shape == ref[d].shape
-        assert _rel(got[d], ref[d]) <= tol, d
+        _same_bits(got[d], ref[d], dtype)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
-                                       (torch.float32, 3e-4)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", GODUNOV_SHAPES)
 @pytest.mark.parametrize("use_ppm", [True, False])
-@pytest.mark.parametrize("iconserv", [(0, 0, 0), (1, 1, 1)])
-def test_advect_kernel_matches_plain(cuda, dtype, tol, use_ppm, iconserv):
-    grid = _grid()
-    q = _fields(grid, 3, 3, dtype, cuda)
-    forces = 0.2 * _fields(grid, 3, 4, dtype, cuda)
+@pytest.mark.parametrize("iconserv", [0, 1])
+@pytest.mark.parametrize("ncomp", [1, 3, 5])
+@pytest.mark.parametrize("with_forces", [True, False])
+def test_advect_kernel_matches_plain(cuda, dtype, shape, use_ppm, iconserv,
+                                     ncomp, with_forces):
+    grid = _grid(shape)
+    q = _fields(grid, ncomp, 3, dtype, cuda)
+    forces = (0.2 * _fields(grid, ncomp, 4, dtype, cuda) if with_forces
+              else None)
     vel = _fields(grid, 3, 5, dtype, cuda)
     dt = torch.tensor(0.01, dtype=dtype, device=cuda)
     umac = gk.predict_plain(grid, vel, None, dt, use_ppm)
     n0 = gk.LAUNCHES["advect"]
-    got = gk.advect(grid, q, umac, forces, dt, iconserv, use_ppm)
+    # one launch per component, each writing its strided slice of `out`
+    got = gk.advect(grid, q, umac, forces, dt, (iconserv,) * ncomp, use_ppm)
     torch.cuda.synchronize()
-    assert gk.LAUNCHES["advect"] == n0 + 3
-    ref = gk.advect_plain(grid, q, umac, forces, dt, iconserv, use_ppm)
-    assert _rel(got, ref) <= tol
+    assert gk.LAUNCHES["advect"] == n0 + ncomp
+    ref = gk.advect_plain(grid, q, umac, forces, dt, (iconserv,) * ncomp,
+                          use_ppm)
+    _same_bits(got, ref, dtype)
 
 
 def test_kernels_raise_outside_scope(cuda):

@@ -13,6 +13,11 @@ Two references, the same inputs (smooth O(1) fields from a numpy seed):
 On the CPU the kernel wrappers take the plain versions, and their launch
 counters do not move.
 
+The fused kernels' launch plan (godunov_kernels.tile_plan, pure Python):
+for the shear3d levels, the card tests' shapes and halo slabs, each CTA's
+shared memory fits an H100 block, every output cell belongs to exactly
+one CTA, and a slab's chunks read only its padded rows.
+
 Walls: predict_plain / advect_plain on ghost-filled arrays of a grid
 with slip or no-slip walls on z (and one with walls on x and z) against
 the same jnp path, float64, to 1e-11 relative, from random fields, which
@@ -289,3 +294,39 @@ def test_wrappers_raise_outside_scope():
         tgod.GodunovScheme(tg, True, True).predict(
             torch.zeros(N64 + (3,), dtype=torch.float64), None, DT, 0,
             _bcrec(3))
+
+
+# (output cells, halo rows a side): the shear3d levels n = 128 and 256,
+# the card tests' ragged and short-axis shapes, and x slabs of 2 and 4
+# ranks and of an odd level over 3
+PLAN_CASES = [((128, 128, 32), 0), ((256, 256, 64), 0), ((16, 8, 12), 0),
+              ((24, 9, 7), 0), ((33, 8, 16), 0), ((5, 3, 2), 0),
+              ((64, 128, 32), gk.HALO), ((32, 128, 32), gk.HALO),
+              ((8, 9, 7), gk.HALO)]
+
+
+@pytest.mark.parametrize("cells,halo", PLAN_CASES)
+def test_tile_plan_fits_and_covers_every_output_once(cells, halo):
+    nx = cells[0]
+    for kind in ("advect", "predict_d"):
+        for itemsize in (4, 8):
+            pl = gk.tile_plan(kind, cells, itemsize)
+            assert pl.smem == gk.smem_bytes(kind, itemsize)
+            assert pl.smem <= gk.SMEM_BLOCK
+            assert pl.ctas_per_sm >= 1
+            nch, nty, ntz = pl.grid
+            (ty, tz), ctas = pl.tile, nch * nty * ntz
+            # one wave unless the rows cannot be cut finer
+            assert ctas <= gk.SMS * pl.ctas_per_sm or pl.chunk == 1
+            hits = np.zeros(cells, np.int32)
+            for c in range(nch):
+                x0, x1 = c * pl.chunk, min((c + 1) * pl.chunk, nx)
+                assert x0 < x1
+                # the input rows the chunk reads lie in a slab's padded rows
+                assert halo == 0 or (halo + x0 - gk.REACH >= 0
+                                     and halo + x1 + gk.REACH <= nx + 2 * halo)
+                for a in range(nty):
+                    for b in range(ntz):
+                        hits[x0:x1, a * ty:(a + 1) * ty,
+                             b * tz:(b + 1) * tz] += 1
+            assert (hits == 1).all(), (kind, itemsize)
