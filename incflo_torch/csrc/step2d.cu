@@ -113,7 +113,15 @@ struct Args {
   T dx0, dx1, dxi0, dxi1, two_cfl, cfl, mu, fallback, per, stop_time,
       fixed_dt, rtol, atol, gp0[2], grav[2], macb[2], dacoef, db[2][2];
   void* p[NPTR];
+  long long* probe;   // the probe's records (kProbe only)
+  int probe_cap;
 };
+
+// Probe records (step2d_launch_probe): after each segment of the step,
+// block 0 stamps {kind, %globaltimer ns, clock64} once its threads are
+// done; a grid barrier is stamped before and after its wait.  The
+// interval before a record belongs to the record's kind.
+enum Seg { kStart, kTransform, kBarrier, kElem, kFinish, NSEG };
 
 template <typename T> struct Lim;
 template <> struct Lim<float> { static constexpr float eps = FLT_EPSILON; };
@@ -206,17 +214,17 @@ __device__ __forceinline__ T mol_flux(T q0, T q1, T q2, T q3, T um) {
   return qs * um;
 }
 
-template <typename T>
+template <typename T, bool kProbe>
 struct Step {
   const Args<T>& a;
   cg::grid_group grid;
   T* sm;
   int nx, ny, n, gtid, gstride, nblk;
-  int barriers;
+  int barriers, nrec;
 
   __device__ Step(const Args<T>& args, T* smem)
       : a(args), grid(cg::this_grid()), sm(smem), nx(args.nx), ny(args.ny),
-        n(args.nx * args.ny), nblk(args.nblk), barriers(0) {
+        n(args.nx * args.ny), nblk(args.nblk), barriers(0), nrec(0) {
     gtid = blockIdx.x * blockDim.x + threadIdx.x;
     gstride = gridDim.x * blockDim.x;
   }
@@ -224,9 +232,36 @@ struct Step {
   __device__ int* iptr(int k) const { return static_cast<int*>(a.p[k]); }
   __device__ T* f(int k) const { return static_cast<T*>(a.p[k]); }
 
-  __device__ void sync() {
+  // the probe's stamp of a segment of `kind` that ends here
+  __device__ void mark(int kind) {
+    if constexpr (kProbe) {
+      __syncthreads();
+      if (blockIdx.x == 0 && threadIdx.x == 0 && nrec < a.probe_cap) {
+        unsigned long long t;
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+        long long* r = a.probe + 3 * nrec;
+        r[0] = kind;
+        r[1] = (long long)t;
+        r[2] = clock64();
+      }
+      ++nrec;
+    }
+  }
+
+  // a reduction's partials combined (finish), stamped
+  template <bool MAX>
+  __device__ T fin(int slot) {
+    const T v = finish<T, MAX>(f(W_PART), slot, nblk, sm);
+    mark(kFinish);
+    return v;
+  }
+
+  // a grid barrier after a segment of `kind`
+  __device__ void sync(int kind = kElem) {
+    mark(kind);
     grid.sync();
     ++barriers;
+    mark(kBarrier);
   }
 
   // ------------------------------------------------------------------
@@ -309,14 +344,15 @@ struct Step {
     T* h2 = f(W_H2);
     const T* a0 = C == 2 ? f(P_DA0) : nullptr;
     contract0<C>(f(F0), rhs, h1, sub);
-    sync();
+    sync(kTransform);
     contract1<C>(f(F1T), h1, h2, C == 1 ? 1 : 2, f(LAM), a0, dtd, nullptr,
                  nullptr);
-    sync();
+    sync(kTransform);
     contract0<C>(f(V0), h2, h1, T(0));
-    sync();
+    sync(kTransform);
     contract1<C>(f(V1T), h1, x, 0, nullptr, nullptr, T(0), dot_with,
                  dot_acc);
+    mark(kTransform);
   }
 
   // ------------------------------------------------------------------
@@ -465,7 +501,7 @@ struct Step {
     sync();
     mac_rhs();
     sync();
-    const T mean = finish<T, false>(f(W_PART), kMean, nblk, sm) / T(n);
+    const T mean = fin<false>(kMean) / T(n);
     direct_solve<1>(P_MF0, P_MV0, P_MF1T, P_MV1T, P_MLAM, f(W_SRHS), mean,
                     phi_out, T(0), nullptr, nullptr);
     sync();
@@ -583,18 +619,18 @@ struct Step {
       *tol = T(INFINITY);
       return f(W_X);
     }
-    const T tl = tmax(a.rtol * finish<T, true>(f(W_PART), kRhsMax, nblk, sm),
+    const T tl = tmax(a.rtol * fin<true>(kRhsMax),
                       a.atol);
     sync();
     cg_residual(dtd);
     sync();
-    T rb = finish<T, true>(f(W_PART), kResMax, nblk, sm);
+    T rb = fin<true>(kResMax);
     T dacc = T(0);
     direct_solve<2>(P_DF0, P_DV0, P_DF1T, P_DV1T, P_DLAM, f(W_R), T(0),
                     f(W_P), dtd, f(W_R), &dacc);
     block_partial<T, false>(dacc, f(W_PART), kDotRZ, nblk, sm);
     sync();
-    T rz = finish<T, false>(f(W_PART), kDotRZ, nblk, sm);
+    T rz = fin<false>(kDotRZ);
     int bad = 0;
     T* x = f(W_X);
     T* r = f(W_R);
@@ -618,7 +654,7 @@ struct Step {
       }
       block_partial<T, false>(pap, f(W_PART), kDotPAp, nblk, sm);
       sync();
-      const T denom = finish<T, false>(f(W_PART), kDotPAp, nblk, sm);
+      const T denom = fin<false>(kDotPAp);
       const T alpha = rz / (denom == T(0) ? T(1) : denom);
       T rmax = T(0);
       for (int idx = gtid; idx < n; idx += gstride) {
@@ -638,8 +674,8 @@ struct Step {
                       r, &rzacc);
       block_partial<T, false>(rzacc, f(W_PART), kDotRZ, nblk, sm);
       sync();
-      const T rzn = finish<T, false>(f(W_PART), kDotRZ, nblk, sm);
-      const T new_res = finish<T, true>(f(W_PART), kResMax, nblk, sm);
+      const T rzn = fin<false>(kDotRZ);
+      const T new_res = fin<true>(kResMax);
       const T beta = rzn / (rz == T(0) ? T(1) : rz);
       const bool improved = new_res < T(0.999) * rb;
       for (int idx = gtid; idx < n; idx += gstride) {
@@ -700,7 +736,7 @@ struct Step {
     }
     block_partial<T, false>(acc, f(W_PART), kMean, nblk, sm);
     sync();
-    const T mean = finish<T, false>(f(W_PART), kMean, nblk, sm) / T(n);
+    const T mean = fin<false>(kMean) / T(n);
     direct_solve<1>(P_NF0, P_NV0, P_NF1T, P_NV1T, P_NLAM, nrhs, mean, p_dst,
                     T(0), nullptr, nullptr);
     sync();
@@ -742,9 +778,9 @@ struct Step {
     block_partial<T, true>(fmax_, part, kForcCfl, nblk, sm);
     block_partial<T, true>(rmax, part, kRhoInv, nblk, sm);
     sync();
-    const T conv = finish<T, true>(part, kConvCfl, nblk, sm);
-    const T forc = finish<T, true>(part, kForcCfl, nblk, sm);
-    const T rinv_max = finish<T, true>(part, kRhoInv, nblk, sm);
+    const T conv = fin<true>(kConvCfl);
+    const T forc = fin<true>(kForcCfl);
+    const T rinv_max = fin<true>(kRhoInv);
     const T eps = Lim<T>::eps;
     const double tiny_d = 1e-300;   // 0 in float, as torch casts it
     const T tiny = T(tiny_d);
@@ -773,6 +809,7 @@ struct Step {
   }
 
   __device__ void run() {
+    mark(kStart);
     T small;
     const T dt = compute_dt(&small);
     const T dtd = a.cn ? T(0.5) * dt : dt;
@@ -807,20 +844,21 @@ struct Step {
       dg[1] = trips[0];
       dg[2] = trips[1];
     }
+    mark(kElem);
   }
 };
 
-template <typename T>
+template <typename T, bool kProbe>
 __global__ void __launch_bounds__(kThreads) step2d_kernel(Args<T> a) {
   __shared__ T sm[kWarps + 1];
-  Step<T> s(a, sm);
+  Step<T, kProbe> s(a, sm);
   s.run();
 }
 
 // The most blocks a cooperative launch may have on the current device:
 // cooperative launch supported, occupancy x SM count.  Asked once per
 // device and type (the answers do not change).
-template <typename T>
+template <typename T, bool kProbe = false>
 int max_blocks(int* out) {
   constexpr int kDevices = 64;
   static int cache[kDevices] = {0};
@@ -836,7 +874,7 @@ int max_blocks(int* out) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, step2d_kernel<T>, kThreads, 0);
+        &per_sm, step2d_kernel<T, kProbe>, kThreads, 0);
   if (e != cudaSuccess) return (int)e;
   if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   *out = per_sm * sms;
@@ -844,10 +882,12 @@ int max_blocks(int* out) {
   return 0;
 }
 
-template <typename T>
+template <typename T, bool kProbe = false>
 int launch(const void* const* ptrs, const double* fp, const int* ip,
-           int* nblk_out, cudaStream_t st) {
+           int* nblk_out, long long* probe, int probe_cap, cudaStream_t st) {
   Args<T> a;
+  a.probe = probe;
+  a.probe_cap = probe_cap;
   a.nx = ip[I_NX];
   a.ny = ip[I_NY];
   a.cn = ip[I_CN];
@@ -884,7 +924,7 @@ int launch(const void* const* ptrs, const double* fp, const int* ip,
   for (int k = 0; k < NPTR; ++k) a.p[k] = const_cast<void*>(ptrs[k]);
   if (a.nx < 4 || a.ny < 4 || a.trips < 0) return (int)cudaErrorInvalidValue;
   int cap = 0;
-  int e = max_blocks<T>(&cap);
+  int e = max_blocks<T, kProbe>(&cap);
   if (e) return e;
   const int n = a.nx * a.ny;
   // no more blocks than can be resident (the cooperative contract), and
@@ -896,7 +936,7 @@ int launch(const void* const* ptrs, const double* fp, const int* ip,
   *nblk_out = nblk;
   void* args[] = {&a};
   cudaError_t r = cudaLaunchCooperativeKernel(
-      (const void*)step2d_kernel<T>, dim3(nblk), dim3(kThreads), args, 0, st);
+      (const void*)step2d_kernel<T, kProbe>, dim3(nblk), dim3(kThreads), args, 0, st);
   if (r != cudaSuccess) return (int)r;
   return (int)cudaGetLastError();
 }
@@ -925,7 +965,27 @@ extern "C" int step2d_launch(int dtype, const void* const* ptrs,
                              const double* fpar, const int* ipar,
                              int* nblk_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(ptrs, fpar, ipar, nblk_out, st);
-  if (dtype == 1) return launch<double>(ptrs, fpar, ipar, nblk_out, st);
+  if (dtype == 0)
+    return launch<float>(ptrs, fpar, ipar, nblk_out, nullptr, 0, st);
+  if (dtype == 1)
+    return launch<double>(ptrs, fpar, ipar, nblk_out, nullptr, 0, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The probe instantiation: the same step, block 0 stamping each segment
+// into probe (probe_cap records of 3 long longs: kind, %globaltimer ns,
+// clock64; kinds kStart, kTransform, kBarrier, kElem, kFinish).  Never on
+// the main path: step2d_kernels.FusedStep.probe calls it.
+extern "C" int step2d_launch_probe(int dtype, const void* const* ptrs,
+                                   const double* fpar, const int* ipar,
+                                   int* nblk_out, void* probe, int probe_cap,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  long long* pr = static_cast<long long*>(probe);
+  if (dtype == 0)
+    return launch<float, true>(ptrs, fpar, ipar, nblk_out, pr, probe_cap, st);
+  if (dtype == 1)
+    return launch<double, true>(ptrs, fpar, ipar, nblk_out, pr, probe_cap,
+                                st);
   return (int)cudaErrorInvalidValue;
 }

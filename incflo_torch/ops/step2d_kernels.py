@@ -94,6 +94,9 @@ def _lib():
         vp, ip = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
         lib.step2d_launch.argtypes = [ctypes.c_int, vp, vp, vp, ip, vp]
         lib.step2d_launch.restype = ctypes.c_int
+        lib.step2d_launch_probe.argtypes = [ctypes.c_int, vp, vp, vp, ip, vp,
+                                            ctypes.c_int, vp]
+        lib.step2d_launch_probe.restype = ctypes.c_int
         lib.step2d_max_blocks.argtypes = [ctypes.c_int, ip]
         lib.step2d_max_blocks.restype = ctypes.c_int
         lib.step2d_layout.argtypes = [ip] * 5
@@ -285,7 +288,18 @@ class FusedStep:
         out, self.last_cg = self.step(s)
         return out
 
-    def _launch(self, s: SimState) -> Tuple[SimState, torch.Tensor]:
+    def probe(self, s: SimState) -> Tuple[SimState, dict]:
+        """One step through the kernel's probe instantiation
+        (step2d_launch_probe; not on the main path, not counted in
+        LAUNCHES): (new state, probe_split of its records).  Syncs."""
+        rec = torch.zeros((PROBE_CAP, 3), dtype=torch.int64,
+                          device=s.level.velocity.device)
+        out, _ = self._launch(s, rec)
+        torch.cuda.synchronize()
+        return out, probe_split(rec.cpu().tolist())
+
+    def _launch(self, s: SimState, probe: Optional[torch.Tensor] = None
+                ) -> Tuple[SimState, torch.Tensor]:
         sim = self.sim
         if self.ws is None:
             raise ValueError("step2d: this FusedStep was built for a "
@@ -321,10 +335,18 @@ class FusedStep:
             self._ptrs[i] = tensors[k].data_ptr()
         lib = _lib()
         nblk = ctypes.c_int()
-        rc = lib.step2d_launch(DT_CODE[dt], self._ptrs, self._fpar,
-                               self._ipar, ctypes.byref(nblk), stream(vel))
-        check_rc("step2d", rc)
-        LAUNCHES["step2d"] += 1
+        if probe is not None:
+            rc = lib.step2d_launch_probe(
+                DT_CODE[dt], self._ptrs, self._fpar, self._ipar,
+                ctypes.byref(nblk), probe.data_ptr(), probe.shape[0],
+                stream(vel))
+            check_rc("step2d probe", rc)
+        else:
+            rc = lib.step2d_launch(DT_CODE[dt], self._ptrs, self._fpar,
+                                   self._ipar, ctypes.byref(nblk),
+                                   stream(vel))
+            check_rc("step2d", rc)
+            LAUNCHES["step2d"] += 1
         self.blocks = nblk.value
         self.diag = out["diag_out"]
         sc = out["scal_out"]
@@ -334,6 +356,31 @@ class FusedStep:
         return SimState(level=level, t=sc[0], dt=sc[1], prev_dt=sc[2],
                         prev_prev_dt=sc[3], step=out["step_out"]), \
             out["cg_out"]
+
+
+# the probe's record kinds (csrc/step2d.cu enum Seg) and its capacity
+PROBE_KINDS = ("start", "transform", "barrier", "elementwise", "finish")
+PROBE_CAP = 1024
+
+
+def probe_split(records) -> dict:
+    """The probe's records [kind, globaltimer ns, clock64] (block 0 of
+    the grid, one a segment) as ms by kind: each interval between two
+    records belongs to the later record's kind.  Also the clock64 split
+    as shares of the total, and the count of barriers stamped."""
+    recs = [r for r in records if r[1] != 0]
+    ms = {k: 0.0 for k in PROBE_KINDS[1:]}
+    cyc = dict(ms)
+    for prev, cur in zip(recs, recs[1:]):
+        kind = PROBE_KINDS[cur[0]]
+        ms[kind] += (cur[1] - prev[1]) * 1e-6
+        cyc[kind] += cur[2] - prev[2]
+    total = (recs[-1][1] - recs[0][1]) * 1e-6
+    ncyc = max(recs[-1][2] - recs[0][2], 1)
+    return {"ms": ms, "total_ms": total,
+            "clock_share": {k: v / ncyc for k, v in cyc.items()},
+            "segments": len(recs) - 1,
+            "barriers": sum(1 for r in recs if r[0] == 2)}
 
 
 def max_blocks(dtype) -> int:
