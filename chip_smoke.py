@@ -14,12 +14,12 @@ Phases (any failure ends the run with a non-zero exit):
   2. kernels each kernel against its plain PyTorch version on the card.
              Godunov, at the shear3d levels n = 128 (128x128x32) and 256
              (256x256x64), PPM and PLM, with and without forces, iconserv
-             0 and 1: predict_d and advect bit-equal in float32 and within
-             1e-14 relative in float64, uad within 2e-5 (float32) and
-             1e-10 (float64) of the field's max; their f32 times at both
+             0 and 1: uad, predict_d and advect bit-equal in float32 and
+             within 1e-14 relative in float64; their f32 times at both
              levels, and the device launches of one call counted as the
-             kernel nodes of a CUDA graph that captured it (predict_d and
-             advect must be one, in the halo-slab mode too).  Smoothers (one launch a call): a coarse-level shape
+             kernel nodes of a CUDA graph that captured it (each must be
+             one, in the halo-slab mode too).  Smoothers (one launch a
+             call): a coarse-level shape
              (64x64x16) and the fine-level shape (128x128x32), 2 sweeps
              and 8 (cell bottom) / 24 (nodal bottom), with and without the
              residual, variable coefficients from a seed, the cell
@@ -55,8 +55,12 @@ Phases (any failure ends the run with a non-zero exit):
              twice step_plain's own (+ 4 ulps) on every field.  float64:
              1e-9 relative.  Each velocity solve's best tensor-CG residual
              must be under its tolerance, in the kernel as in the plain
-             version.  Then the kernel's and the plain step's times at
-             128^2 and 256^2 f32 under CUDA-graph replay, and the bound.
+             version.  Then at 128^2 and 256^2 f32: the kernel's and the
+             plain step's times under CUDA-graph replay, one kernel node
+             a captured call, the split of the kernel's time by its probe
+             instantiation (transform, barrier wait, elementwise work,
+             reduction finish), the bound, and the transforms' floors at
+             the FP64 tensor-core and FMA rates.
   3. solvers CellSolver.solve and NodalSolver.solve (V-cycles) on cuda
              against cpu, float64, random coefficients: 32x32x8 fully
              periodic (same iteration count, solution to 1e-9), and
@@ -134,17 +138,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # float32/float64 rates outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+# and the FP64 tensor cores (DMMA, mma.sync .f64)
+PEAK_DMMA = 67e12
 
 PER_STEP = {"uad": 1, "predict_d": 3, "advect": 3}
 # shear3d_vd also advects the density and rho*tracer
 PER_STEP_VD = {"uad": 1, "predict_d": 3, "advect": 5}
-TOL = {"uad": 2e-5, "predict_d": 2e-5, "advect": 3e-4}
-# the fused kernels: float32 bit for bit, float64 within this, relative
-# to the field's max; one device launch a call
-EXACT = ("predict_d", "advect")
+# the Godunov kernels, each one fused launch a call: float32 bit for
+# bit, float64 within this, relative to the field's max
 TOL_EXACT_F64 = 1e-14
 GODUNOV_SIZES = (128, 256)
-TOL_F64 = 1e-10
 SMOOTHERS = ("cell_smooth", "nodal_smooth")
 WALLED = "cell_smooth_walled"
 WALLED_NODAL = "nodal_smooth_walled"
@@ -325,10 +328,11 @@ def device_ms(fn, reps=25, warm=3):
     return replay_ms(capture(k), reps) / k
 
 
-def count_ops(fn):
+def count_ops(fn, split=False):
     """Arithmetic, compare and select operations of fn(): the elements
     produced by each such aten op (clamp counts 2), and 2*M*N*K for each
-    matrix product (mm, bmm) of M x K by K x N."""
+    matrix product (mm, bmm) of M x K by K x N.  split: (all operations,
+    those of the matrix products)."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     names = {"add", "sub", "mul", "div", "neg", "abs", "sign", "minimum",
@@ -338,19 +342,21 @@ def count_ops(fn):
 
     class Count(TorchDispatchMode):
         ops = 0
+        mm = 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = func.overloadpacket.__name__.rstrip("_")
             if name in ("mm", "bmm"):
                 self.ops += 2 * out.numel() * args[0].shape[-1]
+                self.mm += 2 * out.numel() * args[0].shape[-1]
             elif name in names and isinstance(out, torch.Tensor):
                 self.ops += out.numel() * (2 if name == "clamp" else 1)
             return out
 
     with Count() as c:
         fn()
-    return c.ops
+    return (c.ops, c.mm) if split else c.ops
 
 
 def rel_err(a, b):
@@ -403,9 +409,9 @@ def kernel_inputs(grid, dtype, dev):
 
 def godunov_errors(gk, grid, dtype, torch, res):
     """Every Godunov kernel against its plain version on one grid and
-    type: uad within TOL (float32) / TOL_F64; predict_d and advect bit
-    for bit in float32 and within TOL_EXACT_F64 in float64.  PPM and PLM,
-    predict_d with and without forces, advect iconserv 0 and 1."""
+    type: bit for bit in float32 and within TOL_EXACT_F64 in float64.
+    PPM and PLM, predict_d with and without forces, advect iconserv 0
+    and 1."""
     dev = torch.device("cuda")
     f32 = dtype == torch.float32
     key = "max_rel_err_f32" if f32 else "max_rel_err_f64"
@@ -415,7 +421,7 @@ def godunov_errors(gk, grid, dtype, torch, res):
         r[key] = max(r[key], rel_err(a, b))
         if f32:
             r["max_abs_err"] = max(r["max_abs_err"], abs_err(a, b))
-            if k in EXACT and not torch.equal(a, b):
+            if not torch.equal(a, b):
                 raise AssertionError(f"{k} at {grid.n_cell}: float32 "
                                      "differs from the plain version by "
                                      f"{abs_err(a, b):.3e}")
@@ -478,7 +484,7 @@ def godunov_times(gk, sk, grid, torch):
         # reachable rate of these operations is half the f32 peak
         r["no_fma_bound_ms"] = max(r["bytes"] / PEAK_BYTES,
                                    2 * r["ops"] / PEAK_OPS["float32"]) * 1e3
-        if k in EXACT and r["device_launches"] != 1:
+        if r["device_launches"] != 1:
             raise AssertionError(f"{k}: one call is {r['device_launches']} "
                                  "device launches")
         out[k] = r
@@ -502,7 +508,7 @@ def phase_kernels(gk, sk, grid_of, torch):
         for dtype in (torch.float64, torch.float32):
             godunov_errors(gk, grid_of(n), dtype, torch, res)
     for k, r in res.items():
-        t32, t64 = (0.0, TOL_EXACT_F64) if k in EXACT else (TOL[k], TOL_F64)
+        t32, t64 = 0.0, TOL_EXACT_F64
         print(f"[kernels] {k} at n = {', '.join(map(str, GODUNOV_SIZES))}: "
               f"f64 rel {r['max_rel_err_f64']:.3e} (tol {t64:g}), f32 rel "
               f"{r['max_rel_err_f32']:.3e} (tol {t32:g})", flush=True)
@@ -1208,7 +1214,22 @@ def _field(s, f):
     return getattr(s, f) if f == "dt" else getattr(s.level, f)
 
 
-def phase_step2d(incflo_torch, s2, torch):
+PROBE_REPS = 5
+
+
+def probe_median(fs, s0, torch):
+    """The fused step's probe instantiation on s0, PROBE_REPS times after
+    a warm-up: the median ms of each kind of segment and of the total."""
+    for _ in range(2):
+        fs.probe(s0)
+    splits = [fs.probe(s0)[1] for _ in range(PROBE_REPS)]
+    return {"ms": {k: statistics.median(sp["ms"][k] for sp in splits)
+                   for k in splits[0]["ms"]},
+            "total_ms": statistics.median(sp["total_ms"] for sp in splits),
+            "barriers": splits[0]["barriers"]}
+
+
+def phase_step2d(incflo_torch, s2, skm, torch):
     """The fused step kernel against step_plain on the card, tgv2d from
     init_state, 3 steps compared after each, at 32^2 and at the main
     path's 128^2 and 256^2, f64 and f32.  float32 is also held, with
@@ -1321,43 +1342,64 @@ def phase_step2d(incflo_torch, s2, torch):
                 if not f32 and not worst <= TOL_STEP2D_F64:
                     raise AssertionError(f"{tag}: the kernel and step_plain "
                                          f"differ by {worst:.3e}")
-    # the times at the main path's shapes, tgv2d f32 from init_state
-    res["ms_by_n"], res["plain_ms_by_n"] = {}, {}
+    # the main path's shapes, tgv2d f32 from init_state: kernel and
+    # plain times, device launches of a captured call, the probe's split,
+    # the bound, and the transforms' FP64 floors
+    res["ms_by_n"], res["plain_ms_by_n"], res["at"] = {}, {}, {}
     for n in (256, 128):
         cfg = incflo_torch.IncfloConfig.from_text(tgv2d_deck(n, "float32"))
         sim = incflo_torch.Simulation(cfg, device="cuda")
         s0 = sim.init_state()
         fs = s2.FusedStep(sim)
-        res["ms_by_n"][n] = device_ms(lambda: fs.step(s0))
-        res["plain_ms_by_n"][n] = device_ms(lambda: s2.step_plain(sim, s0))
-    res["ms"] = res["ms_by_n"][128]
-    res["plain_ms"] = res["plain_ms_by_n"][128]
-    res["barriers_per_step"], res["trips_pred"], res["trips_corr"] = (
-        int(v) for v in fs.diag.tolist())
-    res["grid_blocks"] = fs.blocks
-    res["max_blocks"] = s2.max_blocks(torch.float32)
+        r = {"ms": device_ms(lambda: fs.step(s0)),
+             "plain_ms": device_ms(lambda: s2.step_plain(sim, s0)),
+             "device_launches": graph_launches(skm, lambda: fs.step(s0)),
+             "probe": probe_median(fs, s0, torch),
+             "plan": fs.plan._asdict(),
+             "max_blocks": s2.max_blocks(torch.float32, (n, n))}
+        if r["device_launches"] != 1:
+            raise AssertionError(f"step2d {n}^2: one call is "
+                                 f"{r['device_launches']} device launches")
+        r["barriers_per_step"], r["trips_pred"], r["trips_corr"] = (
+            int(v) for v in fs.diag.tolist())
+        r["grid_blocks"] = fs.blocks
+        cells, isz = n * n, 4
+        # the state read once and written once: velocity, density, gp in;
+        # velocity, gp, p, mac_phi out; the scalars and the CG record
+        r["bytes"] = 11 * cells * isz + 13 * isz + 8
+        # what this state needs: the adaptive plain step runs the CG trips
+        # the kernel runs (the same live rule), not all FIXED_TRIPS
+        r["ops"], r["transform_ops"] = count_ops(
+            lambda: sim._advance_impl(s0), split=True)
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"])
+        # the transforms alone in double: at the FP64 tensor-core (DMMA)
+        # rate and at the FP64 FMA rate
+        r["transform_dmma_floor_ms"] = r["transform_ops"] / PEAK_DMMA * 1e3
+        r["transform_fma_floor_ms"] = (r["transform_ops"]
+                                       / PEAK_OPS["float64"] * 1e3)
+        res["at"][n] = r
+        res["ms_by_n"][n] = r["ms"]
+        res["plain_ms_by_n"][n] = r["plain_ms"]
+        pr = r["probe"]
+        print(f"[step2d] f32 {n}^2: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms (CUDA-graph replay, median of 25), "
+              f"{r['device_launches']} kernel node a call; bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} B, "
+              f"{r['ops']} ops), transforms {r['transform_ops']} ops: "
+              f"{r['transform_dmma_floor_ms']:.5f} ms at the DMMA rate, "
+              f"{r['transform_fma_floor_ms']:.5f} at the FP64 FMA rate; "
+              f"{r['barriers_per_step']} grid barriers and "
+              f"{r['trips_pred']} + {r['trips_corr']} CG trips a step, "
+              f"{r['grid_blocks']} blocks of at most {r['max_blocks']}; "
+              f"probe (median of {PROBE_REPS}) total "
+              f"{pr['total_ms']:.4f} ms = " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in pr["ms"].items()), flush=True)
     s2.LAUNCHES.update(saved)      # comparison launches do not count
-    n = 128 * 128
-    isz = 4
-    # the state read once and written once: velocity, density, gp in;
-    # velocity, gp, p, mac_phi out; the scalars and the CG record
-    res["bytes"] = 11 * n * isz + 13 * isz + 8
-    # what this state needs: the adaptive plain step runs the CG trips
-    # the kernel runs (the same live rule), not all FIXED_TRIPS
-    res["ops"] = count_ops(lambda: sim._advance_impl(s0))
-    t_bytes = res["bytes"] / PEAK_BYTES * 1e3
-    t_ops = res["ops"] / PEAK_OPS["float32"] * 1e3
-    res["bound_ms"] = max(t_bytes, t_ops)
-    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    for n in (128, 256):
-        print(f"[step2d] f32 {n}^2: kernel {res['ms_by_n'][n]:.4f} ms, plain "
-              f"{res['plain_ms_by_n'][n]:.4f} ms (CUDA-graph replay, median "
-              f"of 25)", flush=True)
-    print(f"[step2d] f32 128^2: bound {res['bound_ms']:.5f} ms "
-          f"({res['bound_by']}: {res['bytes']} B, {res['ops']} ops); "
-          f"{res['barriers_per_step']} grid barriers and {res['trips_pred']} "
-          f"+ {res['trips_corr']} CG trips a step, {res['grid_blocks']} "
-          f"blocks of at most {res['max_blocks']}", flush=True)
+    for k in ("ms", "plain_ms", "bytes", "ops", "bound_ms", "bound_by",
+              "barriers_per_step", "trips_pred", "trips_corr",
+              "grid_blocks", "max_blocks", "device_launches"):
+        res[k] = res["at"][128][k]
+    res["bound_ms_256"] = res["at"][256]["bound_ms"]
     print(f"[step2d] float32 against float64 step_plain (max over 3 steps, "
           f"kernel/plain): " + "; ".join(
               f"{k}: " + ", ".join(
@@ -2041,7 +2083,7 @@ def phase_halo_kernels(gk, sk, grid_of, torch):
             t["bound_ms"] = max(t_bytes, t_ops)
             t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             res[k][f"nxl{nxl}"] = t
-            if k != "uad_halo" and t["device_launches"] != 1:
+            if t["device_launches"] != 1:
                 raise AssertionError(f"{k}: one call is "
                                      f"{t['device_launches']} device "
                                      "launches")
@@ -2218,7 +2260,7 @@ def main(argv):
     wres = phase_walled_smoother(sk, mg, torch)
     wnres = phase_walled_nodal(sk, mg, torch)
     levels = phase_levels(sk, mg, torch)
-    s2res = phase_step2d(incflo_torch, s2, torch)
+    s2res = phase_step2d(incflo_torch, s2, sk, torch)
     phase_solvers(mg, torch)
     phase_solvers_walled(mg, torch)
     phase_paths(incflo_torch, torch)
@@ -2269,9 +2311,9 @@ def main(argv):
             "device_launches_per_call": r["device_launches"],
             "max_abs_err": r["max_abs_err"],
             "max_rel_err_f32": r["max_rel_err_f32"],
-            "tol_f32": 0.0 if k in EXACT else TOL[k],
+            "tol_f32": 0.0,
             "max_rel_err_f64": r["max_rel_err_f64"],
-            "tol_f64": TOL_EXACT_F64 if k in EXACT else TOL_F64,
+            "tol_f64": TOL_EXACT_F64,
             "shape": "shear3d 128x128x32, float32",
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2385,13 +2427,16 @@ def main(argv):
                   "to last ~1 ms",
         "ms_256": s2res["ms_by_n"][256],
         "plain_ms_256": s2res["plain_ms_by_n"][256],
+        "bound_ms_256": s2res["bound_ms_256"],
         "by_shape": s2res["by_n"],
         "bound_ms": s2res["bound_ms"], "bound_by": s2res["bound_by"],
         "bytes": s2res["bytes"], "ops": s2res["ops"], "library_ms": None,
+        "device_launches_per_call": s2res["device_launches"],
         "barriers_per_step": s2res["barriers_per_step"],
         "cg_trips": [s2res["trips_pred"], s2res["trips_corr"]],
         "grid_blocks": s2res["grid_blocks"],
-        "max_blocks": s2res["max_blocks"]})
+        "max_blocks": s2res["max_blocks"],
+        "at_128_and_256": s2res["at"]})
     print(json.dumps({"kernels": kernels, "levels": levels,
                       "build_s": build_s,
                       "main": [main128, main256] + main_vd + [main_rt]

@@ -18,9 +18,7 @@
 // element stride (3 for a velocity component inside (nx,ny,nz,3)); face
 // arrays are the standard (n+1)-along-own-axis tensors.
 //
-// uad: one thread per cell, periodic neighbours by index arithmetic.
-//
-// predict_d and advect: ONE launch a call, the CTU chain on chip.  A CTA
+// All three kernels: ONE launch a call, the work on chip.  A CTA
 // owns a kTileY x kTileZ (8 x 32) column of output cells and marches
 // along x over a chunk of output rows, one thread per cell of a stage's
 // plane (the column and a 1-cell y-z halo: 10 x 34 cells, 352 threads, z
@@ -40,14 +38,19 @@
 // cells where its inputs exist (the region rules below), so a halo
 // cell's garbage is never read, and a halo cell's value, recomputed from
 // the same inputs by the same operations as its owner's, has its bits.
-// Global loads wrap modulo n for any offset, so axes shorter than a tile
-// and its halo work; ragged tiles compute wrapped cells and write only
-// the real ones.  The wrapper's plan (godunov_kernels.tile_plan) passes
+// uad stages the three velocity components of each x plane together into
+// one ring, de-interleaved (x reach -3..+2, a 3-cell y-z halo), computes
+// each cell's trace pair once per axis and selects each lo face from the
+// lo neighbour's Ip: along x a register of the previous plane, along y
+// and z a shared plane.  Global loads wrap modulo n for any offset, so
+// axes shorter than a tile and its halo work; ragged tiles compute
+// wrapped cells and write only the real ones.  The wrapper's plan (godunov_kernels.tile_plan) passes
 // the tile, the chunk and the shared-memory bytes; the entries check
 // them against this file's.
 //
-// What bounds them on an H100: operations.  About 300 (predict_d) and
-// 550 (advect) a cell, with no FMA (-fmad=false, which bit-equality
+// What bounds them on an H100: uad, bytes (its three trace pairs and
+// selects, about 250 operations a cell, come close); predict_d and
+// advect, operations.  About 300 (predict_d) and 550 (advect) a cell, with no FMA (-fmad=false, which bit-equality
 // needs, halves the reachable f32 rate to 33.5 TFLOP/s); min, max and abs
 // issue as single instructions.  The halo and a chunk's first planes are
 // recomputed: at 128 x 128 x 32 (8-row chunks, 256 CTAs, 2 an SM) the
@@ -55,16 +58,15 @@
 // (64-row chunks) 1.37x.  Device memory sees each input read once (the
 // planes of a tile's halo again from L2) and each output written once.
 //
-// Halo-slab mode (Geo<H> / template H, H = kHalo = 4: a compile-time
-// parameter, so the periodic kernels carry no test of the mode; replaces
-// the per-shard kernel calls of incflo_tpu/ops/pallas_godunov.py:
+// Halo-slab mode (template H, H = kHalo = 4: a compile-time parameter,
+// so the periodic kernels carry no test of the mode; replaces the
+// per-shard kernel calls of incflo_tpu/ops/pallas_godunov.py:
 // predict_sharded (:525) and advect_sharded (:572)): one rank's x slab of
 // a periodic level, its inputs grown by H rows of each x neighbour (nxl +
 // 2 H rows, an x face array holding the low face of each of those rows).
-// x does not wrap.  uad clamps the x neighbour to the padded rows and
-// writes the slab's rows [H, nxl + H).  The fused kernels march over the
-// output rows [H, nxl + H) only; the chain reaches 3 rows of input beyond
-// them, all inside the padded rows.  Outputs are (nxl, ny, nz)-shaped:
+// x does not wrap.  The kernels march over the output rows [H, nxl + H)
+// only; they reach 3 rows of input beyond them, all inside the padded
+// rows.  Outputs are (nxl, ny, nz)-shaped:
 // the x face array gets the slab's nxl low faces (its high face is the
 // right neighbour's face 0), the y and z face arrays their wrap faces as
 // in the periodic mode.  y and z stay periodic.  Each output equals the
@@ -80,70 +82,7 @@
 
 namespace {
 
-constexpr int kBlock = 256;
-
 constexpr int kHalo = 4;  // x rows of each neighbour in a halo slab
-
-// H = 0: a periodic level.  H = kHalo: a halo slab, whose output rows
-// are [H, n[0] - H).
-template <int H>
-struct Geo {
-  int n[3];      // extents of the inputs (x: padded rows of a halo slab)
-  double dx[3];
-  int ncell;     // n[0] n[1] n[2]
-  int nout;      // output cells
-};
-
-struct Pos {
-  int c[3];
-};
-
-// neighbour along compile-time axis AX: periodic (|s| <= 2 * n), or
-// along x of a halo slab clamped to the padded rows
-template <int AX, int H>
-__device__ __forceinline__ Pos sh(const Geo<H>& g, Pos p, int s) {
-  const int n = g.n[AX];
-  int v = p.c[AX] + s;
-  if constexpr (AX == 0 && H > 0) {
-    v = v < 0 ? 0 : (v >= n ? n - 1 : v);
-  } else {
-    v = v < 0 ? v + n : v;
-    v = v < 0 ? v + n : v;
-    v = v >= n ? v - n : v;
-    v = v >= n ? v - n : v;
-  }
-  p.c[AX] = v;
-  return p;
-}
-
-template <int H>
-__device__ __forceinline__ int cell_index(const Geo<H>& g, const Pos& p) {
-  return (p.c[0] * g.n[1] + p.c[1]) * g.n[2] + p.c[2];
-}
-
-template <typename T>
-struct Strided {  // cell field read with an element stride
-  const T* p;
-  int s;
-  template <int H>
-  __device__ __forceinline__ T operator()(const Geo<H>& g,
-                                          const Pos& q) const {
-    return p[cell_index(g, q) * s];
-  }
-};
-
-// the output cell of a uad thread: p in the inputs' rows, o its index in
-// the (n[0] - 2 H, n[1], n[2]) output
-template <int H>
-__device__ __forceinline__ bool thread_out(const Geo<H>& g, Pos& p, int& o) {
-  o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= g.nout) return false;
-  p.c[2] = o % g.n[2];
-  const int r = o / g.n[2];
-  p.c[1] = r % g.n[1];
-  p.c[0] = r / g.n[1] + H;
-  return true;
-}
 
 // compile-time loop: f(std::integral_constant<int, I>) for I in [B, E)
 template <int B, int E, typename F>
@@ -284,47 +223,6 @@ __device__ __forceinline__ void trace_pair(const T (&s)[5], T wlo, T whi,
            ? sm + T(0.5) * sig_m *
                       ((sp - sm) + (T(1.0) - T(2.0 / 3.0) * sig_m) * s6)
            : s0;
-}
-
-// ---------------------------------------------------------------------
-// uad: Riemann-selected own-component face velocity on every axis
-// ---------------------------------------------------------------------
-
-template <typename T, int H>
-struct UadArgs {
-  Geo<H> g;
-  Strided<T> vel[3];
-  T* out[3];
-  const T* dt;
-  bool ppm;
-};
-
-template <int AX, typename T, int H>
-__device__ __forceinline__ void traces(const Geo<H>& g, const Strided<T>& q,
-                                       const Pos& p, T wlo, T whi, T dtdx,
-                                       bool ppm, T& Im, T& Ip) {
-  const T s[5] = {q(g, sh<AX>(g, p, -2)), q(g, sh<AX>(g, p, -1)), q(g, p),
-                  q(g, sh<AX>(g, p, 1)), q(g, sh<AX>(g, p, 2))};
-  trace_pair(s, wlo, whi, dtdx, ppm, Im, Ip);
-}
-
-template <typename T, int H>
-__global__ void uad_kernel(UadArgs<T, H> a) {
-  Pos p;
-  int i;
-  if (!thread_out(a.g, p, i)) return;
-  const T dt = *a.dt;
-  static_for<0, 3>([&](auto ax) {
-    constexpr int AX = decltype(ax)::value;
-    const Strided<T>& v = a.vel[AX];
-    const T dtdx = dt / T(a.g.dx[AX]);
-    const Pos pm = sh<AX>(a.g, p, -1);
-    T Im, Ip, Im_m, Ip_m;
-    const T w = v(a.g, p), wm = v(a.g, pm);
-    traces<AX>(a.g, v, p, w, w, dtdx, a.ppm, Im, Ip);
-    traces<AX>(a.g, v, pm, wm, wm, dtdx, a.ppm, Im_m, Ip_m);
-    a.out[AX][i] = riemann(Ip_m, Im);
-  });
 }
 
 // ---------------------------------------------------------------------
@@ -563,6 +461,118 @@ struct March {
            lz < kTileZ && gy < ny && gz < nz;
   }
 };
+
+// ---------------------------------------------------------------------
+// uad: Riemann-selected own-component face velocity on every axis
+// ---------------------------------------------------------------------
+
+// uad's shared memory: a ring of 6 x-plane slots (k-2..k+2 read, k+3 in
+// flight), each the three velocity components' wide planes, de-interleaved
+// as they are staged; then Ip along y and along z of the iteration's
+// stage plane
+constexpr int kUadV = kMargin;
+constexpr int kUadS = kUadV + 6 * 3 * kWP;
+constexpr int kUadEnd = kUadS + 2 * kNP + kMargin;
+
+template <typename T, int H>
+struct UadArgs {
+  int nx, ny, nz, nxo;  // input rows (padded for a slab), output rows
+  double dx[3];
+  const T* vel;         // (nx, ny, nz, 3)
+  T* out[3];
+  const T* dt;
+  int chunk, nty, ntz;
+  bool ppm;
+};
+
+// A CTA marches its tile along x over its chunk of output rows.  At plane
+// k a thread computes, for its cell of the stage plane, the trace pair of
+// u along x (the tile's cells), of v along y (local y in [-1, T-1]) and
+// of w along z (local z in [-1, T-1]), each once; Ip along y and z go to
+// shared planes, Ip along x stays in a register for plane k + 1.  The
+// face at the cell's lo side along axis d is riemann(Ip of the lo
+// neighbour, Im of the cell): along x the register of plane k - 1, along
+// y and z the shared plane's neighbour.
+template <typename T, int H>
+__global__ void __launch_bounds__(kThreads)
+    uad_kernel(const UadArgs<T, H> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  March<T, H> m;
+  m.init(smem, kUadEnd, a.nx, a.ny, a.nz, a.nxo, a.chunk, a.nty, a.ntz);
+  const int X0 = m.X0, X1 = m.X1;
+  const T dt = *a.dt;
+  T dtdx[3];
+  for (int d = 0; d < 3; ++d) dtdx[d] = dt / T(a.dx[d]);
+  // component f at plane j, cell c of the thread's own
+  auto vel = [&](int f, int j, Nb c) {
+    return m.template el<kWide, 6>(kUadV, 3, f, j, c);
+  };
+  T* ip_y = m.sm + kUadS;
+  T* ip_z = ip_y + kNP;
+  // the three components of plane j, each into its own wide plane
+  auto load = [&](int j) {
+    static_for<0, 3>([&](auto fc) {
+      constexpr int F = decltype(fc)::value;
+      m.template copy<kWP>(m.template slot<6>(kUadV, 3, kWP, F, j),
+                           a.vel + F, 3, m.gx(j) * a.ny * a.nz, m.oq[0],
+                           m.oq[1]);
+    });
+  };
+  const bool cell = threadIdx.x < kNP;
+  const int ly = m.ni / kNZ - 1, lz = m.ni % kNZ - 1;
+  const bool in_y = ly >= 0 && ly < kTileY, in_z = lz >= 0 && lz < kTileZ;
+  // the five values of component F along axis F around the cell
+  auto five = [&](auto fc, int j, T (&s)[5]) {
+    constexpr int F = decltype(fc)::value;
+    static_for<0, 5>([&](auto oc) {
+      constexpr int O = decltype(oc)::value;
+      s[O] = vel(F, j, sh3<F>(Nb{0, 0, 0}, O - 2));
+    });
+  };
+  m.at(X0 - 1);
+  for (int j = X0 - 3; j <= X0 + 1; ++j) load(j);
+  __pipeline_commit();
+  T ipx_prev = T(0);
+  for (int k = X0 - 1; k < X1; ++k) {
+    m.at(k);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (k + 3 <= X1 + 1) load(k + 3);
+    __pipeline_commit();
+    // u along x, the tile's cells
+    T imx = T(0), ipx = T(0);
+    if (cell && in_y && in_z) {
+      T s[5];
+      five(std::integral_constant<int, 0>{}, k, s);
+      trace_pair(s, s[2], s[2], dtdx[0], a.ppm, imx, ipx);
+    }
+    if (k >= X0) {
+      // v along y and w along z, with the lo halo row / column
+      T imy = T(0), imz = T(0);
+      if (cell && ly < kTileY && in_z) {
+        T s[5], ipv;
+        five(std::integral_constant<int, 1>{}, k, s);
+        trace_pair(s, s[2], s[2], dtdx[1], a.ppm, imy, ipv);
+        ip_y[m.ni] = ipv;
+      }
+      if (cell && in_y && lz < kTileZ) {
+        T s[5], ipw;
+        five(std::integral_constant<int, 2>{}, k, s);
+        trace_pair(s, s[2], s[2], dtdx[2], a.ppm, imz, ipw);
+        ip_z[m.ni] = ipw;
+      }
+      __syncthreads();
+      int gy, gz;
+      if (m.out_cell(gy, gz)) {
+        const int o = ((k - H) * a.ny + gy) * a.nz + gz;
+        a.out[0][o] = riemann(ipx_prev, imx);
+        a.out[1][o] = riemann(ip_y[m.ni - kNZ], imy);
+        a.out[2][o] = riemann(ip_z[m.ni - 1], imz);
+      }
+    }
+    ipx_prev = ipx;
+  }
+}
 
 // ---------------------------------------------------------------------
 // advect: dq/dt of one component
@@ -937,22 +947,6 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
 // host entries
 // ---------------------------------------------------------------------
 
-// nx counts the padded rows of a halo slab (H > 0)
-template <int H>
-Geo<H> make_geo(int nx, int ny, int nz, double dx0, double dx1,
-                double dx2) {
-  Geo<H> g;
-  g.n[0] = nx;
-  g.n[1] = ny;
-  g.n[2] = nz;
-  g.dx[0] = dx0;
-  g.dx[1] = dx1;
-  g.dx[2] = dx2;
-  g.ncell = nx * ny * nz;
-  g.nout = (nx - 2 * H) * ny * nz;
-  return g;
-}
-
 // f(T(), std::integral_constant<int, H>()) for the element type and the
 // mode asked for
 template <typename F>
@@ -963,23 +957,6 @@ int dispatch(int dtype, int halo, F&& f) {
   if (dtype == 0) return halo ? f(float(), Slab()) : f(float(), Periodic());
   if (dtype == 1) return halo ? f(double(), Slab()) : f(double(), Periodic());
   return (int)cudaErrorInvalidValue;
-}
-
-template <typename T, int H>
-int run_uad(const void* vel, int vs, void* u0, void* u1, void* u2,
-            const void* dt, const Geo<H>& g, int ppm, cudaStream_t st) {
-  const T* v = static_cast<const T*>(vel);
-  UadArgs<T, H> a;
-  a.g = g;
-  for (int c = 0; c < 3; ++c) a.vel[c] = Strided<T>{v + c, vs};
-  a.out[0] = static_cast<T*>(u0);
-  a.out[1] = static_cast<T*>(u1);
-  a.out[2] = static_cast<T*>(u2);
-  a.dt = static_cast<const T*>(dt);
-  a.ppm = ppm != 0;
-  uad_kernel<T, H><<<(unsigned int)((g.nout + kBlock - 1) / kBlock), kBlock,
-                     0, st>>>(a);
-  return (int)cudaGetLastError();
 }
 
 // The wrapper's plan: the tile (kTileY, kTileZ), x rows a CTA marches
@@ -1018,6 +995,21 @@ void fill_geo(Args& a, int nx, int ny, int nz, double dx0, double dx1,
   a.dx[0] = dx0;
   a.dx[1] = dx1;
   a.dx[2] = dx2;
+}
+
+template <typename T, int H>
+int run_uad(const void* vel, void* u0, void* u1, void* u2, const void* dt,
+            int nx, int ny, int nz, double dx0, double dx1, double dx2,
+            int ppm, const Plan& pl, cudaStream_t st) {
+  UadArgs<T, H> a;
+  fill_geo<T, H>(a, nx, ny, nz, dx0, dx1, dx2);
+  a.vel = static_cast<const T*>(vel);
+  a.out[0] = static_cast<T*>(u0);
+  a.out[1] = static_cast<T*>(u1);
+  a.out[2] = static_cast<T*>(u2);
+  a.dt = static_cast<const T*>(dt);
+  a.ppm = ppm != 0;
+  return launch_fused(uad_kernel<T, H>, a, pl, smem_bytes<T>(kUadEnd), st);
 }
 
 template <typename T, int H>
@@ -1073,18 +1065,18 @@ int run_advect(const void* q, int qs, const void* m0, const void* m1,
 // kHalo for a halo slab, whose nx counts its padded rows.  Returns a
 // cudaError_t value.  The caller guarantees ncell * stride < 2^31
 // (32-bit indices).
-extern "C" int godunov_uad(int dtype, const void* vel, int vs, void* u0,
-                           void* u1, void* u2, const void* dt, int nx,
-                           int ny, int nz, double dx0, double dx1,
-                           double dx2, int halo, int use_ppm,
-                           void* stream) {
+extern "C" int godunov_uad(int dtype, const void* vel, void* u0, void* u1,
+                           void* u2, const void* dt, int nx, int ny, int nz,
+                           double dx0, double dx1, double dx2, int halo,
+                           int use_ppm, int tile_y, int tile_z, int chunk,
+                           int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Plan pl{tile_y, tile_z, chunk, smem};
   return dispatch(dtype, halo, [&](auto t, auto h) {
     using T = decltype(t);
     constexpr int H = decltype(h)::value;
-    return run_uad<T, H>(vel, vs, u0, u1, u2, dt,
-                         make_geo<H>(nx, ny, nz, dx0, dx1, dx2), use_ppm,
-                         st);
+    return run_uad<T, H>(vel, u0, u1, u2, dt, nx, ny, nz, dx0, dx1, dx2,
+                         use_ppm, pl, st);
   });
 }
 

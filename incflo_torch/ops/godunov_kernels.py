@@ -30,21 +30,24 @@ calls of the wrapper that reach the card):
              faces, flux divergence.
 
 What bounds them on an H100.  uad: bytes (6 fields at 128x128x32 f32,
-3.8 us at 3.35 TB/s); one thread per cell.  predict_d and advect:
-operations, about 300 and 550 a cell, with no FMA (the build's
--fmad=false, which bit-equality needs, halves the reachable f32 rate to
-33.5 TFLOP/s).  Design: ONE launch a call, the corner-transport chain
-on chip.  A CTA owns a TILE = 8 x 32 (y, z) column of output cells and
-marches along x over a chunk of output rows, one thread per cell of the
-column and its 1-cell halo; the inputs' x planes arrive by cp.async into
-rings of shared-memory planes ahead of use, and each stage (traces,
-corner corrections, corner-coupled states, faces with their transverse
-corrections, flux divergence or Riemann select) keeps its last few x
-planes in shared memory for the next stages, so no intermediate touches
-device memory.  Halo cells of a tile and a chunk's first planes are
-recomputed, bit-equal to their owners'.  tile_plan is the launch plan
-the wrappers pass (the tile, the x rows a CTA marches over, the
-shared-memory bytes); the C entries check it against csrc/godunov.cu.
+3.8 us at 3.35 TB/s).  predict_d and advect: operations, about 300 and
+550 a cell, with no FMA (the build's -fmad=false, which bit-equality
+needs, halves the reachable f32 rate to 33.5 TFLOP/s).  Design: ONE
+launch a call, the work on chip.  A CTA owns a TILE = 8 x 32 (y, z)
+column of output cells and marches along x over a chunk of output rows,
+one thread per cell of the column and its 1-cell halo; the inputs' x
+planes arrive by cp.async into rings of shared-memory planes ahead of
+use, and each stage (traces, corner corrections, corner-coupled states,
+faces with their transverse corrections, flux divergence or Riemann
+select) keeps its last few x planes in shared memory for the next
+stages, so no intermediate touches device memory.  uad stages the
+three velocity components of a plane together, de-interleaved,
+computes each cell's trace pair once per axis and takes the lo
+neighbour's Ip from a shared plane (y, z) or the previous plane (x).
+Halo cells of a tile and a chunk's first planes are recomputed,
+bit-equal to their owners'.  tile_plan is the launch plan the wrappers
+pass (the tile, the x rows a CTA marches over, the shared-memory bytes);
+the C entries check it against csrc/godunov.cu.
 The TPU-only parts of the Pallas design (merged (y,z) lane layout,
 x-slab DMA, the 4-launch split forced by 16 MB of VMEM, the m % 128 == 0
 scope rule) do not carry over.
@@ -128,7 +131,9 @@ THREADS = -(-(TILE[0] + 2) * (TILE[1] + 2) // 32) * 32
 _PLANES = {"advect": (7, 6 + 5 + 5 + 3, 2 * 4 + 4 * 3 + 3 * 2 + 6 * 3
                       + 3 * 2),
            "predict_d": (7, 3 * 2 + 6 * 3 + 4, 2 * 4 + 4 * 3 + 2 * 2
-                         + 2 * 3)}
+                         + 2 * 3),
+           # 6 ring slots of the three velocity components; Ip along y, z
+           "uad": (6 * 3, 0, 2)}
 _MARGIN = 64              # elements before and after the planes
 REACH = 3                 # input rows a chunk reads beyond its output rows
 SMEM_BLOCK = 232448       # H100: shared memory one CTA may take (227 KB)
@@ -157,7 +162,7 @@ def smem_bytes(kind: str, itemsize: int) -> int:
 
 
 def tile_plan(kind: str, out_cells, itemsize: int, sms: int = SMS) -> Plan:
-    """Launch plan of a fused kernel ("advect" or "predict_d") for an
+    """Launch plan of a fused kernel ("advect", "predict_d" or "uad") for an
     output of out_cells = (rows, ny, nz) cells: one CTA per y-z tile and
     chunk of rows.  The chunk is the shortest that keeps every CTA slot of
     the card (sms x CTAs a multiprocessor holds) busy in one wave."""
@@ -502,7 +507,7 @@ def _lib():
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         geo = [I, I, I, D, D, D, I]
         plan = [I, I, I, I]     # tile y, tile z, chunk, shared-memory bytes
-        lib.godunov_uad.argtypes = [I, P, I, P, P, P, P] + geo + [I, P]
+        lib.godunov_uad.argtypes = [I, P, P, P, P, P] + geo + [I] + plan + [P]
         lib.godunov_predict_d.argtypes = (
             [I, I, P, I, P, P, P, P, I, P, P] + geo + [I] + plan + [P])
         lib.godunov_advect.argtypes = (
@@ -544,9 +549,12 @@ def _launch_uad(grid, vel, dt, use_ppm, halo, key):
     vel = _cuda_checked("vel", vel, pn + (3,), vel.dtype, vel.device)
     out = [torch.empty(grid.n_cell, dtype=vel.dtype, device=vel.device)
            for _ in range(3)]
-    rc = _lib().godunov_uad(_DT_CODE[vel.dtype], _ptr(vel), 3,
-                            *(_ptr(u) for u in out), _ptr(dt),
-                            *_geo(grid, halo), int(use_ppm), _stream(vel))
+    lib = _lib()
+    pl = _plan("uad", grid, vel)
+    rc = lib.godunov_uad(_DT_CODE[vel.dtype], _ptr(vel),
+                         *(_ptr(u) for u in out), _ptr(dt),
+                         *_geo(grid, halo), int(use_ppm), *pl.tile, pl.chunk,
+                         pl.smem, _stream(vel))
     check_rc(key, rc)
     LAUNCHES[key] += 1
     return out

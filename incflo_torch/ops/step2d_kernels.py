@@ -18,7 +18,13 @@ incflo_torch/csrc/step2d.cu and its plain PyTorch version.
                       launch that computes the whole step (launch counter
                       "step2d") and returns the new SimState, with t, dt,
                       prev_dt and prev_prev_dt as 0-d device tensors and
-                      no host sync.
+                      no host sync.  FusedStep.probe runs the kernel's
+                      probe instantiation (step2d_launch_probe): the same
+                      step, block 0 timing each segment (probe_split).
+  launch_plan(cells, itemsize)  the kernel's panels, CTAs and shared
+                      memory, checked by the C entry against its source.
+  solve_panels_plain(sym, rhs, ...)  a direct solve in the kernel's
+                      order: row phase, column phase, row phase.
 
 The kernel's design, and what bounds it, is in the note at the top of
 csrc/step2d.cu; its scope is what out_of_scope(sim) checks, and
@@ -31,12 +37,12 @@ kernel or raises: there is no fallback to the plain step.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from incflo_torch.config import DiffusionType
-from incflo_torch.ops import cuda_build, diffusion
+from incflo_torch.ops import cuda_build, diffusion, spectral
 from incflo_torch.ops.cuda_build import DT_CODE, check_rc, ptr, stream
 from incflo_torch.state import LevelState, SimState
 
@@ -58,13 +64,13 @@ FIXED_TRIPS = 12
 # the kernel's tables, in the order of the enums of csrc/step2d.cu
 PTR_NAMES = (
     "vel", "rho", "gp", "t", "dt", "prev_dt", "prev_prev_dt", "step",
-    "mf0", "mv0", "mf1t", "mv1t", "mlam",
-    "df0", "dv0", "df1t", "dv1t", "dlam", "da0",
-    "nf0", "nv0", "nf1t", "nv1t", "nlam",
+    "mf0", "mv0", "mf1", "mv1", "mlam",
+    "df0", "dv0", "df1", "dv1", "dlam", "da0",
+    "nf0", "nv0", "nf1", "nv1", "nlam",
     "vel_out", "gp_out", "p_out", "mac_phi_out", "scal_out", "step_out",
     "cg_out", "diag_out",
-    "umac0", "umac1", "phi", "srhs", "h1", "h2", "rhs", "x", "r", "p", "z",
-    "xb", "ap", "conv", "dtau", "vstar", "gpstar", "pstar", "vproj", "vin",
+    "umac0", "umac1", "phi", "srhs", "h1", "h2", "rhs", "x", "r", "p", "p2",
+    "z", "xb", "ap", "conv", "dtau", "vstar", "gpstar", "pstar", "vproj",
     "part")
 FPAR_NAMES = (
     "dx0", "dx1", "dxi0", "dxi1", "two_cfl", "cfl", "mu", "fallback",
@@ -73,9 +79,9 @@ FPAR_NAMES = (
 IPAR_NAMES = ("nx", "ny", "cn", "tensor", "tcorr", "trips", "ppe", "stop_on",
               "fixed_on")
 # workspace fields of two components (the rest have one); `part` holds
-# SLOTS partials per block
-_WS2 = ("h1", "h2", "rhs", "x", "r", "p", "z", "xb", "ap", "conv", "dtau",
-        "vstar", "gpstar", "vproj", "vin")
+# SLOTS partials per CTA
+_WS2 = ("h1", "h2", "rhs", "x", "r", "p", "p2", "z", "xb", "ap", "conv",
+        "dtau", "vstar", "gpstar", "vproj")
 _WS1 = ("umac0", "umac1", "phi", "srhs", "pstar")
 # the pointers that change from call to call: the state and the outputs
 _PER_CALL = ("vel", "rho", "gp", "t", "dt", "prev_dt", "prev_prev_dt",
@@ -83,6 +89,55 @@ _PER_CALL = ("vel", "rho", "gp", "t", "dt", "prev_dt", "prev_prev_dt",
              "scal_out", "step_out", "cg_out", "diag_out")
 SLOTS = 8
 THREADS = 256
+
+# The launch plan's constants (csrc/step2d.cu kPanel, kKT, kKTP, kNSP,
+# kMaxAxis, kStages): rows of a row panel and columns of a column panel,
+# the depth of a staged k-tile of a transform matrix and its row pitch
+# (elements of the kernel's type) by element size, a panel's row pitch
+# (doubles), the longest axis, and the k-tile stages by element size
+PANEL = 4
+KTILE = {4: 64, 8: 32}
+KPITCH = {4: 68, 8: 36}
+NPITCH = 20
+MAX_AXIS = 256
+STAGES = {4: 2, 8: 2}
+SMEM_BLOCK = 232448       # H100: shared memory one CTA may take (227 KB)
+
+
+class Plan(NamedTuple):
+    panel: int          # rows of a row panel, columns of a column panel
+    ktile: int          # depth of a staged k-tile of a transform matrix
+    row_panels: int
+    col_panels: int
+    ctas: int           # one a panel; the kernel caps it at the
+                        # cooperative limit, past which a CTA walks panels
+    smem: int           # dynamic shared-memory bytes of a CTA
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def smem_bytes(cells, itemsize: int) -> int:
+    """Dynamic shared memory of a CTA (csrc/step2d.cu smem_bytes): the
+    panel and the column phase's spectral panel in double, then the
+    k-tile stages of a transform matrix in the kernel's type, sized by
+    the longer axis."""
+    n = max(cells)
+    return (2 * _round_up(n, KTILE[itemsize]) * NPITCH * 8
+            + STAGES[itemsize] * _round_up(n, 16) * KPITCH[itemsize]
+            * itemsize)
+
+
+def launch_plan(cells, itemsize: int) -> Plan:
+    """The kernel's launch plan for a (nx, ny) grid: one CTA per row
+    panel and column panel (the larger count), PANEL rows or columns a
+    panel; the C entry checks it against its source."""
+    nx, ny = cells
+    rp, cp = -(-nx // PANEL), -(-ny // PANEL)
+    return Plan(PANEL, KTILE[itemsize], rp, cp, max(rp, cp),
+                smem_bytes(cells, itemsize))
+
 
 _LIB = None
 
@@ -92,19 +147,19 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load(SOURCE)
         vp, ip = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
-        lib.step2d_launch.argtypes = [ctypes.c_int, vp, vp, vp, ip, vp]
+        lib.step2d_launch.argtypes = [ctypes.c_int, vp, vp, vp, vp, ip, vp]
         lib.step2d_launch.restype = ctypes.c_int
-        lib.step2d_launch_probe.argtypes = [ctypes.c_int, vp, vp, vp, ip, vp,
-                                            ctypes.c_int, vp]
+        lib.step2d_launch_probe.argtypes = [ctypes.c_int, vp, vp, vp, vp, ip,
+                                            vp, ctypes.c_int, vp]
         lib.step2d_launch_probe.restype = ctypes.c_int
-        lib.step2d_max_blocks.argtypes = [ctypes.c_int, ip]
+        lib.step2d_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int, ip]
         lib.step2d_max_blocks.restype = ctypes.c_int
-        lib.step2d_layout.argtypes = [ip] * 5
+        lib.step2d_layout.argtypes = [ip] * 10
         lib.step2d_layout.restype = ctypes.c_int
-        got = [ctypes.c_int() for _ in range(5)]
+        got = [ctypes.c_int() for _ in range(10)]
         lib.step2d_layout(*[ctypes.byref(g) for g in got])
         want = (len(PTR_NAMES), len(FPAR_NAMES), len(IPAR_NAMES), SLOTS,
-                THREADS)
+                THREADS, PANEL, KTILE[4], KPITCH[4], NPITCH, MAX_AXIS)
         if tuple(g.value for g in got) != want:
             raise RuntimeError(f"step2d.cu tables {[g.value for g in got]} "
                                f"differ from step2d_kernels.py {want}")
@@ -187,6 +242,29 @@ def cg_probe_ok(sim, s: SimState) -> bool:
     return bool(res <= tol)
 
 
+def solve_panels_plain(sym, rhs, alpha, beta, singular: bool):
+    """A direct solve in the kernel's order (csrc/step2d.cu solve), plain
+    PyTorch: the row phase (the axis-1 forward transform), the column
+    phase (the axis-0 forward transform, the eigenvalue divide -- the
+    mask-form zero mode of a singular symbol, else alpha a0 + beta lam --
+    and the axis-0 inverse), then the row phase (the axis-1 inverse).
+    sym is a 2D fast-diagonalization spectral.Symbol; rhs (nx, ny) or
+    (nx, ny, C).  spectral.solve transforms axis 0 first: transforms
+    along different axes commute."""
+    c = spectral._contract
+    s = sym.sym_face
+    s = beta * s if sym.a0 is None else alpha * sym.a0 + beta * s
+    if rhs.dim() > 2 and not sym.batched:
+        s = s[..., None]
+    h = c(c(rhs, sym.fwd[1], 1), sym.fwd[0], 0)
+    if singular:
+        at0 = spectral._at_origin(sym, h)
+        s = torch.where(spectral._at_origin(sym, s), 1.0, s)
+        h = torch.where(at0, 0.0, h)
+    h = h / s
+    return c(c(h, sym.inv[0], 0), sym.inv[1], 1)
+
+
 def step_plain(sim, s: SimState,
                cg: Optional[List] = None) -> SimState:
     """The plain version of the kernel: one step with FIXED_TRIPS tensor
@@ -218,8 +296,8 @@ class FusedStep:
             sym = solver.symbol
             put(key + "f0", sym.fwd[0])
             put(key + "v0", sym.inv[0])
-            put(key + "f1t", sym.fwd[1].t())
-            put(key + "v1t", sym.inv[1].t())
+            put(key + "f1", sym.fwd[1])
+            put(key + "v1", sym.inv[1])
             put(key + "lam", sym.sym_face)
         # the velocity symbol's constant acoef, one value per component
         put("da0", sim._diff_proto.symbol.a0.reshape(-1).expand(2))
@@ -253,14 +331,18 @@ class FusedStep:
             *[float(fp[k]) for k in FPAR_NAMES])
         self._ipar = (ctypes.c_int * len(IPAR_NAMES))(
             *[int(ip[k]) for k in IPAR_NAMES])
+        self.plan = launch_plan((nx, ny), torch.empty((), dtype=dt)
+                                .element_size())
+        self._plan = (ctypes.c_int * 4)(self.plan.panel, self.plan.ktile,
+                                        self.plan.ctas, self.plan.smem)
         self.ws = None
         if dev.type != "cpu":
-            nblk = -(-self.n // THREADS)
             self.ws = {k: torch.empty(2 * self.n, dtype=dt, device=dev)
                        for k in _WS2}
             self.ws.update({k: torch.empty(self.n, dtype=dt, device=dev)
                             for k in _WS1})
-            self.ws["part"] = torch.empty(SLOTS * nblk, dtype=dt, device=dev)
+            self.ws["part"] = torch.empty(SLOTS * self.plan.ctas, dtype=dt,
+                                          device=dev)
         # the pointer table, its fixed entries filled once
         self._ptrs = (ctypes.c_void_p * len(PTR_NAMES))()
         if self.ws is not None:
@@ -337,14 +419,14 @@ class FusedStep:
         nblk = ctypes.c_int()
         if probe is not None:
             rc = lib.step2d_launch_probe(
-                DT_CODE[dt], self._ptrs, self._fpar, self._ipar,
+                DT_CODE[dt], self._ptrs, self._fpar, self._ipar, self._plan,
                 ctypes.byref(nblk), probe.data_ptr(), probe.shape[0],
                 stream(vel))
             check_rc("step2d probe", rc)
         else:
             rc = lib.step2d_launch(DT_CODE[dt], self._ptrs, self._fpar,
-                                   self._ipar, ctypes.byref(nblk),
-                                   stream(vel))
+                                   self._ipar, self._plan,
+                                   ctypes.byref(nblk), stream(vel))
             check_rc("step2d", rc)
             LAUNCHES["step2d"] += 1
         self.blocks = nblk.value
@@ -359,7 +441,8 @@ class FusedStep:
 
 
 # the probe's record kinds (csrc/step2d.cu enum Seg) and its capacity
-PROBE_KINDS = ("start", "transform", "barrier", "elementwise", "finish")
+PROBE_KINDS = ("start", "transform", "barrier", "elementwise", "finish",
+               "panel load", "epilogue")
 PROBE_CAP = 1024
 
 
@@ -367,8 +450,12 @@ def probe_split(records) -> dict:
     """The probe's records [kind, globaltimer ns, clock64] (block 0 of
     the grid, one a segment) as ms by kind: each interval between two
     records belongs to the later record's kind.  Also the clock64 split
-    as shares of the total, and the count of barriers stamped."""
-    recs = [r for r in records if r[1] != 0]
+    as shares of the total, the count of barriers stamped, and from the
+    last record (kind -1) the share of the transforms' k-loops spent
+    waiting for a k-tile."""
+    recs = [r for r in records if r[1] != 0 and r[0] >= 0]
+    kloop = [r for r in records if r[0] == -1]
+    kparts = [r for r in records if r[0] == -2]
     ms = {k: 0.0 for k in PROBE_KINDS[1:]}
     cyc = dict(ms)
     for prev, cur in zip(recs, recs[1:]):
@@ -379,14 +466,27 @@ def probe_split(records) -> dict:
     ncyc = max(recs[-1][2] - recs[0][2], 1)
     return {"ms": ms, "total_ms": total,
             "clock_share": {k: v / ncyc for k, v in cyc.items()},
+            # block 0 thread 0's clocks in the transforms' k-loops spent
+            # waiting for a k-tile (and the barrier after the wait)
+            "kloop_wait_share": (kloop[0][1] / max(kloop[0][2], 1)
+                                 if kloop else None),
+            # and issuing the next k-tile's copies, and the products
+            "kloop_issue_share": (kparts[0][1] / max(kloop[0][2], 1)
+                                  if kparts else None),
+            "kloop_mma_share": (kparts[0][2] / max(kloop[0][2], 1)
+                                if kparts else None),
+            "clock_ghz": ncyc / max(recs[-1][1] - recs[0][1], 1),
             "segments": len(recs) - 1,
             "barriers": sum(1 for r in recs if r[0] == 2)}
 
 
-def max_blocks(dtype) -> int:
+def max_blocks(dtype, cells) -> int:
     """The most blocks a cooperative launch of the kernel may have on the
-    current card (occupancy x SM count)."""
+    current card for a (nx, ny) grid (occupancy at its shared memory x
+    SM count)."""
     out = ctypes.c_int()
+    smem = smem_bytes(cells, torch.empty((), dtype=dtype).element_size())
     check_rc("step2d_max_blocks",
-             _lib().step2d_max_blocks(DT_CODE[dtype], ctypes.byref(out)))
+             _lib().step2d_max_blocks(DT_CODE[dtype], smem,
+                                      ctypes.byref(out)))
     return out.value

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the fused 2D step kernel's time goes, from its probe.
 
-    python3 scripts/step2d_probe.py [--n 128,256] [--reps 7] [--out FILE]
+    python3 scripts/step2d_probe.py [--n 128,256] [--reps 7] [--tree DIR]
+                                    [--out FILE]
 
 For each n, tgv2d at n^2 float32 from init_state: the kernel's probe
 instantiation (csrc/step2d.cu, step2d_launch_probe: block 0 stamps
@@ -12,7 +13,9 @@ transform, barrier wait, elementwise or stencil work, reduction finish
 -- beside the total, the clock64 shares, the barrier count, and the
 kernel's own time (the main instantiation, chip_smoke.device_ms).  The
 stamps cost a block barrier each, so the probe's total runs above the
-kernel's time.  Prints the card (nvidia-smi name and power limit) and
+kernel's time.  --tree DIR takes incflo_torch from the checkout in DIR
+(for instance a `git archive` unpacked into _ab/, a directory .gitignore
+lists) instead of this one.  Prints the card (nvidia-smi name and power limit) and
 writes the numbers as JSON to FILE (default
 chiprun_out/step2d_probe.json).  It needs one CUDA device.
 """
@@ -28,13 +31,13 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def measure(n, reps):
+def measure(n, reps, tree):
     import torch
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.abspath(tree))
     import incflo_torch
     from incflo_torch.ops import step2d_kernels as s2
     sim = incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(
@@ -51,6 +54,10 @@ def measure(n, reps):
     out = {"n": n, "ms": med,
            "total_ms": statistics.median(sp["total_ms"] for sp in splits),
            "clock_share": share, "barriers": splits[0]["barriers"],
+           # k-loop shares and the SM clock (a tree whose probe has them)
+           **{k: statistics.median(sp.get(k) or 0.0 for sp in splits)
+              for k in ("kloop_wait_share", "kloop_issue_share",
+                        "kloop_mma_share", "clock_ghz")},
            "segments": splits[0]["segments"], "blocks": fs.blocks,
            "kernel_ms": cs.device_ms(lambda: fs.step(s0))}
     plan = getattr(s2, "launch_plan", None)
@@ -63,6 +70,7 @@ def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", default="128,256")
     ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--tree", default=HERE)
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out",
                                                   "step2d_probe.json"))
     a = ap.parse_args(argv)
@@ -75,13 +83,17 @@ def main(argv):
     print(f"[probe] {card}", flush=True)
     rows = []
     for n in (int(v) for v in a.n.split(",")):
-        r = measure(n, a.reps)
+        r = measure(n, a.reps, a.tree)
         rows.append(r)
         print(f"[probe] tgv2d {n}^2 f32: kernel {r['kernel_ms']:.4f} ms; "
               f"probe total {r['total_ms']:.4f} ms = "
               + ", ".join(f"{k} {v:.4f}" for k, v in r["ms"].items())
               + " ms (median of " + str(a.reps) + "); clock64 shares "
               + ", ".join(f"{k} {v:.3f}" for k, v in r["clock_share"].items())
+              + f"; k-loop shares: waiting {r['kloop_wait_share']:.3f}, "
+              f"issuing {r['kloop_issue_share']:.3f}, products "
+              f"{r['kloop_mma_share']:.3f}; SM clock "
+              f"{r['clock_ghz']:.3f} GHz"
               + f"; {r['barriers']} grid barriers, {r['segments']} "
               f"segments, {r['blocks']} blocks"
               + (f"; plan {r['plan']}" if "plan" in r else ""), flush=True)

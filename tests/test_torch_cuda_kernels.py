@@ -10,7 +10,8 @@ need not have).
 Tolerances: the Godunov kernels repeat the plain version's operations
 with no FMA contraction, in the same order, so they are held bit-equal
 to it in float32 and within 1e-14 of the field's max in float64, at
-ragged and short-axis shapes that cut the fused kernels' 8 x 32 tiles.  The smoothers: float64
+ragged and short-axis shapes that cut the fused kernels' 8 x 32 tiles
+(uad and uad_halo on their own too).  The smoothers: float64
 1e-12 relative; float32 2e-6 absolute on x and 5e-4 on the residual for
 O(1) fields on a unit-spaced level scale (the limits of
 tests/test_pallas_kernels.py).  The walled cell smoother is held to the
@@ -106,6 +107,22 @@ def test_predict_kernel_matches_plain(cuda, dtype, shape, use_ppm,
     ref = gk.predict_plain(grid, vel, forces, dt, use_ppm)
     for d in range(3):
         _same_bits(got[d], ref[d], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", GODUNOV_SHAPES)
+@pytest.mark.parametrize("use_ppm", [True, False])
+def test_uad_kernel_matches_plain(cuda, dtype, shape, use_ppm):
+    """uad, a fused x-march on the 8 x 32 tiles: each face bit-equal."""
+    grid = _grid(shape)
+    vel = _fields(grid, 3, 6, dtype, cuda)
+    dt = torch.tensor(0.01, dtype=dtype, device=cuda)
+    n0 = gk.LAUNCHES["uad"]
+    got = gk.uad(grid, vel, dt, use_ppm)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["uad"] == n0 + 1
+    for a, b in zip(got, gk.uad_plain(grid, vel, dt, use_ppm)):
+        _same_bits(a, b, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -530,7 +547,9 @@ def test_walled_nodal_solve_runs_through_the_kernel(cuda):
 
 
 # the fused 2D step: tgv2d and its variants (Crank-Nicolson, no tensor
-# solve, the tensor correction, a non-square grid driven by delp)
+# solve, the tensor correction, a non-square grid driven by delp), and
+# grids that cut the kernel's 8-row panels and 16-deep k-tiles: axes not
+# a multiple of 8 (36 x 20) and a 4-cell axis (4 x 24)
 STEP2D_DECKS = {
     "tgv2d": "",
     "crank_nicolson": "incflo.diffusion_type = 1\n",
@@ -539,6 +558,8 @@ STEP2D_DECKS = {
                           "incflo.use_tensor_correction = true\n"),
     "delp_24x16": ("amr.n_cell = 24 16\ngeometry.prob_hi = 1.5 1.\n"
                    "incflo.delp = 0.3 0.\n"),
+    "ragged_36x20": "amr.n_cell = 36 20\ngeometry.prob_hi = 1.8 1.\n",
+    "short_4x24": "amr.n_cell = 4 24\n",
 }
 
 
@@ -634,9 +655,12 @@ def test_step2d_raises_outside_scope(cuda):
 # plain version and to the unsharded kernel's output on the same rows.
 # ---------------------------------------------------------------------
 
-# (shape, ranks): the shear3d n = 128 level in 2 and 4 slabs, and an odd
-# ny * nz (9 x 7) over 3 ranks
-HALO_CASES = [((128, 128, 32), 2), ((128, 128, 32), 4), ((24, 9, 7), 3)]
+# (shape, ranks): the shear3d n = 128 level in 2 and 4 slabs, an odd
+# ny * nz (9 x 7) over 3 ranks, and slabs that cut the 8 x 32 tiles: axes
+# shorter than a tile (5-row slabs of 10 x 3 x 2) and a ragged ny (33 x 8
+# x 16 over 3 ranks)
+HALO_CASES = [((128, 128, 32), 2), ((128, 128, 32), 4), ((24, 9, 7), 3),
+              ((10, 3, 2), 2), ((33, 8, 16), 3)]
 
 
 def _slab_grid(grid, nranks):

@@ -13,7 +13,8 @@ Two references, the same inputs (smooth O(1) fields from a numpy seed):
 On the CPU the kernel wrappers take the plain versions, and their launch
 counters do not move.
 
-The fused kernels' launch plan (godunov_kernels.tile_plan, pure Python):
+The fused kernels' launch plan (godunov_kernels.tile_plan, pure Python;
+advect, predict_d and uad):
 for the shear3d levels, the card tests' shapes and halo slabs, each CTA's
 shared memory fits an H100 block, every output cell belongs to exactly
 one CTA, and a slab's chunks read only its padded rows.
@@ -305,28 +306,39 @@ PLAN_CASES = [((128, 128, 32), 0), ((256, 256, 64), 0), ((16, 8, 12), 0),
               ((8, 9, 7), gk.HALO)]
 
 
+def _check_tile_plan(kind, cells, halo):
+    nx = cells[0]
+    for itemsize in (4, 8):
+        pl = gk.tile_plan(kind, cells, itemsize)
+        assert pl.smem == gk.smem_bytes(kind, itemsize)
+        assert pl.smem <= gk.SMEM_BLOCK
+        assert pl.ctas_per_sm >= 1
+        nch, nty, ntz = pl.grid
+        (ty, tz), ctas = pl.tile, nch * nty * ntz
+        # one wave unless the rows cannot be cut finer
+        assert ctas <= gk.SMS * pl.ctas_per_sm or pl.chunk == 1
+        hits = np.zeros(cells, np.int32)
+        for c in range(nch):
+            x0, x1 = c * pl.chunk, min((c + 1) * pl.chunk, nx)
+            assert x0 < x1
+            # the input rows the chunk reads lie in a slab's padded rows
+            assert halo == 0 or (halo + x0 - gk.REACH >= 0
+                                 and halo + x1 + gk.REACH <= nx + 2 * halo)
+            for a in range(nty):
+                for b in range(ntz):
+                    hits[x0:x1, a * ty:(a + 1) * ty,
+                         b * tz:(b + 1) * tz] += 1
+        assert (hits == 1).all(), (kind, itemsize)
+
+
 @pytest.mark.parametrize("cells,halo", PLAN_CASES)
 def test_tile_plan_fits_and_covers_every_output_once(cells, halo):
-    nx = cells[0]
     for kind in ("advect", "predict_d"):
-        for itemsize in (4, 8):
-            pl = gk.tile_plan(kind, cells, itemsize)
-            assert pl.smem == gk.smem_bytes(kind, itemsize)
-            assert pl.smem <= gk.SMEM_BLOCK
-            assert pl.ctas_per_sm >= 1
-            nch, nty, ntz = pl.grid
-            (ty, tz), ctas = pl.tile, nch * nty * ntz
-            # one wave unless the rows cannot be cut finer
-            assert ctas <= gk.SMS * pl.ctas_per_sm or pl.chunk == 1
-            hits = np.zeros(cells, np.int32)
-            for c in range(nch):
-                x0, x1 = c * pl.chunk, min((c + 1) * pl.chunk, nx)
-                assert x0 < x1
-                # the input rows the chunk reads lie in a slab's padded rows
-                assert halo == 0 or (halo + x0 - gk.REACH >= 0
-                                     and halo + x1 + gk.REACH <= nx + 2 * halo)
-                for a in range(nty):
-                    for b in range(ntz):
-                        hits[x0:x1, a * ty:(a + 1) * ty,
-                             b * tz:(b + 1) * tz] += 1
-            assert (hits == 1).all(), (kind, itemsize)
+        _check_tile_plan(kind, cells, halo)
+
+
+@pytest.mark.parametrize("cells,halo", PLAN_CASES)
+def test_uad_tile_plan_fits_and_covers_every_output_once(cells, halo):
+    """uad's plan (a fused x-march on the same tiles): its ring of the
+    three components' planes fits, and it reaches REACH rows."""
+    _check_tile_plan("uad", cells, halo)
