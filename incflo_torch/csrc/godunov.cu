@@ -44,15 +44,16 @@
 // lo neighbour's Ip: along x a register of the previous plane, along y
 // and z a shared plane.  Global loads wrap modulo n for any offset, so
 // axes shorter than a tile and its halo work; ragged tiles compute
-// wrapped cells and write only the real ones.  The wrapper's plan (godunov_kernels.tile_plan) passes
-// the tile, the chunk and the shared-memory bytes; the entries check
-// them against this file's.
+// wrapped cells and write only the real ones.  The wrapper's plan
+// (godunov_kernels.tile_plan) passes the tile, the chunk and the
+// shared-memory bytes; the entries check them against this file's.
 //
 // What bounds them on an H100: uad, bytes (its three trace pairs and
 // selects, about 250 operations a cell, come close); predict_d and
-// advect, operations.  About 300 (predict_d) and 550 (advect) a cell, with no FMA (-fmad=false, which bit-equality
-// needs, halves the reachable f32 rate to 33.5 TFLOP/s); min, max and abs
-// issue as single instructions.  The halo and a chunk's first planes are
+// advect, operations.  About 300 (predict_d) and 550 (advect) a cell,
+// with no FMA (-fmad=false, which bit-equality needs, halves the
+// reachable f32 rate to 33.5 TFLOP/s); min, max and abs issue as single
+// instructions.  The halo and a chunk's first planes are
 // recomputed: at 128 x 128 x 32 (8-row chunks, 256 CTAs, 2 an SM) the
 // traces run 1.66x as often as the outputs need; at 256 x 256 x 64
 // (64-row chunks) 1.37x.  Device memory sees each input read once (the

@@ -188,8 +188,7 @@ __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
 }
 
-// k-tile stages of the streamed matrix: kStages - 1 tiles in flight
-template <typename T>
+// k-tile stages of the streamed matrix: one in use, one in flight
 constexpr int kStages = 2;
 
 // Dynamic shared memory: the panel P and the column phase's spectral
@@ -197,8 +196,9 @@ constexpr int kStages = 2;
 // stages of a matrix (T, round_up(n, 16) rows of kKTP<T>), n the longer axis.
 template <typename T>
 constexpr int smem_bytes(int nx, int ny) {
-  return 2 * round_up(nx > ny ? nx : ny, kKT<T>) * kNSP * 8 +
-         kStages<T> * round_up(nx > ny ? nx : ny, 16) * kKTP<T> * (int)sizeof(T);
+  const int n = nx > ny ? nx : ny;
+  return 2 * round_up(n, kKT<T>) * kNSP * 8 +
+         kStages * round_up(n, 16) * kKTP<T> * (int)sizeof(T);
 }
 
 template <typename T> struct Lim;
@@ -451,11 +451,11 @@ struct Step {
   // 16)), columns [kt kKT<T>, +kKT<T>), zeros outside Mat
   __device__ void stage_tile(const T* Mat, int M, int K, int kt,
                              T* buf) const {
-    const int m8 = round_up(M, 16), k0 = kt * kKT<T>;
+    const int m16 = round_up(M, 16), k0 = kt * kKT<T>;
     constexpr int V = 16 / (int)sizeof(T);   // elements of a 16-byte copy
     if (K % V == 0) {   // rows 16-byte aligned: whole 16-byte chunks
       constexpr int CH = kKT<T> / V;
-      for (int e = threadIdx.x; e < m8 * CH; e += kThreads) {
+      for (int e = threadIdx.x; e < m16 * CH; e += kThreads) {
         const int m = e / CH, kk = (e - m * CH) * V;
         T* dst = buf + m * kKTP<T> + kk;
         if (m < M && k0 + kk < K)
@@ -464,7 +464,7 @@ struct Step {
           *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
     } else {
-      for (int e = threadIdx.x; e < m8 * kKT<T>; e += kThreads) {
+      for (int e = threadIdx.x; e < m16 * kKT<T>; e += kThreads) {
         const int m = e / kKT<T>, kk = e - m * kKT<T>;
         T* dst = buf + m * kKTP<T> + kk;
         if (m < M && k0 + kk < K)
@@ -480,7 +480,7 @@ struct Step {
   // of a grid barrier or a panel's load.
   __device__ void prefetch(const T* Mat, int M, int K) {
     const int nkt = (K + kKT<T> - 1) / kKT<T>;
-    for (int s = 0; s < kStages<T> - 1; ++s) {
+    for (int s = 0; s < kStages - 1; ++s) {
       if (s < nkt) stage_tile(Mat, M, K, s, stages + s * slot);
       cp_commit();
     }
@@ -516,9 +516,11 @@ struct Step {
     const int nkt = (K + kKT<T> - 1) / kKT<T>, nmt = (M + 15) / 16;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
     const int g = lane >> 2, q = lane & 3;
-    constexpr int S = kStages<T>;
+    constexpr int S = kStages;
     // the output element of accumulator i of tile (j, t)
-    auto row = [&](int j, int i) { return (w + j * kWarps) * 16 + g + 8 * (i >> 1); };
+    auto row = [&](int j, int i) {
+      return (w + j * kWarps) * 16 + g + 8 * (i >> 1);
+    };
     auto col = [&](int t, int i) { return t * 8 + 2 * q + (i & 1); };
     T ax[kMTW][NT][4];
 #pragma unroll
@@ -1368,18 +1370,12 @@ int launch(const void* const* ptrs, const double* fp, const int* ip,
 }  // namespace
 
 extern "C" int step2d_layout(int* nptr, int* nfpar, int* nipar, int* slots,
-                             int* threads, int* panel, int* ktile,
-                             int* kpitch, int* npitch, int* max_axis) {
+                             int* threads) {
   *nptr = NPTR;
   *nfpar = NFPAR;
   *nipar = NIPAR;
   *slots = kSlots;
   *threads = kThreads;
-  *panel = kPanel;
-  *ktile = kKT<float>;
-  *kpitch = kKTP<float>;
-  *npitch = kNSP;
-  *max_axis = kMaxAxis;
   return 0;
 }
 

@@ -141,6 +141,7 @@ SMEM_SM = 233472          # shared memory of a multiprocessor (228 KB)
 SMEM_RESERVED = 1024      # what the runtime keeps of it per CTA
 THREADS_SM = 2048
 SMS = 132                 # multiprocessors of an H100 SXM
+MIN_CHUNK_UAD = 8         # output rows of a uad CTA at least
 
 
 class Plan(NamedTuple):
@@ -165,7 +166,10 @@ def tile_plan(kind: str, out_cells, itemsize: int, sms: int = SMS) -> Plan:
     """Launch plan of a fused kernel ("advect", "predict_d" or "uad") for an
     output of out_cells = (rows, ny, nz) cells: one CTA per y-z tile and
     chunk of rows.  The chunk is the shortest that keeps every CTA slot of
-    the card (sms x CTAs a multiprocessor holds) busy in one wave."""
+    the card (sms x CTAs a multiprocessor holds) busy in one wave, but
+    uad's at least MIN_CHUNK_UAD rows while that leaves a CTA for every
+    multiprocessor: its few operations a plane leave the 5 planes a
+    chunk loads before its first output to dominate a shorter one."""
     nx, ny, nz = out_cells
     ty, tz = TILE
     smem = smem_bytes(kind, itemsize)
@@ -173,6 +177,9 @@ def tile_plan(kind: str, out_cells, itemsize: int, sms: int = SMS) -> Plan:
     tiles = (-(-ny // ty), -(-nz // tz))
     nchunks = max(1, min(nx, sms * per_sm // (tiles[0] * tiles[1])))
     chunk = -(-nx // nchunks)
+    if kind == "uad":
+        one_an_sm = -(-nx * tiles[0] * tiles[1] // sms)
+        chunk = min(nx, max(chunk, min(MIN_CHUNK_UAD, one_an_sm)))
     return Plan(TILE, chunk, (-(-nx // chunk),) + tiles, smem, per_sm)
 
 

@@ -91,16 +91,17 @@ SLOTS = 8
 THREADS = 256
 
 # The launch plan's constants (csrc/step2d.cu kPanel, kKT, kKTP, kNSP,
-# kMaxAxis, kStages): rows of a row panel and columns of a column panel,
-# the depth of a staged k-tile of a transform matrix and its row pitch
-# (elements of the kernel's type) by element size, a panel's row pitch
-# (doubles), the longest axis, and the k-tile stages by element size
+# kMaxAxis, kStages; the C entry rejects a plan they disagree with): rows
+# of a row panel and columns of a column panel, the depth of a staged
+# k-tile of a transform matrix and its row pitch in elements of the
+# kernel's type (by element size), a panel's row pitch (doubles), the
+# longest axis, and the k-tile stages
 PANEL = 4
 KTILE = {4: 64, 8: 32}
 KPITCH = {4: 68, 8: 36}
 NPITCH = 20
 MAX_AXIS = 256
-STAGES = {4: 2, 8: 2}
+STAGES = 2
 SMEM_BLOCK = 232448       # H100: shared memory one CTA may take (227 KB)
 
 
@@ -125,7 +126,7 @@ def smem_bytes(cells, itemsize: int) -> int:
     the longer axis."""
     n = max(cells)
     return (2 * _round_up(n, KTILE[itemsize]) * NPITCH * 8
-            + STAGES[itemsize] * _round_up(n, 16) * KPITCH[itemsize]
+            + STAGES * _round_up(n, 16) * KPITCH[itemsize]
             * itemsize)
 
 
@@ -154,12 +155,12 @@ def _lib():
         lib.step2d_launch_probe.restype = ctypes.c_int
         lib.step2d_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int, ip]
         lib.step2d_max_blocks.restype = ctypes.c_int
-        lib.step2d_layout.argtypes = [ip] * 10
+        lib.step2d_layout.argtypes = [ip] * 5
         lib.step2d_layout.restype = ctypes.c_int
-        got = [ctypes.c_int() for _ in range(10)]
+        got = [ctypes.c_int() for _ in range(5)]
         lib.step2d_layout(*[ctypes.byref(g) for g in got])
         want = (len(PTR_NAMES), len(FPAR_NAMES), len(IPAR_NAMES), SLOTS,
-                THREADS, PANEL, KTILE[4], KPITCH[4], NPITCH, MAX_AXIS)
+                THREADS)
         if tuple(g.value for g in got) != want:
             raise RuntimeError(f"step2d.cu tables {[g.value for g in got]} "
                                f"differ from step2d_kernels.py {want}")

@@ -9,14 +9,18 @@ instantiation (csrc/step2d.cu, step2d_launch_probe: block 0 stamps
 %globaltimer and clock64 after every segment of the step and before and
 after every grid barrier) runs `reps` times on one state after a
 warm-up, and the median ms of each kind of segment is printed --
-transform, barrier wait, elementwise or stencil work, reduction finish
--- beside the total, the clock64 shares, the barrier count, and the
-kernel's own time (the main instantiation, chip_smoke.device_ms).  The
+transform (the products' k-loops), panel load, epilogue, barrier wait,
+elementwise or stencil work, reduction finish -- beside the total, the
+clock64 shares, the k-loops' shares spent waiting for a k-tile, issuing
+the next one's copies and in the products, the SM clock, the barrier
+count, and the kernel's own time (the main instantiation,
+chip_smoke.device_ms).  A tree whose probe predates some kinds reports
+them as 0.  The
 stamps cost a block barrier each, so the probe's total runs above the
 kernel's time.  --tree DIR takes incflo_torch from the checkout in DIR
 (for instance a `git archive` unpacked into _ab/, a directory .gitignore
-lists) instead of this one.  Prints the card (nvidia-smi name and power limit) and
-writes the numbers as JSON to FILE (default
+lists) instead of this one.  Prints the card (nvidia-smi name and power
+limit) and writes the numbers as JSON to FILE (default
 chiprun_out/step2d_probe.json).  It needs one CUDA device.
 """
 
