@@ -76,7 +76,7 @@
 // 4 us (33 us) at the DMMA rate of all 132 SMs (67 TFLOP/s), 8 us (66 us)
 // at the FP64 FMA rate (34 TFLOP/s).  What bounds the kernel instead is
 // each CTA streaming every n x n matrix through its SM, 40 products a
-// step: the probe finds the k-loops 0.4-0.55 of the step, each split
+// step: the probe finds the k-loops 0.37-0.55 of the step, each split
 // about evenly between issuing the k-tiles' copies (the SM's L2 bandwidth)
 // and the products, then the panels' loads, the elementwise phases and
 // the 37 barriers (scripts/step2d_probe.py).
