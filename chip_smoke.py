@@ -72,7 +72,18 @@ Phases (any failure ends the run with a non-zero exit):
              (also density, tracer, mac_phi) at 32x32x8, and rt at
              16x16x32, and tgv2d at 32^2 (velocity, p, gp, mac_phi; in
              float64 the card takes the plain step); agreement to 1e-9
-             relative.
+             relative.  The decks of ROADMAP A9c and 3D MOL likewise,
+             every field (velocity, density, tracer, p, gp, mac_phi) and
+             dt to 1e-9, the solvers' iterations of both runs printed:
+             channel (mass inflow, pressure outflow, no-slip y walls,
+             MOL) at 32x16x8, bingham (between no-slip walls, MOL, from
+             rest plus a smooth perturbation from a seed) at 16x16x8,
+             bubble (Boussinesq, slip z walls, Godunov) at 16^3,
+             shear3d_explicit (explicit diffusion, the Godunov kernels)
+             and shear3d_mol (3D MOL) at 32x32x8.  And tgv2d at 32^2
+             with explicit diffusion in float32 through
+             Simulation.advance on cuda: the plain step, no step2d
+             launch.
   5. main    through incflo_torch.Simulation on cuda, float32.  shear3d:
              n = 128 (128x128x32), 20 warm-up + 20 timed steps, and
              n = 256 (256x256x64), 2 warm-up + 3 timed steps.  shear3d_vd
@@ -93,7 +104,22 @@ Phases (any failure ends the run with a non-zero exit):
              warm-up + 20 timed steps, fused (Simulation.advance_n: exactly
              one step2d launch a step) and the plain step
              (Simulation._advance_impl: none) in turns; the amplitude
-             follows the exact Taylor-Green decay to 1e-3.
+             follows the exact Taylor-Green decay to 1e-3.  The A9c and
+             3D MOL decks at their full widths, 2 warm-up + 5 timed steps
+             each: channel 128x64x16, bingham 128x128x32, bubble 64^3,
+             shear3d_explicit and shear3d_mol 128x128x32; ms/step,
+             cells/s, the kernels' launches (the Godunov kernels 1/3/3 a
+             step on shear3d_explicit and none elsewhere; the walled
+             smoothers on the walled decks, none elsewhere; each smoother
+             call one device launch), the per-step tallies of TALLIES to
+             the digit, finite fields; the projection: on the periodic
+             decks the re-projection of the final velocity, on the
+             walled ones every nodal solve of one more step within its
+             tolerance (bingham, a flow along z, divergence-free to
+             rounding: |div u| dx/|u| <= 1e-4 instead); channel: the
+             MAC-projected flux through the outflow face equals the
+             inflow's to 1e-4; bingham: mirror-symmetric about both
+             centre planes to 1e-5 of max |u|; bubble: it rises.
   6. sharded the x-slab mesh of incflo_torch/parallel and the halo-slab
              Godunov kernels (B8).  First the kernels in one process (after
              phase 2): the shear3d n = 128 level cut into 2 slabs (nxl 64)
@@ -120,7 +146,9 @@ and, last, {"ok": true, "device": {...}}.
 
 It imports neither JAX nor incflo_tpu and writes its own deck text (the
 shear3d, rt and tgv2d decks of bench.py; shear3d_vd adds
-constant_density = false, advect_tracer = true and mu_s = 0.0002).  Without a CUDA device, or
+constant_density = false, advect_tracer = true and mu_s = 0.0002;
+channel_cyl and poiseuille_cyl_bingham without their cylinder; the
+bubble of probtype 111).  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
@@ -184,6 +212,21 @@ TALLIES = {
                                      "host_syncs": 19.2},
     "rt": {"cell_iters": 25.2, "nodal_cycles": 5.8, WALLED: 336.2,
            "host_syncs": 46.0},
+    # the A9c and 3D MOL cells (their first chip runs, timed and
+    # profiled, read the same)
+    "channel": {"cell_iters": 0.0, "nodal_cycles": 5.8,
+                "tensor_cg_iters": 4.0, WALLED: 2.0, WALLED_NODAL: 40.6,
+                "host_syncs": 19.8},
+    "bingham": {"cell_iters": 79.2, "nodal_cycles": 3.0,
+                "tensor_cg_iters": 45.6, WALLED: 1161.2, WALLED_NODAL: 27.0,
+                "host_syncs": 139.8},
+    "bubble": {"cell_iters": 13.4, "nodal_cycles": 5.2,
+               "tensor_cg_iters": 0.0, WALLED: 195.4, WALLED_NODAL: 57.2,
+               "host_syncs": 31.6},
+    "shear3d_explicit": {"cell_iters": 0.0, "nodal_cycles": 0.0,
+                         "tensor_cg_iters": 0.0, "host_syncs": 0.0},
+    "shear3d_mol": {"cell_iters": 0.0, "nodal_cycles": 0.0,
+                    "tensor_cg_iters": 0.0, "host_syncs": 2.0},
 }
 VD_KEYS = """
 incflo.constant_density = false
@@ -268,6 +311,127 @@ incflo.init_shrink = 1.0
 incflo.use_godunov = true
 incflo.diffusion_type = 1
 """ + (VD_KEYS if vd else "")
+
+
+EXPLICIT = "incflo.diffusion_type = 0\n"
+MOL = "incflo.use_godunov = false\nincflo.cfl = 0.5\n"
+
+
+def channel_deck(n, dtype):
+    """channel_cyl of bench.py:_deck without its cylinder: n x n/2 x
+    max(n/8, 8) cells of a 1.2 x 0.4 x 0.1 box, mass inflow (1, 0, 0) with
+    tracer 1 at x-lo, pressure outflow at x-hi, no-slip y walls, periodic
+    z, probtype 31 (the Poiseuille profile), MOL, implicit diffusion, one
+    advected tracer."""
+    return deck_header(dtype) + f"""
+amr.n_cell = {n} {n // 2} {max(n // 8, 8)}
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = 1.2 0.4 0.1
+geometry.is_periodic = 0 0 1
+ylo.type = "nsw"
+yhi.type = "nsw"
+xlo.type = "mi"
+xlo.velocity = 1. 0. 0.
+xlo.tracer = 1.
+xhi.type = "po"
+xhi.pressure = 0.0
+incflo.probtype = 31
+incflo.ic_u = 1.0
+incflo.mu = 0.001
+incflo.ntrac = 1
+incflo.advect_tracer = true
+incflo.mu_s = 0.001
+incflo.cfl = 0.45
+"""
+
+
+def bingham_deck(n, dtype):
+    """poiseuille_cyl_bingham of bench.py:_deck without its cylinder,
+    between no-slip walls on x and y (periodic z): n x n x max(n/4, 8)
+    cells of a 4 x 4 x 0.5 box, MOL, a Bingham fluid (mu 1, tau_0 1,
+    papa_reg 0.001) driven by delp (0, 0, 2), fixed dt 0.01."""
+    return deck_header(dtype) + f"""
+amr.n_cell = {n} {n} {max(n // 4, 8)}
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = 4. 4. 0.5
+geometry.is_periodic = 0 0 1
+xlo.type = "nsw"
+xhi.type = "nsw"
+ylo.type = "nsw"
+yhi.type = "nsw"
+incflo.delp = 0. 0. 2.
+incflo.fluid_model = "bingham"
+incflo.mu = 1.
+incflo.tau_0 = 1.
+incflo.papa_reg = 0.001
+incflo.fixed_dt = 0.01
+"""
+
+
+def bubble_deck(n, dtype):
+    """probtype 111, the Boussinesq bubble: n^3 cells of the unit cube,
+    periodic x and y, slip walls on z, gravity (0, 0, -1), Godunov PPM,
+    implicit diffusion, one advected tracer, mu = mu_s = 0.001."""
+    return deck_header(dtype) + f"""
+amr.n_cell = {n} {n} {n}
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = 1. 1. 1.
+geometry.is_periodic = 1 1 0
+zlo.type = "sw"
+zhi.type = "sw"
+incflo.probtype = 111
+incflo.gravity = 0. 0. -1.
+incflo.use_godunov = true
+incflo.advect_tracer = true
+incflo.ntrac = 1
+incflo.mu = 0.001
+incflo.mu_s = 0.001
+"""
+
+
+# the decks of ROADMAP A9c and 3D MOL: (deck text of (n, dtype), n of the
+# "paths" phase, n of the "main" phase)
+A9C_DECKS = {
+    "channel": (channel_deck, 32, 128),
+    "bingham": (bingham_deck, 16, 128),
+    "bubble": (bubble_deck, 16, 64),
+    "shear3d_explicit": (lambda n, dt: shear3d_deck(n, dt) + EXPLICIT,
+                         32, 128),
+    "shear3d_mol": (lambda n, dt: shear3d_deck(n, dt) + MOL, 32, 128),
+}
+# the kernels each A9c deck's main run must launch (every other kernel
+# no time): the Godunov kernels on the periodic Godunov deck only (the
+# walled bubble takes the plain wall forms), the walled smoothers where
+# the deck iterates V-cycles on walled levels
+A9C_KERNELS = {
+    "channel": (WALLED, WALLED_NODAL),
+    "bingham": (WALLED, WALLED_NODAL),
+    "bubble": (WALLED, WALLED_NODAL),
+    "shear3d_explicit": tuple(PER_STEP),
+    "shear3d_mol": (),
+}
+
+
+def smooth_perturbation(grid, seed, amp=0.01):
+    """A smooth, not divergence-free velocity perturbation from a seed
+    (component c: amp * prod_ax sin(2 pi x_ax / L_ax + phase[c, ax])),
+    as tests/torch_parity.py makes it: from rest the Bingham channel's
+    pressure is rounding noise, so "paths" perturbs its start."""
+    import numpy as np
+    nd = grid.ndim
+    phase = np.random.default_rng(seed).uniform(0.0, 2 * np.pi, (nd, nd))
+    c = [grid.prob_lo[ax] + (np.arange(grid.n_cell[ax]) + 0.5) * grid.dx[ax]
+         for ax in range(nd)]
+    x = np.meshgrid(*c, indexing="ij")
+    comps = []
+    for k in range(nd):
+        w = amp * np.ones(grid.cell_shape)
+        for ax in range(nd):
+            w = w * np.sin(2 * np.pi * x[ax]
+                           / (grid.prob_hi[ax] - grid.prob_lo[ax])
+                           + phase[k, ax])
+        comps.append(w)
+    return np.stack(comps, axis=-1)
 
 
 # ---------------------------------------------------------------------
@@ -1185,6 +1349,77 @@ def phase_paths(incflo_torch, torch, vd=False, rt=False, tgv=False):
     return worst
 
 
+A9C_FIELDS = ("velocity", "density", "tracer", "p", "gp", "mac_phi")
+ITER_KINDS = ("cell_iters", "nodal_cycles", "tensor_cg_iters")
+
+
+def phase_paths_a9c(incflo_torch, mg, torch, name):
+    """An A9c or 3D MOL deck at its "paths" size, float64, 3 steps on
+    cuda (kernels) and on cpu (plain versions) from one state (bingham's
+    perturbed by smooth_perturbation): every field and dt to 1e-9
+    relative; the solvers' iterations of both runs printed."""
+    from incflo_torch import state as st
+    deck, n, _ = A9C_DECKS[name]
+    cfg = incflo_torch.IncfloConfig.from_text(deck(n, "float64"))
+    sim_c = incflo_torch.Simulation(cfg, device="cpu")
+    sim_g = incflo_torch.Simulation(cfg, device="cuda")
+    s_c = sim_c.init_state()
+    if name == "bingham":
+        s_c = s_c._replace(level=s_c.level._replace(
+            velocity=s_c.level.velocity + torch.as_tensor(
+                smooth_perturbation(cfg.grid, 11))))
+    s_g = st.sim_from_numpy(st.sim_to_numpy(s_c), "cuda", torch.float64)
+    iters = []
+    for sim, s in ((sim_c, s_c), (sim_g, s_g)):
+        mg.reset_counts()
+        s = sim.advance_n(s, 3)
+        torch.cuda.synchronize()
+        iters.append({k: mg.COUNTS[k] for k in ITER_KINDS})
+        if sim is sim_c:
+            s_c = s
+        else:
+            s_g = s
+    worst = 0.0
+    for f in A9C_FIELDS + ("dt",):
+        a = s_g.dt if f == "dt" else getattr(s_g.level, f)
+        b = s_c.dt if f == "dt" else getattr(s_c.level, f)
+        e = rel_state_err(a, b)
+        worst = max(worst, e)
+        if not e <= 1e-9:
+            raise AssertionError(f"paths {name}: cuda and cpu steps disagree "
+                                 f"in {f}: {e:.3e}")
+    print(f"[paths] {name} {cfg.grid.n_cell} f64, 3 steps: cuda vs cpu "
+          f"worst relative {worst:.3e} (tol 1e-9) over "
+          f"{', '.join(A9C_FIELDS)}, dt; iterations cpu {iters[0]}, cuda "
+          f"{iters[1]}", flush=True)
+    return worst
+
+
+def phase_paths_tgv2d_explicit(incflo_torch, s2, torch):
+    """tgv2d at 32^2 with explicit diffusion, float32, through
+    Simulation.advance on cuda: outside the fused kernel's scope, so the
+    plain step runs and step2d is launched no time."""
+    cfg = incflo_torch.IncfloConfig.from_text(tgv2d_deck(32, "float32")
+                                              + EXPLICIT)
+    sim = incflo_torch.Simulation(cfg)
+    s = sim.init_state()
+    a0 = float(s.level.velocity.abs().max())
+    s2.reset_launches()
+    s = sim.advance_n(s, 3)
+    torch.cuda.synchronize()
+    if s2.LAUNCHES["step2d"] != 0 or sim._fused is not None:
+        raise AssertionError(f"tgv2d explicit: step2d launched "
+                             f"{s2.LAUNCHES['step2d']} times")
+    why = s2.out_of_scope(sim)
+    a3 = float(s.level.velocity.abs().max())
+    if why != "explicit diffusion" or not 0.9 * a0 < a3 < a0:
+        raise AssertionError(f"tgv2d explicit: scope {why!r}, amplitude "
+                             f"{a0} -> {a3}")
+    print(f"[paths] tgv2d 32^2 explicit diffusion f32 on cuda: 3 plain "
+          f"steps (step2d launches 0, out of scope: {why}), amplitude "
+          f"{a0:.6f} -> {a3:.6f}", flush=True)
+
+
 TOL_STEP2D_F32 = (1e-4, 1e-5)     # rtol, atol (tests/test_pallas_step2d.py)
 TOL_STEP2D_F64 = 1e-9
 # float32 against a float64 step_plain from the same start: the kernel's
@@ -1757,6 +1992,197 @@ def phase_main_rt(incflo_torch, gk, sk, mg, torch, warm=2, steps=5):
             "reprojection_res_over_tol": res_over_tol}, sim, s
 
 
+def mac_flux_balance(sim, s, torch):
+    """The channel's MOL face velocities of the final state after the MAC
+    projection (what advects mass and tracer): (flux through the inflow
+    face, through the outflow face)."""
+    from incflo_torch.ops import mac_projection, mol
+    from incflo_torch.ops.stencil import inner
+    grid, cfg = sim.grid, sim.cfg
+    ng = cfg.nghost_state()
+    umac = mol.predict_vels_on_faces(sim.grow_vel(s.level.velocity, ng),
+                                     grid, ng, sim.vel_bcrec)
+    beta = mac_projection.inv_rho_on_faces(
+        inner(sim.grow_rho(s.level.density, ng), ng - 1, grid.ndim), grid)
+    umac, _ = mac_projection.project_mac_velocities(
+        umac, beta, grid, cfg.bc_kind, rtol=cfg.mac_mg_rtol,
+        atol=cfg.mac_mg_atol, maxiter=cfg.mac_mg_maxiter,
+        prebuilt_solver=sim._mac_solver, direct=False)
+    area = grid.dx[1] * grid.dx[2]
+    u = umac[0].to(torch.float64)
+    return float(u[0].sum()) * area, float(u[-1].sum()) * area
+
+
+class NodalSolves:
+    """While active, records each iterative nodal solve (the step's own
+    projections): its final max-norm residual over the tolerance it was
+    held to, max(rtol |rhs|, atol) on the rhs it solved, and its
+    V-cycles.  A direct solve (no V-cycles) is not recorded."""
+
+    def __init__(self, mg):
+        self.mg = mg
+        self.solves = []
+
+    def __enter__(self):
+        mg = self.mg
+        self.orig = orig = mg.NodalSolver.solve_info
+
+        def solve_info(solver, rhs, x0=None, rtol=1e-11, atol=1e-14,
+                       maxiter=100):
+            x, res, it = orig(solver, rhs, x0=x0, rtol=rtol, atol=atol,
+                              maxiter=maxiter)
+            if solver.symbol is None:
+                lev = solver.levels[0]
+                b = rhs - mg._mean(rhs, lev.mesh) if solver.singular else rhs
+                b = mg._zero_dirichlet(b, lev)
+                tol = max(rtol * float(mg._maxnorm(b)), float(atol))
+                self.solves.append((float(res) / tol, it, maxiter))
+            return x, res, it
+
+        mg.NodalSolver.solve_info = solve_info
+        return self
+
+    def __exit__(self, *exc):
+        self.mg.NodalSolver.solve_info = self.orig
+
+
+def phase_main_a9c(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
+    """An A9c or 3D MOL deck at its full width, float32, on the card."""
+    deck, _, n = A9C_DECKS[name]
+    cfg = incflo_torch.IncfloConfig.from_text(deck(n, "float32"))
+    sim = incflo_torch.Simulation(cfg)
+    s = sim.init_state()
+    inside = s.level.tracer[..., 0] < 0.005     # the bubble at t = 0
+    torch.cuda.synchronize()
+    gk.reset_launches()
+    sk.reset_launches()
+    mg.reset_counts()
+    s = sim.advance_n(s, warm)
+    torch.cuda.synchronize()
+    warm_counts = {**mg.COUNTS, **sk.LAUNCHES}
+    t0 = time.perf_counter()
+    s = sim.advance_n(s, steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {**gk.LAUNCHES, **sk.LAUNCHES}
+    per_step = {k: (v - warm_counts[k]) / steps
+                for k, v in {**mg.COUNTS, **sk.LAUNCHES}.items()}
+    total = warm + steps
+    for k in gk.LAUNCHES:
+        want = PER_STEP[k] * total if k in A9C_KERNELS[name] else 0
+        if launches[k] != want:
+            raise AssertionError(f"{name}: kernel {k} launched {launches[k]} "
+                                 f"times in {total} steps, expected {want}")
+    for k in sk.LAUNCHES:
+        if (per_step[k] > 0) != (k in A9C_KERNELS[name]):
+            raise AssertionError(f"{name}: smoother {k} launched "
+                                 f"{per_step[k]} times a timed step")
+    check_one_launch(sk, name)
+    check_tallies(name, per_step)
+    lvl = s.level
+    for f in A9C_FIELDS:
+        if not bool(torch.isfinite(getattr(lvl, f)).all()):
+            raise AssertionError(f"{name}: non-finite {f}")
+    cells = 1
+    for c in cfg.grid.n_cell:
+        cells *= c
+    ms = (t1 - t0) / steps * 1e3
+    out = {"deck": name, "start": "init_state",
+           "n_cell": list(cfg.grid.n_cell), "ms_per_step": ms,
+           "cells_per_s": cells / (ms * 1e-3), "steps": steps,
+           "warmup": warm, "launches": launches, "per_step": per_step}
+    vmax = float(lvl.velocity.abs().max())
+    if all(cfg.grid.periodic):
+        resid, div_rel = projection_check(sim, s, torch)
+        if not resid <= 1e-5 or not div_rel <= 1e-2:
+            raise AssertionError(f"{name}: nodal residual {resid:.3e}, "
+                                 f"|div u| dx/|u| {div_rel:.3e}")
+        note = f"nodal residual {resid:.2e}, |div u| dx/|u| {div_rel:.2e}"
+        out.update(nodal_residual=resid, div_rel=div_rel)
+    else:
+        # one more step, each of its nodal solves held to the tolerance
+        # it was given (a re-projection from zero, as rt's check makes,
+        # is no test here: on the channel's walled hierarchy with a
+        # Dirichlet outflow the V-cycle diverges from zero on a projected
+        # field's divergence, in incflo_tpu too -- ROADMAP C)
+        with NodalSolves(mg) as rec:
+            s = sim.advance(s)
+            torch.cuda.synchronize()
+        ratios = [r for r, _, _ in rec.solves]
+        note = (f"the next step's nodal solves: residual / tol "
+                f"{[round(r, 3) for r in ratios]} in "
+                f"{[it for _, it, _ in rec.solves]} V-cycles")
+        out.update(nodal_res_over_tol=ratios,
+                   nodal_cycles=[it for _, it, _ in rec.solves])
+        if name == "bingham":
+            # a flow along the periodic z between walls: divergence-free
+            # by construction, so its projections solve for rounding
+            # noise, under which no tolerance of the rhs is reachable;
+            # the check is that the divergence is rounding
+            u = s.level.velocity
+            d = mg.nodal_divergence(sim._pad_vel_for_divergence(u, 1.0),
+                                    sim.grid.dx)
+            div_rel = float(d.abs().max()) * min(sim.grid.dx) / float(
+                u.abs().max())
+            if not div_rel <= 1e-4:
+                raise AssertionError(f"bingham: |div u| dx/|u| {div_rel:.3e}")
+            note += f"; |div u| dx/|u| {div_rel:.2e} (tol 1e-4)"
+            out["div_rel"] = div_rel
+        elif name == "bubble":
+            # as rt's: the final velocity re-projected from zero (the
+            # warm-started in-step f32 solves may stop on stagnation a
+            # little above the tolerance, 2.75 x on this card)
+            res_over_tol, cycles, div, div_rel = vd_projection_check(
+                sim, s, mg, torch)
+            if not res_over_tol <= 1.0:
+                raise AssertionError(f"bubble: the nodal V-cycles stopped at "
+                                     f"{res_over_tol:.2f} x tolerance")
+            note += (f"; max|div u| {div:.3e} (dx/|u|: {div_rel:.2e}), "
+                     f"re-projection residual {res_over_tol:.2f} x tol in "
+                     f"{cycles} V-cycles")
+            out.update(max_div_u=div, div_rel=div_rel,
+                       reprojection_res_over_tol=res_over_tol)
+        elif not ratios or max(ratios) > 1.0:
+            raise AssertionError(f"{name}: the step's nodal solves ended at "
+                                 f"{rec.solves} (residual / tolerance, "
+                                 f"V-cycles, maxiter)")
+    if name == "channel":
+        f_in, f_out = mac_flux_balance(sim, s, torch)
+        bal = abs(f_out - f_in) / f_in
+        if not bal <= 1e-4:
+            raise AssertionError(f"channel: MAC outflow flux {f_out} against "
+                                 f"inflow {f_in} ({bal:.2e})")
+        note += (f"; MAC flux in {f_in:.6e}, out {f_out:.6e} (|out - in| / "
+                 f"in {bal:.2e}, tol 1e-4)")
+        out.update(flux_in=f_in, flux_out=f_out, flux_balance=bal)
+    if name == "bingham":
+        w = lvl.velocity[..., 2]
+        asym = max(float((w - w.flip(0)).abs().max()),
+                   float((w - w.flip(1)).abs().max())) / vmax
+        if not asym <= 1e-5:
+            raise AssertionError(f"bingham: mirror asymmetry {asym:.2e} of "
+                                 f"max |u|")
+        note += f"; mirror asymmetry {asym:.2e} of max|u| (tol 1e-5)"
+        out["mirror_asymmetry"] = asym
+    if name == "bubble":
+        w = lvl.velocity[..., 2]
+        rise = float(w[inside].mean() - w[~inside].mean())
+        if not rise > 0:
+            raise AssertionError(f"bubble: does not rise ({rise:.3e})")
+        note += f"; bubble rises at {rise:.4e} relative to the fluid"
+        out["rise"] = rise
+    tally = ", ".join(f"{k} {per_step[k]:.1f}" for k in
+                      ("cell_iters", "cell_solves", "nodal_cycles",
+                       "tensor_cg_iters", "cell_smooth", "nodal_smooth",
+                       WALLED, WALLED_NODAL, "host_syncs"))
+    print(f"[main] {name} {cfg.grid.n_cell} f32: {ms:.3f} ms/step, "
+          f"{cells / (ms * 1e-3):.4e} cells/s over {steps} steps after "
+          f"{warm} warm-up; per step: {tally}; t={float(s.t):.6f} "
+          f"dt={float(s.dt):.6e} max|u|={vmax:.6f}; {note}; launches "
+          f"{launches}", flush=True)
+    return out, sim, s
+
+
 def phase_rt_sections(sim, s, sk, torch, steps=3):
     """Where an rt step's wall time goes: `steps` more steps with the
     walled nodal smoother, the plain walled Godunov calls and the walled
@@ -2250,8 +2676,8 @@ def main(argv):
 
     t_start = time.time()
     profile = "--profile" in argv
-    name = torch.cuda.get_device_name(0)
-    print(f"[device] {name}; torch {torch.__version__} cuda "
+    kind = torch.cuda.get_device_name(0)
+    print(f"[device] {kind}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     build_s = phase_build(cuda_build, [gk.SOURCE, sk.SOURCE, s2.SOURCE])
     kres = phase_kernels(gk, sk, grid_of, torch)
@@ -2267,6 +2693,9 @@ def main(argv):
     phase_paths(incflo_torch, torch, vd=True)
     phase_paths(incflo_torch, torch, rt=True)
     phase_paths(incflo_torch, torch, tgv=True)
+    for deck in A9C_DECKS:
+        phase_paths_a9c(incflo_torch, mg, torch, deck)
+    phase_paths_tgv2d_explicit(incflo_torch, s2, torch)
     main128, sim, s = phase_main(incflo_torch, gk, torch, 128, 20, 20)
     if profile:
         phase_profile(sim, s, torch, 128, main128["ms_per_step"])
@@ -2288,6 +2717,14 @@ def main(argv):
         phase_profile(sim, s, torch, "128 rt", main_rt["ms_per_step"])
         phase_rt_sections(sim, s, sk, torch)
     del sim, s
+    main_a9c = {}
+    for deck in A9C_DECKS:
+        r, sim, s = phase_main_a9c(incflo_torch, gk, sk, mg, torch, deck)
+        if profile:
+            r["profile"] = phase_profile(sim, s, torch, deck,
+                                         r["ms_per_step"])
+        main_a9c[deck] = r
+        del sim, s
     main_tgv = phase_main_tgv2d(incflo_torch, (gk, sk, s2), torch, profile,
                                 s2res["ms_by_n"])
     shard = phase_sharded_step(incflo_torch, gk, torch)
@@ -2298,6 +2735,13 @@ def main(argv):
     # the walled cell and nodal smoothers, the first fused tgv2d run at
     # 128^2 for the fused step, the sharded shear3d n = 128 run (rank 0;
     # every rank's beside it) for the halo-slab kernels
+    def a9c_per_step(k):
+        """Launches a step of kernel k on each A9c / 3D MOL deck's main
+        run (the smoothers' over the timed steps)."""
+        return {deck: r["per_step"][k] if k in r["per_step"]
+                else r["launches"].get(k, 0) / (r["warmup"] + r["steps"])
+                for deck, r in main_a9c.items()}
+
     kernels = []
     for k in PER_STEP:
         r = kres[k]
@@ -2308,6 +2752,7 @@ def main(argv):
             "launches": main128["launches"][k],
             "launches_per_step": PER_STEP[k],
             "launches_shear3d_vd": [m["launches"][k] for m in main_vd],
+            "launches_per_step_a9c": a9c_per_step(k),
             "device_launches_per_call": r["device_launches"],
             "max_abs_err": r["max_abs_err"],
             "max_rel_err_f32": r["max_rel_err_f32"],
@@ -2332,6 +2777,7 @@ def main(argv):
             **launch_keys(levels, k),
             "launches_per_step": main_vd[0]["per_step"][k],
             "launches_shear3d_vd": [m["launches"][k] for m in main_vd],
+            "launches_per_step_a9c": a9c_per_step(k),
             "max_abs_err": r["max_abs_err"],
             "max_err_x_f32": r["max_err_x_f32"], "tol_x_f32": TOL_SMOOTH_X,
             "max_err_res_f32": r["max_err_res_f32"],
@@ -2350,6 +2796,7 @@ def main(argv):
         "replaces": sk.REPLACES[WALLED],
         "launches": main_rt["launches"][WALLED],
         "launches_per_step": main_rt["per_step"][WALLED],
+        "launches_per_step_a9c": a9c_per_step(WALLED),
         **launch_keys(levels, WALLED),
         "max_abs_err": wres["max_abs_err"],
         "max_err_x_f32": wres["max_err_x_f32"], "tol_x_f32": TOL_SMOOTH_X,
@@ -2370,6 +2817,7 @@ def main(argv):
         "replaces": sk.REPLACES[WALLED_NODAL] + " (jnp; no Pallas body)",
         "launches": main_rt["launches"][WALLED_NODAL],
         "launches_per_step": main_rt["per_step"][WALLED_NODAL],
+        "launches_per_step_a9c": a9c_per_step(WALLED_NODAL),
         **launch_keys(levels, WALLED_NODAL),
         "max_abs_err": wnres["max_abs_err"],
         "max_err_x_f32": wnres["max_err_x_f32"], "tol_x_f32": TOL_SMOOTH_X,
@@ -2393,6 +2841,7 @@ def main(argv):
             "launches": shard["launches_per_rank"][0][k],
             "launches_per_rank": [c[k] for c in shard["launches_per_rank"]],
             "launches_per_step": PER_STEP_HALO[k],
+            "launches_per_step_a9c": a9c_per_step(k),
             "device_launches_per_call": t["device_launches"],
             "max_abs_err": r["max_abs_err"], "tol_f32": 0.0,
             "max_rel_err_f64": r["max_rel_err_f64"], "tol_f64": 1e-14,
@@ -2410,6 +2859,7 @@ def main(argv):
         "replaces": s2.REPLACES["step2d"],
         "launches": tgv_main["launches"]["step2d"],
         "launches_per_step": tgv_main["launches_per_step"],
+        "launches_per_step_a9c": a9c_per_step("step2d"),
         "max_abs_err": s2res["max_abs_err"],
         "max_err_f32": s2res["max_err_f32"],
         "tol_f32": "rtol 1e-4, atol 1e-5 of each field's max "
@@ -2440,11 +2890,12 @@ def main(argv):
     print(json.dumps({"kernels": kernels, "levels": levels,
                       "build_s": build_s,
                       "main": [main128, main256] + main_vd + [main_rt]
-                      + main_tgv, "sharded": shard,
+                      + main_tgv + list(main_a9c.values()),
+                      "sharded": shard,
                       "seconds": time.time() - t_start}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

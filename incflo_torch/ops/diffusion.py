@@ -1,7 +1,7 @@
 """Viscous terms: explicit divtau and the implicit tensor velocity solve
-(port of the parts of incflo_tpu/ops/diffusion.py that Newtonian
-Crank-Nicolson and implicit steps without embedded boundaries run;
-reference DiffusionTensorOp, src/diffusion/*.cpp):
+(port of the parts of incflo_tpu/ops/diffusion.py that steps without
+embedded boundaries run -- explicit, Crank-Nicolson and implicit,
+Newtonian or not; reference DiffusionTensorOp, src/diffusion/*.cpp):
 
   eta_to_faces     : eta grown by 1 -> face averages
   compute_divtau   : div(tau)/rho, tau = eta(grad u + grad u^T) (tensor)
@@ -9,14 +9,22 @@ reference DiffusionTensorOp, src/diffusion/*.cpp):
   compute_laps     : div(mu_s grad s) per tracer
   diffuse_velocity : (rho - dt div(eta (grad + grad^T))) u = rho u*.
                      Where every component has the same solver BCs
-                     (periodic boxes, no-slip walls): the batched branch
-                     (prebuilt constant-coefficient solver or one built
-                     from the current rho and eta) and the tensor CG on
+                     (periodic boxes, no-slip walls, inflow/outflow):
+                     the batched branch (the prebuilt constant-
+                     coefficient solver of a Newtonian fluid, or one
+                     built from the current rho and eta: variable density
+                     or a non-Newtonian viscosity) and the tensor CG on
                      the cross coupling, adaptive or with a fixed number
-                     of masked trips (the fused 2D step's form).  Where they differ (a slip wall:
-                     Dirichlet for the normal component, Neumann for the
-                     tangential ones): one scalar solve per component.
+                     of masked trips (the fused 2D step's form).  Where
+                     they differ (a slip wall: Dirichlet for the normal
+                     component, Neumann for the tangential ones): one
+                     scalar solve per component.
   diffuse_scalar   : (rho - dt div(mu_s grad)) s = rho s* per tracer.
+
+Dirichlet sides: no-slip walls and mass inflow for the velocity (the
+inflow profile in velocity_bvals), a slip wall for its normal component,
+mass inflow for tracers; Neumann: pressure inflow and outflow.  Explicit
+diffusion uses compute_divtau and compute_laps alone and calls no solve.
 
 On an x slab of a mesh (grid.mesh, parallel/mesh.py) the operators pad
 x from the neighbouring ranks and the CG's dots and norms are global, so

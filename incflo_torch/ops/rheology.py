@@ -3,9 +3,11 @@
 
 Reference: src/rheology/incflo_rheology.cpp:8-140 (NonNewtonianViscosity
 functor with Papanastasiou regularisation) and src/derive/incflo_derive_K.H
-(incflo_strainrate: ||2S|| via central differences).  Only the Newtonian
-model runs in a Simulation today; the others need the variable-
-coefficient solves of ROADMAP A9c.
+(incflo_strainrate: ||2S|| via central differences).  Every model runs in
+a 3D Simulation: a non-Newtonian fluid's velocity operator is built every
+step from this viscosity (ops/diffusion.diffuse_velocity), and with
+explicit diffusion compute_dt takes the diffusive CFL from it.  2D
+non-Newtonian decks wait for 2D multigrid (ROADMAP A8).
 """
 
 from __future__ import annotations

@@ -41,7 +41,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from incflo_torch.config import DiffusionType
+from incflo_torch.config import DiffusionType, FluidModel
 from incflo_torch.ops import cuda_build, diffusion, spectral
 from incflo_torch.ops.cuda_build import DT_CODE, check_rc, ptr, stream
 from incflo_torch.state import LevelState, SimState
@@ -181,9 +181,10 @@ def _sym_direct(solver) -> bool:
 def out_of_scope(sim) -> Optional[str]:
     """Why `sim`'s step is outside the kernel's scope, or None: the kernel
     runs 2D, fully periodic grids of at most MAX_CELLS cells and at least
-    4 per axis, constant density without a tracer, MOL advection,
-    Crank-Nicolson or implicit diffusion, float32 or float64, with the
-    MAC, velocity and nodal systems all solved by fast diagonalization."""
+    4 per axis, constant density without a tracer, a Newtonian fluid
+    without Boussinesq buoyancy, MOL advection, Crank-Nicolson or
+    implicit diffusion, float32 or float64, with the MAC, velocity and
+    nodal systems all solved by fast diagonalization."""
     grid, cfg = sim.grid, sim.cfg
     if grid.ndim != 2:
         return f"{grid.ndim}D grids"
@@ -195,6 +196,10 @@ def out_of_scope(sim) -> Optional[str]:
         return "axes of fewer than 4 cells"
     if not cfg.constant_density or cfg.advect_tracer:
         return "variable density or tracer advection"
+    if cfg.fluid_model != FluidModel.Newtonian:
+        return "non-Newtonian fluids"
+    if cfg.use_boussinesq:
+        return "Boussinesq buoyancy"
     if cfg.diff_type not in (DiffusionType.Crank_Nicolson,
                              DiffusionType.Implicit):
         return "explicit diffusion"

@@ -1,11 +1,15 @@
 """Initial conditions keyed by incflo.probtype (port of
-incflo_tpu/probs.py:50-294; reference src/prob/prob_init_fluid.cpp).
+incflo_tpu/probs.py; reference src/prob/prob_init_fluid.cpp:6-683).
 
-Ported: probtype 21, the double shear layer of the shear3d deck,
-probtype 5, the Rayleigh-Taylor interface of the rt deck, and the 2D
-vortices of probtypes 1 (Taylor-Green, the tgv2d deck) and 2 (the
-decaying Taylor vortex).  The other probtypes raise and name the ROADMAP
-item that ports them.
+Ported: the uniform state of probtypes 0 and 114, the 2D vortices 1
+(Taylor-Green, the tgv2d deck) and 2 (the decaying Taylor vortex), the 3D
+Taylor-Green vortex 3, Couette 4, Rayleigh-Taylor 5 (the rt deck), the
+Boussinesq tuscan 11 and bubbles 111-113, the periodic tracer 12, the
+double shear layers 21 (the shear3d deck), 22 and 23, and the plane
+Poiseuille and channel family 31, 311, 32, 322, 33, 333 and 41.
+Probtype 6 (the slanted EB channel) raises and names ROADMAP A11.
+Coordinates follow the reference: most probtypes use x = (i+0.5) dx with
+no prob_lo offset; Rayleigh-Taylor adds prob_lo.
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ TWOPI = 2.0 * math.pi
 
 PI = math.pi
 
-_LATER = {3: "A8", 4: "A8", 11: "A9c", 111: "A9c",
-          112: "A9c", 113: "A9c", 12: "A9c", 6: "A11"}
+_LATER = {6: "A11"}
+_POISEUILLE = (31, 311, 32, 322, 33, 333, 41)
 
 
 def _coords_no_offset(grid: Grid, dtype, device):
@@ -51,6 +55,27 @@ def _coords_with_offset(grid: Grid, dtype, device):
         out.append(torch.as_tensor(c.reshape(shape), dtype=dtype,
                                    device=device))
     return out
+
+
+def _norm_coord(grid, axis, dtype, device):
+    """(i+0.5)/n along `axis`, broadcastable."""
+    shape = [1] * grid.ndim
+    shape[axis] = -1
+    c = (np.arange(grid.n_cell[axis]) + 0.5) / grid.n_cell[axis]
+    return torch.as_tensor(c.reshape(shape), dtype=dtype, device=device)
+
+
+def _index_coord(grid, axis):
+    """The cell index along `axis` as a host array, broadcastable."""
+    shape = [1] * grid.ndim
+    shape[axis] = -1
+    return np.arange(grid.n_cell[axis]).reshape(shape)
+
+
+def _where(mask, a, b, cs, dtype, device):
+    """a where the host mask holds, else b, broadcast to the cells."""
+    return torch.broadcast_to(torch.as_tensor(
+        np.where(mask, a, b), dtype=dtype, device=device), cs)
 
 
 def _init_rayleigh_taylor(cfg, grid, st, dtype, device) -> LevelState:
@@ -104,15 +129,136 @@ def _init_vortex(cfg, grid, st, dtype, device) -> LevelState:
         density=torch.full(cs, cfg.ro_0, dtype=dtype, device=device))
 
 
-def init_fluid(cfg: IncfloConfig, grid: Grid, dtype, device) -> LevelState:
-    """prob_init_fluid: the t=0 LevelState on `grid`."""
+def _init_shear_layer(cfg, grid, vel_comps, tracer, dtype, device):
+    """probtypes 21, 22 and 23: a double shear layer across y (21), z
+    (22) or x (23), a 0.05 sine perturbation, and a tracer 0.01 outside
+    a disc of radius 0.1."""
+    cs = grid.cell_shape
     pt = cfg.probtype
-    if pt not in (1, 2, 5, 21):
-        item = _LATER.get(pt, "A8/A9c/A11")
+    coords = _coords_no_offset(grid, dtype, device)
+
+    def layer(s):
+        return torch.broadcast_to(safe_tanh(30.0 * (0.25 - torch.abs(s - 0.5))),
+                                  cs)
+
+    def pert(s):
+        return torch.broadcast_to(0.05 * torch.sin(TWOPI * s), cs)
+
+    zero = torch.zeros(cs, dtype=dtype, device=device)
+    if pt == 21:
+        x, y = coords[0], coords[1]
+        vel_comps[0], vel_comps[1] = layer(y), pert(x)
+        if grid.ndim == 3:
+            vel_comps[2] = zero
+        r = torch.sqrt((x - 0.5) ** 2 + (y - 0.25) ** 2)
+    elif pt == 22:
+        y, z = coords[1], coords[2]
+        vel_comps[1], vel_comps[2], vel_comps[0] = layer(z), pert(y), zero
+        r = torch.sqrt((y - 0.5) ** 2 + (z - 0.5) ** 2)
+    else:
+        x, z = coords[0], coords[2]
+        vel_comps[2], vel_comps[0], vel_comps[1] = layer(x), pert(z), zero
+        r = torch.sqrt((x - 0.5) ** 2 + (z - 0.5) ** 2)
+    tracer[..., 0] = torch.broadcast_to(
+        torch.where(r < 0.1, torch.zeros_like(r), torch.full_like(r, 0.01)),
+        cs)
+
+
+def _init_bubble(cfg, grid, tracer, dtype, device):
+    """probtypes 111-113, the Boussinesq bubble: at rest, tracer 0.01
+    outside a sphere (a disc in 2D) of radius 0.1 centred at 0.25 on two
+    axes and 0.5 on the third (x for 111, y for 112, z for 113)."""
+    cs = grid.cell_shape
+    pt = cfg.probtype
+    coords = _coords_no_offset(grid, dtype, device)
+    if grid.ndim == 2:
+        x, y = coords
+        r = torch.sqrt((x - 0.25) ** 2 + (y - 0.5) ** 2)
+    else:
+        x, y, z = coords
+        cx, cy, cz = {111: (0.5, 0.25, 0.25), 112: (0.25, 0.5, 0.25),
+                      113: (0.25, 0.25, 0.5)}[pt]
+        r = torch.sqrt((x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2)
+    tracer[..., 0] = torch.broadcast_to(
+        torch.where(r < 0.1, torch.zeros_like(r), torch.full_like(r, 0.01)),
+        cs)
+
+
+def _init_periodic_tracer(grid, vel_comps, tracer, dtype, device):
+    """probtype 12: u = 1 and exponentially growing sine waves in the
+    other components and the tracer (3D; the 2D form of incflo_tpu is a
+    reduction the reference does not define)."""
+    cs = grid.cell_shape
+    coords = _coords_no_offset(grid, dtype, device)
+    C = TWOPI / (grid.prob_hi[0] - grid.prob_lo[0])
+    A = 1.0
+    vel_comps[0] = torch.ones(cs, dtype=dtype, device=device)
+    if grid.ndim == 3:
+        x, y, z = coords
+        vel_comps[1] = torch.broadcast_to(
+            0.1 * (torch.sin(C * (x + z) - 0.00042) + 1.0) * torch.exp(y), cs)
+        vel_comps[2] = torch.broadcast_to(
+            0.1 * (torch.sin(C * (x + y) - 0.00042) + 1.0) * torch.exp(z), cs)
+        tracer[..., 0] = torch.broadcast_to(
+            A * (torch.sin(C * (y + z) - 0.00042) + 1.0) * torch.exp(x), cs)
+    else:
+        x, y = coords
+        vel_comps[1] = torch.broadcast_to(
+            0.1 * (torch.sin(C * x - 0.00042) + 1.0) * torch.exp(y), cs)
+        tracer[..., 0] = torch.broadcast_to(
+            A * (torch.sin(C * y - 0.00042) + 1.0) * torch.exp(x), cs)
+
+
+def _init_plane_poiseuille(cfg, grid, vel_comps, dtype, device):
+    """probtypes 31, 311, 32, 322, 33, 333 and 41 (reference
+    prob_init_fluid.cpp:526-683): a parabolic profile 6 a s (1 - s) of
+    one component across one axis (41: a linear 0.5 z), and tracer
+    bands along the flow axis -- 1 up to an eighth of it, 2 up to half,
+    3 up to three quarters in the first three tracers.  Returns the
+    tracer."""
+    cs = grid.cell_shape
+    nd = grid.ndim
+    pt = cfg.probtype
+    for d in range(nd):
+        vel_comps[d] = torch.zeros(cs, dtype=dtype, device=device)
+
+    def parab(axis, amp):
+        s = _norm_coord(grid, axis, dtype, device)
+        return torch.broadcast_to(6.0 * amp * s * (1.0 - s), cs)
+
+    if pt == 31:
+        vel_comps[0], tr_axis = parab(1, cfg.ic_u), 0
+    elif pt == 311:
+        vel_comps[0], tr_axis = parab(2, cfg.ic_u), 0
+    elif pt == 41:
+        z = _norm_coord(grid, 2, dtype, device)
+        vel_comps[0], tr_axis = torch.broadcast_to(0.5 * z, cs), 0
+    elif pt == 32:
+        vel_comps[1], tr_axis = parab(2, cfg.ic_v), 1
+    elif pt == 322:
+        vel_comps[1], tr_axis = parab(0, cfg.ic_v), 1
+    elif pt == 33:
+        vel_comps[2], tr_axis = parab(0, cfg.ic_w), 2
+    else:
+        vel_comps[2], tr_axis = parab(1, cfg.ic_w), 2
+    idx = _index_coord(grid, tr_axis)
+    dhi = grid.n_cell[tr_axis] - 1
+    tracer = torch.zeros(cs + (cfg.ntrac,), dtype=dtype, device=device)
+    for n, (cut, val) in enumerate(((dhi // 8, 1.0), (dhi // 2, 2.0),
+                                    (dhi * 3 // 4, 3.0))[:cfg.ntrac]):
+        tracer[..., n] = _where(idx <= cut, val, 0.0, cs, dtype, device)
+    return tracer
+
+
+def init_fluid(cfg: IncfloConfig, grid: Grid, dtype, device) -> LevelState:
+    """prob_init_fluid: the t=0 LevelState on `grid`.  Unless a probtype
+    sets them, the velocity is (ic_u, ic_v, ic_w), the density ro_0 and
+    the tracer zero."""
+    pt = cfg.probtype
+    if pt in _LATER:
         raise NotImplementedError(
             f"incflo_torch: probtype {pt} is not ported yet "
-            f"(ROADMAP {item}); this package runs probtypes 1, 2, 5 and "
-            f"21")
+            f"(ROADMAP {_LATER[pt]})")
     st = zeros_level(grid, cfg.ntrac, dtype, device)
     if pt in (1, 2):
         return _init_vortex(cfg, grid, st, dtype, device)
@@ -121,17 +267,44 @@ def init_fluid(cfg: IncfloConfig, grid: Grid, dtype, device) -> LevelState:
     cs = grid.cell_shape
     nd = grid.ndim
     density = torch.full(cs, cfg.ro_0, dtype=dtype, device=device)
-    coords = _coords_no_offset(grid, dtype, device)
-    x, y = coords[0], coords[1]
-    vel_comps = [
-        torch.broadcast_to(safe_tanh(30.0 * (0.25 - torch.abs(y - 0.5))), cs),
-        torch.broadcast_to(0.05 * torch.sin(TWOPI * x), cs)]
-    if nd == 3:
-        vel_comps.append(torch.zeros(cs, dtype=dtype, device=device))
-    r = torch.sqrt((x - 0.5) ** 2 + (y - 0.25) ** 2)
+    vel_comps = [torch.full(cs, v, dtype=dtype, device=device)
+                 for v in (cfg.ic_u, cfg.ic_v, cfg.ic_w)[:nd]]
     tracer = torch.zeros(cs + (cfg.ntrac,), dtype=dtype, device=device)
-    tracer[..., 0] = torch.broadcast_to(
-        torch.where(r < 0.1, torch.zeros_like(r), torch.full_like(r, 0.01)),
-        cs)
+    if pt in (0, 114):
+        pass
+    elif pt == 3:          # Taylor-Green 3D
+        x, y, z = _coords_no_offset(grid, dtype, device)
+        vel_comps[0] = torch.broadcast_to(
+            torch.sin(TWOPI * x) * torch.cos(TWOPI * y)
+            * torch.cos(TWOPI * z), cs)
+        vel_comps[1] = torch.broadcast_to(
+            -torch.cos(TWOPI * x) * torch.sin(TWOPI * y)
+            * torch.cos(TWOPI * z), cs)
+        vel_comps[2] = torch.zeros(cs, dtype=dtype, device=device)
+    elif pt == 4:          # Couette: u *= (y - 0.5), y = (j + 0.5) / ny
+        yn = _norm_coord(grid, 1, dtype, device)
+        vel_comps[0] = vel_comps[0] * torch.broadcast_to(yn - 0.5, cs)
+        for d in range(1, nd):
+            vel_comps[d] = torch.zeros(cs, dtype=dtype, device=device)
+    elif pt == 11:         # tuscan: tracer 0.01 above mid-height, at rest
+        half = grid.n_cell[nd - 1] // 2
+        for d in range(nd):
+            vel_comps[d] = torch.zeros(cs, dtype=dtype, device=device)
+        density = torch.ones(cs, dtype=dtype, device=device)
+        tracer[..., 0] = _where(_index_coord(grid, nd - 1) > half, 0.01,
+                                0.0, cs, dtype, device)
+    elif pt in (111, 112, 113):
+        for d in range(nd):
+            vel_comps[d] = torch.zeros(cs, dtype=dtype, device=device)
+        density = torch.ones(cs, dtype=dtype, device=device)
+        _init_bubble(cfg, grid, tracer, dtype, device)
+    elif pt == 12:
+        _init_periodic_tracer(grid, vel_comps, tracer, dtype, device)
+    elif pt in (21, 22, 23):
+        _init_shear_layer(cfg, grid, vel_comps, tracer, dtype, device)
+    elif pt in _POISEUILLE:
+        tracer = _init_plane_poiseuille(cfg, grid, vel_comps, dtype, device)
+    else:
+        raise ValueError(f"prob_init_fluid: unknown probtype {pt}")
     velocity = torch.stack(vel_comps, dim=-1).contiguous()
     return st._replace(velocity=velocity, density=density, tracer=tracer)

@@ -8,16 +8,18 @@ src/incflo_compute_dt.cpp, src/incflo_compute_forces.cpp and
 src/projection/incflo_apply_nodal_projection.cpp: state tensors carry no
 ghosts, old/new pairs are function inputs/outputs.
 
-3D decks advect by Godunov.  On a fully periodic grid the Godunov chain
-runs through the CUDA kernels of csrc/godunov.cu on the card (their plain
-PyTorch versions on the CPU); on a grid with walls it takes the wall
-forms of the plain versions on either device (ops/godunov.py).  With
-constant density the MAC, Helmholtz and nodal systems are prebuilt and
-solved directly (ops/spectral.py); with variable density they are
-rebuilt from the current density every step and solved by multigrid
-V-cycles (ops/multigrid.py) whose smoothers are the CUDA kernels of
-csrc/smoothers.cu: the cell and the nodal smoother on every level,
-walls included, one launch a call.
+3D decks advect by Godunov or by MOL.  On a fully periodic grid the
+Godunov chain runs through the CUDA kernels of csrc/godunov.cu on the
+card (their plain PyTorch versions on the CPU); on a grid with walls or
+inflow/outflow sides it takes the wall forms of the plain versions on
+either device (ops/godunov.py).  MOL (ops/mol.py) is plain PyTorch on
+both.  With constant density the MAC and nodal systems, and a Newtonian
+fluid's implicit velocity system, are prebuilt and solved directly
+(ops/spectral.py) where the operator allows it; otherwise they are built
+from the current density (and viscosity) every step and solved by
+multigrid V-cycles (ops/multigrid.py) whose smoothers are the CUDA
+kernels of csrc/smoothers.cu: the cell and the nodal smoother on every
+level, walls included, one launch a call.
 
 2D decks are fully periodic, constant-density MOL decks (tgv2d): the
 predictor and corrector of ops/mol.py with direct solves.  On the card a
@@ -27,23 +29,26 @@ its fixed-trip tensor CG converges at the first dt; `_advance_impl` is
 the plain step.
 
 Sharded: given a mesh (parallel/mesh.py), a shear3d deck -- 3D, periodic
-on every axis, constant density, Godunov, Crank-Nicolson or implicit
-diffusion, direct solves, no tracer advection -- runs split along x over
-the mesh's ranks.  Each rank's Simulation holds its x slab of every field
-(self.grid is a parallel.mesh.SlabGrid) and advance / advance_n do what
-they do on one device: the ghost fills and operator pads exchange x
-halos, the Godunov chain runs the halo-slab kernels
-(godunov_kernels.predict_sharded / advect_sharded), the direct solves
-reduce-scatter their x contraction, and compute_dt and the tensor CG
-reduce over the ranks.  Other decks under a mesh raise and name ROADMAP
-A14.
+on every axis, constant density, Newtonian, Godunov, Crank-Nicolson or
+implicit diffusion, direct solves, no tracer advection, no Boussinesq
+buoyancy -- runs split along x over the mesh's ranks.  Each rank's
+Simulation holds its x slab of every field (self.grid is a
+parallel.mesh.SlabGrid) and advance / advance_n do what they do on one
+device: the ghost fills and operator pads exchange x halos, the Godunov
+chain runs the halo-slab kernels (godunov_kernels.predict_sharded /
+advect_sharded), the direct solves reduce-scatter their x contraction,
+and compute_dt and the tensor CG reduce over the ranks.  Other decks
+under a mesh raise and name ROADMAP A14.
 
-Scope of this port: one level, no EB, Newtonian fluid, Crank-Nicolson
-or implicit diffusion.  3D: Godunov advection, each axis periodic or
-between slip / no-slip walls, constant or variable density, gravity,
-tracer advection and diffusion.  2D: MOL advection, fully periodic,
-constant density, no tracer advection.  Any other deck raises
-NotImplementedError naming the ROADMAP item that ports it.
+Scope of this port: one level, no EB.  3D: Godunov or MOL advection,
+each axis periodic or ending in a slip or no-slip wall, mass inflow,
+pressure inflow or pressure outflow; constant or variable density,
+gravity or Boussinesq buoyancy, tracer advection and diffusion;
+Newtonian or non-Newtonian fluids (power law, Bingham, Herschel-Bulkley,
+de Souza Mendes-Dutra); explicit, Crank-Nicolson or implicit diffusion.
+2D: MOL advection, fully periodic, constant density, Newtonian, no
+tracer advection.  Any other deck raises NotImplementedError naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -65,10 +70,6 @@ from incflo_torch.state import LevelState, SimState
 def _unsupported(cfg: IncfloConfig):
     """(reason, ROADMAP item) for a deck outside this port, else None."""
     g = cfg.grid
-    walls_only = all(
-        BCKind(int(cfg.bc_kind[ax, side])) in (BCKind.slip_wall,
-                                               BCKind.no_slip_wall)
-        for ax in range(g.ndim) if not g.periodic[ax] for side in range(2))
     nd = g.ndim
     checks = [
         (nd not in (2, 3), f"{nd}D decks", "A8"),
@@ -80,17 +81,11 @@ def _unsupported(cfg: IncfloConfig):
          "2D variable density (2D multigrid)", "A8"),
         (nd == 2 and cfg.advect_tracer,
          "2D tracer advection (2D multigrid)", "A8"),
-        (nd == 3 and not cfg.use_godunov, "3D MOL advection", "A8"),
-        (nd == 3 and not walls_only,
-         "mass inflow and pressure inflow/outflow boundaries", "A9c"),
-        (cfg.fluid_model != FluidModel.Newtonian, "non-Newtonian fluids",
-         "A9c"),
-        (cfg.use_boussinesq, "Boussinesq buoyancy", "A9c"),
+        (nd == 2 and cfg.fluid_model != FluidModel.Newtonian,
+         "2D non-Newtonian fluids (2D multigrid)", "A8"),
         (cfg.use_mac_phi_in_godunov, "use_mac_phi_in_godunov", "A8"),
         (cfg.godunov_use_forces_in_trans, "godunov_use_forces_in_trans",
          "A8"),
-        (cfg.diff_type == DiffusionType.Explicit, "explicit diffusion",
-         "A9c"),
         (cfg.max_level > 0, "AMR", "A13"),
     ]
     for bad, what, item in checks:
@@ -109,11 +104,22 @@ def _unsupported_sharded(cfg: IncfloConfig):
         (not cfg.constant_density, "variable density (multigrid)"),
         (cfg.advect_tracer, "tracer advection (multigrid)"),
         (not cfg.use_godunov, "MOL advection"),
+        (cfg.fluid_model != FluidModel.Newtonian,
+         "non-Newtonian fluids (multigrid)"),
+        (cfg.use_boussinesq, "Boussinesq buoyancy"),
+        (cfg.diff_type == DiffusionType.Explicit, "explicit diffusion"),
     ]
     for bad, what in checks:
         if bad:
             return what
     return None
+
+
+# the weight of the old-time tracer Laplacian in the predictor's tracer
+# update, by diffusion type (incflo_tpu/simulation.py:403-405)
+LAP_WEIGHT = {DiffusionType.Explicit: 1.0,
+              DiffusionType.Crank_Nicolson: 0.5,
+              DiffusionType.Implicit: 0.0}
 
 
 class Simulation:
@@ -129,16 +135,17 @@ class Simulation:
         if why is not None:
             raise NotImplementedError(
                 f"incflo_torch does not run {why[0]} yet "
-                f"(ROADMAP {why[1]}); it runs 3D Godunov decks whose axes "
-                f"are periodic or end in slip or no-slip walls and 2D "
-                f"periodic constant-density MOL decks")
+                f"(ROADMAP {why[1]}); it runs one-level 3D Godunov and "
+                f"MOL decks without embedded boundaries and 2D periodic "
+                f"constant-density Newtonian MOL decks")
         if mesh is not None:
             why = _unsupported_sharded(cfg)
             if why is not None:
                 raise NotImplementedError(
                     f"incflo_torch does not run {why} split over a mesh yet "
                     f"(ROADMAP A14); a mesh runs 3D fully periodic "
-                    f"constant-density Godunov decks (shear3d)")
+                    f"constant-density Newtonian Godunov decks with "
+                    f"Crank-Nicolson or implicit diffusion (shear3d)")
         if device is None and mesh is not None and torch.cuda.is_available():
             device = f"cuda:{mesh.rank % torch.cuda.device_count()}"
         device = torch.device("cuda" if device is None else device)
@@ -168,9 +175,10 @@ class Simulation:
         self._gp0 = self._vec(cfg.gp0[:nd])
         self._dxinv = self._vec([1.0 / d for d in cfg.grid.dx])
         # constant density: the MAC and nodal operators are dt-independent
-        # up to a scalar and Newtonian diffusion re-scales beta = dt, so
-        # all three are built once, on the CPU, and moved to the device.
-        # Variable density builds them from the state every step.
+        # up to a scalar and Newtonian implicit diffusion re-scales beta =
+        # dt, so all three are built once, on the CPU, and moved to the
+        # device.  Variable density builds them from the state every
+        # step, and a non-Newtonian fluid its velocity operator.
         self._mac_solver = self._nodal_hat = self._diff_proto = None
         if cfg.constant_density:
             self._build_static_solvers()
@@ -204,6 +212,9 @@ class Simulation:
         # kernel: the MAC face coefficient, the velocity operator's acoef
         # and its face coefficient per (axis, component)
         self._static_coefs = {"mac_b": inv_rho, "diff_a": cfg.ro_0}
+        if cfg.fluid_model != FluidModel.Newtonian \
+                or cfg.diff_type == DiffusionType.Explicit:
+            return      # eta from the state every step, or no solve
         bcs_all = [diffusion.velocity_solver_bc(cfg, c)
                    for c in range(grid.ndim)]
         if not all(b == bcs_all[0] for b in bcs_all):
@@ -256,10 +267,16 @@ class Simulation:
 
     def compute_vel_forces(self, rho, tra_o, tra_n, gp,
                            include_pressure_gradient=True):
-        """-(gp + gp0)/rho + gravity.  tra_o/tra_n feed the Boussinesq
-        buoyancy, which no deck the port accepts turns on yet (ROADMAP
-        A9c)."""
+        """-(gp + gp0)/rho + gravity; with Boussinesq buoyancy (probtypes
+        11, 111-113) gravity times the time-centred first tracer,
+        0.5 (tra_o + tra_n), minus gp/rho, and no gp0."""
         rhoinv = (1.0 / rho)[..., None]
+        if self.cfg.use_boussinesq:
+            ft = 0.5 * (tra_o[..., 0] + tra_n[..., 0])
+            f = self._gravity * ft[..., None]
+            if include_pressure_gradient:
+                f = f - gp * rhoinv
+            return f
         if include_pressure_gradient:
             return -(gp + self._gp0) * rhoinv + self._gravity
         return -self._gp0 * rhoinv + self._gravity
@@ -280,10 +297,23 @@ class Simulation:
         conv_cfl = torch.max(torch.abs(vel) * dxinv)
         forc_cfl = torch.max(torch.abs(vel_forces) * dxinv)
         rhoinv_max = torch.max(1.0 / rho)
+        maxima = [conv_cfl, forc_cfl, rhoinv_max]
+        explicit = cfg.diff_type == DiffusionType.Explicit
+        if explicit and cfg.fluid_model != FluidModel.Newtonian:
+            # eta can exceed mu by orders of magnitude (Bingham near zero
+            # strain rate): the stability bound takes the actual viscosity
+            eta = rheology.compute_viscosity(self.grow_vel(vel, 1), self.grid,
+                                             1, cfg, out_ng=0)
+            maxima.append(torch.max(eta / rho))
         if self.mesh is not None:   # the whole level's maxima
-            conv_cfl, forc_cfl, rhoinv_max = self.mesh.all_reduce_max(
-                torch.stack([conv_cfl, forc_cfl, rhoinv_max])).unbind()
+            maxima = self.mesh.all_reduce_max(torch.stack(maxima)).unbind()
+        conv_cfl, forc_cfl, rhoinv_max = maxima[:3]
         cd_cfl = conv_cfl   # Crank-Nicolson or implicit: no diffusive CFL
+        if explicit:
+            # Newtonian: mu max(1/rho) (incflo_compute_dt.cpp:135-146)
+            mu_over_rho = maxima[3] if len(maxima) > 3 \
+                else rhoinv_max * cfg.mu
+            cd_cfl = conv_cfl + mu_over_rho * 2.0 * torch.sum(dxinv * dxinv)
         comb_cfl = cd_cfl + torch.sqrt(cd_cfl * cd_cfl + 4.0 * forc_cfl)
         dt_new = 2.0 * cfg.cfl / torch.clamp_min(comb_cfl, 1e-300)
         if initialization:
@@ -467,19 +497,42 @@ class Simulation:
     def _pad_vel_for_divergence(self, vel, inflow_scale):
         """One ghost per axis: wrap on periodic axes (on a mesh, x from
         the neighbouring ranks, all components in one exchange), zero
-        beyond a wall (the mass-inflow bands come with ROADMAP A9c)."""
+        beyond every other side; then the ghost band of a mass-inflow
+        side takes, in the face-normal component, the inflow profile
+        times inflow_scale (zero in incremental mode; the reference's
+        set_inflow_velocity before the NodalProjector)."""
         grid = self.grid
+        nd = grid.ndim
         first = 0
         if self.mesh is not None:
             vel = self.mesh.halo_x(vel, 1)
             first = 1
         upads = []
-        for c in range(grid.ndim):
+        for c in range(nd):
             u = vel[..., c]
-            for ax in range(first, grid.ndim):
+            for ax in range(first, nd):
                 u = mg._wrap_pad(u, ax) if grid.periodic[ax] \
                     else mg._zero_pad(u, ax)
             upads.append(u)
+        for ax in range(nd):
+            if grid.periodic[ax]:
+                continue
+            for side in range(2):
+                if BCKind(int(self.cfg.bc_kind[ax, side])) \
+                        != BCKind.mass_inflow:
+                    continue
+                val = self.vel_ev.slab(ax, side, ax, [0] * nd, self.dtype,
+                                       device=self.device)
+                if val.dim() > nd:       # drop the component axis
+                    val = val[..., 0]
+                u = upads[ax].clone()
+                band = u.narrow(ax, 0 if side == 0 else u.shape[ax] - 1, 1)
+                for a in range(nd):
+                    if a != ax:
+                        band = band.narrow(a, 1, u.shape[a] - 2)
+                band.copy_(torch.broadcast_to(val, band.shape)
+                           * inflow_scale)
+                upads[ax] = u
         return upads
 
     # ------------------------------------------------------------------
@@ -505,8 +558,12 @@ class Simulation:
         return out
 
     def _dt_diff(self, dt):
-        return dt if self.cfg.diff_type == DiffusionType.Implicit \
-            else 0.5 * dt
+        """The dt of the implicit diffusion solves: dt (implicit) or dt / 2
+        (Crank-Nicolson).  Explicit diffusion makes no solve."""
+        kind = self.cfg.diff_type
+        if kind == DiffusionType.Explicit:
+            raise ValueError("explicit diffusion makes no diffusion solve")
+        return dt if kind == DiffusionType.Implicit else 0.5 * dt
 
     def _diffuse_vel(self, vel_new, rho_new, eta_faces, eta_g1, dt_diff,
                      fixed_trips, cg):
@@ -533,6 +590,7 @@ class Simulation:
         ng = cfg.nghost_state()
         vel_o, rho_o, tra_o = old.velocity, old.density, old.tracer
         cn = cfg.diff_type == DiffusionType.Crank_Nicolson
+        explicit = cfg.diff_type == DiffusionType.Explicit
 
         vel_g = self.grow_vel(vel_o, ng)
         eta_g1 = self._viscosity(vel_g, ng)
@@ -563,28 +621,34 @@ class Simulation:
         else:
             rho_new = rho_o + dt * conv_r
             rho_nph = 0.5 * (rho_o + rho_new)
-        dt_diff = self._dt_diff(dt)
 
         # tracer update (for rho*s; then divide by rho_new)
         tra_new = tra_o
         if cfg.advect_tracer:
+            lap_w = LAP_WEIGHT[cfg.diff_type]
             rhs = rho_o[..., None] * tra_o + dt * (
                 conv_t + self.compute_tra_forces(rho_nph))
-            if cn and laps_o is not None:
-                rhs = rhs + dt * 0.5 * laps_o
-            tra_new = diffusion.diffuse_scalar(
-                rhs / rho_new[..., None], rho_new, tra_eta_faces, dt_diff,
-                cfg, grid)
+            if lap_w != 0.0 and laps_o is not None:
+                rhs = rhs + dt * lap_w * laps_o
+            tra_new = rhs / rho_new[..., None]
+            if not explicit:
+                tra_new = diffusion.diffuse_scalar(
+                    tra_new, rho_new, tra_eta_faces, self._dt_diff(dt), cfg,
+                    grid)
 
         # velocity update
         vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, old.gp)
         dv = conv_u + vel_f
-        if cn:
+        if explicit:
+            dv = dv + divtau_o
+        elif cn:
             dv = dv + 0.5 * divtau_o
         elif cfg.use_tensor_correction:
             dv = dv + divtau_o   # difference of tensor and scalar divtau
-        vel_new = self._diffuse_vel(vel_o + dt * dv, rho_new, eta_faces,
-                                    eta_g1, dt_diff, fixed_trips, cg)
+        vel_new = vel_o + dt * dv
+        if not explicit:
+            vel_new = self._diffuse_vel(vel_new, rho_new, eta_faces, eta_g1,
+                                        self._dt_diff(dt), fixed_trips, cg)
 
         vel_new, p_new, gp_new = self.apply_projection(
             vel_new, vel_o, rho_nph, old.gp, old.p, dt, incremental,
@@ -600,13 +664,15 @@ class Simulation:
     def apply_corrector(self, old: LevelState, star: LevelState, aux,
                         dt, small_dt_flag, fixed_trips=None, cg=None):
         """The second MOL stage: the convective term of the predicted
-        state averaged with the old one (incflo_tpu/simulation.py:800-882,
-        the no-EB branch; explicit diffusion is not ported)."""
+        state averaged with the old one; with explicit diffusion divtau
+        and the tracer Laplacian of the predicted state too
+        (incflo_tpu/simulation.py:800-882, the no-EB branch)."""
         cfg = self.cfg
         grid = self.grid
         ng = cfg.nghost_state()
         vel_o, rho_o, tra_o = old.velocity, old.density, old.tracer
         cn = cfg.diff_type == DiffusionType.Crank_Nicolson
+        explicit = cfg.diff_type == DiffusionType.Explicit
 
         conv_u, conv_r, conv_t, mac_phi = self.convective_term_mol(
             star.velocity, star.density, star.tracer, star.mac_phi)
@@ -615,37 +681,49 @@ class Simulation:
         eta_g1 = self._viscosity(vel_g, ng)
         eta_faces = diffusion.eta_to_faces(eta_g1, grid)
         divtau = None
-        if cfg.use_tensor_correction:
+        if explicit or cfg.use_tensor_correction:
             divtau = diffusion.compute_divtau(star.velocity, vel_g,
                                               star.density, eta_faces,
                                               eta_g1, cfg, grid, ng)
+        tra_eta_faces = self._tracer_eta_faces()
+        laps = None
+        if cfg.advect_tracer and explicit:
+            laps = diffusion.compute_laps(star.tracer, tra_eta_faces, cfg,
+                                          grid)
 
         if cfg.constant_density:
             rho_new, rho_nph = rho_o, rho_o
         else:
             rho_new = rho_o + dt * 0.5 * (conv_r + aux["conv_r"])
             rho_nph = 0.5 * (rho_o + rho_new)
-        dt_diff = self._dt_diff(dt)
 
         tra_new = tra_o
         if cfg.advect_tracer:
             rhs = rho_o[..., None] * tra_o + dt * (
                 0.5 * (conv_t + aux["conv_t"])
                 + self.compute_tra_forces(rho_nph))
-            if cn:
+            if explicit:
+                rhs = rhs + dt * 0.5 * (aux["laps_o"] + laps)
+            elif cn:
                 rhs = rhs + dt * 0.5 * aux["laps_o"]
-            tra_new = diffusion.diffuse_scalar(
-                rhs / rho_new[..., None], rho_new, self._tracer_eta_faces(),
-                dt_diff, cfg, grid)
+            tra_new = rhs / rho_new[..., None]
+            if not explicit:
+                tra_new = diffusion.diffuse_scalar(
+                    tra_new, rho_new, tra_eta_faces, self._dt_diff(dt), cfg,
+                    grid)
 
         vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, star.gp)
         dv = 0.5 * (conv_u + aux["conv_u"]) + vel_f
-        if cn:
+        if explicit:
+            dv = dv + 0.5 * (aux["divtau_o"] + divtau)
+        elif cn:
             dv = dv + 0.5 * aux["divtau_o"]
         elif cfg.use_tensor_correction:
             dv = dv + divtau
-        vel_new = self._diffuse_vel(vel_o + dt * dv, rho_new, eta_faces,
-                                    eta_g1, dt_diff, fixed_trips, cg)
+        vel_new = vel_o + dt * dv
+        if not explicit:
+            vel_new = self._diffuse_vel(vel_new, rho_new, eta_faces, eta_g1,
+                                        self._dt_diff(dt), fixed_trips, cg)
 
         vel_new, p_new, gp_new = self.apply_projection(
             vel_new, vel_o, rho_nph, star.gp, old.p, dt, False,

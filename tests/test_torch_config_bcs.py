@@ -115,7 +115,9 @@ def test_state_round_trip_and_init_fluid():
 
 
 def test_other_probtypes_raise():
-    text, _ = bench._deck("tgv2d", 16, "float64")
-    cfg = TConfig.from_text(text + "incflo.probtype = 3\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    """Probtype 6, the slanted channel of an EB cylinder, waits for
+    ROADMAP A11 (every other probtype is ported)."""
+    text, _ = bench._deck("shear3d", 16, "float64")
+    cfg = TConfig.from_text(text + "incflo.probtype = 6\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tprobs.init_fluid(cfg, cfg.grid, torch.float64, "cpu")

@@ -121,14 +121,12 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu(monkeypatch):
      'yhi.type = "nsw"\n', "A8"),
     ("tgv2d", "incflo.constant_density = false\n", "A8"),
     ("tgv2d", "incflo.advect_tracer = true\n", "A8"),
-    ("tgv2d", "incflo.diffusion_type = 0\n", "A9c"),
-    ("shear3d", "incflo.use_godunov = false\nincflo.cfl = 0.5\n", "A8"),
-    ("shear3d", 'geometry.is_periodic = 0 1 1\nxlo.type = "mi"\n'
-     'xlo.velocity = 1. 0. 0.\nxhi.type = "po"\nxhi.pressure = 0.\n',
-     "A9c"),
-    ("shear3d", "incflo.fluid_model = powerlaw\nincflo.n = 0.5\n", "A9c"),
+    ("tgv2d", "incflo.fluid_model = powerlaw\nincflo.n = 0.5\n", "A8"),
+    ("shear3d", "incflo.godunov_use_forces_in_trans = true\n", "A8"),
+    ("poiseuille_cyl_bingham", "", "A11"),
+    ("rt", "amr.max_level = 1\n", "A13"),
     ("channel_cyl", "", "A11"),
-    ("shear3d", "incflo.diffusion_type = 0\n", "A9"),
+    ("tgv2d", "incflo.probtype = 111\nincflo.advect_tracer = true\n", "A8"),
     ("shear3d", "incflo.use_mac_phi_in_godunov = true\n", "A8"),
     ("shear3d", "amr.max_level = 1\n", "A13"),
 ])

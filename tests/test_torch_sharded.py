@@ -51,6 +51,16 @@ FIELDS = ("velocity", "p", "gp", "mac_phi", "dt")
 N_CELL, PROB_HI = (16, 16, 8), (1.0, 1.0, 0.5)
 JOB = "incflo_torch.parallel.workers:several"
 TIMEOUT = 120.0
+# decks that run on one device but not yet over a mesh (ROADMAP A14): the
+# reason the refusal names -> what the shear3d deck adds
+SCOPE_DECKS = {
+    "MOL advection": "incflo.use_godunov = false\nincflo.cfl = 0.5\n",
+    "non-Newtonian fluids": "incflo.fluid_model = bingham\n"
+                            "incflo.tau_0 = 1.\nincflo.papa_reg = 0.01\n",
+    "Boussinesq buoyancy": "incflo.probtype = 111\n"
+                           "incflo.gravity = 0. 0. -1.\n",
+    "explicit diffusion": "incflo.diffusion_type = 0\n",
+}
 
 
 def _deck(n_cell=(16, 16, 8), extra=""):
@@ -172,6 +182,8 @@ def four_ranks():
     decks = {"nx % R": _deck((18, 16, 8)), "nxl < 4": _deck((12, 16, 8)),
              "variable density": _deck((16, 16, 8), vd),
              "tracer": _deck((16, 16, 8), "incflo.advect_tracer = true\n")}
+    decks.update({what: _deck((16, 16, 8), extra)
+                  for what, extra in SCOPE_DECKS.items()})
     jobs = [("halo", dict(field=field, lo=4, hi=4)),
             ("steps", dict(deck=_deck((32, 16, 8)), nsteps=STEPS)),
             ("scope_errors", dict(decks={**decks, "no card": _deck()},
@@ -339,12 +351,14 @@ def test_sharded_step_over_four_ranks(four_ranks):
 # ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("deck", ["nx % R", "nxl < 4", "variable density",
-                                  "tracer"])
+                                  "tracer", *SCOPE_DECKS])
 def test_out_of_scope_decks_raise_and_name_the_item(four_ranks, deck):
     for res in four_ranks[0]:
         err = res["scope_errors"][deck]
         assert err is not None and err[0] == "NotImplementedError", err
         assert "ROADMAP A14" in err[1], err
+        if deck in SCOPE_DECKS:
+            assert deck in err[1], err
 
 
 def test_sharded_simulation_needs_a_card_unless_cpu_is_asked(four_ranks):

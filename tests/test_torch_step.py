@@ -319,14 +319,20 @@ def test_rt_init_matches_reference_profile():
 
 
 def test_unsupported_walled_decks_name_the_roadmap():
-    """Mass inflow / pressure outflow go on raising, now naming A9c."""
-    text = bench._deck("shear3d", 16, "float64")[0] + """
-geometry.is_periodic = 0 1 1
+    """Walled decks outside the slice go on raising and name their item:
+    2D walls (A8) and embedded boundaries (A11).  Mass inflow and
+    pressure outflow run since A9c (tests/test_torch_inflow.py)."""
+    text = bench._deck("tgv2d", 16, "float64")[0] + """
+geometry.is_periodic = 0 1
 xlo.type = "mi"
-xlo.velocity = 1. 0. 0.
+xlo.velocity = 1. 0.
 xhi.type = "po"
 xhi.pressure = 0.
 """
-    with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(text),
+                                device="cpu")
+    text = bench._deck("channel_cyl", 16, "float64")[0]
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(text),
                                 device="cpu")

@@ -186,6 +186,17 @@ SCOPE_CASES = {
     "tracer": ("tgv2d", 16, "float32", "incflo.advect_tracer = true\n",
                "tracer"),
     "512x512": ("tgv2d", 512, "float32", "", "cells"),
+    "explicit": ("tgv2d", 16, "float32", "incflo.diffusion_type = 0\n",
+                 "explicit diffusion"),
+    "powerlaw": ("tgv2d", 16, "float32",
+                 "incflo.fluid_model = powerlaw\nincflo.n = 0.5\n",
+                 "non-Newtonian"),
+    "bingham": ("tgv2d", 16, "float32",
+                "incflo.fluid_model = bingham\nincflo.tau_0 = 1.\n"
+                "incflo.papa_reg = 0.01\n", "non-Newtonian"),
+    "boussinesq": ("tgv2d", 16, "float32",
+                   "incflo.probtype = 111\nincflo.gravity = 0. -1.\n",
+                   "Boussinesq"),
 }
 
 
