@@ -110,13 +110,15 @@ Phases (any failure ends the run with a non-zero exit):
              shear3d_explicit and shear3d_mol 128x128x32; ms/step,
              cells/s, the kernels' launches (the Godunov kernels 1/3/3 a
              step on shear3d_explicit and none elsewhere; the walled
-             smoothers on the walled decks, none elsewhere; each smoother
-             call one device launch), the per-step tallies of TALLIES to
-             the digit, finite fields; the projection: on the periodic
-             decks the re-projection of the final velocity, on the
-             walled ones every nodal solve of one more step within its
-             tolerance (bingham, a flow along z, divergence-free to
-             rounding: |div u| dx/|u| <= 1e-4 instead); channel: the
+             smoothers on the walled decks, none elsewhere; step2d
+             none; each smoother call one device launch), the per-step
+             tallies of TALLIES to the digit, finite fields; the
+             projection: on the periodic decks the re-projection of the
+             final velocity, on the walled ones every nodal solve of one
+             more step within its tolerance before maxiter (the bubble's
+             within STAGNATION_BOUND times it, and its final velocity
+             re-projected from zero to 1; bingham's also divergence-free
+             to rounding, |div u| dx/|u| <= 1e-4); channel: the
              MAC-projected flux through the outflow face equals the
              inflow's to 1e-4; bingham: mirror-symmetric about both
              centre planes to 1e-5 of max |u|; bubble: it rises.
@@ -399,6 +401,11 @@ A9C_DECKS = {
                          32, 128),
     "shear3d_mol": (lambda n, dt: shear3d_deck(n, dt) + MOL, 32, 128),
 }
+# the bubble's f32 in-step nodal solve stops on stagnation above its
+# tolerance (2.746 x at 64^3 on an H100; incflo_tpu's likewise, 1.3-2.6 x
+# at 32^3 on the CPU, tests/test_torch_bubble_f32.py; ROADMAP C): held to
+# this many times the tolerance, the others to 1
+STAGNATION_BOUND = 3.0
 # the kernels each A9c deck's main run must launch (every other kernel
 # no time): the Godunov kernels on the periodic Godunov deck only (the
 # walled bubble takes the plain wall forms), the walled smoothers where
@@ -410,28 +417,6 @@ A9C_KERNELS = {
     "shear3d_explicit": tuple(PER_STEP),
     "shear3d_mol": (),
 }
-
-
-def smooth_perturbation(grid, seed, amp=0.01):
-    """A smooth, not divergence-free velocity perturbation from a seed
-    (component c: amp * prod_ax sin(2 pi x_ax / L_ax + phase[c, ax])),
-    as tests/torch_parity.py makes it: from rest the Bingham channel's
-    pressure is rounding noise, so "paths" perturbs its start."""
-    import numpy as np
-    nd = grid.ndim
-    phase = np.random.default_rng(seed).uniform(0.0, 2 * np.pi, (nd, nd))
-    c = [grid.prob_lo[ax] + (np.arange(grid.n_cell[ax]) + 0.5) * grid.dx[ax]
-         for ax in range(nd)]
-    x = np.meshgrid(*c, indexing="ij")
-    comps = []
-    for k in range(nd):
-        w = amp * np.ones(grid.cell_shape)
-        for ax in range(nd):
-            w = w * np.sin(2 * np.pi * x[ax]
-                           / (grid.prob_hi[ax] - grid.prob_lo[ax])
-                           + phase[k, ax])
-        comps.append(w)
-    return np.stack(comps, axis=-1)
 
 
 # ---------------------------------------------------------------------
@@ -1356,9 +1341,10 @@ ITER_KINDS = ("cell_iters", "nodal_cycles", "tensor_cg_iters")
 def phase_paths_a9c(incflo_torch, mg, torch, name):
     """An A9c or 3D MOL deck at its "paths" size, float64, 3 steps on
     cuda (kernels) and on cpu (plain versions) from one state (bingham's
-    perturbed by smooth_perturbation): every field and dt to 1e-9
+    perturbed by probs.smooth_perturbation): every field and dt to 1e-9
     relative; the solvers' iterations of both runs printed."""
     from incflo_torch import state as st
+    from incflo_torch.probs import smooth_perturbation
     deck, n, _ = A9C_DECKS[name]
     cfg = incflo_torch.IncfloConfig.from_text(deck(n, "float64"))
     sim_c = incflo_torch.Simulation(cfg, device="cpu")
@@ -2013,40 +1999,22 @@ def mac_flux_balance(sim, s, torch):
     return float(u[0].sum()) * area, float(u[-1].sum()) * area
 
 
-class NodalSolves:
-    """While active, records each iterative nodal solve (the step's own
-    projections): its final max-norm residual over the tolerance it was
-    held to, max(rtol |rhs|, atol) on the rhs it solved, and its
-    V-cycles.  A direct solve (no V-cycles) is not recorded."""
-
-    def __init__(self, mg):
-        self.mg = mg
-        self.solves = []
-
-    def __enter__(self):
-        mg = self.mg
-        self.orig = orig = mg.NodalSolver.solve_info
-
-        def solve_info(solver, rhs, x0=None, rtol=1e-11, atol=1e-14,
-                       maxiter=100):
-            x, res, it = orig(solver, rhs, x0=x0, rtol=rtol, atol=atol,
-                              maxiter=maxiter)
-            if solver.symbol is None:
-                lev = solver.levels[0]
-                b = rhs - mg._mean(rhs, lev.mesh) if solver.singular else rhs
-                b = mg._zero_dirichlet(b, lev)
-                tol = max(rtol * float(mg._maxnorm(b)), float(atol))
-                self.solves.append((float(res) / tol, it, maxiter))
-            return x, res, it
-
-        mg.NodalSolver.solve_info = solve_info
-        return self
-
-    def __exit__(self, *exc):
-        self.mg.NodalSolver.solve_info = self.orig
+def nodal_solves(mg, run):
+    """Run `run()` and return each iterative nodal solve it made (the
+    step's own projections; a direct solve is not listed): (final
+    max-norm residual over the tolerance it was held to, V-cycles,
+    maxiter), as multigrid.NODAL_LOG records them."""
+    mg.NODAL_LOG = []
+    try:
+        run()
+        return [(float(res) / float(tol), it, maxiter)
+                for res, tol, it, maxiter in mg.NODAL_LOG]
+    finally:
+        mg.NODAL_LOG = None
 
 
-def phase_main_a9c(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
+def phase_main_a9c(incflo_torch, gk, sk, s2, mg, torch, name, warm=2,
+                   steps=5):
     """An A9c or 3D MOL deck at its full width, float32, on the card."""
     deck, _, n = A9C_DECKS[name]
     cfg = incflo_torch.IncfloConfig.from_text(deck(n, "float32"))
@@ -2056,6 +2024,7 @@ def phase_main_a9c(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
     torch.cuda.synchronize()
     gk.reset_launches()
     sk.reset_launches()
+    s2.reset_launches()
     mg.reset_counts()
     s = sim.advance_n(s, warm)
     torch.cuda.synchronize()
@@ -2064,7 +2033,10 @@ def phase_main_a9c(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
     s = sim.advance_n(s, steps)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches = {**gk.LAUNCHES, **sk.LAUNCHES}
+    launches = {**gk.LAUNCHES, **sk.LAUNCHES, **s2.LAUNCHES}
+    if s2.LAUNCHES["step2d"] != 0:
+        raise AssertionError(f"{name}: step2d launched "
+                             f"{s2.LAUNCHES['step2d']} times on a 3D deck")
     per_step = {k: (v - warm_counts[k]) / steps
                 for k, v in {**mg.COUNTS, **sk.LAUNCHES}.items()}
     total = warm + steps
@@ -2101,24 +2073,34 @@ def phase_main_a9c(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
         out.update(nodal_residual=resid, div_rel=div_rel)
     else:
         # one more step, each of its nodal solves held to the tolerance
-        # it was given (a re-projection from zero, as rt's check makes,
-        # is no test here: on the channel's walled hierarchy with a
-        # Dirichlet outflow the V-cycle diverges from zero on a projected
-        # field's divergence, in incflo_tpu too -- ROADMAP C)
-        with NodalSolves(mg) as rec:
-            s = sim.advance(s)
+        # it was given, the bubble's to STAGNATION_BOUND times it (a
+        # re-projection from zero, as rt's check makes, is no test on the
+        # channel: on its walled hierarchy with a Dirichlet outflow the
+        # V-cycle diverges from zero on a projected field's divergence,
+        # in incflo_tpu too -- ROADMAP C)
+        box = [s]
+
+        def one_step():
+            box[0] = sim.advance(box[0])
             torch.cuda.synchronize()
-        ratios = [r for r, _, _ in rec.solves]
+        solves = nodal_solves(mg, one_step)
+        s = box[0]
+        ratios = [r for r, _, _ in solves]
         note = (f"the next step's nodal solves: residual / tol "
                 f"{[round(r, 3) for r in ratios]} in "
-                f"{[it for _, it, _ in rec.solves]} V-cycles")
+                f"{[it for _, it, _ in solves]} V-cycles")
         out.update(nodal_res_over_tol=ratios,
-                   nodal_cycles=[it for _, it, _ in rec.solves])
+                   nodal_cycles=[it for _, it, _ in solves])
+        bound = STAGNATION_BOUND if name == "bubble" else 1.0
+        if (not solves or max(ratios) > bound
+                or any(it >= maxiter for _, it, maxiter in solves)):
+            raise AssertionError(f"{name}: the step's nodal solves ended at "
+                                 f"{solves} (residual / tolerance, "
+                                 f"V-cycles, maxiter); bound {bound}")
         if name == "bingham":
-            # a flow along the periodic z between walls: divergence-free
-            # by construction, so its projections solve for rounding
-            # noise, under which no tolerance of the rhs is reachable;
-            # the check is that the divergence is rounding
+            # a flow along the periodic z between walls, divergence-free
+            # by construction: besides its solves, the divergence of the
+            # final velocity is rounding
             u = s.level.velocity
             d = mg.nodal_divergence(sim._pad_vel_for_divergence(u, 1.0),
                                     sim.grid.dx)
@@ -2129,9 +2111,7 @@ def phase_main_a9c(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
             note += f"; |div u| dx/|u| {div_rel:.2e} (tol 1e-4)"
             out["div_rel"] = div_rel
         elif name == "bubble":
-            # as rt's: the final velocity re-projected from zero (the
-            # warm-started in-step f32 solves may stop on stagnation a
-            # little above the tolerance, 2.75 x on this card)
+            # and as rt's: the final velocity re-projected from zero
             res_over_tol, cycles, div, div_rel = vd_projection_check(
                 sim, s, mg, torch)
             if not res_over_tol <= 1.0:
@@ -2142,10 +2122,6 @@ def phase_main_a9c(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
                      f"{cycles} V-cycles")
             out.update(max_div_u=div, div_rel=div_rel,
                        reprojection_res_over_tol=res_over_tol)
-        elif not ratios or max(ratios) > 1.0:
-            raise AssertionError(f"{name}: the step's nodal solves ended at "
-                                 f"{rec.solves} (residual / tolerance, "
-                                 f"V-cycles, maxiter)")
     if name == "channel":
         f_in, f_out = mac_flux_balance(sim, s, torch)
         bal = abs(f_out - f_in) / f_in
@@ -2719,7 +2695,8 @@ def main(argv):
     del sim, s
     main_a9c = {}
     for deck in A9C_DECKS:
-        r, sim, s = phase_main_a9c(incflo_torch, gk, sk, mg, torch, deck)
+        r, sim, s = phase_main_a9c(incflo_torch, gk, sk, s2, mg, torch,
+                                   deck)
         if profile:
             r["profile"] = phase_profile(sim, s, torch, deck,
                                          r["ms_per_step"])

@@ -60,6 +60,10 @@ _SHARDED_MG = ("multigrid on a level split over a mesh is not ported yet "
 # to steer the loops
 COUNTS = {"cell_solves": 0, "cell_iters": 0, "nodal_solves": 0,
           "nodal_cycles": 0, "tensor_cg_iters": 0, "host_syncs": 0}
+# None, or a list to which each nodal solve that iterated appends
+# (final max-norm residual, the tolerance it was held to, V-cycles,
+# maxiter), the first two as 0-d tensors (appending reads nothing back)
+NODAL_LOG = None
 
 
 def reset_counts() -> None:
@@ -926,6 +930,8 @@ class NodalSolver:
         if it:
             COUNTS["nodal_solves"] += 1
             COUNTS["nodal_cycles"] += it
+            if NODAL_LOG is not None:
+                NODAL_LOG.append((res, tol, it, maxiter))
         if self.singular:
             x = x - torch.mean(x)
         return x, res, it

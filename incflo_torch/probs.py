@@ -308,3 +308,25 @@ def init_fluid(cfg: IncfloConfig, grid: Grid, dtype, device) -> LevelState:
         raise ValueError(f"prob_init_fluid: unknown probtype {pt}")
     velocity = torch.stack(vel_comps, dim=-1).contiguous()
     return st._replace(velocity=velocity, density=density, tracer=tracer)
+
+
+def smooth_perturbation(grid: Grid, seed: int, amp: float = 0.01):
+    """A smooth, not divergence-free velocity perturbation from a seed,
+    cell-centred, components last (numpy): component c is
+    amp * prod_ax sin(2 pi x_ax / L_ax + phase[c, ax]), the phases drawn
+    from numpy's generator.  Added to a start, it gives the projections
+    real work where a deck's own flow is an exact channel profile whose
+    pressure is rounding noise."""
+    nd = grid.ndim
+    phase = np.random.default_rng(seed).uniform(0.0, 2 * np.pi, (nd, nd))
+    c = [grid.prob_lo[ax] + (np.arange(grid.n_cell[ax]) + 0.5) * grid.dx[ax]
+         for ax in range(nd)]
+    x = np.meshgrid(*c, indexing="ij")
+    L = [grid.prob_hi[ax] - grid.prob_lo[ax] for ax in range(nd)]
+    comps = []
+    for k in range(nd):
+        w = amp * np.ones(grid.cell_shape)
+        for ax in range(nd):
+            w = w * np.sin(2 * np.pi * x[ax] / L[ax] + phase[k, ax])
+        comps.append(w)
+    return np.stack(comps, axis=-1)

@@ -22,6 +22,7 @@ import torch
 import bench
 import incflo_torch
 from incflo_torch import state as tstate
+from incflo_torch.probs import smooth_perturbation  # noqa: F401 (tp.)
 from incflo_torch.ops import multigrid as tmg
 
 FIELDS = ("velocity", "density", "tracer", "p", "gp", "mac_phi")
@@ -143,27 +144,6 @@ def counted_loops(tally):
         yield
     finally:
         jax.lax.while_loop = orig
-
-
-def smooth_perturbation(grid, seed, amp=0.01):
-    """A smooth, not divergence-free velocity perturbation from a seed:
-    component c is amp * prod_ax sin(2 pi x_ax / L_ax + phase[c, ax]),
-    the phases drawn from numpy's generator.  Added to a start, it gives
-    the projections real work where the deck's own flow is an exact
-    channel profile whose pressure is rounding noise."""
-    nd = grid.ndim
-    phase = np.random.default_rng(seed).uniform(0.0, 2 * np.pi, (nd, nd))
-    c = [grid.prob_lo[ax] + (np.arange(grid.n_cell[ax]) + 0.5) * grid.dx[ax]
-         for ax in range(nd)]
-    x = np.meshgrid(*c, indexing="ij")
-    L = [grid.prob_hi[ax] - grid.prob_lo[ax] for ax in range(nd)]
-    comps = []
-    for k in range(nd):
-        w = amp * np.ones(grid.cell_shape)
-        for ax in range(nd):
-            w = w * np.sin(2 * np.pi * x[ax] / L[ax] + phase[k, ax])
-        comps.append(w)
-    return np.stack(comps, axis=-1)
 
 
 def reference_run(text, steps, perturbs=(None,)):
