@@ -5,6 +5,9 @@
     python3 chip_smoke.py --profile  # also print the device time of the
                                      # steps (torch.profiler) and where the
                                      # rt step's time goes by section
+    python3 chip_smoke.py --record-tallies  # print the per-step tallies of
+                                     # a main cell not in TALLIES yet
+                                     # instead of failing on it
 
 Phases (any failure ends the run with a non-zero exit):
   1. build   the CUDA kernels of incflo_torch/csrc/godunov.cu,
@@ -83,7 +86,14 @@ Phases (any failure ends the run with a non-zero exit):
              and shear3d_mol (3D MOL) at 32x32x8.  And tgv2d at 32^2
              with explicit diffusion in float32 through
              Simulation.advance on cuda: the plain step, no step2d
-             launch.
+             launch.  The decks of ROADMAP A8 and A11 likewise, every
+             field and dt to 1e-9 and the solvers' iterations equal:
+             tgv2d with Godunov at 32^2, plain, with
+             use_mac_phi_in_godunov and with use_forces_in_trans; rt2d,
+             the one-level form of tests/test_amr_patch.py:15-37 (16x32);
+             channel_cyl with its cylinder at 32x16x8 and
+             poiseuille_cyl_bingham with its cylinder at 16x16x8 (from
+             rest plus a smooth perturbation, zero in covered cells).
   5. main    through incflo_torch.Simulation on cuda, float32.  shear3d:
              n = 128 (128x128x32), 20 warm-up + 20 timed steps, and
              n = 256 (256x256x64), 2 warm-up + 3 timed steps.  shear3d_vd
@@ -121,7 +131,26 @@ Phases (any failure ends the run with a non-zero exit):
              to rounding, |div u| dx/|u| <= 1e-4); channel: the
              MAC-projected flux through the outflow face equals the
              inflow's to 1e-4; bingham: mirror-symmetric about both
-             centre planes to 1e-5 of max |u|; bubble: it rises.
+             centre planes to 1e-5 of max |u|; bubble: it rises.  The
+             A8 and A11 cells at their bench widths, 2 warm-up + 5 timed
+             steps each: channel_cyl 128x64x16 and
+             poiseuille_cyl_bingham 128x128x32 with their cylinders (as
+             bench.py:_deck builds them), tgv2d with Godunov at 128^2,
+             rt2d (the x-z section of bench.py's rt deck) at 64x128;
+             ms/step, the launches of every kernel (the cell smoother on
+             the EB decks' MAC and tracer levels, walled on the channel,
+             none on the 2D decks), the tallies of TALLIES to the digit,
+             finite fields, covered cells at rest, the next step's nodal
+             solves (rt2d's within STAGNATION_BOUND times its tolerance,
+             and its final velocity re-projected from zero to 1),
+             tgv2d's decay to 1e-3; then one profiled step each for the
+             device idle share.
+             Last, on poiseuille_cyl_bingham's geometry: `cell_smooth`
+             on the fine and first coarse level of its velocity
+             hierarchy with the EB wall term folded into diag, three
+             components, bit-equal to cell_smooth_plain in float32 and
+             float64, one kernel node a call, its and the plain
+             version's time and the bound ("levels_eb").
   6. sharded the x-slab mesh of incflo_torch/parallel and the halo-slab
              Godunov kernels (B8).  First the kernels in one process (after
              phase 2): the shear3d n = 128 level cut into 2 slabs (nxl 64)
@@ -149,8 +178,8 @@ and, last, {"ok": true, "device": {...}}.
 It imports neither JAX nor incflo_tpu and writes its own deck text (the
 shear3d, rt and tgv2d decks of bench.py; shear3d_vd adds
 constant_density = false, advect_tracer = true and mu_s = 0.0002;
-channel_cyl and poiseuille_cyl_bingham without their cylinder; the
-bubble of probtype 111).  Without a CUDA device, or
+channel_cyl and poiseuille_cyl_bingham with and without their cylinder;
+the bubble of probtype 111; tgv2d with Godunov; the 2D rt).  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
@@ -229,6 +258,22 @@ TALLIES = {
                          "tensor_cg_iters": 0.0, "host_syncs": 0.0},
     "shear3d_mol": {"cell_iters": 0.0, "nodal_cycles": 0.0,
                     "tensor_cg_iters": 0.0, "host_syncs": 2.0},
+    # the A8 and A11 cells (their first chip run, --record-tallies)
+    "channel_cyl": {"cell_iters": 23.4, "nodal_cycles": 8.8,
+                    "tensor_cg_iters": 4.0, "cell_smooth": 0.0,
+                    "nodal_smooth": 0.0, WALLED: 179.8, WALLED_NODAL: 0.0,
+                    "host_syncs": 58.2},
+    "poiseuille_cyl_bingham": {"cell_iters": 191.0, "nodal_cycles": 13.4,
+                               "tensor_cg_iters": 42.2, "cell_smooth": 171.0,
+                               "nodal_smooth": 0.0, WALLED: 0.0,
+                               WALLED_NODAL: 0.0, "host_syncs": 268.6},
+    "tgv2d_godunov": {"cell_iters": 0.0, "nodal_cycles": 0.0,
+                      "tensor_cg_iters": 1.0, "cell_smooth": 0.0,
+                      "nodal_smooth": 0.0, WALLED: 0.0, WALLED_NODAL: 0.0,
+                      "host_syncs": 3.0},
+    "rt2d": {"cell_iters": 15.8, "nodal_cycles": 6.8, "tensor_cg_iters": 0.0,
+             "cell_smooth": 0.0, "nodal_smooth": 0.0, WALLED: 0.0,
+             WALLED_NODAL: 0.0, "host_syncs": 34.6},
 }
 VD_KEYS = """
 incflo.constant_density = false
@@ -1824,8 +1869,19 @@ def vd_projection_check(sim, s, mg, torch):
             div * min(grid.dx) / float(u.abs().max()))
 
 
+RECORD_TALLIES = False
+
+
 def check_tallies(tag, per_step):
-    """The per-step tallies of a multigrid cell, to the digit."""
+    """The per-step tallies of a multigrid cell, to the digit; with
+    --record-tallies a cell not in TALLIES yet prints its own instead."""
+    if RECORD_TALLIES and tag not in TALLIES:
+        keys = ("cell_iters", "nodal_cycles", "tensor_cg_iters",
+                "cell_smooth", "nodal_smooth", WALLED, WALLED_NODAL,
+                "host_syncs")
+        print(f"[tallies] {tag}: " + json.dumps(
+            {k: round(per_step[k], 1) for k in keys}), flush=True)
+        return
     got = {k: round(per_step[k], 1) for k in TALLIES[tag]}
     if got != TALLIES[tag]:
         raise AssertionError(f"{tag}: per-step tallies {got}, expected "
@@ -2249,7 +2305,7 @@ SMOOTHER_KERNELS = ("cell_kernel", "nodal_resident", "nodal_grid")
 
 
 def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
-                  run=None):
+                  run=None, table=True):
     """Device time of `steps` steps by torch.profiler: the busy time per
     step against the step's wall time (from the unprofiled timed run),
     split into the Godunov kernels, the smoother kernels, the fused step
@@ -2268,7 +2324,8 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
         s = (run or sim.advance_n)(s, steps)
         torch.cuda.synchronize()
     rows = prof.key_averages()
-    print(rows.table(sort_by="cuda_time_total", row_limit=30))
+    if table:
+        print(rows.table(sort_by="cuda_time_total", row_limit=30))
     groups = {"godunov": 0.0, "smoothers": 0.0, "step2d": 0.0,
               "matmul": 0.0, "other": 0.0}
     seen_smoothers = 0.0
@@ -2312,6 +2369,386 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
           f"{groups['other'] / steps / 1e3:.3f} ms/step{note}", flush=True)
     return {"busy_ms": busy, "idle_share": max(0.0, 1 - busy / wall_ms),
             **{k: v / steps / 1e3 for k, v in groups.items()}}
+
+
+# ---------------------------------------------------------------------
+# ROADMAP A8 and A11: 2D Godunov, 2D multigrid, embedded boundaries
+# ---------------------------------------------------------------------
+
+MAC_PHI = "incflo.use_mac_phi_in_godunov = true\n"
+UFT = "incflo.godunov_use_forces_in_trans = true\n"
+
+
+def tgv2d_godunov_deck(n, dtype, extra=""):
+    """tgv2d (bench.py:78-87) with Godunov advection (PPM); `extra` adds
+    MAC_PHI or UFT."""
+    return tgv2d_deck(n, dtype) + "incflo.use_godunov = true\n" + extra
+
+
+def rt2d_deck(n, dtype):
+    """The x-z section of bench.py's rt deck at n: n/2 x n cells of a
+    0.5 x 1 box, periodic x, slip walls on y, probtype 5, gravity
+    (0, -0.1), variable density, one advected tracer, Godunov PPM,
+    Crank-Nicolson diffusion."""
+    return deck_header(dtype) + f"""
+amr.n_cell = {n // 2} {n}
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 0.5 1.0
+geometry.is_periodic = 1 0
+ylo.type = "sw"
+yhi.type = "sw"
+incflo.probtype = 5
+incflo.gravity = 0. -0.1
+incflo.use_godunov = true
+incflo.constant_density = false
+incflo.advect_tracer = true
+incflo.mu = 0.001
+incflo.mu_s = 0.001
+incflo.diffusion_type = 1
+incflo.cfl = 0.9
+incflo.init_shrink = 1.0
+"""
+
+
+def rt2d_patch_deck(dtype):
+    """The one-level form of tests/test_amr_patch.py:15-37 (amr.max_level
+    = 0): 16 x 32 cells, one initial iteration, the solvers' default
+    tolerances."""
+    return f"""
+incflo.dtype = {dtype}
+amr.n_cell = 16 32
+amr.max_level = 0
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 0.5 1.0
+geometry.is_periodic = 1 0
+ylo.type = "sw"
+yhi.type = "sw"
+incflo.probtype = 5
+incflo.gravity = 0. -0.1
+incflo.use_godunov = true
+incflo.constant_density = false
+incflo.advect_tracer = true
+incflo.ntrac = 1
+incflo.mu = 0.001
+incflo.mu_s = 0.001
+incflo.cfl = 0.9
+incflo.init_shrink = 1.0
+incflo.initial_iterations = 1
+"""
+
+
+def channel_cyl_deck(n, dtype):
+    """channel_cyl of bench.py:125-150 with its cylinder: channel_deck
+    and a cylinder of radius 0.05 along z at (0.15, 0.2), a body in the
+    flow."""
+    return channel_deck(n, dtype) + """
+incflo.geometry = "cylinder"
+cylinder.internal_flow = false
+cylinder.radius = 0.05000001
+cylinder.direction = 2
+cylinder.center = 0.15 0.2 0.0
+"""
+
+
+def bingham_cyl_deck(n, dtype):
+    """poiseuille_cyl_bingham of bench.py:107-124 with its cylinder: n x n
+    x max(n/4, 8) cells of a 4 x 4 x 0.5 box, fully periodic, the fluid
+    inside a cylinder of radius 1 along z, MOL, a Bingham fluid (mu 1,
+    tau_0 1, papa_reg 0.001) driven by delp (0, 0, 2), fixed dt 0.01."""
+    return deck_header(dtype) + f"""
+amr.n_cell = {n} {n} {max(n // 4, 8)}
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = 4. 4. 0.5
+geometry.is_periodic = 1 1 1
+incflo.delp = 0. 0. 2.
+incflo.geometry = "cylinder"
+cylinder.internal_flow = true
+cylinder.radius = 1.
+cylinder.direction = 2
+cylinder.center = 2. 2. 0.
+incflo.fluid_model = "bingham"
+incflo.mu = 1.
+incflo.tau_0 = 1.
+incflo.papa_reg = 0.001
+incflo.fixed_dt = 0.01
+"""
+
+
+# the "paths" decks of A8 and A11 (name -> deck text, f64) and the "main"
+# cells (name -> deck of (n, dtype), n)
+A8_A11_PATHS = {
+    "tgv2d_godunov": tgv2d_godunov_deck(32, "float64"),
+    "tgv2d_godunov mac_phi": tgv2d_godunov_deck(32, "float64", MAC_PHI),
+    "tgv2d_godunov forces_in_trans": tgv2d_godunov_deck(32, "float64", UFT),
+    "rt2d": rt2d_patch_deck("float64"),
+    "channel_cyl": channel_cyl_deck(32, "float64"),
+    "poiseuille_cyl_bingham": bingham_cyl_deck(16, "float64"),
+}
+A8_A11_MAIN = {
+    "channel_cyl": (channel_cyl_deck, 128),
+    "poiseuille_cyl_bingham": (bingham_cyl_deck, 128),
+    "tgv2d_godunov": (tgv2d_godunov_deck, 128),
+    "rt2d": (rt2d_deck, 128),
+}
+# the kernels each main cell must launch (every other kernel no time):
+# none on the 2D decks (their Godunov chain and V-cycles are plain
+# PyTorch, as incflo_tpu's are jnp); on the EB decks the cell smoother on
+# the area-fraction MAC levels and the tracer's cut-cell levels (walled
+# on the channel, periodic on the Bingham deck) -- the EB velocity levels
+# take the plain flux-form sweep and the prebuilt cut-cell nodal
+# operator its plain 27-point one
+A8_A11_KERNELS = {
+    "channel_cyl": (WALLED,),
+    "poiseuille_cyl_bingham": ("cell_smooth",),
+    "tgv2d_godunov": (),
+    "rt2d": (),
+}
+
+
+def phase_paths_a8_a11(incflo_torch, mg, torch, name):
+    """An A8 / A11 deck, float64, 3 steps on cuda (kernels) and on cpu
+    (plain versions) from one state (the Bingham cylinder's perturbed by
+    probs.smooth_perturbation, zero in covered cells): every field and dt
+    to 1e-9 relative and the solvers' iterations equal."""
+    from incflo_torch import state as st
+    from incflo_torch.probs import smooth_perturbation
+    cfg = incflo_torch.IncfloConfig.from_text(A8_A11_PATHS[name])
+    sim_c = incflo_torch.Simulation(cfg, device="cpu")
+    sim_g = incflo_torch.Simulation(cfg, device="cuda")
+    s_c = sim_c.init_state()
+    if name == "poiseuille_cyl_bingham":
+        p = torch.as_tensor(smooth_perturbation(cfg.grid, 11))
+        s_c = s_c._replace(level=s_c.level._replace(
+            velocity=s_c.level.velocity + p * sim_c.eb.fluid[..., None]))
+    s_g = st.sim_from_numpy(st.sim_to_numpy(s_c), "cuda", torch.float64)
+    iters = []
+    for sim, s in ((sim_c, s_c), (sim_g, s_g)):
+        mg.reset_counts()
+        s = sim.advance_n(s, 3)
+        torch.cuda.synchronize()
+        iters.append({k: mg.COUNTS[k] for k in ITER_KINDS})
+        if sim is sim_c:
+            s_c = s
+        else:
+            s_g = s
+    worst = 0.0
+    for f in A9C_FIELDS + ("dt",):
+        a = s_g.dt if f == "dt" else getattr(s_g.level, f)
+        b = s_c.dt if f == "dt" else getattr(s_c.level, f)
+        e = rel_state_err(a, b)
+        worst = max(worst, e)
+        if not e <= 1e-9:
+            raise AssertionError(f"paths {name}: cuda and cpu steps disagree "
+                                 f"in {f}: {e:.3e}")
+    if iters[0] != iters[1]:
+        raise AssertionError(f"paths {name}: iterations cpu {iters[0]}, "
+                             f"cuda {iters[1]}")
+    print(f"[paths] {name} {cfg.grid.n_cell} f64, 3 steps: cuda vs cpu "
+          f"worst relative {worst:.3e} (tol 1e-9) over "
+          f"{', '.join(A9C_FIELDS)}, dt; iterations equal {iters[0]}",
+          flush=True)
+    return worst
+
+
+def phase_main_a8_a11(incflo_torch, gk, sk, s2, mg, torch, name, warm=2,
+                      steps=5):
+    """An A8 / A11 cell at its full width, float32, on the card: ms/step,
+    the kernels' launches (counters zeroed just before the warm-up and
+    read just after the timed steps), the per-step tallies, finite
+    fields, covered cells at rest, the next step's nodal solves; then
+    one profiled step for the device idle share."""
+    deck, n = A8_A11_MAIN[name]
+    cfg = incflo_torch.IncfloConfig.from_text(deck(n, "float32"))
+    t_setup = time.perf_counter()
+    sim = incflo_torch.Simulation(cfg)
+    s = sim.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_setup
+    a0 = float(s.level.velocity.abs().max())
+    gk.reset_launches()
+    sk.reset_launches()
+    s2.reset_launches()
+    mg.reset_counts()
+    s = sim.advance_n(s, warm)
+    torch.cuda.synchronize()
+    warm_counts = {**mg.COUNTS, **sk.LAUNCHES}
+    t0 = time.perf_counter()
+    s = sim.advance_n(s, steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {**gk.LAUNCHES, **sk.LAUNCHES, **s2.LAUNCHES}
+    per_step = {k: (v - warm_counts[k]) / steps
+                for k, v in {**mg.COUNTS, **sk.LAUNCHES}.items()}
+    total = warm + steps
+    for k, v in launches.items():
+        if (v > 0) != (k in A8_A11_KERNELS[name]):
+            raise AssertionError(f"{name}: kernel {k} launched {v} times in "
+                                 f"{total} steps")
+    check_one_launch(sk, name)
+    check_tallies(name, per_step)
+    lvl = s.level
+    for f in A9C_FIELDS:
+        if not bool(torch.isfinite(getattr(lvl, f)).all()):
+            raise AssertionError(f"{name}: non-finite {f}")
+    cells = 1
+    for c in cfg.grid.n_cell:
+        cells *= c
+    ms = (t1 - t0) / steps * 1e3
+    vmax = float(lvl.velocity.abs().max())
+    out = {"deck": name, "start": "init_state",
+           "n_cell": list(cfg.grid.n_cell), "ms_per_step": ms,
+           "cells_per_s": cells / (ms * 1e-3), "steps": steps,
+           "warmup": warm, "setup_s": setup_s, "launches": launches,
+           "per_step": per_step}
+    notes = []
+    if sim.eb is not None:
+        cov = sim.eb.covered > 0.5
+        at_rest = float(lvl.velocity[cov].abs().max()) if bool(cov.any()) \
+            else 0.0
+        if at_rest != 0.0:
+            raise AssertionError(f"{name}: covered cells move ({at_rest})")
+        cut = int((sim.eb.cut > 0.5).sum())
+        notes.append(f"{cut} cut cells, covered cells at rest")
+        out["cut_cells"] = cut
+    if name == "tgv2d_godunov":
+        err = decay_check(sim, s, a0, torch)
+        if not err <= 1e-3:
+            raise AssertionError(f"tgv2d_godunov: amplitude off the exact "
+                                 f"decay by {err:.2e}")
+        notes.append(f"amplitude against the exact decay {err:.2e} (tol "
+                     f"1e-3)")
+        out["decay_err"] = err
+    box = [s]
+
+    def one_step():
+        box[0] = sim.advance(box[0])
+        torch.cuda.synchronize()
+    solves = nodal_solves(mg, one_step)
+    s = box[0]
+    out.update(nodal_res_over_tol=[r for r, _, _ in solves],
+               nodal_cycles=[it for _, it, _ in solves])
+    notes.append(f"the next step's nodal solves: residual / tol "
+                 f"{[round(r, 3) for r, _, _ in solves]} in "
+                 f"{[it for _, it, _ in solves]} V-cycles (maxiter "
+                 f"{cfg.nodal_mg_maxiter})")
+    if name == "rt2d":
+        # the f32 in-step solve stops on stagnation near its tolerance,
+        # as the bubble's does: held to STAGNATION_BOUND, and the final
+        # velocity re-projected from zero to 1
+        if (not solves or max(r for r, _, _ in solves) > STAGNATION_BOUND
+                or any(it >= m for _, it, m in solves)):
+            raise AssertionError(f"rt2d: the step's nodal solves ended at "
+                                 f"{solves}")
+        res_over_tol, cycles, div, _ = vd_projection_check(sim, s, mg,
+                                                           torch)
+        if not res_over_tol <= 1.0:
+            raise AssertionError(f"rt2d: the re-projection stopped at "
+                                 f"{res_over_tol:.2f} x tolerance")
+        notes.append(f"max|div u| {div:.3e}, re-projection residual "
+                     f"{res_over_tol:.2f} x tol in {cycles} V-cycles")
+        out.update(max_div_u=div, reprojection_res_over_tol=res_over_tol)
+    tally = ", ".join(f"{k} {per_step[k]:.1f}" for k in
+                      ("cell_iters", "cell_solves", "nodal_cycles",
+                       "tensor_cg_iters", "cell_smooth", "nodal_smooth",
+                       WALLED, WALLED_NODAL, "host_syncs"))
+    print(f"[main] {name} {cfg.grid.n_cell} f32: {ms:.3f} ms/step, "
+          f"{cells / (ms * 1e-3):.4e} cells/s over {steps} steps after "
+          f"{warm} warm-up (setup {setup_s:.1f} s); per step: {tally}; "
+          f"t={float(s.t):.6f} dt={float(s.dt):.6e} max|u|={vmax:.6f}; "
+          f"{'; '.join(notes)}; launches {launches}", flush=True)
+    out["profile"] = phase_profile(sim, s, torch, name, ms, steps=1,
+                                   table=False)
+    return out, sim, s
+
+
+def bingham_velocity_operator(mg, eb, grid, dtype):
+    """The cut-cell velocity operator of poiseuille_cyl_bingham from rest
+    (eta = mu + tau_0 / papa_reg = 1001 everywhere, rho 1, beta = dt/2 =
+    0.005), three batched components, as diffuse_velocity builds it: rho
+    vfrac, the area-fraction faces at the face centroids, the EB wall
+    term ebc."""
+    import dataclasses
+    import torch
+    from incflo_torch.ops import diffusion
+    dev = eb.vfrac.device
+    eb = dataclasses.replace(eb, **{
+        f.name: getattr(eb, f.name).to(dtype)
+        for f in dataclasses.fields(eb)
+        if isinstance(getattr(eb, f.name), torch.Tensor)
+        and getattr(eb, f.name).is_floating_point()},
+        afrac=tuple(a.to(dtype) for a in eb.afrac),
+        face_cent=tuple(a.to(dtype) for a in eb.face_cent))
+    eta_g1 = torch.full(tuple(n + 2 for n in grid.n_cell), 1001.0,
+                        dtype=dtype, device=dev)
+    faces = diffusion._eb_faces(diffusion.eta_to_faces(eta_g1, grid, eb=eb),
+                                eb)
+    eta_c = eta_g1[1:-1, 1:-1, 1:-1]
+    ebc = diffusion._eb_wall_coef(eta_c, grid, eb)
+    acoef = diffusion._vfrac_or_one(eb)
+    two = [[2.0 if c == d else 1.0 for c in range(3)] for d in range(3)]
+    bcoef = tuple(faces[d][..., None] * torch.tensor(two[d], dtype=dtype,
+                                                     device=dev)
+                  for d in range(3))
+    return mg.CellSolver(grid.dx, (0, 0, 0), (0, 0, 0), 1.0, 0.005,
+                         acoef[..., None], bcoef, ebc=ebc[..., None],
+                         direct=False)
+
+
+def phase_levels_eb(sk, mg, torch, eb, grid):
+    """`cell_smooth` on EB levels: the fine level (128x128x32) and the
+    first coarse one of poiseuille_cyl_bingham's velocity hierarchy with
+    beta*ebc folded into diag, three components, 1 sweep + residual, in
+    float32 and float64: bit-equal to cell_smooth_plain, one kernel node
+    a call (CUDA graph), kernel and plain ms, bound.  (The step smooths
+    these levels in the plain flux form; see ops/multigrid.py.)"""
+    dev = torch.device("cuda")
+    saved = save_launches(sk)
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        solver = bingham_velocity_operator(mg, eb, grid, dtype)
+        dinvs, fhis, fwalls = solver.smoother_coefs()
+        for li in (0, 1):
+            lev = solver.levels[li]
+            shape = tuple(solver.diags[li].shape)
+            g = torch.Generator(device=dev).manual_seed(31 + li)
+            x = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+            b = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+            args = (x, b, solver.diags[li], dinvs[li], fhis[li], 1, True)
+            kw = dict(bc=(lev.bc_lo, lev.bc_hi), Fwall=fwalls[li])
+            call = lambda: sk.cell_smooth(*args, **kw)
+            plain = lambda: sk.cell_smooth_plain(*args, **kw)
+            got, ref = call(), plain()
+            if not all(torch.equal(u, v) for u, v in zip(got, ref)):
+                raise AssertionError(f"EB level {li} {dtype}: kernel and "
+                                     "plain version differ")
+            launches = graph_launches(sk, call)
+            if launches != 1:
+                raise AssertionError(f"EB level {li}: one call is {launches}"
+                                     " device launches")
+            row = {"deck": "poiseuille_cyl_bingham", "family":
+                   "cell/velocity with ebc in diag", "level": li,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "shape": "x".join(str(v) for v in shape),
+                   "call": "1 sweep + residual", "bit_equal": True,
+                   "device_launches": launches}
+            if dtype == torch.float32:
+                row.update(ms=device_ms(call), plain_ms=device_ms(plain),
+                           bytes=smooth_bytes(mg, solver, li, x, True),
+                           ops=count_ops(plain))
+                row["bound_ms"], row["bound_by"] = bound(row["bytes"],
+                                                         row["ops"])
+            rows.append(row)
+            print(f"[levels] EB {row['family']} level {li} {row['shape']} "
+                  f"{row['dtype']}: bit-equal to cell_smooth_plain, "
+                  f"{launches} kernel node a call"
+                  + (f", kernel {row['ms']:.4f} ms, plain "
+                     f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f}"
+                     f" ms ({row['bound_by']})" if "ms" in row else ""),
+                  flush=True)
+    torch.cuda.synchronize()
+    check_one_launch(sk, "EB levels")
+    restore_launches(sk, saved)
+    return rows
 
 
 # ---------------------------------------------------------------------
@@ -2651,7 +3088,13 @@ def main(argv):
                     (True, True, True))
 
     t_start = time.time()
+
+    def stamp(what):
+        print(f"[time] {what} done at {time.time() - t_start:.1f} s",
+              flush=True)
     profile = "--profile" in argv
+    global RECORD_TALLIES
+    RECORD_TALLIES = "--record-tallies" in argv
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {kind}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
@@ -2663,6 +3106,7 @@ def main(argv):
     wnres = phase_walled_nodal(sk, mg, torch)
     levels = phase_levels(sk, mg, torch)
     s2res = phase_step2d(incflo_torch, s2, sk, torch)
+    stamp("build, kernels, levels, step2d")
     phase_solvers(mg, torch)
     phase_solvers_walled(mg, torch)
     phase_paths(incflo_torch, torch)
@@ -2672,6 +3116,10 @@ def main(argv):
     for deck in A9C_DECKS:
         phase_paths_a9c(incflo_torch, mg, torch, deck)
     phase_paths_tgv2d_explicit(incflo_torch, s2, torch)
+    stamp("solvers, paths")
+    for deck in A8_A11_PATHS:
+        phase_paths_a8_a11(incflo_torch, mg, torch, deck)
+        stamp(f"paths {deck}")
     main128, sim, s = phase_main(incflo_torch, gk, torch, 128, 20, 20)
     if profile:
         phase_profile(sim, s, torch, 128, main128["ms_per_step"])
@@ -2702,9 +3150,22 @@ def main(argv):
                                          r["ms_per_step"])
         main_a9c[deck] = r
         del sim, s
+    stamp("main up to the A9c cells")
+    main_a8 = {}
+    for deck in A8_A11_MAIN:
+        r, sim, s = phase_main_a8_a11(incflo_torch, gk, sk, s2, mg, torch,
+                                      deck)
+        main_a8[deck] = r
+        stamp(f"main {deck}")
+        if deck == "poiseuille_cyl_bingham":
+            levels_eb = phase_levels_eb(sk, mg, torch, sim.eb, sim.grid)
+            stamp("levels_eb")
+        del sim, s
     main_tgv = phase_main_tgv2d(incflo_torch, (gk, sk, s2), torch, profile,
                                 s2res["ms_by_n"])
+    stamp("main tgv2d")
     shard = phase_sharded_step(incflo_torch, gk, torch)
+    stamp("sharded")
 
     # `launches` is the count over the kernel's own main path: shear3d
     # n = 128 for the Godunov kernels (their count in shear3d_vd beside
@@ -2718,6 +3179,12 @@ def main(argv):
         return {deck: r["per_step"][k] if k in r["per_step"]
                 else r["launches"].get(k, 0) / (r["warmup"] + r["steps"])
                 for deck, r in main_a9c.items()}
+
+    def a8_per_step(k):
+        """The same on the A8 / A11 main cells."""
+        return {deck: r["per_step"][k] if k in r["per_step"]
+                else r["launches"].get(k, 0) / (r["warmup"] + r["steps"])
+                for deck, r in main_a8.items()}
 
     kernels = []
     for k in PER_STEP:
@@ -2864,10 +3331,13 @@ def main(argv):
         "grid_blocks": s2res["grid_blocks"],
         "max_blocks": s2res["max_blocks"],
         "at_128_and_256": s2res["at"]})
+    for entry in kernels:
+        entry["launches_per_step_a8_a11"] = a8_per_step(entry["name"])
     print(json.dumps({"kernels": kernels, "levels": levels,
-                      "build_s": build_s,
+                      "levels_eb": levels_eb, "build_s": build_s,
                       "main": [main128, main256] + main_vd + [main_rt]
-                      + main_tgv + list(main_a9c.values()),
+                      + main_tgv + list(main_a9c.values())
+                      + list(main_a8.values()),
                       "sharded": shard,
                       "seconds": time.time() - t_start}))
     print(card_line())

@@ -6,14 +6,14 @@ diffusion), written with PyTorch tensors and hand-written CUDA kernels
 for NVIDIA Hopper (csrc/godunov.cu, csrc/smoothers.cu, csrc/step2d.cu).
 It imports neither JAX nor incflo_tpu.
 
-Scope today: one level, Newtonian.  3D Godunov decks whose axes are
-periodic or end in slip or no-slip walls -- shear3d with constant density
-(direct solves) or with variable density and tracers (multigrid
-V-cycles), and the walled Rayleigh-Taylor deck rt (gravity, variable
-density, a tracer; multigrid on levels with walls).  2D fully periodic
-constant-density MOL decks -- tgv2d, whose step on the card is one launch
-of the fused step kernel.  Other decks raise NotImplementedError naming
-the ROADMAP item that ports them.
+Scope today: one level, 2D and 3D, Godunov or MOL, every boundary type,
+constant or variable density, tracers, Newtonian and non-Newtonian
+fluids, explicit, Crank-Nicolson or implicit diffusion, and embedded
+boundaries (eb/: the cut-cell geometry on the host, MOL-EB and the
+cut-cell solvers on the device) -- all five decks of bench.py.  A 2D
+periodic constant-density MOL deck (tgv2d) steps on the card in one
+launch of the fused step kernel.  Patch AMR raises NotImplementedError
+naming ROADMAP A13; a mesh runs shear3d's physics (A14).
 
 Float32 matrix products run in full precision: importing the package
 sets `torch.backends.cuda.matmul.allow_tf32 = False` and

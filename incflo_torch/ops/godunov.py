@@ -1,21 +1,26 @@
 """Godunov (corner-transport-upwind) advection: port of
-incflo_tpu/ops/godunov.py:127-803 for 3D grids.
+incflo_tpu/ops/godunov.py:127-803.
 
   predict():  half-time face-normal velocities for the MAC projection.
   advect():   dq/dt = -div(umac q) (iconserv) or -(u.grad)q with full
               corner-transport transverse corrections.
 
-On fully periodic grids the chain has no boundary forms, so both
+On a 3D fully periodic grid the chain has no boundary forms, so both
 dispatch to ops/godunov_kernels (the CUDA kernels on the card, their
-plain PyTorch versions on the CPU).  A grid with a non-periodic axis
-takes the wall forms of the plain versions (ops/godunov_walls.py) on
-either device, as incflo_tpu runs such grids through its jnp Godunov and
-not through its Pallas kernels: the choice is made here, by the grid's
-periodicity alone.  On an x slab of a mesh (grid.mesh) both take the
-halo-slab forms, predict_sharded and advect_sharded, as
-incflo_tpu/ops/godunov.py:482-491 and :657-667 dispatch to
-pallas_godunov's.  2D, use_forces_in_trans and the use_mac_phi_in_godunov
-warm start wait for ROADMAP A8 and raise.
+plain PyTorch versions on the CPU).  Every other case takes the general
+form of the plain chain (ops/godunov_walls.py) on grown arrays, on
+either device, as incflo_tpu runs such cases through its jnp Godunov and
+not through its Pallas kernels (pallas_godunov.supported asks for 3D and
+every axis periodic, and godunov.py:475,648 send use_forces_in_trans
+and the MAC-phi warm start past them): a 2D grid, a grid with a wall,
+use_forces_in_trans, and use_mac_phi_in_godunov, whose predict takes the
+MAC-phi face gradient.  A deck with either flag launches no Godunov
+kernel, its advect included (incflo_tpu advects a MAC-phi deck through
+its Pallas kernel; the two forms differ by rounding).  The choice is
+made here, from the grid and the deck alone.
+On an x slab of a mesh (grid.mesh) both take the halo-slab forms,
+predict_sharded and advect_sharded, as incflo_tpu/ops/godunov.py:482-491
+and :657-667 dispatch to pallas_godunov's.
 """
 
 from __future__ import annotations
@@ -32,34 +37,32 @@ from incflo_torch.parallel.mesh import mesh_of
 
 
 class GodunovScheme:
-    def __init__(self, grid: Grid, use_ppm: bool, use_forces_in_trans: bool):
+    def __init__(self, grid: Grid, use_ppm: bool, use_forces_in_trans: bool,
+                 use_mac_phi: bool = False):
         self.grid = grid
         self.use_ppm = use_ppm
         self.uft = use_forces_in_trans
+        self.mac_phi = use_mac_phi
         self.nd = grid.ndim
 
-    def _check(self):
-        if self.nd != 3:
-            raise NotImplementedError(
-                "incflo_torch GodunovScheme covers 3D grids; 2D comes with "
-                "ROADMAP A8")
-        if self.uft:
-            raise NotImplementedError(
-                "godunov_use_forces_in_trans is not ported yet (ROADMAP A8)")
+    def _plain_chain(self) -> bool:
+        """True where the kernels do not run: 2D, a wall, forces in the
+        transverse traces, or the MAC-phi warm start."""
+        return (self.nd != 3 or not all(self.grid.periodic) or self.uft
+                or self.mac_phi)
 
     def predict(self, vel_g: torch.Tensor, forces_g: Optional[torch.Tensor],
                 dt, ng: int, bcrecs: np.ndarray,
                 gmacphi: Optional[List[torch.Tensor]] = None
                 ) -> List[torch.Tensor]:
         """vel_g grown by ng, forces_g grown by 1 (or None).  Returns the
-        three MAC face arrays (n+1 along their own axis)."""
-        self._check()
-        if gmacphi is not None:
-            raise NotImplementedError(
-                "use_mac_phi_in_godunov is not ported yet (ROADMAP A8)")
-        if not all(self.grid.periodic):
+        MAC face arrays (n+1 along their own axis).  gmacphi: the
+        use_mac_phi_in_godunov face gradient -(1/rho) grad(mac_phi)."""
+        if self._plain_chain() or gmacphi is not None:
             return gk.predict_plain(self.grid, vel_g, forces_g, dt,
-                                    self.use_ppm, bcrecs=bcrecs, ng=ng)
+                                    self.use_ppm, bcrecs=bcrecs, ng=ng,
+                                    use_forces_in_trans=self.uft,
+                                    gmacphi=gmacphi)
         vel = inner(vel_g, ng, self.nd)
         forces = inner(forces_g, 1, self.nd) if forces_g is not None \
             else None
@@ -74,16 +77,15 @@ class GodunovScheme:
                is_velocity: bool) -> torch.Tensor:
         """q_g grown by ng; umac interior face arrays (n+1 own axis).
         Returns dq/dt on the interior."""
-        self._check()
-        if not all(self.grid.periodic):
+        iconserv = tuple(int(i) for i in iconserv)
+        if self._plain_chain():
             return gk.advect_plain(self.grid, q_g, umac, forces_g, dt,
-                                   tuple(int(i) for i in iconserv),
-                                   self.use_ppm, bcrecs=bcrecs, ng=ng,
-                                   is_velocity=is_velocity)
+                                   iconserv, self.use_ppm, bcrecs=bcrecs,
+                                   ng=ng, is_velocity=is_velocity,
+                                   use_forces_in_trans=self.uft)
         q = inner(q_g, ng, self.nd)
         forces = inner(forces_g, 1, self.nd) if forces_g is not None \
             else None
-        iconserv = tuple(int(i) for i in iconserv)
         if mesh_of(self.grid) is not None:
             return gk.advect_sharded(self.grid, q, umac, forces, dt,
                                      iconserv, self.use_ppm)

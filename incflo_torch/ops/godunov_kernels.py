@@ -70,7 +70,9 @@ advect each component.  Every output row equals the unsharded kernel's
 Every wrapper takes the plain version only for tensors on the CPU.  On
 a CUDA tensor it launches the kernel or raises: outside the kernels'
 scope (not 3D, not fully periodic, use_forces_in_trans, a dtype other
-than float32/float64) there is no fallback.
+than float32/float64) there is no fallback: ops/godunov.py sends 2D
+grids, walled grids, use_forces_in_trans and use_mac_phi_in_godunov to
+the plain chain on grown arrays before any wrapper sees them.
 
 Grids with a wall: predict_plain and advect_plain, given arrays grown by
 ng ghost cells and the components' BC records, run the wall forms of the
@@ -395,30 +397,33 @@ def advect_comp_plain(grid: Grid, q, umac, force_q, dt, icons: bool,
 
 
 def _check_walled(grid: Grid, field, ng: int, bcrecs):
-    if grid.ndim != 3:
-        raise NotImplementedError(
-            "incflo_torch Godunov covers 3D grids; 2D comes with ROADMAP A8")
     if bcrecs is None or ng < 3:
         raise ValueError("the wall forms need the components' BC records "
                          "and fields grown by ng >= 3 ghost cells")
     if field.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"Godunov takes float32/float64, got {field.dtype}")
-    if tuple(field.shape[:3]) != tuple(n + 2 * ng for n in grid.n_cell):
+    if tuple(field.shape[:grid.ndim]) != tuple(n + 2 * ng
+                                               for n in grid.n_cell):
         raise ValueError(f"field shape {tuple(field.shape)} is not the "
                          f"grid {grid.n_cell} grown by {ng}")
 
 
 def predict_plain(grid: Grid, vel, forces, dt, use_ppm: bool,
-                  bcrecs=None, ng: int = 0) -> List[torch.Tensor]:
+                  bcrecs=None, ng: int = 0, use_forces_in_trans=False,
+                  gmacphi=None) -> List[torch.Tensor]:
     """Plain version of predict(): uad, then predict_d for d = 0, 1, 2.
-    With ng > 0 the wall forms: `vel` is grown by ng >= 3 ghost cells
-    filled by the physical BCs, `forces` by 1, and `bcrecs` (3, 3, 2)
-    holds the BCType of each component on each side of each axis."""
-    if ng > 0 or not all(grid.periodic):
+    With ng > 0 the general form of the chain (ops/godunov_walls.py),
+    2D or 3D, any mix of walls: `vel` is grown by ng >= 3 ghost cells
+    filled by the physical BCs, `forces` by 1, and `bcrecs` (nd, nd, 2)
+    holds the BCType of each component on each side of each axis; it
+    alone takes use_forces_in_trans and the MAC-phi face gradient
+    `gmacphi` of use_mac_phi_in_godunov."""
+    if (ng > 0 or grid.ndim != 3 or not all(grid.periodic)
+            or use_forces_in_trans or gmacphi is not None):
         from incflo_torch.ops.godunov_walls import WindowedGodunov
         _check_walled(grid, vel, ng, bcrecs)
-        return WindowedGodunov(grid, use_ppm).predict(
-            vel, forces, _dt_tensor(dt, vel), ng, bcrecs)
+        return WindowedGodunov(grid, use_ppm, use_forces_in_trans).predict(
+            vel, forces, _dt_tensor(dt, vel), ng, bcrecs, gmacphi)
     _check_scope(grid, vel)
     dt = _dt_tensor(dt, vel)
     uad = uad_plain(grid, vel, dt, use_ppm)
@@ -429,14 +434,17 @@ def predict_plain(grid: Grid, vel, forces, dt, use_ppm: bool,
 
 def advect_plain(grid: Grid, q, umac, forces, dt, iconserv: Sequence[int],
                  use_ppm: bool, bcrecs=None, ng: int = 0,
-                 is_velocity: bool = False) -> torch.Tensor:
+                 is_velocity: bool = False,
+                 use_forces_in_trans=False) -> torch.Tensor:
     """Plain version of advect(): one advect per component.  With ng > 0
-    the wall forms, on grown arrays as for predict_plain; `is_velocity`
-    then selects the normal-velocity forms at ext_dir faces."""
-    if ng > 0 or not all(grid.periodic):
+    the general form, on grown arrays as for predict_plain;
+    `is_velocity` then selects the normal-velocity forms at ext_dir
+    faces."""
+    if (ng > 0 or grid.ndim != 3 or not all(grid.periodic)
+            or use_forces_in_trans):
         from incflo_torch.ops.godunov_walls import WindowedGodunov
         _check_walled(grid, q, ng, bcrecs)
-        return WindowedGodunov(grid, use_ppm).advect(
+        return WindowedGodunov(grid, use_ppm, use_forces_in_trans).advect(
             q, umac, forces, _dt_tensor(dt, q), ng, bcrecs, iconserv,
             is_velocity)
     _check_scope(grid, q)
@@ -456,11 +464,13 @@ def _check_scope(grid: Grid, field, use_forces_in_trans: bool = False):
     if grid.ndim != 3 or not all(grid.periodic):
         raise NotImplementedError(
             "incflo_torch Godunov kernels cover 3D fully periodic grids; "
-            "walled grids take predict_plain / advect_plain on grown "
-            "arrays, 2D comes with ROADMAP A8")
+            "2D and walled grids take predict_plain / advect_plain on "
+            "grown arrays")
     if use_forces_in_trans:
         raise NotImplementedError(
-            "use_forces_in_trans is not ported yet (ROADMAP A8)")
+            "the Godunov kernels add the forces after the transverse "
+            "stages: use_forces_in_trans takes predict_plain / "
+            "advect_plain on grown arrays")
     if field.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"Godunov kernels take float32/float64, got "
                         f"{field.dtype}")

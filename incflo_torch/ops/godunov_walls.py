@@ -1,13 +1,14 @@
-"""Godunov corner-transport-upwind chain on grids with a non-periodic
-axis: plain PyTorch, on windows of ghost-filled arrays (port of
-incflo_tpu/ops/godunov.py:44-803, the jnp path that incflo_tpu itself
-runs on every walled deck; its Pallas Godunov kernels take fully
-periodic grids only).
+"""The general Godunov corner-transport-upwind chain: plain PyTorch, on
+windows of ghost-filled arrays, 2D or 3D, any mix of periodic and walled
+axes, with use_forces_in_trans and the MAC-phi face gradient of
+use_mac_phi_in_godunov (port of incflo_tpu/ops/godunov.py:44-803, the
+jnp path that incflo_tpu itself runs on every such case; its Pallas
+Godunov kernels take 3D fully periodic grids without those options).
 
-These are the wall forms of godunov_kernels.predict_plain and
+These are the general forms of godunov_kernels.predict_plain and
 advect_plain, which dispatch here when they are given grown arrays.
-They run on either device: no CUDA kernel covers walls yet, and
-ops/godunov.py chooses this path by the grid's periodicity alone.
+They run on either device: no CUDA kernel covers these cases, and
+ops/godunov.py chooses this path from the grid and the deck alone.
 
 Every transverse correction is a cell-indexed quantity applied to a face
 state as lo(face f) -= corr(cell f-1), hi(face f) -= corr(cell f).  All
@@ -112,11 +113,16 @@ def _relimit(smc, spc, c, strict: bool):
 
 class WindowedGodunov:
     """The chain of incflo_tpu's GodunovScheme._predict / .advect on
-    ghost-filled arrays, for any mix of periodic and walled axes."""
+    ghost-filled arrays, 2D or 3D, for any mix of periodic and walled
+    axes.  use_forces_in_trans adds the half-step force to the traces
+    before the transverse stages instead of to the final face states
+    (incflo_tpu/ops/godunov.py:320-323)."""
 
-    def __init__(self, grid: Grid, use_ppm: bool):
+    def __init__(self, grid: Grid, use_ppm: bool,
+                 use_forces_in_trans: bool = False):
         self.grid = grid
         self.use_ppm = use_ppm
+        self.uft = use_forces_in_trans
         self.nd = grid.ndim
 
     # -- range helpers -------------------------------------------------
@@ -250,13 +256,19 @@ class WindowedGodunov:
         return torch.where(m1, sm_n, sm), torch.where(m1, sp_n, sp)
 
     # -- face lo/hi states and their boundary forms --------------------
-    def _face_lo_hi(self, d, Im: F, Ip: F, trans_ext: int):
+    def _face_lo_hi(self, d, Im: F, Ip: F, trans_ext: int,
+                    force: Optional[F] = None, dt=None):
         """lo(face f) = Ip(cell f-1), hi(face f) = Im(cell f); faces
-        0..n_d, transverse cells [-trans_ext, n+trans_ext)."""
+        0..n_d, transverse cells [-trans_ext, n+trans_ext); with
+        use_forces_in_trans plus the half-step force of each cell."""
         r_hi = self._rng({d: (0, 1)}, default=(-trans_ext, trans_ext))
         r_lo = list(r_hi)
         r_lo[d] = (r_hi[d][0] - 1, r_hi[d][1] - 1)
-        return Ip.win(r_lo), Im.win(r_hi)
+        lo, hi = Ip.win(r_lo), Im.win(r_hi)
+        if self.uft and force is not None:
+            lo = lo + 0.5 * dt * force.win(r_lo)
+            hi = hi + 0.5 * dt * force.win(r_hi)
+        return lo, hi
 
     def _face_org(self, d, trans_ext=1):
         return tuple(0 if a == d else -trans_ext for a in range(self.nd))
@@ -393,7 +405,7 @@ class WindowedGodunov:
                                       conservative, corner=False),
                       tuple(-1 if a == d else 0 for a in range(nd)))
             stl, sth = self._apply_cell_corr(d, stl, sth, corrF, r_face)
-        if force is not None:
+        if not self.uft and force is not None:
             r_lo = list(r_face)
             r_lo[d] = (r_face[d][0] - 1, r_face[d][1] - 1)
             stl = stl + 0.5 * dt * force.win(r_lo)
@@ -401,10 +413,15 @@ class WindowedGodunov:
         return stl, sth, r_face
 
     # -- MAC prediction ------------------------------------------------
-    def predict(self, vel_g, forces_g, dt, ng: int,
-                bcrecs: np.ndarray) -> List[torch.Tensor]:
+    def predict(self, vel_g, forces_g, dt, ng: int, bcrecs: np.ndarray,
+                gmacphi: Optional[Sequence[torch.Tensor]] = None
+                ) -> List[torch.Tensor]:
         """vel_g grown by ng >= 3, forces_g by 1 (or None).  Returns the
-        MAC face velocity of each direction (n+1 along its own axis)."""
+        MAC face velocity of each direction (n+1 along its own axis).
+        gmacphi: -(1/rho) grad(mac_phi) on the faces, the
+        use_mac_phi_in_godunov warm start: half a step of the gradient
+        is taken out of the face states before the Riemann selection and
+        put back after it (incflo_tpu/ops/godunov.py:564-577)."""
         nd = self.nd
         org = (-ng,) * nd
         comps = [F(vel_g[..., c], org) for c in range(nd)]
@@ -422,7 +439,7 @@ class WindowedGodunov:
             for c in range(nd):
                 Im, Ip = self._traces(comps[c], ax, bc_of(c, ax), w, w, dt,
                                       True, c)
-                lo, hi = self._face_lo_hi(ax, Im, Ip, 1)
+                lo, hi = self._face_lo_hi(ax, Im, Ip, 1, fcomps[c], dt)
                 r = self._rng({ax: (0, 1)}, default=(-1, 1))
                 lo, hi = self._face_bc(ax, lo, hi, comps[c], bc_of(c, ax),
                                        True, c, r)
@@ -442,10 +459,18 @@ class WindowedGodunov:
             stl, sth, r_face = self._final_states(
                 d, lambda ax, c=d: (ax, c), xlo, xhi, edge, u_ad, comps[d],
                 lambda t, c=d: bc_of(c, t), True, d, fcomps[d], dt, False)
+            gphi = None
+            if gmacphi is not None:
+                gphi = -gmacphi[d]
+                stl = stl - 0.5 * dt * gphi
+                sth = sth - 0.5 * dt * gphi
             stl, sth = self._face_bc(d, stl, sth, comps[d], bc_of(d, d),
                                      True, d, r_face)
             stl, sth = self._prevent_backflow(d, stl, sth, bc_of(d, d))
-            out.append(_riemann(stl, sth))
+            q = _riemann(stl, sth)
+            if gphi is not None:
+                q = q + 0.5 * dt * gphi
+            out.append(q)
         return out
 
     # -- advective update ----------------------------------------------
@@ -478,7 +503,7 @@ class WindowedGodunov:
                 r_hi[ax] = (r_lo[ax][0] + 1, r_lo[ax][1] + 1)
                 Im, Ip = self._traces(qf, ax, bc(ax), macF[ax].win(r_lo),
                                       macF[ax].win(r_hi), dt, is_velocity, c)
-                lo, hi = self._face_lo_hi(ax, Im, Ip, 1)
+                lo, hi = self._face_lo_hi(ax, Im, Ip, 1, fF, dt)
                 r = self._rng({ax: (0, 1)}, default=(-1, 1))
                 lo, hi = self._face_bc(ax, lo, hi, qf, bc(ax), is_velocity,
                                        c, r)

@@ -69,19 +69,44 @@ def project_mac_velocities(umac: List[torch.Tensor],
                            beta: List[torch.Tensor], grid: Grid,
                            bc_kind: np.ndarray, phi0=None, rtol=1e-11,
                            atol=1e-14, maxiter=200, prebuilt_solver=None,
-                           direct=True):
+                           direct=True, eb=None):
     """Returns (umac_projected, phi).  With a prebuilt solver (constant
-    density) phi comes from its direct solve; otherwise a CellSolver is
-    built from `beta` and, unless its coefficients are constant and
-    `direct` lets it look, iterates from the warm start `phi0` to
-    rtol/atol.  The EB and coarse-fine forms of incflo_tpu come with
-    ROADMAP A11/A13."""
+    density) phi comes from it; otherwise a CellSolver is built from
+    `beta` and, unless its coefficients are constant and `direct` lets
+    it look, iterates from the warm start `phi0` to rtol/atol.
+
+    With embedded boundaries (eb, eb/ops.EBArrays) the solve is
+    div(ap beta grad phi) = div(ap u) and u -= beta grad phi on the open
+    faces (incflo_tpu/ops/mac_projection.py:92-120, the MLEBABecLap
+    MacProjector); a face whose area fraction is at most 1e-4 carries no
+    velocity.  The coarse-fine forms of incflo_tpu come with ROADMAP
+    A13."""
     bc_lo, bc_hi = projection_solver_bc(bc_kind, grid)
+    # faces with a tiny area fraction carry negligible flux, but their
+    # values feed the small-cell velocity fix: keep them at the no-slip
+    # limit instead of flux/ap-amplified noise
+    ap_small = 1e-4
+    if eb is not None:
+        umac = [torch.where(eb.afrac[d] > ap_small, umac[d], 0.0)
+                for d in range(grid.ndim)]
+        beta = [beta[d] * eb.afrac[d] for d in range(grid.ndim)]
     solver = prebuilt_solver if prebuilt_solver is not None else \
         mg.CellSolver(grid.dx, bc_lo, bc_hi, alpha=0.0, beta=1.0,
                       acoef=None, bcoef=beta, direct=direct)
-    # L = -div(beta grad phi); solve L phi = -div(u)
-    rhs = -mac_divergence(umac, grid)
+    # L = -div(beta grad phi); solve L phi = -div(ap u)
+    if eb is not None:
+        rhs = -mac_divergence([eb.afrac[d] * umac[d]
+                               for d in range(grid.ndim)], grid)
+    else:
+        rhs = -mac_divergence(umac, grid)
     phi = solver.solve(rhs, x0=phi0, rtol=rtol, atol=atol, maxiter=maxiter)
     fluxes = mg.cell_fluxes(phi, solver.levels[0])   # beta grad phi
-    return [umac[d] - fluxes[d] for d in range(grid.ndim)], phi
+    if eb is None:
+        return [umac[d] - fluxes[d] for d in range(grid.ndim)], phi
+    out = []
+    for d in range(grid.ndim):
+        ap = eb.afrac[d]
+        corr = torch.where(ap > ap_small,
+                           fluxes[d] / torch.clamp_min(ap, ap_small), 0.0)
+        out.append(umac[d] - corr)
+    return out, phi

@@ -1,6 +1,6 @@
-"""Cell-centred and nodal operators and their solvers (port of the parts
-of incflo_tpu/ops/multigrid.py that one-level steps without embedded
-boundaries run: periodic, Neumann and Dirichlet sides on any axis).
+"""Cell-centred and nodal operators and their solvers (port of
+incflo_tpu/ops/multigrid.py for one-level steps: periodic, Neumann and
+Dirichlet sides on any axis, 2D and 3D, embedded boundaries included).
 
 Two operator families:
 
@@ -21,10 +21,20 @@ wraps the V-cycle in conjugate gradients, the nodal solver iterates it.
 
 JAX's lax.while_loop / lax.cond are Python loops here that read one bool
 per iteration back to the host; COUNTS tallies those reads, the solves
-and their iterations.  The smoothers run through ops/smoother_kernels
-(CUDA kernels on the card, one launch a call; their plain versions on
-the CPU): the cell and the nodal smoother on every 3D level, walls
-included.  2D levels raise until ROADMAP A8.
+and their iterations.  On every 3D level the smoothers run through
+ops/smoother_kernels (CUDA kernels on the card, one launch a call; their
+plain versions on the CPU), walls included, the cut-cell levels of the
+EB MAC and scalar solves too.  A 2D level, and a level with the EB wall
+term, is smoothed in plain PyTorch on either device, in incflo_tpu's own
+jnp arithmetic (multigrid.py:425-451 and :1018-1030; see
+CellSolver._smooth_res).
+
+Embedded boundaries: the cell operator takes the EB wall coefficient
+ebc (L += beta*ebc*phi); the cut-cell nodal projection takes either the
+exact octant operator eb_nodal_apply (P^T L_fine P on the 2x lattice)
+precomputed as 3^D-point coarse-node stencils (EBNodalSolver, plain
+PyTorch, probed on the solver's device) or the regular NodalSolver on
+the octant lattice.
 
 On an x slab of a mesh (parallel/mesh.py) a level carries the mesh: its
 periodic x pads come from the neighbouring ranks, its norms and means
@@ -38,8 +48,10 @@ from __future__ import annotations
 import copy
 import dataclasses
 import enum
+import itertools
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -49,8 +61,6 @@ class SolverBC(enum.IntEnum):
     DIRICHLET = 2   # value on the domain face
 
 
-_NOT_3D = ("multigrid smoothing of 2D levels is not ported yet (ROADMAP "
-           "A8): the smoother kernels cover 3D levels")
 _SHARDED_MG = ("multigrid on a level split over a mesh is not ported yet "
                "(ROADMAP A14): a sharded level has direct solves only")
 
@@ -121,6 +131,30 @@ def _edge_pad(x, axis, lo=1, hi=1):
     return torch.cat(parts, dim=axis)
 
 
+def checkerboards(shape, dtype, device, ndim):
+    """Red and black masks over the first `ndim` (spatial) axes, as
+    floats; trailing component axes are uncoloured."""
+    par = 0
+    for ax in range(ndim):
+        view = [1] * len(shape)
+        view[ax] = shape[ax]
+        par = par + torch.arange(shape[ax], device=device).reshape(view)
+    red = ((par % 2) == 0).to(dtype)
+    red = torch.broadcast_to(red, tuple(shape))
+    return red, 1.0 - red
+
+
+def _rb_sweeps(x, b, dinv, apply, n, want_residual, ndim):
+    """n red-black Gauss-Seidel sweeps of L = apply with the guarded
+    inverse diagonal dinv, each colour a full-residual update (the
+    arithmetic of incflo_tpu's jnp smoothers), + the residual b - L(x)."""
+    red, black = checkerboards(x.shape, x.dtype, x.device, ndim)
+    for _ in range(int(n)):
+        x = x + red * (b - apply(x)) * dinv
+        x = x + black * (b - apply(x)) * dinv
+    return x, (b - apply(x)) if want_residual else None
+
+
 def _maxnorm(x, mesh=None):
     m = torch.max(torch.abs(x))
     return m if mesh is None else mesh.all_reduce_max(m)
@@ -159,7 +193,8 @@ class CellLevel:
     beta: object                  # float or 0-d tensor (dt)
     acoef: Optional[torch.Tensor]          # (cells) or None (== 0)
     bcoef: Tuple[torch.Tensor, ...]        # per axis, faces (n+1 along axis)
-    ebc: Optional[torch.Tensor] = None     # EB wall coefficient (A11)
+    ebc: Optional[torch.Tensor] = None     # EB wall coefficient:
+                                           # L += beta * ebc * phi
     mesh: object = None                    # parallel.mesh.SlabMesh of a slab
 
 
@@ -365,13 +400,10 @@ class CellSolver:
         ndim = len(dx)
         self.ndim = ndim
         self.nu1, self.nu2, self.nu_bottom = nu1, nu2, nu_bottom
-        if ebc is not None:
-            raise NotImplementedError("EB wall coefficients come with "
-                                      "ROADMAP A11")
         levels: List[CellLevel] = []
         lev = CellLevel(tuple(dx), tuple(int(b) for b in bc_lo),
                         tuple(int(b) for b in bc_hi), alpha, beta,
-                        acoef, tuple(bcoef), None)
+                        acoef, tuple(bcoef), ebc)
         cells = tuple(acoef.shape[:ndim]) if acoef is not None else tuple(
             bcoef[0].shape[ax] - (1 if ax == 0 else 0) for ax in range(ndim))
         while True:
@@ -386,11 +418,15 @@ class CellSolver:
                 lev.alpha, lev.beta,
                 _coarsen_cells(lev.acoef, ndim) if lev.acoef is not None else None,
                 tuple(_coarsen_face(lev.bcoef[ax], ax, ndim)
-                      for ax in range(ndim)), None)
+                      for ax in range(ndim)),
+                # ebc ~ area/volume: the EB area is kept under coarsening,
+                # so the coefficient halves per level
+                0.5 * _coarsen_cells(lev.ebc, ndim)
+                if lev.ebc is not None else None)
         self.levels = levels
         self.diags = [cell_diag(l) for l in levels]
         self._coefs = None
-        self.singular = (alpha == 0.0) and all(
+        self.singular = (alpha == 0.0) and (ebc is None) and all(
             b != SolverBC.DIRICHLET for b in list(bc_lo) + list(bc_hi))
         self.symbol = None
         if direct:
@@ -400,8 +436,9 @@ class CellSolver:
     def smoother_coefs(self):
         """(dinvs, fhis, fwalls): per level, what the smoother kernel
         reads beside diag -- the guarded reciprocal of the diagonal (from
-        its global max, so it is taken once per hierarchy and not in
-        every call), the cell-shaped high-face coefficients scaled by
+        its global max, with the EB wall term included, so it is taken
+        once per hierarchy and not in every call), the cell-shaped
+        high-face coefficients scaled by
         beta/dx^2 (faces 1..n of each axis: on a walled axis the last is
         the high wall face) and, per walled axis, the low wall face
         (face 0, which the wrap of a periodic axis finds at face n) as a
@@ -412,9 +449,10 @@ class CellSolver:
         them."""
         if self._coefs is None:
             from incflo_torch.ops import smoother_kernels as sk
-            if self.ndim != 3:
-                raise NotImplementedError(_NOT_3D)
             dinvs = [sk.guarded_reciprocal(d) for d in self.diags]
+            if self.ndim != 3:       # the plain 2D sweep reads dinv alone
+                self._coefs = (dinvs, None, None)
+                return self._coefs
             fhis, fwalls = [], []
             for lev, diag in zip(self.levels, self.diags):
                 fh, fw = [], []
@@ -483,13 +521,24 @@ class CellSolver:
 
     # -- smoother and V-cycle ------------------------------------------
     def _smooth_res(self, x, b, li, n, want_residual):
-        """n red-black sweeps (+ the residual b - L(x)) on level li, in
-        the kernel's diag-extracted form on either device."""
+        """n red-black sweeps (+ the residual b - L(x)) on level li: a 3D
+        level in the kernel's diag-extracted form on either device; a 2D
+        level, and a level with the EB wall term, in incflo_tpu's flux
+        form (multigrid.py:425-451), on either device.  The EB velocity
+        operator of a stiff deck (Bingham around the cylinder) stops its
+        CG on stagnation, where the iterate depends on the smoother's
+        rounding: only incflo_tpu's own arithmetic ends those solves on
+        its iterations (the kernel takes such a level with ebc in diag,
+        bit-equal to cell_smooth_plain, but runs no step's EB velocity
+        solve)."""
         from incflo_torch.ops import smoother_kernels as sk
         if self.levels[0].mesh is not None:
             raise NotImplementedError(_SHARDED_MG)
         dinvs, fhis, fwalls = self.smoother_coefs()
         lev = self.levels[li]
+        if self.ndim != 3 or lev.ebc is not None:
+            return _rb_sweeps(x, b, dinvs[li], lambda v: cell_apply(v, lev),
+                              n, want_residual, self.ndim)
         return sk.cell_smooth(x, b, self.diags[li], dinvs[li], fhis[li], n,
                               want_residual, bc=(lev.bc_lo, lev.bc_hi),
                               Fwall=fwalls[li])
@@ -872,12 +921,15 @@ class NodalSolver:
     # -- smoother and V-cycle ------------------------------------------
     def _smooth_res(self, x, b, li, n, want_residual):
         """n red-black sweeps (+ the residual b - L(x)) on level li,
-        walls included, on either device."""
+        walls included, on either device: a 3D level through the
+        `nodal_smooth` kernel, a 2D level in plain PyTorch."""
         lev = self.levels[li]
-        if self.ndim != 3:
-            raise NotImplementedError(_NOT_3D)
         if lev.mesh is not None:
             raise NotImplementedError(_SHARDED_MG)
+        if self.ndim != 3:      # incflo_tpu's jnp sweep, multigrid.py:1022
+            return _rb_sweeps(x, b, self.dinvs[li],
+                              lambda v: nodal_apply(v, lev), n,
+                              want_residual, self.ndim)
         from incflo_torch.ops import smoother_kernels as sk
         bc = tuple(tuple(SolverBC.PERIODIC if per else code
                          for per, code in zip(lev.periodic, codes))
@@ -945,3 +997,272 @@ class NodalSolver:
         lev = self.levels[0]
         return torch.stack([_node_to_cellgrad(phi, lev, ax)
                             for ax in range(self.ndim)], dim=-1)
+
+
+# =====================================================================
+# The exact cut-cell nodal operator (embedded boundaries)
+# =====================================================================
+
+def eb_nodal_apply(phi, lev: NodalLevel, fine_lev: NodalLevel):
+    """The exact octant-weighted cut-cell nodal FEM apply P^T L_fine P:
+    the coarse Q1 basis is exact on the 2x lattice under linear nodal
+    prolongation P, so the cut-cell weak form equals the regular
+    fine-lattice operator with per-octant sigma (sigma_cell x octant
+    fluid fraction) between P^T and P; the -1/volume scaling of both
+    operators absorbs P^T's 2^D, L_c = R(L_f(P phi))
+    (incflo_tpu/ops/multigrid.py:886-904)."""
+    yf = nodal_apply(_prolong_nodal(phi, fine_lev), fine_lev)
+    # the fine Dirichlet rows carry identity(phi); those equations belong
+    # to the coarse boundary rows
+    yf = _zero_dirichlet(yf, fine_lev)
+    y = _restrict_nodal(yf, fine_lev)
+    return _apply_dirichlet_mask(y, lev, identity_from=phi)
+
+
+def eb_fine_level(sigma, vfrac_oct, lev: NodalLevel) -> NodalLevel:
+    """The 2x-refined NodalLevel whose sigma is the octant-weighted cell
+    sigma (the integration data of the exact cut-cell operator)."""
+    s = sigma
+    for ax in range(len(lev.dx)):
+        s = torch.repeat_interleave(s, 2, dim=ax)
+    return NodalLevel(tuple(d / 2 for d in lev.dx), lev.periodic,
+                      lev.bc_lo, lev.bc_hi, s * vfrac_oct).with_stencil()
+
+
+def eb_nodal_divergence(upads_fine, fine_lev: NodalLevel):
+    """The right-hand side consistent with eb_nodal_apply:
+    R(D_fine(u_fine))."""
+    df = _nodes_unique(nodal_divergence(upads_fine, fine_lev.dx), fine_lev)
+    return _restrict_nodal(df, fine_lev)
+
+
+def _stencil_offsets(ndim):
+    return list(itertools.product((-1, 0, 1), repeat=ndim))
+
+
+def _probe_period(n, periodic):
+    """Per-axis comb period: >= 3 so that the neighbours {i-1, i, i+1}
+    fall in distinct residue classes; on a periodic axis it divides the
+    node count (a colouring consistent with the wrap)."""
+    if not periodic:
+        return 4
+    for p in (4, 3):
+        if n % p == 0:
+            return p
+    return n       # the full per-axis basis (small coarse levels)
+
+
+def extract_node_stencil(apply_fn, node_shape, periodic, dtype,
+                         device="cpu"):
+    """The 3^D-point stencil of a linear radius-1 nodal operator, probed
+    with per-axis lattice combs: the neighbours of a node span 3
+    consecutive residues per axis, so the residue classes modulo a
+    period >= 3 tell every neighbour apart.  Returns a (3^D, *nodes)
+    float64 numpy array, row k the coefficient of offset
+    _stencil_offsets(ndim)[k]: at node j, the response at j to the comb
+    of the class of j + offset.  apply_fn takes and returns tensors of
+    `dtype` on `device`; the bookkeeping is host numpy."""
+    ndim = len(node_shape)
+    P = [_probe_period(node_shape[ax], periodic[ax]) for ax in range(ndim)]
+    idx = np.indices(node_shape)
+
+    def class_of(pos):
+        c = np.zeros(node_shape, np.int64)
+        for ax in range(ndim):
+            c = c * P[ax] + pos[ax] % P[ax]
+        return c
+
+    cid = class_of(idx)
+    nclass = int(np.prod(P))
+    # the response to every class's comb (zero for a class with no node)
+    resp = np.zeros((nclass,) + tuple(node_shape), np.float64)
+    for c in range(nclass):
+        v = cid == c
+        if v.any():
+            resp[c] = apply_fn(torch.as_tensor(v, dtype=dtype,
+                                               device=device)).cpu().numpy()
+    coefs = np.zeros((3 ** ndim,) + tuple(node_shape), np.float64)
+    for k, off in enumerate(_stencil_offsets(ndim)):
+        # a periodic axis of extent 2 aliases offsets -1 and +1 onto one
+        # node: the summed coupling goes to the +1 leg only
+        if any(off[ax] == -1 and periodic[ax] and node_shape[ax] == 2
+               for ax in range(ndim)):
+            continue
+        pos = [idx[ax] + off[ax] for ax in range(ndim)]
+        valid = np.ones(node_shape, bool)
+        for ax in range(ndim):
+            if not periodic[ax]:
+                valid &= (pos[ax] >= 0) & (pos[ax] < node_shape[ax])
+        got = np.take_along_axis(resp, class_of(pos)[None], 0)[0]
+        coefs[k] = np.where(valid, got, 0.0)
+    return coefs
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilNodalLevel:
+    dx: Tuple[float, ...]
+    periodic: Tuple[bool, ...]
+    bc_lo: Tuple[int, ...]
+    bc_hi: Tuple[int, ...]
+    cells: Tuple[int, ...]
+    coefs: torch.Tensor        # (3^D, *node_shape)
+    index: torch.Tensor        # (3^D, nodes): stencil_index of the nodes
+
+    def meta_lev(self) -> NodalLevel:
+        """The sigma-free NodalLevel of the transfer and BC helpers."""
+        return NodalLevel(self.dx, self.periodic, self.bc_lo, self.bc_hi,
+                          None, None, self.cells)
+
+
+def stencil_index(node_shape, periodic, device=None) -> torch.Tensor:
+    """(3^D, nodes) flat indices of each node's neighbour at each offset
+    of _stencil_offsets: wrapped on periodic axes, and N (one past the
+    last node, where stencil_nodal_apply keeps a zero) outside the
+    domain."""
+    ndim = len(node_shape)
+    n = int(np.prod(node_shape))
+    idx = np.indices(node_shape).reshape(ndim, -1)
+    rows = []
+    for off in _stencil_offsets(ndim):
+        j = idx + np.asarray(off)[:, None]
+        valid = np.ones(n, bool)
+        for ax in range(ndim):
+            if periodic[ax]:
+                j[ax] %= node_shape[ax]
+            else:
+                valid &= (j[ax] >= 0) & (j[ax] < node_shape[ax])
+                j[ax] = np.clip(j[ax], 0, node_shape[ax] - 1)
+        lin = np.ravel_multi_index(tuple(j), node_shape)
+        rows.append(np.where(valid, lin, n))
+    return torch.as_tensor(np.stack(rows), device=device)
+
+
+def stencil_nodal_apply(phi, st: StencilNodalLevel):
+    """y[i] = sum_o coefs_o[i] * phi[i+o]: wrap on periodic axes, a zero
+    neighbour outside the domain (the boundary rows' coefficients encode
+    the BC, Dirichlet identity rows included).  One gather of the 3^D
+    neighbours (st.index), a product and a sum over the offsets: three
+    operations where a loop over the offsets takes 2 x 3^D (the sum's
+    order rounds differently, within 1e-14 of the loop's)."""
+    flat = torch.cat([phi.reshape(-1), phi.new_zeros(1)])
+    nb = st.coefs.shape[0]
+    return (st.coefs.reshape(nb, -1) * flat[st.index]).sum(0).reshape(
+        phi.shape)
+
+
+class EBNodalSolver:
+    """Geometric multigrid on the precomputed cut-cell nodal stencils
+    (incflo_tpu/ops/multigrid.py:1213-1330), plain PyTorch on either
+    device.  The finest stencil is probed from eb_nodal_apply, each
+    coarser one is the Galerkin product R L P of the level above, which
+    stays 3^D-point under linear prolongation and full weighting.  Built
+    once per geometry on the host, in hat form (sigma = 1/rho0; the
+    in-step operator is dt times it), on the device of `sigma`: the
+    probes apply the operator there, the bookkeeping is host numpy.
+    solve() has NodalSolver's stopping rule."""
+
+    def __init__(self, dx, periodic, bc_lo, bc_hi, sigma, vfrac_oct,
+                 max_levels=30, nu1=2, nu2=2, nu_bottom=40):
+        ndim = len(dx)
+        self.ndim = ndim
+        self.nu1, self.nu2, self.nu_bottom = nu1, nu2, nu_bottom
+        periodic = tuple(bool(p) for p in periodic)
+        bc_lo = tuple(int(b) for b in bc_lo)
+        bc_hi = tuple(int(b) for b in bc_hi)
+        dtype, device = sigma.dtype, sigma.device
+        cells = tuple(sigma.shape)
+        meta0 = NodalLevel(tuple(dx), periodic, bc_lo, bc_hi, None, None,
+                           cells)
+        flev = eb_fine_level(sigma, vfrac_oct, meta0)
+        node_shape = tuple(c if periodic[ax] else c + 1
+                           for ax, c in enumerate(cells))
+        c0 = extract_node_stencil(lambda v: eb_nodal_apply(v, meta0, flev),
+                                  node_shape, periodic, dtype, device)
+        levels = [StencilNodalLevel(
+            tuple(dx), periodic, bc_lo, bc_hi, cells,
+            torch.as_tensor(c0, dtype=dtype, device=device),
+            stencil_index(node_shape, periodic, device))]
+        while (len(levels) < max_levels
+               and all(n % 2 == 0 and n >= 4 for n in cells)):
+            cells = tuple(n // 2 for n in cells)
+            prev = levels[-1]
+            meta_c = NodalLevel(tuple(d * 2 for d in prev.dx), periodic,
+                                bc_lo, bc_hi, None, None, cells)
+            meta_f = prev.meta_lev()
+
+            def rap(v, prev=prev, meta_c=meta_c, meta_f=meta_f):
+                y = stencil_nodal_apply(_prolong_nodal(v, meta_f), prev)
+                y = _zero_dirichlet(y, meta_f)
+                return _apply_dirichlet_mask(_restrict_nodal(y, meta_f),
+                                             meta_c, identity_from=v)
+
+            nsh = tuple(c if periodic[ax] else c + 1
+                        for ax, c in enumerate(cells))
+            cc = extract_node_stencil(rap, nsh, periodic, dtype, device)
+            levels.append(StencilNodalLevel(
+                meta_c.dx, periodic, bc_lo, bc_hi, cells,
+                torch.as_tensor(cc, dtype=dtype, device=device),
+                stencil_index(nsh, periodic, device)))
+        self.levels = levels
+        from incflo_torch.ops import smoother_kernels as sk
+        center = _stencil_offsets(ndim).index((0,) * ndim)
+        self.dinvs = [sk.guarded_reciprocal(st.coefs[center])
+                      for st in levels]
+        self.singular = all(
+            b != SolverBC.DIRICHLET for b in list(bc_lo) + list(bc_hi))
+
+    def to(self, device) -> "EBNodalSolver":
+        out = copy.copy(self)
+        out.levels = [_move(l, device) for l in self.levels]
+        out.dinvs = _move(self.dinvs, device)
+        return out
+
+    def _smooth_res(self, x, b, li, n, want_residual):
+        st = self.levels[li]
+        return _rb_sweeps(x, b, self.dinvs[li],
+                          lambda v: stencil_nodal_apply(v, st), n,
+                          want_residual, self.ndim)
+
+    def _vcycle(self, x, b, li=0, want_residual=False):
+        meta = self.levels[li].meta_lev()
+        if li == len(self.levels) - 1:
+            return self._smooth_res(x, b, li, self.nu_bottom, want_residual)
+        x, r = self._smooth_res(x, b, li, self.nu1, True)
+        rc = _restrict_nodal(_zero_dirichlet(r, meta), meta)
+        rc = _zero_dirichlet(rc, self.levels[li + 1].meta_lev())
+        ec, _ = self._vcycle(torch.zeros_like(rc), rc, li + 1)
+        x = x + _prolong_nodal(ec, meta)
+        return self._smooth_res(x, b, li, self.nu2, want_residual)
+
+    def solve_info(self, rhs, x0=None, rtol=1e-11, atol=1e-14, maxiter=100):
+        """(x, resnorm, cycles): NodalSolver.solve_info's loop and
+        tallies on the stencil hierarchy."""
+        st = self.levels[0]
+        meta = st.meta_lev()
+        if self.singular:
+            rhs = rhs - torch.mean(rhs)
+        rhs = _zero_dirichlet(rhs, meta)
+        if x0 is None:
+            x0 = torch.zeros_like(rhs)
+        tol = rtol * _maxnorm(rhs)
+        tol = torch.maximum(tol, atol.to(tol.dtype)) \
+            if isinstance(atol, torch.Tensor) else torch.clamp_min(tol, atol)
+        x, it = x0, 0
+        res = _maxnorm(rhs - stencil_nodal_apply(x0, st))
+        prev = torch.full_like(res, float("inf"))
+        while it < maxiter and host_bool((res > tol) & (res < 0.999 * prev)):
+            x, r = self._vcycle(x, rhs, want_residual=True)
+            prev, res = res, _maxnorm(r)
+            it += 1
+        if it:
+            COUNTS["nodal_solves"] += 1
+            COUNTS["nodal_cycles"] += it
+            if NODAL_LOG is not None:
+                NODAL_LOG.append((res, tol, it, maxiter))
+        if self.singular:
+            x = x - torch.mean(x)
+        return x, res, it
+
+    def solve(self, rhs, **kw):
+        """x of solve_info."""
+        return self.solve_info(rhs, **kw)[0]

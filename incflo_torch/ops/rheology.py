@@ -3,11 +3,10 @@
 
 Reference: src/rheology/incflo_rheology.cpp:8-140 (NonNewtonianViscosity
 functor with Papanastasiou regularisation) and src/derive/incflo_derive_K.H
-(incflo_strainrate: ||2S|| via central differences).  Every model runs in
-a 3D Simulation: a non-Newtonian fluid's velocity operator is built every
+(incflo_strainrate: ||2S|| via central differences; incflo_strainrate_eb
+at cut cells).  A non-Newtonian fluid's velocity operator is built every
 step from this viscosity (ops/diffusion.diffuse_velocity), and with
-explicit diffusion compute_dt takes the diffusive CFL from it.  2D
-non-Newtonian decks wait for 2D multigrid (ROADMAP A8).
+explicit diffusion compute_dt takes the diffusive CFL from it.
 """
 
 from __future__ import annotations
@@ -67,12 +66,24 @@ def viscosity_of_strainrate(sr: torch.Tensor,
 
 
 def compute_viscosity(vel_g: torch.Tensor, grid: Grid, ng: int,
-                      cfg: IncfloConfig, out_ng: int = 1) -> torch.Tensor:
+                      cfg: IncfloConfig, out_ng: int = 1,
+                      eb=None) -> torch.Tensor:
     """eta on the interior grown by out_ng ghosts (reference
-    compute_viscosity_at_level uses growntilebox(1)).  The EB strain-rate
-    stencils come with ROADMAP A11."""
+    compute_viscosity_at_level uses growntilebox(1)).  With embedded
+    boundaries (eb/ops.EBArrays) the interior cut cells take the
+    quadratic one-sided strain-rate stencils toward connected cells
+    (reference incflo_strainrate_eb; incflo_tpu/ops/rheology.py:79-84):
+    differencing across covered cells would overstate the strain rate
+    next to every wall."""
     if cfg.fluid_model == FluidModel.Newtonian:
         shape = tuple(n + 2 * out_ng for n in grid.cell_shape)
         return torch.full(shape, cfg.mu, dtype=vel_g.dtype,
                           device=vel_g.device)
-    return viscosity_of_strainrate(strainrate(vel_g, grid, ng, out_ng), cfg)
+    sr = strainrate(vel_g, grid, ng, out_ng)
+    if eb is not None:
+        from incflo_torch.eb import ops as ebops
+        sr_eb = ebops.eb_strainrate(vel_g, grid, ng, eb)
+        sr = sr.clone()
+        ctr = sr[tuple(slice(out_ng, out_ng + n) for n in grid.cell_shape)]
+        ctr.copy_(torch.where(eb.cut > 0.5, sr_eb, ctr))
+    return viscosity_of_strainrate(sr, cfg)

@@ -308,8 +308,8 @@ def _check_common(x, nsweeps, ndims):
                         f"{x.dtype}")
     if x.dim() not in ndims:
         raise NotImplementedError(
-            "incflo_torch smoother kernels cover 3D levels; 2D comes with "
-            "ROADMAP A8")
+            "incflo_torch smoother kernels cover 3D levels; ops/multigrid.py "
+            "smooths a 2D level in plain PyTorch")
     if int(nsweeps) < 0:
         raise ValueError(f"nsweeps must be >= 0, got {nsweeps}")
     if x.numel() >= 2 ** 31:

@@ -205,6 +205,8 @@ def out_of_scope(sim) -> Optional[str]:
         return "explicit diffusion"
     if cfg.use_godunov:
         return "Godunov advection"
+    if sim.eb is not None:
+        return "embedded boundaries"
     if sim.dtype not in DT_CODE:
         return f"{sim.dtype}"
     if not all(_sym_direct(s) for s in (sim._mac_solver, sim._diff_proto,

@@ -6,8 +6,8 @@ Ported: the uniform state of probtypes 0 and 114, the 2D vortices 1
 Taylor-Green vortex 3, Couette 4, Rayleigh-Taylor 5 (the rt deck), the
 Boussinesq tuscan 11 and bubbles 111-113, the periodic tracer 12, the
 double shear layers 21 (the shear3d deck), 22 and 23, and the plane
-Poiseuille and channel family 31, 311, 32, 322, 33, 333 and 41.
-Probtype 6 (the slanted EB channel) raises and names ROADMAP A11.
+Poiseuille and channel family 31, 311, 32, 322, 33, 333 and 41, and the
+slanted EB channel 6.
 Coordinates follow the reference: most probtypes use x = (i+0.5) dx with
 no prob_lo offset; Rayleigh-Taylor adds prob_lo.
 """
@@ -28,7 +28,6 @@ TWOPI = 2.0 * math.pi
 
 PI = math.pi
 
-_LATER = {6: "A11"}
 _POISEUILLE = (31, 311, 32, 322, 33, 333, 41)
 
 
@@ -250,15 +249,39 @@ def _init_plane_poiseuille(cfg, grid, vel_comps, dtype, device):
     return tracer
 
 
+def _init_channel_slant(cfg, grid, vel_comps, tracer, dtype, device):
+    """channel_slant, the rotated EB cylinder (reference
+    prob_init_fluid.cpp:230-265): with cylinder.rotation > 0 the velocity
+    lies along the rotated axis and the tracers are bands along x;
+    otherwise the uniform start.  Returns the tracer."""
+    rotation = 0.0
+    if cfg.pp is not None:
+        rotation = float(cfg.pp.scoped("cylinder").query("rotation", 0))
+    rotation = rotation / 180.0 * math.pi
+    if rotation <= 0:
+        return tracer
+    cs = grid.cell_shape
+    u = cfg.ic_u
+    vel_comps[0] = torch.full(cs, u * math.cos(rotation), dtype=dtype,
+                              device=device)
+    vel_comps[1] = torch.full(cs, u * math.sin(rotation), dtype=dtype,
+                              device=device)
+    if grid.ndim == 3:
+        vel_comps[2] = torch.zeros(cs, dtype=dtype, device=device)
+    idx = _index_coord(grid, 0)
+    dhi = grid.n_cell[0] - 1
+    bands = [(dhi // 8, 1.0), (dhi // 2, 2.0), (dhi * 3 // 4, 3.0)]
+    out = torch.zeros(cs + (cfg.ntrac,), dtype=dtype, device=device)
+    for n, (last, val) in enumerate(bands[:cfg.ntrac]):
+        out[..., n] = _where(idx <= last, val, 0.0, cs, dtype, device)
+    return out
+
+
 def init_fluid(cfg: IncfloConfig, grid: Grid, dtype, device) -> LevelState:
     """prob_init_fluid: the t=0 LevelState on `grid`.  Unless a probtype
     sets them, the velocity is (ic_u, ic_v, ic_w), the density ro_0 and
     the tracer zero."""
     pt = cfg.probtype
-    if pt in _LATER:
-        raise NotImplementedError(
-            f"incflo_torch: probtype {pt} is not ported yet "
-            f"(ROADMAP {_LATER[pt]})")
     st = zeros_level(grid, cfg.ntrac, dtype, device)
     if pt in (1, 2):
         return _init_vortex(cfg, grid, st, dtype, device)
@@ -304,6 +327,9 @@ def init_fluid(cfg: IncfloConfig, grid: Grid, dtype, device) -> LevelState:
         _init_shear_layer(cfg, grid, vel_comps, tracer, dtype, device)
     elif pt in _POISEUILLE:
         tracer = _init_plane_poiseuille(cfg, grid, vel_comps, dtype, device)
+    elif pt == 6:
+        tracer = _init_channel_slant(cfg, grid, vel_comps, tracer, dtype,
+                                     device)
     else:
         raise ValueError(f"prob_init_fluid: unknown probtype {pt}")
     velocity = torch.stack(vel_comps, dim=-1).contiguous()

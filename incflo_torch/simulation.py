@@ -8,22 +8,30 @@ src/incflo_compute_dt.cpp, src/incflo_compute_forces.cpp and
 src/projection/incflo_apply_nodal_projection.cpp: state tensors carry no
 ghosts, old/new pairs are function inputs/outputs.
 
-3D decks advect by Godunov or by MOL.  On a fully periodic grid the
+Decks advect by Godunov or by MOL.  On a 3D fully periodic grid the
 Godunov chain runs through the CUDA kernels of csrc/godunov.cu on the
-card (their plain PyTorch versions on the CPU); on a grid with walls or
-inflow/outflow sides it takes the wall forms of the plain versions on
-either device (ops/godunov.py).  MOL (ops/mol.py) is plain PyTorch on
-both.  With constant density the MAC and nodal systems, and a Newtonian
+card (their plain PyTorch versions on the CPU); a 2D grid, a grid with
+walls or inflow/outflow sides, and the use_forces_in_trans and
+use_mac_phi_in_godunov options take the general plain chain on either
+device (ops/godunov.py).  MOL (ops/mol.py) is plain PyTorch on both.  With constant density the MAC and nodal systems, and a Newtonian
 fluid's implicit velocity system, are prebuilt and solved directly
 (ops/spectral.py) where the operator allows it; otherwise they are built
 from the current density (and viscosity) every step and solved by
-multigrid V-cycles (ops/multigrid.py) whose smoothers are the CUDA
-kernels of csrc/smoothers.cu: the cell and the nodal smoother on every
-level, walls included, one launch a call.
+multigrid V-cycles (ops/multigrid.py) whose smoothers on 3D levels are
+the CUDA kernels of csrc/smoothers.cu, walls included, one launch a
+call; 2D levels and the EB velocity levels are smoothed in plain
+PyTorch.
 
-2D decks are fully periodic, constant-density MOL decks (tgv2d): the
-predictor and corrector of ops/mol.py with direct solves.  On the card a
-2D step is one launch of the fused step kernel (ops/step2d_kernels.py,
+Embedded boundaries (eb/, incflo_tpu/simulation.py:40-66, 289-330,
+519-700): the cut-cell geometry is computed once on the host; the deck
+advects by MOL-EB (a deck asking for Godunov is switched to it, with a
+warning), the MAC projection is area-fraction weighted, the velocity
+solve carries the EB wall term, and the nodal projection is the exact
+octant cut-cell operator -- prebuilt as 27-point stencils for constant
+density, on the 2x octant lattice otherwise.
+
+A 2D periodic constant-density Newtonian MOL deck (tgv2d) steps on the
+card in one launch of the fused step kernel (ops/step2d_kernels.py,
 csrc/step2d.cu) when the deck qualifies (step2d_kernels.supported) and
 its fixed-trip tensor CG converges at the first dt; `_advance_impl` is
 the plain step.
@@ -40,19 +48,20 @@ advect_sharded), the direct solves reduce-scatter their x contraction,
 and compute_dt and the tensor CG reduce over the ranks.  Other decks
 under a mesh raise and name ROADMAP A14.
 
-Scope of this port: one level, no EB.  3D: Godunov or MOL advection,
-each axis periodic or ending in a slip or no-slip wall, mass inflow,
-pressure inflow or pressure outflow; constant or variable density,
-gravity or Boussinesq buoyancy, tracer advection and diffusion;
-Newtonian or non-Newtonian fluids (power law, Bingham, Herschel-Bulkley,
-de Souza Mendes-Dutra); explicit, Crank-Nicolson or implicit diffusion.
-2D: MOL advection, fully periodic, constant density, Newtonian, no
-tracer advection.  Any other deck raises NotImplementedError naming the
-ROADMAP item that ports it.
+Scope of this port: one level, 2D or 3D, with or without embedded
+boundaries: Godunov or MOL advection, each axis periodic or ending in a
+slip or no-slip wall, mass inflow, pressure inflow or pressure outflow;
+constant or variable density, gravity or Boussinesq buoyancy, tracer
+advection and diffusion; Newtonian or non-Newtonian fluids (power law,
+Bingham, Herschel-Bulkley, de Souza Mendes-Dutra); explicit,
+Crank-Nicolson or implicit diffusion.  Patch AMR raises
+NotImplementedError naming ROADMAP A13.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -67,31 +76,15 @@ from incflo_torch.ops.stencil import inner
 from incflo_torch.state import LevelState, SimState
 
 
+def has_eb(cfg: IncfloConfig) -> bool:
+    """The deck names an EB geometry (it may still prove all regular)."""
+    return cfg.eb_geometry not in ("", "all_regular", "null")
+
+
 def _unsupported(cfg: IncfloConfig):
-    """(reason, ROADMAP item) for a deck outside this port, else None."""
-    g = cfg.grid
-    nd = g.ndim
-    checks = [
-        (nd not in (2, 3), f"{nd}D decks", "A8"),
-        (cfg.eb_geometry not in ("", "all_regular", "null"),
-         "embedded boundaries", "A11"),
-        (nd == 2 and cfg.use_godunov, "2D Godunov advection", "A8"),
-        (nd == 2 and not all(g.periodic), "2D decks with walls", "A8"),
-        (nd == 2 and not cfg.constant_density,
-         "2D variable density (2D multigrid)", "A8"),
-        (nd == 2 and cfg.advect_tracer,
-         "2D tracer advection (2D multigrid)", "A8"),
-        (nd == 2 and cfg.fluid_model != FluidModel.Newtonian,
-         "2D non-Newtonian fluids (2D multigrid)", "A8"),
-        (cfg.use_mac_phi_in_godunov, "use_mac_phi_in_godunov", "A8"),
-        (cfg.godunov_use_forces_in_trans, "godunov_use_forces_in_trans",
-         "A8"),
-        (cfg.max_level > 0, "AMR", "A13"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            return what, item
-    return None
+    """(reason, ROADMAP item) for a deck outside this port, else None:
+    the port runs every one-level deck."""
+    return ("AMR", "A13") if cfg.max_level > 0 else None
 
 
 def _unsupported_sharded(cfg: IncfloConfig):
@@ -100,6 +93,9 @@ def _unsupported_sharded(cfg: IncfloConfig):
     g = cfg.grid
     checks = [
         (g.ndim != 3, "2D decks (the fused 2D step, MOL)"),
+        (has_eb(cfg), "embedded boundaries"),
+        (cfg.godunov_use_forces_in_trans, "godunov_use_forces_in_trans"),
+        (cfg.use_mac_phi_in_godunov, "use_mac_phi_in_godunov"),
         (not all(g.periodic), "walls, inflow and outflow"),
         (not cfg.constant_density, "variable density (multigrid)"),
         (cfg.advect_tracer, "tracer advection (multigrid)"),
@@ -131,13 +127,14 @@ class Simulation:
     Asking for the card where there is none raises."""
 
     def __init__(self, cfg: IncfloConfig, device=None, mesh=None):
+        if cfg.grid.ndim not in (2, 3):
+            raise ValueError(f"incflo_torch runs 2D and 3D decks, not "
+                             f"{cfg.grid.ndim}D")
         why = _unsupported(cfg)
         if why is not None:
             raise NotImplementedError(
                 f"incflo_torch does not run {why[0]} yet "
-                f"(ROADMAP {why[1]}); it runs one-level 3D Godunov and "
-                f"MOL decks without embedded boundaries and 2D periodic "
-                f"constant-density Newtonian MOL decks")
+                f"(ROADMAP {why[1]}); it runs one-level 2D and 3D decks")
         if mesh is not None:
             why = _unsupported_sharded(cfg)
             if why is not None:
@@ -154,6 +151,33 @@ class Simulation:
                                "requested but torch.cuda is not available")
         self.device = device
         self.dtype = getattr(torch, cfg.dtype)
+        # embedded boundaries: the static cut-cell arrays (eb/ops.py),
+        # computed on the host and kept on the device; None where there
+        # is no cut cell
+        self.eb = None
+        if has_eb(cfg):
+            from incflo_torch.eb import geometry as ebgeom
+            from incflo_torch.eb import ops as ebops
+            phi_if = ebgeom.make_eb_geometry(cfg.eb_geometry, cfg.pp,
+                                             cfg.grid)
+            data = ebgeom.compute_eb_data(phi_if, cfg.grid)
+            if data.has_eb:
+                self.eb = ebops.build_eb_arrays(data, cfg.grid, self.dtype,
+                                                device)
+        if self.eb is not None and cfg.use_godunov:
+            # the reference's EB build compiles predict_godunov out
+            # (incflo_compute_MAC_projected_velocities.cpp:80-91): a
+            # cut-cell domain advects by MOL-EB (incflo_tpu/simulation.py
+            # :49-66)
+            warnings.warn(
+                "incflo.use_godunov=true with embedded boundaries: the "
+                "Godunov scheme does not see cut cells (matching the "
+                "reference, whose EB build compiles out predict_godunov); "
+                "dispatching advection through the MOL-EB path instead.")
+            cfg = dataclasses.replace(
+                cfg, use_godunov=False,
+                godunov_include_diff_in_forcing=False,
+                cfl=min(cfg.cfl, 0.5))   # the MOL stability bound
         self.cfg = cfg
         self.mesh = mesh
         # the rank's x slab on a mesh, else the whole level
@@ -167,7 +191,8 @@ class Simulation:
         self.force_bcrec = cfg.force_bcrecs(max(cfg.ntrac, cfg.ndim))
         if cfg.use_godunov:
             self.godunov = godunov.GodunovScheme(
-                self.grid, cfg.godunov_ppm, cfg.godunov_use_forces_in_trans)
+                self.grid, cfg.godunov_ppm, cfg.godunov_use_forces_in_trans,
+                cfg.use_mac_phi_in_godunov)
         self._fused = None          # step2d_kernels.FusedStep, built lazily
         self._fused_ok = None       # the CG probe's verdict
         nd = cfg.grid.ndim
@@ -180,8 +205,11 @@ class Simulation:
         # device.  Variable density builds them from the state every
         # step, and a non-Newtonian fluid its velocity operator.
         self._mac_solver = self._nodal_hat = self._diff_proto = None
-        if cfg.constant_density:
+        self._nodal_eb_hat = None
+        if cfg.constant_density and self.eb is None:
             self._build_static_solvers()
+        elif cfg.constant_density:
+            self._build_static_eb_solvers()
 
     # ------------------------------------------------------------------
     def _full(self, shape, val):
@@ -236,6 +264,41 @@ class Simulation:
             diff = diff.shard(self.mesh)
         self._diff_proto = diff.to(self.device)
         self._static_coefs["diff_b"] = diff_b
+
+    def _build_static_eb_solvers(self):
+        """Constant-density EB decks (incflo_tpu/simulation.py:289-318),
+        on the device: the area-fraction-weighted MAC solver and the
+        exact octant cut-cell nodal operator as a 27-point coarse-node
+        stencil hierarchy (mg.EBNodalSolver), in hat form sigma_hat =
+        1/rho0 -- the in-step operator is scaling x this one."""
+        cfg = self.cfg
+        grid = self.grid
+        eb = self.eb
+        inv_rho = 1.0 / cfg.ro_0
+        bc_lo, bc_hi = mac_projection.projection_solver_bc(cfg.bc_kind, grid)
+        beta_eff = tuple(eb.afrac[d] * inv_rho for d in range(grid.ndim))
+        self._mac_solver = mg.CellSolver(grid.dx, bc_lo, bc_hi, alpha=0.0,
+                                         beta=1.0, acoef=None,
+                                         bcoef=beta_eff, direct=False)
+        if eb.vfrac_oct is None:
+            return
+        try:
+            self._nodal_eb_hat = mg.EBNodalSolver(
+                grid.dx, grid.periodic, bc_lo, bc_hi,
+                self._full(grid.cell_shape, inv_rho).to(self.device),
+                eb.vfrac_oct)
+        except ValueError:
+            pass        # an odd periodic extent: the octant lattice
+
+    def _eb_fine_meta(self):
+        """The sigma-free fine (2x) NodalLevel of the right-hand side and
+        gradient transfers."""
+        grid = self.grid
+        nd = grid.ndim
+        return mg.NodalLevel(tuple(d / 2 for d in grid.dx), grid.periodic,
+                             (int(mg.SolverBC.NEUMANN),) * nd,
+                             (int(mg.SolverBC.NEUMANN),) * nd,
+                             None, None, tuple(2 * n for n in grid.n_cell))
 
     # ------------------------------------------------------------------
     # ghost fills (physical BCs only, one level)
@@ -294,8 +357,13 @@ class Simulation:
                    initialization=False):
         cfg = self.cfg
         dxinv = self._dxinv
-        conv_cfl = torch.max(torch.abs(vel) * dxinv)
-        forc_cfl = torch.max(torch.abs(vel_forces) * dxinv)
+        if self.eb is not None:   # covered cells are not in the reduction
+            mask = self.eb.fluid[..., None]
+            conv_cfl = torch.max(torch.abs(vel) * mask * dxinv)
+            forc_cfl = torch.max(torch.abs(vel_forces) * mask * dxinv)
+        else:
+            conv_cfl = torch.max(torch.abs(vel) * dxinv)
+            forc_cfl = torch.max(torch.abs(vel_forces) * dxinv)
         rhoinv_max = torch.max(1.0 / rho)
         maxima = [conv_cfl, forc_cfl, rhoinv_max]
         explicit = cfg.diff_type == DiffusionType.Explicit
@@ -303,7 +371,9 @@ class Simulation:
             # eta can exceed mu by orders of magnitude (Bingham near zero
             # strain rate): the stability bound takes the actual viscosity
             eta = rheology.compute_viscosity(self.grow_vel(vel, 1), self.grid,
-                                             1, cfg, out_ng=0)
+                                             1, cfg, out_ng=0, eb=self.eb)
+            if self.eb is not None:
+                eta = eta * self.eb.fluid
             maxima.append(torch.max(eta / rho))
         if self.mesh is not None:   # the whole level's maxima
             maxima = self.mesh.all_reduce_max(torch.stack(maxima)).unbind()
@@ -360,33 +430,58 @@ class Simulation:
     # ------------------------------------------------------------------
     # convective term (reference compute_convective_term, Godunov path)
     # ------------------------------------------------------------------
+    def _vel_forces_g(self, rho, tra, gp, divtau_o, include_gp=True):
+        """The Godunov forcing grown by 1: forces (+ divtau_o with
+        godunov_include_diff_in_forcing)."""
+        vf = self.compute_vel_forces(rho, tra, tra, gp,
+                                     include_pressure_gradient=include_gp)
+        if self.cfg.godunov_include_diff_in_forcing and divtau_o is not None:
+            vf = vf + divtau_o
+        return self.grow_force(vf)
+
     def convective_term_godunov(self, vel, rho, tra, mac_phi0, gp,
                                 divtau_o, laps_o, dt):
         """Predict half-time MAC velocities, project them, then advect
         velocity, density and rho*tracer
         (incflo_compute_advection_term.cpp:37-114).  Returns (conv_u,
-        conv_r, conv_t, mac_phi).  Without use_mac_phi_in_godunov the
-        prediction and the advection take the same forces."""
+        conv_r, conv_t, mac_phi).  With use_mac_phi_in_godunov the
+        prediction takes the forces without gp and the last MAC phi's
+        face gradient instead, the MAC solve starts from mac_phi0 dt/2,
+        and mac_phi is kept as 2 phi / dt (incflo_tpu/simulation.py
+        :372-407); otherwise prediction and advection take the same
+        forces."""
         cfg = self.cfg
         grid = self.grid
         ng = cfg.nghost_state()
         vel_g = self.grow_vel(vel, ng)
         rho_g = self.grow_rho(rho, ng)
-
-        vf = self.compute_vel_forces(rho, tra, tra, gp)
-        if cfg.godunov_include_diff_in_forcing and divtau_o is not None:
-            vf = vf + divtau_o
-        vf_g = self.grow_force(vf)
+        mac_phi_in = cfg.use_mac_phi_in_godunov
+        vf_g = self._vel_forces_g(rho, tra, gp, divtau_o,
+                                  include_gp=not mac_phi_in)
 
         rho_g1 = inner(rho_g, ng - 1, grid.ndim)
         beta = mac_projection.inv_rho_on_faces(rho_g1, grid)
 
-        umac = self.godunov.predict(vel_g, vf_g, dt, ng, self.vel_bcrec)
+        gmacphi, phi0 = None, mac_phi0
+        if mac_phi_in:
+            # mac_phi is stored pressure-like (2 phi / dt); the fluxes of
+            # the MAC operator are (1/rho) grad(mac_phi) on the faces
+            bc_lo, bc_hi = mac_projection.projection_solver_bc(cfg.bc_kind,
+                                                               grid)
+            lev0 = mg.CellLevel(grid.dx, tuple(bc_lo), tuple(bc_hi), 0.0,
+                                1.0, None, tuple(beta))
+            gmacphi = [-f for f in mg.cell_fluxes(mac_phi0, lev0)]
+            phi0 = mac_phi0 * (0.5 * dt)
+        umac = self.godunov.predict(vel_g, vf_g, dt, ng, self.vel_bcrec,
+                                    gmacphi=gmacphi)
         umac, mac_phi = mac_projection.project_mac_velocities(
-            umac, beta, grid, cfg.bc_kind, phi0=mac_phi0,
+            umac, beta, grid, cfg.bc_kind, phi0=phi0,
             rtol=cfg.mac_mg_rtol, atol=cfg.mac_mg_atol,
             maxiter=cfg.mac_mg_maxiter, prebuilt_solver=self._mac_solver,
             direct=False)
+        if mac_phi_in:
+            mac_phi = mac_phi * (2.0 / dt)
+            vf_g = self._vel_forces_g(rho, tra, gp, divtau_o)
         conv_u = self.godunov.advect(vel_g, umac, vf_g, dt, ng,
                                      self.vel_bcrec, [0] * grid.ndim, True)
         if cfg.constant_density:
@@ -411,25 +506,39 @@ class Simulation:
     def convective_term_mol(self, vel, rho, tra, mac_phi0):
         """MOL path (incflo_compute_advection_term.cpp, MOL branch):
         upwind face velocities, MAC projection, then the upwind flux
-        divergence of velocity, density and rho*tracer.  Returns (conv_u,
-        conv_r, conv_t, mac_phi)."""
+        divergence of velocity, density and rho*tracer; with embedded
+        boundaries the centroid-aware face states (eb/mol.py), the
+        cut-cell rate and its redistribution (eb/ops.py).  Returns
+        (conv_u, conv_r, conv_t, mac_phi, umac)."""
         cfg = self.cfg
         grid = self.grid
+        eb = self.eb
         ng = cfg.nghost_state()
         vel_g = self.grow_vel(vel, ng)
         rho_g = self.grow_rho(rho, ng)
-        umac = mol.predict_vels_on_faces(vel_g, grid, ng, self.vel_bcrec)
+        if eb is not None:
+            from incflo_torch.eb import mol as ebmol
+            from incflo_torch.eb import ops as ebops
+            umac = ebmol.predict_vels_on_faces_eb(vel_g, grid, ng,
+                                                  self.vel_bcrec, eb)
+        else:
+            umac = mol.predict_vels_on_faces(vel_g, grid, ng, self.vel_bcrec)
         beta = mac_projection.inv_rho_on_faces(inner(rho_g, ng - 1, grid.ndim),
                                                grid)
         umac, mac_phi = mac_projection.project_mac_velocities(
             umac, beta, grid, cfg.bc_kind, phi0=mac_phi0,
             rtol=cfg.mac_mg_rtol, atol=cfg.mac_mg_atol,
             maxiter=cfg.mac_mg_maxiter, prebuilt_solver=self._mac_solver,
-            direct=False)
+            direct=False, eb=eb)
 
         def rate(q_g, bcrec):
-            return mol.convective_rate(mol.compute_convective_fluxes(
-                q_g, umac, grid, ng, bcrec), grid)
+            if eb is None:
+                return mol.convective_rate(mol.compute_convective_fluxes(
+                    q_g, umac, grid, ng, bcrec), grid)
+            fluxes = ebmol.compute_convective_fluxes_eb(q_g, umac, grid, ng,
+                                                        bcrec, eb)
+            return ebops.redistribute(
+                ebops.eb_convective_rate(fluxes, grid, eb), grid, eb)
 
         conv_u = rate(vel_g, self.vel_bcrec)
         if cfg.constant_density:
@@ -441,15 +550,21 @@ class Simulation:
                           self.tra_bcrec)
         else:
             conv_t = torch.zeros_like(tra)
-        return conv_u, conv_r, conv_t, mac_phi
+        return conv_u, conv_r, conv_t, mac_phi, umac
 
     # ------------------------------------------------------------------
     # nodal projection (reference incflo_apply_nodal_projection.cpp)
     # ------------------------------------------------------------------
     def apply_projection(self, vel, vel_o, rho_proj, gp, p, scaling,
                          incremental: bool, small_dt_flag):
-        """Returns (velocity, p, gp) after the projection."""
+        """Returns (velocity, p, gp) after the projection.  With embedded
+        boundaries one of incflo_tpu's three cut-cell forms
+        (simulation.py:519-605): the prebuilt EBNodalSolver of a
+        constant-density deck, else the regular NodalSolver on the 2x
+        octant lattice, else (no octant data) the vfrac-weighted
+        operator; covered cells end at zero velocity."""
         grid = self.grid
+        eb = self.eb
         if not incremental:
             vel = vel + gp * (scaling / rho_proj)[..., None]
         if incremental:
@@ -460,6 +575,13 @@ class Simulation:
             vel_in = vel - small_dt_flag * vel_o
             inflow_scale = 1.0 - small_dt_flag
         sigma = scaling / rho_proj
+        phi0 = None if incremental else p
+        if eb is not None and eb.vfrac_oct is not None:
+            phi, gphi = self._eb_exact_projection(vel_in, inflow_scale,
+                                                  sigma, scaling, phi0)
+            return self._projected(vel, sigma, gphi, phi, p, gp, incremental)
+        if eb is not None:      # the vfrac-weighted weak form
+            vel_in = vel_in * eb.vfrac[..., None]
         upads = self._pad_vel_for_divergence(vel_in, inflow_scale)
         if self._nodal_hat is not None:
             # constant density: sigma = scaling * sigma_hat, so the
@@ -478,7 +600,8 @@ class Simulation:
             bc_lo, bc_hi = mac_projection.projection_solver_bc(
                 self.cfg.bc_kind, grid)
             solver = mg.NodalSolver(grid.dx, grid.periodic, bc_lo, bc_hi,
-                                    sigma, direct=False)
+                                    sigma if eb is None else sigma * eb.vfrac,
+                                    direct=False)
             rhs = mg._nodes_unique(mg.nodal_divergence(upads, grid.dx),
                                    solver.levels[0])
             # warm start: p is last step's phi (pressure varies slowly)
@@ -487,12 +610,97 @@ class Simulation:
                                atol=self.cfg.nodal_mg_atol,
                                maxiter=self.cfg.nodal_mg_maxiter)
         gphi = solver.grad_at_cells(phi)
+        return self._projected(vel, sigma, gphi, phi, p, gp, incremental)
+
+    def _projected(self, vel, sigma, gphi, phi, p, gp, incremental):
+        """(velocity, p, gp) of a projection's phi and its cell gradient."""
         vel_new = vel - sigma[..., None] * gphi
+        if self.eb is not None:
+            vel_new = vel_new * self.eb.fluid[..., None]
         if incremental:
-            p_new, gp_new = p + phi, gp + gphi
-        else:
-            p_new, gp_new = phi, gphi
-        return vel_new, p_new, gp_new
+            return vel_new, p + phi, gp + gphi
+        return vel_new, phi, gphi
+
+    def _eb_exact_projection(self, vel_in, inflow_scale, sigma, scaling,
+                             phi0):
+        """(phi, cell gradient) of the exact octant cut-cell projection:
+        the prebuilt coarse-node stencils (constant density, hat form:
+        the operator is scaling x the prebuilt one), else the regular
+        NodalSolver on the 2x octant lattice with sigma x octant
+        fraction, phi taken at the coincident nodes."""
+        cfg = self.cfg
+        grid = self.grid
+        nd = grid.ndim
+        upads_f = self._octant_refine_pads(
+            self._pad_vel_for_divergence(vel_in, inflow_scale))
+        if self._nodal_eb_hat is not None:
+            fmeta = self._eb_fine_meta()
+            rhs = mg.eb_nodal_divergence(upads_f, fmeta) / scaling
+            phi = self._nodal_eb_hat.solve(
+                rhs, x0=phi0, rtol=cfg.nodal_mg_rtol,
+                atol=cfg.nodal_mg_atol / scaling,
+                maxiter=cfg.nodal_mg_maxiter)
+            return phi, self._eb_grad_at_cells(mg._prolong_nodal(phi, fmeta),
+                                               fmeta)
+        sigma_f = sigma
+        for ax in range(nd):
+            sigma_f = torch.repeat_interleave(sigma_f, 2, dim=ax)
+        bc_lo, bc_hi = mac_projection.projection_solver_bc(cfg.bc_kind, grid)
+        solver_f = mg.NodalSolver(tuple(d / 2 for d in grid.dx),
+                                  grid.periodic, bc_lo, bc_hi,
+                                  sigma_f * self.eb.vfrac_oct, direct=False)
+        flev = solver_f.levels[0]
+        rhs_f = mg._nodes_unique(mg.nodal_divergence(upads_f, flev.dx), flev)
+        x0 = None if phi0 is None else mg._prolong_nodal(phi0, flev)
+        phi_f = solver_f.solve(rhs_f, x0=x0, rtol=cfg.nodal_mg_rtol,
+                               atol=cfg.nodal_mg_atol,
+                               maxiter=cfg.nodal_mg_maxiter)
+        phi = phi_f[tuple(slice(0, None, 2) for _ in range(nd))]
+        return phi, self._eb_grad_at_cells(phi_f, flev)
+
+    def _octant_refine_pads(self, upads):
+        """The fine-lattice (2x) padded velocity components, weighted by
+        the octant fluid fractions: each coarse cell's value copied to
+        its octants and scaled by their fluid fraction; a ghost cell
+        copies the coarse ghost (incflo_tpu/simulation.py:646-670)."""
+        grid = self.grid
+        nd = grid.ndim
+        op = self.eb.vfrac_oct
+        for ax in range(nd):
+            op = mg._wrap_pad(op, ax) if grid.periodic[ax] \
+                else mg._edge_pad(op, ax)
+        out = []
+        for u in upads:
+            uf = u
+            for ax in range(nd):
+                uf = torch.repeat_interleave(uf, 2, dim=ax)   # 2n+4 cells
+                uf = uf.narrow(ax, 1, uf.shape[ax] - 2)
+            out.append(uf * op)
+        return out
+
+    def _eb_grad_at_cells(self, phi_f, fine_lev):
+        """The cell gradient consistent with the octant-lattice
+        projection: the octant-fraction-weighted average of the fine
+        cells' gradients of the fine nodal phi."""
+        grid = self.grid
+        nd = grid.ndim
+        oct_frac = self.eb.vfrac_oct
+
+        def agg(a):
+            for ax in range(nd):
+                n = a.shape[ax]
+                a = (mg._slice_axis(a, ax, slice(0, n, 2))
+                     + mg._slice_axis(a, ax, slice(1, n, 2)))
+            return a
+
+        wsum = agg(oct_frac)
+        wsafe = torch.clamp_min(wsum, 1e-12)
+        comps = []
+        for ax in range(nd):
+            gf = mg._node_to_cellgrad(phi_f, fine_lev, ax)
+            comps.append(torch.where(wsum > 1e-12,
+                                     agg(gf * oct_frac) / wsafe, 0.0))
+        return torch.stack(comps, dim=-1)
 
     def _pad_vel_for_divergence(self, vel, inflow_scale):
         """One ghost per axis: wrap on periodic axes (on a mesh, x from
@@ -539,9 +747,17 @@ class Simulation:
     # predictor (reference incflo_apply_predictor.cpp)
     # ------------------------------------------------------------------
     def _viscosity(self, vel_g, ng):
-        """eta grown by 1."""
-        return rheology.compute_viscosity(vel_g, self.grid, ng, self.cfg,
-                                          out_ng=1)
+        """eta grown by 1; with embedded boundaries covered cells get
+        eta = 0 (the reference's compute_viscosity_at_level) and cut
+        cells the one-sided strain-rate stencils."""
+        eta_g1 = rheology.compute_viscosity(vel_g, self.grid, ng, self.cfg,
+                                            out_ng=1, eb=self.eb)
+        if self.eb is not None:
+            bcrec = bcs.make_bcrecs(1, self.grid.ndim) * 0 \
+                + int(bcs.BCType.foextrap)
+            eta_g1 = eta_g1 * bcs.grow_scalar(self.eb.fluid, 1, self.grid,
+                                              bcrec)
+        return eta_g1
 
     def _tracer_eta_faces(self):
         grid = self.grid
@@ -575,7 +791,8 @@ class Simulation:
             eta_g1=eta_g1, grow_fn=lambda v: self.grow_vel(v, ng), ng=ng,
             grow_hom_fn=lambda v: self.grow_vel_hom(v, ng),
             prebuilt_solver=self._diff_proto, direct=False,
-            return_tensor_res=cg is not None, fixed_trips=fixed_trips)
+            return_tensor_res=cg is not None, fixed_trips=fixed_trips,
+            eb=self.eb)
         if cg is None:
             return out
         cg.append(out[1:])
@@ -594,25 +811,25 @@ class Simulation:
 
         vel_g = self.grow_vel(vel_o, ng)
         eta_g1 = self._viscosity(vel_g, ng)
-        eta_faces = diffusion.eta_to_faces(eta_g1, grid)
+        eta_faces = diffusion.eta_to_faces(eta_g1, grid, eb=self.eb)
 
         divtau_o = None
         if cfg.need_divtau() or cfg.use_tensor_correction:
             divtau_o = diffusion.compute_divtau(vel_o, vel_g, rho_o,
                                                 eta_faces, eta_g1, cfg,
-                                                grid, ng)
+                                                grid, ng, eb=self.eb)
         laps_o = None
         if cfg.advect_tracer:
             tra_eta_faces = self._tracer_eta_faces()
             if cfg.need_divtau():
                 laps_o = diffusion.compute_laps(tra_o, tra_eta_faces, cfg,
-                                                grid)
+                                                grid, eb=self.eb)
         if cfg.use_godunov:
             conv_u, conv_r, conv_t, mac_phi = self.convective_term_godunov(
                 vel_o, rho_o, tra_o, old.mac_phi, old.gp, divtau_o, laps_o,
                 dt)
         else:
-            conv_u, conv_r, conv_t, mac_phi = self.convective_term_mol(
+            conv_u, conv_r, conv_t, mac_phi, umac = self.convective_term_mol(
                 vel_o, rho_o, tra_o, old.mac_phi)
 
         # density update + half-time density
@@ -634,7 +851,7 @@ class Simulation:
             if not explicit:
                 tra_new = diffusion.diffuse_scalar(
                     tra_new, rho_new, tra_eta_faces, self._dt_diff(dt), cfg,
-                    grid)
+                    grid, eb=self.eb)
 
         # velocity update
         vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, old.gp)
@@ -653,6 +870,9 @@ class Simulation:
         vel_new, p_new, gp_new = self.apply_projection(
             vel_new, vel_o, rho_nph, old.gp, old.p, dt, incremental,
             small_dt_flag)
+        if self.eb is not None:
+            from incflo_torch.eb import ops as ebops
+            vel_new = ebops.correct_small_cells(vel_new, umac, grid, self.eb)
         new = LevelState(velocity=vel_new, density=rho_new, tracer=tra_new,
                          gp=gp_new, p=p_new, mac_phi=mac_phi)
         return new, dict(conv_u=conv_u, conv_r=conv_r, conv_t=conv_t,
@@ -674,22 +894,23 @@ class Simulation:
         cn = cfg.diff_type == DiffusionType.Crank_Nicolson
         explicit = cfg.diff_type == DiffusionType.Explicit
 
-        conv_u, conv_r, conv_t, mac_phi = self.convective_term_mol(
+        conv_u, conv_r, conv_t, mac_phi, umac = self.convective_term_mol(
             star.velocity, star.density, star.tracer, star.mac_phi)
 
         vel_g = self.grow_vel(star.velocity, ng)
         eta_g1 = self._viscosity(vel_g, ng)
-        eta_faces = diffusion.eta_to_faces(eta_g1, grid)
+        eta_faces = diffusion.eta_to_faces(eta_g1, grid, eb=self.eb)
         divtau = None
         if explicit or cfg.use_tensor_correction:
             divtau = diffusion.compute_divtau(star.velocity, vel_g,
                                               star.density, eta_faces,
-                                              eta_g1, cfg, grid, ng)
+                                              eta_g1, cfg, grid, ng,
+                                              eb=self.eb)
         tra_eta_faces = self._tracer_eta_faces()
         laps = None
         if cfg.advect_tracer and explicit:
             laps = diffusion.compute_laps(star.tracer, tra_eta_faces, cfg,
-                                          grid)
+                                          grid, eb=self.eb)
 
         if cfg.constant_density:
             rho_new, rho_nph = rho_o, rho_o
@@ -710,7 +931,7 @@ class Simulation:
             if not explicit:
                 tra_new = diffusion.diffuse_scalar(
                     tra_new, rho_new, tra_eta_faces, self._dt_diff(dt), cfg,
-                    grid)
+                    grid, eb=self.eb)
 
         vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, star.gp)
         dv = 0.5 * (conv_u + aux["conv_u"]) + vel_f
@@ -728,6 +949,9 @@ class Simulation:
         vel_new, p_new, gp_new = self.apply_projection(
             vel_new, vel_o, rho_nph, star.gp, old.p, dt, False,
             small_dt_flag)
+        if self.eb is not None:
+            from incflo_torch.eb import ops as ebops
+            vel_new = ebops.correct_small_cells(vel_new, umac, grid, self.eb)
         return LevelState(velocity=vel_new, density=rho_new, tracer=tra_new,
                           gp=gp_new, p=p_new, mac_phi=mac_phi)
 
@@ -811,6 +1035,10 @@ class Simulation:
         on a mesh the rank's slab of the whole level's initial fields."""
         cfg = self.cfg
         level = probs.init_fluid(cfg, cfg.grid, self.dtype, self.device)
+        if self.eb is not None:
+            f = self.eb.fluid[..., None]
+            level = level._replace(velocity=level.velocity * f,
+                                   tracer=level.tracer * f)
         if self.mesh is not None:
             level = LevelState(*(self.mesh.slab(f).contiguous()
                                  for f in level))

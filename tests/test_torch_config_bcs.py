@@ -115,9 +115,9 @@ def test_state_round_trip_and_init_fluid():
 
 
 def test_other_probtypes_raise():
-    """Probtype 6, the slanted channel of an EB cylinder, waits for
-    ROADMAP A11 (every other probtype is ported)."""
+    """Every probtype of incflo_tpu is ported (6, the slanted EB channel,
+    with ROADMAP A11); an unknown one raises as incflo_tpu's does."""
     text, _ = bench._deck("shear3d", 16, "float64")
-    cfg = TConfig.from_text(text + "incflo.probtype = 6\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    cfg = TConfig.from_text(text + "incflo.probtype = 7\n")
+    with pytest.raises(ValueError, match="unknown probtype 7"):
         tprobs.init_fluid(cfg, cfg.grid, torch.float64, "cpu")

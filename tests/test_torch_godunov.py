@@ -225,9 +225,11 @@ def test_walled_scheme_takes_plain_path_by_periodicity():
     b = gk.advect_plain(tg, vel_g, got, None, 0.02, (0, 0, 0), True,
                         bcrecs=np.asarray(vb), ng=ng, is_velocity=True)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ts.predict(vel_g, None, 0.02, ng, np.asarray(vb),
-                   gmacphi=[None] * 3)
+    # a zero MAC-phi gradient (use_mac_phi_in_godunov from mac_phi = 0)
+    # takes the same chain and changes nothing
+    zeros = [torch.zeros_like(u) for u in got]
+    again = ts.predict(vel_g, None, 0.02, ng, np.asarray(vb), gmacphi=zeros)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 # ---------------------------------------------------------------------
@@ -284,14 +286,16 @@ def test_wrappers_raise_outside_scope():
         gk.predict(walled, vel, None, DT, True)
     with pytest.raises(ValueError, match="grown"):   # no ghosts, no bcrecs
         gk.predict_plain(walled, vel, None, DT, True)
+    # 2D grids and use_forces_in_trans take the plain chain, which needs
+    # grown arrays: given none, it says so
     flat = TGrid(n_cell=(8, 8), prob_lo=(0.0,) * 2, prob_hi=(1.0,) * 2,
                  periodic=(True, True))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="grown"):
         tgod.GodunovScheme(flat, True, False).predict(
             torch.zeros((8, 8, 2), dtype=torch.float64), None, DT, 0,
             _bcrec(2))
     _, tg = _grids(N64, HI64)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="grown"):
         tgod.GodunovScheme(tg, True, True).predict(
             torch.zeros(N64 + (3,), dtype=torch.float64), None, DT, 0,
             _bcrec(3))

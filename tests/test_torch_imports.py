@@ -115,24 +115,56 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     assert gk.LAUNCHES == before
 
 
-@pytest.mark.parametrize("config,extra,item", [
-    ("tgv2d", "incflo.use_godunov = true\n", "A8"),
+# decks that ran only after the A8 and A11 slice (2D Godunov, 2D walls,
+# 2D multigrid, use_forces_in_trans, use_mac_phi_in_godunov, embedded
+# boundaries)
+SLICE_DECKS = [
+    ("tgv2d", "incflo.use_godunov = true\n"),
     ("tgv2d", 'geometry.is_periodic = 1 0\nylo.type = "nsw"\n'
-     'yhi.type = "nsw"\n', "A8"),
-    ("tgv2d", "incflo.constant_density = false\n", "A8"),
-    ("tgv2d", "incflo.advect_tracer = true\n", "A8"),
-    ("tgv2d", "incflo.fluid_model = powerlaw\nincflo.n = 0.5\n", "A8"),
-    ("shear3d", "incflo.godunov_use_forces_in_trans = true\n", "A8"),
-    ("poiseuille_cyl_bingham", "", "A11"),
-    ("rt", "amr.max_level = 1\n", "A13"),
-    ("channel_cyl", "", "A11"),
-    ("tgv2d", "incflo.probtype = 111\nincflo.advect_tracer = true\n", "A8"),
-    ("shear3d", "incflo.use_mac_phi_in_godunov = true\n", "A8"),
-    ("shear3d", "amr.max_level = 1\n", "A13"),
-])
-def test_decks_outside_the_slice_raise(config, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        incflo_torch.Simulation(_cfg(extra, config), device="cpu")
+     'yhi.type = "nsw"\n'),
+    ("tgv2d", "incflo.constant_density = false\n"),
+    ("tgv2d", "incflo.advect_tracer = true\n"),
+    ("tgv2d", "incflo.fluid_model = powerlaw\nincflo.n = 0.5\n"),
+    ("shear3d", "incflo.godunov_use_forces_in_trans = true\n"),
+    ("poiseuille_cyl_bingham", ""),
+    ("rt", ""),
+    ("channel_cyl", ""),
+    ("tgv2d", "incflo.probtype = 111\nincflo.advect_tracer = true\n"),
+    ("shear3d", "incflo.use_mac_phi_in_godunov = true\n"),
+    ("shear3d", ""),
+]
+
+
+@pytest.mark.parametrize("config,extra", SLICE_DECKS)
+def test_decks_outside_the_slice_raise(config, extra):
+    """Every one-level deck runs now; the same decks with patch AMR
+    raise and name ROADMAP A13 (EB with max_level > 0 too)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        incflo_torch.Simulation(_cfg(extra + "amr.max_level = 1\n", config),
+                                device="cpu")
+
+
+@pytest.mark.parametrize("config,extra", SLICE_DECKS)
+def test_decks_of_the_a8_a11_slice_build(config, extra):
+    """The one-level form of each deck builds on the CPU, and a deck with
+    a cylinder finds its cut cells and advects by MOL."""
+    sim = incflo_torch.Simulation(_cfg(extra, config), device="cpu")
+    has_cylinder = config in ("channel_cyl", "poiseuille_cyl_bingham")
+    assert (sim.eb is not None) == has_cylinder
+    if has_cylinder:
+        assert not sim.cfg.use_godunov and float(sim.eb.cut.sum()) > 0
+
+
+def test_eb_deck_asking_for_godunov_takes_mol_eb():
+    """incflo_tpu/simulation.py:49-66: the Godunov scheme does not see
+    cut cells, so an EB deck that asks for it advects by MOL-EB, warns,
+    and keeps its CFL at the MOL bound."""
+    extra = "incflo.use_godunov = true\nincflo.cfl = 0.9\n"
+    with pytest.warns(UserWarning, match="MOL-EB"):
+        sim = incflo_torch.Simulation(_cfg(extra, "channel_cyl"),
+                                      device="cpu")
+    assert not sim.cfg.use_godunov and sim.cfg.cfl == 0.5
+    assert not hasattr(sim, "godunov")
 
 
 def test_tgv2d_deck_is_accepted():

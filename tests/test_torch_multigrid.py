@@ -262,8 +262,9 @@ def test_nodal_solve_matches(nodal_pair):
 
 def test_walled_levels_raise_and_name_the_roadmap():
     """Walled 3D levels smooth and solve (they raised until the wall
-    forms were ported); what still raises is a 2D level, naming its
-    ROADMAP item."""
+    forms were ported), and since ROADMAP A8 a walled 2D level does too,
+    swept in incflo_tpu's own arithmetic: its V-cycle CG ends on
+    incflo_tpu's iteration and within 1e-10 of its solution."""
     sigma = torch.ones(N, dtype=torch.float64)
     ns = tmg.NodalSolver(DX, (True, True, False), (0, 0, 1), (0, 0, 1),
                          sigma * (1 + torch.rand(N, dtype=torch.float64)))
@@ -275,12 +276,20 @@ def test_walled_levels_raise_and_name_the_roadmap():
                         acoef=None, bcoef=tuple(bco))
     x = cs.solve(torch.rand(N, dtype=torch.float64))
     assert x.shape == N and bool(torch.isfinite(x).all())
-    one = torch.ones((8, 9), dtype=torch.float64)
+    bx = 1.0 + rng.random((9, 8))
+    by = 1.0 + rng.random((8, 9))
+    rhs = rng.standard_normal((8, 8))
     cs2 = tmg.CellSolver(DX[:2], (0, 1), (0, 1), alpha=1.0, beta=1.0,
                          acoef=torch.ones((8, 8), dtype=torch.float64),
-                         bcoef=(one.T.contiguous(), one), direct=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        cs2.solve(torch.rand((8, 8), dtype=torch.float64))
+                         bcoef=(torch.as_tensor(bx), torch.as_tensor(by)),
+                         direct=False)
+    x2, _, it2 = cs2.solve_info(torch.as_tensor(rhs), rtol=1e-11, atol=1e-14)
+    js2 = jmg.CellSolver(DX[:2], (0, 1), (0, 1), alpha=1.0, beta=1.0,
+                         acoef=jnp.ones((8, 8)),
+                         bcoef=(jnp.asarray(bx), jnp.asarray(by)))
+    xj, _, itj = js2.solve(jnp.asarray(rhs), rtol=1e-11, atol=1e-14)
+    assert it2 == int(itj) > 0
+    assert _rel(x2, xj) <= 1e-10
 
 
 # ---------------------------------------------------------------------

@@ -76,11 +76,12 @@ def test_init_fluid_2d_matches(probtype):
 
 
 def test_slanted_channel_raises_naming_a11():
-    """probtype 6 (the rotated EB cylinder channel) waits for ROADMAP
-    A11; an unknown probtype is refused as by incflo_tpu."""
-    cfg = TConfig.from_text(_text(3, 6))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tprobs.init_fluid(cfg, cfg.grid, torch.float64, "cpu")
+    """probtype 6 (the rotated EB cylinder channel) is ported with ROADMAP
+    A11: without a cylinder rotation it is the uniform start, as in
+    incflo_tpu (tests/test_torch_eb_probtype6.py holds the rotated
+    form); an unknown probtype is refused as by incflo_tpu."""
+    _check(3, 6)
+    _check(2, 6)
     cfg = TConfig.from_text(_text(3, 7))
     with pytest.raises(ValueError, match="unknown probtype 7"):
         tprobs.init_fluid(cfg, cfg.grid, torch.float64, "cpu")

@@ -60,6 +60,14 @@ SCOPE_DECKS = {
     "Boussinesq buoyancy": "incflo.probtype = 111\n"
                            "incflo.gravity = 0. 0. -1.\n",
     "explicit diffusion": "incflo.diffusion_type = 0\n",
+    "embedded boundaries": ('incflo.geometry = "cylinder"\n'
+                            "cylinder.internal_flow = false\n"
+                            "cylinder.radius = 0.2\n"
+                            "cylinder.direction = 2\n"
+                            "cylinder.center = 0.5 0.5 0.\n"),
+    "godunov_use_forces_in_trans":
+        "incflo.godunov_use_forces_in_trans = true\n",
+    "use_mac_phi_in_godunov": "incflo.use_mac_phi_in_godunov = true\n",
 }
 
 

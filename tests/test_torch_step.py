@@ -320,8 +320,11 @@ def test_rt_init_matches_reference_profile():
 
 def test_unsupported_walled_decks_name_the_roadmap():
     """Walled decks outside the slice go on raising and name their item:
-    2D walls (A8) and embedded boundaries (A11).  Mass inflow and
-    pressure outflow run since A9c (tests/test_torch_inflow.py)."""
+    since A8 and A11 the 2D inflow channel and channel_cyl with its
+    cylinder run (tests/test_torch_channel2d.py,
+    tests/test_torch_eb_step.py), and only their patch-AMR forms raise
+    (A13)."""
+    amr = "amr.max_level = 1\n"
     text = bench._deck("tgv2d", 16, "float64")[0] + """
 geometry.is_periodic = 0 1
 xlo.type = "mi"
@@ -329,10 +332,12 @@ xlo.velocity = 1. 0.
 xhi.type = "po"
 xhi.pressure = 0.
 """
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(text),
-                                device="cpu")
+    incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(text),
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        incflo_torch.Simulation(
+            incflo_torch.IncfloConfig.from_text(text + amr), device="cpu")
     text = bench._deck("channel_cyl", 16, "float64")[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(text),
-                                device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        incflo_torch.Simulation(
+            incflo_torch.IncfloConfig.from_text(text + amr), device="cpu")

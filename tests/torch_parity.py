@@ -30,6 +30,7 @@ FIELDS = ("velocity", "density", "tracer", "p", "gp", "mac_phi")
 # COUNTS key of the same iterations
 LOOPS = {"CellSolver.solve.<locals>.run_pcg.<locals>.cond": "cell_iters",
          "NodalSolver.solve.<locals>.cond": "nodal_cycles",
+         "EBNodalSolver.solve.<locals>.cond": "nodal_cycles",
          "_tensor_pcg.<locals>.run.<locals>.cond": "tensor_cg_iters"}
 KINDS = tuple(LOOPS.values())
 
@@ -95,6 +96,62 @@ incflo.mu_s = 0.001
 """
 
 
+def rt2d_deck(extra=""):
+    """The one-level form of tests/test_amr_patch.py's RT2D deck
+    (:15-37) with amr.max_level = 0: 16 x 32 cells on 0.5 x 1, periodic
+    x, slip y walls, probtype 5, gravity -0.1, variable density, one
+    advected tracer, Godunov, one initial iteration."""
+    return """
+amr.n_cell = 16 32
+amr.max_level = 0
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 0.5 1.0
+geometry.is_periodic = 1 0
+ylo.type = "sw"
+yhi.type = "sw"
+incflo.probtype = 5
+incflo.gravity = 0. -0.1
+incflo.use_godunov = true
+incflo.constant_density = false
+incflo.advect_tracer = true
+incflo.ntrac = 1
+incflo.mu = 0.001
+incflo.mu_s = 0.001
+incflo.cfl = 0.9
+incflo.init_shrink = 1.0
+incflo.initial_iterations = 1
+""" + extra
+
+
+def channel2d_deck(dtype="float64"):
+    """A 2D mass-inflow channel: the x-y section of channel_cyl without
+    its cylinder, 32 x 16 cells on 1.2 x 0.4, mass inflow (1, 0) with
+    tracer 1 at x-lo, pressure outflow at x-hi, no-slip y walls,
+    probtype 31, MOL, one advected tracer."""
+    head = bench._deck("tgv2d", 16, dtype)[0].split("amr.n_cell")[0]
+    return head + """
+amr.n_cell = 32 16
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 1.2 0.4
+geometry.is_periodic = 0 0
+ylo.type = "nsw"
+yhi.type = "nsw"
+xlo.type = "mi"
+xlo.velocity = 1. 0.
+xlo.tracer = 1.
+xhi.type = "po"
+xhi.pressure = 0.0
+incflo.probtype = 31
+incflo.ic_u = 1.0
+incflo.mu = 0.001
+incflo.ntrac = 1
+incflo.advect_tracer = true
+incflo.mu_s = 0.001
+incflo.cfl = 0.45
+"""
+
+
+MOL2D_RT = "incflo.use_godunov = false\nincflo.cfl = 0.5\n"
 EXPLICIT = "incflo.diffusion_type = 0\n"
 MOL = "incflo.use_godunov = false\nincflo.cfl = 0.5\n"
 
@@ -223,3 +280,108 @@ def compare_run(sim, s, states, iters, tol=1e-10, fields=FIELDS,
         assert int(got["step"]) == int(want["step"]) == i
     assert got_iters == iters, (got_iters, iters)
     return s, worst, got_iters
+
+
+# ---------------------------------------------------------------------
+# embedded boundaries: the bench.py EB decks and both packages' geometry
+# ---------------------------------------------------------------------
+
+# a 2D circle: a cylinder along the absent z axis, fluid outside
+CIRCLE2D = """
+amr.n_cell = 24 16
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 1.2 0.8
+geometry.is_periodic = 1 1
+incflo.geometry = "cylinder"
+cylinder.internal_flow = false
+cylinder.radius = 0.2
+cylinder.direction = 2
+cylinder.center = 0.5 0.41 0.
+"""
+
+
+def eb_deck(name, n=16, dtype="float64"):
+    """channel_cyl or poiseuille_cyl_bingham as bench._deck builds them,
+    or "circle2d"."""
+    return CIRCLE2D if name == "circle2d" else bench._deck(name, n, dtype)[0]
+
+
+def eb_geometry(text):
+    """(incflo_tpu's EBData, the port's, incflo_tpu's grid, the port's)."""
+    from incflo_tpu.config import IncfloConfig as JConfig
+    from incflo_tpu.eb import geometry as jgeom
+    from incflo_torch.eb import geometry as tgeom
+    jc = JConfig.from_text(text)
+    tc = incflo_torch.IncfloConfig.from_text(text)
+    jd = jgeom.compute_eb_data(
+        jgeom.make_eb_geometry(jc.eb_geometry, jc.pp, jc.grid), jc.grid)
+    td = tgeom.compute_eb_data(
+        tgeom.make_eb_geometry(tc.eb_geometry, tc.pp, tc.grid), tc.grid)
+    return jd, td, jc.grid, tc.grid
+
+
+def eb_arrays(text):
+    """(incflo_tpu's EBArrays, the port's on the CPU, both grids)."""
+    import jax.numpy as jnp
+    from incflo_tpu.eb import ops as jops
+    from incflo_torch.eb import ops as tops
+    jd, td, jg, tg = eb_geometry(text)
+    return (jops.build_eb_arrays(jd, jg, jnp.float64),
+            tops.build_eb_arrays(td, tg, torch.float64, "cpu"), jg, tg)
+
+
+def masked_random(shape, fluid, seed, scale=1.0):
+    """A seeded field, zero in covered cells."""
+    a = scale * np.random.default_rng(seed).standard_normal(shape)
+    f = np.asarray(fluid)
+    return a * f.reshape(f.shape + (1,) * (len(shape) - f.ndim))
+
+
+def fluid_perturbation(sim, seed):
+    """smooth_perturbation of the port's grid, zero in covered cells."""
+    p = smooth_perturbation(sim.grid, seed)
+    return p * sim.eb.fluid[..., None].numpy()
+
+
+def eb_vd_deck(n=16):
+    """A variable-density EB deck, whose nodal projection takes the
+    octant lattice: poiseuille_cyl_bingham's geometry (fluid inside a
+    periodic cylinder, delp (0, 0, 2)) with a Newtonian fluid (mu 0.01),
+    incflo.constant_density = false and one advected tracer."""
+    text = _without(bench._deck("poiseuille_cyl_bingham", n, "float64")[0],
+                    ("incflo.fluid_model", "incflo.tau_0", "incflo.papa_reg",
+                     "incflo.mu"))
+    return text + """incflo.mu = 0.01
+incflo.constant_density = false
+incflo.advect_tracer = true
+incflo.ntrac = 1
+incflo.mu_s = 0.01
+"""
+
+
+def probtype6_deck():
+    """Probtype 6, the slanted EB channel: a z cylinder (radius 0.3, the
+    fluid inside) whose centre the rotation of 30 degrees about z moves
+    to (0.5, 0.5), the velocity (cos 30, sin 30, 0) and two tracer bands
+    along x from the probtype, 16 x 16 x 8 cells, fully periodic, MOL."""
+    head = bench._deck("shear3d", 16, "float64")[0].split("amr.n_cell")[0]
+    return head + """
+amr.n_cell = 16 16 8
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = 1. 1. 0.5
+geometry.is_periodic = 1 1 1
+incflo.geometry = "cylinder"
+cylinder.internal_flow = true
+cylinder.radius = 0.3
+cylinder.direction = 2
+cylinder.center = 0.6830127 0.1830127 0.
+cylinder.rotation = 30
+cylinder.rotation_axe = 2
+incflo.probtype = 6
+incflo.ic_u = 1.0
+incflo.ntrac = 2
+incflo.advect_tracer = true
+incflo.mu = 0.01
+incflo.mu_s = 0.01
+incflo.cfl = 0.45
+"""
