@@ -5,9 +5,6 @@
     python3 chip_smoke.py --profile  # also print the device time of the
                                      # steps (torch.profiler) and where the
                                      # rt step's time goes by section
-    python3 chip_smoke.py --record-tallies  # print the per-step tallies of
-                                     # a main cell not in TALLIES yet
-                                     # instead of failing on it
 
 Phases (any failure ends the run with a non-zero exit):
   1. build   the CUDA kernels of incflo_torch/csrc/godunov.cu,
@@ -89,7 +86,10 @@ Phases (any failure ends the run with a non-zero exit):
              launch.  The decks of ROADMAP A8 and A11 likewise, every
              field and dt to 1e-9 and the solvers' iterations equal:
              tgv2d with Godunov at 32^2, plain, with
-             use_mac_phi_in_godunov and with use_forces_in_trans; rt2d,
+             use_mac_phi_in_godunov and with use_forces_in_trans;
+             shear3d at 32x32x8 with use_mac_phi_in_godunov (its predict
+             in the plain chain, no uad or predict_d launch, its advect
+             through the kernel); rt2d,
              the one-level form of tests/test_amr_patch.py:15-37 (16x32);
              channel_cyl with its cylinder at 32x16x8 and
              poiseuille_cyl_bingham with its cylinder at 16x16x8 (from
@@ -138,19 +138,25 @@ Phases (any failure ends the run with a non-zero exit):
              bench.py:_deck builds them), tgv2d with Godunov at 128^2,
              rt2d (the x-z section of bench.py's rt deck) at 64x128;
              ms/step, the launches of every kernel (the cell smoother on
-             the EB decks' MAC and tracer levels, walled on the channel,
-             none on the 2D decks), the tallies of TALLIES to the digit,
-             finite fields, covered cells at rest, the next step's nodal
-             solves (rt2d's within STAGNATION_BOUND times its tolerance,
-             and its final velocity re-projected from zero to 1),
-             tgv2d's decay to 1e-3; then one profiled step each for the
-             device idle share.
-             Last, on poiseuille_cyl_bingham's geometry: `cell_smooth`
-             on the fine and first coarse level of its velocity
-             hierarchy with the EB wall term folded into diag, three
-             components, bit-equal to cell_smooth_plain in float32 and
-             float64, one kernel node a call, its and the plain
-             version's time and the bound ("levels_eb").
+             the EB decks' MAC, velocity and tracer levels, walled on the
+             channel, none on the 2D decks), the tallies of TALLIES to
+             the digit (a cell that differs prints its own), finite
+             fields, covered cells at rest, the next step's nodal solves
+             each within its tolerance before maxiter (rt2d's within
+             STAGNATION_BOUND times it, and its final velocity
+             re-projected from zero to 1), on the EB decks the next
+             step's cell CG solves before maxiter and within
+             CELL_STAGNATION_BOUND times their tolerance, tgv2d's decay
+             to 1e-3; then one profiled step each for the device idle
+             share.
+             Last, the cut-cell velocity solver that one more
+             poiseuille_cyl_bingham step builds: `cell_smooth` on its
+             fine and first coarse level (the EB wall term folded into
+             diag, face 0 of the periodic z axis as a wrap plane, three
+             components), bit-equal to cell_smooth_plain in float32 and
+             on the same coefficients in float64, one kernel node a
+             call, its and the plain version's time and the bound
+             ("levels_eb").
   6. sharded the x-slab mesh of incflo_torch/parallel and the halo-slab
              Godunov kernels (B8).  First the kernels in one process (after
              phase 2): the shear3d n = 128 level cut into 2 slabs (nxl 64)
@@ -258,15 +264,16 @@ TALLIES = {
                          "tensor_cg_iters": 0.0, "host_syncs": 0.0},
     "shear3d_mol": {"cell_iters": 0.0, "nodal_cycles": 0.0,
                     "tensor_cg_iters": 0.0, "host_syncs": 2.0},
-    # the A8 and A11 cells (their first chip run, --record-tallies)
+    # the A8 and A11 cells (read from their chip runs)
     "channel_cyl": {"cell_iters": 23.4, "nodal_cycles": 8.8,
                     "tensor_cg_iters": 4.0, "cell_smooth": 0.0,
-                    "nodal_smooth": 0.0, WALLED: 179.8, WALLED_NODAL: 0.0,
+                    "nodal_smooth": 0.0, WALLED: 225.8, WALLED_NODAL: 0.0,
                     "host_syncs": 58.2},
-    "poiseuille_cyl_bingham": {"cell_iters": 191.0, "nodal_cycles": 13.4,
-                               "tensor_cg_iters": 42.2, "cell_smooth": 171.0,
-                               "nodal_smooth": 0.0, WALLED: 0.0,
-                               WALLED_NODAL: 0.0, "host_syncs": 268.6},
+    "poiseuille_cyl_bingham": {"cell_iters": 192.0, "nodal_cycles": 13.6,
+                               "tensor_cg_iters": 42.8,
+                               "cell_smooth": 2189.2, "nodal_smooth": 0.0,
+                               WALLED: 0.0, WALLED_NODAL: 0.0,
+                               "host_syncs": 270.4},
     "tgv2d_godunov": {"cell_iters": 0.0, "nodal_cycles": 0.0,
                       "tensor_cg_iters": 1.0, "cell_smooth": 0.0,
                       "nodal_smooth": 0.0, WALLED: 0.0, WALLED_NODAL: 0.0,
@@ -1869,23 +1876,18 @@ def vd_projection_check(sim, s, mg, torch):
             div * min(grid.dx) / float(u.abs().max()))
 
 
-RECORD_TALLIES = False
-
-
 def check_tallies(tag, per_step):
-    """The per-step tallies of a multigrid cell, to the digit; with
-    --record-tallies a cell not in TALLIES yet prints its own instead."""
-    if RECORD_TALLIES and tag not in TALLIES:
-        keys = ("cell_iters", "nodal_cycles", "tensor_cg_iters",
-                "cell_smooth", "nodal_smooth", WALLED, WALLED_NODAL,
-                "host_syncs")
-        print(f"[tallies] {tag}: " + json.dumps(
-            {k: round(per_step[k], 1) for k in keys}), flush=True)
-        return
-    got = {k: round(per_step[k], 1) for k in TALLIES[tag]}
-    if got != TALLIES[tag]:
+    """The per-step tallies of a multigrid cell, to the digit.  A cell
+    whose tallies differ from TALLIES, or that TALLIES lacks, fails and
+    prints its own."""
+    keys = TALLIES.get(tag, ("cell_iters", "nodal_cycles", "tensor_cg_iters",
+                             "cell_smooth", "nodal_smooth", WALLED,
+                             WALLED_NODAL, "host_syncs"))
+    got = {k: round(per_step[k], 1) for k in keys}
+    if got != TALLIES.get(tag):
+        print(f"[tallies] {tag}: " + json.dumps(got), flush=True)
         raise AssertionError(f"{tag}: per-step tallies {got}, expected "
-                             f"{TALLIES[tag]}")
+                             f"{TALLIES.get(tag)}")
 
 
 def phase_main_vd(incflo_torch, gk, sk, mg, torch, start, warm=2, steps=5):
@@ -2060,13 +2062,21 @@ def nodal_solves(mg, run):
     step's own projections; a direct solve is not listed): (final
     max-norm residual over the tolerance it was held to, V-cycles,
     maxiter), as multigrid.NODAL_LOG records them."""
-    mg.NODAL_LOG = []
+    return logged_solves(mg, run)[0]
+
+
+def logged_solves(mg, run):
+    """Run `run()`; (its nodal solves as nodal_solves lists them, its
+    cell solves whose CG iterated likewise from multigrid.CELL_LOG: the
+    best residual over the tolerance, CG iterations, maxiter)."""
+    mg.NODAL_LOG, mg.CELL_LOG = [], []
     try:
         run()
-        return [(float(res) / float(tol), it, maxiter)
-                for res, tol, it, maxiter in mg.NODAL_LOG]
+        return tuple([(float(res) / float(tol), it, maxiter)
+                      for res, tol, it, maxiter in log]
+                     for log in (mg.NODAL_LOG, mg.CELL_LOG))
     finally:
-        mg.NODAL_LOG = None
+        mg.NODAL_LOG = mg.CELL_LOG = None
 
 
 def phase_main_a9c(incflo_torch, gk, sk, s2, mg, torch, name, warm=2,
@@ -2480,6 +2490,7 @@ A8_A11_PATHS = {
     "tgv2d_godunov": tgv2d_godunov_deck(32, "float64"),
     "tgv2d_godunov mac_phi": tgv2d_godunov_deck(32, "float64", MAC_PHI),
     "tgv2d_godunov forces_in_trans": tgv2d_godunov_deck(32, "float64", UFT),
+    "shear3d mac_phi": shear3d_deck(32, "float64") + MAC_PHI,
     "rt2d": rt2d_patch_deck("float64"),
     "channel_cyl": channel_cyl_deck(32, "float64"),
     "poiseuille_cyl_bingham": bingham_cyl_deck(16, "float64"),
@@ -2493,10 +2504,9 @@ A8_A11_MAIN = {
 # the kernels each main cell must launch (every other kernel no time):
 # none on the 2D decks (their Godunov chain and V-cycles are plain
 # PyTorch, as incflo_tpu's are jnp); on the EB decks the cell smoother on
-# the area-fraction MAC levels and the tracer's cut-cell levels (walled
-# on the channel, periodic on the Bingham deck) -- the EB velocity levels
-# take the plain flux-form sweep and the prebuilt cut-cell nodal
-# operator its plain 27-point one
+# the area-fraction MAC levels and the cut-cell velocity and tracer
+# levels (walled on the channel, periodic on the Bingham deck) -- the
+# prebuilt cut-cell nodal operator takes its plain 27-point sweep
 A8_A11_KERNELS = {
     "channel_cyl": (WALLED,),
     "poiseuille_cyl_bingham": ("cell_smooth",),
@@ -2505,11 +2515,22 @@ A8_A11_KERNELS = {
 }
 
 
-def phase_paths_a8_a11(incflo_torch, mg, torch, name):
+# the next step's cell CG solves (MAC, cut-cell velocity, tracer) of the
+# EB cells, held to this many times their tolerance: channel_cyl's
+# converge (0.55-0.80 on an H100); poiseuille_cyl_bingham's cut-cell
+# velocity solves stop on stagnation (2.15e4 x on an H100 in f32;
+# incflo_tpu's and the port's alike up to 1.3e6 x at 32x32x8 in f64 on
+# the CPU, tests/test_torch_eb_bingham32.py; ROADMAP C)
+CELL_STAGNATION_BOUND = {"channel_cyl": 1.0, "poiseuille_cyl_bingham": 1e5}
+
+
+def phase_paths_a8_a11(incflo_torch, gk, mg, torch, name):
     """An A8 / A11 deck, float64, 3 steps on cuda (kernels) and on cpu
     (plain versions) from one state (the Bingham cylinder's perturbed by
     probs.smooth_perturbation, zero in covered cells): every field and dt
-    to 1e-9 relative and the solvers' iterations equal."""
+    to 1e-9 relative and the solvers' iterations equal.  shear3d with
+    use_mac_phi_in_godunov: its predict takes the plain chain (no uad or
+    predict_d launch), its advect the kernel."""
     from incflo_torch import state as st
     from incflo_torch.probs import smooth_perturbation
     cfg = incflo_torch.IncfloConfig.from_text(A8_A11_PATHS[name])
@@ -2522,6 +2543,7 @@ def phase_paths_a8_a11(incflo_torch, mg, torch, name):
             velocity=s_c.level.velocity + p * sim_c.eb.fluid[..., None]))
     s_g = st.sim_from_numpy(st.sim_to_numpy(s_c), "cuda", torch.float64)
     iters = []
+    gk.reset_launches()
     for sim, s in ((sim_c, s_c), (sim_g, s_g)):
         mg.reset_counts()
         s = sim.advance_n(s, 3)
@@ -2543,10 +2565,15 @@ def phase_paths_a8_a11(incflo_torch, mg, torch, name):
     if iters[0] != iters[1]:
         raise AssertionError(f"paths {name}: iterations cpu {iters[0]}, "
                              f"cuda {iters[1]}")
+    godunov = {k: gk.LAUNCHES[k] for k in ("uad", "predict_d", "advect")}
+    if name == "shear3d mac_phi" and not (
+            godunov["advect"] > 0 and godunov["uad"] == godunov["predict_d"]
+            == 0):
+        raise AssertionError(f"paths {name}: Godunov launches {godunov}")
     print(f"[paths] {name} {cfg.grid.n_cell} f64, 3 steps: cuda vs cpu "
           f"worst relative {worst:.3e} (tol 1e-9) over "
-          f"{', '.join(A9C_FIELDS)}, dt; iterations equal {iters[0]}",
-          flush=True)
+          f"{', '.join(A9C_FIELDS)}, dt; iterations equal {iters[0]}; "
+          f"Godunov kernel launches {godunov}", flush=True)
     return worst
 
 
@@ -2623,22 +2650,34 @@ def phase_main_a8_a11(incflo_torch, gk, sk, s2, mg, torch, name, warm=2,
     def one_step():
         box[0] = sim.advance(box[0])
         torch.cuda.synchronize()
-    solves = nodal_solves(mg, one_step)
+    solves, cell = logged_solves(mg, one_step)
     s = box[0]
     out.update(nodal_res_over_tol=[r for r, _, _ in solves],
-               nodal_cycles=[it for _, it, _ in solves])
+               nodal_cycles=[it for _, it, _ in solves],
+               cell_res_over_tol=[r for r, _, _ in cell],
+               cell_cg_iters=[it for _, it, _ in cell])
     notes.append(f"the next step's nodal solves: residual / tol "
                  f"{[round(r, 3) for r, _, _ in solves]} in "
                  f"{[it for _, it, _ in solves]} V-cycles (maxiter "
-                 f"{cfg.nodal_mg_maxiter})")
+                 f"{cfg.nodal_mg_maxiter}); its cell CG solves: best "
+                 f"residual / tol {[float(f'{r:.3g}') for r, _, _ in cell]}"
+                 f" in {[(it, m) for _, it, m in cell]} (iterations, "
+                 f"maxiter)")
+    # the f32 in-step nodal solve of rt2d stops on stagnation near its
+    # tolerance, as the bubble's does: held to STAGNATION_BOUND, and the
+    # final velocity re-projected from zero to 1 below; every other
+    # cell's to its tolerance
+    bound_n = STAGNATION_BOUND if name == "rt2d" else 1.0
+    if ((per_step["nodal_cycles"] > 0 and not solves)
+            or any(r > bound_n or it >= m for r, it, m in solves)):
+        raise AssertionError(f"{name}: the step's nodal solves ended at "
+                             f"{solves} (bound {bound_n} x tolerance)")
+    if sim.eb is not None:
+        bound_c = CELL_STAGNATION_BOUND[name]
+        if not cell or any(r > bound_c or it >= m for r, it, m in cell):
+            raise AssertionError(f"{name}: the step's cell solves ended at "
+                                 f"{cell} (bound {bound_c} x tolerance)")
     if name == "rt2d":
-        # the f32 in-step solve stops on stagnation near its tolerance,
-        # as the bubble's does: held to STAGNATION_BOUND, and the final
-        # velocity re-projected from zero to 1
-        if (not solves or max(r for r, _, _ in solves) > STAGNATION_BOUND
-                or any(it >= m for _, it, m in solves)):
-            raise AssertionError(f"rt2d: the step's nodal solves ended at "
-                                 f"{solves}")
         res_over_tol, cycles, div, _ = vd_projection_check(sim, s, mg,
                                                            torch)
         if not res_over_tol <= 1.0:
@@ -2661,60 +2700,56 @@ def phase_main_a8_a11(incflo_torch, gk, sk, s2, mg, torch, name, warm=2,
     return out, sim, s
 
 
-def bingham_velocity_operator(mg, eb, grid, dtype):
-    """The cut-cell velocity operator of poiseuille_cyl_bingham from rest
-    (eta = mu + tau_0 / papa_reg = 1001 everywhere, rho 1, beta = dt/2 =
-    0.005), three batched components, as diffuse_velocity builds it: rho
-    vfrac, the area-fraction faces at the face centroids, the EB wall
-    term ebc."""
-    import dataclasses
-    import torch
-    from incflo_torch.ops import diffusion
-    dev = eb.vfrac.device
-    eb = dataclasses.replace(eb, **{
-        f.name: getattr(eb, f.name).to(dtype)
-        for f in dataclasses.fields(eb)
-        if isinstance(getattr(eb, f.name), torch.Tensor)
-        and getattr(eb, f.name).is_floating_point()},
-        afrac=tuple(a.to(dtype) for a in eb.afrac),
-        face_cent=tuple(a.to(dtype) for a in eb.face_cent))
-    eta_g1 = torch.full(tuple(n + 2 for n in grid.n_cell), 1001.0,
-                        dtype=dtype, device=dev)
-    faces = diffusion._eb_faces(diffusion.eta_to_faces(eta_g1, grid, eb=eb),
-                                eb)
-    eta_c = eta_g1[1:-1, 1:-1, 1:-1]
-    ebc = diffusion._eb_wall_coef(eta_c, grid, eb)
-    acoef = diffusion._vfrac_or_one(eb)
-    two = [[2.0 if c == d else 1.0 for c in range(3)] for d in range(3)]
-    bcoef = tuple(faces[d][..., None] * torch.tensor(two[d], dtype=dtype,
-                                                     device=dev)
-                  for d in range(3))
-    return mg.CellSolver(grid.dx, (0, 0, 0), (0, 0, 0), 1.0, 0.005,
-                         acoef[..., None], bcoef, ebc=ebc[..., None],
-                         direct=False)
+def step_velocity_solver(mg, sim, s, torch):
+    """The cut-cell velocity solver that one more step of an EB deck
+    builds (the first CellSolver with the EB wall term it solves with),
+    its coefficients for that step's beta."""
+    found = []
+    solve_info = mg.CellSolver.solve_info
+
+    def capture(self, rhs, **kw):
+        if self.levels[0].ebc is not None and not found:
+            found.append(self)
+        return solve_info(self, rhs, **kw)
+    mg.CellSolver.solve_info = capture
+    try:
+        sim.advance(s)
+        torch.cuda.synchronize()
+    finally:
+        mg.CellSolver.solve_info = solve_info
+    if not found:
+        raise AssertionError("the step solved no cut-cell velocity system")
+    return found[0]
 
 
-def phase_levels_eb(sk, mg, torch, eb, grid):
-    """`cell_smooth` on EB levels: the fine level (128x128x32) and the
-    first coarse one of poiseuille_cyl_bingham's velocity hierarchy with
-    beta*ebc folded into diag, three components, 1 sweep + residual, in
-    float32 and float64: bit-equal to cell_smooth_plain, one kernel node
-    a call (CUDA graph), kernel and plain ms, bound.  (The step smooths
-    these levels in the plain flux form; see ops/multigrid.py.)"""
+def phase_levels_eb(sk, mg, torch, sim, s):
+    """`cell_smooth` on the EB levels the main path smooths: the fine
+    level (128x128x32) and the first coarse one of the cut-cell velocity
+    solver that one more poiseuille_cyl_bingham step builds (beta*ebc
+    folded into diag, face 0 of the periodic z axis as a wrap plane,
+    three components), 1 sweep + residual: bit-equal to cell_smooth_plain
+    in float32 and, on the same coefficients, in float64, one kernel node
+    a call (CUDA graph), kernel and plain ms, bound."""
     dev = torch.device("cuda")
     saved = save_launches(sk)
+    solver = step_velocity_solver(mg, sim, s, torch)
+    dinvs, fhis, fwalls = solver.smoother_coefs()
+    if fwalls[0][2] is None:
+        raise AssertionError("the EB velocity level has no z wrap plane")
     rows = []
     for dtype in (torch.float32, torch.float64):
-        solver = bingham_velocity_operator(mg, eb, grid, dtype)
-        dinvs, fhis, fwalls = solver.smoother_coefs()
+        cast = lambda t: None if t is None else t.to(dtype)
         for li in (0, 1):
             lev = solver.levels[li]
-            shape = tuple(solver.diags[li].shape)
+            diag = cast(solver.diags[li])
+            shape = tuple(diag.shape)
             g = torch.Generator(device=dev).manual_seed(31 + li)
             x = torch.randn(shape, generator=g, device=dev, dtype=dtype)
             b = torch.randn(shape, generator=g, device=dev, dtype=dtype)
-            args = (x, b, solver.diags[li], dinvs[li], fhis[li], 1, True)
-            kw = dict(bc=(lev.bc_lo, lev.bc_hi), Fwall=fwalls[li])
+            args = (x, b, diag, cast(dinvs[li]),
+                    tuple(cast(f) for f in fhis[li]), 1, True)
+            kw = dict(bc=(lev.bc_lo, lev.bc_hi),
+                      Fwall=tuple(cast(w) for w in fwalls[li]))
             call = lambda: sk.cell_smooth(*args, **kw)
             plain = lambda: sk.cell_smooth_plain(*args, **kw)
             got, ref = call(), plain()
@@ -2726,8 +2761,8 @@ def phase_levels_eb(sk, mg, torch, eb, grid):
                 raise AssertionError(f"EB level {li}: one call is {launches}"
                                      " device launches")
             row = {"deck": "poiseuille_cyl_bingham", "family":
-                   "cell/velocity with ebc in diag", "level": li,
-                   "dtype": str(dtype).replace("torch.", ""),
+                   "cell/velocity of the step, ebc in diag, z wrap plane",
+                   "level": li, "dtype": str(dtype).replace("torch.", ""),
                    "shape": "x".join(str(v) for v in shape),
                    "call": "1 sweep + residual", "bit_equal": True,
                    "device_launches": launches}
@@ -3093,8 +3128,6 @@ def main(argv):
         print(f"[time] {what} done at {time.time() - t_start:.1f} s",
               flush=True)
     profile = "--profile" in argv
-    global RECORD_TALLIES
-    RECORD_TALLIES = "--record-tallies" in argv
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {kind}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
@@ -3118,7 +3151,7 @@ def main(argv):
     phase_paths_tgv2d_explicit(incflo_torch, s2, torch)
     stamp("solvers, paths")
     for deck in A8_A11_PATHS:
-        phase_paths_a8_a11(incflo_torch, mg, torch, deck)
+        phase_paths_a8_a11(incflo_torch, gk, mg, torch, deck)
         stamp(f"paths {deck}")
     main128, sim, s = phase_main(incflo_torch, gk, torch, 128, 20, 20)
     if profile:
@@ -3158,7 +3191,7 @@ def main(argv):
         main_a8[deck] = r
         stamp(f"main {deck}")
         if deck == "poiseuille_cyl_bingham":
-            levels_eb = phase_levels_eb(sk, mg, torch, sim.eb, sim.grid)
+            levels_eb = phase_levels_eb(sk, mg, torch, sim, s)
             stamp("levels_eb")
         del sim, s
     main_tgv = phase_main_tgv2d(incflo_torch, (gk, sk, s2), torch, profile,

@@ -77,6 +77,13 @@
 // place.  F_ax(n-1) is the high wall face; the low wall face comes as a
 // separate plane W_ax of shape (.., 1, ..).
 //
+// A periodic axis may carry such a plane too: then the coefficient of
+// x(n-1) in the row of cell 0 is W_ax and not F_ax(n-1).  The cut-cell
+// velocity operator of an EB deck has it (incflo_tpu's viscosity at the
+// face centroids of face 0 and face n of a periodic axis differ, and its
+// operator reads each), so the kernel applies the operator the flux form
+// of incflo_tpu's sweep applies.
+//
 // Nodal operator (Q1 finite elements, sigma at cells, phi at nodes; node
 // i is the low corner of cell i):
 //     L(phi) = sum_p A_p^T (C_p sigma . (A_p phi))
@@ -164,7 +171,8 @@ struct CellArgs {
   const T* diag;
   const T* dinv;
   const T* F[3];
-  const T* W[3];  // low wall face plane of a walled axis, else null
+  const T* W[3];  // low face plane: of a walled axis; of a periodic axis
+                  // whose face 0 differs from face n; else null
   int bc[3][2];   // [axis][lo, hi]: 0 periodic, 1 Neumann, 2 Dirichlet
   int nsweeps;
   int odd_wrap;   // a periodic axis of odd length: passes out of place
@@ -221,6 +229,9 @@ __device__ __forceinline__ void cell_coef(const CellArgs<T>& a, int e,
     q[ax] = dn(p[ax], g.n[ax]);
     T chi = a.F[ax][e];                                 // of x(i + e_ax)
     T clo = a.F[ax][elem(g, q[0], q[1], q[2], c)];      // of x(i - e_ax)
+    // a periodic axis whose face 0 differs from face n: the wrap plane
+    if (a.bc[ax][0] == kPeriodic && a.W[ax] && p[ax] == 0)
+      clo = a.W[ax][wall_elem(a, ax, p, c)];
     if (kWalls && a.bc[ax][0] != kPeriodic) {
       // the wrapped neighbour of a wall cell is still read, times 0
       if (p[ax] == g.n[ax] - 1) {
@@ -1054,7 +1065,8 @@ bool check_bc(const int* bc, const Dim& g, int min_walled, bool& walls,
 // `res` may be null (no residual); `out` and `res` alias no input.  `bc`
 // points at 6 ints on the host, (lo, hi) per axis; w0..w2 are the low
 // wall face planes of the walled axes, dense with extent 1 along their
-// axis, and may be null on periodic axes.  `tmp` is scratch of the size
+// axis; on a periodic axis null, or the plane of face 0 where it differs
+// from face n.  `tmp` is scratch of the size
 // of x, needed when a periodic axis has an odd number of cells and
 // nsweeps > 0.  `regime`: 0 chooses (resident where one CTA's threads
 // own at most one point of each colour); 1 (resident) and 2 (grid) force

@@ -12,12 +12,12 @@ form of the plain chain (ops/godunov_walls.py) on grown arrays, on
 either device, as incflo_tpu runs such cases through its jnp Godunov and
 not through its Pallas kernels (pallas_godunov.supported asks for 3D and
 every axis periodic, and godunov.py:475,648 send use_forces_in_trans
-and the MAC-phi warm start past them): a 2D grid, a grid with a wall,
-use_forces_in_trans, and use_mac_phi_in_godunov, whose predict takes the
-MAC-phi face gradient.  A deck with either flag launches no Godunov
-kernel, its advect included (incflo_tpu advects a MAC-phi deck through
-its Pallas kernel; the two forms differ by rounding).  The choice is
-made here, from the grid and the deck alone.
+past them): a 2D grid, a grid with a wall, and use_forces_in_trans.
+With use_mac_phi_in_godunov only predict, which takes the MAC-phi face
+gradient, runs the plain chain (godunov.py:475); advect, which that
+option does not enter, keeps the kernel (godunov.py:648 gates on
+use_forces_in_trans alone).  The choice is made here, from the grid and
+the deck alone.
 On an x slab of a mesh (grid.mesh) both take the halo-slab forms,
 predict_sharded and advect_sharded, as incflo_tpu/ops/godunov.py:482-491
 and :657-667 dispatch to pallas_godunov's.
@@ -37,19 +37,16 @@ from incflo_torch.parallel.mesh import mesh_of
 
 
 class GodunovScheme:
-    def __init__(self, grid: Grid, use_ppm: bool, use_forces_in_trans: bool,
-                 use_mac_phi: bool = False):
+    def __init__(self, grid: Grid, use_ppm: bool, use_forces_in_trans: bool):
         self.grid = grid
         self.use_ppm = use_ppm
         self.uft = use_forces_in_trans
-        self.mac_phi = use_mac_phi
         self.nd = grid.ndim
 
     def _plain_chain(self) -> bool:
-        """True where the kernels do not run: 2D, a wall, forces in the
-        transverse traces, or the MAC-phi warm start."""
-        return (self.nd != 3 or not all(self.grid.periodic) or self.uft
-                or self.mac_phi)
+        """True where the kernels do not run: 2D, a wall, or forces in
+        the transverse traces."""
+        return self.nd != 3 or not all(self.grid.periodic) or self.uft
 
     def predict(self, vel_g: torch.Tensor, forces_g: Optional[torch.Tensor],
                 dt, ng: int, bcrecs: np.ndarray,

@@ -24,9 +24,9 @@ per iteration back to the host; COUNTS tallies those reads, the solves
 and their iterations.  On every 3D level the smoothers run through
 ops/smoother_kernels (CUDA kernels on the card, one launch a call; their
 plain versions on the CPU), walls included, the cut-cell levels of the
-EB MAC and scalar solves too.  A 2D level, and a level with the EB wall
-term, is smoothed in plain PyTorch on either device, in incflo_tpu's own
-jnp arithmetic (multigrid.py:425-451 and :1018-1030; see
+EB solves too (the EB wall term folded into the cell kernel's diag).  A
+2D level is smoothed in plain PyTorch on either device, in incflo_tpu's
+own jnp arithmetic (multigrid.py:425-451 and :1018-1030; see
 CellSolver._smooth_res).
 
 Embedded boundaries: the cell operator takes the EB wall coefficient
@@ -74,6 +74,8 @@ COUNTS = {"cell_solves": 0, "cell_iters": 0, "nodal_solves": 0,
 # (final max-norm residual, the tolerance it was held to, V-cycles,
 # maxiter), the first two as 0-d tensors (appending reads nothing back)
 NODAL_LOG = None
+# the same for each cell solve whose CG iterated (the best residual)
+CELL_LOG = None
 
 
 def reset_counts() -> None:
@@ -442,9 +444,13 @@ class CellSolver:
         beta/dx^2 (faces 1..n of each axis: on a walled axis the last is
         the high wall face) and, per walled axis, the low wall face
         (face 0, which the wrap of a periodic axis finds at face n) as a
-        plane of extent 1, else None.  cell_diag's factor 3 of a
-        Dirichlet wall and the smoother's one-third term are taken from
-        this same face coefficient on every level.  Built at the first
+        plane of extent 1, else None; a level with the EB wall term
+        passes face 0 of its periodic axes too, whose coefficients differ
+        from face n's (the viscosity at the face centroids of the two
+        ends), so that the kernel applies cell_apply's operator.
+        cell_diag's factor 3 of a Dirichlet wall and the smoother's
+        one-third term are taken from this same face coefficient on every
+        level.  Built at the first
         smooth: a solver that only ever solves directly never pays for
         them."""
         if self._coefs is None:
@@ -461,7 +467,7 @@ class CellSolver:
                     scale = lev.beta / (lev.dx[ax] * lev.dx[ax])
                     hi = scale * b.narrow(ax, 1, b.shape[ax] - 1)
                     fh.append(hi.expand_as(diag).contiguous())
-                    if lev.bc_lo[ax] == SolverBC.PERIODIC:
+                    if lev.bc_lo[ax] == SolverBC.PERIODIC and lev.ebc is None:
                         fw.append(None)
                     else:
                         lo = scale * b.narrow(ax, 0, 1)
@@ -522,21 +528,15 @@ class CellSolver:
     # -- smoother and V-cycle ------------------------------------------
     def _smooth_res(self, x, b, li, n, want_residual):
         """n red-black sweeps (+ the residual b - L(x)) on level li: a 3D
-        level in the kernel's diag-extracted form on either device; a 2D
-        level, and a level with the EB wall term, in incflo_tpu's flux
-        form (multigrid.py:425-451), on either device.  The EB velocity
-        operator of a stiff deck (Bingham around the cylinder) stops its
-        CG on stagnation, where the iterate depends on the smoother's
-        rounding: only incflo_tpu's own arithmetic ends those solves on
-        its iterations (the kernel takes such a level with ebc in diag,
-        bit-equal to cell_smooth_plain, but runs no step's EB velocity
-        solve)."""
+        level in the kernel's diag-extracted form on either device, the
+        EB wall term folded into diag; a 2D level in incflo_tpu's flux
+        form (multigrid.py:425-451), on either device."""
         from incflo_torch.ops import smoother_kernels as sk
         if self.levels[0].mesh is not None:
             raise NotImplementedError(_SHARDED_MG)
         dinvs, fhis, fwalls = self.smoother_coefs()
         lev = self.levels[li]
-        if self.ndim != 3 or lev.ebc is not None:
+        if self.ndim != 3:
             return _rb_sweeps(x, b, dinvs[li], lambda v: cell_apply(v, lev),
                               n, want_residual, self.ndim)
         return sk.cell_smooth(x, b, self.diags[li], dinvs[li], fhis[li], n,
@@ -616,6 +616,8 @@ class CellSolver:
                 it += 1
             COUNTS["cell_iters"] += it
             x, res = xb, rb
+            if CELL_LOG is not None:
+                CELL_LOG.append((res, tol, it, maxiter))
         if self.singular:
             x = x - torch.mean(x)
         return x, res, it

@@ -176,12 +176,17 @@ def cell_neighbour_coefs(F, bc=None, Fwall=None):
     taken with periodic wrap.  On a periodic axis they are the cell's
     high face and its low face (the wrapped F).  On a walled axis the
     coefficient across the wall is 0, and a Dirichlet wall adds a third
-    of its face coefficient to the opposite one."""
+    of its face coefficient to the opposite one.  A periodic axis with
+    Fwall[ax] given (its face 0 differs from face n) takes that plane as
+    the coefficient of x(n-1) in the rows of its first cells."""
     lo, hi = _bc_codes(bc)
     Ehi, Elo = [], []
     for ax in range(3):
         fhi = F[ax]
         flo = torch.roll(fhi, 1, dims=ax)
+        if lo[ax] == PERIODIC and Fwall is not None and Fwall[ax] is not None:
+            n = fhi.shape[ax]
+            flo = torch.cat([Fwall[ax], flo.narrow(ax, 1, n - 1)], dim=ax)
         if lo[ax] != PERIODIC:
             n = fhi.shape[ax]
             zero = torch.zeros_like(fhi.narrow(ax, 0, 1))
@@ -361,7 +366,9 @@ def _check_cell(x, b, diag, dinv, F, nsweeps, bc=None, Fwall=None):
         if Fwall is None or Fwall[ax] is None:
             raise ValueError(f"axis {ax}: walled, but Fwall[{ax}] (its low "
                              "wall face coefficients) is missing")
-        _check_same(f"Fwall[{ax}]", Fwall[ax], x.narrow(ax, 0, 1))
+    for ax in range(3):
+        if Fwall is not None and Fwall[ax] is not None:
+            _check_same(f"Fwall[{ax}]", Fwall[ax], x.narrow(ax, 0, 1))
     return bool(walled)
 
 
@@ -440,7 +447,8 @@ def cell_smooth(x, b, diag, dinv, F, nsweeps: int,
     x, b, diag, dinv = (t.contiguous() for t in (x, b, diag, dinv))
     F = [f.contiguous() for f in F]
     lo, _ = _bc_codes(bc)
-    planes = [Fwall[ax].contiguous() if lo[ax] != PERIODIC else None
+    planes = [Fwall[ax].contiguous()
+              if Fwall is not None and Fwall[ax] is not None else None
               for ax in range(3)]
     out = torch.empty_like(x)
     res = torch.empty_like(x) if want_residual else None

@@ -11,16 +11,15 @@ ghosts, old/new pairs are function inputs/outputs.
 Decks advect by Godunov or by MOL.  On a 3D fully periodic grid the
 Godunov chain runs through the CUDA kernels of csrc/godunov.cu on the
 card (their plain PyTorch versions on the CPU); a 2D grid, a grid with
-walls or inflow/outflow sides, and the use_forces_in_trans and
-use_mac_phi_in_godunov options take the general plain chain on either
-device (ops/godunov.py).  MOL (ops/mol.py) is plain PyTorch on both.  With constant density the MAC and nodal systems, and a Newtonian
+walls or inflow/outflow sides, and the use_forces_in_trans option take
+the general plain chain on either device, as does predict with
+use_mac_phi_in_godunov (ops/godunov.py).  MOL (ops/mol.py) is plain PyTorch on both.  With constant density the MAC and nodal systems, and a Newtonian
 fluid's implicit velocity system, are prebuilt and solved directly
 (ops/spectral.py) where the operator allows it; otherwise they are built
 from the current density (and viscosity) every step and solved by
 multigrid V-cycles (ops/multigrid.py) whose smoothers on 3D levels are
-the CUDA kernels of csrc/smoothers.cu, walls included, one launch a
-call; 2D levels and the EB velocity levels are smoothed in plain
-PyTorch.
+the CUDA kernels of csrc/smoothers.cu, walls and the EB wall term
+included, one launch a call; 2D levels are smoothed in plain PyTorch.
 
 Embedded boundaries (eb/, incflo_tpu/simulation.py:40-66, 289-330,
 519-700): the cut-cell geometry is computed once on the host; the deck
@@ -191,8 +190,7 @@ class Simulation:
         self.force_bcrec = cfg.force_bcrecs(max(cfg.ntrac, cfg.ndim))
         if cfg.use_godunov:
             self.godunov = godunov.GodunovScheme(
-                self.grid, cfg.godunov_ppm, cfg.godunov_use_forces_in_trans,
-                cfg.use_mac_phi_in_godunov)
+                self.grid, cfg.godunov_ppm, cfg.godunov_use_forces_in_trans)
         self._fused = None          # step2d_kernels.FusedStep, built lazily
         self._fused_ok = None       # the CG probe's verdict
         nd = cfg.grid.ndim

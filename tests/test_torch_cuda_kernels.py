@@ -414,6 +414,45 @@ def test_cell_smooth_bit_equal_both_regimes(cuda, regime, dtype, shape,
                    dtype)
 
 
+def _eb_wrap_case(shape, ncomp, bc, dtype, device, seed):
+    """Wrapper arguments of a CellSolver level with the EB wall term
+    whose periodic face n differs from face 0, as the cut-cell velocity
+    operator's does: smoother_coefs hands the kernel face 0 of each
+    periodic axis as a wrap plane."""
+    rng = np.random.default_rng(seed)
+    tail = (ncomp,) if ncomp else ()
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    bcoef = tuple(t(0.5 + rng.random(tuple(
+        n + (1 if a == ax else 0) for a, n in enumerate(shape)) + tail))
+        for ax in range(3))
+    solver = mg.CellSolver((1.0, 0.5, 0.25), bc[0], bc[1], alpha=1.0,
+                           beta=0.3, acoef=t(1.0 + rng.random(shape + tail)),
+                           bcoef=bcoef, ebc=t(rng.random(shape + tail)),
+                           max_levels=1, direct=False)
+    dinvs, fhis, fwalls = solver.smoother_coefs()
+    assert all(w is not None for w in fwalls[0])
+    full = tuple(solver.diags[0].shape)
+    return solver, ((t(rng.standard_normal(full)),
+                     t(rng.standard_normal(full)), solver.diags[0], dinvs[0],
+                     fhis[0]), dict(bc=bc, Fwall=fwalls[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", REDESIGN_SHAPES)
+@pytest.mark.parametrize("ncomp", [0, 3])
+@pytest.mark.parametrize("bcname", ["periodic", "rt_scalar"])
+def test_cell_smooth_wrap_plane_bit_equal_both_regimes(cuda, regime, dtype,
+                                                       shape, ncomp, bcname):
+    bc = ((P, P, P), (P, P, P)) if bcname == "periodic" else WALL_BCS[bcname]
+    solver, (args, kw) = _eb_wrap_case(shape, ncomp, bc, dtype, cuda, 13)
+    got = sk.cell_smooth(*args, 2, True, **kw, _regime=regime)
+    torch.cuda.synchronize()
+    _bit_check(got, sk.cell_smooth_plain(*args, 2, True, **kw), dtype)
+    if dtype == torch.float64:   # the operator is cell_apply's
+        r = args[1] - mg.cell_apply(got[0], solver.levels[0])
+        assert _rel(got[1], r) <= 1e-12
+
+
 NODAL_BCS = {
     "periodic": ((P, P, P), (P, P, P)),
     "rt": ((P, P, N), (P, P, N)),

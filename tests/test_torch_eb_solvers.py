@@ -6,10 +6,13 @@ poiseuille_cyl_bingham (16 x 16 x 8):
     velocity operator: rho vfrac, area-fraction-weighted faces, the wall
     drag): its V-cycle PCG against incflo_tpu's, the same CG iterations
     and the solution within 1e-10.  The port smooths such a level in
-    incflo_tpu's flux form; the same solve with beta*ebc folded into
-    the diagonal of the `cell_smooth` kernel's form (its plain version
-    here) ends on the same iteration and within 1e-10 of it, and one
-    smoother call of each form agrees to 1e-12;
+    the `cell_smooth` kernel's form (its plain version here), beta*ebc
+    folded into the diagonal; the same solve smoothed in incflo_tpu's
+    flux form ends on the same iteration and within 1e-10 of it, and one
+    smoother call of each form agrees to 1e-12 -- also on the velocity
+    operator a poiseuille_cyl_bingham step builds, whose viscosity faces
+    differ between face 0 and face n of the periodic z axis, which the
+    kernel form then reads from a wrap plane;
   * eb_nodal_apply (P^T L_fine P on the octant lattice) and the
     EBNodalSolver: its 27-point stencils on every level within 1e-12 of
     incflo_tpu's, and a solve with equal V-cycles;
@@ -71,14 +74,13 @@ def _velocity_operator(je, te, jg, tg, text):
     return ts, js
 
 
-def _folded_smooth(self, x, b, li, n, want_residual):
-    """CellSolver._smooth_res in the `cell_smooth` kernel's form, the EB
-    wall term in its diagonal (the plain version on the CPU)."""
-    dinvs, fhis, fwalls = self.smoother_coefs()
+def _flux_smooth(self, x, b, li, n, want_residual):
+    """CellSolver._smooth_res in incflo_tpu's flux form (its jnp sweep,
+    multigrid.py:425-451) on the same level."""
+    dinvs = self.smoother_coefs()[0]
     lev = self.levels[li]
-    return sk.cell_smooth(x, b, self.diags[li], dinvs[li], fhis[li], n,
-                          want_residual, bc=(lev.bc_lo, lev.bc_hi),
-                          Fwall=fwalls[li])
+    return tmg._rb_sweeps(x, b, dinvs[li], lambda v: tmg.cell_apply(v, lev),
+                          n, want_residual, self.ndim)
 
 
 def test_cell_solver_with_wall_term(eb, monkeypatch):
@@ -93,30 +95,70 @@ def test_cell_solver_with_wall_term(eb, monkeypatch):
                                maxiter=200)
     assert tit == int(jit) == tally["cell_iters"] > 0
     assert tp.rel(tx.numpy(), jx) <= 1e-10
-    # the wall term folded into the kernel form's diagonal: the same solve
-    monkeypatch.setattr(tmg.CellSolver, "_smooth_res", _folded_smooth)
+    # the same solve smoothed in the flux form
+    monkeypatch.setattr(tmg.CellSolver, "_smooth_res", _flux_smooth)
     fx, _, fit = ts.solve_info(torch.as_tensor(rhs), rtol=1e-11, atol=1e-14,
                                maxiter=200)
     assert fit == tit
     assert tp.rel(fx.numpy(), tx.numpy()) <= 1e-10
 
 
-def test_folded_wall_term_smooths_as_the_flux_form(eb):
-    """One 2-sweep smoother call with its residual on the fine and the
-    first coarse level: cell_smooth_plain with ebc in diag against the
-    flux-form sweep of the same operator."""
-    name, text, je, te, jg, tg = eb
-    ts, _ = _velocity_operator(je, te, jg, tg, text)
-    for li in (0, 1):
+def _smooths_as_the_flux_form(ts, levels, seed):
+    """One 2-sweep smoother call with its residual on each of `levels`:
+    the kernel form (cell_smooth_plain, ebc in diag) against the
+    flux-form sweep of the same operator, to 1e-12."""
+    for li in levels:
         lev = ts.levels[li]
         assert lev.ebc is not None and float(lev.ebc.abs().max()) > 0
         shape = tuple(ts.diags[li].shape)
-        rng = np.random.default_rng(22 + li)
+        rng = np.random.default_rng(seed + li)
         x, b = (torch.as_tensor(rng.standard_normal(shape)) for _ in "xb")
-        flux = ts._smooth_res(x, b, li, 2, True)
-        folded = _folded_smooth(ts, x, b, li, 2, True)
-        for a, c in zip(flux, folded):
+        kernel = ts._smooth_res(x, b, li, 2, True)
+        flux = _flux_smooth(ts, x, b, li, 2, True)
+        for a, c in zip(flux, kernel):
             assert tp.rel(c.numpy(), a.numpy()) <= 1e-12
+
+
+def test_folded_wall_term_smooths_as_the_flux_form(eb):
+    """The fine and the first coarse level of the Newtonian operator."""
+    name, text, je, te, jg, tg = eb
+    ts, _ = _velocity_operator(je, te, jg, tg, text)
+    _smooths_as_the_flux_form(ts, (0, 1), 22)
+
+
+def test_kernel_form_takes_the_step_operator_wrap_plane(monkeypatch):
+    """The cut-cell velocity solver of one poiseuille_cyl_bingham step
+    (16 x 16 x 8, from a perturbed start): its z face 0 and face n
+    differ, the kernel form takes face 0 from the wrap plane and smooths
+    every level as the flux form does; without the plane it would
+    not."""
+    text = tp.eb_deck("poiseuille_cyl_bingham", 16)
+    sim = tp.port_sim(text)
+    solvers = []
+    solve_info = tmg.CellSolver.solve_info
+
+    def capture(self, rhs, **kw):
+        if self.levels[0].ebc is not None and not solvers:
+            solvers.append(self)
+        return solve_info(self, rhs, **kw)
+    monkeypatch.setattr(tmg.CellSolver, "solve_info", capture)
+    sim.advance(tp.own_start(sim, tp.fluid_perturbation(sim, 7)))
+    ts = solvers[0]
+    bz = ts.levels[0].bcoef[2]
+    gap = float((bz[:, :, :1] - bz[:, :, -1:]).abs().max())
+    assert gap > 1e-3 * float(bz.abs().max())
+    _smooths_as_the_flux_form(ts, range(len(ts.levels)), 26)
+    # the wrap plane is what makes them agree
+    dinvs, fhis, fwalls = ts.smoother_coefs()
+    lev = ts.levels[0]
+    x = torch.as_tensor(np.random.default_rng(27).standard_normal(
+        tuple(ts.diags[0].shape)))
+    no_plane = tuple(w if lev.bc_lo[ax] else None
+                     for ax, w in enumerate(fwalls[0]))
+    off = sk.cell_smooth(x, x, ts.diags[0], dinvs[0], fhis[0], 2, True,
+                         bc=(lev.bc_lo, lev.bc_hi), Fwall=no_plane)
+    flux = _flux_smooth(ts, x, x, 0, 2, True)
+    assert tp.rel(off[1].numpy(), flux[1].numpy()) > 1e-3
 
 
 def _fine_meta(tg, periodic):

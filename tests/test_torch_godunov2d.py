@@ -16,8 +16,11 @@ field and dt within 1e-10 of incflo_tpu's, every iterative solve ending
 on the same iteration.
 
 The routing: one step of a 3D periodic shear3d deck with
-use_forces_in_trans, and one with use_mac_phi_in_godunov, calls none of
-the Godunov kernel wrappers and moves no launch counter.
+use_forces_in_trans calls none of the Godunov kernel wrappers and moves
+no launch counter; one with use_mac_phi_in_godunov calls no predict
+wrapper (its predict takes the MAC-phi gradient, as incflo_tpu's, in
+the general chain) and the advect wrapper once for every advect, as
+incflo_tpu/ops/godunov.py:648 sends that option's advect to its kernel.
 """
 
 import numpy as np
@@ -168,7 +171,8 @@ def test_tgv2d_godunov_matches_incflo_tpu(tgv2d):
 
 
 # ---------------------------------------------------------------------
-# routing: uft and the MAC-phi warm start never reach the kernels
+# routing: uft never reaches the kernels, the MAC-phi warm start only
+# in predict
 # ---------------------------------------------------------------------
 
 class _KernelCalled(Exception):
@@ -179,15 +183,33 @@ class _KernelCalled(Exception):
 def test_3d_periodic_deck_launches_no_godunov_kernel(monkeypatch, form):
     def refuse(*args, **kwargs):
         raise _KernelCalled()
-    for name in ("predict", "advect", "predict_sharded", "advect_sharded",
-                 "uad", "predict_d", "advect_comp"):
+    refused = ("predict", "predict_sharded", "advect_sharded", "uad",
+               "predict_d")
+    if form == "uft":
+        refused += ("advect", "advect_comp")
+    for name in refused:
         monkeypatch.setattr(gk, name, refuse)
+    calls = {"scheme": 0, "kernel": 0}
+
+    def counted(fn, key):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+    monkeypatch.setattr(tgod.GodunovScheme, "advect",
+                        counted(tgod.GodunovScheme.advect, "scheme"))
+    if form == "gmacphi":
+        monkeypatch.setattr(gk, "advect", counted(gk.advect, "kernel"))
     text = bench._deck("shear3d", 16, "float64")[0] + EXTRA[form]
     sim = tp.port_sim(text)
     assert all(sim.grid.periodic) and sim.grid.ndim == 3
     n0 = dict(gk.LAUNCHES)
     s = sim.advance(sim.init_state())
-    assert gk.LAUNCHES == n0
+    assert gk.LAUNCHES == n0          # the CPU runs the plain versions
     assert bool(torch.isfinite(s.level.velocity).all())
+    assert calls["scheme"] > 0
     if form == "gmacphi":
         assert float(s.level.mac_phi.abs().max()) > 0.0
+        assert calls["kernel"] == calls["scheme"]
+    else:
+        assert calls["kernel"] == 0

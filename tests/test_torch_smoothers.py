@@ -439,6 +439,42 @@ def test_walled_nodal_argument_checks():
                         bc=((PER, PER), (PER, PER)))
 
 
+@pytest.mark.parametrize("shape", [(8, 4, 2), (9, 5, 7), (16, 8, 16)])
+@pytest.mark.parametrize("ncomp", [0, 3])
+@pytest.mark.parametrize("bc", [((PER, PER, PER), (PER, PER, PER)),
+                                ((PER, PER, NEU), (PER, PER, NEU))],
+                         ids=["periodic", "walled_z"])
+def test_wrap_plane_takes_face_zero_of_a_periodic_axis(shape, ncomp, bc):
+    """A level with the EB wall term whose periodic face n differs from
+    face 0 (the cut-cell velocity operator): the kernel form reads face
+    0 from the wrap plane that smoother_coefs passes, and its sweeps and
+    residual are those of incflo_tpu's flux form on cell_apply to 1e-12;
+    without the plane they are not."""
+    rng = np.random.default_rng(14)
+    tail = (ncomp,) if ncomp else ()
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    bcoef = tuple(t(0.5 + rng.random(tuple(
+        n + (1 if a == ax else 0) for a, n in enumerate(shape)) + tail))
+        for ax in range(3))
+    ts = tmg.CellSolver((1.0, 0.5, 0.25), bc[0], bc[1], 1.0, 0.3,
+                        t(1.0 + rng.random(shape + tail)), bcoef,
+                        ebc=t(rng.random(shape + tail)), max_levels=1,
+                        direct=False)
+    dinvs, fhis, fwalls = ts.smoother_coefs()
+    lev = ts.levels[0]
+    x, b = (t(rng.standard_normal(shape + tail)) for _ in "xb")
+    flux = tmg._rb_sweeps(x, b, dinvs[0], lambda v: tmg.cell_apply(v, lev),
+                          2, True, 3)
+    got = ts._smooth_res(x, b, 0, 2, True)
+    for a, c in zip(got, flux):
+        assert _rel(a, c) <= 1e-12
+    no_plane = tuple(w if lev.bc_lo[ax] else None
+                     for ax, w in enumerate(fwalls[0]))
+    off = sk.cell_smooth(x, b, ts.diags[0], dinvs[0], fhis[0], 2, True,
+                         bc=bc, Fwall=no_plane)
+    assert _rel(off[1], flux[1]) > 1e-6
+
+
 def test_walled_cell_smooth_argument_checks():
     one = torch.ones((8, 4, 6))
     F = (one, one, one)

@@ -306,6 +306,33 @@ def eb_deck(name, n=16, dtype="float64"):
     return CIRCLE2D if name == "circle2d" else bench._deck(name, n, dtype)[0]
 
 
+def channel_cyl_cubic_deck(n=32):
+    """channel_cyl (bench.py's deck at n: n x n/2 x max(n/8, 8) cells)
+    in a 0.8 x 0.4 x 0.2 box, whose cells are cubes, where bench.py's
+    1.2 x 0.4 x 0.1 box gives cells of aspect 3 on which the nodal
+    V-cycles do not converge (ROADMAP C)."""
+    text = eb_deck("channel_cyl", n)
+    old = "geometry.prob_hi = 1.2 0.4 0.1"
+    assert old in text
+    return text.replace(old, "geometry.prob_hi = 0.8 0.4 0.2")
+
+
+@contextlib.contextmanager
+def logged_solves():
+    """While active, the port's iterated nodal and cell solves, as
+    {"nodal": [...], "cell": [...]} lists of (residual / tolerance,
+    iterations, maxiter) that fill as the solves run."""
+    tmg.NODAL_LOG, tmg.CELL_LOG = [], []
+    out = {"nodal": [], "cell": []}
+    try:
+        yield out
+    finally:
+        for kind, log in (("nodal", tmg.NODAL_LOG), ("cell", tmg.CELL_LOG)):
+            out[kind].extend((float(res) / float(tol), it, maxiter)
+                             for res, tol, it, maxiter in log)
+        tmg.NODAL_LOG = tmg.CELL_LOG = None
+
+
 def eb_geometry(text):
     """(incflo_tpu's EBData, the port's, incflo_tpu's grid, the port's)."""
     from incflo_tpu.config import IncfloConfig as JConfig
