@@ -157,6 +157,16 @@ Phases (any failure ends the run with a non-zero exit):
              on the same coefficients in float64, one kernel node a
              call, its and the plain version's time and the bound
              ("levels_eb").
+  5a. cli   the CLI driver, incflo_torch.main.run, on the card in a
+             temporary directory: bench's shear3d deck at 128x128x32 f32,
+             max_step = 4, check_int = plot_int = 2, plt_vort, then a
+             restart from chk00002 to step 4 (the launch counters zeroed
+             just before each run and read just after: uad / predict_d /
+             advect 1 / 3 / 3 a step and nothing else; the restarted
+             chk00004 bit-equal to the unbroken one; every plotfile field
+             finite); tgv2d at 128^2 f32 with plt_error_u (one step2d
+             launch a step, six finite Norm lines).  One line a run with
+             the driver's ms/step beside the card's name and power limit.
   6. sharded the x-slab mesh of incflo_torch/parallel and the halo-slab
              Godunov kernels (B8).  First the kernels in one process (after
              phase 2): the shear3d n = 128 level cut into 2 slabs (nxl 64)
@@ -3091,6 +3101,145 @@ def phase_sharded_step(incflo_torch, gk, torch, n=128, steps64=3, warm=2,
             "f32_rel_err_vs_one_rank_f32": err32, "spawn_s": spawn_s}
 
 
+CLI_ARGS = ["max_step=4", "amr.check_int=2", "amr.plot_int=2"]
+
+
+def cli_run(main, mods, torch, deck, cwd, argv, tag):
+    """incflo_torch.main.run(deck argv) from directory cwd, its stdout
+    captured; the launch counters of `mods` set to 0 just before and read
+    just after.  Returns (launches, stdout, ms per step as the driver
+    prints it, wall seconds)."""
+    import contextlib
+    import io as stringio
+    os.makedirs(cwd, exist_ok=True)
+    out = stringio.StringIO()
+    old = os.getcwd()
+    for m in mods:
+        m.reset_launches()
+    t0 = time.perf_counter()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main.run([deck] + argv)
+    finally:
+        os.chdir(old)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {}
+    for m in mods:
+        launches.update(m.LAUNCHES)
+    text = out.getvalue()
+    if rc != 0:
+        raise AssertionError(f"cli {tag}: exit code {rc}:\n{text}")
+    per = [float(l.split()[-1]) for l in text.splitlines()
+           if l.startswith("Time per step:")]
+    if len(per) != 1:
+        raise AssertionError(f"cli {tag}: no 'Time per step' line:\n{text}")
+    return launches, text, per[0] * 1e3, wall
+
+
+def cli_launches_check(tag, launches, per_step, steps):
+    want = {k: per_step.get(k, 0) * steps for k in launches}
+    if launches != want:
+        raise AssertionError(f"cli {tag}: launches {launches}, expected "
+                             f"{want} ({steps} steps)")
+
+
+def npz_equal(a, b):
+    """The names of the arrays of two .npz files that differ (or are
+    missing from one), bit for bit."""
+    import numpy as np
+    x, y = np.load(a), np.load(b)
+    return sorted(k for k in set(x.files) | set(y.files)
+                  if k not in x.files or k not in y.files
+                  or x[k].dtype != y[k].dtype
+                  or not np.array_equal(x[k], y[k]))
+
+
+def phase_cli(incflo_torch, gk, sk, s2, torch):
+    """The CLI driver (incflo_torch.main) on the card in a temporary
+    directory.  shear3d at 128x128x32 f32, max_step = 4, check_int =
+    plot_int = 2, plt_vort: the Godunov kernels launched 1 / 3 / 3 times
+    a step and nothing else; then a restart from chk00002 to step 4,
+    whose chk00004 must be bit-equal to the unbroken run's; every
+    plotfile field finite.  tgv2d at 128^2 f32 with plt_error_u: one
+    step2d launch a step, the Norm lines printed and finite.  One line a
+    run with the driver's ms/step (its evolve loop, the plotfile and
+    checkpoint writes included) beside the card."""
+    import math
+    import tempfile
+    import numpy as np
+    from incflo_torch import main
+    mods = (gk, sk, s2)
+    card = card_line()
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="incflo_cli_") as root:
+        deck = os.path.join(root, "shear3d")
+        with open(deck, "w") as f:
+            f.write(shear3d_deck(128, "float32"))
+        unbroken = os.path.join(root, "shear3d_unbroken")
+        restart = os.path.join(root, "shear3d_restart")
+        runs = [("shear3d 128x128x32", unbroken,
+                 CLI_ARGS + ["amr.plt_vort=1"], 4),
+                ("shear3d 128x128x32 restart", restart,
+                 CLI_ARGS + ["amr.plt_vort=1", "amr.restart=" +
+                             os.path.join(unbroken, "chk00002")], 2)]
+        for tag, cwd, argv, steps in runs:
+            launches, text, ms, wall = cli_run(main, mods, torch, deck, cwd,
+                                               argv, tag)
+            cli_launches_check(tag, launches, PER_STEP, steps)
+            rows.append({"run": tag, "steps": steps, "ms_per_step": ms,
+                         "wall_s": wall, "launches": launches})
+            print(f"[cli] {tag} f32: {ms:.3f} ms/step (the driver's, writes "
+                  f"included) over {steps} steps, {wall:.2f} s in all; "
+                  f"launches {launches}; {card}", flush=True)
+        for d in ("Header", "Level_0.npz"):
+            a = os.path.join(unbroken, "chk00004", d)
+            b = os.path.join(restart, "chk00004", d)
+            if d == "Header":
+                same = open(a).read() == open(b).read()
+                bad = [] if same else ["Header"]
+            else:
+                bad = npz_equal(a, b)
+            if bad:
+                raise AssertionError(f"cli shear3d: the restarted chk00004 "
+                                     f"differs from the unbroken one in "
+                                     f"{bad}")
+        for cwd, plts in ((unbroken, ("plt00000", "plt00002", "plt00004")),
+                          (restart, ("plt00004",))):
+            for plt in plts:
+                z = np.load(os.path.join(cwd, plt, "Level_0.npz"))
+                if "vort" not in z.files:
+                    raise AssertionError(f"cli shear3d {plt}: no vort")
+                bad = [k for k in z.files if not np.isfinite(z[k]).all()]
+                if bad:
+                    raise AssertionError(f"cli shear3d {plt}: non-finite "
+                                         f"{bad}")
+        print("[cli] shear3d: the restarted chk00004 is bit-equal to the "
+              "unbroken one; every plotfile field finite", flush=True)
+
+        deck = os.path.join(root, "tgv2d")
+        with open(deck, "w") as f:
+            f.write(tgv2d_deck(128, "float32"))
+        tag = "tgv2d 128^2"
+        launches, text, ms, wall = cli_run(
+            main, mods, torch, deck, os.path.join(root, "tgv2d_run"),
+            CLI_ARGS + ["amr.plt_error_u=1"], tag)
+        cli_launches_check(tag, launches, {"step2d": 1}, 4)
+        norms = [l.strip() for l in text.splitlines() if "Norm" in l]
+        if len(norms) != 6 or not all(math.isfinite(float(l.split()[-1]))
+                                      for l in norms):
+            raise AssertionError(f"cli {tag}: Norm lines {norms}")
+        rows.append({"run": tag, "steps": 4, "ms_per_step": ms,
+                     "wall_s": wall, "launches": launches, "norms": norms})
+        print(f"[cli] {tag} f32: {ms:.3f} ms/step (the driver's, writes "
+              f"included) over 4 steps, {wall:.2f} s in all; launches "
+              f"{launches}; {card}", flush=True)
+        for l in norms:
+            print(f"[cli] {tag} {l}", flush=True)
+    return rows
+
+
 def card_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -3197,6 +3346,8 @@ def main(argv):
     main_tgv = phase_main_tgv2d(incflo_torch, (gk, sk, s2), torch, profile,
                                 s2res["ms_by_n"])
     stamp("main tgv2d")
+    cli = phase_cli(incflo_torch, gk, sk, s2, torch)
+    stamp("cli")
     shard = phase_sharded_step(incflo_torch, gk, torch)
     stamp("sharded")
 
@@ -3366,12 +3517,14 @@ def main(argv):
         "at_128_and_256": s2res["at"]})
     for entry in kernels:
         entry["launches_per_step_a8_a11"] = a8_per_step(entry["name"])
+        entry["launches_cli"] = {r["run"]: r["launches"].get(entry["name"], 0)
+                                 for r in cli}
     print(json.dumps({"kernels": kernels, "levels": levels,
                       "levels_eb": levels_eb, "build_s": build_s,
                       "main": [main128, main256] + main_vd + [main_rt]
                       + main_tgv + list(main_a9c.values())
                       + list(main_a8.values()),
-                      "sharded": shard,
+                      "sharded": shard, "cli": cli,
                       "seconds": time.time() - t_start}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,13 @@ fluids, explicit, Crank-Nicolson or implicit diffusion, and embedded
 boundaries (eb/: the cut-cell geometry on the host, MOL-EB and the
 cut-cell solvers on the device) -- all five decks of bench.py.  A 2D
 periodic constant-density MOL deck (tgv2d) steps on the card in one
-launch of the fused step kernel.  Patch AMR raises NotImplementedError
-naming ROADMAP A13; a mesh runs shear3d's physics (A14).
+launch of the fused step kernel.  I/O and the CLI: checkpoints and
+plotfiles in incflo_tpu's on-disk format, restart from either package's
+checkpoint, per-rank checkpoints on a mesh (utils/io.py), derived fields
+(ops/derive.py), diagnostics (utils/diagnostics.py), and the driver
+`python -m incflo_torch.main <inputs> [key=value ...]` (main.py).  Patch
+AMR raises NotImplementedError naming ROADMAP A13; a mesh runs
+shear3d's physics (A14).
 
 Float32 matrix products run in full precision: importing the package
 sets `torch.backends.cuda.matmul.allow_tf32 = False` and

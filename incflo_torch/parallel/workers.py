@@ -159,3 +159,40 @@ def timed_steps(mesh, deck, warm, nsteps, instrumented):
     return {"state": final if mesh.rank == 0 else None, "ms_per_step": ms,
             "instrumented_ms_per_step": ms_inst, "launches": launches,
             "counts": counts, "comm": comm, "mesh": mesh.describe()}
+
+
+def checkpoint(mesh, deck, nsteps, path, dense=None):
+    """Per-rank checkpoints (utils/io.py): the deck's init and `nsteps`
+    steps on this rank's slab, written to `path` (one shard a rank), then
+    read back from `path` onto this mesh and advanced one step; and, given
+    the directory `dense` of a whole-level checkpoint, the same restart
+    from it.  Returns the whole-level states written and after each
+    restart's step (rank 0 only)."""
+    from incflo_torch import IncfloConfig, Simulation, state
+    from incflo_torch.utils import io
+    cfg = IncfloConfig.from_text(deck)
+    sim = Simulation(cfg, device=mesh.device, mesh=mesh)
+    s = sim.advance_n(sim.init_state(), nsteps)
+    io.write_checkpoint(path, s, cfg, mesh)
+    mesh.barrier()
+    out = {"written": state.sim_to_numpy(s, mesh)}
+    for key, src in (("restarted", path), ("dense_restarted", dense)):
+        if src is not None:
+            r = io.read_checkpoint(src, cfg, sim.dtype, mesh=mesh)
+            out[key] = state.sim_to_numpy(sim.advance(r), mesh)
+    return out if mesh.rank == 0 else None
+
+
+def cli(mesh, argv, cwd):
+    """incflo_torch.main.run(argv) on this rank, from directory cwd:
+    every rank runs the driver, rank 0 prints and writes the plotfiles.
+    Returns its exit code and what it printed."""
+    import contextlib
+    import io as stringio
+    import os
+    from incflo_torch import main
+    out = stringio.StringIO()
+    os.chdir(cwd)
+    with contextlib.redirect_stdout(out):
+        rc = main.run(argv, mesh=mesh)
+    return {"rc": rc, "stdout": out.getvalue()}

@@ -12,6 +12,7 @@ import enum
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 import jax.numpy as jnp
 

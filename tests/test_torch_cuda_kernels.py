@@ -31,6 +31,7 @@ from step_plain, within the solve's tolerance.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 import bench
 import incflo_torch

@@ -30,6 +30,7 @@ import unittest.mock as mock
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 import jax.numpy as jnp
 

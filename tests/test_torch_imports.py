@@ -9,6 +9,7 @@ import sys
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 import bench
 import incflo_torch
@@ -24,9 +25,10 @@ def _forbidden(name):
 def test_no_forbidden_imports_in_source():
     files = sorted((ROOT / "incflo_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 19
+    assert len(files) >= 24
     for name in ("smoother_kernels.py", "godunov_walls.py", "mol.py",
-                 "step2d_kernels.py", "mesh.py", "launch.py", "workers.py"):
+                 "step2d_kernels.py", "mesh.py", "launch.py", "workers.py",
+                 "derive.py", "diagnostics.py", "io.py", "main.py"):
         assert any(p.name == name for p in files), name
     bad = []
     for path in files:
@@ -48,7 +50,9 @@ def test_import_leaves_no_jax_in_modules():
             "incflo_torch.ops.godunov_walls, "
             "incflo_torch.ops.mol, incflo_torch.ops.step2d_kernels, "
             "incflo_torch.ops.cuda_build, incflo_torch.parallel.mesh, "
-            "incflo_torch.parallel.launch, incflo_torch.parallel.workers\n"
+            "incflo_torch.parallel.launch, incflo_torch.parallel.workers, "
+            "incflo_torch.ops.derive, incflo_torch.utils.diagnostics, "
+            "incflo_torch.utils.io, incflo_torch.main\n"
             "bad = [m for m in sys.modules if any(m == f or "
             "m.startswith(f + '.') for f in ('jax', 'jaxlib', "
             "'incflo_tpu'))]\n"

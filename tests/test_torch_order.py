@@ -10,6 +10,7 @@ above 1.9 with both use_mac_phi_in_godunov settings; 3D Godunov (the
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 import incflo_torch
 

@@ -24,11 +24,22 @@ Tolerances:
                          iterations in every step; 1e-10 against
                          incflo_tpu's unsharded step (the bound of
                          tests/test_torch_step.py), on 2 and 4 ranks
+  per-rank checkpoint    exact: incflo_tpu's reader returns the state
+                         the 2 ranks wrote; the step after a restart on
+                         1 or 2 ranks (on 2 also from a whole-level
+                         checkpoint) 1e-11 relative against the
+                         unsharded port's
+  the CLI on 2 ranks     1e-11 relative against the unsharded driver's
+                         checkpoint and plotfile (a vector's components
+                         relative to the largest of them)
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 import jax
 import jax.numpy as jnp
@@ -45,12 +56,15 @@ from incflo_torch.grid import Grid
 from incflo_torch.ops import godunov_kernels as gk
 from incflo_torch.ops import multigrid as tmg
 from incflo_torch.parallel import launch
+from incflo_torch.utils import io as tio
 
 STEPS = 3
 FIELDS = ("velocity", "p", "gp", "mac_phi", "dt")
 N_CELL, PROB_HI = (16, 16, 8), (1.0, 1.0, 0.5)
 JOB = "incflo_torch.parallel.workers:several"
 TIMEOUT = 120.0
+CLI_ARGS = ["max_step=2", "amr.check_int=2", "amr.plot_int=2",
+            "amr.plt_vort=1", "amr.KE_int=1"]
 # decks that run on one device but not yet over a mesh (ROADMAP A14): the
 # reason the refusal names -> what the shear3d deck adds
 SCOPE_DECKS = {
@@ -159,10 +173,27 @@ def solve_inputs():
 
 
 @pytest.fixture(scope="module")
-def two_ranks(jax_reference, godunov_inputs, solve_inputs):
+def io_dirs(tmp_path_factory):
+    """Directories of the 2-rank spawn's I/O jobs: its per-rank
+    checkpoint, a whole-level checkpoint of the unsharded port after
+    STEPS steps (for the 2-rank restart), and the sharded CLI run with
+    its deck."""
+    root = tmp_path_factory.mktemp("sharded_io")
+    sim = incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(
+        _deck()), device="cpu")
+    tio.write_checkpoint(str(root / "dense"),
+                         sim.advance_n(sim.init_state(), STEPS), sim.cfg)
+    (root / "cli").mkdir()
+    (root / "inputs").write_text(_deck())
+    return root
+
+
+@pytest.fixture(scope="module")
+def two_ranks(jax_reference, godunov_inputs, solve_inputs, io_dirs):
     """One spawn of 2 gloo ranks: the halo exchange, the sharded Godunov
-    wrappers, the sharded direct solves, and the sharded step from the
-    port's own init and from incflo_tpu's carried initial state."""
+    wrappers, the sharded direct solves, the sharded step from the
+    port's own init and from incflo_tpu's carried initial state, the
+    per-rank checkpoint and its restarts, and the CLI on both ranks."""
     g = godunov_inputs
     field = np.arange(16 * 3 * 2, dtype=np.float64).reshape(16, 3, 2)
     jobs = [
@@ -172,6 +203,11 @@ def two_ranks(jax_reference, godunov_inputs, solve_inputs):
                          dt=g["dt"], use_ppm=True, iconserv=(0, 1, 0))),
         ("solves", dict(deck=_deck(), **solve_inputs)),
         ("steps", dict(deck=_deck(), nsteps=STEPS)),
+        ("checkpoint", dict(deck=_deck(), nsteps=STEPS,
+                            path=str(io_dirs / "sharded"),
+                            dense=str(io_dirs / "dense"))),
+        ("cli", dict(argv=[str(io_dirs / "inputs")] + CLI_ARGS,
+                     cwd=str(io_dirs / "cli"))),
     ]
     own = launch.run(JOB, 2, dict(jobs=jobs), device="cpu", timeout=TIMEOUT)
     carried = launch.run(JOB, 2, dict(jobs=[("steps", dict(
@@ -352,6 +388,96 @@ def test_sharded_step_over_four_ranks(four_ranks):
     _check_steps(four_ranks[0], ref, trips, 1e-11)
     _check_steps(four_ranks[0], _jax_steps(_deck((32, 16, 8))), None,
                  1e-10)
+
+
+# ---------------------------------------------------------------------
+# per-rank checkpoints and the CLI on a mesh
+# ---------------------------------------------------------------------
+
+def test_sharded_checkpoint_writes_one_shard_per_rank(two_ranks, io_dirs):
+    assert sorted(os.listdir(io_dirs / "sharded")) == [
+        "Header", "Level_0.shard0.npz", "Level_0.shard1.npz",
+        "Shards.json", "Shards.p1.json"]
+    shard = np.load(io_dirs / "sharded" / "Level_0.shard1.npz")
+    assert shard["velocity"].shape == (N_CELL[0] // 2,) + N_CELL[1:] + (3,)
+    assert shard["p"].shape == (N_CELL[0] // 2,) + N_CELL[1:]
+
+
+def test_incflo_tpu_reads_the_sharded_checkpoint(two_ranks, io_dirs):
+    """incflo_tpu's dense reader merges the per-rank manifests into the
+    state the ranks wrote, bit for bit."""
+    from incflo_tpu.utils import io as jio
+    written = two_ranks[0][0]["checkpoint"]["written"]
+    s = jio.read_checkpoint(str(io_dirs / "sharded"),
+                            JConfig.from_text(_deck()), jnp.float64)
+    got = _np_state(s)
+    for k in tstate.LevelState._fields + ("t", "dt", "prev_dt",
+                                          "prev_prev_dt", "step"):
+        assert np.array_equal(got[k], written[k]), k
+
+
+@pytest.mark.parametrize("case", ["sharded on 1 rank", "sharded on 2 ranks",
+                                  "dense on 2 ranks"])
+def test_checkpoint_restarts_on_any_rank_count(two_ranks, io_dirs, case):
+    """The step after a restart agrees with the unsharded port's step
+    STEPS + 1 to the tolerance of the sharded step."""
+    sim = incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(
+        _deck()), device="cpu")
+    ref = tstate.sim_to_numpy(sim.advance_n(sim.init_state(), STEPS + 1))
+    res = two_ranks[0][0]["checkpoint"]
+    if case == "sharded on 1 rank":
+        s = tio.read_checkpoint(str(io_dirs / "sharded"), sim.cfg,
+                                torch.float64, "cpu")
+        got = tstate.sim_to_numpy(sim.advance(s))
+    else:
+        got = res["restarted" if case == "sharded on 2 ranks"
+                  else "dense_restarted"]
+    assert int(got["step"]) == STEPS + 1
+    for f in FIELDS:
+        assert _rel(got[f], ref[f]) <= 1e-11, f
+
+
+def test_cli_on_two_ranks_matches_one(two_ranks, io_dirs, tmp_path,
+                                      monkeypatch):
+    """main.run on both ranks: rank 0 alone prints and writes the
+    plotfiles, each rank its checkpoint shard; the files hold what the
+    unsharded driver writes, to the tolerance of the sharded step."""
+    from incflo_torch import main as tmain
+    res = [r["cli"] for r in two_ranks[0]]
+    assert [r["rc"] for r in res] == [0, 0]
+    assert "Time, Kinetic Energy" in res[0]["stdout"]
+    assert res[1]["stdout"] == ""
+    monkeypatch.setenv("INCFLO_PLATFORM", "cpu")
+    monkeypatch.chdir(tmp_path)
+    assert tmain.run([str(io_dirs / "inputs")] + CLI_ARGS) == 0
+    d = io_dirs / "cli"
+    assert sorted(os.listdir(d)) == sorted(os.listdir(tmp_path)) == [
+        "chk00000", "chk00002", "plt00000", "plt00002"]
+    assert "Shards.p1.json" in os.listdir(d / "chk00002")
+    assert sorted(os.listdir(d / "plt00002")) == [
+        "Header", "Level_0.npz", "incflo_job_info"]
+    got = np.load(d / "plt00002" / "Level_0.npz")
+    ref = np.load(tmp_path / "plt00002" / "Level_0.npz")
+    assert sorted(got.files) == sorted(ref.files) and "vort" in ref.files
+    # a vector's components relative to the largest of them (shear3d's
+    # w is rounding noise)
+    group = lambda k: k[:-1] if k[:-1] in ("vel", "gp") else k
+    scale = {}
+    for k in ref.files:
+        scale[group(k)] = max(scale.get(group(k), 0.0),
+                              float(np.abs(ref[k]).max()))
+    for k in ref.files:
+        err = float(np.abs(got[k] - ref[k]).max())
+        assert err <= 1e-11 * scale[group(k)], (k, err)
+    s = tio.read_checkpoint(str(d / "chk00002"),
+                            incflo_torch.IncfloConfig.from_text(_deck()),
+                            torch.float64, "cpu")
+    r = tio.read_checkpoint(str(tmp_path / "chk00002"),
+                            incflo_torch.IncfloConfig.from_text(_deck()),
+                            torch.float64, "cpu")
+    for f in ("velocity", "p", "gp", "mac_phi"):
+        assert _rel(getattr(s.level, f).numpy(),
+                    getattr(r.level, f).numpy()) <= 1e-11, f
 
 
 # ---------------------------------------------------------------------

@@ -34,6 +34,7 @@ with walls and the prebuilt nodal operator iterates V-cycles.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 import bench
 from incflo_tpu.config import IncfloConfig as JConfig

@@ -30,6 +30,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 import bench
 from incflo_tpu.config import IncfloConfig as JConfig

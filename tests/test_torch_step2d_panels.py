@@ -20,6 +20,7 @@
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
 
 import jax.numpy as jnp
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 import bench
+import torch_threads  # noqa: F401  (caps torch's CPU threads)
 import incflo_torch
 from incflo_torch import state as tstate
 from incflo_torch.probs import smooth_perturbation  # noqa: F401 (tp.)
