@@ -167,6 +167,37 @@ Phases (any failure ends the run with a non-zero exit):
              finite); tgv2d at 128^2 f32 with plt_error_u (one step2d
              launch a step, six finite Norm lines).  One line a run with
              the driver's ms/step beside the card's name and power limit.
+  5b. amr   ROADMAP A13, patch AMR (incflo_torch/amr_patch.py).  paths:
+             the CPU parity decks of tests/test_torch_amr_*.py (the
+             two-level RT2D slab with fixed dt, the Taylor-vortex band at
+             n = 32, the probtype-21 box) and the 3D RT slab deck of
+             tests/test_amr_patch.py:309-326 at 16x16x32, on cuda and on
+             cpu in float64, each from its own init_state, 2 steps and
+             one regrid: the same trees, every entry's fields and dt to
+             1e-9, equal iterations.  main, float32 through
+             SlabAMRSimulation.advance, 2 warm-up + 5 timed steps: rt_amr
+             (bench's rt 64x64x128 with amr.max_level = 1, gradrhoerr
+             0.1, regrid every 2 steps, at cfl 0.5: a 128x128x32 z slab)
+             and shear3d_amr (bench's shear3d 128x128x32 with a tagged
+             band z in [0.10, 0.15]: a 256x256x32 slab); the patch mode
+             resolves to slab along z; ms/step, the cells per level, the
+             bounds after each step, the launches a step of each kernel
+             per level (counters zeroed before the warm-up, read after
+             the timed steps: shear3d_amr's base level the Godunov kernels
+             1 / 3 / 3 a step and nothing else, every other level the
+             walled smoothers and nothing else), the solvers' tallies,
+             finite fields, the next step's nodal solves within the bounds
+             of AMR_NODAL_BOUNDS, one profiled step.  levels: every level
+             of the patches' MAC, velocity, tracer and nodal hierarchies
+             that one more step builds (Dirichlet faces on both z sides,
+             b seeded on the nodal Dirichlet rows), at the V-cycles'
+             calls: the walled smoothers bit-equal to their plain
+             versions in float32 (through the solvers' _smooth_res) and
+             within 1e-13 in float64, one kernel node a call, kernel,
+             plain and bound ms.  cli: incflo_torch.main on rt_amr's deck,
+             max_step = 4 with a patch checkpoint and a plotfile every 2
+             steps, the patch mode auto-selected, then a restart from
+             chk00002 whose chk00004 is bit-equal to the unbroken one.
   6. sharded the x-slab mesh of incflo_torch/parallel and the halo-slab
              Godunov kernels (B8).  First the kernels in one process (after
              phase 2): the shear3d n = 128 level cut into 2 slabs (nxl 64)
@@ -195,7 +226,8 @@ It imports neither JAX nor incflo_tpu and writes its own deck text (the
 shear3d, rt and tgv2d decks of bench.py; shear3d_vd adds
 constant_density = false, advect_tracer = true and mu_s = 0.0002;
 channel_cyl and poiseuille_cyl_bingham with and without their cylinder;
-the bubble of probtype 111; tgv2d with Godunov; the 2D rt).  Without a CUDA device, or
+the bubble of probtype 111; tgv2d with Godunov; the 2D rt; the AMR
+decks).  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
@@ -291,6 +323,11 @@ TALLIES = {
     "rt2d": {"cell_iters": 15.8, "nodal_cycles": 6.8, "tensor_cg_iters": 0.0,
              "cell_smooth": 0.0, "nodal_smooth": 0.0, WALLED: 0.0,
              WALLED_NODAL: 0.0, "host_syncs": 34.6},
+    # the AMR cells, the whole tree a step (read from their chip runs)
+    "rt_amr": {"cell_iters": 41.6, "nodal_cycles": 18.8,
+               "tensor_cg_iters": 4.0, "host_syncs": 92.4},
+    "shear3d_amr": {"cell_iters": 11.8, "nodal_cycles": 9.0,
+                    "tensor_cg_iters": 0.0, "host_syncs": 28.8},
 }
 VD_KEYS = """
 incflo.constant_density = false
@@ -3240,6 +3277,565 @@ def phase_cli(incflo_torch, gk, sk, s2, torch):
     return rows
 
 
+# ---------------------------------------------------------------------
+# ROADMAP A13: patch AMR (incflo_torch/amr_patch.py) on the card
+# ---------------------------------------------------------------------
+
+# the decks of tests/test_torch_amr_*.py (tests/test_amr_patch.py's
+# RT2D :15-37 with fixed dt, the Taylor vortex band :354-380 at n = 32,
+# the probtype-21 box :451-467) and its 3D RT slab deck (:309-326)
+AMR_RT2D = """
+incflo.dtype = float64
+amr.n_cell = 16 32
+amr.max_level = 1
+amr.patch_mode = slab
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 0.5 1.0
+geometry.is_periodic = 1 0
+ylo.type = "sw"
+yhi.type = "sw"
+incflo.probtype = 5
+incflo.gravity = 0. -0.1
+incflo.use_godunov = true
+incflo.constant_density = false
+incflo.advect_tracer = true
+incflo.ntrac = 1
+incflo.mu = 0.001
+incflo.mu_s = 0.001
+incflo.cfl = 0.9
+incflo.init_shrink = 1.0
+incflo.initial_iterations = 1
+incflo.gradrhoerr = 0.1
+incflo.fixed_dt = 0.2
+"""
+AMR_TGV = """
+incflo.dtype = float64
+amr.n_cell = 32 32
+amr.max_level = 1
+amr.patch_mode = slab
+amr.regrid_int = -1
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 2. 2.
+geometry.is_periodic = 1 1
+incflo.probtype = 2
+incflo.mu = 0.001
+incflo.ro_0 = 1.
+incflo.fixed_dt = 0.008
+incflo.diffusion_type = 0
+incflo.initial_iterations = 3
+incflo.tag_region = true
+incflo.tag_region_lo = 0.75 0.0
+incflo.tag_region_hi = 1.25 2.0
+incflo.use_godunov = false
+"""
+AMR_BOX = """
+incflo.dtype = float64
+amr.n_cell = 32 32
+amr.max_level = 1
+amr.patch_mode = box
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 1. 1.
+geometry.is_periodic = 1 1
+incflo.probtype = 21
+incflo.tag_region = true
+incflo.tag_region_lo = 0.3 0.4
+incflo.tag_region_hi = 0.6 0.7
+incflo.fixed_dt = 0.002
+"""
+AMR_RT3D = """
+incflo.dtype = float64
+amr.n_cell = 16 16 32
+amr.max_level = 1
+amr.patch_mode = slab
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = 0.5 0.5 1.0
+geometry.is_periodic = 1 1 0
+zlo.type = "sw"
+zhi.type = "sw"
+incflo.probtype = 5
+incflo.gravity = 0. 0. -0.1
+incflo.constant_density = false
+incflo.advect_tracer = true
+incflo.mu = 0.001
+incflo.mu_s = 0.001
+incflo.gradrhoerr = 0.1
+incflo.cfl = 0.5
+"""
+AMR_PATHS = {"rt2d slab": AMR_RT2D, "tgv slab": AMR_TGV, "box": AMR_BOX,
+             "rt3d slab 16x16x32": AMR_RT3D}
+# the full-width cells: bench's rt (64x64x128) and shear3d (128x128x32)
+# with one refined level, regridded every 2 steps.  rt_amr runs at
+# cfl 0.5, the cfl of tests/test_amr_patch.py's 3D RT slab deck: at
+# bench's 0.9 the patch's velocity next to its low coarse-fine face
+# triples in step 3 and blows up in step 4, in incflo_tpu as in the port
+# (the same fields within 2.6e-11 over 3 steps in f64 on the CPU;
+# ROADMAP C)
+RT_AMR_KEYS = ("amr.max_level = 1\nincflo.gradrhoerr = 0.1\n"
+               "amr.regrid_int = 2\nincflo.cfl = 0.5\n")
+SHEAR3D_AMR_KEYS = ("amr.max_level = 1\namr.patch_mode = slab\n"
+                    "incflo.tag_region = true\n"
+                    "incflo.tag_region_lo = 0. 0. 0.10\n"
+                    "incflo.tag_region_hi = 1. 1. 0.15\namr.regrid_int = 2\n")
+AMR_MAIN = {"rt_amr": lambda: rt_deck(128, "float32") + RT_AMR_KEYS,
+            "shear3d_amr": lambda: shear3d_deck(128, "float32")
+            + SHEAR3D_AMR_KEYS}
+# the kernels each level of a cell launches (every other kernel no time):
+# shear3d's periodic base level the Godunov kernels (its solves are
+# direct), rt's walled base level the walled smoothers; every patch the
+# walled smoothers (Dirichlet coarse-fine faces on both z sides) and the
+# plain walled Godunov chain
+AMR_KERNELS = {"rt_amr": {0: (WALLED, WALLED_NODAL),
+                          1: (WALLED, WALLED_NODAL)},
+               "shear3d_amr": {0: tuple(PER_STEP),
+                               1: (WALLED, WALLED_NODAL)}}
+# the bounds, in tolerances, of the nodal solves of an AMR step, by role
+# (a level's in-step projection comes first, its composite-sync
+# re-projection second).  In f32 the V-cycles stop on stagnation above
+# the tolerance, as the bubble's and rt2d's do (ROADMAP C): rt's base
+# level at 3.6 x, a patch level at 13-15 x (on an H100; the f64 solve of
+# the same shear3d_amr patch converges, 0.19 x on the CPU).  A
+# correction solve of the composite sync starts from zero against
+# nonzero Dirichlet values and may end after one V-cycle far above its
+# tolerance (4.7e5 x on rt_amr's patch), in incflo_tpu as in the port
+# (ROADMAP C, known flaws): it is held to end before maxiter only
+AMR_NODAL_BOUNDS = {("base", "step"): 5.0, ("patch", "step"): 20.0,
+                    ("base", "sync"): float("inf"),
+                    ("patch", "sync"): float("inf")}
+
+
+def amr_state_errs(a, b):
+    """The worst relative difference of every field and dt over the
+    entries of two PatchStates."""
+    worst = 0.0
+    for sa, sb in zip(a.levels, b.levels):
+        for f in A9C_FIELDS:
+            worst = max(worst, rel_state_err(getattr(sa.level, f),
+                                             getattr(sb.level, f)))
+        worst = max(worst, rel_state_err(sa.dt, sb.dt))
+    return worst
+
+
+def phase_paths_amr(incflo_torch, mg, torch, name):
+    """An AMR deck on cuda (kernels) and on cpu (plain versions), f64:
+    each from its own init_state, 2 steps and one regrid; the trees
+    (axis, bounds, parents) identical, every entry's fields and dt to
+    1e-9 relative after init, each step and the regrid, the solvers'
+    iterations equal."""
+    from incflo_torch.amr_patch import SlabAMRSimulation
+    cfg = incflo_torch.IncfloConfig.from_text(AMR_PATHS[name])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        amr = SlabAMRSimulation(cfg, device=dev)
+        s = amr.init_state()
+        states, trees, iters = [s], [amr.tree_meta()], []
+        for _ in range(2):
+            before = dict(mg.COUNTS)
+            s = amr.advance(s)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            iters.append({k: mg.COUNTS[k] - before[k] for k in ITER_KINDS})
+            states.append(s)
+            trees.append(amr.tree_meta())
+        states.append(amr.regrid(s))
+        trees.append(amr.tree_meta())
+        runs[dev] = (states, trees, iters)
+    (sc, tc, ic), (sg, tg, ig) = runs["cpu"], runs["cuda"]
+    if tc != tg:
+        raise AssertionError(f"amr {name}: trees differ {tc} vs {tg}")
+    if ic != ig:
+        raise AssertionError(f"amr {name}: iterations differ {ic} vs {ig}")
+    worst = max(amr_state_errs(a, b) for a, b in zip(sg, sc))
+    print(f"[paths] amr {name}: cuda vs cpu f64, init + 2 steps + regrid, "
+          f"{len(tg[-1]['bounds'])} entries, bounds {tg[-1]['bounds'][1:]},"
+          f" worst relative {worst:.3e} (tol 1e-9); iterations {ig}",
+          flush=True)
+    if not worst <= 1e-9:
+        raise AssertionError(f"amr {name}: cuda and cpu differ: {worst:.3e}")
+    return worst
+
+
+class LevelLaunches:
+    """While active, the launches of every kernel counted per AMR level:
+    each Simulation._advance_impl and reproject call adds the launch
+    counts it made to the level of its tree entry."""
+
+    def __init__(self, amr, mods):
+        self.amr, self.mods = amr, mods
+        self.by_level = {}
+
+    def _counts(self):
+        out = {}
+        for m in self.mods:
+            out.update(m.LAUNCHES)
+        return out
+
+    def __enter__(self):
+        from incflo_torch.simulation import Simulation
+        self.cls = Simulation
+        self.saved = (Simulation._advance_impl, Simulation.reproject)
+        for name, fn in zip(("_advance_impl", "reproject"), self.saved):
+            setattr(Simulation, name, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._advance_impl, self.cls.reproject = self.saved
+
+    def _wrap(self, fn):
+        def wrapper(sim, *args, **kw):
+            before = self._counts()
+            out = fn(sim, *args, **kw)
+            lev = self.amr.level_of[self.amr.sims.index(sim)]
+            tally = self.by_level.setdefault(lev, {})
+            for k, v in self._counts().items():
+                tally[k] = tally.get(k, 0) + v - before[k]
+            return out
+        return wrapper
+
+
+def amr_cells(amr):
+    """Cells each level advances."""
+    out = {}
+    for sim, lev in zip(amr.sims, amr.level_of):
+        n = 1
+        for c in sim.grid.n_cell:
+            n *= c
+        out[lev] = out.get(lev, 0) + n
+    return out
+
+
+def phase_main_amr(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
+    """An AMR cell at full width, f32, through SlabAMRSimulation.advance
+    on the card: ms/step, the cells per level, the bounds after each
+    regrid, the launches a step of each kernel per level (counters zeroed
+    just before the warm-up, read just after the timed steps), the
+    solvers' tallies, finite fields, the next step's nodal solves; then
+    one profiled step for the device idle share."""
+    from incflo_torch.amr_patch import SlabAMRSimulation, choose_patch_mode
+    cfg = incflo_torch.IncfloConfig.from_text(AMR_MAIN[name]())
+    mode = choose_patch_mode(cfg)
+    if mode != "slab":
+        raise AssertionError(f"{name}: patch mode {mode}, expected slab")
+    t_setup = time.perf_counter()
+    amr = SlabAMRSimulation(cfg)
+    s = amr.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_setup
+    if amr.axis != 2:
+        raise AssertionError(f"{name}: slab axis {amr.axis}, expected z")
+    bounds = [amr.tree_meta()["bounds"][1:]]
+    gk.reset_launches()
+    sk.reset_launches()
+    mg.reset_counts()
+    with LevelLaunches(amr, (gk, sk)) as per_level:
+        for _ in range(warm):
+            s = amr.advance(s)
+            bounds.append(amr.tree_meta()["bounds"][1:])
+        torch.cuda.synchronize()
+        warm_counts = dict(mg.COUNTS)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            s = amr.advance(s)
+            bounds.append(amr.tree_meta()["bounds"][1:])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    total = warm + steps
+    per_step = {k: (v - warm_counts[k]) / steps for k, v in mg.COUNTS.items()}
+    launches = {lev: {k: v for k, v in t.items() if v}
+                for lev, t in sorted(per_level.by_level.items())}
+    per_level_step = {lev: {k: v / total for k, v in t.items()}
+                      for lev, t in launches.items()}
+    for lev, want in AMR_KERNELS[name].items():
+        got = set(launches.get(lev, {}))
+        if got != set(want):
+            raise AssertionError(f"{name} level {lev}: kernels {launches}, "
+                                 f"expected {want}")
+    if name == "shear3d_amr":
+        got = {k: launches[0][k] / total for k in PER_STEP}
+        if got != {k: float(v) for k, v in PER_STEP.items()}:
+            raise AssertionError(f"{name}: level-0 Godunov launches a step "
+                                 f"{got}, expected {PER_STEP}")
+    check_one_launch(sk, name)
+    check_tallies(name, per_step)
+    for st in s.levels:
+        for f in A9C_FIELDS:
+            if not bool(torch.isfinite(getattr(st.level, f)).all()):
+                raise AssertionError(f"{name}: non-finite {f}")
+    ms = (t1 - t0) / steps * 1e3
+    cells = amr_cells(amr)
+    box = [s]
+
+    def one_step():
+        box[0] = amr.advance(box[0])
+        torch.cuda.synchronize()
+    shaped, cell = shaped_nodal_solves(mg, one_step)
+    s = box[0]
+    solves = [sv for _, sv in shaped]
+    base = amr.sim0.grid.node_shape
+    seen, roles = set(), []
+    for shape, _ in shaped:
+        roles.append(("base" if shape == base else "patch",
+                      "sync" if shape in seen else "step"))
+        seen.add(shape)
+    bounds_n = [AMR_NODAL_BOUNDS[r] for r in roles]
+    if not any(r == ("patch", "step") for r in roles) or any(
+            r > b or it >= m for (r, it, m), b in zip(solves, bounds_n)):
+        raise AssertionError(f"{name}: the step's nodal solves ended at "
+                             f"{shaped} (roles {roles}, bounds {bounds_n} x "
+                             f"tolerance)")
+    if any(it >= m for _, it, m in cell):
+        raise AssertionError(f"{name}: a cell solve reached maxiter: {cell}")
+    card = card_line()
+    tally = ", ".join(f"{k} {per_step[k]:.1f}" for k in
+                      ("cell_iters", "cell_solves", "nodal_cycles",
+                       "nodal_solves", "tensor_cg_iters", "host_syncs"))
+    print(f"[main] {name} f32: {ms:.3f} ms/step over {steps} steps after "
+          f"{warm} warm-up (setup {setup_s:.1f} s); cells per level "
+          f"{cells}; bounds after each step {bounds}; per step: {tally}; "
+          f"launches a step per level {per_level_step}; the next step's "
+          f"nodal solves: residual / tol {[round(r, 3) for r, _, _ in solves]}"
+          f" in {[it for _, it, _ in solves]} V-cycles ({roles}); its "
+          f"cell CG solves: "
+          f"best residual / tol {[float(f'{r:.3g}') for r, _, _ in cell]} in"
+          f" {[it for _, it, _ in cell]} iterations; t={float(s.t):.6f} "
+          f"dt={float(s.dt):.6e}; {card}", flush=True)
+    out = {"deck": name, "n_cell": list(cfg.grid.n_cell),
+           "cells_per_level": cells, "ms_per_step": ms, "steps": steps,
+           "warmup": warm, "setup_s": setup_s, "bounds": bounds,
+           "per_step": per_step, "launches_per_level": launches,
+           "launches_per_step_per_level": per_level_step,
+           "nodal_roles": roles,
+           "nodal_res_over_tol": [r for r, _, _ in solves],
+           "nodal_cycles": [it for _, it, _ in solves],
+           "cell_res_over_tol": [r for r, _, _ in cell],
+           "cell_cg_iters": [it for _, it, _ in cell], "card": card}
+
+    def run(st, k):
+        for _ in range(k):
+            st = amr.advance(st)
+        return st
+    out["profile"] = phase_profile(amr.sim0, s, torch, name, ms, steps=1,
+                                   run=run, table=False)
+    return out, amr, s
+
+
+def shaped_nodal_solves(mg, run):
+    """logged_solves(mg, run) with each iterated nodal solve's node shape:
+    ([(shape, (residual / tol, V-cycles, maxiter))], cell solves)."""
+    shapes = []
+    info = mg.NodalSolver.solve_info
+
+    def wrapped(self, rhs, **kw):
+        n = len(mg.NODAL_LOG)
+        out = info(self, rhs, **kw)
+        if len(mg.NODAL_LOG) > n:
+            shapes.append(tuple(rhs.shape))
+        return out
+    mg.NodalSolver.solve_info = wrapped
+    try:
+        solves, cell = logged_solves(mg, run)
+    finally:
+        mg.NodalSolver.solve_info = info
+    return list(zip(shapes, solves)), cell
+
+
+def patch_solvers(mg, amr, s, torch):
+    """The cell and nodal solvers one more step builds on the patches
+    (those whose fine level has a Dirichlet side on both ends of z), by
+    the first of each kind (MAC, velocity, tracer; nodal)."""
+    found = {}
+    cell_info, nodal_info = mg.CellSolver.solve_info, \
+        mg.NodalSolver.solve_info
+    cells = {sim.grid.cell_shape for sim in amr.sims[1:]}
+    nodes = {sim.grid.node_shape for sim in amr.sims[1:]}
+
+    def cf(lev):
+        return (lev.bc_lo[2] == mg.SolverBC.DIRICHLET
+                and lev.bc_hi[2] == mg.SolverBC.DIRICHLET)
+
+    def cell(self, rhs, **kw):
+        lev = self.levels[0]
+        if cf(lev) and tuple(rhs.shape[:3]) in cells:
+            kind = ("velocity" if rhs.dim() == 4 else
+                    "mac" if lev.acoef is None else "tracer")
+            found.setdefault(kind, self)
+        return cell_info(self, rhs, **kw)
+
+    def nodal(self, rhs, **kw):
+        if cf(self.levels[0]) and tuple(rhs.shape) in nodes:
+            found.setdefault("nodal", self)
+        return nodal_info(self, rhs, **kw)
+    mg.CellSolver.solve_info, mg.NodalSolver.solve_info = cell, nodal
+    try:
+        amr.advance(s)
+        torch.cuda.synchronize()
+    finally:
+        mg.CellSolver.solve_info, mg.NodalSolver.solve_info = \
+            cell_info, nodal_info
+    return found
+
+
+def phase_levels_amr(sk, mg, torch, name, amr, s):
+    """The walled smoothers at every level of the patch hierarchies that
+    one more step of `name` builds (MAC, velocity, tracer and nodal, the
+    coarse-fine faces Dirichlet on both z sides, the nodal Dirichlet rows
+    inhomogeneous: b holds seeded values there), at the call their
+    V-cycles make: bit-equal to the plain version in float32 through the
+    solvers' own _smooth_res, within 1e-13 in float64 on the same
+    coefficients, one kernel node a call (CUDA graph); kernel, plain and
+    bound ms."""
+    import numpy as np
+    saved = save_launches(sk)
+    solvers = patch_solvers(mg, amr, s, torch)
+    if set(solvers) != {"mac", "velocity", "tracer", "nodal"} and \
+            set(solvers) != {"mac", "velocity", "nodal"}:
+        raise AssertionError(f"{name}: patch solvers found {list(solvers)}")
+    rng = np.random.default_rng(47)
+    rows = []
+    for kind, solver in sorted(solvers.items()):
+        cell = isinstance(solver, mg.CellSolver)
+        name_k = WALLED if cell else WALLED_NODAL
+        last = len(solver.levels) - 1
+        for li in range(last + 1):
+            coefs, kw = level_args(mg, solver, li)
+            shape = tuple(solver.diags[li].shape)
+            n = solver.nu_bottom if li == last else solver.nu1
+            want = li < last
+            dev = solver.diags[li].device
+            x = torch.as_tensor(rng.standard_normal(shape),
+                                dtype=torch.float32, device=dev)
+            b = torch.as_tensor(rng.standard_normal(shape),
+                                dtype=torch.float32, device=dev)
+            plain_fn = sk.cell_smooth_plain if cell else sk.nodal_smooth_plain
+            kern_fn = sk.cell_smooth if cell else sk.nodal_smooth
+            call = lambda: solver._smooth_res(x, b, li, n, want)
+            plain = lambda: plain_fn(x, b, *coefs, n, want, **kw)
+            got, ref = call(), plain()
+            if not all(torch.equal(u, v) for u, v in zip(got, ref)
+                       if v is not None):
+                raise AssertionError(f"{name} {kind} level {li}: kernel and "
+                                     "plain version differ (f32)")
+            cast = lambda t: t.to(torch.float64) if isinstance(
+                t, torch.Tensor) else (tuple(cast(u) for u in t)
+                                       if isinstance(t, tuple) else t)
+            c64 = tuple(cast(c) for c in coefs)
+            kw64 = {k: cast(v) if k == "Fwall" else v for k, v in kw.items()}
+            x64, b64 = x.to(torch.float64), b.to(torch.float64)
+            g64 = kern_fn(x64, b64, *c64, n, want, **kw64)
+            r64 = plain_fn(x64, b64, *c64, n, want, **kw64)
+            e64 = max(rel_state_err(u, v) for u, v in zip(g64, r64)
+                      if v is not None)
+            if not e64 <= TOL_WALLED_F64:
+                raise AssertionError(f"{name} {kind} level {li}: f64 kernel "
+                                     f"and plain differ by {e64:.3e}")
+            launches = graph_launches(sk, call)
+            if launches != 1:
+                raise AssertionError(f"{name} {kind} level {li}: one call is "
+                                     f"{launches} device launches")
+            row = {"deck": name, "solver": kind, "family": name_k,
+                   "level": li, "shape": "x".join(str(v) for v in x.shape),
+                   "bc": repr(kw["bc"]),
+                   "call": f"{n} sweeps" + (" + residual" if want else ""),
+                   "bit_equal_f32": True, "max_rel_err_f64": e64,
+                   "device_launches": launches, "ms": device_ms(call),
+                   "plain_ms": device_ms(plain),
+                   "bytes": smooth_bytes(mg, solver, li, x, want),
+                   "ops": count_ops(plain)}
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"])
+            rows.append(row)
+            print(f"[levels] amr {name} patch {kind} level {li} "
+                  f"{row['shape']} bc {row['bc']}, {row['call']}: bit-equal "
+                  f"f32, f64 {e64:.2e}, {launches} kernel node a call, kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
+    torch.cuda.synchronize()
+    check_one_launch(sk, f"{name} levels")
+    restore_launches(sk, saved)
+    return rows
+
+
+def phase_cli_amr(incflo_torch, gk, sk, s2, torch):
+    """The CLI driver on rt_amr's deck at full width, f32, on the card:
+    the patch mode auto-selected (slab), max_step = 4 with a patch
+    checkpoint and a plotfile every 2 steps, then a restart from
+    chk00002 whose chk00004 (every patch level and the tree) is bit-equal
+    to the unbroken one; every plotfile field finite."""
+    import tempfile
+    import numpy as np
+    from incflo_torch import main
+    rows = []
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="incflo_amr_cli_") as root:
+        deck = os.path.join(root, "rt_amr")
+        with open(deck, "w") as f:
+            f.write(AMR_MAIN["rt_amr"]())
+        unbroken = os.path.join(root, "unbroken")
+        restart = os.path.join(root, "restart")
+        for tag, cwd, argv, steps in (
+                ("rt_amr", unbroken, CLI_ARGS, 4),
+                ("rt_amr restart", restart, CLI_ARGS + [
+                    "amr.restart=" + os.path.join(unbroken, "chk00002")], 2)):
+            launches, text, ms, wall = cli_run(main, (gk, sk, s2), torch,
+                                               deck, cwd, argv, tag)
+            if tag == "rt_amr" and \
+                    "amr.patch_mode auto-selected: slab" not in text:
+                raise AssertionError(f"cli {tag}: no slab auto-selection:\n"
+                                     f"{text}")
+            if not launches[WALLED] > 0 or not launches[WALLED_NODAL] > 0 \
+                    or any(launches[k] for k in PER_STEP):
+                raise AssertionError(f"cli {tag}: launches {launches}")
+            rows.append({"run": tag, "steps": steps, "ms_per_step": ms,
+                         "wall_s": wall, "launches": launches})
+            print(f"[cli] {tag} f32: {ms:.3f} ms/step (the driver's, writes "
+                  f"included) over {steps} steps, {wall:.2f} s in all; "
+                  f"launches {launches}; {card}", flush=True)
+        a = os.path.join(unbroken, "chk00004")
+        b = os.path.join(restart, "chk00004")
+        names = sorted(os.path.relpath(os.path.join(r, f), a)
+                       for r, _, fs in os.walk(a) for f in fs)
+        if "Patch.json" not in names or len(names) < 5:
+            raise AssertionError(f"cli rt_amr: chk00004 holds {names}")
+        for f in names:
+            pa, pb = os.path.join(a, f), os.path.join(b, f)
+            bad = npz_equal(pa, pb) if f.endswith(".npz") else (
+                [] if open(pa).read() == open(pb).read() else [f])
+            if bad:
+                raise AssertionError(f"cli rt_amr: the restarted chk00004 "
+                                     f"differs in {f}: {bad}")
+        for cwd, plts in ((unbroken, ("plt00000", "plt00002", "plt00004")),
+                          (restart, ("plt00004",))):
+            for plt in plts:
+                for lv in ("Level_0.npz", "Level_1.npz"):
+                    z = np.load(os.path.join(cwd, plt, lv))
+                    bad = [k for k in z.files if not np.isfinite(z[k]).all()]
+                    if bad:
+                        raise AssertionError(f"cli rt_amr {plt} {lv}: "
+                                             f"non-finite {bad}")
+        print(f"[cli] rt_amr: the restarted chk00004 ({len(names)} files, "
+              f"every patch level) is bit-equal to the unbroken one; every "
+              f"plotfile field finite", flush=True)
+    return rows
+
+
+def phase_amr(incflo_torch, gk, sk, s2, mg, torch, stamp):
+    """ROADMAP A13 on the card: the AMR paths cuda vs cpu, the two
+    full-width cells, the patch levels' smoothers, the restart and the
+    CLI."""
+    for name in AMR_PATHS:
+        phase_paths_amr(incflo_torch, mg, torch, name)
+    stamp("amr paths")
+    main, levels = {}, []
+    for name in AMR_MAIN:
+        r, amr, s = phase_main_amr(incflo_torch, gk, sk, mg, torch, name)
+        main[name] = r
+        stamp(f"amr main {name}")
+        levels += phase_levels_amr(sk, mg, torch, name, amr, s)
+        stamp(f"amr levels {name}")
+        del amr, s
+    cli = phase_cli_amr(incflo_torch, gk, sk, s2, torch)
+    stamp("amr cli")
+    return main, levels, cli
+
+
 def card_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -3348,6 +3944,8 @@ def main(argv):
     stamp("main tgv2d")
     cli = phase_cli(incflo_torch, gk, sk, s2, torch)
     stamp("cli")
+    amr_main, amr_levels, amr_cli = phase_amr(incflo_torch, gk, sk, s2, mg,
+                                              torch, stamp)
     shard = phase_sharded_step(incflo_torch, gk, torch)
     stamp("sharded")
 
@@ -3517,6 +4115,10 @@ def main(argv):
         "at_128_and_256": s2res["at"]})
     for entry in kernels:
         entry["launches_per_step_a8_a11"] = a8_per_step(entry["name"])
+        entry["launches_per_step_amr"] = {
+            cell: {lev: t.get(entry["name"], 0.0) for lev, t in
+                   r["launches_per_step_per_level"].items()}
+            for cell, r in amr_main.items()}
         entry["launches_cli"] = {r["run"]: r["launches"].get(entry["name"], 0)
                                  for r in cli}
     print(json.dumps({"kernels": kernels, "levels": levels,
@@ -3525,6 +4127,8 @@ def main(argv):
                       + main_tgv + list(main_a9c.values())
                       + list(main_a8.values()),
                       "sharded": shard, "cli": cli,
+                      "amr": {"main": list(amr_main.values()),
+                              "levels": amr_levels, "cli": amr_cli},
                       "seconds": time.time() - t_start}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

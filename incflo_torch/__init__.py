@@ -6,19 +6,22 @@ diffusion), written with PyTorch tensors and hand-written CUDA kernels
 for NVIDIA Hopper (csrc/godunov.cu, csrc/smoothers.cu, csrc/step2d.cu).
 It imports neither JAX nor incflo_tpu.
 
-Scope today: one level, 2D and 3D, Godunov or MOL, every boundary type,
-constant or variable density, tracers, Newtonian and non-Newtonian
-fluids, explicit, Crank-Nicolson or implicit diffusion, and embedded
-boundaries (eb/: the cut-cell geometry on the host, MOL-EB and the
-cut-cell solvers on the device) -- all five decks of bench.py.  A 2D
+Scope today: 2D and 3D, Godunov or MOL, every boundary type, constant or
+variable density, tracers, Newtonian and non-Newtonian fluids, explicit,
+Crank-Nicolson or implicit diffusion, and embedded boundaries (eb/: the
+cut-cell geometry on the host, MOL-EB and the cut-cell solvers on the
+device) -- all five decks of bench.py.  AMR: the patch tree of
+amr_patch.py (slab or box patches, coarse-fine ghosts and solver
+closures, average_down, the composite pressure sync, regrid with
+hysteresis) and the dense fine level of amr.py.  A 2D
 periodic constant-density MOL deck (tgv2d) steps on the card in one
 launch of the fused step kernel.  I/O and the CLI: checkpoints and
 plotfiles in incflo_tpu's on-disk format, restart from either package's
 checkpoint, per-rank checkpoints on a mesh (utils/io.py), derived fields
 (ops/derive.py), diagnostics (utils/diagnostics.py), and the driver
-`python -m incflo_torch.main <inputs> [key=value ...]` (main.py).  Patch
-AMR raises NotImplementedError naming ROADMAP A13; a mesh runs
-shear3d's physics (A14).
+`python -m incflo_torch.main <inputs> [key=value ...]` (main.py), AMR
+decks included.  AMR with embedded boundaries raises NotImplementedError
+naming ROADMAP A13b; a mesh runs shear3d's physics (A14).
 
 Float32 matrix products run in full precision: importing the package
 sets `torch.backends.cuda.matmul.allow_tf32 = False` and

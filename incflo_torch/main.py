@@ -10,11 +10,16 @@ as incflo_tpu's driver, writing the same files.
 
 It runs on the card.  INCFLO_PLATFORM=cpu asks for the CPU (the kernels'
 plain versions); with no card and no such request it exits with an
-error.  INCFLO_PROFILE_DIR=<dir> writes a torch.profiler chrome trace of
-the evolve loop there.  The kernels build into incflo_torch/_build/ at
-their first use.  Given a SlabMesh (parallel/mesh.py; the job `cli` of
-parallel/workers.py), every rank runs `run`: each writes its own
-checkpoint shard, and rank 0 alone prints and writes the plotfiles.
+error.  A deck with amr.max_level > 0 runs the patch tree
+(amr_patch.SlabAMRSimulation; amr.patch_mode slab or box, auto-selected
+and printed when the deck names none) or the dense fine level
+(amr.AMRSimulation), one step a call.  INCFLO_PROFILE_DIR=<dir> writes
+a torch.profiler chrome trace of the evolve loop there.  The kernels
+build into incflo_torch/_build/ at their first use.  Given a SlabMesh
+(parallel/mesh.py; the job `cli` of parallel/workers.py), every rank
+runs `run`: each writes its own checkpoint shard, and rank 0 alone
+prints and writes the plotfiles; an AMR deck under a mesh raises,
+naming ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -100,11 +105,6 @@ def run(argv, mesh=None):
     device = _device(mesh)
     if device is None:
         return 2
-    if cfg.max_level > 0:
-        # the dense-fine and slab-patch drivers of incflo_tpu/main.py:83-109
-        raise NotImplementedError(
-            "incflo_torch does not run AMR yet (ROADMAP A13); it runs "
-            "one-level 2D and 3D decks (amr.max_level = 0)")
 
     from incflo_torch.simulation import Simulation
     from incflo_torch.utils import diagnostics, io
@@ -113,13 +113,57 @@ def run(argv, mesh=None):
     say = print if lead else (lambda *a, **k: None)
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
-    sim = Simulation(cfg, device=device, mesh=mesh)
+    # the drivers of incflo_tpu/main.py:83-123: a patch tree (slab or box,
+    # auto-selected when the deck names none), the dense fine level, or
+    # one level
+    if cfg.max_level > 0 and mesh is not None:
+        raise NotImplementedError("incflo_torch does not run AMR split "
+                                  "over a mesh yet (ROADMAP A14)")
+    patch_mode = cfg.patch_mode
+    if cfg.max_level > 0 and patch_mode == "":
+        from incflo_torch import amr_patch
+        patch_mode = amr_patch.choose_patch_mode(cfg)
+        say(f"amr.patch_mode auto-selected: {patch_mode}")
+    patches = cfg.max_level > 0 and patch_mode in ("slab", "box")
+    io_cfg = cfg
+    if patches:
+        cfg.patch_mode = patch_mode     # record the resolved mode
+        from incflo_torch.amr_patch import SlabAMRSimulation
+        amr = SlabAMRSimulation(cfg, device=device)
+        sim = amr.sim0
 
-    def write_plot(path, s):
-        io.write_plotfile(path, s, cfg, sim)
+        def write_plot(path, s):
+            io.write_plotfile_patch(path, s, amr, cfg)
 
-    def write_chk(path, s):
-        io.write_checkpoint(path, s, cfg, mesh)
+        def write_chk(path, s):
+            io.write_checkpoint_patch(path, s, amr, cfg)
+
+        def read_chk(path):
+            return io.read_checkpoint_patch(path, amr, cfg)
+    elif cfg.max_level > 0:
+        from incflo_torch.amr import AMRSimulation
+        amr = AMRSimulation(cfg, device=device)
+        sim = amr.sim
+        io_cfg = amr.fine_cfg
+
+        def write_plot(path, s):
+            io.write_plotfile_amr(path, s, amr, cfg)
+    else:
+        amr = None
+        sim = Simulation(cfg, device=device, mesh=mesh)
+
+        def write_plot(path, s):
+            io.write_plotfile(path, s, cfg, sim)
+    driver = sim if amr is None else amr
+    if not patches:
+        def write_chk(path, s):
+            io.write_checkpoint(path, s, io_cfg, mesh)
+
+        def read_chk(path):
+            s = io.read_checkpoint(path, io_cfg, sim.dtype, device, mesh)
+            if amr is not None:
+                amr.regrid(s)
+            return s
 
     def write_info(path):
         if lead:
@@ -149,13 +193,12 @@ def run(argv, mesh=None):
     t0 = wallclock.time()
     if cfg.restart_file:
         say(f"Restarting from checkpoint {cfg.restart_file}")
-        s = io.read_checkpoint(cfg.restart_file, cfg, sim.dtype, device,
-                               mesh)
+        s = read_chk(cfg.restart_file)
         if cfg.plotfile_on_restart:
             path = f"{cfg.plot_file}{int(s.step):05d}"
             write_plot(path, s)
     else:
-        s = sim.init_state()
+        s = driver.init_state()
         if cfg.check_int > 0:
             write_chk(f"{cfg.check_file}{int(s.step):05d}", s)
         if cfg.plot_int > 0 or cfg.plot_per_exact > 0 or cfg.plot_per_approx > 0:
@@ -177,8 +220,8 @@ def run(argv, mesh=None):
     # too: the batch size is bounded by a conservative prediction of the
     # dt-crossing (dt grows at most 1.1x/step -- compute_dt's growth
     # limiter), so the in-step stop_time clamp only ever fires on single
-    # steps.
-    can_batch = (cfg.verbose <= 0 and not cfg.steady_state
+    # steps.  An AMR run is never batched (incflo_tpu/main.py:178-180).
+    can_batch = (amr is None and cfg.verbose <= 0 and not cfg.steady_state
                  and cfg.plot_per_exact <= 0
                  and cfg.plot_per_approx <= 0)
 
@@ -226,7 +269,7 @@ def run(argv, mesh=None):
                 nbatch *= 2
         else:
             nbatch = 1
-        s = sim.advance_n(s, nbatch) if nbatch > 1 else sim.advance(s)
+        s = sim.advance_n(s, nbatch) if nbatch > 1 else driver.advance(s)
         sync()            # the printed step times are the device's too
         nsteps += nbatch
         t, step, dt = float(s.t), int(s.step), float(s.dt)

@@ -614,7 +614,8 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
                      dt_diff, cfg: IncfloConfig, grid: Grid,
                      eta_g1=None, grow_fn=None, ng=None, grow_hom_fn=None,
                      prebuilt_solver=None, return_tensor_res=False,
-                     direct=True, fixed_trips=None, eb=None):
+                     direct=True, fixed_trips=None, eb=None,
+                     solver_bc_override=None, bvals_override=None):
     """(rho - dt div(eta (grad + grad^T))) u = rho u*  (reference
     DiffusionTensorOp::diffuse_velocity).  Where every component has the
     same solver BCs the components are one batched solve; the diagonal
@@ -638,7 +639,12 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
     (rho vfrac - dt [div(ap eta grad) - ebc]) u = rho vfrac u*, and in
     the batched branch with eb_wall_order = 2 one deferred-correction
     re-solve (incflo_tpu/ops/diffusion.py:730-860); covered cells end at
-    zero."""
+    zero.
+
+    solver_bc_override ((axis, side) -> SolverBC) and bvals_override
+    ((axis, side) -> face values, components last): the coarse-fine
+    faces of an AMR patch, Dirichlet with the parent's interpolated
+    velocity (incflo_tpu/ops/diffusion.py:711-750)."""
     dtype = vel.dtype
     if eb is not None:
         eta_cell = inner(eta_g1, 1, grid.ndim)
@@ -648,7 +654,13 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
         ebc = None
         acoef = rho
     faces = _eb_faces(eta_faces, eb)
-    bcs_all = [velocity_solver_bc(cfg, c) for c in range(grid.ndim)]
+    bcs_all = [_overridden(velocity_solver_bc(cfg, c), solver_bc_override)
+               for c in range(grid.ndim)]
+
+    def bvals_of(c):
+        return _bvals(velocity_bvals(cfg, c, dtype, vel.device),
+                      bvals_override, c)
+
     if not all(b == bcs_all[0] for b in bcs_all):
         comps = []
         for c in range(grid.ndim):
@@ -658,8 +670,7 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
                                    bcoef=tuple(faces), ebc=ebc,
                                    direct=direct)
             comps.append(solver.solve_inhom(
-                acoef * vel[..., c],
-                velocity_bvals(cfg, c, dtype, vel.device), x0=vel[..., c],
+                acoef * vel[..., c], bvals_of(c), x0=vel[..., c],
                 rtol=cfg.tensor_mg_rtol, atol=cfg.tensor_mg_atol,
                 maxiter=cfg.tensor_mg_maxiter, presmooth=4))
         out = torch.stack(comps, dim=-1)
@@ -690,12 +701,12 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
                                ebc=None if ebc is None else ebc[..., None],
                                direct=direct)
     bvals = {}
+    per_comp = [bvals_of(c) for c in range(grid.ndim)]
     for ax in range(cfg.ndim):
         if grid.periodic[ax]:
             continue
         for side in range(2):
-            vals = [velocity_bvals(cfg, c, dtype, vel.device)[(ax, side)]
-                    for c in range(grid.ndim)]
+            vals = [bv[(ax, side)] for bv in per_comp]
             vals = torch.broadcast_tensors(*vals)
             bvals[(ax, side)] = torch.stack(vals, dim=-1)
     rhs = acoef[..., None] * vel
@@ -735,15 +746,34 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
     return out
 
 
+def _overridden(bcs_pair, override):
+    """(bc_lo, bc_hi) with the (axis, side) -> SolverBC of `override`."""
+    lo, hi = list(bcs_pair[0]), list(bcs_pair[1])
+    for (ax, side), bc in (override or {}).items():
+        (lo if side == 0 else hi)[ax] = bc
+    return lo, hi
+
+
+def _bvals(base, override, comp):
+    """Face values `base` with component `comp` of `override` on its
+    faces."""
+    out = dict(base)
+    for key, arr in (override or {}).items():
+        out[key] = arr[..., comp]
+    return out
+
+
 def diffuse_scalar(tracer: torch.Tensor, rho: torch.Tensor,
                    eta_faces_per_comp, dt_diff, cfg: IncfloConfig,
-                   grid: Grid, eb=None) -> torch.Tensor:
+                   grid: Grid, eb=None, solver_bc_override=None,
+                   bvals_override=None) -> torch.Tensor:
     """(rho - dt div(mu_s grad)) s = rho s* per tracer, from the warm
     start s* after 4 fine-level sweeps.  The solver is built from the
     step's rho and never looks for a direct solve (as incflo_tpu's,
     built inside a trace).  Embedded boundaries: rows weighted by vfrac,
-    no-flux EB walls, covered cells at zero."""
-    bc_lo, bc_hi = scalar_solver_bc(cfg)
+    no-flux EB walls, covered cells at zero.  The overrides as for
+    diffuse_velocity, per tracer (incflo_tpu/ops/diffusion.py:872-895)."""
+    bc_lo, bc_hi = _overridden(scalar_solver_bc(cfg), solver_bc_override)
     acoef = rho * _vfrac_or_one(eb) if eb is not None else rho
     comps = []
     for n in range(tracer.shape[-1]):
@@ -754,7 +784,8 @@ def diffuse_scalar(tracer: torch.Tensor, rho: torch.Tensor,
                                direct=False)
         comps.append(solver.solve_inhom(
             acoef * tracer[..., n],
-            tracer_bvals(cfg, n, tracer.dtype, tracer.device),
+            _bvals(tracer_bvals(cfg, n, tracer.dtype, tracer.device),
+                   bvals_override, n),
             x0=tracer[..., n], rtol=cfg.diff_mg_rtol, atol=cfg.diff_mg_atol,
             maxiter=cfg.diff_mg_maxiter, presmooth=4))
     out = torch.stack(comps, dim=-1)

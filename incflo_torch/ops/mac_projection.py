@@ -69,7 +69,8 @@ def project_mac_velocities(umac: List[torch.Tensor],
                            beta: List[torch.Tensor], grid: Grid,
                            bc_kind: np.ndarray, phi0=None, rtol=1e-11,
                            atol=1e-14, maxiter=200, prebuilt_solver=None,
-                           direct=True, eb=None):
+                           direct=True, eb=None, bc_override=None,
+                           phi_bvals=None):
     """Returns (umac_projected, phi).  With a prebuilt solver (constant
     density) phi comes from it; otherwise a CellSolver is built from
     `beta` and, unless its coefficients are constant and `direct` lets
@@ -79,9 +80,16 @@ def project_mac_velocities(umac: List[torch.Tensor],
     div(ap beta grad phi) = div(ap u) and u -= beta grad phi on the open
     faces (incflo_tpu/ops/mac_projection.py:92-120, the MLEBABecLap
     MacProjector); a face whose area fraction is at most 1e-4 carries no
-    velocity.  The coarse-fine forms of incflo_tpu come with ROADMAP
-    A13."""
+    velocity.
+
+    bc_override ((axis, side) -> SolverBC) and phi_bvals ((axis, side) ->
+    face values): the coarse-fine faces of an AMR patch take Dirichlet
+    phi with the parent's interpolated values (incflo_tpu/ops/
+    mac_projection.py:74-111); the correction then uses the
+    inhomogeneous fluxes."""
     bc_lo, bc_hi = projection_solver_bc(bc_kind, grid)
+    for (ax, side), bc in (bc_override or {}).items():
+        (bc_lo if side == 0 else bc_hi)[ax] = bc
     # faces with a tiny area fraction carry negligible flux, but their
     # values feed the small-cell velocity fix: keep them at the no-slip
     # limit instead of flux/ap-amplified noise
@@ -99,8 +107,14 @@ def project_mac_velocities(umac: List[torch.Tensor],
                                for d in range(grid.ndim)], grid)
     else:
         rhs = -mac_divergence(umac, grid)
-    phi = solver.solve(rhs, x0=phi0, rtol=rtol, atol=atol, maxiter=maxiter)
-    fluxes = mg.cell_fluxes(phi, solver.levels[0])   # beta grad phi
+    if phi_bvals:
+        phi = solver.solve_inhom(rhs, phi_bvals, x0=phi0, rtol=rtol,
+                                 atol=atol, maxiter=maxiter)
+        fluxes = mg.cell_fluxes_inhom(phi, solver.levels[0], phi_bvals)
+    else:
+        phi = solver.solve(rhs, x0=phi0, rtol=rtol, atol=atol,
+                           maxiter=maxiter)
+        fluxes = mg.cell_fluxes(phi, solver.levels[0])   # beta grad phi
     if eb is None:
         return [umac[d] - fluxes[d] for d in range(grid.ndim)], phi
     out = []

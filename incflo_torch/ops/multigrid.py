@@ -950,9 +950,14 @@ class NodalSolver:
         x = x + _prolong_nodal(ec, lev)
         return self._smooth_res(x, b, li, self.nu2, want_residual)
 
-    def solve_info(self, rhs, x0=None, rtol=1e-11, atol=1e-14, maxiter=100):
-        """(x, resnorm, cycles) with L x = rhs.  Constant sigma is solved
-        directly (cycles = 1, resnorm not computed).  Otherwise V-cycles
+    def solve_info(self, rhs, x0=None, rtol=1e-11, atol=1e-14, maxiter=100,
+                   dirichlet_vals=None):
+        """(x, resnorm, cycles) with L x = rhs.  dirichlet_vals ((axis,
+        side) -> node slab) makes those Dirichlet rows inhomogeneous: the
+        identity rows converge to the given values (an AMR patch's
+        coarse-fine closure; incflo_tpu/ops/multigrid.py:1047-1066).
+        Constant sigma without them is solved directly (cycles = 1,
+        resnorm not computed).  Otherwise V-cycles
         from x0 until the max-norm residual is under max(rtol*|rhs|, atol),
         maxiter is reached, or a cycle gains less than 0.1% (true
         stagnation at the rounding floor: stiff variable-coefficient
@@ -963,7 +968,12 @@ class NodalSolver:
         if self.singular:
             rhs = rhs - _mean(rhs, lev.mesh)
         rhs = _zero_dirichlet(rhs, lev)
-        if self.symbol is not None and tuple(rhs.shape) == self.symbol.cells:
+        for (ax, side), val in (dirichlet_vals or {}).items():
+            bc = lev.bc_lo[ax] if side == 0 else lev.bc_hi[ax]
+            if not lev.periodic[ax] and bc == SolverBC.DIRICHLET:
+                rhs = _set_slab(rhs, ax, 0 if side == 0 else -1, val)
+        if (self.symbol is not None and dirichlet_vals is None
+                and tuple(rhs.shape) == self.symbol.cells):
             from incflo_torch.ops import spectral
             x = spectral.solve(self.symbol, rhs, 0.0, 1.0, self.singular)
             return x, torch.zeros((), dtype=rhs.dtype, device=rhs.device), 1

@@ -366,7 +366,10 @@ def solve(sym: Symbol, rhs, alpha, beta, singular: bool):
             h = _contract(h, b, d)
             if d == 0 and mesh is not None:
                 h = mesh.reduce_scatter_x(h)
-        return h.to(rhs.dtype)
+        # contiguous: the contractions leave the axes permuted in memory,
+        # and a state field that kept that layout would sum in another
+        # order than the same field read back from a checkpoint
+        return h.to(rhs.dtype).contiguous()
     rh = torch.fft.rfftn(rhs, dim=axes)
     if singular:
         s = s.clone()

@@ -47,14 +47,26 @@ advect_sharded), the direct solves reduce-scatter their x contraction,
 and compute_dt and the tensor CG reduce over the ranks.  Other decks
 under a mesh raise and name ROADMAP A14.
 
-Scope of this port: one level, 2D or 3D, with or without embedded
-boundaries: Godunov or MOL advection, each axis periodic or ending in a
-slip or no-slip wall, mass inflow, pressure inflow or pressure outflow;
-constant or variable density, gravity or Boussinesq buoyancy, tracer
-advection and diffusion; Newtonian or non-Newtonian fluids (power law,
-Bingham, Herschel-Bulkley, de Souza Mendes-Dutra); explicit,
-Crank-Nicolson or implicit diffusion.  Patch AMR raises
-NotImplementedError naming ROADMAP A13.
+Scope of this port: 2D or 3D, with or without embedded boundaries:
+Godunov or MOL advection, each axis periodic or ending in a slip or
+no-slip wall, mass inflow, pressure inflow or pressure outflow; constant
+or variable density, gravity or Boussinesq buoyancy, tracer advection
+and diffusion; Newtonian or non-Newtonian fluids (power law, Bingham,
+Herschel-Bulkley, de Souza Mendes-Dutra); explicit, Crank-Nicolson or
+implicit diffusion.
+
+AMR: a deck with amr.max_level > 0 builds its base level here, as
+incflo_tpu's does; the drivers are amr.py (dense fine level) and
+amr_patch.py (patch tree).  A patch (amr_patch.PatchSim) overrides the
+coarse-fine hooks _mac_bc_args, _nodal_bc_args and _diff_bc_args
+(incflo_tpu/simulation.py:334-345): its MAC, nodal and diffusion solves
+then take Dirichlet values at its coarse-fine faces, never a prebuilt or
+direct solver, and the nodal solve never the prebuilt hat operator.
+peek_dt, reproject and _advance_impl(dt_force=) serve the drivers'
+one-dt hierarchy and composite sync.  incflo_tpu's _ctx / _swap_ctx
+(:938-953) only pass prebuilt solvers into jit as arguments; the port
+has no jit and keeps them as attributes.  AMR with embedded boundaries
+raises NotImplementedError naming ROADMAP A13b, AMR under a mesh A14.
 """
 
 from __future__ import annotations
@@ -82,8 +94,11 @@ def has_eb(cfg: IncfloConfig) -> bool:
 
 def _unsupported(cfg: IncfloConfig):
     """(reason, ROADMAP item) for a deck outside this port, else None:
-    the port runs every one-level deck."""
-    return ("AMR", "A13") if cfg.max_level > 0 else None
+    AMR with embedded boundaries needs the vfrac nodal path with
+    coarse-fine Dirichlet values (incflo_tpu/simulation.py:518-527)."""
+    if cfg.max_level > 0 and has_eb(cfg):
+        return ("AMR with embedded boundaries", "A13b")
+    return None
 
 
 def _unsupported_sharded(cfg: IncfloConfig):
@@ -91,6 +106,7 @@ def _unsupported_sharded(cfg: IncfloConfig):
     or None: the sharded step is shear3d's (ROADMAP A14)."""
     g = cfg.grid
     checks = [
+        (cfg.max_level > 0, "AMR"),
         (g.ndim != 3, "2D decks (the fused 2D step, MOL)"),
         (has_eb(cfg), "embedded boundaries"),
         (cfg.godunov_use_forces_in_trans, "godunov_use_forces_in_trans"),
@@ -125,6 +141,10 @@ class Simulation:
     pass device="cpu" to run on the CPU with the kernels' plain versions.
     Asking for the card where there is none raises."""
 
+    # constant density: build the prebuilt solvers (a patch, whose solves
+    # all take coarse-fine closures, never uses them)
+    PREBUILD = True
+
     def __init__(self, cfg: IncfloConfig, device=None, mesh=None):
         if cfg.grid.ndim not in (2, 3):
             raise ValueError(f"incflo_torch runs 2D and 3D decks, not "
@@ -133,7 +153,7 @@ class Simulation:
         if why is not None:
             raise NotImplementedError(
                 f"incflo_torch does not run {why[0]} yet "
-                f"(ROADMAP {why[1]}); it runs one-level 2D and 3D decks")
+                f"(ROADMAP {why[1]})")
         if mesh is not None:
             why = _unsupported_sharded(cfg)
             if why is not None:
@@ -204,10 +224,11 @@ class Simulation:
         # step, and a non-Newtonian fluid its velocity operator.
         self._mac_solver = self._nodal_hat = self._diff_proto = None
         self._nodal_eb_hat = None
-        if cfg.constant_density and self.eb is None:
-            self._build_static_solvers()
-        elif cfg.constant_density:
-            self._build_static_eb_solvers()
+        if self.PREBUILD and cfg.constant_density:
+            if self.eb is None:
+                self._build_static_solvers()
+            else:
+                self._build_static_eb_solvers()
 
     # ------------------------------------------------------------------
     def _full(self, shape, val):
@@ -318,6 +339,23 @@ class Simulation:
     def grow_force(self, f, ng=1):
         ncomp = f.shape[-1]
         return bcs.grow(f, ng, self.grid, self.force_bcrec[:ncomp])
+
+    # ------------------------------------------------------------------
+    # coarse-fine hooks (amr_patch.PatchSim overrides them; the base
+    # simulation spans the whole domain and has no interior faces)
+    # ------------------------------------------------------------------
+    def _mac_bc_args(self):
+        """Extra keywords of project_mac_velocities at coarse-fine faces."""
+        return {}
+
+    def _nodal_bc_args(self):
+        """(bc_override, dirichlet_vals) of the nodal projection."""
+        return None, None
+
+    def _diff_bc_args(self, field):
+        """(solver_bc_override, bvals_override) of the diffusion solves of
+        `field`, "vel" or "tra"."""
+        return None, None
 
     # ------------------------------------------------------------------
     # forces (reference incflo_compute_forces.cpp)
@@ -472,11 +510,13 @@ class Simulation:
             phi0 = mac_phi0 * (0.5 * dt)
         umac = self.godunov.predict(vel_g, vf_g, dt, ng, self.vel_bcrec,
                                     gmacphi=gmacphi)
+        cf = self._mac_bc_args()
         umac, mac_phi = mac_projection.project_mac_velocities(
             umac, beta, grid, cfg.bc_kind, phi0=phi0,
             rtol=cfg.mac_mg_rtol, atol=cfg.mac_mg_atol,
-            maxiter=cfg.mac_mg_maxiter, prebuilt_solver=self._mac_solver,
-            direct=False)
+            maxiter=cfg.mac_mg_maxiter,
+            prebuilt_solver=None if cf else self._mac_solver,
+            direct=False, **cf)
         if mac_phi_in:
             mac_phi = mac_phi * (2.0 / dt)
             vf_g = self._vel_forces_g(rho, tra, gp, divtau_o)
@@ -523,11 +563,13 @@ class Simulation:
             umac = mol.predict_vels_on_faces(vel_g, grid, ng, self.vel_bcrec)
         beta = mac_projection.inv_rho_on_faces(inner(rho_g, ng - 1, grid.ndim),
                                                grid)
+        cf = self._mac_bc_args()
         umac, mac_phi = mac_projection.project_mac_velocities(
             umac, beta, grid, cfg.bc_kind, phi0=mac_phi0,
             rtol=cfg.mac_mg_rtol, atol=cfg.mac_mg_atol,
-            maxiter=cfg.mac_mg_maxiter, prebuilt_solver=self._mac_solver,
-            direct=False, eb=eb)
+            maxiter=cfg.mac_mg_maxiter,
+            prebuilt_solver=None if cf else self._mac_solver,
+            direct=False, eb=eb, **cf)
 
         def rate(q_g, bcrec):
             if eb is None:
@@ -560,9 +602,12 @@ class Simulation:
         (simulation.py:519-605): the prebuilt EBNodalSolver of a
         constant-density deck, else the regular NodalSolver on the 2x
         octant lattice, else (no octant data) the vfrac-weighted
-        operator; covered cells end at zero velocity."""
+        operator; covered cells end at zero velocity.  A coarse-fine
+        override (a patch) makes its faces Dirichlet with the values of
+        _nodal_bc_args, solved by V-cycles on an operator built here."""
         grid = self.grid
         eb = self.eb
+        override, dvals = self._nodal_bc_args()
         if not incremental:
             vel = vel + gp * (scaling / rho_proj)[..., None]
         if incremental:
@@ -581,7 +626,7 @@ class Simulation:
         if eb is not None:      # the vfrac-weighted weak form
             vel_in = vel_in * eb.vfrac[..., None]
         upads = self._pad_vel_for_divergence(vel_in, inflow_scale)
-        if self._nodal_hat is not None:
+        if self._nodal_hat is not None and override is None:
             # constant density: sigma = scaling * sigma_hat, so the
             # prebuilt operator solves the scaled system
             # L_hat phi = rhs / scaling, directly
@@ -597,6 +642,8 @@ class Simulation:
         else:
             bc_lo, bc_hi = mac_projection.projection_solver_bc(
                 self.cfg.bc_kind, grid)
+            for (ax, side), bc in (override or {}).items():
+                (bc_lo if side == 0 else bc_hi)[ax] = bc
             solver = mg.NodalSolver(grid.dx, grid.periodic, bc_lo, bc_hi,
                                     sigma if eb is None else sigma * eb.vfrac,
                                     direct=False)
@@ -606,7 +653,8 @@ class Simulation:
             phi = solver.solve(rhs, x0=None if incremental else p,
                                rtol=self.cfg.nodal_mg_rtol,
                                atol=self.cfg.nodal_mg_atol,
-                               maxiter=self.cfg.nodal_mg_maxiter)
+                               maxiter=self.cfg.nodal_mg_maxiter,
+                               dirichlet_vals=dvals)
         gphi = solver.grad_at_cells(phi)
         return self._projected(vel, sigma, gphi, phi, p, gp, incremental)
 
@@ -784,17 +832,27 @@ class Simulation:
         """The implicit velocity solve; with a list `cg` the tensor CG's
         best residual and its tolerance are appended to it."""
         ng = self.cfg.nghost_state()
+        dbc, dbv = self._diff_bc_args("vel")
         out = diffusion.diffuse_velocity(
             vel_new, rho_new, eta_faces, dt_diff, self.cfg, self.grid,
             eta_g1=eta_g1, grow_fn=lambda v: self.grow_vel(v, ng), ng=ng,
             grow_hom_fn=lambda v: self.grow_vel_hom(v, ng),
-            prebuilt_solver=self._diff_proto, direct=False,
-            return_tensor_res=cg is not None, fixed_trips=fixed_trips,
-            eb=self.eb)
+            prebuilt_solver=self._diff_proto if dbc is None else None,
+            direct=False, return_tensor_res=cg is not None,
+            fixed_trips=fixed_trips, eb=self.eb, solver_bc_override=dbc,
+            bvals_override=dbv)
         if cg is None:
             return out
         cg.append(out[1:])
         return out[0]
+
+    def _diffuse_tra(self, tra_new, rho_new, tra_eta_faces, dt):
+        """The implicit tracer solves."""
+        sbc, sbv = self._diff_bc_args("tra")
+        return diffusion.diffuse_scalar(
+            tra_new, rho_new, tra_eta_faces, self._dt_diff(dt), self.cfg,
+            self.grid, eb=self.eb, solver_bc_override=sbc,
+            bvals_override=sbv)
 
     def apply_predictor(self, old: LevelState, dt, incremental: bool,
                         small_dt_flag, fixed_trips=None, cg=None):
@@ -847,9 +905,8 @@ class Simulation:
                 rhs = rhs + dt * lap_w * laps_o
             tra_new = rhs / rho_new[..., None]
             if not explicit:
-                tra_new = diffusion.diffuse_scalar(
-                    tra_new, rho_new, tra_eta_faces, self._dt_diff(dt), cfg,
-                    grid, eb=self.eb)
+                tra_new = self._diffuse_tra(tra_new, rho_new, tra_eta_faces,
+                                            dt)
 
         # velocity update
         vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, old.gp)
@@ -927,9 +984,8 @@ class Simulation:
                 rhs = rhs + dt * 0.5 * aux["laps_o"]
             tra_new = rhs / rho_new[..., None]
             if not explicit:
-                tra_new = diffusion.diffuse_scalar(
-                    tra_new, rho_new, tra_eta_faces, self._dt_diff(dt), cfg,
-                    grid, eb=self.eb)
+                tra_new = self._diffuse_tra(tra_new, rho_new, tra_eta_faces,
+                                            dt)
 
         vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, star.gp)
         dv = 0.5 * (conv_u + aux["conv_u"]) + vel_f
@@ -956,17 +1012,44 @@ class Simulation:
     # ------------------------------------------------------------------
     # one full step
     # ------------------------------------------------------------------
-    def _advance_impl(self, s: SimState, fixed_trips=None,
-                      cg=None) -> SimState:
+    def peek_dt(self, s: SimState):
+        """The dt the next advance would take (the AMR drivers advance
+        every level with the least over the levels)."""
+        old = s.level
+        vf = self.compute_vel_forces(old.density, old.tracer, old.tracer,
+                                     old.gp)
+        return self.compute_dt(old.velocity, old.density, vf, s)
+
+    def reproject(self, s: SimState, dt) -> SimState:
+        """Incremental re-projection of the current velocity: removes its
+        residual divergence and adds the correction to p and gp.  The
+        patch driver's composite pressure sync (incflo_tpu/simulation.py
+        :920-936): a parent re-projects after absorbing its children's
+        averaged-down solution, and each patch then re-closes against
+        the corrected parent."""
+        lvl = s.level
+        vel, p, gp = self.apply_projection(
+            lvl.velocity, torch.zeros_like(lvl.velocity), lvl.density,
+            lvl.gp, lvl.p, dt, True,
+            torch.zeros((), dtype=self.dtype, device=self.device))
+        if self.eb is not None:
+            vel = vel * self.eb.fluid[..., None]
+        return s._replace(level=lvl._replace(velocity=vel, p=p, gp=gp))
+
+    def _advance_impl(self, s: SimState, fixed_trips=None, cg=None,
+                      dt_force=None) -> SimState:
         """One plain step (incflo_tpu Simulation._advance_impl).
         fixed_trips: the tensor CG runs that many masked trips
         (diffusion.diffuse_velocity) instead of its adaptive loop; cg: a
         list that gathers each velocity solve's (best residual,
-        tolerance).  The predictor and corrector pass both through."""
+        tolerance).  The predictor and corrector pass both through.
+        dt_force: the step's dt, given by an AMR driver (else
+        compute_dt's)."""
         old = s.level
-        vf = self.compute_vel_forces(old.density, old.tracer, old.tracer,
-                                     old.gp)
-        dt = self.compute_dt(old.velocity, old.density, vf, s)
+        if dt_force is None:
+            dt = self.peek_dt(s)
+        else:
+            dt = dt_force
         small_dt = torch.where((s.t > 0.0) & (dt < 0.1 * s.dt), 1.0,
                                0.0).to(self.dtype)
         new, aux = self.apply_predictor(old, dt, False, small_dt,

@@ -13,10 +13,13 @@ components last), the same as incflo_tpu:
 `level_from_numpy` / `sim_from_numpy` take a dict of numpy arrays keyed
 by the field names (e.g. `np.asarray(jax_state.level.velocity)`), so a
 run can start from another package's state; the `*_to_numpy` pair goes
-the other way.  Given the SlabMesh of a level split along x
-(parallel/mesh.py), `*_from_numpy` keep the rank's x slab of whole-level
-arrays, and `*_to_numpy` gather the whole level from every rank's slab
-(a collective: every rank calls them).
+the other way.  `patch_from_numpy` does the same for a patch AMR tree:
+the tree's record (axis, bounds, parents, levels) and one such dict per
+entry, as incflo_tpu's SlabAMRSimulation and its PatchState hold them.
+Given the SlabMesh of a level split along x (parallel/mesh.py),
+`*_from_numpy` keep the rank's x slab of whole-level arrays, and
+`*_to_numpy` gather the whole level from every rank's slab (a
+collective: every rank calls them).
 """
 
 from __future__ import annotations
@@ -101,3 +104,15 @@ def sim_to_numpy(s: SimState, mesh=None) -> Dict[str, np.ndarray]:
     for k in _SCALARS + ("step",):
         out[k] = getattr(s, k).detach().cpu().numpy()
     return out
+
+
+def patch_from_numpy(amr, meta, levels, device=None, dtype=None):
+    """Rebuild the tree of `amr` (an amr_patch.SlabAMRSimulation) from
+    `meta` ({"axis", "bounds", "parents", "levels", "nlevels"}, the
+    record of a patch checkpoint's Patch.json) and return the
+    amr_patch.PatchState of the per-entry dicts `levels` (as for
+    sim_from_numpy), on amr's device and dtype unless given."""
+    device = amr.device if device is None else device
+    dtype = amr.dtype if dtype is None else dtype
+    return amr.load_tree(
+        meta, lambda i, cfg: sim_from_numpy(levels[i], device, dtype))

@@ -361,32 +361,90 @@ def write_plotfile(path: str, s: SimState, cfg: IncfloConfig, sim):
     return fields
 
 
-def write_plotfile_amr(path, s, amrsim, cfg):
-    """The multi-level plotfile (incflo_tpu/utils/io.py:348) comes with
-    patch AMR."""
-    raise NotImplementedError("incflo_torch does not write AMR plotfiles "
-                              "yet (ROADMAP A13)")
+def write_plotfile_amr(path: str, s: SimState, amrsim, cfg: IncfloConfig):
+    """Multi-level plotfile of the dense-fine driver (amr.AMRSimulation):
+    Level_l.npz holds the level-l view of the solution (average_down)
+    plus its refinement mask; the Header lists the hierarchy like the
+    reference's WriteMultiLevelPlotfile (incflo_tpu/utils/io.py:348)."""
+    from incflo_torch.amr import average_down
+    os.makedirs(path, exist_ok=True)
+    fine_fields = gather_plot_fields(s, amrsim.fine_cfg, amrsim.sim)
+    nd = cfg.grid.ndim
+    for lev in range(amrsim.max_level + 1):
+        r = amrsim.ratio ** (amrsim.max_level - lev)
+        out = {k: _numpy(average_down(torch.as_tensor(v), r, nd))
+               if r > 1 else v for k, v in fine_fields.items()}
+        if lev < amrsim.max_level and amrsim.masks[lev] is not None:
+            out["refine_mask"] = _numpy(amrsim.masks[lev])
+        np.savez(os.path.join(path, f"Level_{lev}.npz"), **out)
+    hdr = {
+        "version": "IncfloTPU-Plotfile-1",
+        "step": int(s.step), "time": float(s.t), "dt": float(s.dt),
+        "prob_lo": list(cfg.grid.prob_lo), "prob_hi": list(cfg.grid.prob_hi),
+        "n_cell": list(cfg.grid.n_cell),
+        "finest_level": amrsim.max_level,
+        "ref_ratio": amrsim.ratio,
+        "fields": sorted(fine_fields.keys()),
+    }
+    with open(os.path.join(path, "Header"), "w") as f:
+        json.dump(hdr, f, indent=1)
+    return fine_fields
 
 
-def write_plotfile_patch(path, state, amr, cfg):
-    """The slab-patch plotfile (incflo_tpu/utils/io.py:398) comes with
-    patch AMR."""
-    raise NotImplementedError("incflo_torch does not write patch AMR "
-                              "plotfiles yet (ROADMAP A13)")
+# ---------------------------------------------------------------------
+# patch AMR tree I/O (amr_patch.py; incflo_tpu/utils/io.py:398-482)
+# ---------------------------------------------------------------------
+
+def write_plotfile_patch(path: str, state, amr, cfg: IncfloConfig):
+    """Plotfile of the patch tree: Level_i.npz holds entry i's OWN
+    solution over its own (sub)domain and its placement (patch_lo /
+    patch_hi in parent cells, refine_mask of its children); the Header
+    the tree."""
+    os.makedirs(path, exist_ok=True)
+    for i, (sim, s) in enumerate(zip(amr.sims, state.levels)):
+        fields = gather_plot_fields(s, sim.cfg, sim)
+        if i > 0:
+            fields["patch_lo"] = np.asarray(amr.bounds[i][0])
+            fields["patch_hi"] = np.asarray(amr.bounds[i][1])
+        if amr.masks[i] is not None:
+            fields["refine_mask"] = np.asarray(amr.masks[i])
+        np.savez(os.path.join(path, f"Level_{i}.npz"), **fields)
+    hdr = {
+        "version": "IncfloTPU-Plotfile-1",
+        "step": int(state.step), "time": float(state.t),
+        "dt": float(state.dt),
+        "prob_lo": list(cfg.grid.prob_lo), "prob_hi": list(cfg.grid.prob_hi),
+        "n_cell": list(cfg.grid.n_cell),
+        "finest_level": max(amr.level_of),
+        "ref_ratio": cfg.ref_ratio,
+        "patch_axis": amr.axis,
+        "patch_bounds": [list(b) for b in amr.bounds],
+        "patch_parents": list(amr.parent),
+        "patch_levels": list(amr.level_of),
+    }
+    with open(os.path.join(path, "Header"), "w") as f:
+        json.dump(hdr, f, indent=1)
 
 
-def write_checkpoint_patch(path, state, amr, cfg):
-    """The slab-patch checkpoint (incflo_tpu/utils/io.py:428) comes with
-    patch AMR."""
-    raise NotImplementedError("incflo_torch does not write patch AMR "
-                              "checkpoints yet (ROADMAP A13)")
+def write_checkpoint_patch(path: str, state, amr, cfg: IncfloConfig):
+    """Checkpoint of every tree entry (patch_level_<i>/) and the tree
+    (Patch.json) that read_checkpoint_patch rebuilds."""
+    for i, s in enumerate(state.levels):
+        write_checkpoint(os.path.join(path, f"patch_level_{i}"), s,
+                         amr.sims[i].cfg)
+    with open(os.path.join(path, "Patch.json"), "w") as f:
+        json.dump(amr.tree_meta(), f)
 
 
-def read_checkpoint_patch(path, amr, cfg):
-    """The slab-patch restart (incflo_tpu/utils/io.py:442) comes with
-    patch AMR."""
-    raise NotImplementedError("incflo_torch does not read patch AMR "
-                              "checkpoints yet (ROADMAP A13)")
+def read_checkpoint_patch(path: str, amr, cfg: IncfloConfig):
+    """Rebuild the tree recorded by write_checkpoint_patch (either
+    package's; a pre-tree record is a chain of one patch a level, and
+    legacy slab bounds [lo, hi] lie along the recorded axis) in `amr` and
+    load every entry's state onto amr's device."""
+    with open(os.path.join(path, "Patch.json")) as f:
+        meta = json.load(f)
+    return amr.load_tree(meta, lambda i, c: read_checkpoint(
+        os.path.join(path, f"patch_level_{i}"), c, amr.dtype, amr.device))
 
 
 def write_job_info(path: str, cfg: IncfloConfig, device="cpu"):

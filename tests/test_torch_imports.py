@@ -1,12 +1,14 @@
 """incflo_torch stands alone: it imports neither JAX nor incflo_tpu, it
 runs on the card unless the CPU is asked for, and decks outside its
-slice raise and name the ROADMAP item that ports them."""
+slice raise and name the ROADMAP item that ports them (AMR with
+embedded boundaries A13b, AMR under a mesh A14)."""
 
 import ast
 import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401  (caps torch's CPU threads)
@@ -139,13 +141,67 @@ SLICE_DECKS = [
 ]
 
 
-@pytest.mark.parametrize("config,extra", SLICE_DECKS)
-def test_decks_outside_the_slice_raise(config, extra):
-    """Every one-level deck runs now; the same decks with patch AMR
-    raise and name ROADMAP A13 (EB with max_level > 0 too)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        incflo_torch.Simulation(_cfg(extra + "amr.max_level = 1\n", config),
-                                device="cpu")
+# and decks whose initial tags localize: a band, and a blob (slab too at
+# 16^2: its box, padded by a block a side, would cover over half the
+# domain)
+TAGGED_DECKS = [
+    ("rt", "incflo.gradrhoerr = 0.1\n"),
+    ("tgv2d", "incflo.tag_region = true\nincflo.tag_region_lo = 0.3 0.\n"
+     "incflo.tag_region_hi = 0.45 1.\n"),
+    ("tgv2d", "incflo.tag_region = true\nincflo.tag_region_lo = 0.3 0.3\n"
+     "incflo.tag_region_hi = 0.45 0.45\n"),
+]
+
+
+@pytest.mark.parametrize("config,extra", SLICE_DECKS + TAGGED_DECKS)
+def test_amr_decks_take_incflo_tpus_patch_mode(config, extra):
+    """The same decks with amr.max_level = 1 resolve to the patch mode
+    incflo_tpu's choose_patch_mode picks and build that driver on the
+    CPU: the patch tree (slab or box) or the dense fine level; an EB
+    deck raises and names ROADMAP A13b."""
+    from incflo_tpu import amr_patch as jap
+    from incflo_tpu.config import IncfloConfig as JConfig
+    from incflo_torch import amr, amr_patch
+    text = bench._deck(config, 16, "float64")[0] + extra \
+        + "amr.max_level = 1\n"
+    cfg = incflo_torch.IncfloConfig.from_text(text)
+    mode = amr_patch.choose_patch_mode(cfg)
+    assert mode == jap.choose_patch_mode(JConfig.from_text(text))
+    if config in ("channel_cyl", "poiseuille_cyl_bingham"):
+        for driver in (amr_patch.SlabAMRSimulation, amr.AMRSimulation):
+            with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
+                driver(cfg, device="cpu")
+    elif mode in ("slab", "box"):
+        import jax.numpy as jnp
+        from incflo_tpu import probs as jprobs
+        jcfg = JConfig.from_text(text)
+        rho = jprobs.init_fluid(jcfg, jcfg.grid, jnp.float64).density
+        axis = jap.SlabAMRSimulation._best_axis(
+            None, jap.compute_tags(jcfg, np.asarray(rho), jcfg.grid))
+        drv = amr_patch.SlabAMRSimulation(cfg, device="cpu")
+        assert drv.sim0.grid == cfg.grid and len(drv.sims) == 1
+        assert drv.axis == axis
+    else:
+        drv = amr.AMRSimulation(cfg, device="cpu")
+        assert drv.sim.grid.n_cell == tuple(2 * n for n in cfg.grid.n_cell)
+    if (config, extra) in TAGGED_DECKS:
+        assert mode == "slab"
+
+
+def test_amr_under_a_mesh_names_a14(tmp_path):
+    """An AMR deck on a mesh raises and names ROADMAP A14, in Simulation
+    and in the CLI driver."""
+    from incflo_torch import main
+    from incflo_torch.parallel.mesh import SlabMesh
+    mesh = SlabMesh.__new__(SlabMesh)
+    mesh.device, mesh.rank = torch.device("cpu"), 0
+    extra = "amr.max_level = 1\n"
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        incflo_torch.Simulation(_cfg(extra), device="cpu", mesh=mesh)
+    deck = tmp_path / "inputs"
+    deck.write_text(bench._deck("shear3d", 16, "float64")[0] + extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        main.run([str(deck), "max_step=1"], mesh=mesh)
 
 
 @pytest.mark.parametrize("config,extra", SLICE_DECKS)

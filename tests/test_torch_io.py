@@ -12,7 +12,8 @@ Plotfiles, on the same deck at 16^2 with plt_vort and plt_error_u/v, and
 on the inline EB cylinder deck of tests/test_io.py:55 with plt_vfrac,
 plt_forcing, plt_vort, plt_strainrate and plt_eta: both packages' plot
 fields of one state within 1e-10 relative, the same field names and
-Header, and the same Norm0/Norm2 lines to 1e-10.
+Header, and the same Norm0/Norm2 lines to 1e-10.  And the dense AMR
+driver's multi-level plotfile on the same tgv2d deck.
 """
 
 import json
@@ -301,10 +302,38 @@ def test_job_info_names_the_port(tmp_path):
     assert "devices: cpu" in text and "amr.n_cell" in text
 
 
-@pytest.mark.parametrize("name", ["write_plotfile_amr", "write_plotfile_patch",
-                                  "write_checkpoint_patch",
-                                  "read_checkpoint_patch"])
-def test_amr_io_names_a13(name):
-    fn = getattr(tio, name)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        fn(*([None] * (fn.__code__.co_argcount)))
+@pytest.mark.parametrize("max_level", [1, 2])
+def test_dense_amr_plotfiles_match(tmp_path, max_level):
+    """write_plotfile_amr of the dense-fine driver, both packages from
+    one fine state (the port's initial one) after a regrid: the same
+    Header, and every level's fields (averaged down) within 1e-10 and
+    refinement masks equal.  The patch tree's plotfile and checkpoints
+    are tests/test_torch_amr_rt2d.py's."""
+    from incflo_tpu.amr import AMRSimulation as JAMR
+    from incflo_torch.amr import AMRSimulation as TAMR
+    text = _tgv(8) + f"""amr.max_level = {max_level}
+amr.plt_vort = 1
+incflo.tag_region = true
+incflo.tag_region_lo = 0.25 0.5
+incflo.tag_region_hi = 0.5 0.75
+"""
+    tamr = TAMR(incflo_torch.IncfloConfig.from_text(text), device="cpu")
+    jamr = JAMR(JConfig.from_text(text))
+    ts = tamr.init_state()
+    js = _jax_state(tstate.sim_to_numpy(ts))
+    jamr.regrid(js)
+    tio.write_plotfile_amr(str(tmp_path / "t"), ts, tamr, tamr.cfg)
+    jio.write_plotfile_amr(str(tmp_path / "j"), js, jamr, jamr.cfg)
+    assert json.load(open(tmp_path / "t" / "Header")) \
+        == json.load(open(tmp_path / "j" / "Header"))
+    for lev in range(max_level + 1):
+        zt = np.load(tmp_path / "t" / f"Level_{lev}.npz")
+        zj = np.load(tmp_path / "j" / f"Level_{lev}.npz")
+        assert sorted(zt.files) == sorted(zj.files)
+        assert ("refine_mask" in zt.files) == (lev < max_level)
+        for k in zj.files:
+            if k == "refine_mask":
+                assert zj[k].any()
+                np.testing.assert_array_equal(zt[k], zj[k])
+            else:
+                assert tp.rel(zt[k], zj[k]) <= TOL, (lev, k)

@@ -10,7 +10,8 @@ incflo_tpu's, the Headers agreeing (their numbers to 1e-10), the Norm
 lines too; each package's restarted chk00004 is bit-equal to its
 unbroken one.  And the driver's own contract: it runs on the card
 unless INCFLO_PLATFORM=cpu asks for the CPU, and exits with an error
-where there is no card; AMR decks name ROADMAP A13.
+where there is no card; an AMR deck runs (patch tree or dense fine
+level) and restarts bit-equal.
 """
 
 import contextlib
@@ -253,10 +254,52 @@ def test_cli_eb_surface_and_profile_trace(tmp_path, monkeypatch):
     assert len(trace["traceEvents"]) > 0
 
 
-def test_cli_amr_names_a13(tmp_path, monkeypatch):
+def _chk_files(d):
+    return sorted(os.path.relpath(os.path.join(r, f), d)
+                  for r, _, fs in os.walk(d) for f in fs)
+
+
+@pytest.mark.parametrize("mode", ["slab", "dense"])
+def test_cli_runs_an_amr_deck_and_restarts_bit_exact(tmp_path, monkeypatch,
+                                                    mode):
+    """An AMR deck through the port's CLI on the CPU: the RT2D deck of
+    tests/test_amr_patch.py without amr.patch_mode (auto-selected: a
+    slab patch tree, regridded every 2 steps) and tgv2d at 8^2 with
+    nothing tagged (the dense fine level).  4 steps with a checkpoint and
+    a plotfile every 2, then a restart from chk00002 whose chk00004 is
+    bit-equal to the unbroken one."""
     deck = tmp_path / "inputs"
-    deck.write_text(bench._deck("tgv2d", 8, "float64")[0]
-                    + "amr.max_level = 1\n")
+    if mode == "slab":
+        deck.write_text(tp.rt2d_amr_deck().replace("amr.patch_mode = slab",
+                                                   "")
+                        + "amr.regrid_int = 2\n")
+    else:
+        deck.write_text(bench._deck("tgv2d", 8, "float64")[0]
+                        + "amr.max_level = 1\n")
     monkeypatch.setenv("INCFLO_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tmain.run([str(deck), "max_step=1"])
+    args = [str(deck), "max_step=4", "amr.plot_int=2", "amr.check_int=2"]
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    rc, out = _run(tmain, tmp_path / "a", args)
+    assert rc == 0 and f"amr.patch_mode auto-selected: {mode}" in out
+    rc, _ = _run(tmain, tmp_path / "b", args + [
+        f"amr.restart={tmp_path / 'a' / 'chk00002'}"])
+    assert rc == 0
+    a, b = tmp_path / "a" / "chk00004", tmp_path / "b" / "chk00004"
+    files = _chk_files(a)
+    assert files == _chk_files(b)
+    if mode == "slab":
+        assert "Patch.json" in files and "patch_level_1/Level_0.npz" in files
+        hdr = json.load(open(tmp_path / "a" / "plt00004" / "Header"))
+        assert hdr["patch_parents"] == [-1, 0] and hdr["patch_axis"] == 1
+    else:
+        assert files == ["Header", "Level_0.npz"]
+        z = np.load(tmp_path / "a" / "plt00004" / "Level_1.npz")
+        assert z["velx"].shape == (16, 16)
+    for f in files:
+        if f.endswith(".npz"):
+            x, y = np.load(a / f), np.load(b / f)
+            for k in x.files:
+                np.testing.assert_array_equal(x[k], y[k], err_msg=f + k)
+        else:
+            assert open(a / f).read() == open(b / f).read(), f

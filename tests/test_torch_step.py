@@ -323,8 +323,9 @@ def test_unsupported_walled_decks_name_the_roadmap():
     """Walled decks outside the slice go on raising and name their item:
     since A8 and A11 the 2D inflow channel and channel_cyl with its
     cylinder run (tests/test_torch_channel2d.py,
-    tests/test_torch_eb_step.py), and only their patch-AMR forms raise
-    (A13)."""
+    tests/test_torch_eb_step.py); since A13 the channel's AMR form builds
+    its base level, and only channel_cyl's (AMR with embedded boundaries)
+    raises, naming A13b."""
     amr = "amr.max_level = 1\n"
     text = bench._deck("tgv2d", 16, "float64")[0] + """
 geometry.is_periodic = 0 1
@@ -335,10 +336,10 @@ xhi.pressure = 0.
 """
     incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(text),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        incflo_torch.Simulation(
-            incflo_torch.IncfloConfig.from_text(text + amr), device="cpu")
+    sim = incflo_torch.Simulation(
+        incflo_torch.IncfloConfig.from_text(text + amr), device="cpu")
+    assert sim.cfg.max_level == 1 and sim.grid.n_cell == (16, 16)
     text = bench._deck("channel_cyl", 16, "float64")[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
         incflo_torch.Simulation(
             incflo_torch.IncfloConfig.from_text(text + amr), device="cpu")

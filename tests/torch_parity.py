@@ -413,3 +413,138 @@ incflo.mu = 0.01
 incflo.mu_s = 0.01
 incflo.cfl = 0.45
 """
+
+
+# ---------------------------------------------------------------------
+# patch AMR: both packages' trees and per-level states
+# ---------------------------------------------------------------------
+
+def tree_meta(amr):
+    """A SlabAMRSimulation's tree (either package), as a patch checkpoint
+    records it."""
+    return {"axis": int(amr.axis),
+            "bounds": [[list(b[0]), list(b[1])] for b in amr.bounds],
+            "parents": list(amr.parent), "levels": list(amr.level_of),
+            "nlevels": len(amr.sims)}
+
+
+def np_levels(ps):
+    """Per-level numpy states of a PatchState (either package)."""
+    if hasattr(ps.levels[0].level.velocity, "detach"):
+        return [tstate.sim_to_numpy(s) for s in ps.levels]
+    return [np_state(s) for s in ps.levels]
+
+
+def amr_reference_run(text, steps, before_step=None):
+    """incflo_tpu's SlabAMRSimulation from its init_state over `steps`
+    steps: (the driver, [(tree, per-level states)] after init and each
+    step, [{kind: iterations} per step]).  The solver loops are counted
+    while its jitted advance traces (counted_loops)."""
+    import jax
+    from incflo_tpu.amr_patch import SlabAMRSimulation as JAMR
+    from incflo_tpu.config import IncfloConfig as JConfig
+    tally = dict.fromkeys(KINDS, 0)
+    with counted_loops(tally):
+        amr = JAMR(JConfig.from_text(text))
+        s = amr.init_state()
+        states, iters = [(tree_meta(amr), np_levels(s))], []
+        for _ in range(steps):
+            jax.effects_barrier()
+            before = dict(tally)
+            s = amr.advance(s)
+            jax.effects_barrier()
+            iters.append({k: tally[k] - before[k] for k in KINDS})
+            states.append((tree_meta(amr), np_levels(s)))
+    return amr, s, states, iters
+
+
+def rt2d_amr_deck(max_level=1, extra=""):
+    """tests/test_amr_patch.py's RT2D deck (:15-37): rt2d_deck with
+    amr.max_level, slab patches and incflo.gradrhoerr = 0.1."""
+    return rt2d_deck(extra).replace(
+        "amr.max_level = 0",
+        f"amr.max_level = {max_level}\namr.patch_mode = slab") \
+        + "incflo.gradrhoerr = 0.1\n"
+
+
+def tgv_amr_deck(n=32):
+    """The two-level decaying Taylor vortex of tests/test_amr_patch.py
+    (:354-380): n x n on [0, 2]^2, probtype 2, MOL, explicit diffusion,
+    a static tagged x-band [0.75, 1.25] refined 2x, fixed dt 0.256 / n."""
+    return f"""
+amr.n_cell = {n} {n}
+amr.max_level = 1
+amr.patch_mode = slab
+amr.regrid_int = -1
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 2. 2.
+geometry.is_periodic = 1 1
+incflo.probtype = 2
+incflo.mu = 0.001
+incflo.ro_0 = 1.
+incflo.fixed_dt = {0.256 / n}
+max_step = {n // 4}
+incflo.diffusion_type = 0
+incflo.initial_iterations = 3
+incflo.tag_region = true
+incflo.tag_region_lo = 0.75 0.0
+incflo.tag_region_hi = 1.25 2.0
+incflo.use_godunov = false
+"""
+
+
+# tests/test_amr_patch.py:451-467: a box patch of probtype 21 with CF
+# faces on all four sides
+BOX_DECK = """
+amr.n_cell = 32 32
+amr.max_level = 1
+amr.patch_mode = box
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 1. 1.
+geometry.is_periodic = 1 1
+incflo.probtype = 21
+incflo.tag_region = true
+incflo.tag_region_lo = 0.3 0.4
+incflo.tag_region_hi = 0.6 0.7
+incflo.fixed_dt = 0.002
+"""
+
+
+def port_amr(text):
+    from incflo_torch.amr_patch import SlabAMRSimulation
+    return SlabAMRSimulation(incflo_torch.IncfloConfig.from_text(text),
+                             device="cpu")
+
+
+def assert_levels_close(got, want, tol, where=""):
+    """Per-level numpy states (np_levels) equal in count and shape, every
+    field and dt within tol relative to the reference field's max."""
+    assert len(got) == len(want), where
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for f in FIELDS + ("dt",):
+            assert g[f].shape == w[f].shape, (where, i, f)
+            e = float(np.abs(g[f] - w[f]).max()
+                      / max(np.abs(w[f]).max(), 1e-300))
+            assert e <= tol, (where, i, f, e)
+            worst = max(worst, e)
+        assert int(g["step"]) == int(w["step"]), (where, i)
+    return worst
+
+
+def compare_amr_run(amr, s, states, iters, tol=1e-10):
+    """Advance the port's tree from `s` (the counterpart of states[0]) and
+    hold its tree, every level's fields and dt, and each step's solver
+    iterations to the reference's.  Returns (final state, worst error)."""
+    assert tree_meta(amr) == states[0][0]
+    worst = assert_levels_close(np_levels(s), states[0][1], tol, "start")
+    got_iters = []
+    for i, (tree, want) in enumerate(states[1:], 1):
+        before = dict(tmg.COUNTS)
+        s = amr.advance(s)
+        got_iters.append({k: tmg.COUNTS[k] - before[k] for k in KINDS})
+        assert tree_meta(amr) == tree, (i, tree_meta(amr), tree)
+        worst = max(worst, assert_levels_close(np_levels(s), want, tol,
+                                               f"step {i}"))
+    assert got_iters == iters, (got_iters, iters)
+    return s, worst
