@@ -219,6 +219,25 @@ Phases (any failure ends the run with a non-zero exit):
              the 1-rank float32 run (at most twice its error + 4 ulps on
              every field); ms/step; then 3 instrumented steps that time
              each exchange (halo, all-reduce, reduce-scatter ms/step).
+             slab: the slab forms of the smoother kernels
+             (cell_smooth_slab, nodal_smooth_slab) at every level of
+             rt's MAC and nodal hierarchies (64x64x128, seeded variable
+             coefficients) whose 2-rank slabs are even, f32, at the
+             V-cycles' call where its halo fits: each rank's extended
+             slab through the kernel bit-equal to its plain version on
+             the same inputs, its middle planes bit-equal to the whole
+             level's kernel rows, one kernel node a call, kernel, plain
+             and bound ms.  sharded_mg: rt (64x64x128, x slabs of 32)
+             and shear3d_vd (128x128x32, slabs of 64) on 2 ranks sharing
+             the card, multigrid on the slabs: float64 init + 2 steps
+             against the 1-rank port to 1e-11 with equal CG iterations,
+             V-cycles and tensor-CG iterations in every step on both
+             ranks; float32 2 warm-up + 3 timed steps (launch counts
+             zeroed just before them: both slab smoother kernels launched
+             on every rank), held against a 1-rank float64 run beside
+             the 1-rank float32 run (at most twice its error + 4 ulps);
+             ms/step, slab launches a step per rank, one instrumented
+             step's exchanges by kind (calls, bytes, ms).
 Then one JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 
@@ -3138,6 +3157,268 @@ def phase_sharded_step(incflo_torch, gk, torch, n=128, steps64=3, warm=2,
             "f32_rel_err_vs_one_rank_f32": err32, "spawn_s": spawn_s}
 
 
+# ---------------------------------------------------------------------
+# multigrid on an x-slab mesh: the slab smoothers and the decks they let
+# run split over ranks
+# ---------------------------------------------------------------------
+
+SLAB_FAMILIES = ("cell_smooth_slab", "nodal_smooth_slab")
+# the 2-rank cells: bench's rt deck at its bench width (64x64x128, x
+# slabs of 32) and shear3d_vd at 128x128x32 (x slabs of 64)
+SHARD_MG_DECKS = {"rt": lambda dt: rt_deck(128, dt),
+                  "shear3d_vd": lambda dt: shear3d_deck(128, dt, vd=True)}
+SHARD_MG_FIELDS = ("velocity", "density", "tracer", "p", "gp", "mac_phi",
+                   "dt")
+
+
+def ext_rows(full, x0, nxl, lo, hi):
+    """Rows [x0 - lo, x0 + nxl + hi) of a whole-level array, wrapped: a
+    rank's extended slab after its deep halo exchange."""
+    import torch
+    idx = torch.arange(x0 - lo, x0 + nxl + hi,
+                       device=full.device) % full.shape[0]
+    return full.index_select(0, idx).contiguous()
+
+
+def slab_call(sk, cell, coefs, kw, x, b, x0, nxl, n, want):
+    """(kernel, plain, inputs) of one slab call on the extended slab of
+    the rank whose rows start at x0: the slab form's launch
+    (cell_smooth_ext / nodal_smooth_ext), its plain version on the same
+    inputs, and those inputs."""
+    lo, hi = sk.slab_depth(n, want)
+    e = lambda a: ext_rows(a, x0, nxl, lo, hi)
+    bc = sk.open_x(kw["bc"])
+    if cell:
+        diag, dinv, F = coefs
+        fw = tuple(None if w is None else e(w) for w in kw["Fwall"])
+        args = (e(x), e(b), e(diag), e(dinv), [e(f) for f in F], n, want)
+        inputs = list(args[:4]) + args[4] + [w for w in fw if w is not None]
+        return (lambda: sk.cell_smooth_ext(*args, bc=kw["bc"], Fwall=fw),
+                lambda: sk.cell_smooth_plain(*args, bc=bc,
+                                             Fwall=(None,) + fw[1:],
+                                             open_x=True), inputs)
+    sigma, dinv, dx = coefs
+    args = (e(x), e(b), ext_rows(sigma, x0, nxl, lo, hi - 1), e(dinv), dx,
+            n, want)
+    return (lambda: sk.nodal_smooth_ext(*args, bc=kw["bc"]),
+            lambda: sk.nodal_smooth_plain(*args, bc=bc), list(args[:4]))
+
+
+def phase_slab_smoothers(sk, mg, torch):
+    """The slab forms of the smoother kernels at every level of rt's two
+    hierarchies (64x64x128, the MAC and nodal operators of rt_operators)
+    whose 2-rank x slabs are even, f32, at the call the V-cycles make
+    there (1 sweep + residual cell, 2 nodal, the bottom's sweeps without;
+    the deepest that fits where a slab is narrower than its halo): each
+    rank's extended slab through the kernel, bit-equal to the plain
+    version on the same inputs, its middle planes bit-equal to the
+    whole-level kernel's rows; one kernel node a call; rank 0's kernel
+    and plain times by CUDA-graph replay and the bound (the extended
+    inputs read once, the slab's rows written once; the operations of
+    the slab's rows, the whole-level plain count times nxl / nx)."""
+    import numpy as np
+    dev = torch.device("cuda")
+    mac, nodal = rt_operators(mg, (64, 64, 128), torch.float32, dev, 30)
+    rng = np.random.default_rng(37)
+    res = {k: {"max_abs_err": 0.0, "checked": 0, "levels": []}
+           for k in SLAB_FAMILIES}
+    saved = save_launches(sk)
+    for family, solver in zip(SLAB_FAMILIES, (mac, nodal)):
+        cell = family == "cell_smooth_slab"
+        last = len(solver.levels) - 1
+        for li in range(last + 1):
+            shape = tuple(solver.diags[li].shape)
+            nxl = shape[0] // SHARD_RANKS
+            if nxl % 2:
+                continue
+            n, want = (solver.nu_bottom, False) if li == last \
+                else (solver.nu1, True)
+            if sk.slab_depth(n, want)[0] > nxl:
+                n = (nxl - 2) // 2 if want else nxl // 2
+            x = torch.as_tensor(rng.standard_normal(shape),
+                                dtype=torch.float32, device=dev)
+            b = torch.as_tensor(rng.standard_normal(shape),
+                                dtype=torch.float32, device=dev)
+            coefs, kw = level_args(mg, solver, li)
+            whole_fn = sk.cell_smooth if cell else sk.nodal_smooth
+            plain_fn = sk.cell_smooth_plain if cell \
+                else sk.nodal_smooth_plain
+            whole = whole_fn(x, b, *coefs, n, want, **kw)
+            lo = sk.slab_depth(n, want)[0]
+            for r in range(SHARD_RANKS):
+                kern, plain, _ = slab_call(sk, cell, coefs, kw, x, b,
+                                           r * nxl, nxl, n, want)
+                got, ref = kern(), plain()
+                for u, v, w in zip(got, ref, whole):
+                    if v is None:
+                        continue
+                    err = abs_err(u, v)
+                    res[family]["max_abs_err"] = max(
+                        res[family]["max_abs_err"], err)
+                    res[family]["checked"] += 1
+                    if err != 0.0 or not torch.equal(
+                            u.narrow(0, lo, nxl), w.narrow(0, r * nxl, nxl)):
+                        raise AssertionError(
+                            f"{family} level {li} rank {r}: the slab kernel "
+                            "differs from its plain version or from the "
+                            "whole level's rows")
+            kern, plain, inputs = slab_call(sk, cell, coefs, kw, x, b, 0,
+                                            nxl, n, want)
+            row = {"level": li, "shape": "x".join(map(str, shape)),
+                   "nxl": nxl, "call": f"{n} sweeps"
+                   + (" + residual" if want else ""),
+                   "device_launches": graph_launches(sk, kern),
+                   "ms": device_ms(kern), "plain_ms": device_ms(plain),
+                   "bytes": 4 * (sum(t.numel() for t in inputs)
+                                 + (1 + want) * nxl * x[0].numel()),
+                   "ops": count_ops(lambda: plain_fn(
+                       x, b, *coefs, n, want, **kw)) * nxl // shape[0]}
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"],
+                                                     row["ops"])
+            if row["device_launches"] != 1:
+                raise AssertionError(f"{family} level {li}: one call is "
+                                     f"{row['device_launches']} device "
+                                     "launches")
+            res[family]["levels"].append(row)
+            print(f"[slab] {family} level {li} {row['shape']} in 2 slabs "
+                  f"(nxl {nxl}), {row['call']}: bit-equal to the plain "
+                  f"version and the whole level's rows on both ranks; "
+                  f"kernel {row['ms']:.4f} ms (1 device launch), plain "
+                  f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} "
+                  f"ms ({row['bound_by']})", flush=True)
+    torch.cuda.synchronize()
+    check_one_launch(sk, "slab smoothers")
+    restore_launches(sk, saved)
+    return res
+
+
+def one_rank_run(incflo_torch, torch, deck, nsteps):
+    """The port on one rank on the card from init_state: the states after
+    init and each step (numpy) and each step's tallies (ITER_KINDS)."""
+    from incflo_torch import state
+    from incflo_torch.ops import multigrid as mg
+    sim = incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(deck))
+    mg.reset_counts()
+    s = sim.init_state()
+    states = [state.sim_to_numpy(s)]
+    tallies = [{k: mg.COUNTS[k] for k in ITER_KINDS}]
+    for _ in range(nsteps):
+        before = dict(mg.COUNTS)
+        s = sim.advance(s)
+        tallies.append({k: mg.COUNTS[k] - before[k] for k in ITER_KINDS})
+        states.append(state.sim_to_numpy(s))
+    torch.cuda.synchronize()
+    return states, tallies
+
+
+def mg_state_errs(a, b):
+    import numpy as np
+    return {f: float(np.abs(a[f] - b[f]).max()
+                     / max(float(np.abs(b[f]).max()), 1e-300))
+            for f in SHARD_MG_FIELDS}
+
+
+def phase_sharded_mg(incflo_torch, torch, steps64=2, warm=2, steps=3,
+                     instrumented=1):
+    """rt (64x64x128) and shear3d_vd (128x128x32) split over 2 ranks that
+    share the card, multigrid on the slabs: float64 init + steps64 steps
+    held to the 1-rank port to TOL_SHARD_F64 with equal CG iterations,
+    V-cycles and tensor-CG iterations in every step on both ranks;
+    float32 warm + steps timed steps (the launch counts zeroed just
+    before them) held against a 1-rank float64 run beside the 1-rank
+    float32 run (PR 6's witness bound), then `instrumented` steps that
+    time each exchange.  Every rank must launch both slab smoother
+    kernels in the timed steps."""
+    from incflo_torch.parallel import launch
+    ulp = 1.1920928955078125e-07
+    out = {}
+    for cell, deck_of in SHARD_MG_DECKS.items():
+        deck64, deck32 = deck_of("float64"), deck_of("float32")
+        t0 = time.time()
+        ref64, tal64 = one_rank_run(incflo_torch, torch, deck64,
+                                    warm + steps)
+        ref32, _ = one_rank_run(incflo_torch, torch, deck32, warm + steps)
+        t1 = time.time()
+        r64 = launch.run("incflo_torch.parallel.workers:steps", SHARD_RANKS,
+                         dict(deck=deck64, nsteps=steps64), device="cuda",
+                         timeout=900)
+        r32 = launch.run("incflo_torch.parallel.workers:timed_steps",
+                         SHARD_RANKS, dict(deck=deck32, warm=warm,
+                                           nsteps=steps,
+                                           instrumented=instrumented),
+                         device="cuda", timeout=900)
+        t2 = time.time()
+        worst64 = dict.fromkeys(SHARD_MG_FIELDS, 0.0)
+        for i, (a, b) in enumerate(zip(r64[0]["states"], ref64)):
+            for f, e in mg_state_errs(a, b).items():
+                worst64[f] = max(worst64[f], e)
+                if not e <= TOL_SHARD_F64:
+                    raise AssertionError(f"{cell} 2 ranks f64 step {i}: {f} "
+                                         f"differs from 1 rank by {e:.3e}")
+        for rank, r in enumerate(r64):
+            if r["tallies"] != tal64[:steps64 + 1]:
+                raise AssertionError(f"{cell} 2 ranks f64, rank {rank}: "
+                                     f"tallies {r['tallies']}, 1 rank "
+                                     f"{tal64[:steps64 + 1]}")
+        own32 = mg_state_errs(ref32[-1], ref64[-1])
+        shard32 = mg_state_errs(r32[0]["state"], ref64[-1])
+        bound32 = {f: TOL_SHARD_F32_FACTOR * own32[f]
+                   + TOL_SHARD_F32_ULPS * ulp for f in SHARD_MG_FIELDS}
+        for f in SHARD_MG_FIELDS:
+            if not shard32[f] <= bound32[f]:
+                raise AssertionError(
+                    f"{cell} 2 ranks f32 after {warm + steps} steps: {f} is "
+                    f"{shard32[f]:.3e} from the float64 run, the 1-rank f32 "
+                    f"run {own32[f]:.3e} (bound {bound32[f]:.3e})")
+        per_step = []
+        for rank, r in enumerate(r32):
+            got = {k: v / steps for k, v in r["smoother_launches"].items()}
+            if not all(got[k] > 0 for k in SLAB_FAMILIES):
+                raise AssertionError(f"{cell} rank {rank}: slab smoother "
+                                     f"launches {r['smoother_launches']} in "
+                                     f"{steps} steps")
+            per_step.append(got)
+        ms = max(r["ms_per_step"] for r in r32)
+        inst = max(r["instrumented_ms_per_step"] for r in r32)
+        comm = {k: {q: max(r["comm"][k][q] for r in r32)
+                    for q in ("calls_per_step", "bytes_per_step",
+                              "ms_per_step")} for k in r32[0]["comm"]}
+        print(f"[sharded_mg] {cell} f64 over {SHARD_RANKS} ranks: init + "
+              f"{steps64} steps, worst rel err against 1 rank "
+              + ", ".join(f"{f} {e:.2e}" for f, e in worst64.items())
+              + f" (tol {TOL_SHARD_F64:g}); tallies "
+              f"{tal64[1:steps64 + 1]} on every rank", flush=True)
+        print(f"[sharded_mg] {cell} f32 over {SHARD_RANKS} ranks sharing "
+              f"the card: {ms:.3f} ms/step over {steps} steps after {warm} "
+              "warm-up (slowest rank); rel err against the f64 run "
+              "(2 ranks / 1 rank) "
+              + ", ".join(f"{f} {shard32[f]:.2e} / {own32[f]:.2e}"
+                          for f in SHARD_MG_FIELDS)
+              + "; smoother launches a step per rank "
+              + "; ".join(str({k: v for k, v in p.items() if v})
+                          for p in per_step)
+              + f"; instrumented {inst:.3f} ms/step, exchanges per step "
+              + ", ".join(f"{k} {v['calls_per_step']:.0f} calls "
+                          f"{v['bytes_per_step'] / 1e6:.3f} MB "
+                          f"{v['ms_per_step']:.3f} ms"
+                          for k, v in comm.items())
+              + f"; 1-rank runs {t1 - t0:.1f} s, spawns {t2 - t1:.1f} s",
+              flush=True)
+        out[cell] = {"ranks": SHARD_RANKS, "mesh": r32[0]["mesh"],
+                     "ms_per_step": ms, "steps": steps, "warmup": warm,
+                     "instrumented_ms_per_step": inst, "comm": comm,
+                     "smoother_launches_per_step": per_step,
+                     "launches_per_rank": [r["smoother_launches"]
+                                           for r in r32],
+                     "counts": [r["counts"] for r in r32],
+                     "f64_max_rel_err": worst64, "f64_tol": TOL_SHARD_F64,
+                     "tallies": tal64[:steps64 + 1],
+                     "f32_rel_err_vs_f64": shard32,
+                     "f32_one_rank_rel_err_vs_f64": own32,
+                     "f32_bound": bound32, "seconds": t2 - t0}
+    return out
+
+
 CLI_ARGS = ["max_step=4", "amr.check_int=2", "amr.plot_int=2"]
 
 
@@ -3948,6 +4229,9 @@ def main(argv):
                                               torch, stamp)
     shard = phase_sharded_step(incflo_torch, gk, torch)
     stamp("sharded")
+    slab = phase_slab_smoothers(sk, mg, torch)
+    shard_mg = phase_sharded_mg(incflo_torch, torch)
+    stamp("sharded multigrid")
 
     # `launches` is the count over the kernel's own main path: shear3d
     # n = 128 for the Godunov kernels (their count in shear3d_vd beside
@@ -4078,6 +4362,32 @@ def main(argv):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "bytes": t["bytes"], "ops": t["ops"], "library_ms": None,
             "at_nxl32": r["nxl32"]})
+    for k in SLAB_FAMILIES:
+        r = slab[k]
+        fine = r["levels"][0]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": "incflo_torch/csrc/smoothers.cu",
+            "replaces": sk.REPLACES[k] + " (under a mesh incflo_tpu sweeps "
+                        "in jnp, GSPMD deriving the halos)",
+            "launches": shard_mg["rt"]["launches_per_rank"][0][k],
+            "launches_per_rank": [c[k] for c in
+                                  shard_mg["rt"]["launches_per_rank"]],
+            "launches_per_step": shard_mg["rt"][
+                "smoother_launches_per_step"][0][k],
+            "launches_per_step_shear3d_vd": shard_mg["shear3d_vd"][
+                "smoother_launches_per_step"][0][k],
+            "launches_per_step_a9c": a9c_per_step(k),
+            "device_launches_per_call": max(
+                v["device_launches"] for v in r["levels"]),
+            "max_abs_err": r["max_abs_err"], "tol_f32": 0.0,
+            "outputs_checked": r["checked"],
+            "shape": f"rt {fine['shape']} in 2 slabs (nxl {fine['nxl']}), "
+                     f"{fine['call']}, float32",
+            "ms": fine["ms"], "plain_ms": fine["plain_ms"],
+            "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
+            "bytes": fine["bytes"], "ops": fine["ops"], "library_ms": None,
+            "levels": r["levels"]})
     tgv_main = main_tgv[0]
     kernels.append({
         "name": "step2d", "route": "cuda",
@@ -4126,7 +4436,8 @@ def main(argv):
                       "main": [main128, main256] + main_vd + [main_rt]
                       + main_tgv + list(main_a9c.values())
                       + list(main_a8.values()),
-                      "sharded": shard, "cli": cli,
+                      "sharded": shard, "sharded_mg": shard_mg,
+                      "cli": cli,
                       "amr": {"main": list(amr_main.values()),
                               "levels": amr_levels, "cli": amr_cli},
                       "seconds": time.time() - t_start}))

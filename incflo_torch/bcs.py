@@ -134,14 +134,16 @@ class ExtDirValues:
                device) -> torch.Tensor:
         """Normalized cell-center coordinates ((i+0.5)/n in the root
         domain frame, prob_bc.H:49) along `axis` including the current
-        ghost padding, broadcast-shaped for the field layout."""
+        ghost padding, broadcast-shaped for the field layout; on a
+        rank's x slab (parallel/mesh.SlabGrid) i is the level's index."""
         n = self.grid.n_cell[axis]
         p = pads[axis]
         dx = self.grid.dx[axis]
         off = self.grid.prob_lo[axis] - self.grid.origin[axis]
         length = self.grid.domain_length[axis]
-        c = (off + (torch.arange(-p, n + p, dtype=dtype, device=device)
-                    + 0.5) * dx) / length
+        i0 = getattr(self.grid, "x0", 0) if axis == 0 else 0
+        c = (off + (torch.arange(i0 - p, i0 + n + p, dtype=dtype,
+                                 device=device) + 0.5) * dx) / length
         shape = [1] * (self.grid.ndim + 1)
         shape[axis] = -1
         return c.reshape(shape)

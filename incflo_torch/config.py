@@ -465,14 +465,19 @@ class IncfloConfig:
     def force_bcrecs(self, ncomp: int) -> bcs.BCRecs:
         return bcs.force_bcrecs(self.bc_kind, ncomp, self.ndim)
 
-    def velocity_ext_values(self) -> bcs.ExtDirValues:
-        return bcs.ExtDirValues(self.grid, self.bc_velocity, self.probtype)
+    # grid: the level the values fill (a rank's x slab on a mesh), else
+    # the deck's
+    def velocity_ext_values(self, grid=None) -> bcs.ExtDirValues:
+        return bcs.ExtDirValues(grid or self.grid, self.bc_velocity,
+                                self.probtype)
 
-    def density_ext_values(self) -> bcs.ExtDirValues:
-        return bcs.ExtDirValues(self.grid, self.bc_density[..., None], self.probtype)
+    def density_ext_values(self, grid=None) -> bcs.ExtDirValues:
+        return bcs.ExtDirValues(grid or self.grid, self.bc_density[..., None],
+                                self.probtype)
 
-    def tracer_ext_values(self) -> bcs.ExtDirValues:
-        return bcs.ExtDirValues(self.grid, self.bc_tracer, self.probtype)
+    def tracer_ext_values(self, grid=None) -> bcs.ExtDirValues:
+        return bcs.ExtDirValues(grid or self.grid, self.bc_tracer,
+                                self.probtype)
 
 
 def _plot_fields(amr: ParmParse, ndim: int) -> Tuple[str, ...]:

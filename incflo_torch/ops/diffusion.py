@@ -95,11 +95,12 @@ def scalar_solver_bc(cfg: IncfloConfig):
 
 
 def velocity_bvals(cfg: IncfloConfig, comp: int, dtype,
-                   device=None) -> Dict:
+                   device=None, grid=None) -> Dict:
     """Dirichlet face values for velocity component `comp`, including the
     probtype inflow profiles (slabs built with the padding the solver's
-    ghost fill has when it reaches each face axis)."""
-    ev = cfg.velocity_ext_values()
+    ghost fill has when it reaches each face axis) over `grid` (a rank's
+    x slab on a mesh; else the deck's level)."""
+    ev = cfg.velocity_ext_values(grid)
     out = {}
     for ax in range(cfg.ndim):
         if cfg.grid.periodic[ax]:
@@ -428,7 +429,7 @@ def compute_divtau(vel: torch.Tensor, vel_g: torch.Tensor,
                            mesh=mesh_of(grid))
         lap = -mg.cell_apply_inhom(vel[..., c], lev,
                                    velocity_bvals(cfg, c, vel.dtype,
-                                                  vel.device))
+                                                  vel.device, grid))
         parts.append(lap)
     divtau = torch.stack(parts, dim=-1)
     if (eb is not None and eb.wall_dist is not None
@@ -658,7 +659,7 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
                for c in range(grid.ndim)]
 
     def bvals_of(c):
-        return _bvals(velocity_bvals(cfg, c, dtype, vel.device),
+        return _bvals(velocity_bvals(cfg, c, dtype, vel.device, grid),
                       bvals_override, c)
 
     if not all(b == bcs_all[0] for b in bcs_all):
@@ -668,7 +669,7 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
             solver = mg.CellSolver(grid.dx, bc_lo, bc_hi, alpha=1.0,
                                    beta=dt_diff, acoef=acoef,
                                    bcoef=tuple(faces), ebc=ebc,
-                                   direct=direct)
+                                   direct=direct, mesh=mesh_of(grid))
             comps.append(solver.solve_inhom(
                 acoef * vel[..., c], bvals_of(c), x0=vel[..., c],
                 rtol=cfg.tensor_mg_rtol, atol=cfg.tensor_mg_atol,
@@ -699,7 +700,7 @@ def diffuse_velocity(vel: torch.Tensor, rho: torch.Tensor, eta_faces,
                                beta=dt_diff, acoef=acoef[..., None],
                                bcoef=tuple(eta_b),
                                ebc=None if ebc is None else ebc[..., None],
-                               direct=direct)
+                               direct=direct, mesh=mesh_of(grid))
     bvals = {}
     per_comp = [bvals_of(c) for c in range(grid.ndim)]
     for ax in range(cfg.ndim):
@@ -781,7 +782,7 @@ def diffuse_scalar(tracer: torch.Tensor, rho: torch.Tensor,
                                beta=dt_diff, acoef=acoef,
                                bcoef=tuple(_eb_faces(eta_faces_per_comp[n],
                                                      eb)),
-                               direct=False)
+                               direct=False, mesh=mesh_of(grid))
         comps.append(solver.solve_inhom(
             acoef * tracer[..., n],
             _bvals(tracer_bvals(cfg, n, tracer.dtype, tracer.device),

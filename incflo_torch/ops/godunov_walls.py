@@ -19,6 +19,14 @@ own axis (face f lies between cells f-1 and f).  The boundary forms
 incflo_godunov_trans_bc.H): one-sided slopes and PPM edges at ext_dir and
 hoextrap faces, the face-state overrides of _trans_bc / _cc_bc, and
 backflow prevention at extrapolated faces.
+
+On a rank's x slab of a mesh (grid.mesh, parallel/mesh.py; x periodic)
+the chain runs on the slab's ghost-filled windows: the x ghosts come
+from the neighbouring ranks (bcs.grow), the MAC faces beyond the slab
+too (_extend_mac), and every x stencil is then the one-rank stencil on
+the same values.  Origins along x count from the slab's first cell: an
+origin is read only by the boundary forms (_mask), and those act on the
+walled axes y and z alone, which the mesh does not split.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from incflo_torch.grid import Grid
 from incflo_torch.ops.godunov_kernels import (SMALL_VEL, _mc2_parts, _mc4,
                                               _riemann, _van_leer)
 from incflo_torch.ops.godunov_kernels import _upwind as _upwind_edge
+from incflo_torch.parallel.mesh import mesh_of
 
 _EXTRAP = (BCType.foextrap, BCType.hoextrap, BCType.reflect_even)
 
@@ -537,10 +546,23 @@ class WindowedGodunov:
         """Extend a face array: own axis -> faces [-1, n+2) (wrap on a
         periodic axis with faces n-1 and 1, since faces 0 and n coincide;
         zero otherwise); transverse axes -> one ghost cell (wrap or
-        zero)."""
+        zero).  On an x slab the x entries beyond it come from the
+        neighbouring ranks: for the x faces the left one's face below x0
+        and the right one's face above x0 + nxl (the slab's own face
+        x0 + nxl is the one-rank chain's face there: where a profile
+        varies along x in the y or z ghosts, the faces 0 and n of the
+        level differ)."""
         g = self.grid
+        mesh = mesh_of(g)
         for a in range(self.nd):
             k = m.shape[a]
+            if a == 0 and mesh is not None:
+                if a == ax:
+                    h = mesh.halo_x(m.narrow(0, 1, k - 2), 1, 1)
+                    m = torch.cat([h[:1], m, h[-1:]], dim=0)
+                else:
+                    m = mesh.halo_x(m, 1)
+                continue
             if g.periodic[a]:
                 if a == ax:
                     n = g.n_cell[ax]

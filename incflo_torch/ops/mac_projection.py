@@ -21,6 +21,7 @@ from incflo_torch.bcs import BCKind
 from incflo_torch.grid import Grid
 from incflo_torch.ops import multigrid as mg
 from incflo_torch.ops.stencil import window
+from incflo_torch.parallel.mesh import mesh_of
 
 
 def projection_solver_bc(bc_kind: np.ndarray, grid: Grid):
@@ -74,7 +75,9 @@ def project_mac_velocities(umac: List[torch.Tensor],
     """Returns (umac_projected, phi).  With a prebuilt solver (constant
     density) phi comes from it; otherwise a CellSolver is built from
     `beta` and, unless its coefficients are constant and `direct` lets
-    it look, iterates from the warm start `phi0` to rtol/atol.
+    it look, iterates from the warm start `phi0` to rtol/atol (on a
+    rank's x slab, grid.mesh, by multigrid on the slab: beta then holds
+    the slab's nxl + 1 x faces).
 
     With embedded boundaries (eb, eb/ops.EBArrays) the solve is
     div(ap beta grad phi) = div(ap u) and u -= beta grad phi on the open
@@ -100,7 +103,8 @@ def project_mac_velocities(umac: List[torch.Tensor],
         beta = [beta[d] * eb.afrac[d] for d in range(grid.ndim)]
     solver = prebuilt_solver if prebuilt_solver is not None else \
         mg.CellSolver(grid.dx, bc_lo, bc_hi, alpha=0.0, beta=1.0,
-                      acoef=None, bcoef=beta, direct=direct)
+                      acoef=None, bcoef=beta, direct=direct,
+                      mesh=mesh_of(grid))
     # L = -div(beta grad phi); solve L phi = -div(ap u)
     if eb is not None:
         rhs = -mac_divergence([eb.afrac[d] * umac[d]

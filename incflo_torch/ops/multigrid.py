@@ -37,10 +37,26 @@ PyTorch, probed on the solver's device) or the regular NodalSolver on
 the octant lattice.
 
 On an x slab of a mesh (parallel/mesh.py) a level carries the mesh: its
-periodic x pads come from the neighbouring ranks, its norms and means
-are global, and its solvers are the whole level's direct solvers cut to
-the slab (CellSolver.shard, NodalSolver.shard; spectral.shard_symbol).
-Multigrid on a sharded level raises until ROADMAP A14.
+periodic x pads come from the neighbouring ranks, its norms, means and
+CG dots are global.  A constant-coefficient solver is the whole level's
+direct solver cut to the slab (CellSolver.shard, NodalSolver.shard;
+spectral.shard_symbol).  Multigrid runs on the slab (a solver built with
+mesh=, or shard() of one without a direct solve): the hierarchy's depth
+comes from the whole level's extents, so it is the one rank's hierarchy;
+its levels are slabs, coarsened rank by rank, as long as a level's slab
+is even (its first x index keeps the global colour parity) and at least
+as wide as the halo of the calls on it (smoother_kernels.slab_depth: 4
+planes for a cell V-cycle's sweeps, 6 for a nodal one's, 18 and 50 for
+their bottoms); the smoothers there are the slab forms of the kernels
+(smoother_kernels.cell_smooth_slab / nodal_smooth_slab), their
+coefficients extended by the neighbours' planes once per hierarchy and
+depth.  The levels below go to every rank whole (SlabMesh.all_gather_x
+of the coefficients once, of the coarse residual in each V-cycle): each
+rank runs the same coarse V-cycle on the same bits and keeps its rows of
+the correction.  A hierarchy whose fine level is already too narrow
+runs whole on every rank from the fine level down.  Every level smooths
+what the one-rank hierarchy smooths, bit for bit; only the CG's dots,
+summed rank by rank, round differently.
 """
 
 from __future__ import annotations
@@ -60,9 +76,6 @@ class SolverBC(enum.IntEnum):
     NEUMANN = 1     # homogeneous Neumann (zero flux)
     DIRICHLET = 2   # value on the domain face
 
-
-_SHARDED_MG = ("multigrid on a level split over a mesh is not ported yet "
-               "(ROADMAP A14): a sharded level has direct solves only")
 
 # host-side tallies of the iterative solves since reset_counts(): solves
 # that iterated, their CG iterations / V-cycles, the adaptive tensor CG's
@@ -166,6 +179,68 @@ def _mean(x, mesh=None):
     if mesh is None:
         return torch.mean(x)
     return mesh.all_reduce_sum(torch.sum(x)) / (x.numel() * mesh.size)
+
+
+def _dot(a, b, mesh=None):
+    d = torch.sum(a * b)
+    return d if mesh is None else mesh.all_reduce_sum(d)
+
+
+def _depths(cells, max_levels):
+    """The cell extents of each level of a hierarchy over the whole level
+    `cells`: halved while every extent is even and at least 4."""
+    shapes = [tuple(cells)]
+    while len(shapes) < max_levels and all(n % 2 == 0 and n >= 4
+                                           for n in shapes[-1]):
+        shapes.append(tuple(n // 2 for n in shapes[-1]))
+    return shapes
+
+
+def _slab_levels(shapes, mesh, nu, nu_bottom):
+    """How many leading levels of the hierarchy `shapes` stay x slabs on
+    `mesh`: each must split into even slabs at least as wide as the
+    deepest halo of its smoother calls (nu sweeps with the residual;
+    the bottom's nu_bottom)."""
+    from incflo_torch.ops import smoother_kernels as sk
+    if mesh is None:
+        return len(shapes)
+    for li, cells in enumerate(shapes):
+        nxl, rem = divmod(cells[0], mesh.size)
+        sweeps = nu_bottom if li == len(shapes) - 1 else nu
+        if rem or nxl % 2 or nxl < sk.slab_depth(sweeps, True)[0]:
+            return li
+    return len(shapes)
+
+
+def _chunks(n, nxl, want_residual):
+    """Split n sweeps on a slab of nxl rows into calls whose halo fits
+    the neighbours' slabs: (sweeps, residual) per call; sweeps done in
+    several calls give the bits of one call."""
+    from incflo_torch.ops import smoother_kernels as sk
+    per = max(1, (nxl - 2) // 2)
+    if sk.slab_depth(n, want_residual)[0] <= nxl:
+        return [(n, want_residual)]
+    out = [(per, False)] * ((n - 1) // per)
+    return out + [(n - per * len(out), want_residual)]
+
+
+class _SlabCoefs:
+    """A slab level's smoother coefficients extended by the neighbours'
+    x planes: exchanged once at the depth the first call needs and again
+    only when a call needs more, narrowed for each call."""
+
+    def __init__(self, mesh, tensors):
+        self.mesh, self.base = mesh, tensors
+        self.lo = self.hi = -1
+        self.ext = None
+
+    def get(self, lo, hi):
+        if lo > self.lo or hi > self.hi:
+            self.lo, self.hi = max(lo, self.lo), max(hi, self.hi)
+            self.ext = self.mesh.halo_x(self.base, self.lo, self.hi)
+        cut = lambda t: t.narrow(0, self.lo - lo,
+                                 t.shape[0] - (self.lo - lo) - (self.hi - hi))
+        return [cut(t) for t in self.ext]
 
 
 def _move(obj, device):
@@ -370,7 +445,7 @@ def _prolong_cells(c, lev: CellLevel):
     with ghost = wrap (periodic), edge (Neumann), zero (Dirichlet)."""
     for ax in range(len(lev.dx)):
         if lev.bc_lo[ax] == SolverBC.PERIODIC:
-            cp = _wrap_pad(c, ax)
+            cp = _wrap_pad(c, ax, mesh=lev.mesh)
         else:
             lo_pad = _edge_pad if lev.bc_lo[ax] == SolverBC.NEUMANN \
                 else _zero_pad
@@ -385,6 +460,32 @@ def _prolong_cells(c, lev: CellLevel):
     return c
 
 
+def _gather_rows(mesh, t, faces=False):
+    """The whole level of slab field t on every rank (None stays None)."""
+    return None if t is None else mesh.all_gather_x(t, faces)
+
+
+def _level_maxima(diags, levels):
+    """max|diag| of each level: on the slab levels of a mesh the whole
+    level's, in one all-reduce; None (the diag's own) elsewhere."""
+    out = [None] * len(diags)
+    slab = [i for i, l in enumerate(levels) if l.mesh is not None]
+    if slab:
+        m = torch.stack([torch.max(torch.abs(diags[i])) for i in slab])
+        m = levels[slab[0]].mesh.all_reduce_max(m)
+        for k, i in enumerate(slab):
+            out[i] = m[k]
+    return out
+
+
+def _on_whole(mesh, fn, x, b, want_residual):
+    """fn (a whole-level V-cycle) on the gathered x and b; this rank's
+    rows of the iterate and of the residual."""
+    x, r = fn(mesh.all_gather_x(x), mesh.all_gather_x(b),
+              want_residual=want_residual)
+    return mesh.slab(x), None if r is None else mesh.slab(r)
+
+
 class CellSolver:
     """Geometric multigrid (and, for constant coefficients, a direct
     solve) for the cell-centred operator on one grid.
@@ -392,11 +493,15 @@ class CellSolver:
     direct=False skips the search for a constant-coefficient direct
     solve, which reads the coefficients back to the host: the solvers a
     variable-density step builds from its current state pass it, as
-    incflo_tpu's are built inside a trace and never find one."""
+    incflo_tpu's are built inside a trace and never find one.
+
+    mesh: acoef, bcoef (and ebc) are rank mesh.rank's x slab of a level
+    periodic in x (nxl + 1 x faces), and the solver runs multigrid on the
+    slab (module docstring); it never solves directly."""
 
     def __init__(self, dx, bc_lo, bc_hi, alpha, beta, acoef, bcoef,
                  max_levels=30, nu1=1, nu2=1, nu_bottom=8, ebc=None,
-                 direct=True):
+                 direct=True, mesh=None):
         # V(1,1) + 8 bottom sweeps: CG acceleration tolerates the weaker
         # preconditioner
         ndim = len(dx)
@@ -405,41 +510,64 @@ class CellSolver:
         levels: List[CellLevel] = []
         lev = CellLevel(tuple(dx), tuple(int(b) for b in bc_lo),
                         tuple(int(b) for b in bc_hi), alpha, beta,
-                        acoef, tuple(bcoef), ebc)
+                        acoef, tuple(bcoef), ebc, mesh)
         cells = tuple(acoef.shape[:ndim]) if acoef is not None else tuple(
             bcoef[0].shape[ax] - (1 if ax == 0 else 0) for ax in range(ndim))
-        while True:
+        if mesh is not None:
+            cells = (cells[0] * mesh.size,) + cells[1:]
+        shapes = _depths(cells, max_levels)
+        self.n_slab = _slab_levels(shapes, mesh, max(nu1, nu2), nu_bottom)
+        self._whole = None
+        for li in range(len(shapes)):
+            if li == self.n_slab:
+                # this level and the coarser ones: whole on every rank
+                tail = CellSolver(
+                    lev.dx, lev.bc_lo, lev.bc_hi, alpha, beta,
+                    _gather_rows(mesh, lev.acoef),
+                    tuple(_gather_rows(mesh, b, faces=ax == 0)
+                          for ax, b in enumerate(lev.bcoef)),
+                    len(shapes) - li, nu1, nu2, nu_bottom,
+                    _gather_rows(mesh, lev.ebc), direct=False)
+                if li == 0:
+                    self._whole = tail
+                    levels.append(lev)
+                else:
+                    levels.extend(tail.levels)
+                break
             levels.append(lev)
-            if len(levels) >= max_levels:
-                break
-            if any(n % 2 != 0 or n < 4 for n in cells):
-                break
-            cells = tuple(n // 2 for n in cells)
-            lev = CellLevel(
-                tuple(d * 2 for d in lev.dx), lev.bc_lo, lev.bc_hi,
-                lev.alpha, lev.beta,
-                _coarsen_cells(lev.acoef, ndim) if lev.acoef is not None else None,
-                tuple(_coarsen_face(lev.bcoef[ax], ax, ndim)
-                      for ax in range(ndim)),
-                # ebc ~ area/volume: the EB area is kept under coarsening,
-                # so the coefficient halves per level
-                0.5 * _coarsen_cells(lev.ebc, ndim)
-                if lev.ebc is not None else None)
+            if li + 1 < len(shapes):
+                lev = CellLevel(
+                    tuple(d * 2 for d in lev.dx), lev.bc_lo, lev.bc_hi,
+                    lev.alpha, lev.beta,
+                    _coarsen_cells(lev.acoef, ndim)
+                    if lev.acoef is not None else None,
+                    tuple(_coarsen_face(lev.bcoef[ax], ax, ndim)
+                          for ax in range(ndim)),
+                    # ebc ~ area/volume: the EB area is kept under
+                    # coarsening, so the coefficient halves per level
+                    0.5 * _coarsen_cells(lev.ebc, ndim)
+                    if lev.ebc is not None else None, mesh)
         self.levels = levels
         self.diags = [cell_diag(l) for l in levels]
         self._coefs = None
+        self._ext = {}
         self.singular = (alpha == 0.0) and (ebc is None) and all(
             b != SolverBC.DIRICHLET for b in list(bc_lo) + list(bc_hi))
         self.symbol = None
-        if direct:
+        if direct and mesh is None:
             from incflo_torch.ops import spectral
             self.symbol = spectral.cell_symbol(levels[0])
+
+    @property
+    def mesh(self):
+        return self.levels[0].mesh
 
     def smoother_coefs(self):
         """(dinvs, fhis, fwalls): per level, what the smoother kernel
         reads beside diag -- the guarded reciprocal of the diagonal (from
         its global max, with the EB wall term included, so it is taken
-        once per hierarchy and not in every call), the cell-shaped
+        once per hierarchy and not in every call; on a mesh the slab
+        levels' maxima in one all-reduce), the cell-shaped
         high-face coefficients scaled by
         beta/dx^2 (faces 1..n of each axis: on a walled axis the last is
         the high wall face) and, per walled axis, the low wall face
@@ -455,7 +583,9 @@ class CellSolver:
         them."""
         if self._coefs is None:
             from incflo_torch.ops import smoother_kernels as sk
-            dinvs = [sk.guarded_reciprocal(d) for d in self.diags]
+            dmax = _level_maxima(self.diags, self.levels)
+            dinvs = [sk.guarded_reciprocal(d, m)
+                     for d, m in zip(self.diags, dmax)]
             if self.ndim != 3:       # the plain 2D sweep reads dinv alone
                 self._coefs = (dinvs, None, None)
                 return self._coefs
@@ -483,30 +613,35 @@ class CellSolver:
         out.levels = [_move(l, device) for l in self.levels]
         out.diags, out._coefs, out.symbol = _move(
             [self.diags, self._coefs, self.symbol], device)
+        out._ext = {}
+        if self._whole is not None:
+            out._whole = self._whole.to(device)
         return out
 
     def shard(self, mesh) -> "CellSolver":
-        """This whole-level direct solver cut to the rank's x slab: the
-        fine level's coefficients on the slab's cells and faces (nxl + 1
-        x faces), the symbol's x transforms on the slab's columns.  A
-        solver without a fast-diagonalization symbol raises (ROADMAP
-        A14)."""
+        """This whole-level solver cut to the rank's x slab: the fine
+        level's coefficients on the slab's cells and faces (nxl + 1 x
+        faces).  A direct solver keeps the symbol's x transforms on the
+        slab's columns; any other runs multigrid on the slab."""
         from incflo_torch.ops import spectral
-        if self.symbol is None:
-            raise NotImplementedError(_SHARDED_MG)
         lev = self.levels[0]
         nxl = (lev.bcoef[0].shape[0] - 1) // mesh.size   # nx + 1 x faces
         x0 = mesh.rank * nxl
         rows = lambda a, n: None if a is None else a.narrow(0, x0, n)
-        local = dataclasses.replace(
-            lev, acoef=rows(lev.acoef, nxl),
-            bcoef=tuple(rows(b, nxl + (1 if ax == 0 else 0))
-                        for ax, b in enumerate(lev.bcoef)),
-            mesh=mesh)
+        acoef, ebc = rows(lev.acoef, nxl), rows(lev.ebc, nxl)
+        bcoef = tuple(rows(b, nxl + (1 if ax == 0 else 0))
+                      for ax, b in enumerate(lev.bcoef))
+        if self.symbol is None:
+            return CellSolver(lev.dx, lev.bc_lo, lev.bc_hi, lev.alpha,
+                              lev.beta, acoef, bcoef, nu1=self.nu1,
+                              nu2=self.nu2, nu_bottom=self.nu_bottom,
+                              ebc=ebc, direct=False, mesh=mesh)
+        local = dataclasses.replace(lev, acoef=acoef, bcoef=bcoef, mesh=mesh)
         out = copy.copy(self)
         out.levels = [local]
         out.diags = [cell_diag(local)]
         out._coefs = None
+        out._ext = {}
         out.symbol = spectral.shard_symbol(self.symbol, mesh)
         return out
 
@@ -523,36 +658,60 @@ class CellSolver:
             faceparts = (d_old - base) / l_old.beta
             out.diags.append(base + beta * faceparts)
         out._coefs = None
+        out._ext = {}
+        if self._whole is not None:
+            out._whole = self._whole.with_beta(beta)
         return out
 
     # -- smoother and V-cycle ------------------------------------------
     def _smooth_res(self, x, b, li, n, want_residual):
         """n red-black sweeps (+ the residual b - L(x)) on level li: a 3D
         level in the kernel's diag-extracted form on either device, the
-        EB wall term folded into diag; a 2D level in incflo_tpu's flux
-        form (multigrid.py:425-451), on either device."""
+        EB wall term folded into diag, a slab level through the slab form
+        (in calls whose halo fits the neighbours' slabs); a 2D level in
+        incflo_tpu's flux form (multigrid.py:425-451), on either
+        device."""
         from incflo_torch.ops import smoother_kernels as sk
-        if self.levels[0].mesh is not None:
-            raise NotImplementedError(_SHARDED_MG)
         dinvs, fhis, fwalls = self.smoother_coefs()
         lev = self.levels[li]
         if self.ndim != 3:
             return _rb_sweeps(x, b, dinvs[li], lambda v: cell_apply(v, lev),
                               n, want_residual, self.ndim)
-        return sk.cell_smooth(x, b, self.diags[li], dinvs[li], fhis[li], n,
-                              want_residual, bc=(lev.bc_lo, lev.bc_hi),
-                              Fwall=fwalls[li])
+        bc = (lev.bc_lo, lev.bc_hi)
+        if lev.mesh is None:
+            return sk.cell_smooth(x, b, self.diags[li], dinvs[li], fhis[li],
+                                  n, want_residual, bc=bc, Fwall=fwalls[li])
+        if li not in self._ext:
+            planes = [w for w in fwalls[li][1:] if w is not None]
+            self._ext[li] = _SlabCoefs(lev.mesh, [self.diags[li], dinvs[li],
+                                                  *fhis[li], *planes])
+        res = None
+        for k, want in _chunks(n, x.shape[0], want_residual):
+            ext = self._ext[li].get(*sk.slab_depth(k, want))
+            planes = iter(ext[5:])
+            fw = (None,) + tuple(None if w is None else next(planes)
+                                 for w in fwalls[li][1:])
+            x, res = sk.cell_smooth_slab(lev.mesh, x, b, ext[0], ext[1],
+                                         ext[2:5], k, want, bc=bc, Fwall=fw)
+        return x, res
 
     def _smooth(self, x, b, li, n):
         return self._smooth_res(x, b, li, n, False)[0]
 
     def _vcycle(self, x, b, li=0, want_residual=False):
+        if self._whole is not None:
+            return _on_whole(self.mesh, self._whole._vcycle, x, b,
+                             want_residual)
         if li == len(self.levels) - 1:
             return self._smooth_res(x, b, li, self.nu_bottom, want_residual)
         x, r = self._smooth_res(x, b, li, self.nu1, True)
         rc = _coarsen_cells(r, self.ndim)
+        mesh = self.levels[li].mesh if li + 1 == self.n_slab else None
+        if mesh is not None:          # the coarser levels: whole
+            rc = mesh.all_gather_x(rc)
         ec, _ = self._vcycle(torch.zeros_like(rc), rc, li + 1)
-        x = x + _prolong_cells(ec, self.levels[li + 1])
+        e = _prolong_cells(ec, self.levels[li + 1])
+        x = x + (e if mesh is None else mesh.slab(e))
         return self._smooth_res(x, b, li, self.nu2, want_residual)
 
     def solve_info(self, rhs, x0=None, rtol=1e-11, atol=1e-14, maxiter=200,
@@ -568,8 +727,14 @@ class CellSolver:
         the tolerance (the diagonally dominant Helmholtz solves from a
         warm start).  Each loop test reads one bool back to the host."""
         lev = self.levels[0]
+        mesh = lev.mesh
+        if self._whole is not None:
+            xw = None if x0 is None else mesh.all_gather_x(x0)
+            x, res, it = self._whole.solve_info(
+                mesh.all_gather_x(rhs), xw, rtol, atol, maxiter, presmooth)
+            return mesh.slab(x), res, it
         if self.singular:
-            rhs = rhs - _mean(rhs, lev.mesh)
+            rhs = rhs - _mean(rhs, mesh)
         sym = self.symbol
         if (sym is not None
                 and tuple(rhs.shape[:self.ndim]) == sym.cells
@@ -577,38 +742,36 @@ class CellSolver:
             from incflo_torch.ops import spectral
             x = spectral.solve(sym, rhs, lev.alpha, lev.beta, self.singular)
             return x, torch.zeros((), dtype=rhs.dtype, device=rhs.device), 1
-        if lev.mesh is not None:
-            raise NotImplementedError(_SHARDED_MG)
         if x0 is None:
             x0 = torch.zeros_like(rhs)
-        tol = torch.clamp_min(rtol * _maxnorm(rhs), atol)
+        tol = torch.clamp_min(rtol * _maxnorm(rhs, mesh), atol)
         r0 = rhs - cell_apply(x0, lev)
-        res0 = _maxnorm(r0)
+        res0 = _maxnorm(r0, mesh)
         if presmooth > 0 and host_bool(res0 > tol):
             x0 = self._smooth(x0, rhs, 0, presmooth)
             r0 = rhs - cell_apply(x0, lev)
-            res0 = _maxnorm(r0)
+            res0 = _maxnorm(r0, mesh)
         x, res, it = x0, res0, 0
         if host_bool(res0 > tol):
             COUNTS["cell_solves"] += 1
             r = r0
             p, _ = self._vcycle(torch.zeros_like(r0), r0)
-            rz = torch.sum(r0 * p)
+            rz = _dot(r0, p, mesh)
             # CG's max-norm residual is non-monotone: track the best
             # iterate and stop only after several non-improving iterations
             xb, rb = x0, res0
             bad = torch.zeros((), dtype=torch.int32, device=rhs.device)
             while it < maxiter and host_bool((rb > tol) & (bad < 5)):
                 Ap = cell_apply(p, lev)
-                denom = torch.sum(p * Ap)
+                denom = _dot(p, Ap, mesh)
                 a = rz / torch.where(denom == 0, 1.0, denom)
                 x = x + a * p
                 r = r - a * Ap
                 z, _ = self._vcycle(torch.zeros_like(r), r)
-                rz_new = torch.sum(r * z)
+                rz_new = _dot(r, z, mesh)
                 p = z + (rz_new / torch.where(rz == 0, 1.0, rz)) * p
                 rz = rz_new
-                new_res = _maxnorm(r)
+                new_res = _maxnorm(r, mesh)
                 improved = new_res < 0.999 * rb
                 xb = torch.where(improved, x, xb)
                 rb = torch.minimum(rb, new_res)
@@ -619,7 +782,7 @@ class CellSolver:
             if CELL_LOG is not None:
                 CELL_LOG.append((res, tol, it, maxiter))
         if self.singular:
-            x = x - torch.mean(x)
+            x = x - _mean(x, mesh)
         return x, res, it
 
     def solve(self, rhs, **kw):
@@ -652,7 +815,8 @@ class NodalLevel:
     def with_stencil(self):
         s = self.sigma
         for ax in range(len(self.dx)):
-            s = _wrap_pad(s, ax) if self.periodic[ax] else _zero_pad(s, ax)
+            s = _wrap_pad(s, ax, mesh=self.mesh) if self.periodic[ax] \
+                else _zero_pad(s, ax)
         return dataclasses.replace(self, sigma=None, sigma_pad=s,
                                    cells=tuple(self.sigma.shape))
 
@@ -832,7 +996,8 @@ def nodal_diag(lev: NodalLevel):
 def _restrict_nodal(r, lev_f: NodalLevel):
     """Full weighting (1/4, 1/2, 1/4)^D onto coincident coarse nodes."""
     for ax in range(len(lev_f.dx)):
-        rp = _wrap_pad(r, ax) if lev_f.periodic[ax] else _zero_pad(r, ax)
+        rp = _wrap_pad(r, ax, mesh=lev_f.mesh) if lev_f.periodic[ax] \
+            else _zero_pad(r, ax)
         n = rp.shape[ax]
         fw = (0.25 * rp.narrow(ax, 0, n - 2) + 0.5 * rp.narrow(ax, 1, n - 2)
               + 0.25 * rp.narrow(ax, 2, n - 2))
@@ -845,7 +1010,7 @@ def _prolong_nodal(c, lev_f: NodalLevel):
     for ax in range(len(lev_f.dx)):
         n = c.shape[ax]
         if lev_f.periodic[ax]:
-            cp = _wrap_pad(c, ax, lo=0, hi=1)
+            cp = _wrap_pad(c, ax, lo=0, hi=1, mesh=lev_f.mesh)
             even = cp.narrow(ax, 0, n)
             odd = 0.5 * (cp.narrow(ax, 0, n) + cp.narrow(ax, 1, n))
             c = _interleave(even, odd, ax)
@@ -858,10 +1023,12 @@ def _prolong_nodal(c, lev_f: NodalLevel):
 
 class NodalSolver:
     """Geometric multigrid (and, for constant sigma, a direct solve) for
-    the nodal sigma-Poisson system.  direct=False as for CellSolver."""
+    the nodal sigma-Poisson system.  direct=False as for CellSolver;
+    mesh: sigma is rank mesh.rank's x slab of a level periodic in x, and
+    the solver runs multigrid on the slab, as CellSolver's."""
 
     def __init__(self, dx, periodic, bc_lo, bc_hi, sigma, max_levels=30,
-                 nu1=2, nu2=2, nu_bottom=24, direct=True):
+                 nu1=2, nu2=2, nu_bottom=24, direct=True, mesh=None):
         ndim = len(dx)
         self.ndim = ndim
         self.nu1, self.nu2, self.nu_bottom = nu1, nu2, nu_bottom
@@ -869,54 +1036,88 @@ class NodalSolver:
         sigmas = []
         lev = NodalLevel(tuple(dx), tuple(periodic),
                          tuple(int(b) for b in bc_lo),
-                         tuple(int(b) for b in bc_hi), sigma)
+                         tuple(int(b) for b in bc_hi), sigma, mesh=mesh)
         cells = tuple(sigma.shape)
-        while True:
+        if mesh is not None:
+            cells = (cells[0] * mesh.size,) + cells[1:]
+        shapes = _depths(cells, max_levels)
+        self.n_slab = _slab_levels(shapes, mesh, max(nu1, nu2), nu_bottom)
+        self._whole = None
+        tail = None
+        for li in range(len(shapes)):
+            if li == self.n_slab:
+                # this level and the coarser ones: whole on every rank
+                tail = NodalSolver(lev.dx, lev.periodic, lev.bc_lo,
+                                   lev.bc_hi, mesh.all_gather_x(lev.sigma),
+                                   len(shapes) - li, nu1, nu2, nu_bottom,
+                                   direct=False)
+                if li == 0:
+                    self._whole = tail
+                break
             levels.append(lev.with_stencil())
             sigmas.append(lev.sigma.contiguous())
-            if len(levels) >= max_levels:
-                break
-            if any(n % 2 != 0 or n < 4 for n in cells):
-                break
-            cells = tuple(n // 2 for n in cells)
-            lev = NodalLevel(tuple(d * 2 for d in lev.dx), lev.periodic,
-                             lev.bc_lo, lev.bc_hi,
-                             _coarsen_cells(lev.sigma, ndim))
+            if li + 1 < len(shapes):
+                lev = NodalLevel(tuple(d * 2 for d in lev.dx), lev.periodic,
+                                 lev.bc_lo, lev.bc_hi,
+                                 _coarsen_cells(lev.sigma, ndim), mesh=mesh)
+        if self._whole is not None:     # the fine slab, for the operators
+            levels.append(lev.with_stencil())
+            sigmas.append(lev.sigma.contiguous())
         self.levels = levels
         self.sigmas = sigmas    # interior (unpadded) sigma of each level
         self.diags = [nodal_diag(l) for l in levels]
         # guarded: nodes surrounded by (near-)zero sigma get no update
         from incflo_torch.ops import smoother_kernels as sk
-        self.dinvs = [sk.guarded_reciprocal(d) for d in self.diags]
+        self.dinvs = [sk.guarded_reciprocal(d, m) for d, m in zip(
+            self.diags, _level_maxima(self.diags, levels))]
+        if tail is not None and self._whole is None:
+            self.levels += tail.levels
+            self.sigmas += tail.sigmas
+            self.diags += tail.diags
+            self.dinvs += tail.dinvs
+        self._ext = {}
         self.singular = all(
             b != SolverBC.DIRICHLET for b in list(bc_lo) + list(bc_hi))
         self.symbol = None
-        if direct:
+        if direct and mesh is None:
             from incflo_torch.ops import spectral
             self.symbol = spectral.nodal_symbol(levels[0])
+
+    @property
+    def mesh(self):
+        return self.levels[0].mesh
 
     def to(self, device) -> "NodalSolver":
         out = copy.copy(self)
         out.levels = [_move(l, device) for l in self.levels]
         out.sigmas, out.diags, out.dinvs, out.symbol = _move(
             [self.sigmas, self.diags, self.dinvs, self.symbol], device)
+        out._ext = {}
+        if self._whole is not None:
+            out._whole = self._whole.to(device)
         return out
 
     def shard(self, mesh) -> "NodalSolver":
-        """This whole-level direct solver cut to the rank's x slab (its
-        nxl unique x nodes; sigma padded by the neighbours' cells); one
-        without a fast-diagonalization symbol raises (ROADMAP A14)."""
+        """This whole-level solver cut to the rank's x slab (its nxl
+        unique x nodes): a direct solver keeps the symbol's x transforms
+        on the slab's columns (sigma padded by the neighbours' cells);
+        any other runs multigrid on the slab."""
         from incflo_torch.ops import spectral
-        if self.symbol is None:
-            raise NotImplementedError(_SHARDED_MG)
         lev = self.levels[0]
         nxl = lev.cells[0] // mesh.size
+        if self.symbol is None:
+            return NodalSolver(lev.dx, lev.periodic, lev.bc_lo, lev.bc_hi,
+                               self.sigmas[0].narrow(0, mesh.rank * nxl, nxl),
+                               nu1=self.nu1, nu2=self.nu2,
+                               nu_bottom=self.nu_bottom, direct=False,
+                               mesh=mesh)
         local = dataclasses.replace(
             lev, sigma_pad=lev.sigma_pad.narrow(0, mesh.rank * nxl, nxl + 2),
             cells=(nxl,) + tuple(lev.cells[1:]), mesh=mesh)
         out = copy.copy(self)
         out.levels = [local]
         out.sigmas = out.diags = out.dinvs = None
+        out._ext = {}
         out.symbol = spectral.shard_symbol(self.symbol, mesh)
         return out
 
@@ -924,10 +1125,10 @@ class NodalSolver:
     def _smooth_res(self, x, b, li, n, want_residual):
         """n red-black sweeps (+ the residual b - L(x)) on level li,
         walls included, on either device: a 3D level through the
-        `nodal_smooth` kernel, a 2D level in plain PyTorch."""
+        `nodal_smooth` kernel (a slab level through its slab form, in
+        calls whose halo fits the neighbours' slabs), a 2D level in plain
+        PyTorch."""
         lev = self.levels[li]
-        if lev.mesh is not None:
-            raise NotImplementedError(_SHARDED_MG)
         if self.ndim != 3:      # incflo_tpu's jnp sweep, multigrid.py:1022
             return _rb_sweeps(x, b, self.dinvs[li],
                               lambda v: nodal_apply(v, lev), n,
@@ -936,18 +1137,40 @@ class NodalSolver:
         bc = tuple(tuple(SolverBC.PERIODIC if per else code
                          for per, code in zip(lev.periodic, codes))
                    for codes in (lev.bc_lo, lev.bc_hi))
-        return sk.nodal_smooth(x, b, self.sigmas[li], self.dinvs[li], lev.dx,
-                               n, want_residual, bc=bc)
+        if lev.mesh is None:
+            return sk.nodal_smooth(x, b, self.sigmas[li], self.dinvs[li],
+                                   lev.dx, n, want_residual, bc=bc)
+        if li not in self._ext:
+            self._ext[li] = (_SlabCoefs(lev.mesh, [self.dinvs[li]]),
+                             _SlabCoefs(lev.mesh, [self.sigmas[li]]))
+        res = None
+        for k, want in _chunks(n, x.shape[0], want_residual):
+            lo, hi = sk.slab_depth(k, want)
+            dinv, = self._ext[li][0].get(lo, hi)
+            sigma, = self._ext[li][1].get(lo, max(hi - 1, 0))
+            x, res = sk.nodal_smooth_slab(lev.mesh, x, b, sigma, dinv,
+                                          lev.dx, k, want, bc=bc)
+        return x, res
 
     def _vcycle(self, x, b, li=0, want_residual=False):
+        if self._whole is not None:
+            return _on_whole(self.mesh, self._whole._vcycle, x, b,
+                             want_residual)
         lev = self.levels[li]
         if li == len(self.levels) - 1:
             return self._smooth_res(x, b, li, self.nu_bottom, want_residual)
         x, r = self._smooth_res(x, b, li, self.nu1, True)
         rc = _restrict_nodal(_zero_dirichlet(r, lev), lev)
         rc = _zero_dirichlet(rc, self.levels[li + 1])
+        mesh = lev.mesh if li + 1 == self.n_slab else None
+        if mesh is not None:          # the coarser levels: whole
+            rc = mesh.all_gather_x(rc)
         ec, _ = self._vcycle(torch.zeros_like(rc), rc, li + 1)
-        x = x + _prolong_nodal(ec, lev)
+        if mesh is None:
+            x = x + _prolong_nodal(ec, lev)
+        else:
+            x = x + mesh.slab(_prolong_nodal(
+                ec, dataclasses.replace(lev, mesh=None)))
         return self._smooth_res(x, b, li, self.nu2, want_residual)
 
     def solve_info(self, rhs, x0=None, rtol=1e-11, atol=1e-14, maxiter=100,
@@ -965,8 +1188,15 @@ class NodalSolver:
         not be cut off early).  Each loop test reads one bool back to the
         host."""
         lev = self.levels[0]
+        mesh = lev.mesh
+        if self._whole is not None:
+            xw = None if x0 is None else mesh.all_gather_x(x0)
+            x, res, it = self._whole.solve_info(
+                mesh.all_gather_x(rhs), xw, rtol, atol, maxiter,
+                dirichlet_vals)
+            return mesh.slab(x), res, it
         if self.singular:
-            rhs = rhs - _mean(rhs, lev.mesh)
+            rhs = rhs - _mean(rhs, mesh)
         rhs = _zero_dirichlet(rhs, lev)
         for (ax, side), val in (dirichlet_vals or {}).items():
             bc = lev.bc_lo[ax] if side == 0 else lev.bc_hi[ax]
@@ -977,19 +1207,17 @@ class NodalSolver:
             from incflo_torch.ops import spectral
             x = spectral.solve(self.symbol, rhs, 0.0, 1.0, self.singular)
             return x, torch.zeros((), dtype=rhs.dtype, device=rhs.device), 1
-        if lev.mesh is not None:
-            raise NotImplementedError(_SHARDED_MG)
         if x0 is None:
             x0 = torch.zeros_like(rhs)
-        tol = rtol * _maxnorm(rhs)
+        tol = rtol * _maxnorm(rhs, mesh)
         tol = torch.maximum(tol, atol.to(tol.dtype)) \
             if isinstance(atol, torch.Tensor) else torch.clamp_min(tol, atol)
         x, it = x0, 0
-        res = _maxnorm(rhs - nodal_apply(x0, lev))
+        res = _maxnorm(rhs - nodal_apply(x0, lev), mesh)
         prev = torch.full_like(res, float("inf"))
         while it < maxiter and host_bool((res > tol) & (res < 0.999 * prev)):
             x, r = self._vcycle(x, rhs, want_residual=True)
-            prev, res = res, _maxnorm(r)
+            prev, res = res, _maxnorm(r, mesh)
             it += 1
         if it:
             COUNTS["nodal_solves"] += 1
@@ -997,7 +1225,7 @@ class NodalSolver:
             if NODAL_LOG is not None:
                 NODAL_LOG.append((res, tol, it, maxiter))
         if self.singular:
-            x = x - torch.mean(x)
+            x = x - _mean(x, mesh)
         return x, res, it
 
     def solve(self, rhs, **kw):

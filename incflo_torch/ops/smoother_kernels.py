@@ -45,6 +45,40 @@ incflo_torch/csrc/smoothers.cu and their plain PyTorch versions.
       than cells, sigma outside the domain is zero and a node on a
       Dirichlet side is an identity row.
 
+  cell_smooth_slab(mesh, x, b, diag, dinv, F, nsweeps, want_residual,
+                   bc=None, Fwall=None) -> (x, res)
+  nodal_smooth_slab(mesh, x, b, sigma, dinv, dx, nsweeps, want_residual,
+                    bc=None) -> (x, res)
+      the same sweeps on rank mesh.rank's x slab of a level periodic in x
+      (parallel/mesh.py): on the slab's rows, each call gives the bits
+      the whole-level call gives (launch counters "cell_smooth_slab",
+      "nodal_smooth_slab").  One exchange and one launch a call: the
+      wrapper takes a deep x halo of x and b from the neighbouring ranks,
+      (lo, hi) = slab_depth(nsweeps, want_residual) rows, and runs the
+      kernel above on the extended slab of nxl + lo + hi planes with x
+      open -- walled with Neumann codes, so a point on its first or last
+      plane has no neighbour across, which is the existing walled mode
+      and needs no code of its own in csrc/smoothers.cu -- and keeps the
+      middle nxl planes.  An edge plane is wrong from the first colour
+      pass, and each pass carries the error one plane in: after
+      2 nsweeps passes the first 2 nsweeps planes of each side are
+      wrong, and the residual one more, so hi = 2 nsweeps (+ 1 with the
+      residual) keeps the slab's planes exact.  lo is hi rounded up to
+      even: the kernels colour a point by (i + j + k) % 2 of its index in
+      the array they are given, and with the slab's first global x index
+      x0 even (the multigrid levels that run here have even nxl) an even
+      lo puts the extended slab's planes on the global parity.  The
+      level's coefficients come extended by the same (lo, hi) (multigrid
+      exchanges them once per hierarchy and depth): diag and dinv
+      (dinv from the whole level's max |diag|, guarded_reciprocal with
+      the mesh), F, the y and z wall planes, and sigma over the extended
+      slab's nxl + lo + hi - 1 cells.  A colour pass a call instead
+      (one exchange of the edge planes before each pass) would make
+      2 nsweeps + 1 exchanges where this makes one; each exchange on
+      ranks that share a card is a device -> host -> device round trip
+      (PERF.md), so the halo is taken deep and the edge planes are
+      recomputed instead.
+
 What bounds them on an H100 is latency: a 2-sweep call moves a few MB
 at the fine level and far less below it, against microseconds a launch
 or a grid barrier.  So a call is one launch, in two regimes
@@ -95,7 +129,8 @@ SOURCE = cuda_build.CSRC_DIR / "smoothers.cu"
 # launches the kernel and nowhere else; DEVICE_LAUNCHES by the number of
 # device launches the C entry counts at its launch sites
 LAUNCHES = {"cell_smooth": 0, "cell_smooth_walled": 0, "nodal_smooth": 0,
-            "nodal_smooth_walled": 0}
+            "nodal_smooth_walled": 0, "cell_smooth_slab": 0,
+            "nodal_smooth_slab": 0}
 DEVICE_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 # per family, the last call's (regime: 1 resident / 2 grid, CTAs, threads
 # per CTA, coefficient slots held per colour (cell) or 1 when every CTA
@@ -111,6 +146,12 @@ REPLACES = {
     "nodal_smooth": "incflo_tpu/ops/pallas_nodal.py:133",
     # no Pallas body: incflo_tpu smooths walled nodal levels in jnp
     "nodal_smooth_walled": "incflo_tpu/ops/multigrid.py:1018",
+    # the slab forms: under a mesh incflo_tpu turns its smoother kernels
+    # off (pallas_cell.py:126-127, pallas_nodal.py:158-159,
+    # pallas_smoother.py:154-155) and sweeps in jnp, GSPMD deriving the
+    # halos
+    "cell_smooth_slab": "incflo_tpu/ops/pallas_smoother.py:71",
+    "nodal_smooth_slab": "incflo_tpu/ops/multigrid.py:1018",
 }
 ALSO_REPLACES = {
     "cell_smooth": "incflo_tpu/ops/pallas_cell.py:191",
@@ -124,10 +165,12 @@ def reset_launches() -> None:
         DEVICE_LAUNCHES[k] = 0
 
 
-def guarded_reciprocal(diag: torch.Tensor) -> torch.Tensor:
+def guarded_reciprocal(diag: torch.Tensor, dmax=None) -> torch.Tensor:
     """1/diag, and 0 where |diag| <= 1e-8 max|diag|: near-degenerate rows
-    get no update instead of a 1/eps-amplified one."""
-    dmax = torch.max(torch.abs(diag))
+    get no update instead of a 1/eps-amplified one.  dmax: max|diag| over
+    the whole level where diag is a slab of it (else diag's own)."""
+    if dmax is None:
+        dmax = torch.max(torch.abs(diag))
     ok = torch.abs(diag) > 1e-8 * dmax
     return torch.where(ok, 1.0 / torch.where(ok, diag, 1.0), 0.0)
 
@@ -213,9 +256,12 @@ def _cell_apply_plain(x, diag, F, Flo):
 
 
 def cell_smooth_plain(x, b, diag, dinv, F, nsweeps: int,
-                      want_residual: bool = False, bc=None, Fwall=None):
-    """Plain version of the `cell_smooth` kernel, walls included."""
-    _check_cell(x, b, diag, dinv, F, nsweeps, bc, Fwall)
+                      want_residual: bool = False, bc=None, Fwall=None,
+                      open_x: bool = False):
+    """Plain version of the `cell_smooth` kernel, walls included; open_x:
+    of its slab form (cell_smooth_ext), x Neumann without a wall
+    plane."""
+    _check_cell(x, b, diag, dinv, F, nsweeps, bc, Fwall, open_x)
     F, Flo = cell_neighbour_coefs(F, bc, Fwall)
     isred = checkerboard(x.shape, x.device)
     red = isred.to(x.dtype)
@@ -353,8 +399,11 @@ def _check_bc(bc, shape, min_walled, what):
     return walled
 
 
-def _check_cell(x, b, diag, dinv, F, nsweeps, bc=None, Fwall=None):
-    """Argument checks of cell_smooth; True when an axis has walls."""
+def _check_cell(x, b, diag, dinv, F, nsweeps, bc=None, Fwall=None,
+                open_x=False):
+    """Argument checks of cell_smooth; True when an axis has walls.
+    open_x: the x axis of an extended slab, Neumann without a wall
+    plane."""
     _check_common(x, nsweeps, (3, 4))
     if len(F) != 3:
         raise ValueError("F must hold one face coefficient per axis")
@@ -363,6 +412,8 @@ def _check_cell(x, b, diag, dinv, F, nsweeps, bc=None, Fwall=None):
         _check_same(name, t, x)
     walled = _check_bc(bc, x.shape, 2, "cells")
     for ax in walled:
+        if ax == 0 and open_x:
+            continue
         if Fwall is None or Fwall[ax] is None:
             raise ValueError(f"axis {ax}: walled, but Fwall[{ax}] (its low "
                              "wall face coefficients) is missing")
@@ -444,6 +495,13 @@ def cell_smooth(x, b, diag, dinv, F, nsweeps: int,
     if x.device.type == "cpu":
         return cell_smooth_plain(x, b, diag, dinv, F, nsweeps, want_residual,
                                  bc, Fwall)
+    return _launch_cell("cell_smooth_walled" if walls else "cell_smooth",
+                        x, b, diag, dinv, F, nsweeps, want_residual, bc,
+                        Fwall, _regime)
+
+
+def _launch_cell(family, x, b, diag, dinv, F, nsweeps, want_residual, bc,
+                 Fwall, regime):
     x, b, diag, dinv = (t.contiguous() for t in (x, b, diag, dinv))
     F = [f.contiguous() for f in F]
     lo, _ = _bc_codes(bc)
@@ -465,9 +523,8 @@ def cell_smooth(x, b, diag, dinv, F, nsweeps: int,
         *(None if w is None else ptr(w) for w in planes), _bc_array(bc),
         ptr(out), None if tmp is None else ptr(tmp),
         ptr(res) if want_residual else None, *x.shape[:3], nc,
-        int(nsweeps), int(_regime), ctypes.byref(launches), plan, stream(x))
-    _launched("cell_smooth_walled" if walls else "cell_smooth", rc, launches,
-              plan)
+        int(nsweeps), int(regime), ctypes.byref(launches), plan, stream(x))
+    _launched(family, rc, launches, plan)
     return out, res
 
 
@@ -481,6 +538,13 @@ def nodal_smooth(x, b, sigma, dinv, dx, nsweeps: int,
     if x.device.type == "cpu":
         return nodal_smooth_plain(x, b, sigma, dinv, dx, nsweeps,
                                   want_residual, bc)
+    return _launch_nodal("nodal_smooth_walled" if walls else "nodal_smooth",
+                         x, b, sigma, dinv, dx, nsweeps, want_residual, bc,
+                         _regime)
+
+
+def _launch_nodal(family, x, b, sigma, dinv, dx, nsweeps, want_residual, bc,
+                  regime):
     x, b, sigma, dinv = (t.contiguous() for t in (x, b, sigma, dinv))
     out = torch.empty_like(x)
     tmp = torch.empty_like(x)
@@ -491,10 +555,113 @@ def nodal_smooth(x, b, sigma, dinv, dx, nsweeps: int,
         DT_CODE[x.dtype], ptr(x), ptr(b), ptr(sigma), ptr(dinv), coefs,
         _bc_array(bc), ptr(out), ptr(tmp),
         ptr(res) if want_residual else None, *x.shape, int(nsweeps),
-        int(_regime), ctypes.byref(launches), plan, stream(x))
-    _launched("nodal_smooth_walled" if walls else "nodal_smooth", rc,
-              launches, plan)
+        int(regime), ctypes.byref(launches), plan, stream(x))
+    _launched(family, rc, launches, plan)
     return out, res
+
+
+# ---------------------------------------------------------------------
+# slab forms: a rank's x slab of a level periodic in x
+# ---------------------------------------------------------------------
+
+def slab_depth(nsweeps: int, want_residual: bool) -> Tuple[int, int]:
+    """(lo, hi): the x rows a slab call takes from its left and right
+    neighbours -- 2 nsweeps (+ 1 with the residual), lo rounded up to
+    even for the colour parity."""
+    h = 2 * int(nsweeps) + (1 if want_residual else 0)
+    return h + h % 2, h
+
+
+def open_x(bc):
+    """bc with the x axis open (Neumann on both sides): the extended
+    slab's edge planes, whose rows are thrown away, see no neighbour."""
+    lo, hi = _bc_codes(bc)
+    if lo[0] != PERIODIC:
+        raise NotImplementedError("the slab smoothers split a level "
+                                  "periodic in x (ROADMAP A14)")
+    return (NEUMANN,) + lo[1:], (NEUMANN,) + hi[1:]
+
+
+def cell_smooth_ext(x, b, diag, dinv, F, nsweeps: int,
+                    want_residual: bool = False, bc=None, Fwall=None, *,
+                    _regime: int = 0):
+    """The slab form's launch: the `cell_smooth` kernel on an extended
+    slab (all arrays nxl + lo + hi planes along x) with x open; bc gives
+    the y and z codes (x periodic), Fwall the y and z wall planes over
+    the extended slab.  Returns every plane; the middle nxl are exact."""
+    bc = open_x(bc)
+    Fwall = (None,) + tuple(Fwall[1:]) if Fwall is not None else None
+    _check_cell(x, b, diag, dinv, F, nsweeps, bc, Fwall, open_x=True)
+    if x.device.type == "cpu":
+        return cell_smooth_plain(x, b, diag, dinv, F, nsweeps, want_residual,
+                                 bc, Fwall, open_x=True)
+    return _launch_cell("cell_smooth_slab", x, b, diag, dinv, F, nsweeps,
+                        want_residual, bc, Fwall, _regime)
+
+
+def nodal_smooth_ext(x, b, sigma, dinv, dx, nsweeps: int,
+                     want_residual: bool = False, bc=None, *,
+                     _regime: int = 0):
+    """The nodal slab form's launch: `nodal_smooth` on an extended slab
+    of nodes (sigma one cell fewer along x) with x open."""
+    bc = open_x(bc)
+    _check_nodal(x, b, sigma, dinv, dx, nsweeps, bc)
+    if x.device.type == "cpu":
+        return nodal_smooth_plain(x, b, sigma, dinv, dx, nsweeps,
+                                  want_residual, bc)
+    return _launch_nodal("nodal_smooth_slab", x, b, sigma, dinv, dx, nsweeps,
+                         want_residual, bc, _regime)
+
+
+def _slab_halo(mesh, x, b, nsweeps, want_residual):
+    """(lo, hi) of the call and x, b extended by them; raises where the
+    extended slab would not start on the global colour parity or the
+    neighbours' slabs are too narrow."""
+    lo, hi = slab_depth(nsweeps, want_residual)
+    nxl = x.shape[0]
+    if (mesh.rank * nxl - lo) % 2:
+        raise ValueError(f"slab smoother: a slab of {nxl} rows starts on an "
+                         "odd x index; its level runs whole on every rank")
+    if lo > nxl:
+        raise ValueError(f"slab smoother: {nsweeps} sweeps need {lo} halo "
+                         f"rows, the slabs hold {nxl}")
+    xe, be = mesh.halo_x([x, b], lo, hi)
+    return lo, hi, xe, be
+
+
+def _rows(t, lo, nxl):
+    return None if t is None else t.narrow(0, lo, nxl)
+
+
+def cell_smooth_slab(mesh, x, b, diag, dinv, F, nsweeps: int,
+                     want_residual: bool = False, bc=None, Fwall=None, *,
+                     _regime: int = 0):
+    """`cell_smooth` on this rank's x slab (x, b: nxl rows): one halo
+    exchange of x and b, one launch on the extended slab.  diag, dinv, F
+    and the y and z planes of Fwall come extended by slab_depth(nsweeps,
+    want_residual) rows."""
+    nxl = x.shape[0]
+    if nsweeps == 0 and not want_residual:
+        return x, None
+    lo, _, xe, be = _slab_halo(mesh, x, b, nsweeps, want_residual)
+    out, res = cell_smooth_ext(xe, be, diag, dinv, F, nsweeps, want_residual,
+                               bc, Fwall, _regime=_regime)
+    return _rows(out, lo, nxl), _rows(res, lo, nxl)
+
+
+def nodal_smooth_slab(mesh, x, b, sigma, dinv, dx, nsweeps: int,
+                      want_residual: bool = False, bc=None, *,
+                      _regime: int = 0):
+    """`nodal_smooth` on this rank's x slab of nodes (node n of the
+    periodic x axis is node 0: nodes split like cells): dinv comes
+    extended by slab_depth's (lo, hi) rows, sigma by (lo, hi - 1)."""
+    nxl = x.shape[0]
+    if nsweeps == 0 and not want_residual:
+        return x, None
+    lo, _, xe, be = _slab_halo(mesh, x, b, nsweeps, want_residual)
+    out, res = nodal_smooth_ext(xe, be, sigma, dinv, dx, nsweeps,
+                                want_residual, bc, _regime=_regime)
+    return _rows(out, lo, nxl), _rows(res, lo, nxl)
 
 
 def graph_kernels(graph: "torch.cuda.CUDAGraph") -> int:

@@ -11,15 +11,22 @@ of a periodic axis is node 0, so node fields split like cell fields) and
 the faces of its cells: nxl + 1 x faces, its own low faces and the right
 neighbour's first.  What crosses ranks:
 
-  halo_x            the periodic x ghosts of a slab: every ghost fill
-                    (bcs.grow), the one-cell pads of the operators
-                    (multigrid._wrap_pad) and the 4-cell Godunov halos
-                    (godunov_kernels.predict_sharded / advect_sharded)
-  all_reduce_*      the maxima of compute_dt and of the residual norms,
-                    the dots of the tensor CG, the mean of a singular
-                    right-hand side
+  halo_x            the periodic x ghosts of a slab, of any depth up to
+                    the slab's width: every ghost fill (bcs.grow), the
+                    one-cell pads of the operators (multigrid._wrap_pad),
+                    the 4-cell Godunov halos (godunov_kernels.
+                    predict_sharded / advect_sharded) and the deep halos
+                    of the slab smoothers (smoother_kernels.
+                    cell_smooth_slab / nodal_smooth_slab)
+  all_reduce_*      the maxima of compute_dt, of the residual norms and of
+                    the smoothers' diagonals, the dots of the CGs, the
+                    mean of a singular right-hand side
   reduce_scatter_x  the x contraction of the fast-diagonalization solves
                     (spectral.solve)
+  all_gather_x      a whole coarse level on every rank, in rank order, so
+                    that every rank holds the same bits: the multigrid
+                    levels too narrow for their smoothers' halos
+                    (multigrid.CellSolver, NodalSolver)
   slab / gather     whole fields in and out (tests, diagnostics, a state
                     carried over from one rank)
 
@@ -53,7 +60,7 @@ from incflo_torch.grid import Grid
 # in csrc/godunov.cu): the CTU chain's reach, and so the narrowest slab a
 # mesh accepts
 HALO = 4
-_KINDS = ("halo", "all_reduce", "reduce_scatter", "gather")
+_KINDS = ("halo", "all_reduce", "reduce_scatter", "all_gather", "gather")
 _HEADER_TAG = 1 << 20
 
 
@@ -308,15 +315,32 @@ class SlabMesh:
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """The whole level's field from every rank's slab (a collective:
-        every rank calls it and gets the whole field)."""
+        every rank calls it and gets the whole field): the tests',
+        diagnostics' and checkpoints' form, tallied as "gather"."""
+        return torch.cat(self._all_gather(t, "gather"), dim=0)
+
+    def all_gather_x(self, t: torch.Tensor, faces: bool = False
+                     ) -> torch.Tensor:
+        """The whole level from every rank's slab, in rank order, on
+        every rank (a collective), tallied as "all_gather".  faces: t
+        holds the slab's nxl + 1 x faces (its own low faces and the right
+        neighbour's first), and the result the level's nx + 1, the last
+        from the last rank."""
+        parts = self._all_gather(t, "all_gather")
+        if faces:
+            parts = [p.narrow(0, 0, p.shape[0] - 1) for p in parts[:-1]] \
+                + parts[-1:]
+        return torch.cat(parts, dim=0)
+
+    def _all_gather(self, t: torch.Tensor, kind: str) -> List[torch.Tensor]:
         import torch.distributed as dist
-        with self._tally("gather", t.numel() * t.element_size()):
+        with self._tally(kind, t.numel() * t.element_size()):
             if self.size == 1:
-                return t
+                return [t]
             x = self._wire(t.contiguous())
             parts = [torch.empty_like(x) for _ in range(self.size)]
             dist.all_gather(parts, x)
-            return torch.cat(parts, dim=0).to(t.device)
+            return [p.to(t.device) for p in parts]
 
     def barrier(self) -> None:
         import torch.distributed as dist

@@ -15,8 +15,13 @@ def halo(mesh, field, lo, hi):
 
 def several(mesh, jobs):
     """Several jobs in one spawn: jobs is a list of (name, kwargs) of
-    functions of this module; returns their results by name."""
-    return {name: globals()[name](mesh, **kw) for name, kw in jobs}
+    functions of this module, or (key, name, kwargs) to run one function
+    more than once; returns their results by name (or key)."""
+    out = {}
+    for job in jobs:
+        key, name, kw = job if len(job) == 3 else (job[0],) + tuple(job)
+        out[key] = globals()[name](mesh, **kw)
+    return out
 
 
 def _level_grid(n_cell, prob_hi):
@@ -90,37 +95,164 @@ def scope_errors(mesh, decks, on_default_device=()):
     return out
 
 
+# the iterative solves' tallies a step reports (multigrid.COUNTS): CG
+# iterations of the cell solves, V-cycles of the nodal ones, iterations
+# of the tensor CG
+ITER_KINDS = ("cell_iters", "nodal_cycles", "tensor_cg_iters")
+
+
 def steps(mesh, deck, nsteps, start=None):
     """The deck's init (or the whole-level state `start`, carried over
     rank by rank) and `nsteps` steps on this rank's slab.  Returns the
     whole-level states after init and after each step (rank 0 only), the
-    tensor CG's iterations in each step, and this rank's solver tallies
-    and Godunov launches."""
+    tensor CG's iterations in each step, this rank's tallies of each
+    step (ITER_KINDS; the first entry init's), its solver tallies,
+    Godunov and smoother launches, and its exchanges by kind (calls)."""
     from incflo_torch import IncfloConfig, Simulation, state
     from incflo_torch.ops import godunov_kernels as gk
     from incflo_torch.ops import multigrid as mg
+    from incflo_torch.ops import smoother_kernels as sk
     sim = Simulation(IncfloConfig.from_text(deck), device=mesh.device,
                      mesh=mesh)
     mg.reset_counts()
     gk.reset_launches()
+    sk.reset_launches()
+    mesh.reset_stats()
     s = sim.init_state() if start is None else state.sim_from_numpy(
         start, mesh.device, sim.dtype, mesh)
     states = [state.sim_to_numpy(s, mesh)]
-    trips = []
+    tallies = [{k: mg.COUNTS[k] for k in ITER_KINDS}]
     for _ in range(nsteps):
-        before = mg.COUNTS["tensor_cg_iters"]
+        before = dict(mg.COUNTS)
         s = sim.advance(s)
-        trips.append(mg.COUNTS["tensor_cg_iters"] - before)
+        tallies.append({k: mg.COUNTS[k] - before[k] for k in ITER_KINDS})
         states.append(state.sim_to_numpy(s, mesh))
     return {"states": states if mesh.rank == 0 else None,
-            "cg_trips": trips, "counts": dict(mg.COUNTS),
-            "launches": dict(gk.LAUNCHES), "mesh": mesh.describe()}
+            "cg_trips": [t["tensor_cg_iters"] for t in tallies[1:]],
+            "tallies": tallies, "counts": dict(mg.COUNTS),
+            "launches": dict(gk.LAUNCHES),
+            "smoother_launches": dict(sk.LAUNCHES),
+            "comm": {k: v["calls"] for k, v in mesh.stats.items()},
+            "mesh": mesh.describe()}
+
+
+def _rows(mesh, a, extra=0):
+    """This rank's x rows of a whole-level array (+ `extra` rows of the
+    right neighbour: a slab's nxl + 1 x faces)."""
+    nxl = a.shape[0] // mesh.size if not extra else \
+        (a.shape[0] - extra) // mesh.size
+    t = torch.as_tensor(a).to(mesh.device)
+    return t.narrow(0, mesh.rank * nxl, nxl + extra).contiguous()
+
+
+def slab_smoothers(mesh, cases):
+    """The slab smoothers on this rank's rows of whole-level arrays.
+    cases: dicts with "kind" ("cell" or "nodal"), the level's x and b,
+    its smoother coefficients (cell: diag, dinv, F, Fwall with None for
+    a periodic axis; nodal: sigma at the cells, dinv, dx), bc, and the
+    (nsweeps, want_residual) calls.  Returns, per case and call, this
+    rank's rows of x and of the residual (None without it)."""
+    from incflo_torch.ops import multigrid as mg
+    from incflo_torch.ops import smoother_kernels as sk
+    out = []
+    for c in cases:
+        x, b = _rows(mesh, c["x"]), _rows(mesh, c["b"])
+        got = []
+        if c["kind"] == "cell":
+            planes = [_rows(mesh, w) for w in c["Fwall"] if w is not None]
+            coefs = mg._SlabCoefs(mesh, [_rows(mesh, c["diag"]),
+                                         _rows(mesh, c["dinv"])]
+                                  + [_rows(mesh, f) for f in c["F"]]
+                                  + planes)
+            for n, want in c["calls"]:
+                ext = coefs.get(*sk.slab_depth(n, want))
+                it = iter(ext[5:])
+                fw = tuple(None if w is None else next(it)
+                           for w in c["Fwall"])
+                got.append(sk.cell_smooth_slab(mesh, x, b, ext[0], ext[1],
+                                               ext[2:5], n, want, c["bc"],
+                                               fw))
+        else:
+            dinv = mg._SlabCoefs(mesh, [_rows(mesh, c["dinv"])])
+            sigma = mg._SlabCoefs(mesh, [_rows(mesh, c["sigma"])])
+            for n, want in c["calls"]:
+                lo, hi = sk.slab_depth(n, want)
+                got.append(sk.nodal_smooth_slab(
+                    mesh, x, b, sigma.get(lo, hi - 1)[0],
+                    dinv.get(lo, hi)[0], c["dx"], n, want, c["bc"]))
+        out.append([(a.cpu().numpy(), None if r is None else r.cpu().numpy())
+                    for a, r in got])
+    return out
+
+
+def walled_godunov_chain(sim, vel, forces, q, dt):
+    """The Godunov chain of a step on sim's level (a rank's slab on a
+    mesh): the ghost fills, the MAC prediction, the advection of
+    velocity, density and rho*tracer.  Returns the arrays by name."""
+    ng = sim.cfg.nghost_state()
+    vel_g = sim.grow_vel(vel, ng)
+    f_g = sim.grow_force(forces)
+    umac = sim.godunov.predict(vel_g, f_g, dt, ng, sim.vel_bcrec)
+    rho_g = sim.grow_rho(1.0 + 0.1 * vel[..., 0], ng)
+    out = {f"umac{d}": u for d, u in enumerate(umac)}
+    out["conv_u"] = sim.godunov.advect(vel_g, umac, f_g, dt, ng,
+                                       sim.vel_bcrec, [0] * 3, True)
+    out["conv_r"] = sim.godunov.advect(rho_g[..., None], umac, None, dt, ng,
+                                       sim.den_bcrec, [1], False)
+    out["conv_t"] = sim.godunov.advect(rho_g[..., None]
+                                       * sim.grow_tra(q, ng), umac, None,
+                                       dt, ng, sim.tra_bcrec,
+                                       [1] * q.shape[-1], False)
+    return out
+
+
+def godunov_walls(mesh, deck, vel, forces, q, dt):
+    """walled_godunov_chain on this rank's slab of whole-level fields."""
+    from incflo_torch import IncfloConfig, Simulation
+    sim = Simulation(IncfloConfig.from_text(deck), device=mesh.device,
+                     mesh=mesh)
+    out = walled_godunov_chain(sim, _rows(mesh, vel), _rows(mesh, forces),
+                               _rows(mesh, q), dt)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def slab_solves(mesh, cases):
+    """Multigrid solves on this rank's slab: each case builds a CellSolver
+    ("cell": dx, bc_lo, bc_hi, alpha, beta, acoef or None, bcoef with
+    nx + 1 x faces) or a NodalSolver ("nodal": dx, periodic, bc_lo,
+    bc_hi, sigma) from its rows of the whole-level coefficients, with the
+    mesh, and solves its rows of rhs from its rows of x0 (or zero) with
+    `kw`.  Returns per case this rank's rows of x, the residual, the
+    iterations, the hierarchy's slab levels and its depth."""
+    from incflo_torch.ops import multigrid as mg
+    out = []
+    for c in cases:
+        if c["kind"] == "cell":
+            acoef = None if c["acoef"] is None else _rows(mesh, c["acoef"])
+            bcoef = [_rows(mesh, b, 1 if ax == 0 else 0)
+                     for ax, b in enumerate(c["bcoef"])]
+            solver = mg.CellSolver(c["dx"], c["bc_lo"], c["bc_hi"],
+                                   c["alpha"], c["beta"], acoef, bcoef,
+                                   direct=False, mesh=mesh)
+        else:
+            solver = mg.NodalSolver(c["dx"], c["periodic"], c["bc_lo"],
+                                    c["bc_hi"], _rows(mesh, c["sigma"]),
+                                    direct=False, mesh=mesh)
+        x0 = None if c.get("x0") is None else _rows(mesh, c["x0"])
+        x, res, it = solver.solve_info(_rows(mesh, c["rhs"]), x0=x0,
+                                       **c.get("kw", {}))
+        depth = (len(solver._whole.levels) if solver._whole is not None
+                 else len(solver.levels))
+        out.append({"x": x.cpu().numpy(), "res": float(res), "iters": it,
+                    "n_slab": solver.n_slab, "depth": depth})
+    return out
 
 
 def timed_steps(mesh, deck, warm, nsteps, instrumented):
     """From init: `warm` steps, then `nsteps` steps timed on the host
     clock (device synchronised, the ranks started together), with the
-    Godunov launch counts and the solver tallies zeroed just before them;
+    Godunov and smoother launch counts and the solver tallies zeroed just
+    before them;
     then `instrumented` steps with each exchange timed (SlabMesh.timed).
     Returns the whole-level state after the timed steps (rank 0 only),
     the launches and tallies of the timed steps, ms/step, and the
@@ -129,6 +261,7 @@ def timed_steps(mesh, deck, warm, nsteps, instrumented):
     from incflo_torch import IncfloConfig, Simulation, state
     from incflo_torch.ops import godunov_kernels as gk
     from incflo_torch.ops import multigrid as mg
+    from incflo_torch.ops import smoother_kernels as sk
     sim = Simulation(IncfloConfig.from_text(deck), device=mesh.device,
                      mesh=mesh)
     sync = (lambda: torch.cuda.synchronize(mesh.device)) \
@@ -137,12 +270,14 @@ def timed_steps(mesh, deck, warm, nsteps, instrumented):
     sync()
     mesh.barrier()
     gk.reset_launches()
+    sk.reset_launches()
     mg.reset_counts()
     t0 = time.perf_counter()
     s = sim.advance_n(s, nsteps)
     sync()
     ms = (time.perf_counter() - t0) / nsteps * 1e3
     launches, counts = dict(gk.LAUNCHES), dict(mg.COUNTS)
+    smoother_launches = dict(sk.LAUNCHES)
     final = state.sim_to_numpy(s, mesh)
     mesh.barrier()
     mesh.reset_stats()
@@ -158,7 +293,8 @@ def timed_steps(mesh, deck, warm, nsteps, instrumented):
             for k, v in mesh.stats.items()}
     return {"state": final if mesh.rank == 0 else None, "ms_per_step": ms,
             "instrumented_ms_per_step": ms_inst, "launches": launches,
-            "counts": counts, "comm": comm, "mesh": mesh.describe()}
+            "smoother_launches": smoother_launches, "counts": counts,
+            "comm": comm, "mesh": mesh.describe()}
 
 
 def checkpoint(mesh, deck, nsteps, path, dense=None):

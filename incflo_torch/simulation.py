@@ -35,17 +35,23 @@ csrc/step2d.cu) when the deck qualifies (step2d_kernels.supported) and
 its fixed-trip tensor CG converges at the first dt; `_advance_impl` is
 the plain step.
 
-Sharded: given a mesh (parallel/mesh.py), a shear3d deck -- 3D, periodic
-on every axis, constant density, Newtonian, Godunov, Crank-Nicolson or
-implicit diffusion, direct solves, no tracer advection, no Boussinesq
-buoyancy -- runs split along x over the mesh's ranks.  Each rank's
-Simulation holds its x slab of every field (self.grid is a
-parallel.mesh.SlabGrid) and advance / advance_n do what they do on one
-device: the ghost fills and operator pads exchange x halos, the Godunov
-chain runs the halo-slab kernels (godunov_kernels.predict_sharded /
-advect_sharded), the direct solves reduce-scatter their x contraction,
-and compute_dt and the tensor CG reduce over the ranks.  Other decks
-under a mesh raise and name ROADMAP A14.
+Sharded: given a mesh (parallel/mesh.py), a 3D one-level Godunov deck
+periodic in x -- its y and z sides periodic, slip or no-slip walls, mass
+inflow or pressure outflow; constant or variable density, tracers,
+Newtonian or non-Newtonian fluids, gravity or Boussinesq buoyancy,
+explicit, Crank-Nicolson or implicit diffusion -- runs split along x
+over the mesh's ranks.  Each rank's Simulation holds its x slab of every
+field (self.grid is a parallel.mesh.SlabGrid) and advance / advance_n do
+what they do on one device: the ghost fills and operator pads exchange x
+halos (the x halo first, then the y and z fills, as on one device), a
+fully periodic deck's Godunov chain runs the halo-slab kernels
+(godunov_kernels.predict_sharded / advect_sharded) and a walled one the
+plain walled chain on the slab's ghost-filled windows, the direct solves
+reduce-scatter their x contraction, the iterative ones run multigrid on
+the slab (ops/multigrid.py: the slab smoother kernels, the coarse levels
+whole on every rank), and compute_dt, the norms and the CG dots reduce
+over the ranks.  Decks outside that scope raise under a mesh and name
+ROADMAP A14 (_unsupported_sharded).
 
 Scope of this port: 2D or 3D, with or without embedded boundaries:
 Godunov or MOL advection, each axis periodic or ending in a slip or
@@ -103,22 +109,23 @@ def _unsupported(cfg: IncfloConfig):
 
 def _unsupported_sharded(cfg: IncfloConfig):
     """What keeps a deck the port runs from running split over a mesh,
-    or None: the sharded step is shear3d's (ROADMAP A14)."""
+    or None (ROADMAP A14).  The mesh splits x, so x stays periodic;
+    uneven and narrow slabs and the rfftn direct solve raise where the
+    mesh and the solvers meet them (parallel/mesh.py, spectral.py)."""
     g = cfg.grid
+    x_kinds = set() if g.ndim != 3 or g.periodic[0] else {
+        BCKind(int(k)) for k in cfg.bc_kind[0]}
+    x_flow = {BCKind.mass_inflow, BCKind.pressure_inflow,
+              BCKind.pressure_outflow}
     checks = [
         (cfg.max_level > 0, "AMR"),
         (g.ndim != 3, "2D decks (the fused 2D step, MOL)"),
         (has_eb(cfg), "embedded boundaries"),
         (cfg.godunov_use_forces_in_trans, "godunov_use_forces_in_trans"),
         (cfg.use_mac_phi_in_godunov, "use_mac_phi_in_godunov"),
-        (not all(g.periodic), "walls, inflow and outflow"),
-        (not cfg.constant_density, "variable density (multigrid)"),
-        (cfg.advect_tracer, "tracer advection (multigrid)"),
+        (bool(x_kinds & x_flow), "inflow or outflow on x"),
+        (bool(x_kinds), "walls on x"),
         (not cfg.use_godunov, "MOL advection"),
-        (cfg.fluid_model != FluidModel.Newtonian,
-         "non-Newtonian fluids (multigrid)"),
-        (cfg.use_boussinesq, "Boussinesq buoyancy"),
-        (cfg.diff_type == DiffusionType.Explicit, "explicit diffusion"),
     ]
     for bad, what in checks:
         if bad:
@@ -159,9 +166,8 @@ class Simulation:
             if why is not None:
                 raise NotImplementedError(
                     f"incflo_torch does not run {why} split over a mesh yet "
-                    f"(ROADMAP A14); a mesh runs 3D fully periodic "
-                    f"constant-density Newtonian Godunov decks with "
-                    f"Crank-Nicolson or implicit diffusion (shear3d)")
+                    f"(ROADMAP A14); a mesh runs 3D one-level Godunov "
+                    f"decks periodic in x")
         if device is None and mesh is not None and torch.cuda.is_available():
             device = f"cuda:{mesh.rank % torch.cuda.device_count()}"
         device = torch.device("cuda" if device is None else device)
@@ -204,9 +210,9 @@ class Simulation:
         self.vel_bcrec = cfg.velocity_bcrecs()
         self.den_bcrec = cfg.density_bcrecs()
         self.tra_bcrec = cfg.tracer_bcrecs()
-        self.vel_ev = cfg.velocity_ext_values()
-        self.den_ev = cfg.density_ext_values()
-        self.tra_ev = cfg.tracer_ext_values()
+        self.vel_ev = cfg.velocity_ext_values(self.grid)
+        self.den_ev = cfg.density_ext_values(self.grid)
+        self.tra_ev = cfg.tracer_ext_values(self.grid)
         self.force_bcrec = cfg.force_bcrecs(max(cfg.ntrac, cfg.ndim))
         if cfg.use_godunov:
             self.godunov = godunov.GodunovScheme(
@@ -235,7 +241,8 @@ class Simulation:
         return torch.full(shape, val, dtype=self.dtype)
 
     def _build_static_solvers(self):
-        """On a mesh: the whole level's solvers, cut to the slab."""
+        """On a mesh: the whole level's solvers, cut to the slab (a direct
+        solve's transforms, or multigrid on the slab)."""
         cfg = self.cfg
         grid = cfg.grid
         inv_rho = 1.0 / cfg.ro_0
@@ -646,7 +653,7 @@ class Simulation:
                 (bc_lo if side == 0 else bc_hi)[ax] = bc
             solver = mg.NodalSolver(grid.dx, grid.periodic, bc_lo, bc_hi,
                                     sigma if eb is None else sigma * eb.vfrac,
-                                    direct=False)
+                                    direct=False, mesh=self.mesh)
             rhs = mg._nodes_unique(mg.nodal_divergence(upads, grid.dx),
                                    solver.levels[0])
             # warm start: p is last step's phi (pressure varies slowly)
@@ -775,7 +782,11 @@ class Simulation:
                 if BCKind(int(self.cfg.bc_kind[ax, side])) \
                         != BCKind.mass_inflow:
                     continue
-                val = self.vel_ev.slab(ax, side, ax, [0] * nd, self.dtype,
+                # on a slab the band spans the x halo too: those columns
+                # are the level's interior but for the level's own x
+                # ghosts, which stay zero as on one rank
+                pads = [first if a == 0 else 0 for a in range(nd)]
+                val = self.vel_ev.slab(ax, side, ax, pads, self.dtype,
                                        device=self.device)
                 if val.dim() > nd:       # drop the component axis
                     val = val[..., 0]
@@ -783,9 +794,16 @@ class Simulation:
                 band = u.narrow(ax, 0 if side == 0 else u.shape[ax] - 1, 1)
                 for a in range(nd):
                     if a != ax:
-                        band = band.narrow(a, 1, u.shape[a] - 2)
+                        k = 1 - pads[a]
+                        band = band.narrow(a, k, u.shape[a] - 2 * k)
                 band.copy_(torch.broadcast_to(val, band.shape)
                            * inflow_scale)
+                if first:
+                    mesh = self.mesh
+                    if mesh.rank == 0:
+                        band.narrow(0, 0, 1).zero_()
+                    if mesh.rank == mesh.size - 1:
+                        band.narrow(0, band.shape[0] - 1, 1).zero_()
                 upads[ax] = u
         return upads
 
