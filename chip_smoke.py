@@ -238,6 +238,21 @@ Phases (any failure ends the run with a non-zero exit):
              the 1-rank float32 run (at most twice its error + 4 ulps);
              ms/step, slab launches a step per rank, one instrumented
              step's exchanges by kind (calls, bytes, ms).
+             sharded_xwalls: x-slab meshes whose x ends in walls, inflow
+             or outflow.  The slab forms with the level's x wall on an
+             end rank (the first rank's low side, the last rank's high
+             one, nodes: the last rank's extra node nx) at every level of
+             the channel's (128x64x16) nodal hierarchy (Neumann inflow,
+             the Dirichlet outflow plane) and tracer cell hierarchy
+             (Dirichlet inflow, Neumann outflow), seeded variable
+             coefficients, f32, as "slab" checks them.  Then bench's
+             channel without its cylinder at 128x64x16 (3D MOL, the
+             direct MAC and tensor solves, nodal V-cycles on the slabs,
+             the tracer's cell sweeps) and the bingham deck at 64x64x16
+             (no-slip x and y walls, V-cycle CG) on 2 ranks sharing the
+             card, as sharded_mg runs its cells (bingham's p, gp and
+             mac_phi, rounding noise from rest, relative to its pressure
+             scale delp = 2).
 Then one JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 
@@ -3171,64 +3186,77 @@ SHARD_MG_FIELDS = ("velocity", "density", "tracer", "p", "gp", "mac_phi",
                    "dt")
 
 
-def ext_rows(full, x0, nxl, lo, hi):
-    """Rows [x0 - lo, x0 + nxl + hi) of a whole-level array, wrapped: a
-    rank's extended slab after its deep halo exchange."""
+def ext_rows(full, start, stop, periodic=True):
+    """Rows [start, stop) of a whole-level array, wrapped where x is
+    periodic: a rank's extended slab after its deep halo exchange."""
     import torch
-    idx = torch.arange(x0 - lo, x0 + nxl + hi,
-                       device=full.device) % full.shape[0]
+    idx = torch.arange(start, stop, device=full.device)
+    if periodic:
+        idx = idx % full.shape[0]
     return full.index_select(0, idx).contiguous()
 
 
-def slab_call(sk, cell, coefs, kw, x, b, x0, nxl, n, want):
+def slab_call(sk, cell, coefs, kw, x, b, x0, rows, n, want,
+              ends=(False, False)):
     """(kernel, plain, inputs) of one slab call on the extended slab of
-    the rank whose rows start at x0: the slab form's launch
+    the rank whose `rows` rows start at x0: the slab form's launch
     (cell_smooth_ext / nodal_smooth_ext), its plain version on the same
-    inputs, and those inputs."""
+    inputs, and those inputs.  ends: the slab's sides that are the
+    level's own x faces (SlabMesh.ends): no halo rows there, and the
+    level's code; the low one's wall plane is the level's."""
     lo, hi = sk.slab_depth(n, want)
-    e = lambda a: ext_rows(a, x0, nxl, lo, hi)
-    bc = sk.open_x(kw["bc"])
+    lo, hi = (0 if ends[0] else lo), (0 if ends[1] else hi)
+    periodic = not any(ends) and kw["bc"][0][0] == 0
+    e = lambda a: ext_rows(a, x0 - lo, x0 + rows + hi, periodic)
+    bc = sk.slab_bc(kw["bc"], ends)
     if cell:
         diag, dinv, F = coefs
-        fw = tuple(None if w is None else e(w) for w in kw["Fwall"])
+        xwall = kw["Fwall"][0] if ends[0] else None
+        fw = (xwall,) + tuple(None if w is None else e(w)
+                              for w in kw["Fwall"][1:])
         args = (e(x), e(b), e(diag), e(dinv), [e(f) for f in F], n, want)
         inputs = list(args[:4]) + args[4] + [w for w in fw if w is not None]
-        return (lambda: sk.cell_smooth_ext(*args, bc=kw["bc"], Fwall=fw),
-                lambda: sk.cell_smooth_plain(*args, bc=bc,
-                                             Fwall=(None,) + fw[1:],
-                                             open_x=True), inputs)
+        return (lambda: sk.cell_smooth_ext(*args, bc=kw["bc"], Fwall=fw,
+                                           ends=ends),
+                lambda: sk.cell_smooth_plain(
+                    *args, bc=bc, Fwall=fw,
+                    open_x=(not ends[0], not ends[1])), inputs)
     sigma, dinv, dx = coefs
-    args = (e(x), e(b), ext_rows(sigma, x0, nxl, lo, hi - 1), e(dinv), dx,
-            n, want)
-    return (lambda: sk.nodal_smooth_ext(*args, bc=kw["bc"]),
+    args = (e(x), e(b), ext_rows(sigma, x0 - lo, x0 + rows + hi - 1,
+                                 periodic), e(dinv), dx, n, want)
+    return (lambda: sk.nodal_smooth_ext(*args, bc=kw["bc"], ends=ends),
             lambda: sk.nodal_smooth_plain(*args, bc=bc), list(args[:4]))
 
 
-def phase_slab_smoothers(sk, mg, torch):
-    """The slab forms of the smoother kernels at every level of rt's two
-    hierarchies (64x64x128, the MAC and nodal operators of rt_operators)
-    whose 2-rank x slabs are even, f32, at the call the V-cycles make
-    there (1 sweep + residual cell, 2 nodal, the bottom's sweeps without;
-    the deepest that fits where a slab is narrower than its halo): each
+def slab_forms(sk, mg, torch, solvers, tag, seed):
+    """The slab forms of the smoother kernels at every level of the
+    given hierarchies ((family, solver) pairs, f32 on the card) whose
+    2-rank x slabs are even, at the call the V-cycles make there (1
+    sweep + residual cell, 2 nodal, the bottom's sweeps without; the
+    deepest that fits where a slab is narrower than its halo): each
     rank's extended slab through the kernel, bit-equal to the plain
-    version on the same inputs, its middle planes bit-equal to the
+    version on the same inputs, its own rows bit-equal to the
     whole-level kernel's rows; one kernel node a call; rank 0's kernel
     and plain times by CUDA-graph replay and the bound (the extended
     inputs read once, the slab's rows written once; the operations of
-    the slab's rows, the whole-level plain count times nxl / nx)."""
+    the slab's rows, the whole-level plain count times nxl / nx).  Where
+    the level's x ends in walls, rank 0 holds its low x face and the last
+    rank its high one (and a nodal level's node nx)."""
     import numpy as np
     dev = torch.device("cuda")
-    mac, nodal = rt_operators(mg, (64, 64, 128), torch.float32, dev, 30)
-    rng = np.random.default_rng(37)
+    rng = np.random.default_rng(seed)
     res = {k: {"max_abs_err": 0.0, "checked": 0, "levels": []}
-           for k in SLAB_FAMILIES}
+           for k, _ in solvers}
     saved = save_launches(sk)
-    for family, solver in zip(SLAB_FAMILIES, (mac, nodal)):
+    for family, solver in solvers:
         cell = family == "cell_smooth_slab"
         last = len(solver.levels) - 1
         for li in range(last + 1):
             shape = tuple(solver.diags[li].shape)
-            nxl = shape[0] // SHARD_RANKS
+            coefs, kw = level_args(mg, solver, li)
+            periodic = kw["bc"][0][0] == 0
+            extra = int(not cell and not periodic)
+            nxl = (shape[0] - extra) // SHARD_RANKS
             if nxl % 2:
                 continue
             n, want = (solver.nu_bottom, False) if li == last \
@@ -3239,15 +3267,21 @@ def phase_slab_smoothers(sk, mg, torch):
                                 dtype=torch.float32, device=dev)
             b = torch.as_tensor(rng.standard_normal(shape),
                                 dtype=torch.float32, device=dev)
-            coefs, kw = level_args(mg, solver, li)
             whole_fn = sk.cell_smooth if cell else sk.nodal_smooth
             plain_fn = sk.cell_smooth_plain if cell \
                 else sk.nodal_smooth_plain
             whole = whole_fn(x, b, *coefs, n, want, **kw)
-            lo = sk.slab_depth(n, want)[0]
+
+            def call(r):
+                ends = (False, False) if periodic \
+                    else (r == 0, r == SHARD_RANKS - 1)
+                rows = nxl + (extra if ends[1] else 0)
+                lo = 0 if ends[0] else sk.slab_depth(n, want)[0]
+                return slab_call(sk, cell, coefs, kw, x, b, r * nxl, rows,
+                                 n, want, ends), lo, rows
+
             for r in range(SHARD_RANKS):
-                kern, plain, _ = slab_call(sk, cell, coefs, kw, x, b,
-                                           r * nxl, nxl, n, want)
+                (kern, plain, _), lo, rows = call(r)
                 got, ref = kern(), plain()
                 for u, v, w in zip(got, ref, whole):
                     if v is None:
@@ -3257,20 +3291,20 @@ def phase_slab_smoothers(sk, mg, torch):
                         res[family]["max_abs_err"], err)
                     res[family]["checked"] += 1
                     if err != 0.0 or not torch.equal(
-                            u.narrow(0, lo, nxl), w.narrow(0, r * nxl, nxl)):
+                            u.narrow(0, lo, rows),
+                            w.narrow(0, r * nxl, rows)):
                         raise AssertionError(
                             f"{family} level {li} rank {r}: the slab kernel "
                             "differs from its plain version or from the "
                             "whole level's rows")
-            kern, plain, inputs = slab_call(sk, cell, coefs, kw, x, b, 0,
-                                            nxl, n, want)
+            (kern, plain, inputs), _, rows = call(0)
             row = {"level": li, "shape": "x".join(map(str, shape)),
                    "nxl": nxl, "call": f"{n} sweeps"
                    + (" + residual" if want else ""),
                    "device_launches": graph_launches(sk, kern),
                    "ms": device_ms(kern), "plain_ms": device_ms(plain),
                    "bytes": 4 * (sum(t.numel() for t in inputs)
-                                 + (1 + want) * nxl * x[0].numel()),
+                                 + (1 + want) * rows * x[0].numel()),
                    "ops": count_ops(lambda: plain_fn(
                        x, b, *coefs, n, want, **kw)) * nxl // shape[0]}
             row["bound_ms"], row["bound_by"] = bound(row["bytes"],
@@ -3280,16 +3314,27 @@ def phase_slab_smoothers(sk, mg, torch):
                                      f"{row['device_launches']} device "
                                      "launches")
             res[family]["levels"].append(row)
-            print(f"[slab] {family} level {li} {row['shape']} in 2 slabs "
-                  f"(nxl {nxl}), {row['call']}: bit-equal to the plain "
-                  f"version and the whole level's rows on both ranks; "
+            walls = "" if periodic else ", the level's x walls on the end " \
+                "ranks"
+            print(f"[{tag}] {family} level {li} {row['shape']} in 2 slabs "
+                  f"(nxl {nxl}{walls}), {row['call']}: bit-equal to the "
+                  f"plain version and the whole level's rows on both ranks; "
                   f"kernel {row['ms']:.4f} ms (1 device launch), plain "
                   f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} "
                   f"ms ({row['bound_by']})", flush=True)
     torch.cuda.synchronize()
-    check_one_launch(sk, "slab smoothers")
+    check_one_launch(sk, f"{tag} smoothers")
     restore_launches(sk, saved)
     return res
+
+
+def phase_slab_smoothers(sk, mg, torch):
+    """slab_forms at every level of rt's two hierarchies (64x64x128, the
+    MAC and nodal operators of rt_operators): x periodic."""
+    mac, nodal = rt_operators(mg, (64, 64, 128), torch.float32,
+                              torch.device("cuda"), 30)
+    return slab_forms(sk, mg, torch, list(zip(SLAB_FAMILIES, (mac, nodal))),
+                      "slab", 37)
 
 
 def one_rank_run(incflo_torch, torch, deck, nsteps):
@@ -3311,46 +3356,68 @@ def one_rank_run(incflo_torch, torch, deck, nsteps):
     return states, tallies
 
 
-def mg_state_errs(a, b):
+def mg_state_errs(a, b, floors=None):
+    """Each field's largest difference relative to the reference's max,
+    or to floors[field] where that is larger."""
     import numpy as np
+    floors = floors or {}
     return {f: float(np.abs(a[f] - b[f]).max()
-                     / max(float(np.abs(b[f]).max()), 1e-300))
+                     / max(float(np.abs(b[f]).max()), floors.get(f, 0.0),
+                           1e-300))
             for f in SHARD_MG_FIELDS}
 
 
-def phase_sharded_mg(incflo_torch, torch, steps64=2, warm=2, steps=3,
-                     instrumented=1):
+def phase_sharded_mg(incflo_torch, torch):
     """rt (64x64x128) and shear3d_vd (128x128x32) split over 2 ranks that
-    share the card, multigrid on the slabs: float64 init + steps64 steps
-    held to the 1-rank port to TOL_SHARD_F64 with equal CG iterations,
+    share the card, multigrid on the slabs (sharded_cells)."""
+    return sharded_cells(incflo_torch, torch, SHARD_MG_DECKS, "sharded_mg")
+
+
+def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=2,
+                  warm=2, steps=3, instrumented=1):
+    """Each deck of `decks` (cell -> deck of a dtype) split over 2 ranks
+    that share the card: float64 init + steps64 steps held to the 1-rank
+    port to TOL_SHARD_F64 (relative to each field's max, or to
+    floors[cell][field] where that is larger) with equal CG iterations,
     V-cycles and tensor-CG iterations in every step on both ranks;
     float32 warm + steps timed steps (the launch counts zeroed just
     before them) held against a 1-rank float64 run beside the 1-rank
     float32 run (PR 6's witness bound), then `instrumented` steps that
     time each exchange.  Every rank must launch both slab smoother
-    kernels in the timed steps."""
+    kernels in the timed steps.  The 1-rank runs first; then one spawn
+    of the ranks runs every cell's float64 steps (workers.several), and
+    each cell's timed float32 steps run in a fresh spawn of their own, as
+    PR 13 timed them."""
     from incflo_torch.parallel import launch
     ulp = 1.1920928955078125e-07
-    out = {}
-    for cell, deck_of in SHARD_MG_DECKS.items():
-        deck64, deck32 = deck_of("float64"), deck_of("float32")
-        t0 = time.time()
+    t0 = time.time()
+    refs, jobs = {}, []
+    for cell, deck_of in decks.items():
+        deck64 = deck_of("float64")
         ref64, tal64 = one_rank_run(incflo_torch, torch, deck64,
                                     warm + steps)
-        ref32, _ = one_rank_run(incflo_torch, torch, deck32, warm + steps)
-        t1 = time.time()
-        r64 = launch.run("incflo_torch.parallel.workers:steps", SHARD_RANKS,
-                         dict(deck=deck64, nsteps=steps64), device="cuda",
+        ref32, _ = one_rank_run(incflo_torch, torch, deck_of("float32"),
+                                warm + steps)
+        refs[cell] = (ref64, tal64, ref32)
+        jobs.append((cell, "steps", dict(deck=deck64, nsteps=steps64)))
+    t1 = time.time()
+    ranks64 = launch.run("incflo_torch.parallel.workers:several",
+                         SHARD_RANKS, dict(jobs=jobs), device="cuda",
                          timeout=900)
+    out = {}
+    for cell, deck_of in decks.items():
+        fl = (floors or {}).get(cell)
+        ref64, tal64, ref32 = refs[cell]
+        r64 = [r[cell] for r in ranks64]
         r32 = launch.run("incflo_torch.parallel.workers:timed_steps",
-                         SHARD_RANKS, dict(deck=deck32, warm=warm,
+                         SHARD_RANKS, dict(deck=deck_of("float32"), warm=warm,
                                            nsteps=steps,
                                            instrumented=instrumented),
                          device="cuda", timeout=900)
         t2 = time.time()
         worst64 = dict.fromkeys(SHARD_MG_FIELDS, 0.0)
         for i, (a, b) in enumerate(zip(r64[0]["states"], ref64)):
-            for f, e in mg_state_errs(a, b).items():
+            for f, e in mg_state_errs(a, b, fl).items():
                 worst64[f] = max(worst64[f], e)
                 if not e <= TOL_SHARD_F64:
                     raise AssertionError(f"{cell} 2 ranks f64 step {i}: {f} "
@@ -3360,8 +3427,8 @@ def phase_sharded_mg(incflo_torch, torch, steps64=2, warm=2, steps=3,
                 raise AssertionError(f"{cell} 2 ranks f64, rank {rank}: "
                                      f"tallies {r['tallies']}, 1 rank "
                                      f"{tal64[:steps64 + 1]}")
-        own32 = mg_state_errs(ref32[-1], ref64[-1])
-        shard32 = mg_state_errs(r32[0]["state"], ref64[-1])
+        own32 = mg_state_errs(ref32[-1], ref64[-1], fl)
+        shard32 = mg_state_errs(r32[0]["state"], ref64[-1], fl)
         bound32 = {f: TOL_SHARD_F32_FACTOR * own32[f]
                    + TOL_SHARD_F32_ULPS * ulp for f in SHARD_MG_FIELDS}
         for f in SHARD_MG_FIELDS:
@@ -3383,12 +3450,12 @@ def phase_sharded_mg(incflo_torch, torch, steps64=2, warm=2, steps=3,
         comm = {k: {q: max(r["comm"][k][q] for r in r32)
                     for q in ("calls_per_step", "bytes_per_step",
                               "ms_per_step")} for k in r32[0]["comm"]}
-        print(f"[sharded_mg] {cell} f64 over {SHARD_RANKS} ranks: init + "
+        print(f"[{tag}] {cell} f64 over {SHARD_RANKS} ranks: init + "
               f"{steps64} steps, worst rel err against 1 rank "
               + ", ".join(f"{f} {e:.2e}" for f, e in worst64.items())
               + f" (tol {TOL_SHARD_F64:g}); tallies "
               f"{tal64[1:steps64 + 1]} on every rank", flush=True)
-        print(f"[sharded_mg] {cell} f32 over {SHARD_RANKS} ranks sharing "
+        print(f"[{tag}] {cell} f32 over {SHARD_RANKS} ranks sharing "
               f"the card: {ms:.3f} ms/step over {steps} steps after {warm} "
               "warm-up (slowest rank); rel err against the f64 run "
               "(2 ranks / 1 rank) "
@@ -3402,8 +3469,8 @@ def phase_sharded_mg(incflo_torch, torch, steps64=2, warm=2, steps=3,
                           f"{v['bytes_per_step'] / 1e6:.3f} MB "
                           f"{v['ms_per_step']:.3f} ms"
                           for k, v in comm.items())
-              + f"; 1-rank runs {t1 - t0:.1f} s, spawns {t2 - t1:.1f} s",
-              flush=True)
+              + f"; the cells' 1-rank runs {t1 - t0:.1f} s, spawns up to "
+              f"here {t2 - t1:.1f} s", flush=True)
         out[cell] = {"ranks": SHARD_RANKS, "mesh": r32[0]["mesh"],
                      "ms_per_step": ms, "steps": steps, "warmup": warm,
                      "instrumented_ms_per_step": inst, "comm": comm,
@@ -3415,8 +3482,63 @@ def phase_sharded_mg(incflo_torch, torch, steps64=2, warm=2, steps=3,
                      "tallies": tal64[:steps64 + 1],
                      "f32_rel_err_vs_f64": shard32,
                      "f32_one_rank_rel_err_vs_f64": own32,
-                     "f32_bound": bound32, "seconds": t2 - t0}
+                     "f32_bound": bound32, "floors": fl,
+                     "seconds_all_cells": t2 - t0}
     return out
+
+
+# the 2-rank cells of an x that ends in boundaries: bench's channel
+# without its cylinder at its bench width (128x64x16, x slabs of 64) and
+# the bingham deck at 64x64x16 (slabs of 32; its section 4 cell is
+# 128x128x32); bingham starts from rest, and its p, gp and mac_phi are
+# rounding noise, held relative to the deck's pressure scale delp = 2
+SHARD_XWALL_DECKS = {"channel": lambda dt: channel_deck(128, dt),
+                     "bingham": lambda dt: bingham_deck(64, dt)}
+SHARD_XWALL_FLOORS = {"bingham": {"p": 2.0, "gp": 4.0, "mac_phi": 2.0}}
+
+
+def channel_operators(mg, cells, dtype, dev, seed):
+    """The two operators of the channel step that run V-cycles or sweeps
+    on its slabs, from seeded variable coefficients with the channel's
+    sides (the dx of its 1.2 x 0.4 x 0.1 box): the tracer's Helmholtz
+    operator (Dirichlet inflow x-lo, Neumann outflow x-hi, Neumann y
+    walls, periodic z) and the nodal sigma-Poisson one (Neumann x-lo and
+    y, the Dirichlet outflow plane at x-hi)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype).to(dev)
+    dx = (1.2 / cells[0], 0.4 / cells[1], 0.1 / cells[2])
+    faces = []
+    for ax in range(3):
+        f = 1e-3 * (0.5 + 1.5 * rng.random(tuple(
+            n + (1 if a == ax else 0) for a, n in enumerate(cells))))
+        if ax == 2:             # the periodic face n is face 0
+            f = np.concatenate([f.take(range(cells[ax]), axis=ax),
+                                f.take([0], axis=ax)], axis=ax)
+        faces.append(t(f))
+    tracer = mg.CellSolver(dx, (2, 1, 0), (1, 1, 0), alpha=1.0, beta=1e-3,
+                           acoef=t(0.5 + rng.random(cells)),
+                           bcoef=tuple(faces), direct=False)
+    rho = 0.5 + 1.5 * rng.random(cells)
+    nodal = mg.NodalSolver(dx, (False, False, True), (1, 1, 0), (2, 1, 0),
+                           t(0.9 * min(dx) / rho), direct=False)
+    return tracer, nodal
+
+
+def phase_sharded_xwalls(incflo_torch, sk, mg, torch):
+    """The slab forms with the level's x walls on the end ranks at every
+    level of the channel's (128x64x16) tracer and nodal hierarchies
+    (slab_forms), then the channel (128x64x16) and bingham (64x64x16)
+    decks on 2 ranks sharing the card (sharded_cells)."""
+    tracer, nodal = channel_operators(mg, (128, 64, 16), torch.float32,
+                                      torch.device("cuda"), 41)
+    forms = slab_forms(sk, mg, torch,
+                       list(zip(SLAB_FAMILIES, (tracer, nodal))),
+                       "sharded_xwalls", 43)
+    cells = sharded_cells(incflo_torch, torch, SHARD_XWALL_DECKS,
+                          "sharded_xwalls", SHARD_XWALL_FLOORS)
+    return {"slab_forms": forms, "cells": cells}
 
 
 CLI_ARGS = ["max_step=4", "amr.check_int=2", "amr.plot_int=2"]
@@ -4232,6 +4354,8 @@ def main(argv):
     slab = phase_slab_smoothers(sk, mg, torch)
     shard_mg = phase_sharded_mg(incflo_torch, torch)
     stamp("sharded multigrid")
+    xwalls = phase_sharded_xwalls(incflo_torch, sk, mg, torch)
+    stamp("sharded x walls")
 
     # `launches` is the count over the kernel's own main path: shear3d
     # n = 128 for the Godunov kernels (their count in shear3d_vd beside
@@ -4377,11 +4501,22 @@ def main(argv):
                 "smoother_launches_per_step"][0][k],
             "launches_per_step_shear3d_vd": shard_mg["shear3d_vd"][
                 "smoother_launches_per_step"][0][k],
+            "launches_xwalls": {
+                cell: [c[k] for c in x["launches_per_rank"]]
+                for cell, x in xwalls["cells"].items()},
+            "launches_per_step_xwalls": {
+                cell: [p[k] for p in x["smoother_launches_per_step"]]
+                for cell, x in xwalls["cells"].items()},
+            "xwalls_forms": xwalls["slab_forms"][k],
             "launches_per_step_a9c": a9c_per_step(k),
             "device_launches_per_call": max(
-                v["device_launches"] for v in r["levels"]),
-            "max_abs_err": r["max_abs_err"], "tol_f32": 0.0,
-            "outputs_checked": r["checked"],
+                v["device_launches"] for v in r["levels"]
+                + xwalls["slab_forms"][k]["levels"]),
+            "max_abs_err": max(r["max_abs_err"],
+                               xwalls["slab_forms"][k]["max_abs_err"]),
+            "tol_f32": 0.0,
+            "outputs_checked": r["checked"]
+            + xwalls["slab_forms"][k]["checked"],
             "shape": f"rt {fine['shape']} in 2 slabs (nxl {fine['nxl']}), "
                      f"{fine['call']}, float32",
             "ms": fine["ms"], "plain_ms": fine["plain_ms"],
@@ -4437,6 +4572,7 @@ def main(argv):
                       + main_tgv + list(main_a9c.values())
                       + list(main_a8.values()),
                       "sharded": shard, "sharded_mg": shard_mg,
+                      "sharded_xwalls": xwalls["cells"],
                       "cli": cli,
                       "amr": {"main": list(amr_main.values()),
                               "levels": amr_levels, "cli": amr_cli},

@@ -187,6 +187,21 @@ class ExtDirValues:
         return self.ncomp == self.grid.ndim
 
 
+def slab_bcrecs(bcrecs: BCRecs, grid: Grid) -> BCRecs:
+    """bcrecs as the stencils of a rank's x slab read them: int_dir (the
+    neighbours' rows, which the ghost fill put there) on an x side that
+    is not the level's own x face (Grid.edge), so that the boundary forms
+    of the advection schemes act on the level's faces alone."""
+    inner = [side for side in range(2)
+             if not grid.periodic[0] and not grid.edge(0, side)]
+    if not inner:
+        return bcrecs
+    out = np.array(bcrecs, copy=True)
+    for side in inner:
+        out[:, 0, side] = int(BCType.int_dir)
+    return out
+
+
 def _take(field, ax, idx_from, idx_to):
     return field.narrow(ax, idx_from, idx_to - idx_from)
 
@@ -199,7 +214,9 @@ def grow(field: torch.Tensor, ng, grid: Grid, bcrecs: BCRecs,
     y then z) so that later axes re-fill the corners of earlier ghosts,
     matching AMReX filcc + physbc-functor order.  On an x slab of a mesh
     (grid.mesh, parallel/mesh.py) the x ghosts come from the neighbouring
-    ranks (SlabMesh.halo_x)."""
+    ranks (SlabMesh.halo_x), but beyond the level's own x faces (an end
+    rank of a level whose x is not periodic, SlabGrid.x_edge), whose
+    ghosts take the physical fill."""
     ndim = grid.ndim
     assert field.dim() == ndim + 1, "grow() expects a trailing component axis"
     ncomp = field.shape[-1]
@@ -211,28 +228,28 @@ def grow(field: torch.Tensor, ng, grid: Grid, bcrecs: BCRecs,
         g = ngs[ax]
         if g == 0:
             continue
-        if ax == 0 and mesh is not None:
-            # an x slab: the periodic ghosts are the neighbours' rows
-            field = mesh.halo_x(field, g)
+        if grid.periodic[ax] and not (ax == 0 and mesh is not None):
+            n = field.shape[ax]
+            field = torch.cat([_take(field, ax, n - g, n), field,
+                               _take(field, ax, 0, g)], dim=ax)
             pads[ax] = g
             continue
-        if grid.periodic[ax]:
-            n = field.shape[ax]
-            lo_blk = _take(field, ax, n - g, n)
-            hi_blk = _take(field, ax, 0, g)
+
+        def block(fld, side, ax=ax, g=g):
+            return torch.cat([
+                _ghost_block(fld[..., c:c + 1], ax, side, g, grid, pads,
+                             BCType(bcrecs[c, ax, side]), ext_values, c)
+                for c in range(ncomp)], dim=-1)
+
+        if ax == 0 and mesh is not None:
+            # an x slab: the ghosts are the neighbours' rows, but beyond
+            # the level's own x faces
+            field = mesh.halo_x(field, g, periodic=grid.periodic[0],
+                                ends=(lambda f: block(f, 0),
+                                      lambda f: block(f, 1)))
         else:
-            lo_parts, hi_parts = [], []
-            for c in range(ncomp):
-                fc = field[..., c:c + 1]
-                lo_parts.append(_ghost_block(fc, ax, 0, g, grid, pads,
-                                             BCType(bcrecs[c, ax, 0]),
-                                             ext_values, c))
-                hi_parts.append(_ghost_block(fc, ax, 1, g, grid, pads,
-                                             BCType(bcrecs[c, ax, 1]),
-                                             ext_values, c))
-            lo_blk = torch.cat(lo_parts, dim=-1)
-            hi_blk = torch.cat(hi_parts, dim=-1)
-        field = torch.cat([lo_blk, field, hi_blk], dim=ax)
+            field = torch.cat([block(field, 0), field, block(field, 1)],
+                              dim=ax)
         pads[ax] = g
     return field
 

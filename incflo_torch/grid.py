@@ -62,6 +62,13 @@ class Grid:
         return tuple(n if per else n + 1
                      for n, per in zip(self.n_cell, self.periodic))
 
+    def edge(self, axis: int, side: int) -> bool:
+        """True where side `side` (0 low, 1 high) of `axis` is a boundary
+        of the level, not a periodic wrap; a rank's x slab of a mesh
+        (parallel/mesh.SlabGrid) says so of the level's own x faces
+        only."""
+        return not self.periodic[axis]
+
     def face_shape(self, axis: int) -> Tuple[int, ...]:
         """Unique faces normal to `axis` (face n == face 0 when periodic)."""
         return tuple((n if (per and d == axis) else n) + (1 if (d == axis and not per) else 0)

@@ -27,7 +27,9 @@ mass inflow for tracers; Neumann: pressure inflow and outflow.  Explicit
 diffusion uses compute_divtau and compute_laps alone and calls no solve.
 
 On an x slab of a mesh (grid.mesh, parallel/mesh.py) the operators pad
-x from the neighbouring ranks and the CG's dots and norms are global, so
+x from the neighbouring ranks, and with the level's boundary pads and
+face fixups at its own x faces (the end ranks of a level whose x ends in
+walls, inflow or outflow), and the CG's dots and norms are global, so
 each loop test decides on the whole level's residual.
 
 Embedded boundaries (eb, an eb/ops.EBArrays; incflo_tpu/ops/diffusion.py
@@ -209,10 +211,12 @@ def eta_to_faces(eta_g1: torch.Tensor, grid: Grid,
             face = _centroid_interp(face_g, eb.face_cent[d], d, nd)
         else:
             face = tint(face_g)
-        if not grid.periodic[d]:
+        if not grid.periodic[d]:     # the level's own faces (Grid.edge)
             cells = tint(window(eta_g1, d, 1, 1))
-            face = _set_face(face, d, 0, _face_slab(cells, d, 0))
-            face = _set_face(face, d, -1, _face_slab(cells, d, -1))
+            if grid.edge(d, 0):
+                face = _set_face(face, d, 0, _face_slab(cells, d, 0))
+            if grid.edge(d, 1):
+                face = _set_face(face, d, -1, _face_slab(cells, d, -1))
         out.append(face)
     return out
 

@@ -18,9 +18,10 @@ gradient, runs the plain chain (godunov.py:475); advect, which that
 option does not enter, keeps the kernel (godunov.py:648 gates on
 use_forces_in_trans alone).  The choice is made here, from the grid and
 the deck alone.
-On an x slab of a mesh (grid.mesh) both take the halo-slab forms,
-predict_sharded and advect_sharded, as incflo_tpu/ops/godunov.py:482-491
-and :657-667 dispatch to pallas_godunov's.
+On an x slab of a mesh (grid.mesh) a fully periodic grid's chain takes
+the halo-slab forms, predict_sharded and advect_sharded, as
+incflo_tpu/ops/godunov.py:482-491 and :657-667 dispatch to
+pallas_godunov's; a slab of any other grid the general plain chain.
 """
 
 from __future__ import annotations

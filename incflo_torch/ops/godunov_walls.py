@@ -20,13 +20,17 @@ incflo_godunov_trans_bc.H): one-sided slopes and PPM edges at ext_dir and
 hoextrap faces, the face-state overrides of _trans_bc / _cc_bc, and
 backflow prevention at extrapolated faces.
 
-On a rank's x slab of a mesh (grid.mesh, parallel/mesh.py; x periodic)
-the chain runs on the slab's ghost-filled windows: the x ghosts come
-from the neighbouring ranks (bcs.grow), the MAC faces beyond the slab
-too (_extend_mac), and every x stencil is then the one-rank stencil on
-the same values.  Origins along x count from the slab's first cell: an
-origin is read only by the boundary forms (_mask), and those act on the
-walled axes y and z alone, which the mesh does not split.
+On a rank's x slab of a mesh (grid.mesh, parallel/mesh.py) the chain
+runs on the slab's ghost-filled windows: the x ghosts come from the
+neighbouring ranks (bcs.grow), the MAC faces beyond the slab too
+(_extend_mac), and every x stencil is then the one-rank stencil on the
+same values.  Where the level's x ends in walls, inflow or outflow, the
+end ranks hold its x faces: their ghosts take the physical fill, and
+the x boundary forms act there alone (bcs.slab_bcrecs makes every other
+x side int_dir).  Origins along x count from the slab's first cell: an
+origin is read only by the boundary forms (_mask), which at the level's
+low x face (the first rank's) and high one (the last rank's, cell nxl - 1
+of its slab) are the one-rank forms.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from incflo_torch.bcs import BCType
+from incflo_torch.bcs import BCType, slab_bcrecs
 from incflo_torch.grid import Grid
 from incflo_torch.ops.godunov_kernels import (SMALL_VEL, _mc2_parts, _mc4,
                                               _riemann, _van_leer)
@@ -433,6 +437,7 @@ class WindowedGodunov:
         put back after it (incflo_tpu/ops/godunov.py:564-577)."""
         nd = self.nd
         org = (-ng,) * nd
+        bcrecs = slab_bcrecs(bcrecs, self.grid)
         comps = [F(vel_g[..., c], org) for c in range(nd)]
         fcomps = [F(forces_g[..., c], (-1,) * nd) if forces_g is not None
                   else None for c in range(nd)]
@@ -492,6 +497,7 @@ class WindowedGodunov:
         g = self.grid
         nd = self.nd
         org = (-ng,) * nd
+        bcrecs = slab_bcrecs(bcrecs, g)
         macF = {ax: self._extend_mac(umac[ax], ax) for ax in range(nd)}
         rates = []
         for c in range(q_g.shape[-1]):
@@ -551,17 +557,21 @@ class WindowedGodunov:
         and the right one's face above x0 + nxl (the slab's own face
         x0 + nxl is the one-rank chain's face there: where a profile
         varies along x in the y or z ghosts, the faces 0 and n of the
-        level differ)."""
+        level differ); beyond the level's own x faces zero."""
         g = self.grid
         mesh = mesh_of(g)
         for a in range(self.nd):
             k = m.shape[a]
             if a == 0 and mesh is not None:
+                zero = lambda t: torch.zeros_like(t.narrow(0, 0, 1))
                 if a == ax:
-                    h = mesh.halo_x(m.narrow(0, 1, k - 2), 1, 1)
+                    h = mesh.halo_x(m.narrow(0, 1, k - 2), 1, 1,
+                                    periodic=g.periodic[0],
+                                    ends=(zero, zero))
                     m = torch.cat([h[:1], m, h[-1:]], dim=0)
                 else:
-                    m = mesh.halo_x(m, 1)
+                    m = mesh.halo_x(m, 1, periodic=g.periodic[0],
+                                    ends=(zero, zero))
                 continue
             if g.periodic[a]:
                 if a == ax:

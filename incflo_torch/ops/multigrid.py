@@ -37,8 +37,10 @@ PyTorch, probed on the solver's device) or the regular NodalSolver on
 the octant lattice.
 
 On an x slab of a mesh (parallel/mesh.py) a level carries the mesh: its
-periodic x pads come from the neighbouring ranks, its norms, means and
-CG dots are global.  A constant-coefficient solver is the whole level's
+x pads come from the neighbouring ranks, but at the level's own x faces
+where x ends in walls (the first rank's low side, the last rank's high
+side: _pad, _side_bc; a nodal slab there holds node nx on the last rank,
+_nodes_unique), and its norms, means and CG dots are global.  A constant-coefficient solver is the whole level's
 direct solver cut to the slab (CellSolver.shard, NodalSolver.shard;
 spectral.shard_symbol).  Multigrid runs on the slab (a solver built with
 mesh=, or shard() of one without a direct solve): the hierarchy's depth
@@ -146,6 +148,47 @@ def _edge_pad(x, axis, lo=1, hi=1):
     return torch.cat(parts, dim=axis)
 
 
+def _on_slab_x(axis, mesh, periodic) -> bool:
+    """Along `axis` the array is a rank's x slab of a level whose x ends
+    in boundaries: its pads take the neighbours' rows inside and the
+    level's boundary pad at the level's own x faces (SlabMesh.ends)."""
+    return axis == 0 and mesh is not None and not periodic
+
+
+def _pad(x, axis, mesh, periodic, lo_fn, hi_fn, lo=1, hi=1):
+    """x padded by lo and hi entries along axis: the wrap (the
+    neighbouring ranks' entries along x of a slab) on a periodic axis,
+    else lo_fn(x) / hi_fn(x) beyond the level's boundary and, along x of
+    a slab, the neighbours' entries inside (None pads nothing)."""
+    if periodic:
+        return _wrap_pad(x, axis, lo, hi, mesh)
+    if _on_slab_x(axis, mesh, periodic):
+        return mesh.halo_x(x, lo, hi, periodic=False, ends=(lo_fn, hi_fn))
+    parts = ([lo_fn(x)] if lo_fn is not None and lo else []) + [x] \
+        + ([hi_fn(x)] if hi_fn is not None and hi else [])
+    return torch.cat(parts, dim=axis)
+
+
+def _zero_rows(axis, k=1):
+    """A pad function: k zero entries along axis."""
+    def rows(x):
+        shape = list(x.shape)
+        shape[axis] = k
+        return x.new_zeros(shape)
+    return rows
+
+
+def _side_bc(lev, axis, side):
+    """The solver BC of one side of an axis as a level's array sees it:
+    the level's own, but PERIODIC (the neighbours' rows) on an x side of
+    a slab that is not the level's own x face."""
+    code = lev.bc_lo[axis] if side == 0 else lev.bc_hi[axis]
+    if (_on_slab_x(axis, lev.mesh, code == SolverBC.PERIODIC)
+            and not lev.mesh.ends(False)[side]):
+        return SolverBC.PERIODIC
+    return code
+
+
 def checkerboards(shape, dtype, device, ndim):
     """Red and black masks over the first `ndim` (spatial) axes, as
     floats; trailing component axes are uncoloured."""
@@ -176,9 +219,13 @@ def _maxnorm(x, mesh=None):
 
 
 def _mean(x, mesh=None):
+    """The whole level's mean: on a mesh its sum and its count over the
+    ranks in one all-reduce (the slabs of a node field differ in rows)."""
     if mesh is None:
         return torch.mean(x)
-    return mesh.all_reduce_sum(torch.sum(x)) / (x.numel() * mesh.size)
+    n = torch.tensor(float(x.numel()), dtype=x.dtype, device=x.device)
+    tot = mesh.all_reduce_sum(torch.stack([torch.sum(x), n]))
+    return tot[0] / tot[1]
 
 
 def _dot(a, b, mesh=None):
@@ -227,19 +274,25 @@ def _chunks(n, nxl, want_residual):
 class _SlabCoefs:
     """A slab level's smoother coefficients extended by the neighbours'
     x planes: exchanged once at the depth the first call needs and again
-    only when a call needs more, narrowed for each call."""
+    only when a call needs more, narrowed for each call.  periodic False:
+    the level's x ends in boundaries, and nothing is taken across them
+    (SlabMesh.depths)."""
 
-    def __init__(self, mesh, tensors):
-        self.mesh, self.base = mesh, tensors
+    def __init__(self, mesh, tensors, periodic=True):
+        self.mesh, self.base, self.periodic = mesh, tensors, periodic
         self.lo = self.hi = -1
         self.ext = None
 
     def get(self, lo, hi):
         if lo > self.lo or hi > self.hi:
             self.lo, self.hi = max(lo, self.lo), max(hi, self.hi)
-            self.ext = self.mesh.halo_x(self.base, self.lo, self.hi)
-        cut = lambda t: t.narrow(0, self.lo - lo,
-                                 t.shape[0] - (self.lo - lo) - (self.hi - hi))
+            self.ext = self.mesh.halo_x(self.base, self.lo, self.hi,
+                                        periodic=self.periodic)
+        # the rows the exchange gave and the call takes (SlabMesh.depths)
+        elo, ehi = self.mesh.depths(self.lo, self.hi, self.periodic)
+        lo, hi = self.mesh.depths(lo, hi, self.periodic)
+        cut = lambda t: t.narrow(0, elo - lo,
+                                 t.shape[0] - (elo - lo) - (ehi - hi))
         return [cut(t) for t in self.ext]
 
 
@@ -275,48 +328,37 @@ class CellLevel:
     mesh: object = None                    # parallel.mesh.SlabMesh of a slab
 
 
-def _cell_pad_hom(x, lev: CellLevel):
-    """Pad phi by one ghost per axis with homogeneous solver BCs.
-    DIRICHLET uses the maxorder-3 ghost g = -2*phi0 + phi1/3."""
-    for ax in range(len(lev.dx)):
-        if lev.bc_lo[ax] == SolverBC.PERIODIC:
-            x = _wrap_pad(x, ax, mesh=lev.mesh)
-            continue
+def _cell_ghost(lev: CellLevel, ax, side, bvals=None):
+    """The pad function of one side of a walled axis: the ghost of a
+    homogeneous Neumann (q0) or maxorder-3 Dirichlet side (-2 q0 + q1/3),
+    with face values bvals ((axis, side) -> value) (8/3) b - 2 q0 + q1/3."""
+    code = lev.bc_lo[ax] if side == 0 else lev.bc_hi[ax]
+
+    def ghost(x):
         n = x.shape[ax]
-        q0l = x.narrow(ax, 0, 1)
-        q1l = x.narrow(ax, 1, 1) if n > 1 else q0l
-        q0h = x.narrow(ax, n - 1, 1)
-        q1h = x.narrow(ax, n - 2, 1) if n > 1 else q0h
-        lo = q0l if lev.bc_lo[ax] == SolverBC.NEUMANN else (-2.0 * q0l + q1l / 3.0)
-        hi = q0h if lev.bc_hi[ax] == SolverBC.NEUMANN else (-2.0 * q0h + q1h / 3.0)
-        x = torch.cat([lo, x, hi], dim=ax)
-    return x
+        q0 = x.narrow(ax, 0 if side == 0 else n - 1, 1)
+        q1 = x.narrow(ax, 1 if side == 0 else n - 2, 1) if n > 1 else q0
+        if code == SolverBC.NEUMANN:
+            return q0
+        if bvals is None:
+            return -2.0 * q0 + q1 / 3.0
+        bv = bvals.get((ax, side), 0.0)
+        return (8.0 / 3.0) * (bv + 0.0 * q0) - 2.0 * q0 + q1 / 3.0
+    return ghost
 
 
-def _cell_pad_inhom(x, lev: CellLevel, bvals):
-    """Like _cell_pad_hom with inhomogeneous Dirichlet face values:
-    ghost = (8/3) b - 2 phi0 + phi1/3 (maxorder 3)."""
+def _cell_pad(x, lev: CellLevel, bvals=None):
+    """Pad phi by one ghost per axis with homogeneous solver BCs:
+    DIRICHLET uses the maxorder-3 ghost g = -2*phi0 + phi1/3; with
+    inhomogeneous Dirichlet face values bvals g = (8/3) b - 2 phi0 +
+    phi1/3.  Along x of a slab the neighbours' rows, the ghosts at the
+    level's own x faces only (_pad)."""
     for ax in range(len(lev.dx)):
-        if lev.bc_lo[ax] == SolverBC.PERIODIC:
-            x = _wrap_pad(x, ax, mesh=lev.mesh)
-            continue
-        n = x.shape[ax]
-        q0l = x.narrow(ax, 0, 1)
-        q1l = x.narrow(ax, 1, 1) if n > 1 else q0l
-        q0h = x.narrow(ax, n - 1, 1)
-        q1h = x.narrow(ax, n - 2, 1) if n > 1 else q0h
-        if lev.bc_lo[ax] == SolverBC.NEUMANN:
-            lo = q0l
-        else:
-            bv = bvals.get((ax, 0), 0.0)
-            lo = (8.0 / 3.0) * (bv + 0.0 * q0l) - 2.0 * q0l + q1l / 3.0
-        if lev.bc_hi[ax] == SolverBC.NEUMANN:
-            hi = q0h
-        else:
-            bv = bvals.get((ax, 1), 0.0)
-            hi = (8.0 / 3.0) * (bv + 0.0 * q0h) - 2.0 * q0h + q1h / 3.0
-        x = torch.cat([lo, x, hi], dim=ax)
+        x = _pad(x, ax, lev.mesh, lev.bc_lo[ax] == SolverBC.PERIODIC,
+                 _cell_ghost(lev, ax, 0, bvals),
+                 _cell_ghost(lev, ax, 1, bvals))
     return x
+
 
 
 def _set_face(flux, axis, idx, val):
@@ -338,9 +380,9 @@ def _fluxes_of_padded(xp, lev: CellLevel):
         grad = (v.narrow(ax, 1, v.shape[ax] - 1)
                 - v.narrow(ax, 0, v.shape[ax] - 1)) * dxi      # n+1 faces
         flux = lev.bcoef[ax] * grad
-        if lev.bc_lo[ax] == SolverBC.NEUMANN:
+        if _side_bc(lev, ax, 0) == SolverBC.NEUMANN:
             flux = _set_face(flux, ax, 0, 0.0)
-        if lev.bc_hi[ax] == SolverBC.NEUMANN:
+        if _side_bc(lev, ax, 1) == SolverBC.NEUMANN:
             flux = _set_face(flux, ax, -1, 0.0)
         fluxes.append(flux)
     return fluxes
@@ -348,14 +390,14 @@ def _fluxes_of_padded(xp, lev: CellLevel):
 
 def cell_fluxes_inhom(x, lev: CellLevel, bvals):
     """b*grad(x) on all faces with inhomogeneous Dirichlet values."""
-    return _fluxes_of_padded(_cell_pad_inhom(x, lev, bvals), lev)
+    return _fluxes_of_padded(_cell_pad(x, lev, bvals), lev)
 
 
 def cell_fluxes(x, lev: CellLevel):
     """b*grad(x) on the n+1 faces of every axis (homogeneous BCs): the
     discrete fluxes the operator divergences, and the MAC-projection
     velocity correction."""
-    return _fluxes_of_padded(_cell_pad_hom(x, lev), lev)
+    return _fluxes_of_padded(_cell_pad(x, lev), lev)
 
 
 def _apply_from_fluxes(x, lev: CellLevel, fluxes):
@@ -400,11 +442,12 @@ def cell_diag(lev: CellLevel):
         chi = torch.ones_like(bhi)
         # boundary coefficient of phi0 in the boundary-face flux:
         # Neumann -> 0 ; Dirichlet maxorder-3 ghost -> 3
-        if lev.bc_lo[ax] != SolverBC.PERIODIC:
-            c = 0.0 if lev.bc_lo[ax] == SolverBC.NEUMANN else 3.0
+        lo_bc, hi_bc = _side_bc(lev, ax, 0), _side_bc(lev, ax, 1)
+        if lo_bc != SolverBC.PERIODIC:
+            c = 0.0 if lo_bc == SolverBC.NEUMANN else 3.0
             clo = _set_face(clo, ax, 0, c)
-        if lev.bc_hi[ax] != SolverBC.PERIODIC:
-            c = 0.0 if lev.bc_hi[ax] == SolverBC.NEUMANN else 3.0
+        if hi_bc != SolverBC.PERIODIC:
+            c = 0.0 if hi_bc == SolverBC.NEUMANN else 3.0
             chi = _set_face(chi, ax, -1, c)
         d = d + lev.beta * (blo * clo + bhi * chi) * dx2i
     return d
@@ -444,14 +487,14 @@ def _prolong_cells(c, lev: CellLevel):
     fine[2i] = 0.75*c[i] + 0.25*c[i-1], fine[2i+1] = 0.75*c[i] + 0.25*c[i+1]
     with ghost = wrap (periodic), edge (Neumann), zero (Dirichlet)."""
     for ax in range(len(lev.dx)):
-        if lev.bc_lo[ax] == SolverBC.PERIODIC:
-            cp = _wrap_pad(c, ax, mesh=lev.mesh)
-        else:
-            lo_pad = _edge_pad if lev.bc_lo[ax] == SolverBC.NEUMANN \
-                else _zero_pad
-            hi_pad = _edge_pad if lev.bc_hi[ax] == SolverBC.NEUMANN \
-                else _zero_pad
-            cp = hi_pad(lo_pad(c, ax, lo=1, hi=0), ax, lo=0, hi=1)
+        ends = []
+        for side, code in ((0, lev.bc_lo[ax]), (1, lev.bc_hi[ax])):
+            k = 0 if side == 0 else -1
+            ends.append((lambda x, k=k, ax=ax: x.narrow(
+                ax, k % x.shape[ax], 1))
+                if code == SolverBC.NEUMANN else _zero_rows(ax))
+        cp = _pad(c, ax, lev.mesh, lev.bc_lo[ax] == SolverBC.PERIODIC,
+                  *ends)
         n = cp.shape[ax]
         mid = cp.narrow(ax, 1, n - 2)
         even = 0.75 * mid + 0.25 * cp.narrow(ax, 0, n - 2)
@@ -478,10 +521,12 @@ def _level_maxima(diags, levels):
     return out
 
 
-def _on_whole(mesh, fn, x, b, want_residual):
+def _on_whole(mesh, fn, x, b, want_residual, extra_last=False):
     """fn (a whole-level V-cycle) on the gathered x and b; this rank's
-    rows of the iterate and of the residual."""
-    x, r = fn(mesh.all_gather_x(x), mesh.all_gather_x(b),
+    rows of the iterate and of the residual (extra_last: the nodes of a
+    level whose x ends in boundaries, SlabMesh.all_gather_x)."""
+    x, r = fn(mesh.all_gather_x(x, extra_last=extra_last),
+              mesh.all_gather_x(b, extra_last=extra_last),
               want_residual=want_residual)
     return mesh.slab(x), None if r is None else mesh.slab(r)
 
@@ -496,8 +541,8 @@ class CellSolver:
     incflo_tpu's are built inside a trace and never find one.
 
     mesh: acoef, bcoef (and ebc) are rank mesh.rank's x slab of a level
-    periodic in x (nxl + 1 x faces), and the solver runs multigrid on the
-    slab (module docstring); it never solves directly."""
+    (nxl + 1 x faces), and the solver runs multigrid on the slab (module
+    docstring); it never solves directly."""
 
     def __init__(self, dx, bc_lo, bc_hi, alpha, beta, acoef, bcoef,
                  max_levels=30, nu1=1, nu2=1, nu_bottom=8, ebc=None,
@@ -681,16 +726,20 @@ class CellSolver:
         if lev.mesh is None:
             return sk.cell_smooth(x, b, self.diags[li], dinvs[li], fhis[li],
                                   n, want_residual, bc=bc, Fwall=fwalls[li])
+        periodic = lev.bc_lo[0] == SolverBC.PERIODIC
         if li not in self._ext:
             planes = [w for w in fwalls[li][1:] if w is not None]
             self._ext[li] = _SlabCoefs(lev.mesh, [self.diags[li], dinvs[li],
-                                                  *fhis[li], *planes])
+                                                  *fhis[li], *planes],
+                                       periodic)
+        # the level's low x wall face: the first rank's face 0
+        xwall = fwalls[li][0] if lev.mesh.ends(periodic)[0] else None
         res = None
         for k, want in _chunks(n, x.shape[0], want_residual):
             ext = self._ext[li].get(*sk.slab_depth(k, want))
             planes = iter(ext[5:])
-            fw = (None,) + tuple(None if w is None else next(planes)
-                                 for w in fwalls[li][1:])
+            fw = (xwall,) + tuple(None if w is None else next(planes)
+                                  for w in fwalls[li][1:])
             x, res = sk.cell_smooth_slab(lev.mesh, x, b, ext[0], ext[1],
                                          ext[2:5], k, want, bc=bc, Fwall=fw)
         return x, res
@@ -815,10 +864,20 @@ class NodalLevel:
     def with_stencil(self):
         s = self.sigma
         for ax in range(len(self.dx)):
-            s = _wrap_pad(s, ax, mesh=self.mesh) if self.periodic[ax] \
-                else _zero_pad(s, ax)
+            s = _pad(s, ax, self.mesh, self.periodic[ax], _zero_rows(ax),
+                     _zero_rows(ax))
         return dataclasses.replace(self, sigma=None, sigma_pad=s,
                                    cells=tuple(self.sigma.shape))
+
+
+def _node_hi_pad(p, lev: NodalLevel, ax):
+    """Nodal phi with the node above the array's last cell along ax: the
+    wrap of a periodic axis (the right neighbour's first node along x of
+    a slab); along x of a slab of a level whose x ends in boundaries the
+    right neighbour's first node, which the last rank holds itself."""
+    if lev.periodic[ax] or _on_slab_x(ax, lev.mesh, lev.periodic[ax]):
+        return _pad(p, ax, lev.mesh, lev.periodic[ax], None, None, 0, 1)
+    return p
 
 
 def _node_to_cellgrad(phi, lev: NodalLevel, axis):
@@ -827,8 +886,7 @@ def _node_to_cellgrad(phi, lev: NodalLevel, axis):
     ndim = len(lev.dx)
     p = phi
     for ax in range(ndim):
-        if lev.periodic[ax]:
-            p = _wrap_pad(p, ax, lo=0, hi=1, mesh=lev.mesh)
+        p = _node_hi_pad(p, lev, ax)
     n = p.shape[axis]
     g = (p.narrow(axis, 1, n - 1) - p.narrow(axis, 0, n - 1)) / lev.dx[axis]
     for ax in range(ndim):
@@ -858,9 +916,12 @@ def nodal_divergence(u_pad: Sequence[torch.Tensor], dx) -> torch.Tensor:
 
 
 def _nodes_unique(x_allnodes, lev: NodalLevel):
-    """Drop the duplicated high node on periodic axes."""
+    """Drop the duplicated high node on periodic axes, and along x of a
+    slab the node the right neighbour holds (all but the last rank of a
+    level whose x ends in boundaries)."""
     for ax in range(len(lev.dx)):
-        if lev.periodic[ax]:
+        if lev.periodic[ax] or (_on_slab_x(ax, lev.mesh, False)
+                                and not lev.mesh.ends(False)[1]):
             x_allnodes = x_allnodes.narrow(ax, 0, x_allnodes.shape[ax] - 1)
     return x_allnodes
 
@@ -877,15 +938,16 @@ def _set_slab(x, axis, idx, val):
 
 
 def _apply_dirichlet_mask(nodal, lev: NodalLevel, identity_from=None):
-    """Rows of Dirichlet boundary nodes become identity (phi itself)."""
+    """Rows of Dirichlet boundary nodes become identity (phi itself);
+    along x of a slab on the ranks that hold the level's x faces."""
     for ax in range(len(lev.dx)):
         if lev.periodic[ax]:
             continue
-        if lev.bc_lo[ax] == SolverBC.DIRICHLET:
+        if _side_bc(lev, ax, 0) == SolverBC.DIRICHLET:
             src = (identity_from.narrow(ax, 0, 1)
                    if identity_from is not None else 0.0)
             nodal = _set_slab(nodal, ax, 0, src)
-        if lev.bc_hi[ax] == SolverBC.DIRICHLET:
+        if _side_bc(lev, ax, 1) == SolverBC.DIRICHLET:
             m = identity_from.shape[ax] if identity_from is not None else 0
             src = (identity_from.narrow(ax, m - 1, 1)
                    if identity_from is not None else 0.0)
@@ -909,8 +971,7 @@ def nodal_apply(phi, lev: NodalLevel):
         sig = sig.narrow(ax, 1, lev.cells[ax])
     p = phi
     for ax in range(ndim):
-        if lev.periodic[ax]:
-            p = _wrap_pad(p, ax, lo=0, hi=1, mesh=lev.mesh)
+        p = _node_hi_pad(p, lev, ax)
     vol = 1.0
     for d in lev.dx:
         vol *= d
@@ -955,6 +1016,15 @@ def nodal_apply(phi, lev: NodalLevel):
             if lev.periodic[ax]:
                 bp = _wrap_pad(b, ax, lo=1, hi=0, mesh=lev.mesh)
                 new[key] = a + bp.narrow(ax, 0, m)
+            elif _on_slab_x(ax, lev.mesh, False):
+                # node i takes a(i) + b(i - 1): b of the left neighbour's
+                # last cell, zero beyond the level's faces
+                bp = _pad(b, ax, lev.mesh, False, _zero_rows(ax), None,
+                          1, 0)
+                if lev.mesh.ends(False)[1]:
+                    new[key] = _zero_pad(a, ax, 0, 1) + bp
+                else:
+                    new[key] = a + bp.narrow(ax, 0, m)
             else:
                 ap = _zero_pad(a, ax)
                 bp = _zero_pad(b, ax)
@@ -996,8 +1066,8 @@ def nodal_diag(lev: NodalLevel):
 def _restrict_nodal(r, lev_f: NodalLevel):
     """Full weighting (1/4, 1/2, 1/4)^D onto coincident coarse nodes."""
     for ax in range(len(lev_f.dx)):
-        rp = _wrap_pad(r, ax, mesh=lev_f.mesh) if lev_f.periodic[ax] \
-            else _zero_pad(r, ax)
+        rp = _pad(r, ax, lev_f.mesh, lev_f.periodic[ax], _zero_rows(ax),
+                  _zero_rows(ax))
         n = rp.shape[ax]
         fw = (0.25 * rp.narrow(ax, 0, n - 2) + 0.5 * rp.narrow(ax, 1, n - 2)
               + 0.25 * rp.narrow(ax, 2, n - 2))
@@ -1009,8 +1079,10 @@ def _prolong_nodal(c, lev_f: NodalLevel):
     """Linear nodal prolongation: even fine nodes copy, odd average."""
     for ax in range(len(lev_f.dx)):
         n = c.shape[ax]
-        if lev_f.periodic[ax]:
-            cp = _wrap_pad(c, ax, lo=0, hi=1, mesh=lev_f.mesh)
+        # the node above the last: the wrap, or the right neighbour's
+        # (every rank of a slab takes part in the exchange)
+        cp = _node_hi_pad(c, lev_f, ax)
+        if cp.shape[ax] > n:
             even = cp.narrow(ax, 0, n)
             odd = 0.5 * (cp.narrow(ax, 0, n) + cp.narrow(ax, 1, n))
             c = _interleave(even, odd, ax)
@@ -1024,8 +1096,9 @@ def _prolong_nodal(c, lev_f: NodalLevel):
 class NodalSolver:
     """Geometric multigrid (and, for constant sigma, a direct solve) for
     the nodal sigma-Poisson system.  direct=False as for CellSolver;
-    mesh: sigma is rank mesh.rank's x slab of a level periodic in x, and
-    the solver runs multigrid on the slab, as CellSolver's."""
+    mesh: sigma is rank mesh.rank's x slab of a level, and the solver
+    runs multigrid on the slab, as CellSolver's (the nodes of an x that
+    ends in boundaries: nxl + 1 rows on the last rank)."""
 
     def __init__(self, dx, periodic, bc_lo, bc_hi, sigma, max_levels=30,
                  nu1=2, nu2=2, nu_bottom=24, direct=True, mesh=None):
@@ -1141,10 +1214,11 @@ class NodalSolver:
             return sk.nodal_smooth(x, b, self.sigmas[li], self.dinvs[li],
                                    lev.dx, n, want_residual, bc=bc)
         if li not in self._ext:
-            self._ext[li] = (_SlabCoefs(lev.mesh, [self.dinvs[li]]),
-                             _SlabCoefs(lev.mesh, [self.sigmas[li]]))
+            per = lev.periodic[0]
+            self._ext[li] = (_SlabCoefs(lev.mesh, [self.dinvs[li]], per),
+                             _SlabCoefs(lev.mesh, [self.sigmas[li]], per))
         res = None
-        for k, want in _chunks(n, x.shape[0], want_residual):
+        for k, want in _chunks(n, lev.cells[0], want_residual):
             lo, hi = sk.slab_depth(k, want)
             dinv, = self._ext[li][0].get(lo, hi)
             sigma, = self._ext[li][1].get(lo, max(hi - 1, 0))
@@ -1155,16 +1229,16 @@ class NodalSolver:
     def _vcycle(self, x, b, li=0, want_residual=False):
         if self._whole is not None:
             return _on_whole(self.mesh, self._whole._vcycle, x, b,
-                             want_residual)
+                             want_residual, not self.levels[0].periodic[0])
         lev = self.levels[li]
         if li == len(self.levels) - 1:
             return self._smooth_res(x, b, li, self.nu_bottom, want_residual)
         x, r = self._smooth_res(x, b, li, self.nu1, True)
         rc = _restrict_nodal(_zero_dirichlet(r, lev), lev)
-        rc = _zero_dirichlet(rc, self.levels[li + 1])
         mesh = lev.mesh if li + 1 == self.n_slab else None
         if mesh is not None:          # the coarser levels: whole
-            rc = mesh.all_gather_x(rc)
+            rc = mesh.all_gather_x(rc, extra_last=not lev.periodic[0])
+        rc = _zero_dirichlet(rc, self.levels[li + 1])
         ec, _ = self._vcycle(torch.zeros_like(rc), rc, li + 1)
         if mesh is None:
             x = x + _prolong_nodal(ec, lev)
@@ -1190,10 +1264,12 @@ class NodalSolver:
         lev = self.levels[0]
         mesh = lev.mesh
         if self._whole is not None:
-            xw = None if x0 is None else mesh.all_gather_x(x0)
+            extra = not lev.periodic[0]
+            xw = None if x0 is None else mesh.all_gather_x(x0,
+                                                           extra_last=extra)
             x, res, it = self._whole.solve_info(
-                mesh.all_gather_x(rhs), xw, rtol, atol, maxiter,
-                dirichlet_vals)
+                mesh.all_gather_x(rhs, extra_last=extra), xw, rtol, atol,
+                maxiter, dirichlet_vals)
             return mesh.slab(x), res, it
         if self.singular:
             rhs = rhs - _mean(rhs, mesh)

@@ -49,7 +49,7 @@ incflo_torch/csrc/smoothers.cu and their plain PyTorch versions.
                    bc=None, Fwall=None) -> (x, res)
   nodal_smooth_slab(mesh, x, b, sigma, dinv, dx, nsweeps, want_residual,
                     bc=None) -> (x, res)
-      the same sweeps on rank mesh.rank's x slab of a level periodic in x
+      the same sweeps on rank mesh.rank's x slab of a level
       (parallel/mesh.py): on the slab's rows, each call gives the bits
       the whole-level call gives (launch counters "cell_smooth_slab",
       "nodal_smooth_slab").  One exchange and one launch a call: the
@@ -59,7 +59,15 @@ incflo_torch/csrc/smoothers.cu and their plain PyTorch versions.
       open -- walled with Neumann codes, so a point on its first or last
       plane has no neighbour across, which is the existing walled mode
       and needs no code of its own in csrc/smoothers.cu -- and keeps the
-      middle nxl planes.  An edge plane is wrong from the first colour
+      slab's own planes.  Where the level's x ends in walls (Neumann or
+      Dirichlet, the nodal outflow plane included) the first rank's low
+      side and the last rank's high side are the level's own x faces
+      (SlabMesh.ends): no halo rows there, and the extended slab takes
+      the level's code on that side (slab_bc) -- the kernel's per-side
+      codes already take a wall on one x side and Neumann on the other
+      -- with the level's low wall plane on the first rank; a nodal slab
+      of such a level holds node nx on the last rank (nxl + 1 rows).
+      An edge plane is wrong from the first colour
       pass, and each pass carries the error one plane in: after
       2 nsweeps passes the first 2 nsweeps planes of each side are
       wrong, and the residual one more, so hi = 2 nsweeps (+ 1 with the
@@ -67,7 +75,8 @@ incflo_torch/csrc/smoothers.cu and their plain PyTorch versions.
       even: the kernels colour a point by (i + j + k) % 2 of its index in
       the array they are given, and with the slab's first global x index
       x0 even (the multigrid levels that run here have even nxl) an even
-      lo puts the extended slab's planes on the global parity.  The
+      lo (none at the level's low x face) puts the extended slab's planes
+      on the global parity.  The
       level's coefficients come extended by the same (lo, hi) (multigrid
       exchanges them once per hierarchy and depth): diag and dinv
       (dinv from the whole level's max |diag|, guarded_reciprocal with
@@ -257,10 +266,10 @@ def _cell_apply_plain(x, diag, F, Flo):
 
 def cell_smooth_plain(x, b, diag, dinv, F, nsweeps: int,
                       want_residual: bool = False, bc=None, Fwall=None,
-                      open_x: bool = False):
+                      open_x=(False, False)):
     """Plain version of the `cell_smooth` kernel, walls included; open_x:
-    of its slab form (cell_smooth_ext), x Neumann without a wall
-    plane."""
+    of its slab form (cell_smooth_ext), the x sides (low, high) that are
+    open -- Neumann, and the low one without a wall plane."""
     _check_cell(x, b, diag, dinv, F, nsweeps, bc, Fwall, open_x)
     F, Flo = cell_neighbour_coefs(F, bc, Fwall)
     isred = checkerboard(x.shape, x.device)
@@ -400,10 +409,11 @@ def _check_bc(bc, shape, min_walled, what):
 
 
 def _check_cell(x, b, diag, dinv, F, nsweeps, bc=None, Fwall=None,
-                open_x=False):
+                open_x=(False, False)):
     """Argument checks of cell_smooth; True when an axis has walls.
-    open_x: the x axis of an extended slab, Neumann without a wall
-    plane."""
+    open_x: the open x sides (low, high) of an extended slab; the low
+    wall plane Fwall[0] is asked for exactly where the low side is the
+    level's wall."""
     _check_common(x, nsweeps, (3, 4))
     if len(F) != 3:
         raise ValueError("F must hold one face coefficient per axis")
@@ -412,7 +422,7 @@ def _check_cell(x, b, diag, dinv, F, nsweeps, bc=None, Fwall=None,
         _check_same(name, t, x)
     walled = _check_bc(bc, x.shape, 2, "cells")
     for ax in walled:
-        if ax == 0 and open_x:
+        if ax == 0 and open_x[0]:
             continue
         if Fwall is None or Fwall[ax] is None:
             raise ValueError(f"axis {ax}: walled, but Fwall[{ax}] (its low "
@@ -561,7 +571,7 @@ def _launch_nodal(family, x, b, sigma, dinv, dx, nsweeps, want_residual, bc,
 
 
 # ---------------------------------------------------------------------
-# slab forms: a rank's x slab of a level periodic in x
+# slab forms: a rank's x slab of a level
 # ---------------------------------------------------------------------
 
 def slab_depth(nsweeps: int, want_residual: bool) -> Tuple[int, int]:
@@ -572,39 +582,48 @@ def slab_depth(nsweeps: int, want_residual: bool) -> Tuple[int, int]:
     return h + h % 2, h
 
 
-def open_x(bc):
-    """bc with the x axis open (Neumann on both sides): the extended
-    slab's edge planes, whose rows are thrown away, see no neighbour."""
+def slab_bc(bc, ends=(False, False)):
+    """The codes of an extended slab: y and z the level's; along x the
+    level's code on a side that is the level's own x face (`ends`, the
+    first rank's low side and the last rank's high side of a level whose
+    x ends in walls; SlabMesh.ends), Neumann -- open: the edge planes,
+    whose rows are thrown away, see no neighbour -- on every other
+    side."""
     lo, hi = _bc_codes(bc)
-    if lo[0] != PERIODIC:
-        raise NotImplementedError("the slab smoothers split a level "
-                                  "periodic in x (ROADMAP A14)")
-    return (NEUMANN,) + lo[1:], (NEUMANN,) + hi[1:]
+    if lo[0] == PERIODIC and any(ends):
+        raise ValueError("a periodic x has no x faces of its own")
+    return ((lo[0] if ends[0] else NEUMANN,) + lo[1:],
+            (hi[0] if ends[1] else NEUMANN,) + hi[1:])
 
 
 def cell_smooth_ext(x, b, diag, dinv, F, nsweeps: int,
                     want_residual: bool = False, bc=None, Fwall=None, *,
-                    _regime: int = 0):
+                    ends=(False, False), _regime: int = 0):
     """The slab form's launch: the `cell_smooth` kernel on an extended
-    slab (all arrays nxl + lo + hi planes along x) with x open; bc gives
-    the y and z codes (x periodic), Fwall the y and z wall planes over
-    the extended slab.  Returns every plane; the middle nxl are exact."""
-    bc = open_x(bc)
-    Fwall = (None,) + tuple(Fwall[1:]) if Fwall is not None else None
-    _check_cell(x, b, diag, dinv, F, nsweeps, bc, Fwall, open_x=True)
+    slab (all arrays nxl + lo + hi planes along x) with x open but on the
+    level's own x faces (`ends`, slab_bc); bc gives the level's codes,
+    Fwall the y and z wall planes over the extended slab and, where the
+    low x side is the level's wall, its plane.  Returns every plane; the
+    slab's nxl are exact."""
+    bc = slab_bc(bc, ends)
+    Fwall = (Fwall[0] if ends[0] else None,) + tuple(Fwall[1:]) \
+        if Fwall is not None else None
+    opened = (not ends[0], not ends[1])
+    _check_cell(x, b, diag, dinv, F, nsweeps, bc, Fwall, open_x=opened)
     if x.device.type == "cpu":
         return cell_smooth_plain(x, b, diag, dinv, F, nsweeps, want_residual,
-                                 bc, Fwall, open_x=True)
+                                 bc, Fwall, open_x=opened)
     return _launch_cell("cell_smooth_slab", x, b, diag, dinv, F, nsweeps,
                         want_residual, bc, Fwall, _regime)
 
 
 def nodal_smooth_ext(x, b, sigma, dinv, dx, nsweeps: int,
                      want_residual: bool = False, bc=None, *,
-                     _regime: int = 0):
+                     ends=(False, False), _regime: int = 0):
     """The nodal slab form's launch: `nodal_smooth` on an extended slab
-    of nodes (sigma one cell fewer along x) with x open."""
-    bc = open_x(bc)
+    of nodes (sigma one cell fewer along x) with x open but on the
+    level's own x faces (`ends`, slab_bc)."""
+    bc = slab_bc(bc, ends)
     _check_nodal(x, b, sigma, dinv, dx, nsweeps, bc)
     if x.device.type == "cpu":
         return nodal_smooth_plain(x, b, sigma, dinv, dx, nsweeps,
@@ -613,19 +632,20 @@ def nodal_smooth_ext(x, b, sigma, dinv, dx, nsweeps: int,
                          want_residual, bc, _regime)
 
 
-def _slab_halo(mesh, x, b, nsweeps, want_residual):
-    """(lo, hi) of the call and x, b extended by them; raises where the
-    extended slab would not start on the global colour parity or the
-    neighbours' slabs are too narrow."""
-    lo, hi = slab_depth(nsweeps, want_residual)
-    nxl = x.shape[0]
+def _slab_halo(mesh, x, b, nsweeps, want_residual, nxl, periodic):
+    """(lo, hi) of the call, none across the level's own x faces, and x,
+    b extended by them; raises where the extended slab would not start
+    on the global colour parity or the neighbours' slabs are too
+    narrow.  nxl: the slab's cells along x."""
+    depth = slab_depth(nsweeps, want_residual)
+    lo, hi = mesh.depths(*depth, periodic)
     if (mesh.rank * nxl - lo) % 2:
         raise ValueError(f"slab smoother: a slab of {nxl} rows starts on an "
                          "odd x index; its level runs whole on every rank")
-    if lo > nxl:
-        raise ValueError(f"slab smoother: {nsweeps} sweeps need {lo} halo "
-                         f"rows, the slabs hold {nxl}")
-    xe, be = mesh.halo_x([x, b], lo, hi)
+    if depth[0] > nxl:
+        raise ValueError(f"slab smoother: {nsweeps} sweeps need {depth[0]} "
+                         f"halo rows, the slabs hold {nxl}")
+    xe, be = mesh.halo_x([x, b], *depth, periodic=periodic)
     return lo, hi, xe, be
 
 
@@ -639,29 +659,40 @@ def cell_smooth_slab(mesh, x, b, diag, dinv, F, nsweeps: int,
     """`cell_smooth` on this rank's x slab (x, b: nxl rows): one halo
     exchange of x and b, one launch on the extended slab.  diag, dinv, F
     and the y and z planes of Fwall come extended by slab_depth(nsweeps,
-    want_residual) rows."""
+    want_residual) rows (SlabMesh.depths: none across the level's own x
+    faces); on the first rank of a level whose x ends in walls Fwall[0]
+    is the level's low x wall plane."""
     nxl = x.shape[0]
     if nsweeps == 0 and not want_residual:
         return x, None
-    lo, _, xe, be = _slab_halo(mesh, x, b, nsweeps, want_residual)
+    periodic = _bc_codes(bc)[0][0] == PERIODIC
+    lo, _, xe, be = _slab_halo(mesh, x, b, nsweeps, want_residual, nxl,
+                               periodic)
     out, res = cell_smooth_ext(xe, be, diag, dinv, F, nsweeps, want_residual,
-                               bc, Fwall, _regime=_regime)
+                               bc, Fwall, ends=mesh.ends(periodic),
+                               _regime=_regime)
     return _rows(out, lo, nxl), _rows(res, lo, nxl)
 
 
 def nodal_smooth_slab(mesh, x, b, sigma, dinv, dx, nsweeps: int,
                       want_residual: bool = False, bc=None, *,
                       _regime: int = 0):
-    """`nodal_smooth` on this rank's x slab of nodes (node n of the
-    periodic x axis is node 0: nodes split like cells): dinv comes
-    extended by slab_depth's (lo, hi) rows, sigma by (lo, hi - 1)."""
-    nxl = x.shape[0]
+    """`nodal_smooth` on this rank's x slab of nodes: nxl rows (node n of
+    a periodic x axis is node 0: nodes split like cells), and on the last
+    rank of a level whose x ends in boundaries nxl + 1.  dinv comes
+    extended by slab_depth's (lo, hi) rows, sigma by (lo, hi - 1), both
+    without rows across the level's own x faces."""
+    rows = x.shape[0]
     if nsweeps == 0 and not want_residual:
         return x, None
-    lo, _, xe, be = _slab_halo(mesh, x, b, nsweeps, want_residual)
+    periodic = _bc_codes(bc)[0][0] == PERIODIC
+    ends = mesh.ends(periodic)
+    lo, _, xe, be = _slab_halo(mesh, x, b, nsweeps, want_residual,
+                               rows - int(ends[1]), periodic)
     out, res = nodal_smooth_ext(xe, be, sigma, dinv, dx, nsweeps,
-                                want_residual, bc, _regime=_regime)
-    return _rows(out, lo, nxl), _rows(res, lo, nxl)
+                                want_residual, bc, ends=ends,
+                                _regime=_regime)
+    return _rows(out, lo, rows), _rows(res, lo, rows)
 
 
 def graph_kernels(graph: "torch.cuda.CUDAGraph") -> int:

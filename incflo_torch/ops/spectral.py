@@ -21,7 +21,11 @@ transform's columns of the slab's rows, then a reduce-scatter that sums
 the partial products over the ranks and leaves each rank its own rows
 (shard_symbol, solve).  The y and z contractions and the eigenvalue
 division stay local, and the zero mode of a singular solve lies on rank
-0.  The rfftn form raises under a mesh (ROADMAP A14).
+0 (a non-singular solve never reads it).  Any x basis cuts so: the
+Fourier basis of a periodic x, the eigenvectors of a walled or
+inflow/outflow x (a non-symmetric Dirichlet row's included), whose
+columns a rank takes are its cells' positions and modes.  The rfftn
+form raises under a mesh (ROADMAP A14).
 
 Matrix products run in full float32 or float64: incflo_torch sets
 `torch.backends.cuda.matmul.allow_tf32 = False` and float32 matmul

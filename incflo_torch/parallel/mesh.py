@@ -1,26 +1,36 @@
-"""x-slab decomposition of one periodic level over R ranks: the
-counterpart of incflo_tpu/parallel/mesh.py and of the mesh registry of
+"""x-slab decomposition of one level over R ranks: the counterpart of
+incflo_tpu/parallel/mesh.py and of the mesh registry of
 incflo_tpu/ops/pallas_guard.py.
 
 incflo_tpu lays a level out on a device mesh and lets GSPMD derive the
 communication; only its Godunov kernels exchange halos by hand
 (pallas_godunov.py:502, ppermute).  PyTorch has no GSPMD, so the port
 writes the decomposition out.  Rank r of R holds the x rows
-[r nxl, (r + 1) nxl) of every cell and node field (nxl = nx / R; node n
-of a periodic axis is node 0, so node fields split like cell fields) and
+[r nxl, (r + 1) nxl) of every cell and node field (nxl = nx / R) and
 the faces of its cells: nxl + 1 x faces, its own low faces and the right
-neighbour's first.  What crosses ranks:
+neighbour's first.  Node n of a periodic x is node 0, so node fields
+split like cell fields there; a level whose x ends in walls, inflow or
+outflow has nx + 1 x nodes, and the last rank also holds node nx (the
+owner layout: every node has one owner, so dots, norms and means count
+each node once).
 
-  halo_x            the periodic x ghosts of a slab, of any depth up to
-                    the slab's width: every ghost fill (bcs.grow), the
-                    one-cell pads of the operators (multigrid._wrap_pad),
-                    the 4-cell Godunov halos (godunov_kernels.
-                    predict_sharded / advect_sharded) and the deep halos
-                    of the slab smoothers (smoother_kernels.
-                    cell_smooth_slab / nodal_smooth_slab)
+The level's x is periodic or ends in boundaries on both sides.  Where
+it ends in boundaries, the first rank's low side and the last rank's
+high side are the level's own x faces (SlabGrid.x_edge, SlabMesh.ends):
+no rows cross them, and the caller fills what lies beyond (the physical
+ghost fill, an operator's boundary pad).  What crosses ranks:
+
+  halo_x            the x ghosts of a slab from its neighbours, of any
+                    depth up to the slab's width: every ghost fill
+                    (bcs.grow), the one-cell pads of the operators
+                    (multigrid._cell_pad, ...), the 4-cell Godunov
+                    halos (godunov_kernels.predict_sharded /
+                    advect_sharded) and the deep halos of the slab
+                    smoothers (smoother_kernels.cell_smooth_slab /
+                    nodal_smooth_slab)
   all_reduce_*      the maxima of compute_dt, of the residual norms and of
                     the smoothers' diagonals, the dots of the CGs, the
-                    mean of a singular right-hand side
+                    sum and count of a singular right-hand side's mean
   reduce_scatter_x  the x contraction of the fast-diagonalization solves
                     (spectral.solve)
   all_gather_x      a whole coarse level on every rank, in rank order, so
@@ -28,7 +38,7 @@ neighbour's first.  What crosses ranks:
                     levels too narrow for their smoothers' halos
                     (multigrid.CellSolver, NodalSolver)
   slab / gather     whole fields in and out (tests, diagnostics, a state
-                    carried over from one rank)
+                    carried over from one rank, checkpoints)
 
 The exchanges go through torch.distributed: NCCL where each rank has its
 own GPU, gloo on the CPU.  NCCL refuses two ranks on one device, so ranks
@@ -94,6 +104,15 @@ class SlabGrid(Grid):
     def x0(self) -> int:
         return self.mesh.rank * self.n_cell[0]
 
+    def x_edge(self, side: int) -> bool:
+        """True where the slab's x side `side` (0 low, 1 high) is the
+        level's own x boundary: the first rank's low side and the last
+        rank's high side of a level whose x is not periodic."""
+        return self.mesh.ends(self.periodic[0])[side]
+
+    def edge(self, axis: int, side: int) -> bool:
+        return self.x_edge(side) if axis == 0 else super().edge(axis, side)
+
 
 class SlabMesh:
     """This process's place in an x-slab mesh of the default
@@ -136,6 +155,32 @@ class SlabMesh:
     def right(self) -> int:
         return (self.rank + 1) % self.size
 
+    def ends(self, periodic: bool):
+        """(low, high): which x sides of this rank's slab are the level's
+        own x boundary -- none where x is periodic, else the low side of
+        the first rank and the high side of the last."""
+        if periodic:
+            return False, False
+        return self.rank == 0, self.rank == self.size - 1
+
+    def depths(self, lo: int, hi: int, periodic: bool):
+        """The rows a halo of (lo, hi) takes from the neighbours: none
+        across the level's own x boundary."""
+        low, high = self.ends(periodic)
+        return (0 if low else lo), (0 if high else hi)
+
+    def rows(self, n: int):
+        """(start, count) of this rank's x rows of a whole-level field of
+        n rows: n = R nxl (cells; nodes of a periodic x) splits evenly, and
+        n = R nxl + 1 (the nodes of an x that ends in boundaries) gives the
+        last rank one row more."""
+        nxl, extra = divmod(n, self.size)
+        if extra > 1:
+            raise ValueError(f"{n} rows do not split over {self.size} "
+                             f"ranks")
+        last = self.rank == self.size - 1
+        return self.rank * nxl, nxl + (extra if last else 0)
+
     def describe(self) -> str:
         where = ("ranks share a card: exchanges go through host buffers"
                  if self.via_host else
@@ -149,10 +194,10 @@ class SlabMesh:
     def local_grid(self, grid: Grid) -> SlabGrid:
         """This rank's slab of `grid`; raises where the level does not
         split into equal x slabs at least HALO cells wide."""
-        if grid.ndim != 3 or not grid.periodic[0]:
+        if grid.ndim != 3:
             raise NotImplementedError(
-                "an x-slab mesh splits 3D levels periodic in x; other "
-                "layouts come with ROADMAP A14")
+                "an x-slab mesh splits 3D levels; 2D levels come with "
+                "ROADMAP A14")
         nx = grid.n_cell[0]
         if nx % self.size:
             raise NotImplementedError(
@@ -194,11 +239,17 @@ class SlabMesh:
 
     # ------------------------------------------------------------------
     def halo_x(self, t: Union[torch.Tensor, Sequence[torch.Tensor]],
-               lo: int, hi: Optional[int] = None):
-        """Periodic x halo of a slab (x first): (n, ...) -> (lo + n + hi,
-        ...) holding the left neighbour's last `lo` rows, t, and the
-        right neighbour's first `hi` rows.  A list of tensors goes in one
-        batch of messages and comes back as a list."""
+               lo: int, hi: Optional[int] = None, periodic: bool = True,
+               ends=None):
+        """x halo of a slab (x first): (n, ...) -> (lo + n + hi, ...)
+        holding the left neighbour's last `lo` rows, t, and the right
+        neighbour's first `hi` rows; a periodic x wraps rank 0 to rank
+        R - 1.  periodic False: the level's x ends in boundaries, and no
+        rows cross them (depths): `ends`, a pair of functions of a slab
+        (or None) that give the rows beyond the level's low and high x
+        side, fills them there, else they are left out.  A list of
+        tensors goes in one batch of messages and comes back as a
+        list."""
         hi = lo if hi is None else hi
         single = isinstance(t, torch.Tensor)
         ts = [x.contiguous() for x in ([t] if single else t)]
@@ -206,60 +257,84 @@ class SlabMesh:
             if not (0 <= lo <= x.shape[0] and 0 <= hi <= x.shape[0]):
                 raise ValueError(f"halo_x: a halo of ({lo}, {hi}) rows "
                                  f"does not fit a slab of {x.shape[0]}")
-        nbytes = sum((lo + hi) * x[:1].numel() * x.element_size()
+        dlo, dhi = self.depths(lo, hi, periodic)
+        nbytes = sum((dlo + dhi) * x[:1].numel() * x.element_size()
                      for x in ts)
         with self._tally("halo", nbytes):
             if self.size == 1:
-                out = [torch.cat([x.narrow(0, x.shape[0] - lo, lo), x,
-                                  x.narrow(0, 0, hi)], dim=0) for x in ts]
+                out = [torch.cat([x.narrow(0, x.shape[0] - dlo, dlo), x,
+                                  x.narrow(0, 0, dhi)], dim=0) for x in ts]
             else:
-                out = self._exchange(ts, lo, hi)
+                out = self._exchange(ts, lo, hi, periodic)
+        low, high = self.ends(periodic)
+        if ends is not None and (low or high):
+            out = [torch.cat(([ends[0](x)] if low and ends[0] else [])
+                             + [e] + ([ends[1](x)] if high and ends[1]
+                                      else []), dim=0)
+                   for x, e in zip(ts, out)]
         return out[0] if single else out
 
-    def _exchange(self, ts: List[torch.Tensor], lo: int, hi: int):
+    def _exchange(self, ts: List[torch.Tensor], lo: int, hi: int,
+                  periodic: bool):
+        """The neighbours' rows of a halo of (lo, hi): each rank sends its
+        last lo rows to the right and its first hi rows to the left, and
+        nothing crosses the level's own x boundary."""
         import torch.distributed as dist
-        self._check_peers(ts, lo, hi)
+        rlo, rhi = self.depths(lo, hi, periodic)
+        low, high = self.ends(periodic)
+        slo, shi = (0 if high else lo), (0 if low else hi)
+        self._check_peers(ts, lo, hi, periodic)
         ops, recv = [], []
         for k, x in enumerate(ts):
             n = x.shape[0]
             wire = self._wire(x)
-            from_left = wire.new_empty((lo,) + tuple(x.shape[1:]))
-            from_right = wire.new_empty((hi,) + tuple(x.shape[1:]))
-            if lo:
-                ops.append(dist.P2POp(dist.isend, wire.narrow(0, n - lo, lo),
+            from_left = wire.new_empty((rlo,) + tuple(x.shape[1:]))
+            from_right = wire.new_empty((rhi,) + tuple(x.shape[1:]))
+            if slo:
+                ops.append(dist.P2POp(dist.isend, wire.narrow(0, n - slo, slo),
                                       self.right, tag=2 * k))
+            if rlo:
                 ops.append(dist.P2POp(dist.irecv, from_left, self.left,
                                       tag=2 * k))
-            if hi:
-                ops.append(dist.P2POp(dist.isend, wire.narrow(0, 0, hi),
+            if shi:
+                ops.append(dist.P2POp(dist.isend, wire.narrow(0, 0, shi),
                                       self.left, tag=2 * k + 1))
+            if rhi:
                 ops.append(dist.P2POp(dist.irecv, from_right, self.right,
                                       tag=2 * k + 1))
             recv.append((from_left, from_right))
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
         return [torch.cat([a.to(x.device), x, b.to(x.device)], dim=0)
                 for x, (a, b) in zip(ts, recv)]
 
-    def _check_peers(self, ts, lo, hi):
+    def _check_peers(self, ts, lo, hi, periodic=True):
         """Compare what each neighbour is about to send with what this
         rank expects, once for each set of shapes and dtypes."""
         import torch.distributed as dist
-        sig = repr((lo, hi, [(str(x.dtype), tuple(x.shape[1:]))
-                             for x in ts]))
+        sig = repr((lo, hi, periodic, [(str(x.dtype), tuple(x.shape[1:]))
+                                       for x in ts]))
         if sig in self._checked:
             return
         digest = hashlib.sha256(sig.encode()).digest()
         head = torch.tensor([int.from_bytes(digest[i:i + 7], "little")
                              for i in (0, 7, 14)], dtype=torch.int64)
         head = head.to(self.device if self.backend == "nccl" else "cpu")
-        got = [torch.empty_like(head), torch.empty_like(head)]
-        ops = [dist.P2POp(dist.isend, head, self.right, tag=_HEADER_TAG),
-               dist.P2POp(dist.irecv, got[0], self.left, tag=_HEADER_TAG),
-               dist.P2POp(dist.isend, head, self.left,
-                          tag=_HEADER_TAG + 1),
-               dist.P2POp(dist.irecv, got[1], self.right,
-                          tag=_HEADER_TAG + 1)]
+        low, high = self.ends(periodic)
+        got, ops = [], []
+        if not high:
+            got.append(torch.empty_like(head))
+            ops += [dist.P2POp(dist.isend, head, self.right,
+                               tag=_HEADER_TAG),
+                    dist.P2POp(dist.irecv, got[-1], self.right,
+                               tag=_HEADER_TAG + 1)]
+        if not low:
+            got.append(torch.empty_like(head))
+            ops += [dist.P2POp(dist.irecv, got[-1], self.left,
+                               tag=_HEADER_TAG),
+                    dist.P2POp(dist.isend, head, self.left,
+                               tag=_HEADER_TAG + 1)]
         for w in dist.batch_isend_irecv(ops):
             w.wait()
         if not all(torch.equal(g, head) for g in got):
@@ -305,29 +380,45 @@ class SlabMesh:
 
     # ------------------------------------------------------------------
     def slab(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's x rows of a whole-level cell or node field."""
-        n = full.shape[0]
-        if n % self.size:
-            raise ValueError(f"slab: {n} rows do not split over "
-                             f"{self.size} ranks")
-        nxl = n // self.size
-        return full.narrow(0, self.rank * nxl, nxl)
+        """This rank's x rows of a whole-level cell or node field (rows)."""
+        start, count = self.rows(full.shape[0])
+        return full.narrow(0, start, count)
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """The whole level's field from every rank's slab (a collective:
         every rank calls it and gets the whole field): the tests',
-        diagnostics' and checkpoints' form, tallied as "gather"."""
-        return torch.cat(self._all_gather(t, "gather"), dim=0)
+        diagnostics' and checkpoints' form, tallied as "gather".  The
+        slabs may differ in rows (the last rank's extra node row):
+        their counts are exchanged first."""
+        if self.size == 1:
+            return self._all_gather(t, "gather")[0]
+        import torch.distributed as dist
+        where = self.device if self.backend == "nccl" else "cpu"
+        n = torch.tensor([t.shape[0]], dtype=torch.int64, device=where)
+        counts = [torch.empty_like(n) for _ in range(self.size)]
+        dist.all_gather(counts, n)
+        counts = [int(c) for c in counts]
+        pad = max(counts) - t.shape[0]
+        if pad:
+            t = torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+        parts = self._all_gather(t, "gather")
+        return torch.cat([p.narrow(0, 0, c) for p, c in zip(parts, counts)],
+                         dim=0)
 
-    def all_gather_x(self, t: torch.Tensor, faces: bool = False
-                     ) -> torch.Tensor:
+    def all_gather_x(self, t: torch.Tensor, faces: bool = False,
+                     extra_last: bool = False) -> torch.Tensor:
         """The whole level from every rank's slab, in rank order, on
         every rank (a collective), tallied as "all_gather".  faces: t
         holds the slab's nxl + 1 x faces (its own low faces and the right
         neighbour's first), and the result the level's nx + 1, the last
-        from the last rank."""
+        from the last rank.  extra_last: the last rank holds one row more
+        than the others (the nodes of an x that ends in boundaries); the
+        others send a row of padding, which is dropped."""
+        last = self.rank == self.size - 1
+        if extra_last and not last and self.size > 1:
+            t = torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
         parts = self._all_gather(t, "all_gather")
-        if faces:
+        if faces or extra_last:
             parts = [p.narrow(0, 0, p.shape[0] - 1) for p in parts[:-1]] \
                 + parts[-1:]
         return torch.cat(parts, dim=0)

@@ -13,6 +13,20 @@ def halo(mesh, field, lo, hi):
     return mesh.halo_x(mesh.slab(full), lo, hi).cpu().numpy()
 
 
+def node_rows(mesh, field, lo, hi):
+    """This rank's rows of a whole-level node field of an x that ends in
+    boundaries (nx + 1 rows; SlabMesh.rows), its halo of (lo, hi) rows
+    with nothing across the level's x faces, and the whole field back by
+    gather and by all_gather_x."""
+    full = torch.as_tensor(field).to(mesh.device)
+    mine = mesh.slab(full)
+    return {"slab": mine.cpu().numpy(),
+            "halo": mesh.halo_x(mine, lo, hi, periodic=False).cpu().numpy(),
+            "gather": mesh.gather(mine).cpu().numpy(),
+            "all_gather": mesh.all_gather_x(
+                mine, extra_last=True).cpu().numpy()}
+
+
 def several(mesh, jobs):
     """Several jobs in one spawn: jobs is a list of (name, kwargs) of
     functions of this module, or (key, name, kwargs) to run one function
@@ -137,11 +151,13 @@ def steps(mesh, deck, nsteps, start=None):
 
 
 def _rows(mesh, a, extra=0):
-    """This rank's x rows of a whole-level array (+ `extra` rows of the
-    right neighbour: a slab's nxl + 1 x faces)."""
-    nxl = a.shape[0] // mesh.size if not extra else \
-        (a.shape[0] - extra) // mesh.size
+    """This rank's x rows of a whole-level array (SlabMesh.rows: the last
+    rank's extra node row of an x that ends in boundaries) or, with
+    extra, nxl + extra rows (a slab's nxl + 1 x faces)."""
     t = torch.as_tensor(a).to(mesh.device)
+    if not extra:
+        return mesh.slab(t).contiguous()
+    nxl = (a.shape[0] - extra) // mesh.size
     return t.narrow(0, mesh.rank * nxl, nxl + extra).contiguous()
 
 
@@ -150,31 +166,37 @@ def slab_smoothers(mesh, cases):
     cases: dicts with "kind" ("cell" or "nodal"), the level's x and b,
     its smoother coefficients (cell: diag, dinv, F, Fwall with None for
     a periodic axis; nodal: sigma at the cells, dinv, dx), bc, and the
-    (nsweeps, want_residual) calls.  Returns, per case and call, this
-    rank's rows of x and of the residual (None without it)."""
+    (nsweeps, want_residual) calls.  Where x ends in walls the first
+    rank passes the level's low x wall plane Fwall[0].  Returns, per case
+    and call, this rank's rows of x and of the residual (None without
+    it)."""
     from incflo_torch.ops import multigrid as mg
     from incflo_torch.ops import smoother_kernels as sk
     out = []
     for c in cases:
         x, b = _rows(mesh, c["x"]), _rows(mesh, c["b"])
+        periodic = int(c["bc"][0][0]) == sk.PERIODIC
         got = []
         if c["kind"] == "cell":
-            planes = [_rows(mesh, w) for w in c["Fwall"] if w is not None]
+            planes = [_rows(mesh, w) for w in c["Fwall"][1:] if w is not None]
             coefs = mg._SlabCoefs(mesh, [_rows(mesh, c["diag"]),
                                          _rows(mesh, c["dinv"])]
                                   + [_rows(mesh, f) for f in c["F"]]
-                                  + planes)
+                                  + planes, periodic)
+            xwall = None
+            if mesh.ends(periodic)[0]:
+                xwall = torch.as_tensor(c["Fwall"][0]).to(mesh.device)
             for n, want in c["calls"]:
                 ext = coefs.get(*sk.slab_depth(n, want))
                 it = iter(ext[5:])
-                fw = tuple(None if w is None else next(it)
-                           for w in c["Fwall"])
+                fw = (xwall,) + tuple(None if w is None else next(it)
+                                      for w in c["Fwall"][1:])
                 got.append(sk.cell_smooth_slab(mesh, x, b, ext[0], ext[1],
                                                ext[2:5], n, want, c["bc"],
                                                fw))
         else:
-            dinv = mg._SlabCoefs(mesh, [_rows(mesh, c["dinv"])])
-            sigma = mg._SlabCoefs(mesh, [_rows(mesh, c["sigma"])])
+            dinv = mg._SlabCoefs(mesh, [_rows(mesh, c["dinv"])], periodic)
+            sigma = mg._SlabCoefs(mesh, [_rows(mesh, c["sigma"])], periodic)
             for n, want in c["calls"]:
                 lo, hi = sk.slab_depth(n, want)
                 got.append(sk.nodal_smooth_slab(
@@ -183,6 +205,19 @@ def slab_smoothers(mesh, cases):
         out.append([(a.cpu().numpy(), None if r is None else r.cpu().numpy())
                     for a, r in got])
     return out
+
+
+def ghost_fill(mesh, deck, vel, rho, tra, ng):
+    """The ghost fills of a deck's Simulation on this rank's slab of
+    whole-level fields (velocity, density and tracer grown by ng, the
+    inflow profiles and values included)."""
+    from incflo_torch import IncfloConfig, Simulation
+    sim = Simulation(IncfloConfig.from_text(deck), device=mesh.device,
+                     mesh=mesh)
+    out = {"velocity": sim.grow_vel(_rows(mesh, vel), ng),
+           "density": sim.grow_rho(_rows(mesh, rho), ng),
+           "tracer": sim.grow_tra(_rows(mesh, tra), ng)}
+    return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def walled_godunov_chain(sim, vel, forces, q, dt):

@@ -35,23 +35,27 @@ csrc/step2d.cu) when the deck qualifies (step2d_kernels.supported) and
 its fixed-trip tensor CG converges at the first dt; `_advance_impl` is
 the plain step.
 
-Sharded: given a mesh (parallel/mesh.py), a 3D one-level Godunov deck
-periodic in x -- its y and z sides periodic, slip or no-slip walls, mass
-inflow or pressure outflow; constant or variable density, tracers,
-Newtonian or non-Newtonian fluids, gravity or Boussinesq buoyancy,
-explicit, Crank-Nicolson or implicit diffusion -- runs split along x
-over the mesh's ranks.  Each rank's Simulation holds its x slab of every
-field (self.grid is a parallel.mesh.SlabGrid) and advance / advance_n do
-what they do on one device: the ghost fills and operator pads exchange x
-halos (the x halo first, then the y and z fills, as on one device), a
-fully periodic deck's Godunov chain runs the halo-slab kernels
-(godunov_kernels.predict_sharded / advect_sharded) and a walled one the
-plain walled chain on the slab's ghost-filled windows, the direct solves
-reduce-scatter their x contraction, the iterative ones run multigrid on
-the slab (ops/multigrid.py: the slab smoother kernels, the coarse levels
-whole on every rank), and compute_dt, the norms and the CG dots reduce
-over the ranks.  Decks outside that scope raise under a mesh and name
-ROADMAP A14 (_unsupported_sharded).
+Sharded: given a mesh (parallel/mesh.py), a 3D one-level deck -- Godunov
+or MOL; each side of each axis periodic, a slip or no-slip wall, mass
+inflow, pressure inflow or pressure outflow; constant or variable
+density, tracers, Newtonian or non-Newtonian fluids, gravity or
+Boussinesq buoyancy, explicit, Crank-Nicolson or implicit diffusion --
+runs split along x over the mesh's ranks.  Each rank's Simulation holds
+its x slab of every field (self.grid is a parallel.mesh.SlabGrid; where
+x ends in boundaries the last rank also holds node nx of p) and advance
+/ advance_n do what they do on one device: the ghost fills and operator
+pads exchange x halos (the x halo first, then the y and z fills, as on
+one device) and take the level's boundary forms at its own x faces on
+the end ranks (SlabGrid.x_edge), a fully periodic Godunov deck's chain
+runs the halo-slab kernels (godunov_kernels.predict_sharded /
+advect_sharded) and any other the plain walled chain or MOL on the
+slab's ghost-filled windows, the direct solves reduce-scatter their x
+contraction, the iterative ones run multigrid on the slab
+(ops/multigrid.py: the slab smoother kernels, with the level's x walls
+on the end ranks, the coarse levels whole on every rank), and
+compute_dt, the norms and the CG dots reduce over the ranks.  Decks
+outside that scope raise under a mesh and name ROADMAP A14
+(_unsupported_sharded).
 
 Scope of this port: 2D or 3D, with or without embedded boundaries:
 Godunov or MOL advection, each axis periodic or ending in a slip or
@@ -109,23 +113,16 @@ def _unsupported(cfg: IncfloConfig):
 
 def _unsupported_sharded(cfg: IncfloConfig):
     """What keeps a deck the port runs from running split over a mesh,
-    or None (ROADMAP A14).  The mesh splits x, so x stays periodic;
-    uneven and narrow slabs and the rfftn direct solve raise where the
-    mesh and the solvers meet them (parallel/mesh.py, spectral.py)."""
+    or None (ROADMAP A14).  Uneven and narrow slabs and the rfftn direct
+    solve raise where the mesh and the solvers meet them
+    (parallel/mesh.py, spectral.py)."""
     g = cfg.grid
-    x_kinds = set() if g.ndim != 3 or g.periodic[0] else {
-        BCKind(int(k)) for k in cfg.bc_kind[0]}
-    x_flow = {BCKind.mass_inflow, BCKind.pressure_inflow,
-              BCKind.pressure_outflow}
     checks = [
         (cfg.max_level > 0, "AMR"),
         (g.ndim != 3, "2D decks (the fused 2D step, MOL)"),
         (has_eb(cfg), "embedded boundaries"),
         (cfg.godunov_use_forces_in_trans, "godunov_use_forces_in_trans"),
         (cfg.use_mac_phi_in_godunov, "use_mac_phi_in_godunov"),
-        (bool(x_kinds & x_flow), "inflow or outflow on x"),
-        (bool(x_kinds), "walls on x"),
-        (not cfg.use_godunov, "MOL advection"),
     ]
     for bad, what in checks:
         if bad:
@@ -166,8 +163,8 @@ class Simulation:
             if why is not None:
                 raise NotImplementedError(
                     f"incflo_torch does not run {why} split over a mesh yet "
-                    f"(ROADMAP A14); a mesh runs 3D one-level Godunov "
-                    f"decks periodic in x")
+                    f"(ROADMAP A14); a mesh runs 3D one-level decks "
+                    f"without embedded boundaries")
         if device is None and mesh is not None and torch.cuda.is_available():
             device = f"cuda:{mesh.rank % torch.cuda.device_count()}"
         device = torch.device("cuda" if device is None else device)
@@ -761,12 +758,15 @@ class Simulation:
         beyond every other side; then the ghost band of a mass-inflow
         side takes, in the face-normal component, the inflow profile
         times inflow_scale (zero in incremental mode; the reference's
-        set_inflow_velocity before the NodalProjector)."""
+        set_inflow_velocity before the NodalProjector); on a slab the
+        x bands at the level's own x faces only."""
         grid = self.grid
         nd = grid.ndim
         first = 0
         if self.mesh is not None:
-            vel = self.mesh.halo_x(vel, 1)
+            zero = lambda t: torch.zeros_like(t.narrow(0, 0, 1))
+            vel = self.mesh.halo_x(vel, 1, periodic=grid.periodic[0],
+                                   ends=(zero, zero))
             first = 1
         upads = []
         for c in range(nd):
@@ -780,7 +780,7 @@ class Simulation:
                 continue
             for side in range(2):
                 if BCKind(int(self.cfg.bc_kind[ax, side])) \
-                        != BCKind.mass_inflow:
+                        != BCKind.mass_inflow or not grid.edge(ax, side):
                     continue
                 # on a slab the band spans the x halo too: those columns
                 # are the level's interior but for the level's own x
@@ -798,7 +798,7 @@ class Simulation:
                         band = band.narrow(a, k, u.shape[a] - 2 * k)
                 band.copy_(torch.broadcast_to(val, band.shape)
                            * inflow_scale)
-                if first:
+                if first and ax != 0:
                     mesh = self.mesh
                     if mesh.rank == 0:
                         band.narrow(0, 0, 1).zero_()

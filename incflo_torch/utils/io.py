@@ -83,15 +83,16 @@ def write_checkpoint(path: str, s: SimState, cfg: IncfloConfig, mesh=None):
         return
 
     # the manifest format of incflo_tpu/utils/io.py:88-109: each field's
-    # global shape and its blocks; a rank's block is its x rows (node
-    # fields split like cell fields: the level is periodic in x)
+    # global shape and its blocks; a rank's block is its x rows
+    # (SlabMesh.rows: where x ends in boundaries the last rank's block of
+    # p holds node nx too)
     fname = f"Level_0.shard{rank}.npz"
     manifest = {"format": 1, "process": rank, "fields": {}}
     for name, data in fields.items():
-        nxl = data.shape[0]
-        start = [rank * nxl] + [0] * (data.ndim - 1)
+        rows = grid.node_shape[0] if name == "p" else grid.n_cell[0]
+        start = [mesh.rows(rows)[0]] + [0] * (data.ndim - 1)
         manifest["fields"][name] = {
-            "shape": [nxl * mesh.size] + list(data.shape[1:]),
+            "shape": [rows] + list(data.shape[1:]),
             "entries": [{"file": fname, "start": start,
                          "shape": list(data.shape)}]}
     np.savez(os.path.join(path, fname), **fields)
@@ -175,8 +176,8 @@ def read_checkpoint(path: str, cfg: IncfloConfig, dtype, device=None,
     def region(gshape):
         if mesh is None:
             return None
-        nxl = gshape[0] // mesh.size
-        return ((slice(mesh.rank * nxl, (mesh.rank + 1) * nxl),)
+        start, count = mesh.rows(gshape[0])
+        return ((slice(start, start + count),)
                 + tuple(slice(0, n) for n in gshape[1:]))
 
     if os.path.exists(os.path.join(path, "Shards.json")):

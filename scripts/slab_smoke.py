@@ -1,9 +1,14 @@
 """chip_smoke.py's slab phases alone, on the card: the slab smoother
-kernels at every level of rt's hierarchies in 2 slabs ("slab"), then rt
+kernels at every level of rt's hierarchies in 2 slabs ("slab"), rt
 (64x64x128) and shear3d_vd (128x128x32) split over 2 ranks against 1
-rank ("sharded_mg").  Builds the kernel libraries first.
+rank ("sharded_mg"), and the x-slab meshes whose x ends in walls, inflow
+or outflow: the slab forms with the level's x walls on the end ranks at
+every level of the channel's hierarchies, the channel (128x64x16) and
+bingham (64x64x16) decks on 2 ranks ("sharded_xwalls").  Builds the
+kernel libraries first.
 
-    python scripts/slab_smoke.py            # on a machine with a card
+    python scripts/slab_smoke.py                   # every slab phase
+    python scripts/slab_smoke.py sharded_xwalls    # that phase alone
 """
 
 import json
@@ -16,11 +21,17 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
+PHASES = ("slab", "sharded_mg", "sharded_xwalls")
 
-def main():
+
+def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("slab_smoke: needs a card", file=sys.stderr)
+        return 2
+    phases = argv or PHASES
+    if any(p not in PHASES for p in phases):
+        print(f"slab_smoke: phases are {', '.join(PHASES)}", file=sys.stderr)
         return 2
     import incflo_torch
     from incflo_torch.ops import cuda_build
@@ -30,14 +41,18 @@ def main():
     from incflo_torch.ops import step2d_kernels as s2
     t0 = time.time()
     cs.phase_build(cuda_build, [gk.SOURCE, sk.SOURCE, s2.SOURCE])
-    slab = cs.phase_slab_smoothers(sk, mg, torch)
-    print(f"[time] slab done at {time.time() - t0:.1f} s", flush=True)
-    shard_mg = cs.phase_sharded_mg(incflo_torch, torch)
-    print(f"[time] sharded_mg done at {time.time() - t0:.1f} s", flush=True)
-    print(json.dumps({"slab": slab, "sharded_mg": shard_mg}))
+    run = {"slab": lambda: cs.phase_slab_smoothers(sk, mg, torch),
+           "sharded_mg": lambda: cs.phase_sharded_mg(incflo_torch, torch),
+           "sharded_xwalls": lambda: cs.phase_sharded_xwalls(
+               incflo_torch, sk, mg, torch)}
+    out = {}
+    for p in phases:
+        out[p] = run[p]()
+        print(f"[time] {p} done at {time.time() - t0:.1f} s", flush=True)
+    print(json.dumps(out))
     print(cs.card_line())
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
