@@ -3214,13 +3214,25 @@ def slab_call(sk, cell, coefs, kw, x, b, x0, rows, n, want,
         xwall = kw["Fwall"][0] if ends[0] else None
         fw = (xwall,) + tuple(None if w is None else e(w)
                               for w in kw["Fwall"][1:])
+        # a periodic x whose face 0 differs from face n (the EB wall
+        # term's levels): the x wrap plane at the level's cell 0 inside
+        # the extended slab, as cell_smooth_slab places it
+        xwrap = None
+        if periodic and kw["Fwall"][0] is not None:
+            nx = x.shape[0]
+            at = tuple(i for i in (g - x0 + lo for g in (0, nx))
+                       if 0 < i < rows + lo + hi - 1)
+            xwrap = (kw["Fwall"][0], at) if at else None
         args = (e(x), e(b), e(diag), e(dinv), [e(f) for f in F], n, want)
         inputs = list(args[:4]) + args[4] + [w for w in fw if w is not None]
+        if xwrap is not None:
+            inputs.append(xwrap[0])
         return (lambda: sk.cell_smooth_ext(*args, bc=kw["bc"], Fwall=fw,
-                                           ends=ends),
+                                           ends=ends, xwrap=xwrap),
                 lambda: sk.cell_smooth_plain(
                     *args, bc=bc, Fwall=fw,
-                    open_x=(not ends[0], not ends[1])), inputs)
+                    open_x=(not ends[0], not ends[1]), xwrap=xwrap),
+                inputs)
     sigma, dinv, dx = coefs
     args = (e(x), e(b), ext_rows(sigma, x0 - lo, x0 + rows + hi - 1,
                                  periodic), e(dinv), dx, n, want)
@@ -3337,14 +3349,22 @@ def phase_slab_smoothers(sk, mg, torch):
                       "slab", 37)
 
 
-def one_rank_run(incflo_torch, torch, deck, nsteps):
-    """The port on one rank on the card from init_state: the states after
-    init and each step (numpy) and each step's tallies (ITER_KINDS)."""
+def one_rank_run(incflo_torch, torch, deck, nsteps, perturb=None, sim=None):
+    """The port on one rank on the card from init_state (perturb: a
+    whole-level numpy array added to its velocity, in the state's dtype;
+    sim: the deck's Simulation, built already): the states after init and
+    each step (numpy) and each step's tallies (ITER_KINDS)."""
     from incflo_torch import state
     from incflo_torch.ops import multigrid as mg
-    sim = incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(deck))
+    if sim is None:
+        sim = incflo_torch.Simulation(
+            incflo_torch.IncfloConfig.from_text(deck))
     mg.reset_counts()
     s = sim.init_state()
+    if perturb is not None:
+        v = s.level.velocity
+        s = s._replace(level=s.level._replace(velocity=v + torch.as_tensor(
+            perturb).to(device=v.device, dtype=v.dtype)))
     states = [state.sim_to_numpy(s)]
     tallies = [{k: mg.COUNTS[k] for k in ITER_KINDS}]
     for _ in range(nsteps):
@@ -3373,8 +3393,9 @@ def phase_sharded_mg(incflo_torch, torch):
     return sharded_cells(incflo_torch, torch, SHARD_MG_DECKS, "sharded_mg")
 
 
-def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=2,
-                  warm=2, steps=3, instrumented=1):
+def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
+                  warm=1, steps=2, instrumented=1, perturbs=None,
+                  families=SLAB_FAMILIES, sims32=None):
     """Each deck of `decks` (cell -> deck of a dtype) split over 2 ranks
     that share the card: float64 init + steps64 steps held to the 1-rank
     port to TOL_SHARD_F64 (relative to each field's max, or to
@@ -3383,23 +3404,36 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=2,
     float32 warm + steps timed steps (the launch counts zeroed just
     before them) held against a 1-rank float64 run beside the 1-rank
     float32 run (PR 6's witness bound), then `instrumented` steps that
-    time each exchange.  Every rank must launch both slab smoother
-    kernels in the timed steps.  The 1-rank runs first; then one spawn
-    of the ranks runs every cell's float64 steps (workers.several), and
-    each cell's timed float32 steps run in a fresh spawn of their own, as
-    PR 13 timed them."""
+    time each exchange.  perturbs: cell -> a function of the deck's
+    1-rank Simulation giving a whole-level array that every run of the
+    cell adds to its initial velocity; sims32: cell -> the deck's 1-rank
+    float32 Simulation, built already.  Every rank must launch
+    each slab smoother kernel of `families` in the timed steps.  The
+    1-rank runs first; then one spawn of the ranks runs every cell's
+    float64 steps (workers.several), and each cell's timed float32 steps
+    run in a fresh spawn of their own, as PR 13 timed them.  Printed and
+    returned beside the times: each rank's setup seconds (its Simulation
+    and init) and the 27-point EB nodal smoother's slab calls a step."""
     from incflo_torch.parallel import launch
     ulp = 1.1920928955078125e-07
     t0 = time.time()
-    refs, jobs = {}, []
+    refs, jobs, pert = {}, [], {}
     for cell, deck_of in decks.items():
         deck64 = deck_of("float64")
+        sim32 = (sims32 or {}).get(cell)
+        if sim32 is None:
+            sim32 = incflo_torch.Simulation(
+                incflo_torch.IncfloConfig.from_text(deck_of("float32")))
+        make = (perturbs or {}).get(cell)
+        pert[cell] = None if make is None else make(sim32)
         ref64, tal64 = one_rank_run(incflo_torch, torch, deck64,
-                                    warm + steps)
-        ref32, _ = one_rank_run(incflo_torch, torch, deck_of("float32"),
-                                warm + steps)
+                                    warm + steps, pert[cell])
+        ref32, _ = one_rank_run(incflo_torch, torch, None, warm + steps,
+                                pert[cell], sim32)
+        del sim32
         refs[cell] = (ref64, tal64, ref32)
-        jobs.append((cell, "steps", dict(deck=deck64, nsteps=steps64)))
+        jobs.append((cell, "steps", dict(deck=deck64, nsteps=steps64,
+                                         perturb=pert[cell])))
     t1 = time.time()
     ranks64 = launch.run("incflo_torch.parallel.workers:several",
                          SHARD_RANKS, dict(jobs=jobs), device="cuda",
@@ -3412,7 +3446,8 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=2,
         r32 = launch.run("incflo_torch.parallel.workers:timed_steps",
                          SHARD_RANKS, dict(deck=deck_of("float32"), warm=warm,
                                            nsteps=steps,
-                                           instrumented=instrumented),
+                                           instrumented=instrumented,
+                                           perturb=pert[cell]),
                          device="cuda", timeout=900)
         t2 = time.time()
         worst64 = dict.fromkeys(SHARD_MG_FIELDS, 0.0)
@@ -3440,11 +3475,13 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=2,
         per_step = []
         for rank, r in enumerate(r32):
             got = {k: v / steps for k, v in r["smoother_launches"].items()}
-            if not all(got[k] > 0 for k in SLAB_FAMILIES):
+            if not all(got[k] > 0 for k in families):
                 raise AssertionError(f"{cell} rank {rank}: slab smoother "
                                      f"launches {r['smoother_launches']} in "
                                      f"{steps} steps")
             per_step.append(got)
+        stencil = [r["stencil_slab_calls"] / steps for r in r32]
+        setup = [r["setup_s"] for r in r32]
         ms = max(r["ms_per_step"] for r in r32)
         inst = max(r["instrumented_ms_per_step"] for r in r32)
         comm = {k: {q: max(r["comm"][k][q] for r in r32)
@@ -3464,6 +3501,9 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=2,
               + "; smoother launches a step per rank "
               + "; ".join(str({k: v for k, v in p.items() if v})
                           for p in per_step)
+              + (f"; 27-point EB nodal slab sweeps a step per rank "
+                 f"{stencil}" if any(stencil) else "")
+              + f"; setup s per rank {[round(v, 2) for v in setup]}"
               + f"; instrumented {inst:.3f} ms/step, exchanges per step "
               + ", ".join(f"{k} {v['calls_per_step']:.0f} calls "
                           f"{v['bytes_per_step'] / 1e6:.3f} MB "
@@ -3477,6 +3517,8 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=2,
                      "smoother_launches_per_step": per_step,
                      "launches_per_rank": [r["smoother_launches"]
                                            for r in r32],
+                     "stencil_slab_calls_per_step": stencil,
+                     "setup_s": setup,
                      "counts": [r["counts"] for r in r32],
                      "f64_max_rel_err": worst64, "f64_tol": TOL_SHARD_F64,
                      "tallies": tal64[:steps64 + 1],
@@ -3538,6 +3580,64 @@ def phase_sharded_xwalls(incflo_torch, sk, mg, torch):
                        "sharded_xwalls", 43)
     cells = sharded_cells(incflo_torch, torch, SHARD_XWALL_DECKS,
                           "sharded_xwalls", SHARD_XWALL_FLOORS)
+    return {"slab_forms": forms, "cells": cells}
+
+
+# the 2-rank EB cells: bench's channel_cyl at its bench width (128x64x16,
+# x slabs of 64; its cylinder lies wholly on rank 0) and
+# poiseuille_cyl_bingham at 64x64x16 (slabs of 32; its section 4 cell is
+# 128x128x32), from rest plus a seeded perturbation zero in covered cells
+SHARD_EB_DECKS = {"channel_cyl": lambda dt: channel_cyl_deck(128, dt),
+                  "poiseuille_cyl_bingham": lambda dt: bingham_cyl_deck(64,
+                                                                        dt)}
+
+
+def eb_perturbation(sim):
+    """probs.smooth_perturbation of the whole level, zero in covered
+    cells (numpy)."""
+    from incflo_torch.probs import smooth_perturbation
+    fluid = sim.eb.fluid.cpu().numpy()
+    return smooth_perturbation(sim.cfg.grid, 11) * fluid[..., None]
+
+
+def eb_operators_f32(mg, torch, sim):
+    """The MAC solver and the cut-cell velocity solver (the EB wall term
+    in diag; the one the next step builds) of a deck's 1-rank float32
+    Simulation on the card (the Bingham deck's from its perturbed
+    start)."""
+    s = sim.init_state()
+    if sim.cfg.grid.periodic[0]:
+        s = s._replace(level=s.level._replace(
+            velocity=s.level.velocity + torch.as_tensor(
+                eb_perturbation(sim), dtype=torch.float32,
+                device=s.level.velocity.device)))
+    return sim._mac_solver, step_velocity_solver(mg, sim, s, torch)
+
+
+def phase_sharded_eb(incflo_torch, sk, mg, torch):
+    """Embedded boundaries on the x-slab mesh: cell_smooth_slab at every
+    level of channel_cyl's (128x64x16) and poiseuille_cyl_bingham's
+    (64x64x16) MAC and cut-cell velocity hierarchies (slab_forms; the
+    Bingham velocity levels with the x wrap plane of the EB wall term),
+    then both decks on 2 ranks sharing the card (sharded_cells, the f32
+    steps timed from init without a warm-up step to hold the phase near
+    200 s; the 1-rank float32 Simulations built once for both parts):
+    their constant-density nodal projection is the plain 27-point EB
+    solver, so they launch cell_smooth_slab alone, and the 27-point slab
+    sweeps are counted apart."""
+    solvers, sims = [], {}
+    for cell, deck_of in SHARD_EB_DECKS.items():
+        sims[cell] = incflo_torch.Simulation(
+            incflo_torch.IncfloConfig.from_text(deck_of("float32")))
+        solvers += [("cell_smooth_slab", op)
+                    for op in eb_operators_f32(mg, torch, sims[cell])]
+    forms = slab_forms(sk, mg, torch, solvers, "sharded_eb", 47)
+    del solvers
+    cells = sharded_cells(incflo_torch, torch, SHARD_EB_DECKS, "sharded_eb",
+                          perturbs={"poiseuille_cyl_bingham":
+                                    eb_perturbation},
+                          families=("cell_smooth_slab",), warm=0,
+                          sims32=sims)
     return {"slab_forms": forms, "cells": cells}
 
 
@@ -3820,25 +3920,24 @@ def amr_state_errs(a, b):
 
 def phase_paths_amr(incflo_torch, mg, torch, name):
     """An AMR deck on cuda (kernels) and on cpu (plain versions), f64:
-    each from its own init_state, 2 steps and one regrid; the trees
-    (axis, bounds, parents) identical, every entry's fields and dt to
-    1e-9 relative after init, each step and the regrid, the solvers'
-    iterations equal."""
+    each from its own init_state, 1 step (2 before the EB phase joined
+    the run) and one regrid; the trees (axis, bounds, parents)
+    identical, every entry's fields and dt to 1e-9 relative after init,
+    the step and the regrid, the solvers' iterations equal."""
     from incflo_torch.amr_patch import SlabAMRSimulation
     cfg = incflo_torch.IncfloConfig.from_text(AMR_PATHS[name])
     runs = {}
     for dev in ("cpu", "cuda"):
         amr = SlabAMRSimulation(cfg, device=dev)
         s = amr.init_state()
-        states, trees, iters = [s], [amr.tree_meta()], []
-        for _ in range(2):
-            before = dict(mg.COUNTS)
-            s = amr.advance(s)
-            if dev == "cuda":
-                torch.cuda.synchronize()
-            iters.append({k: mg.COUNTS[k] - before[k] for k in ITER_KINDS})
-            states.append(s)
-            trees.append(amr.tree_meta())
+        states, trees = [s], [amr.tree_meta()]
+        before = dict(mg.COUNTS)
+        s = amr.advance(s)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        iters = [{k: mg.COUNTS[k] - before[k] for k in ITER_KINDS}]
+        states.append(s)
+        trees.append(amr.tree_meta())
         states.append(amr.regrid(s))
         trees.append(amr.tree_meta())
         runs[dev] = (states, trees, iters)
@@ -3848,7 +3947,7 @@ def phase_paths_amr(incflo_torch, mg, torch, name):
     if ic != ig:
         raise AssertionError(f"amr {name}: iterations differ {ic} vs {ig}")
     worst = max(amr_state_errs(a, b) for a, b in zip(sg, sc))
-    print(f"[paths] amr {name}: cuda vs cpu f64, init + 2 steps + regrid, "
+    print(f"[paths] amr {name}: cuda vs cpu f64, init + 1 step + regrid, "
           f"{len(tg[-1]['bounds'])} entries, bounds {tg[-1]['bounds'][1:]},"
           f" worst relative {worst:.3e} (tol 1e-9); iterations {ig}",
           flush=True)
@@ -4356,6 +4455,8 @@ def main(argv):
     stamp("sharded multigrid")
     xwalls = phase_sharded_xwalls(incflo_torch, sk, mg, torch)
     stamp("sharded x walls")
+    ebslab = phase_sharded_eb(incflo_torch, sk, mg, torch)
+    stamp("sharded embedded boundaries")
 
     # `launches` is the count over the kernel's own main path: shear3d
     # n = 128 for the Godunov kernels (their count in shear3d_vd beside
@@ -4489,6 +4590,8 @@ def main(argv):
     for k in SLAB_FAMILIES:
         r = slab[k]
         fine = r["levels"][0]
+        extra_forms = [f for f in (slab, xwalls["slab_forms"],
+                                   ebslab["slab_forms"]) if k in f]
         kernels.append({
             "name": k, "route": "cuda",
             "source": "incflo_torch/csrc/smoothers.cu",
@@ -4508,15 +4611,20 @@ def main(argv):
                 cell: [p[k] for p in x["smoother_launches_per_step"]]
                 for cell, x in xwalls["cells"].items()},
             "xwalls_forms": xwalls["slab_forms"][k],
+            "launches_eb": {
+                cell: [c[k] for c in x["launches_per_rank"]]
+                for cell, x in ebslab["cells"].items()},
+            "launches_per_step_eb": {
+                cell: [p[k] for p in x["smoother_launches_per_step"]]
+                for cell, x in ebslab["cells"].items()},
+            "eb_forms": ebslab["slab_forms"].get(k),
             "launches_per_step_a9c": a9c_per_step(k),
             "device_launches_per_call": max(
-                v["device_launches"] for v in r["levels"]
-                + xwalls["slab_forms"][k]["levels"]),
-            "max_abs_err": max(r["max_abs_err"],
-                               xwalls["slab_forms"][k]["max_abs_err"]),
+                v["device_launches"] for f in extra_forms for v in f[k][
+                    "levels"]),
+            "max_abs_err": max(f[k]["max_abs_err"] for f in extra_forms),
             "tol_f32": 0.0,
-            "outputs_checked": r["checked"]
-            + xwalls["slab_forms"][k]["checked"],
+            "outputs_checked": sum(f[k]["checked"] for f in extra_forms),
             "shape": f"rt {fine['shape']} in 2 slabs (nxl {fine['nxl']}), "
                      f"{fine['call']}, float32",
             "ms": fine["ms"], "plain_ms": fine["plain_ms"],
@@ -4573,6 +4681,7 @@ def main(argv):
                       + list(main_a8.values()),
                       "sharded": shard, "sharded_mg": shard_mg,
                       "sharded_xwalls": xwalls["cells"],
+                      "sharded_eb": ebslab["cells"],
                       "cli": cli,
                       "amr": {"main": list(amr_main.values()),
                               "levels": amr_levels, "cli": amr_cli},

@@ -84,6 +84,12 @@
 // operator reads each), so the kernel applies the operator the flux form
 // of incflo_tpu's sweep applies.
 //
+// On a rank's extended x slab of such a level (the slab forms: x open,
+// Neumann codes) the level's cell 0 lies inside the array: at plane lo on
+// the first rank, at plane lo + nxl (the right halo) on the last.  The x
+// wrap plane XW then gives the coefficient of x(i-1) in the rows of those
+// planes (xw_at, -1 for none), where F_0 of the plane before holds face n.
+//
 // Nodal operator (Q1 finite elements, sigma at cells, phi at nodes; node
 // i is the low corner of cell i):
 //     L(phi) = sum_p A_p^T (C_p sigma . (A_p phi))
@@ -173,6 +179,8 @@ struct CellArgs {
   const T* F[3];
   const T* W[3];  // low face plane: of a walled axis; of a periodic axis
                   // whose face 0 differs from face n; else null
+  const T* XW;    // x wrap plane at interior x planes xw_at, or null
+  int xw_at[2];
   int bc[3][2];   // [axis][lo, hi]: 0 periodic, 1 Neumann, 2 Dirichlet
   int nsweeps;
   int odd_wrap;   // a periodic axis of odd length: passes out of place
@@ -232,6 +240,9 @@ __device__ __forceinline__ void cell_coef(const CellArgs<T>& a, int e,
     // a periodic axis whose face 0 differs from face n: the wrap plane
     if (a.bc[ax][0] == kPeriodic && a.W[ax] && p[ax] == 0)
       clo = a.W[ax][wall_elem(a, ax, p, c)];
+    // the level's x wrap inside an extended slab
+    if (ax == 0 && a.XW && (p[0] == a.xw_at[0] || p[0] == a.xw_at[1]))
+      clo = a.XW[wall_elem(a, 0, p, c)];
     if (kWalls && a.bc[ax][0] != kPeriodic) {
       // the wrapped neighbour of a wall cell is still read, times 0
       if (p[ax] == g.n[ax] - 1) {
@@ -1066,7 +1077,9 @@ bool check_bc(const int* bc, const Dim& g, int min_walled, bool& walls,
 // points at 6 ints on the host, (lo, hi) per axis; w0..w2 are the low
 // wall face planes of the walled axes, dense with extent 1 along their
 // axis; on a periodic axis null, or the plane of face 0 where it differs
-// from face n.  `tmp` is scratch of the size
+// from face n.  xw: null, or an x wrap plane (extent 1 along x) that
+// gives the coefficient of x(i-1) in the rows of the interior x planes
+// xw0 and xw1 (-1: none; 0 < plane < nx - 1).  `tmp` is scratch of the size
 // of x, needed when a periodic axis has an odd number of cells and
 // nsweeps > 0.  `regime`: 0 chooses (resident where one CTA's threads
 // own at most one point of each colour); 1 (resident) and 2 (grid) force
@@ -1078,6 +1091,7 @@ extern "C" int smoother_cell(int dtype, const void* x, const void* b,
                              const void* diag, const void* dinv,
                              const void* f0, const void* f1, const void* f2,
                              const void* w0, const void* w1, const void* w2,
+                             const void* xw, int xw0, int xw1,
                              const int* bc, void* out, void* tmp, void* res,
                              int nx, int ny, int nz, int nc, int nsweeps,
                              int regime, int* launches,
@@ -1093,6 +1107,10 @@ extern "C" int smoother_cell(int dtype, const void* x, const void* b,
   for (int ax = 0; ax < 3; ++ax)
     if (bc[2 * ax] == kDirichlet && !w[ax]) return (int)cudaErrorInvalidValue;
   if (odd_wrap && nsweeps > 0 && !tmp) return (int)cudaErrorInvalidValue;
+  const int xw_at[2] = {xw0, xw1};
+  for (int k = 0; k < 2; ++k)
+    if (xw_at[k] != -1 && (!xw || xw_at[k] < 1 || xw_at[k] > nx - 2))
+      return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
 #define CELL_ARGS(T)                                     \
@@ -1113,6 +1131,9 @@ extern "C" int smoother_cell(int dtype, const void* x, const void* b,
     a.bc[ax][0] = bc[2 * ax];                            \
     a.bc[ax][1] = bc[2 * ax + 1];                        \
   }                                                      \
+  a.XW = static_cast<const T*>(xw);                      \
+  a.xw_at[0] = xw0;                                      \
+  a.xw_at[1] = xw1;                                      \
   a.nsweeps = nsweeps;                                   \
   a.odd_wrap = odd_wrap && nsweeps > 0;                  \
   a.keep = 0;

@@ -11,7 +11,8 @@ packed symmetric) and a slope costs 3^d - 1 masked shifted reads and a
 few multiply-adds.  The centroid-aware states replace the regular
 MC-limited states (ops/mol.py) on faces within 2 cells of a non-regular
 cell (eb.near_g1); domain-boundary faces keep the regular path's value.
-Plain PyTorch on either device, as incflo_tpu runs it in jnp.
+Plain PyTorch on either device, as incflo_tpu runs it in jnp; on a
+rank's x slab (eb/ops.slab_arrays) on the slab's ghost-filled windows.
 """
 
 from __future__ import annotations
@@ -115,13 +116,15 @@ def _near_face(eb: EBArrays, axis: int, nd: int) -> torch.Tensor:
 def _keep_domain_faces(u: torch.Tensor, u_reg: torch.Tensor, axis: int,
                        grid: Grid) -> torch.Tensor:
     """Domain-boundary faces take the regular path's value (which carries
-    the ext_dir and outflow forms)."""
+    the ext_dir and outflow forms): the level's own faces (Grid.edge),
+    not the x faces a rank's slab shares with its neighbours."""
     if grid.periodic[axis]:
         return u
     u = u.clone()
     n = u.shape[axis]
-    for i in (0, n - 1):
-        u.narrow(axis, i, 1).copy_(u_reg.narrow(axis, i, 1))
+    for side, i in ((0, 0), (1, n - 1)):
+        if grid.edge(axis, side):
+            u.narrow(axis, i, 1).copy_(u_reg.narrow(axis, i, 1))
     return u
 
 

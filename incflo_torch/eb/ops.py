@@ -11,6 +11,15 @@ probes are static geometry, built on the host with numpy
 (build_eb_arrays) and moved once to the simulation's device as the
 tensors of EBArrays.  Everything that runs per step is plain PyTorch on
 that device: incflo_tpu runs it in jnp, with no Pallas kernel.
+
+On an x slab of a mesh (parallel/mesh.py) every rank builds the whole
+level's arrays from the deck and keeps its rows of them (slab_arrays):
+the cell arrays its nxl rows, the x face arrays its nxl + 1 faces, the
+arrays with ghost cells (ccent_g2, conn_g1, lsq_minv_g1, near_g1) their
+ghost rows from the whole level, the octant fractions its 2 nxl rows.
+The per-step operators then run on the slab's ghost-filled windows as
+on the whole level; redistribution reads its x neighbours from a
+one-row halo exchange of the cut-cell rate and of the senders' shares.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch
 from incflo_torch.eb.geometry import COVERED, CUT, REGULAR, EBData
 from incflo_torch.grid import Grid
 from incflo_torch.ops.stencil import window
+from incflo_torch.parallel.mesh import mesh_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +76,13 @@ class EBArrays:
     probe_ok: Optional[torch.Tensor] = None
     probe_nn: Optional[torch.Tensor] = None
     probe_c2ok: Optional[torch.Tensor] = None
+    # on an x slab (slab_arrays): vfrac and, per offset, connectivity x
+    # cut, with one x row a side from the whole level (zero beyond its
+    # own x faces), for redistribute's x neighbours; the octant fractions
+    # with one x ghost row a side (wrap, or edge at the level's x faces)
+    vfrac_x1: Optional[torch.Tensor] = None
+    conn_cut_x1: Optional[torch.Tensor] = None
+    vfrac_oct_x1: Optional[torch.Tensor] = None
 
 
 def _connectivity(eb: EBData, grid: Grid) -> Tuple[np.ndarray, list]:
@@ -377,6 +394,51 @@ def build_eb_arrays(eb: EBData, grid: Grid, dtype, device) -> EBArrays:
     )
 
 
+def slab_arrays(eb: EBArrays, mesh, grid: Grid) -> EBArrays:
+    """This rank's x slab of the whole level's arrays `eb` (the level
+    `grid`; a cut, no exchange: SlabMesh.cut_x).  The wall probes hold
+    flat whole-level indices and no step reads them: None on a slab."""
+    per = grid.periodic[0]
+    n = grid.n_cell[0]
+    nxl = n // mesh.size
+    x0 = mesh.rank * nxl
+
+    def cut(a, layout="cell", axis=0):
+        if a is None:
+            return None
+        return mesh.cut_x(a, layout=layout, periodic=per,
+                          axis=axis).contiguous()
+
+    def ghosted(a, g, axis=0):
+        """Rows of an array that carries g ghost cells a side: its
+        ghost rows are the whole level's (wrap or edge at its faces)."""
+        return None if a is None else a.narrow(axis, x0, nxl + 2 * g) \
+            .contiguous()
+
+    cells = ("vfrac", "cut", "covered", "fluid", "small", "eb_area", "vtot",
+             "wtot_inv", "wall_dist", "area_ov", "eb_normal")
+    conn_cut = eb.nbr_conn * eb.cut
+    return dataclasses.replace(
+        eb, **{k: cut(getattr(eb, k)) for k in cells},
+        afrac=tuple(cut(a, "face" if d == 0 else "cell")
+                    for d, a in enumerate(eb.afrac)),
+        face_cent=tuple(cut(a, "face" if d == 0 else "cell")
+                        for d, a in enumerate(eb.face_cent)),
+        nbr_conn=cut(eb.nbr_conn, axis=1),
+        ccent_g2=ghosted(eb.ccent_g2, 2),
+        conn_g1=ghosted(eb.conn_g1, 1, axis=1),
+        lsq_minv_g1=ghosted(eb.lsq_minv_g1, 1),
+        near_g1=ghosted(eb.near_g1, 1),
+        vfrac_oct=cut(eb.vfrac_oct, "octant"),
+        probe_lo=None, probe_frac=None, probe_ok=None, probe_nn=None,
+        probe_c2ok=None,
+        vfrac_x1=mesh.cut_x(eb.vfrac, 1, periodic=per, beyond="zero"),
+        conn_cut_x1=mesh.cut_x(conn_cut, 1, periodic=per, beyond="zero",
+                               axis=1),
+        vfrac_oct_x1=None if eb.vfrac_oct is None else mesh.cut_x(
+            eb.vfrac_oct, 1, layout="octant", periodic=per))
+
+
 def _area_over_volume(eb: EBData, grid: Grid) -> np.ndarray:
     """|A_eb| / V_cell (physical 1/length) from the divergence theorem:
     A_eb n_d = (afrac_lo - afrac_hi)_d * V/dx_d, exact for planar cuts
@@ -392,11 +454,15 @@ def _area_over_volume(eb: EBData, grid: Grid) -> np.ndarray:
     return np.sqrt(s)
 
 
-def _roll_nbr(a: torch.Tensor, off, grid: Grid):
+def _roll_nbr(a: torch.Tensor, off, grid: Grid, x1: bool = False):
     """a(i+off) over the first ndim axes (trailing axes ride along), zero
-    beyond non-periodic domain faces."""
+    beyond non-periodic domain faces.  x1: a carries one x row a side
+    (a rank's slab with its halo), and x takes its neighbour from it."""
     out = a
     for d in range(grid.ndim):
+        if d == 0 and x1:
+            out = out.narrow(0, 1 + off[0], out.shape[0] - 2)
+            continue
         if off[d] == 0:
             continue
         out = torch.roll(out, -off[d], dims=d)
@@ -428,24 +494,40 @@ def eb_convective_rate(fluxes: Sequence[torch.Tensor], grid: Grid,
 def redistribute(dUdt_in: torch.Tensor, grid: Grid, eb: EBArrays
                  ) -> torch.Tensor:
     """Mass-conservative neighbourhood redistribution of the cut-cell
-    defect (reference redistribute_eb, gather form)."""
+    defect (reference redistribute_eb, gather form).  On an x slab the x
+    neighbours come from one-row halos of dUdt_in and of the senders'
+    shares, and the static ones from the slab's vfrac_x1 and
+    conn_cut_x1."""
+    mesh = mesh_of(grid)
+    slab = mesh is not None
+
+    def halo(t):
+        zero = lambda x: torch.zeros_like(x.narrow(0, 0, 1))
+        return mesh.halo_x(t, 1, periodic=grid.periodic[0],
+                           ends=(zero, zero))
+
     vf = eb.vfrac[..., None]
     # divnc: the connected neighbours' volume-weighted average of dUdt_in
+    du = halo(dUdt_in) if slab else dUdt_in
+    vfn = eb.vfrac_x1 if slab else eb.vfrac
     acc = 0.0
     for m, off in zip(eb.nbr_conn, eb.offsets):
-        acc = acc + (m * _roll_nbr(eb.vfrac, off, grid))[..., None] \
-            * _roll_nbr(dUdt_in, off, grid)
+        acc = acc + (m * _roll_nbr(vfn, off, grid, slab))[..., None] \
+            * _roll_nbr(du, off, grid, slab)
     divnc = acc / eb.vtot[..., None]
     optmp = (1.0 - vf) * (divnc - dUdt_in) * (eb.cut[..., None])
     delm = -vf * optmp
     send = delm * eb.wtot_inv[..., None]      # per-cut-cell share
     # gather: cell c receives send(c - off) for each offset where the
     # sender c - off is cut and connected toward +off
+    if slab:
+        send = halo(send)
+    mc = eb.conn_cut_x1 if slab else eb.nbr_conn * eb.cut
     recv = 0.0
-    for m, off in zip(eb.nbr_conn, eb.offsets):
+    for m, off in zip(mc, eb.offsets):
         neg = tuple(-o for o in off)
-        contrib = (m * eb.cut)[..., None] * send
-        recv = recv + _roll_nbr(contrib, neg, grid)
+        contrib = m[..., None] * send
+        recv = recv + _roll_nbr(contrib, neg, grid, slab)
     return dUdt_in + optmp + recv
 
 

@@ -328,10 +328,13 @@ def _eb_centroid_state_correction(u_g, bcoefs, grid, eb, ng):
         cols.append(acc * eb.cut)
     dp = torch.stack(cols, dim=-1)
     # one ghost for the flux divergence: periodic wrap, else edge
-    # replicate (a zero correction flux through domain faces)
+    # replicate (a zero correction flux through domain faces); along x
+    # of a slab the neighbours' rows
+    first = lambda ax: (lambda t: t.narrow(ax, 0, 1))
+    last = lambda ax: (lambda t: t.narrow(ax, t.shape[ax] - 1, 1))
     for ax in range(nd):
-        dp = mg._wrap_pad(dp, ax) if grid.periodic[ax] \
-            else mg._edge_pad(dp, ax)
+        dp = mg._pad(dp, ax, mesh_of(grid), grid.periodic[ax], first(ax),
+                     last(ax))
     corr = 0.0
     for d in range(nd):
         gd = (window(dp, d, 1, 0) - window(dp, d, 0, 1)) / grid.dx[d]

@@ -91,11 +91,16 @@ COUNTS = {"cell_solves": 0, "cell_iters": 0, "nodal_solves": 0,
 NODAL_LOG = None
 # the same for each cell solve whose CG iterated (the best residual)
 CELL_LOG = None
+# the 27-point EB nodal smoother's calls on slab levels
+# (EBNodalSolver._smooth_res: plain PyTorch, no kernel), since
+# reset_counts()
+STENCIL_SLAB = {"calls": 0}
 
 
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+    STENCIL_SLAB["calls"] = 0
 
 
 def host_bool(flag) -> bool:
@@ -734,6 +739,8 @@ class CellSolver:
                                        periodic)
         # the level's low x wall face: the first rank's face 0
         xwall = fwalls[li][0] if lev.mesh.ends(periodic)[0] else None
+        xwrap = self._xwrap(li) if periodic and fwalls[li][0] is not None \
+            else None
         res = None
         for k, want in _chunks(n, x.shape[0], want_residual):
             ext = self._ext[li].get(*sk.slab_depth(k, want))
@@ -741,8 +748,23 @@ class CellSolver:
             fw = (xwall,) + tuple(None if w is None else next(planes)
                                   for w in fwalls[li][1:])
             x, res = sk.cell_smooth_slab(lev.mesh, x, b, ext[0], ext[1],
-                                         ext[2:5], k, want, bc=bc, Fwall=fw)
+                                         ext[2:5], k, want, bc=bc, Fwall=fw,
+                                         xwrap=xwrap)
         return x, res
+
+    def _xwrap(self, li):
+        """The x wrap plane of slab level li (a periodic x whose face 0
+        differs from face n: the EB wall term's levels): the level's face
+        0, the first rank's own and the last rank's from its right
+        neighbour, the first rank (one exchange a hierarchy, every rank
+        in it)."""
+        key = ("xwrap", li)
+        if key not in self._ext:
+            mesh = self.levels[li].mesh
+            w = self.smoother_coefs()[2][li][0]
+            self._ext[key] = mesh.halo_x(w, 0, 1).narrow(
+                0, 0 if mesh.rank == 0 else 1, 1).contiguous()
+        return self._ext[key]
 
     def _smooth(self, x, b, li, n):
         return self._smooth_res(x, b, li, n, False)[0]
@@ -1526,49 +1548,166 @@ class EBNodalSolver:
                       for st in levels]
         self.singular = all(
             b != SolverBC.DIRICHLET for b in list(bc_lo) + list(bc_hi))
+        self._ext = {}          # slab levels' cut stencils (shard)
+        self.mesh = None
+        self.n_slab = 0
 
     def to(self, device) -> "EBNodalSolver":
         out = copy.copy(self)
         out.levels = [_move(l, device) for l in self.levels]
         out.dinvs = _move(self.dinvs, device)
+        out._ext = {}
         return out
 
-    def _smooth_res(self, x, b, li, n, want_residual):
-        st = self.levels[li]
-        return _rb_sweeps(x, b, self.dinvs[li],
-                          lambda v: stencil_nodal_apply(v, st), n,
-                          want_residual, self.ndim)
+    def shard(self, mesh) -> "EBNodalSolver":
+        """This whole-level hierarchy on rank mesh.rank's x slab: every
+        rank keeps the whole stencils (built from the same geometry, no
+        exchange) and cuts each slab level's coefficients, with the deep
+        halo of a call, from them (SlabMesh.cut_x).  The levels whose
+        slabs are even and at least as wide as their calls' halos stay
+        slabs (_slab_levels, as NodalSolver's); the ones below run whole
+        on every rank, the coarse residual gathered (all_gather_x)."""
+        out = copy.copy(self)
+        out.mesh = mesh
+        out.n_slab = _slab_levels([st.cells for st in self.levels], mesh,
+                                  max(self.nu1, self.nu2), self.nu_bottom)
+        out._ext = {}
+        return out
 
-    def _vcycle(self, x, b, li=0, want_residual=False):
+    def _meta(self, li, slab=None):
+        """Level li's NodalLevel of the transfers and BC helpers: on a
+        slab level (or with slab True) the slab's cells and the mesh."""
         meta = self.levels[li].meta_lev()
+        if self.mesh is None or not (li < self.n_slab if slab is None
+                                     else slab):
+            return meta
+        mesh = self.mesh
+        cells = (meta.cells[0] // mesh.size,) + tuple(meta.cells[1:])
+        return dataclasses.replace(meta, cells=cells, mesh=mesh)
+
+    def _slab_stencil(self, li, lo, hi):
+        """(level, dinv) of slab level li extended by (lo, hi) x rows
+        (none across the level's own x faces): the whole level's
+        coefficients and guarded inverse diagonal cut to those rows
+        (SlabMesh.cut_x), the neighbour index of the extended nodes with
+        x open (stencil_index, non-periodic along x).  Built once for
+        each depth."""
+        key = (li, lo, hi)
+        if key not in self._ext:
+            st = self.levels[li]
+            per = st.periodic[0]
+            cut = lambda a, axis: self.mesh.cut_x(
+                a, lo, hi, layout="node", periodic=per, beyond="none",
+                axis=axis).contiguous()
+            coefs = cut(st.coefs, 1)
+            shape = tuple(coefs.shape[1:])
+            ext = dataclasses.replace(
+                st, coefs=coefs,
+                index=stencil_index(shape, (False,) + st.periodic[1:],
+                                    coefs.device))
+            self._ext[key] = (ext, cut(self.dinvs[li], 0))
+        return self._ext[key]
+
+    def _apply0(self, x):
+        """The fine level's operator on x; on a mesh on this rank's rows:
+        one halo row a side and the cut stencil, or, where the fine level
+        runs whole, on the gathered x."""
+        st, mesh = self.levels[0], self.mesh
+        if mesh is None:
+            return stencil_nodal_apply(x, st)
+        per = st.periodic[0]
+        if self.n_slab == 0:
+            return mesh.slab(stencil_nodal_apply(
+                mesh.all_gather_x(x, extra_last=not per), st))
+        lo, hi = mesh.depths(1, 1, per)
+        ext, _ = self._slab_stencil(0, lo, hi)
+        xe = mesh.halo_x(x, 1, periodic=per)
+        return stencil_nodal_apply(xe, ext).narrow(0, lo, x.shape[0])
+
+    def _smooth_res(self, x, b, li, n, want_residual):
+        """n red-black sweeps (+ the residual) of the 27-point stencil,
+        plain PyTorch on either device.  A slab level: per call one halo
+        exchange of x and b, deep enough that the extended slab's edge
+        planes (x open: no neighbour across) never reach the slab's rows
+        (smoother_kernels.slab_depth, lo even: the extended slab starts
+        on the global colour parity), the same sweeps on the extended
+        slab, the slab's rows kept -- the whole level's rows bit for
+        bit."""
+        if li >= self.n_slab:
+            st = self.levels[li]
+            return _rb_sweeps(x, b, self.dinvs[li],
+                              lambda v: stencil_nodal_apply(v, st), n,
+                              want_residual, self.ndim)
+        from incflo_torch.ops import smoother_kernels as sk
+        mesh = self.mesh
+        per = self.levels[li].periodic[0]
+        rows = x.shape[0]
+        res = None
+        for k, want in _chunks(n, self._meta(li).cells[0], want_residual):
+            if k == 0 and not want:
+                continue
+            depth = sk.slab_depth(k, want)
+            lo, hi = mesh.depths(*depth, per)
+            if (mesh.rank * self._meta(li).cells[0] - lo) % 2:
+                raise ValueError("EB nodal slab sweep off the global colour "
+                                 "parity")
+            ext, dinv = self._slab_stencil(li, lo, hi)
+            xe, be = mesh.halo_x([x, b], *depth, periodic=per)
+            xe, re = _rb_sweeps(xe, be, dinv,
+                                lambda v: stencil_nodal_apply(v, ext), k,
+                                want, self.ndim)
+            STENCIL_SLAB["calls"] += 1
+            x = xe.narrow(0, lo, rows)
+            res = None if re is None else re.narrow(0, lo, rows)
+        return x, res
+
+    def _vcycle(self, x, b, want_residual=False):
+        if self.mesh is not None and self.n_slab == 0:
+            return _on_whole(self.mesh, self._cycle, x, b, want_residual,
+                             not self.levels[0].periodic[0])
+        return self._cycle(x, b, want_residual=want_residual)
+
+    def _cycle(self, x, b, li=0, want_residual=False):
+        """The V-cycle from level li: the slab levels on this rank's rows,
+        the levels below whole on every rank."""
+        meta = self._meta(li)
         if li == len(self.levels) - 1:
             return self._smooth_res(x, b, li, self.nu_bottom, want_residual)
         x, r = self._smooth_res(x, b, li, self.nu1, True)
         rc = _restrict_nodal(_zero_dirichlet(r, meta), meta)
-        rc = _zero_dirichlet(rc, self.levels[li + 1].meta_lev())
-        ec, _ = self._vcycle(torch.zeros_like(rc), rc, li + 1)
-        x = x + _prolong_nodal(ec, meta)
+        gather = li < self.n_slab and li + 1 == self.n_slab
+        if gather:                    # the coarser levels: whole
+            rc = self.mesh.all_gather_x(rc,
+                                        extra_last=not meta.periodic[0])
+        rc = _zero_dirichlet(rc, self._meta(li + 1))
+        ec, _ = self._cycle(torch.zeros_like(rc), rc, li + 1)
+        if gather:
+            x = x + self.mesh.slab(_prolong_nodal(
+                ec, self.levels[li].meta_lev()))
+        else:
+            x = x + _prolong_nodal(ec, meta)
         return self._smooth_res(x, b, li, self.nu2, want_residual)
 
     def solve_info(self, rhs, x0=None, rtol=1e-11, atol=1e-14, maxiter=100):
         """(x, resnorm, cycles): NodalSolver.solve_info's loop and
-        tallies on the stencil hierarchy."""
-        st = self.levels[0]
-        meta = st.meta_lev()
+        tallies on the stencil hierarchy; on a mesh with the whole
+        level's norms and means."""
+        mesh = self.mesh
+        meta = self._meta(0, slab=mesh is not None)
         if self.singular:
-            rhs = rhs - torch.mean(rhs)
+            rhs = rhs - _mean(rhs, mesh)
         rhs = _zero_dirichlet(rhs, meta)
         if x0 is None:
             x0 = torch.zeros_like(rhs)
-        tol = rtol * _maxnorm(rhs)
+        tol = rtol * _maxnorm(rhs, mesh)
         tol = torch.maximum(tol, atol.to(tol.dtype)) \
             if isinstance(atol, torch.Tensor) else torch.clamp_min(tol, atol)
         x, it = x0, 0
-        res = _maxnorm(rhs - stencil_nodal_apply(x0, st))
+        res = _maxnorm(rhs - self._apply0(x0), mesh)
         prev = torch.full_like(res, float("inf"))
         while it < maxiter and host_bool((res > tol) & (res < 0.999 * prev)):
             x, r = self._vcycle(x, rhs, want_residual=True)
-            prev, res = res, _maxnorm(r)
+            prev, res = res, _maxnorm(r, mesh)
             it += 1
         if it:
             COUNTS["nodal_solves"] += 1
@@ -1576,7 +1715,7 @@ class EBNodalSolver:
             if NODAL_LOG is not None:
                 NODAL_LOG.append((res, tol, it, maxiter))
         if self.singular:
-            x = x - torch.mean(x)
+            x = x - _mean(x, mesh)
         return x, res, it
 
     def solve(self, rhs, **kw):

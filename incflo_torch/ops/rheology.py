@@ -17,6 +17,7 @@ from incflo_torch.config import FluidModel, IncfloConfig
 from incflo_torch.grid import Grid
 from incflo_torch.ops.mathutil import expterm
 from incflo_torch.ops.stencil import window
+from incflo_torch.parallel.mesh import mesh_of
 
 
 def strainrate(vel_g: torch.Tensor, grid: Grid, ng: int, out_ng: int = 0
@@ -74,7 +75,11 @@ def compute_viscosity(vel_g: torch.Tensor, grid: Grid, ng: int,
     quadratic one-sided strain-rate stencils toward connected cells
     (reference incflo_strainrate_eb; incflo_tpu/ops/rheology.py:79-84):
     differencing across covered cells would overstate the strain rate
-    next to every wall."""
+    next to every wall.  The ghost ring keeps the central differences
+    (the reference's, whose cut-cell stencils cover the interior); on a
+    rank's x slab the x ghost rows the slab shares with its neighbours
+    are their interior rows, corrected there, by a halo exchange (the
+    level's own ghosts, at the wrap of a periodic x too, as computed)."""
     if cfg.fluid_model == FluidModel.Newtonian:
         shape = tuple(n + 2 * out_ng for n in grid.cell_shape)
         return torch.full(shape, cfg.mu, dtype=vel_g.dtype,
@@ -86,4 +91,12 @@ def compute_viscosity(vel_g: torch.Tensor, grid: Grid, ng: int,
         sr = sr.clone()
         ctr = sr[tuple(slice(out_ng, out_ng + n) for n in grid.cell_shape)]
         ctr.copy_(torch.where(eb.cut > 0.5, sr_eb, ctr))
+        mesh = mesh_of(grid)
+        if mesh is not None and out_ng > 0:
+            n = sr.shape[0]
+            sr = mesh.halo_x(sr.narrow(0, out_ng, n - 2 * out_ng), out_ng,
+                             periodic=False,
+                             ends=(lambda _: sr.narrow(0, 0, out_ng),
+                                   lambda _: sr.narrow(0, n - out_ng,
+                                                       out_ng)))
     return viscosity_of_strainrate(sr, cfg)

@@ -46,7 +46,7 @@ incflo_torch/csrc/smoothers.cu and their plain PyTorch versions.
       Dirichlet side is an identity row.
 
   cell_smooth_slab(mesh, x, b, diag, dinv, F, nsweeps, want_residual,
-                   bc=None, Fwall=None) -> (x, res)
+                   bc=None, Fwall=None, xwrap=None) -> (x, res)
   nodal_smooth_slab(mesh, x, b, sigma, dinv, dx, nsweeps, want_residual,
                     bc=None) -> (x, res)
       the same sweeps on rank mesh.rank's x slab of a level
@@ -66,7 +66,14 @@ incflo_torch/csrc/smoothers.cu and their plain PyTorch versions.
       the level's code on that side (slab_bc) -- the kernel's per-side
       codes already take a wall on one x side and Neumann on the other
       -- with the level's low wall plane on the first rank; a nodal slab
-      of such a level holds node nx on the last rank (nxl + 1 rows).
+      of such a level holds node nx on the last rank (nxl + 1 rows).  A
+      periodic x whose face 0 differs from face n (the EB wall term's
+      levels, whose whole-level call takes face 0 from a wrap plane)
+      passes that plane as xwrap: the first rank's extended slab reads
+      it in the row of the level's cell 0 (plane lo), the last rank's in
+      the row of its halo copy of cell 0 (plane lo + nxl), where the open
+      slab would read the plane before's F, face n (csrc/smoothers.cu:
+      XW, xw_at).
       An edge plane is wrong from the first colour
       pass, and each pass carries the error one plane in: after
       2 nsweeps passes the first 2 nsweeps planes of each side are
@@ -222,7 +229,7 @@ PERIODIC, NEUMANN, DIRICHLET = 0, 1, 2
 THIRD = 1.0 / 3.0    # the ghost's x1/3, as a product (the kernel's kThird)
 
 
-def cell_neighbour_coefs(F, bc=None, Fwall=None):
+def cell_neighbour_coefs(F, bc=None, Fwall=None, xwrap=None):
     """(Ehi, Elo): per axis, the coefficients of x(i+e_ax) and x(i-e_ax)
     in L(x) = diag*x - sum_ax (Ehi*x(i+e_ax) + Elo*x(i-e_ax)), neighbours
     taken with periodic wrap.  On a periodic axis they are the cell's
@@ -230,7 +237,10 @@ def cell_neighbour_coefs(F, bc=None, Fwall=None):
     coefficient across the wall is 0, and a Dirichlet wall adds a third
     of its face coefficient to the opposite one.  A periodic axis with
     Fwall[ax] given (its face 0 differs from face n) takes that plane as
-    the coefficient of x(n-1) in the rows of its first cells."""
+    the coefficient of x(n-1) in the rows of its first cells.  xwrap
+    (plane, planes): on an extended slab of such a level, the level's
+    x wrap plane takes the place of the x neighbour's F in the rows of
+    those interior x planes (where the level's cell 0 lies)."""
     lo, hi = _bc_codes(bc)
     Ehi, Elo = [], []
     for ax in range(3):
@@ -239,6 +249,11 @@ def cell_neighbour_coefs(F, bc=None, Fwall=None):
         if lo[ax] == PERIODIC and Fwall is not None and Fwall[ax] is not None:
             n = fhi.shape[ax]
             flo = torch.cat([Fwall[ax], flo.narrow(ax, 1, n - 1)], dim=ax)
+        if ax == 0 and xwrap is not None:
+            plane, at = xwrap
+            for i in at:
+                flo = torch.cat([flo.narrow(0, 0, i), plane,
+                                 flo.narrow(0, i + 1, flo.shape[0] - i - 1)])
         if lo[ax] != PERIODIC:
             n = fhi.shape[ax]
             zero = torch.zeros_like(fhi.narrow(ax, 0, 1))
@@ -266,12 +281,14 @@ def _cell_apply_plain(x, diag, F, Flo):
 
 def cell_smooth_plain(x, b, diag, dinv, F, nsweeps: int,
                       want_residual: bool = False, bc=None, Fwall=None,
-                      open_x=(False, False)):
+                      open_x=(False, False), xwrap=None):
     """Plain version of the `cell_smooth` kernel, walls included; open_x:
     of its slab form (cell_smooth_ext), the x sides (low, high) that are
-    open -- Neumann, and the low one without a wall plane."""
-    _check_cell(x, b, diag, dinv, F, nsweeps, bc, Fwall, open_x)
-    F, Flo = cell_neighbour_coefs(F, bc, Fwall)
+    open -- Neumann, and the low one without a wall plane; xwrap: the
+    level's x wrap plane inside the extended slab
+    (cell_neighbour_coefs)."""
+    _check_cell(x, b, diag, dinv, F, nsweeps, bc, Fwall, open_x, xwrap)
+    F, Flo = cell_neighbour_coefs(F, bc, Fwall, xwrap)
     isred = checkerboard(x.shape, x.device)
     red = isred.to(x.dtype)
     black = (~isred).to(x.dtype)
@@ -409,11 +426,12 @@ def _check_bc(bc, shape, min_walled, what):
 
 
 def _check_cell(x, b, diag, dinv, F, nsweeps, bc=None, Fwall=None,
-                open_x=(False, False)):
+                open_x=(False, False), xwrap=None):
     """Argument checks of cell_smooth; True when an axis has walls.
     open_x: the open x sides (low, high) of an extended slab; the low
     wall plane Fwall[0] is asked for exactly where the low side is the
-    level's wall."""
+    level's wall.  xwrap: (plane of extent 1 along x, interior x planes
+    of an extended slab with both x sides open)."""
     _check_common(x, nsweeps, (3, 4))
     if len(F) != 3:
         raise ValueError("F must hold one face coefficient per axis")
@@ -430,6 +448,13 @@ def _check_cell(x, b, diag, dinv, F, nsweeps, bc=None, Fwall=None,
     for ax in range(3):
         if Fwall is not None and Fwall[ax] is not None:
             _check_same(f"Fwall[{ax}]", Fwall[ax], x.narrow(ax, 0, 1))
+    if xwrap is not None:
+        plane, at = xwrap
+        _check_same("xwrap", plane, x.narrow(0, 0, 1))
+        if not all(open_x) or not 1 <= len(at) <= 2 or any(
+                not 0 < i < x.shape[0] - 1 for i in at):
+            raise ValueError(f"xwrap: planes {tuple(at)} of an extended "
+                             f"slab of {x.shape[0]} open on both x sides")
     return bool(walled)
 
 
@@ -465,7 +490,8 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         IP = ctypes.POINTER(I)
         lib.smoother_cell.argtypes = (
-            [I] + [P] * 10 + [IP] + [P] * 3 + [I] * 6 + [IP, IP, P])
+            [I] + [P] * 11 + [I] * 2 + [IP] + [P] * 3 + [I] * 6
+            + [IP, IP, P])
         lib.smoother_nodal.argtypes = (
             [I] + [P] * 4 + [ctypes.POINTER(ctypes.c_double), IP] + [P] * 3
             + [I] * 5 + [IP, IP, P])
@@ -511,13 +537,16 @@ def cell_smooth(x, b, diag, dinv, F, nsweeps: int,
 
 
 def _launch_cell(family, x, b, diag, dinv, F, nsweeps, want_residual, bc,
-                 Fwall, regime):
+                 Fwall, regime, xwrap=None):
     x, b, diag, dinv = (t.contiguous() for t in (x, b, diag, dinv))
     F = [f.contiguous() for f in F]
     lo, _ = _bc_codes(bc)
     planes = [Fwall[ax].contiguous()
               if Fwall is not None and Fwall[ax] is not None else None
               for ax in range(3)]
+    xw, at = (None, ()) if xwrap is None else (xwrap[0].contiguous(),
+                                               tuple(xwrap[1]))
+    at = at + (-1,) * (2 - len(at))
     out = torch.empty_like(x)
     res = torch.empty_like(x) if want_residual else None
     # the wrap of an odd periodic axis couples two cells of one colour:
@@ -530,7 +559,9 @@ def _launch_cell(family, x, b, diag, dinv, F, nsweeps, want_residual, bc,
     rc = _lib().smoother_cell(
         DT_CODE[x.dtype], ptr(x), ptr(b), ptr(diag), ptr(dinv),
         ptr(F[0]), ptr(F[1]), ptr(F[2]),
-        *(None if w is None else ptr(w) for w in planes), _bc_array(bc),
+        *(None if w is None else ptr(w) for w in planes),
+        None if xw is None else ptr(xw), int(at[0]), int(at[1]),
+        _bc_array(bc),
         ptr(out), None if tmp is None else ptr(tmp),
         ptr(res) if want_residual else None, *x.shape[:3], nc,
         int(nsweeps), int(regime), ctypes.byref(launches), plan, stream(x))
@@ -598,23 +629,26 @@ def slab_bc(bc, ends=(False, False)):
 
 def cell_smooth_ext(x, b, diag, dinv, F, nsweeps: int,
                     want_residual: bool = False, bc=None, Fwall=None, *,
-                    ends=(False, False), _regime: int = 0):
+                    ends=(False, False), xwrap=None, _regime: int = 0):
     """The slab form's launch: the `cell_smooth` kernel on an extended
     slab (all arrays nxl + lo + hi planes along x) with x open but on the
     level's own x faces (`ends`, slab_bc); bc gives the level's codes,
     Fwall the y and z wall planes over the extended slab and, where the
-    low x side is the level's wall, its plane.  Returns every plane; the
-    slab's nxl are exact."""
+    low x side is the level's wall, its plane; xwrap (plane, planes) the
+    x wrap plane of a periodic x whose face 0 differs from face n, at
+    the extended slab's planes of the level's cell 0.  Returns every
+    plane; the slab's nxl are exact."""
     bc = slab_bc(bc, ends)
     Fwall = (Fwall[0] if ends[0] else None,) + tuple(Fwall[1:]) \
         if Fwall is not None else None
     opened = (not ends[0], not ends[1])
-    _check_cell(x, b, diag, dinv, F, nsweeps, bc, Fwall, open_x=opened)
+    _check_cell(x, b, diag, dinv, F, nsweeps, bc, Fwall, open_x=opened,
+                xwrap=xwrap)
     if x.device.type == "cpu":
         return cell_smooth_plain(x, b, diag, dinv, F, nsweeps, want_residual,
-                                 bc, Fwall, open_x=opened)
+                                 bc, Fwall, open_x=opened, xwrap=xwrap)
     return _launch_cell("cell_smooth_slab", x, b, diag, dinv, F, nsweeps,
-                        want_residual, bc, Fwall, _regime)
+                        want_residual, bc, Fwall, _regime, xwrap)
 
 
 def nodal_smooth_ext(x, b, sigma, dinv, dx, nsweeps: int,
@@ -655,22 +689,32 @@ def _rows(t, lo, nxl):
 
 def cell_smooth_slab(mesh, x, b, diag, dinv, F, nsweeps: int,
                      want_residual: bool = False, bc=None, Fwall=None, *,
-                     _regime: int = 0):
+                     xwrap=None, _regime: int = 0):
     """`cell_smooth` on this rank's x slab (x, b: nxl rows): one halo
     exchange of x and b, one launch on the extended slab.  diag, dinv, F
     and the y and z planes of Fwall come extended by slab_depth(nsweeps,
     want_residual) rows (SlabMesh.depths: none across the level's own x
     faces); on the first rank of a level whose x ends in walls Fwall[0]
-    is the level's low x wall plane."""
+    is the level's low x wall plane.  xwrap: on a periodic x whose face 0
+    differs from face n (the EB velocity levels), the level's face 0
+    plane, which the first rank's extended slab reads at the level's
+    cell 0 (its plane lo) and the last rank's at its halo copy of it
+    (plane lo + nxl) in place of face n."""
     nxl = x.shape[0]
     if nsweeps == 0 and not want_residual:
         return x, None
     periodic = _bc_codes(bc)[0][0] == PERIODIC
     lo, _, xe, be = _slab_halo(mesh, x, b, nsweeps, want_residual, nxl,
                                periodic)
+    if xwrap is not None:
+        # an edge plane's row is thrown away whatever it reads
+        at = tuple(i for i, mine in ((lo, mesh.rank == 0),
+                                     (lo + nxl, mesh.rank == mesh.size - 1))
+                   if mine and i < xe.shape[0] - 1)
+        xwrap = (xwrap, at) if at else None
     out, res = cell_smooth_ext(xe, be, diag, dinv, F, nsweeps, want_residual,
                                bc, Fwall, ends=mesh.ends(periodic),
-                               _regime=_regime)
+                               xwrap=xwrap, _regime=_regime)
     return _rows(out, lo, nxl), _rows(res, lo, nxl)
 
 

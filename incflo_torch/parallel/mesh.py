@@ -40,6 +40,11 @@ ghost fill, an operator's boundary pad).  What crosses ranks:
   slab / gather     whole fields in and out (tests, diagnostics, a state
                     carried over from one rank, checkpoints)
 
+Static arrays that every rank holds whole -- the cut-cell geometry of an
+embedded boundary and the EB nodal stencils, built on every rank from
+the deck -- need no exchange: cut_x takes a rank's rows of them, ghost
+rows included, from the whole array.
+
 The exchanges go through torch.distributed: NCCL where each rank has its
 own GPU, gloo on the CPU.  NCCL refuses two ranks on one device, so ranks
 that share a card use gloo, which moves data between host buffers: each
@@ -383,6 +388,48 @@ class SlabMesh:
         """This rank's x rows of a whole-level cell or node field (rows)."""
         start, count = self.rows(full.shape[0])
         return full.narrow(0, start, count)
+
+    def cut_x(self, full, lo: int = 0, hi: Optional[int] = None,
+              layout: str = "cell", periodic: bool = True,
+              beyond: str = "edge", axis: int = 0):
+        """This rank's rows of a static whole-level array (a tensor every
+        rank holds whole; no exchange) along `axis`, with lo and hi ghost
+        rows taken from the whole array.  layout: "cell" (nx rows),
+        "face" (nx + 1 x faces: the slab's nxl + 1), "node" (nx rows, or
+        nx + 1 where x ends in boundaries: the last rank's nxl + 1) or
+        "octant" (the 2 nx rows of the 2x lattice: 2 nxl).  Across a
+        periodic x the ghost rows wrap; across the level's own x faces
+        `beyond` says what they hold: "edge" the level's first or last
+        row (eb/ops._pad_geom), "zero" zeros, "none" no rows at all
+        (SlabMesh.depths)."""
+        hi = lo if hi is None else hi
+        n = full.shape[axis]
+        nx = {"cell": n, "face": n - 1, "octant": n // 2,
+              "node": n if periodic else n - 1}[layout]
+        if nx % self.size:
+            raise ValueError(f"cut_x: {n} {layout} rows do not split over "
+                             f"{self.size} ranks")
+        scale = 2 if layout == "octant" else 1
+        nxl = nx // self.size * scale
+        last = self.rank == self.size - 1
+        count = nxl + (1 if layout == "face" or (
+            layout == "node" and not periodic and last) else 0)
+        if (lo or hi) and layout == "face":
+            raise ValueError("cut_x: ghost rows of a face array")
+        start = self.rank * nxl
+        if beyond == "none" and not periodic:
+            lo, hi = self.depths(lo, hi, False)
+        idx = torch.arange(start - lo, start + count + hi,
+                           device=full.device)
+        if periodic:
+            return full.index_select(axis, idx % n)
+        out = full.index_select(axis, idx.clamp(0, n - 1))
+        if beyond == "zero":
+            keep = ((idx >= 0) & (idx < n)).to(full.dtype)
+            shape = [1] * full.dim()
+            shape[axis] = -1
+            out = out * keep.reshape(shape)
+        return out
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """The whole level's field from every rank's slab (a collective:

@@ -115,9 +115,10 @@ def scope_errors(mesh, decks, on_default_device=()):
 ITER_KINDS = ("cell_iters", "nodal_cycles", "tensor_cg_iters")
 
 
-def steps(mesh, deck, nsteps, start=None):
+def steps(mesh, deck, nsteps, start=None, perturb=None):
     """The deck's init (or the whole-level state `start`, carried over
-    rank by rank) and `nsteps` steps on this rank's slab.  Returns the
+    rank by rank; perturb: a whole-level array added to the velocity
+    after init) and `nsteps` steps on this rank's slab.  Returns the
     whole-level states after init and after each step (rank 0 only), the
     tensor CG's iterations in each step, this rank's tallies of each
     step (ITER_KINDS; the first entry init's), its solver tallies,
@@ -134,6 +135,8 @@ def steps(mesh, deck, nsteps, start=None):
     mesh.reset_stats()
     s = sim.init_state() if start is None else state.sim_from_numpy(
         start, mesh.device, sim.dtype, mesh)
+    if perturb is not None:
+        s = _perturbed(s, mesh, perturb)
     states = [state.sim_to_numpy(s, mesh)]
     tallies = [{k: mg.COUNTS[k] for k in ITER_KINDS}]
     for _ in range(nsteps):
@@ -146,8 +149,17 @@ def steps(mesh, deck, nsteps, start=None):
             "tallies": tallies, "counts": dict(mg.COUNTS),
             "launches": dict(gk.LAUNCHES),
             "smoother_launches": dict(sk.LAUNCHES),
+            "stencil_slab_calls": mg.STENCIL_SLAB["calls"],
             "comm": {k: v["calls"] for k, v in mesh.stats.items()},
             "mesh": mesh.describe()}
+
+
+def _perturbed(s, mesh, perturb):
+    """s with this rank's rows of the whole-level array `perturb`, in the
+    state's dtype, added to its velocity."""
+    v = s.level.velocity
+    return s._replace(level=s.level._replace(
+        velocity=v + _rows(mesh, perturb).to(v.dtype)))
 
 
 def _rows(mesh, a, extra=0):
@@ -167,9 +179,11 @@ def slab_smoothers(mesh, cases):
     its smoother coefficients (cell: diag, dinv, F, Fwall with None for
     a periodic axis; nodal: sigma at the cells, dinv, dx), bc, and the
     (nsweeps, want_residual) calls.  Where x ends in walls the first
-    rank passes the level's low x wall plane Fwall[0].  Returns, per case
-    and call, this rank's rows of x and of the residual (None without
-    it)."""
+    rank passes the level's low x wall plane Fwall[0]; where x is
+    periodic and Fwall[0] is given (the EB wall term's levels: face 0
+    differs from face n) it is the x wrap plane, left out where the case
+    says "xwrap": False.  Returns, per case and call, this rank's rows of
+    x and of the residual (None without it)."""
     from incflo_torch.ops import multigrid as mg
     from incflo_torch.ops import smoother_kernels as sk
     out = []
@@ -183,9 +197,12 @@ def slab_smoothers(mesh, cases):
                                          _rows(mesh, c["dinv"])]
                                   + [_rows(mesh, f) for f in c["F"]]
                                   + planes, periodic)
-            xwall = None
+            xwall = xwrap = None
             if mesh.ends(periodic)[0]:
                 xwall = torch.as_tensor(c["Fwall"][0]).to(mesh.device)
+            if periodic and c["Fwall"][0] is not None \
+                    and c.get("xwrap", True):
+                xwrap = torch.as_tensor(c["Fwall"][0]).to(mesh.device)
             for n, want in c["calls"]:
                 ext = coefs.get(*sk.slab_depth(n, want))
                 it = iter(ext[5:])
@@ -193,7 +210,7 @@ def slab_smoothers(mesh, cases):
                                       for w in c["Fwall"][1:])
                 got.append(sk.cell_smooth_slab(mesh, x, b, ext[0], ext[1],
                                                ext[2:5], n, want, c["bc"],
-                                               fw))
+                                               fw, xwrap=xwrap))
         else:
             dinv = mg._SlabCoefs(mesh, [_rows(mesh, c["dinv"])], periodic)
             sigma = mg._SlabCoefs(mesh, [_rows(mesh, c["sigma"])], periodic)
@@ -205,6 +222,73 @@ def slab_smoothers(mesh, cases):
         out.append([(a.cpu().numpy(), None if r is None else r.cpu().numpy())
                     for a, r in got])
     return out
+
+
+def eb_operators(sim, vel, dudt, umac, nodal_cases=()):
+    """The EB operators of `sim` (a whole level, or a rank's slab) on
+    vel, dudt and umac (its rows: umac's x faces nxl + 1): the MOL-EB
+    face velocities of vel and the EB fluxes, rate and redistribution of
+    vel advected by umac, the redistribution of dudt, the small-cell
+    correction of vel from umac, the cut-cell strain rate and the
+    viscosity grown by one, and sim's EB arrays.  nodal_cases: dicts of
+    a level of sim's 27-point EB nodal hierarchy, its x and b (the
+    slab's rows, or the whole level's where the level runs whole on
+    every rank) and the (nsweeps, want_residual) calls of its smoother.
+    Returns numpy arrays."""
+    import dataclasses
+    from incflo_torch.eb import mol as ebmol
+    from incflo_torch.eb import ops as ebops
+    from incflo_torch.ops import rheology
+    grid, eb, ng = sim.grid, sim.eb, sim.cfg.nghost_state()
+    vel_g = sim.grow_vel(vel, ng)
+    fluxes = ebmol.compute_convective_fluxes_eb(vel_g, umac, grid, ng,
+                                               sim.vel_bcrec, eb)
+    rate = ebops.eb_convective_rate(fluxes, grid, eb)
+    out = {"umac": ebmol.predict_vels_on_faces_eb(vel_g, grid, ng,
+                                                  sim.vel_bcrec, eb),
+           "fluxes": fluxes, "rate": rate,
+           "rate_redistributed": ebops.redistribute(rate, grid, eb),
+           "redistributed": ebops.redistribute(dudt, grid, eb),
+           "small": ebops.correct_small_cells(vel, umac, grid, eb),
+           "strainrate": ebops.eb_strainrate(vel_g, grid, ng, eb),
+           "eta_g1": rheology.compute_viscosity(vel_g, grid, ng, sim.cfg,
+                                                out_ng=1, eb=eb),
+           "arrays": {f.name: getattr(eb, f.name)
+                      for f in dataclasses.fields(eb)
+                      if f.name != "offsets"}}
+    solver = sim._nodal_eb_hat
+    out["nodal_sweeps"] = [
+        [solver._smooth_res(c["x"], c["b"], c["level"], n, want)
+         for n, want in c["calls"]] for c in nodal_cases]
+    out["n_slab"] = None if solver is None else solver.n_slab
+    return _numpy_tree(out)
+
+
+def eb_forms(mesh, deck, vel, dudt, umac, nodal_cases=()):
+    """eb_operators of a deck's sharded Simulation on this rank's rows of
+    whole-level vel, dudt and umac (faces), and of the nodal cases' x
+    and b (the whole level's on a level that runs whole on every
+    rank)."""
+    from incflo_torch import IncfloConfig, Simulation
+    sim = Simulation(IncfloConfig.from_text(deck), device=mesh.device,
+                     mesh=mesh)
+    n_slab = sim._nodal_eb_hat.n_slab if sim._nodal_eb_hat else 0
+    cases = [dict(c, **{k: torch.as_tensor(c[k]).to(mesh.device)
+                        if c["level"] >= n_slab else _rows(mesh, c[k])
+                        for k in ("x", "b")}) for c in nodal_cases]
+    um = [_rows(mesh, umac[0], 1)] + [_rows(mesh, u) for u in umac[1:]]
+    return eb_operators(sim, _rows(mesh, vel), _rows(mesh, dudt), um, cases)
+
+
+def _numpy_tree(obj):
+    """Tensors (in lists, tuples and dicts) as numpy arrays."""
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _numpy_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_numpy_tree(v) for v in obj)
+    return obj
 
 
 def ghost_fill(mesh, deck, vel, rho, tra, ng):
@@ -283,25 +367,34 @@ def slab_solves(mesh, cases):
     return out
 
 
-def timed_steps(mesh, deck, warm, nsteps, instrumented):
-    """From init: `warm` steps, then `nsteps` steps timed on the host
+def timed_steps(mesh, deck, warm, nsteps, instrumented, perturb=None):
+    """From init (perturb: a whole-level array added to the velocity
+    after it): `warm` steps, then `nsteps` steps timed on the host
     clock (device synchronised, the ranks started together), with the
     Godunov and smoother launch counts and the solver tallies zeroed just
     before them;
     then `instrumented` steps with each exchange timed (SlabMesh.timed).
     Returns the whole-level state after the timed steps (rank 0 only),
-    the launches and tallies of the timed steps, ms/step, and the
-    exchanges' calls, bytes and ms per step of the instrumented steps."""
+    the launches and tallies of the timed steps (the 27-point EB nodal
+    smoother's slab calls among them), ms/step, the exchanges' calls,
+    bytes and ms per step of the instrumented steps, and the seconds of
+    the setup (the Simulation and its init)."""
     import time
     from incflo_torch import IncfloConfig, Simulation, state
     from incflo_torch.ops import godunov_kernels as gk
     from incflo_torch.ops import multigrid as mg
     from incflo_torch.ops import smoother_kernels as sk
-    sim = Simulation(IncfloConfig.from_text(deck), device=mesh.device,
-                     mesh=mesh)
     sync = (lambda: torch.cuda.synchronize(mesh.device)) \
         if mesh.device.type == "cuda" else (lambda: None)
-    s = sim.advance_n(sim.init_state(), warm)
+    t_setup = time.perf_counter()
+    sim = Simulation(IncfloConfig.from_text(deck), device=mesh.device,
+                     mesh=mesh)
+    s = sim.init_state()
+    sync()
+    setup_s = time.perf_counter() - t_setup
+    if perturb is not None:
+        s = _perturbed(s, mesh, perturb)
+    s = sim.advance_n(s, warm)
     sync()
     mesh.barrier()
     gk.reset_launches()
@@ -313,6 +406,7 @@ def timed_steps(mesh, deck, warm, nsteps, instrumented):
     ms = (time.perf_counter() - t0) / nsteps * 1e3
     launches, counts = dict(gk.LAUNCHES), dict(mg.COUNTS)
     smoother_launches = dict(sk.LAUNCHES)
+    stencil_calls = mg.STENCIL_SLAB["calls"]
     final = state.sim_to_numpy(s, mesh)
     mesh.barrier()
     mesh.reset_stats()
@@ -329,6 +423,7 @@ def timed_steps(mesh, deck, warm, nsteps, instrumented):
     return {"state": final if mesh.rank == 0 else None, "ms_per_step": ms,
             "instrumented_ms_per_step": ms_inst, "launches": launches,
             "smoother_launches": smoother_launches, "counts": counts,
+            "stencil_slab_calls": stencil_calls, "setup_s": setup_s,
             "comm": comm, "mesh": mesh.describe()}
 
 

@@ -39,8 +39,9 @@ Sharded: given a mesh (parallel/mesh.py), a 3D one-level deck -- Godunov
 or MOL; each side of each axis periodic, a slip or no-slip wall, mass
 inflow, pressure inflow or pressure outflow; constant or variable
 density, tracers, Newtonian or non-Newtonian fluids, gravity or
-Boussinesq buoyancy, explicit, Crank-Nicolson or implicit diffusion --
-runs split along x over the mesh's ranks.  Each rank's Simulation holds
+Boussinesq buoyancy, explicit, Crank-Nicolson or implicit diffusion;
+with or without embedded boundaries -- runs split along x over the
+mesh's ranks.  Each rank's Simulation holds
 its x slab of every field (self.grid is a parallel.mesh.SlabGrid; where
 x ends in boundaries the last rank also holds node nx of p) and advance
 / advance_n do what they do on one device: the ghost fills and operator
@@ -53,9 +54,16 @@ slab's ghost-filled windows, the direct solves reduce-scatter their x
 contraction, the iterative ones run multigrid on the slab
 (ops/multigrid.py: the slab smoother kernels, with the level's x walls
 on the end ranks, the coarse levels whole on every rank), and
-compute_dt, the norms and the CG dots reduce over the ranks.  Decks
-outside that scope raise under a mesh and name ROADMAP A14
-(_unsupported_sharded).
+compute_dt, the norms and the CG dots reduce over the ranks.  An EB deck
+builds the whole level's cut-cell geometry on every rank and keeps its
+slab of it (eb/ops.slab_arrays); whether it takes the EB path is the
+whole level's answer, so a rank whose slab has no cut cell still takes
+part in every exchange.  MOL-EB and the cut-cell operators run on the
+slab's windows, the 27-point EB nodal stencils are built whole on every
+rank and cut to the slab (EBNodalSolver.shard), the octant lattice of a
+variable-density deck is a 2 nxl-row slab of a NodalSolver on the mesh.
+Decks outside that scope (2D, AMR, the two Godunov options) raise under a
+mesh and name ROADMAP A14 (_unsupported_sharded).
 
 Scope of this port: 2D or 3D, with or without embedded boundaries:
 Godunov or MOL advection, each axis periodic or ending in a slip or
@@ -119,8 +127,8 @@ def _unsupported_sharded(cfg: IncfloConfig):
     g = cfg.grid
     checks = [
         (cfg.max_level > 0, "AMR"),
+        (g.ndim != 3 and has_eb(cfg), "2D decks with embedded boundaries"),
         (g.ndim != 3, "2D decks (the fused 2D step, MOL)"),
-        (has_eb(cfg), "embedded boundaries"),
         (cfg.godunov_use_forces_in_trans, "godunov_use_forces_in_trans"),
         (cfg.use_mac_phi_in_godunov, "use_mac_phi_in_godunov"),
     ]
@@ -163,8 +171,7 @@ class Simulation:
             if why is not None:
                 raise NotImplementedError(
                     f"incflo_torch does not run {why} split over a mesh yet "
-                    f"(ROADMAP A14); a mesh runs 3D one-level decks "
-                    f"without embedded boundaries")
+                    f"(ROADMAP A14); a mesh runs 3D one-level decks")
         if device is None and mesh is not None and torch.cuda.is_available():
             device = f"cuda:{mesh.rank % torch.cuda.device_count()}"
         device = torch.device("cuda" if device is None else device)
@@ -173,10 +180,16 @@ class Simulation:
                                "requested but torch.cuda is not available")
         self.device = device
         self.dtype = getattr(torch, cfg.dtype)
+        self.mesh = mesh
+        # the rank's x slab on a mesh, else the whole level
+        self.grid = cfg.grid if mesh is None else mesh.local_grid(cfg.grid)
         # embedded boundaries: the static cut-cell arrays (eb/ops.py),
         # computed on the host and kept on the device; None where there
-        # is no cut cell
-        self.eb = None
+        # is no cut cell.  On a mesh every rank builds the whole level's
+        # (eb_whole) and keeps its slab of them; whether the deck takes
+        # the EB path is the whole level's answer, so that a rank whose
+        # slab holds no cut cell still takes part in every exchange
+        self.eb = eb_whole = None
         if has_eb(cfg):
             from incflo_torch.eb import geometry as ebgeom
             from incflo_torch.eb import ops as ebops
@@ -184,8 +197,10 @@ class Simulation:
                                              cfg.grid)
             data = ebgeom.compute_eb_data(phi_if, cfg.grid)
             if data.has_eb:
-                self.eb = ebops.build_eb_arrays(data, cfg.grid, self.dtype,
-                                                device)
+                eb_whole = ebops.build_eb_arrays(data, cfg.grid, self.dtype,
+                                                 device)
+                self.eb = eb_whole if mesh is None else ebops.slab_arrays(
+                    eb_whole, mesh, cfg.grid)
         if self.eb is not None and cfg.use_godunov:
             # the reference's EB build compiles predict_godunov out
             # (incflo_compute_MAC_projected_velocities.cpp:80-91): a
@@ -201,9 +216,6 @@ class Simulation:
                 godunov_include_diff_in_forcing=False,
                 cfl=min(cfg.cfl, 0.5))   # the MOL stability bound
         self.cfg = cfg
-        self.mesh = mesh
-        # the rank's x slab on a mesh, else the whole level
-        self.grid = cfg.grid if mesh is None else mesh.local_grid(cfg.grid)
         self.vel_bcrec = cfg.velocity_bcrecs()
         self.den_bcrec = cfg.density_bcrecs()
         self.tra_bcrec = cfg.tracer_bcrecs()
@@ -231,7 +243,7 @@ class Simulation:
             if self.eb is None:
                 self._build_static_solvers()
             else:
-                self._build_static_eb_solvers()
+                self._build_static_eb_solvers(eb_whole)
 
     # ------------------------------------------------------------------
     def _full(self, shape, val):
@@ -288,12 +300,15 @@ class Simulation:
         self._diff_proto = diff.to(self.device)
         self._static_coefs["diff_b"] = diff_b
 
-    def _build_static_eb_solvers(self):
+    def _build_static_eb_solvers(self, eb_whole):
         """Constant-density EB decks (incflo_tpu/simulation.py:289-318),
         on the device: the area-fraction-weighted MAC solver and the
         exact octant cut-cell nodal operator as a 27-point coarse-node
         stencil hierarchy (mg.EBNodalSolver), in hat form sigma_hat =
-        1/rho0 -- the in-step operator is scaling x this one."""
+        1/rho0 -- the in-step operator is scaling x this one.  On a mesh
+        the MAC solver runs multigrid on the slab's area fractions, and
+        the stencil hierarchy, built whole from eb_whole (the whole
+        level's arrays), is cut to the slab (EBNodalSolver.shard)."""
         cfg = self.cfg
         grid = self.grid
         eb = self.eb
@@ -302,26 +317,31 @@ class Simulation:
         beta_eff = tuple(eb.afrac[d] * inv_rho for d in range(grid.ndim))
         self._mac_solver = mg.CellSolver(grid.dx, bc_lo, bc_hi, alpha=0.0,
                                          beta=1.0, acoef=None,
-                                         bcoef=beta_eff, direct=False)
+                                         bcoef=beta_eff, direct=False,
+                                         mesh=self.mesh)
         if eb.vfrac_oct is None:
             return
+        whole = cfg.grid
         try:
-            self._nodal_eb_hat = mg.EBNodalSolver(
-                grid.dx, grid.periodic, bc_lo, bc_hi,
-                self._full(grid.cell_shape, inv_rho).to(self.device),
-                eb.vfrac_oct)
+            nodal = mg.EBNodalSolver(
+                whole.dx, whole.periodic, bc_lo, bc_hi,
+                self._full(whole.cell_shape, inv_rho).to(self.device),
+                eb_whole.vfrac_oct)
         except ValueError:
-            pass        # an odd periodic extent: the octant lattice
+            return      # an odd periodic extent: the octant lattice
+        self._nodal_eb_hat = nodal if self.mesh is None \
+            else nodal.shard(self.mesh)
 
     def _eb_fine_meta(self):
         """The sigma-free fine (2x) NodalLevel of the right-hand side and
-        gradient transfers."""
+        gradient transfers (on a mesh the slab's 2 nxl fine cells)."""
         grid = self.grid
         nd = grid.ndim
         return mg.NodalLevel(tuple(d / 2 for d in grid.dx), grid.periodic,
                              (int(mg.SolverBC.NEUMANN),) * nd,
                              (int(mg.SolverBC.NEUMANN),) * nd,
-                             None, None, tuple(2 * n for n in grid.n_cell))
+                             None, None, tuple(2 * n for n in grid.n_cell),
+                             mesh=self.mesh)
 
     # ------------------------------------------------------------------
     # ghost fills (physical BCs only, one level)
@@ -698,7 +718,8 @@ class Simulation:
         bc_lo, bc_hi = mac_projection.projection_solver_bc(cfg.bc_kind, grid)
         solver_f = mg.NodalSolver(tuple(d / 2 for d in grid.dx),
                                   grid.periodic, bc_lo, bc_hi,
-                                  sigma_f * self.eb.vfrac_oct, direct=False)
+                                  sigma_f * self.eb.vfrac_oct, direct=False,
+                                  mesh=self.mesh)
         flev = solver_f.levels[0]
         rhs_f = mg._nodes_unique(mg.nodal_divergence(upads_f, flev.dx), flev)
         x0 = None if phi0 is None else mg._prolong_nodal(phi0, flev)
@@ -712,11 +733,17 @@ class Simulation:
         """The fine-lattice (2x) padded velocity components, weighted by
         the octant fluid fractions: each coarse cell's value copied to
         its octants and scaled by their fluid fraction; a ghost cell
-        copies the coarse ghost (incflo_tpu/simulation.py:646-670)."""
+        copies the coarse ghost (incflo_tpu/simulation.py:646-670).  On
+        a mesh the octant fractions' x ghosts are the whole level's rows
+        (eb.vfrac_oct_x1)."""
         grid = self.grid
         nd = grid.ndim
-        op = self.eb.vfrac_oct
-        for ax in range(nd):
+        op = self.eb.vfrac_oct_x1
+        if op is None:
+            op = self.eb.vfrac_oct
+            op = mg._wrap_pad(op, 0) if grid.periodic[0] \
+                else mg._edge_pad(op, 0)
+        for ax in range(1, nd):
             op = mg._wrap_pad(op, ax) if grid.periodic[ax] \
                 else mg._edge_pad(op, ax)
         out = []
@@ -1134,13 +1161,13 @@ class Simulation:
         on a mesh the rank's slab of the whole level's initial fields."""
         cfg = self.cfg
         level = probs.init_fluid(cfg, cfg.grid, self.dtype, self.device)
+        if self.mesh is not None:
+            level = LevelState(*(self.mesh.slab(f).contiguous()
+                                 for f in level))
         if self.eb is not None:
             f = self.eb.fluid[..., None]
             level = level._replace(velocity=level.velocity * f,
                                    tracer=level.tracer * f)
-        if self.mesh is not None:
-            level = LevelState(*(self.mesh.slab(f).contiguous()
-                                 for f in level))
         zero = torch.zeros((), dtype=self.dtype, device=self.device)
         s = SimState(level=level, t=zero, dt=zero, prev_dt=zero,
                      prev_prev_dt=zero,

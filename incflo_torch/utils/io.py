@@ -221,7 +221,40 @@ def _whole(s: SimState, sim) -> SimState:
     return s._replace(level=LevelState(*(mesh.gather(f) for f in s.level)))
 
 
-def _plot_fields(s: SimState, cfg: IncfloConfig, sim) -> Dict[str, np.ndarray]:
+def _derived_fields(vel, grid, cfg, sim, want, grow) -> Dict[str, object]:
+    """The plot fields that read ghost cells or the EB arrays (vort,
+    strainrate, divu, eta, vfrac) of velocity `vel` on `grid`, grown by
+    grow(vel, 2): the whole level, or a rank's slab (its EB arrays, the
+    x ghosts from the neighbours) whose results the caller gathers."""
+    eb = sim.eb
+    out = {}
+    vel_g = grow(vel, 2) \
+        if {"vort", "strainrate", "divu", "eta"} & want else None
+    if "vort" in want:
+        out["vort"] = ebops.eb_vorticity(vel_g, grid, 2, eb) \
+            if eb is not None else derive.vorticity(vel_g, grid, 2)
+    if "strainrate" in want:
+        out["strainrate"] = ebops.eb_strainrate(vel_g, grid, 2, eb) \
+            if eb is not None else rheology.strainrate(vel_g, grid, 2)
+    if "divu" in want:
+        out["divu"] = derive.divu_cc(vel_g, grid, 2)
+    if "eta" in want:
+        out["eta"] = rheology.compute_viscosity(vel_g, grid, 2, cfg,
+                                                out_ng=0, eb=eb)
+    if "vfrac" in want:
+        # reference plots the EB volume fraction (io.cpp vfrac field);
+        # all-regular domains plot 1.0 like EB_set_covered semantics
+        out["vfrac"] = eb.vfrac if eb is not None \
+            else torch.ones(grid.cell_shape, dtype=torch.float64,
+                            device=vel.device)
+    return out
+
+
+def _plot_fields(s: SimState, cfg: IncfloConfig, sim,
+                 derived=None) -> Dict[str, np.ndarray]:
+    """The plotted fields of the whole level's state s; derived: the
+    fields of _derived_fields, given where they were computed on a
+    mesh's slabs (else they are computed here, on the whole level)."""
     grid = cfg.grid
     lvl = s.level
     nd = grid.ndim
@@ -229,11 +262,11 @@ def _plot_fields(s: SimState, cfg: IncfloConfig, sim) -> Dict[str, np.ndarray]:
     names = {0: "velx", 1: "vely", 2: "velz"}
     gp_names = {0: "gpx", 1: "gpy", 2: "gpz"}
     want = set(cfg.plt_fields)
-
-    need_grown = {"vort", "strainrate", "divu", "eta"} & want
-    # the whole level's ghost fill (sim.grow_vel on one device)
-    vel_g = bcs.grow(lvl.velocity, 2, grid, sim.vel_bcrec, sim.vel_ev) \
-        if need_grown else None
+    if derived is None:
+        # the whole level's ghost fill (sim.grow_vel on one device)
+        derived = _derived_fields(
+            lvl.velocity, grid, cfg, sim, want,
+            lambda v, ng: bcs.grow(v, ng, grid, sim.vel_bcrec, sim.vel_ev))
 
     for c in range(nd):
         if names[c] in want:
@@ -250,31 +283,9 @@ def _plot_fields(s: SimState, cfg: IncfloConfig, sim) -> Dict[str, np.ndarray]:
         out["p"] = _numpy(derive.node_to_cell(lvl.p, grid))
     if "macphi" in want:
         out["macphi"] = _numpy(lvl.mac_phi)
-    eb = sim.eb
-    if "vort" in want:
-        if eb is not None:
-            out["vort"] = _numpy(ebops.eb_vorticity(vel_g, grid, 2, eb))
-        else:
-            out["vort"] = _numpy(derive.vorticity(vel_g, grid, 2))
-    if "strainrate" in want:
-        if eb is not None:
-            out["strainrate"] = _numpy(
-                ebops.eb_strainrate(vel_g, grid, 2, eb))
-        else:
-            out["strainrate"] = _numpy(rheology.strainrate(vel_g, grid, 2))
-    if "divu" in want:
-        out["divu"] = _numpy(derive.divu_cc(vel_g, grid, 2))
-    if "eta" in want:
-        out["eta"] = _numpy(
-            rheology.compute_viscosity(vel_g, grid, 2, cfg, out_ng=0,
-                                       eb=eb))
-    if "vfrac" in want:
-        # reference plots the EB volume fraction (io.cpp vfrac field);
-        # all-regular domains plot 1.0 like EB_set_covered semantics
-        if eb is not None:
-            out["vfrac"] = _numpy(eb.vfrac)
-        else:
-            out["vfrac"] = np.ones(grid.cell_shape, np.float64)
+    for k in ("vort", "strainrate", "divu", "eta", "vfrac"):
+        if k in derived:
+            out[k] = _numpy(derived[k])
     if "forcing" in want:
         # instantaneous velocity forcing -(gp+gp0)/rho + g (or Boussinesq)
         f = sim.compute_vel_forces(lvl.density, lvl.tracer, lvl.tracer,
@@ -287,8 +298,22 @@ def _plot_fields(s: SimState, cfg: IncfloConfig, sim) -> Dict[str, np.ndarray]:
 def gather_plot_fields(s: SimState, cfg: IncfloConfig, sim
                        ) -> Dict[str, np.ndarray]:
     """Build the plotted field dict per cfg.plt_fields + plt_error_*:
-    whole-level numpy arrays, on every rank of a mesh (a collective)."""
-    return _plot_fields(_whole(s, sim), cfg, sim)
+    whole-level numpy arrays, on every rank of a mesh (a collective): the
+    fields that read ghost cells or the EB arrays computed on each rank's
+    slab and gathered, the rest from the gathered state."""
+    derived = _slab_derived(s, cfg, sim)
+    return _plot_fields(_whole(s, sim), cfg, sim, derived)
+
+
+def _slab_derived(s: SimState, cfg: IncfloConfig, sim):
+    """On a mesh, _derived_fields of each rank's slab, gathered (a
+    collective); None on one device."""
+    mesh = getattr(sim, "mesh", None)
+    if mesh is None:
+        return None
+    return {k: mesh.gather(v) for k, v in _derived_fields(
+        s.level.velocity, sim.grid, cfg, sim, set(cfg.plt_fields),
+        sim.grow_vel).items()}
 
 
 def error_norm_fields(s: SimState, cfg: IncfloConfig) -> Dict[str, np.ndarray]:
@@ -337,8 +362,9 @@ def print_error_norms(fields: Dict[str, np.ndarray]):
 def write_plotfile(path: str, s: SimState, cfg: IncfloConfig, sim):
     """Write the plotfile; on a mesh every rank calls it (the fields are
     gathered) and rank 0 prints and writes.  Returns the fields."""
+    derived = _slab_derived(s, cfg, sim)
     s = _whole(s, sim)
-    fields = _plot_fields(s, cfg, sim)
+    fields = _plot_fields(s, cfg, sim, derived)
     err = error_norm_fields(s, cfg) if cfg.probtype in (1, 2) and (
         cfg.plt_error_u or cfg.plt_error_v or cfg.plt_error_w
         or cfg.plt_error_p or cfg.plt_error_mac_p) else {}

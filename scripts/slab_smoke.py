@@ -4,11 +4,15 @@ kernels at every level of rt's hierarchies in 2 slabs ("slab"), rt
 rank ("sharded_mg"), and the x-slab meshes whose x ends in walls, inflow
 or outflow: the slab forms with the level's x walls on the end ranks at
 every level of the channel's hierarchies, the channel (128x64x16) and
-bingham (64x64x16) decks on 2 ranks ("sharded_xwalls").  Builds the
-kernel libraries first.
+bingham (64x64x16) decks on 2 ranks ("sharded_xwalls"), and embedded
+boundaries on the mesh: the slab forms at every level of channel_cyl's
+and poiseuille_cyl_bingham's MAC and cut-cell velocity hierarchies,
+channel_cyl (128x64x16) and poiseuille_cyl_bingham (64x64x16) on 2
+ranks ("sharded_eb").  Builds the kernel libraries first.
 
     python scripts/slab_smoke.py                   # every slab phase
     python scripts/slab_smoke.py sharded_xwalls    # that phase alone
+    python scripts/slab_smoke.py sharded_eb
 """
 
 import json
@@ -21,7 +25,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("slab", "sharded_mg", "sharded_xwalls")
+PHASES = ("slab", "sharded_mg", "sharded_xwalls", "sharded_eb")
 
 
 def main(argv):
@@ -44,6 +48,8 @@ def main(argv):
     run = {"slab": lambda: cs.phase_slab_smoothers(sk, mg, torch),
            "sharded_mg": lambda: cs.phase_sharded_mg(incflo_torch, torch),
            "sharded_xwalls": lambda: cs.phase_sharded_xwalls(
+               incflo_torch, sk, mg, torch),
+           "sharded_eb": lambda: cs.phase_sharded_eb(
                incflo_torch, sk, mg, torch)}
     out = {}
     for p in phases:

@@ -454,6 +454,29 @@ def test_cell_smooth_wrap_plane_bit_equal_both_regimes(cuda, regime, dtype,
         assert _rel(got[1], r) <= 1e-12
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(8, 4, 2), (9, 5, 7), (33, 8, 16),
+                                   (16, 8, 16)])
+@pytest.mark.parametrize("ncomp", [0, 3])
+def test_cell_smooth_ext_x_wrap_plane_bit_equal_both_regimes(
+        cuda, regime, dtype, shape, ncomp):
+    """The slab form's launch on an extended slab of an EB level (x open,
+    the y and z wrap planes) with the level's x wrap plane at two
+    interior planes, as the first and last ranks of a mesh place it:
+    bit-equal to its plain version in both regimes."""
+    bc = ((P, P, P), (P, P, P))
+    solver, (args, kw) = _eb_wrap_case(shape, ncomp, bc, dtype, cuda, 17)
+    fw = kw["Fwall"]
+    xwrap = (fw[0], (2, shape[0] - 3))
+    got = sk.cell_smooth_ext(*args, 2, True, bc=bc, Fwall=fw, xwrap=xwrap,
+                             _regime=regime)
+    torch.cuda.synchronize()
+    ref = sk.cell_smooth_plain(*args, 2, True, bc=sk.slab_bc(bc),
+                               Fwall=(None,) + tuple(fw[1:]),
+                               open_x=(True, True), xwrap=xwrap)
+    _bit_check(got, ref, dtype)
+
+
 NODAL_BCS = {
     "periodic": ((P, P, P), (P, P, P)),
     "rt": ((P, P, N), (P, P, N)),

@@ -70,8 +70,10 @@ CLI_ARGS = ["max_step=2", "amr.check_int=2", "amr.plot_int=2",
 # replaces the deck's own line); variable density, tracers,
 # non-Newtonian fluids, Boussinesq buoyancy and explicit diffusion run
 # split since multigrid runs on the slab (tests/test_torch_sharded_mg.py),
-# and MOL, walls and inflow or outflow on x since the mesh takes an x
-# that ends in boundaries (IN_SCOPE; tests/test_torch_sharded_xwalls.py)
+# MOL, walls and inflow or outflow on x since the mesh takes an x that
+# ends in boundaries (tests/test_torch_sharded_xwalls.py), and embedded
+# boundaries in 3D since the cut-cell arrays are cut to the slab
+# (IN_SCOPE; tests/test_torch_sharded_eb.py)
 X_WALLS = "geometry.is_periodic = 0 1 1\n"
 SCOPE_DECKS = {
     "MOL advection": "incflo.use_godunov = false\nincflo.cfl = 0.5\n",
@@ -89,13 +91,18 @@ SCOPE_DECKS = {
         "incflo.godunov_use_forces_in_trans = true\n",
     "use_mac_phi_in_godunov": "incflo.use_mac_phi_in_godunov = true\n",
 }
-IN_SCOPE = ("MOL advection", "walls on x", "inflow or outflow on x")
+IN_SCOPE = ("MOL advection", "walls on x", "inflow or outflow on x",
+            "embedded boundaries")
 
 
-# decks of their own the mesh still refuses: a 2D deck, and a periodic
-# axis above 256 cells, whose direct solves take rfftn
+# decks of their own the mesh still refuses: a 2D deck, a 2D deck with
+# embedded boundaries, and a periodic axis above 256 cells, whose direct
+# solves take rfftn
 SCOPE_TEXTS = {
     "2D decks": bench._deck("tgv2d", 16, "float64")[0],
+    "2D decks with embedded boundaries":
+        bench._deck("tgv2d", 16, "float64")[0]
+        + SCOPE_DECKS["embedded boundaries"],
     "rfftn": None,          # _deck((16, 16, 264)), built in four_ranks
 }
 
