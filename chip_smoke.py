@@ -253,6 +253,24 @@ Phases (any failure ends the run with a non-zero exit):
              card, as sharded_mg runs its cells (bingham's p, gp and
              mac_phi, rounding noise from rest, relative to its pressure
              scale delp = 2).
+             sharded_eb: embedded boundaries on the mesh, the slab forms
+             at every level of channel_cyl's and poiseuille_cyl_bingham's
+             MAC and cut-cell velocity hierarchies, then both decks
+             (128x64x16 and 64x64x16) on 2 ranks sharing the card.
+             sharded_2d: 2D decks and the two Godunov options on the
+             mesh, on 2 ranks sharing the card as sharded_mg runs its
+             cells (the f32 steps from init): tgv2d 128^2 by MOL and by
+             Godunov, incflo_tpu's 2D EB cylinder at 128^2, rt2d 64x128
+             (2D V-cycles on slabs with y walls; its f32 nodal solves
+             stagnate above their tolerance, so its f32 witness takes
+             the 1-rank runs from starts one rounding apart), shear3d
+             128x128x32 with use_mac_phi_in_godunov (advect_halo
+             launched on every rank, uad_halo and predict_d_halo no
+             time) and with both options (no Godunov kernel: forces in
+             the traces take the plain chain); the 2D slab sweep calls
+             and the 9-point EB slab sweeps a step per rank; rt2d's f32
+             MAC and nodal sweeps at every slab level bit-equal to the
+             whole level's rows on the card.
 Then one JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 
@@ -2888,6 +2906,11 @@ SHARD_RANKS = 2
 # witness tells rounding from a fault, as chip_smoke "step2d" does.
 TOL_SHARD_F64 = 1e-11
 TOL_SHARD_F32_FACTOR, TOL_SHARD_F32_ULPS = 2.0, 4
+# the 1-rank float32 runs from starts one rounding apart that give the
+# witness its reference where the 1-rank nodal solves stagnate above
+# their tolerance (sharded_cells): where such a solve stops is itself
+# rounding, and with it the f32 error (rt2d at 64x128)
+SHARD_F32_BAND = 3
 SHARD_FIELDS = ("velocity", "p", "gp", "mac_phi", "dt")
 
 
@@ -3349,11 +3372,19 @@ def phase_slab_smoothers(sk, mg, torch):
                       "slab", 37)
 
 
-def one_rank_run(incflo_torch, torch, deck, nsteps, perturb=None, sim=None):
+def one_rank_run(incflo_torch, torch, deck, nsteps, perturb=None, sim=None,
+                 ulp_seed=None):
     """The port on one rank on the card from init_state (perturb: a
     whole-level numpy array added to its velocity, in the state's dtype;
-    sim: the deck's Simulation, built already): the states after init and
-    each step (numpy) and each step's tallies (ITER_KINDS)."""
+    ulp_seed: then each cell of the velocity, density and tracer scaled
+    by 1 - eps, 1 or 1 + eps of its dtype, seeded -- a start one rounding
+    apart; sim: the deck's Simulation, built already), stepped by the
+    plain step Simulation._advance_impl as every rank of a mesh steps
+    (the fused 2D step stays off under a mesh, Simulation._fused_step):
+    the states after init and each step (numpy), each step's tallies
+    (ITER_KINDS) and the steps' nodal solves that iterated (residual /
+    tolerance, V-cycles, maxiter; multigrid.NODAL_LOG)."""
+    import numpy as np
     from incflo_torch import state
     from incflo_torch.ops import multigrid as mg
     if sim is None:
@@ -3365,15 +3396,30 @@ def one_rank_run(incflo_torch, torch, deck, nsteps, perturb=None, sim=None):
         v = s.level.velocity
         s = s._replace(level=s.level._replace(velocity=v + torch.as_tensor(
             perturb).to(device=v.device, dtype=v.dtype)))
+    if ulp_seed is not None:
+        rng = np.random.default_rng(ulp_seed)
+        nudge = lambda a: a * (1 + torch.as_tensor(rng.integers(
+            -1, 2, tuple(a.shape)), device=a.device, dtype=a.dtype)
+            * torch.finfo(a.dtype).eps)
+        s = s._replace(level=s.level._replace(**{
+            f: nudge(getattr(s.level, f))
+            for f in ("velocity", "density", "tracer")}))
     states = [state.sim_to_numpy(s)]
     tallies = [{k: mg.COUNTS[k] for k in ITER_KINDS}]
-    for _ in range(nsteps):
-        before = dict(mg.COUNTS)
-        s = sim.advance(s)
-        tallies.append({k: mg.COUNTS[k] - before[k] for k in ITER_KINDS})
-        states.append(state.sim_to_numpy(s))
-    torch.cuda.synchronize()
-    return states, tallies
+    mg.NODAL_LOG = []
+    try:
+        for _ in range(nsteps):
+            before = dict(mg.COUNTS)
+            s = sim._advance_impl(s)
+            tallies.append({k: mg.COUNTS[k] - before[k]
+                            for k in ITER_KINDS})
+            states.append(state.sim_to_numpy(s))
+        torch.cuda.synchronize()
+        solves = [(float(res) / float(tol), it, maxiter)
+                  for res, tol, it, maxiter in mg.NODAL_LOG]
+    finally:
+        mg.NODAL_LOG = None
+    return states, tallies, solves
 
 
 def mg_state_errs(a, b, floors=None):
@@ -3390,12 +3436,13 @@ def mg_state_errs(a, b, floors=None):
 def phase_sharded_mg(incflo_torch, torch):
     """rt (64x64x128) and shear3d_vd (128x128x32) split over 2 ranks that
     share the card, multigrid on the slabs (sharded_cells)."""
-    return sharded_cells(incflo_torch, torch, SHARD_MG_DECKS, "sharded_mg")
+    return sharded_cells(incflo_torch, torch, SHARD_MG_DECKS,
+                         "sharded_mg")[0]
 
 
 def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
                   warm=1, steps=2, instrumented=1, perturbs=None,
-                  families=SLAB_FAMILIES, sims32=None):
+                  families=SLAB_FAMILIES, sims32=None, jobs=()):
     """Each deck of `decks` (cell -> deck of a dtype) split over 2 ranks
     that share the card: float64 init + steps64 steps held to the 1-rank
     port to TOL_SHARD_F64 (relative to each field's max, or to
@@ -3404,20 +3451,33 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
     float32 warm + steps timed steps (the launch counts zeroed just
     before them) held against a 1-rank float64 run beside the 1-rank
     float32 run (PR 6's witness bound), then `instrumented` steps that
-    time each exchange.  perturbs: cell -> a function of the deck's
+    time each exchange.  Where the 1-rank float32 run's nodal solves stop
+    on stagnation above their tolerance, its error is one draw of what
+    rounding gives: the witness then takes the largest error of it and
+    of SHARD_F32_BAND runs from starts one rounding apart (one_rank_run's
+    ulp_seed), and the ranks are held to the main path's checks of such
+    a deck: their nodal solves stop below maxiter and no further above
+    their tolerance than the 1-rank runs' worst, and the final velocity
+    re-projected from zero reaches the tolerance (vd_projection_check;
+    a deck without EB).  perturbs: cell -> a function of the deck's
     1-rank Simulation giving a whole-level array that every run of the
     cell adds to its initial velocity; sims32: cell -> the deck's 1-rank
     float32 Simulation, built already.  Every rank must launch
     each slab smoother kernel of `families` in the timed steps.  The
-    1-rank runs first; then one spawn of the ranks runs every cell's
-    float64 steps (workers.several), and each cell's timed float32 steps
-    run in a fresh spawn of their own, as PR 13 timed them.  Printed and
-    returned beside the times: each rank's setup seconds (its Simulation
-    and init) and the 27-point EB nodal smoother's slab calls a step."""
+    1-rank runs first; then one spawn of the ranks (workers.several)
+    runs every cell's float64 steps, then every cell's timed float32
+    steps, then `jobs` (more (key, name, kwargs) of workers).  Printed
+    and returned beside the times: each rank's setup seconds (its
+    Simulation and init), the 27-point EB nodal smoother's and the 2D
+    flux-form slab sweep calls a step, and each rank's Godunov kernel
+    launches.  Returns (the cells' results, each rank's results of the
+    spawn)."""
+    from incflo_torch import state
+    from incflo_torch.ops import multigrid as mg
     from incflo_torch.parallel import launch
     ulp = 1.1920928955078125e-07
     t0 = time.time()
-    refs, jobs, pert = {}, [], {}
+    refs, pert = {}, {}
     for cell, deck_of in decks.items():
         deck64 = deck_of("float64")
         sim32 = (sims32 or {}).get(cell)
@@ -3426,30 +3486,42 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
                 incflo_torch.IncfloConfig.from_text(deck_of("float32")))
         make = (perturbs or {}).get(cell)
         pert[cell] = None if make is None else make(sim32)
-        ref64, tal64 = one_rank_run(incflo_torch, torch, deck64,
-                                    warm + steps, pert[cell])
-        ref32, _ = one_rank_run(incflo_torch, torch, None, warm + steps,
-                                pert[cell], sim32)
+        ref64, tal64, _ = one_rank_run(incflo_torch, torch, deck64,
+                                       warm + steps, pert[cell])
+        ref32, _, solves = one_rank_run(incflo_torch, torch, None,
+                                        warm + steps, pert[cell], sim32)
+        band = [ref32[-1]]
+        stalls = any(r > 1.0 for r, _, _ in solves)
+        if stalls:
+            for seed in range(SHARD_F32_BAND):
+                more, _, more_solves = one_rank_run(
+                    incflo_torch, torch, None, warm + steps, pert[cell],
+                    sim32, seed)
+                band.append(more[-1])
+                solves += more_solves
+        refs[cell] = (ref64, tal64, band,
+                      (sim32, max(r for r, _, _ in solves)) if stalls
+                      else None)
         del sim32
-        refs[cell] = (ref64, tal64, ref32)
-        jobs.append((cell, "steps", dict(deck=deck64, nsteps=steps64,
-                                         perturb=pert[cell])))
     t1 = time.time()
-    ranks64 = launch.run("incflo_torch.parallel.workers:several",
-                         SHARD_RANKS, dict(jobs=jobs), device="cuda",
-                         timeout=900)
+    ranks = launch.run(
+        "incflo_torch.parallel.workers:several", SHARD_RANKS,
+        dict(jobs=[(f"{cell} f64", "steps",
+                    dict(deck=deck_of("float64"), nsteps=steps64,
+                         perturb=pert[cell]))
+                   for cell, deck_of in decks.items()]
+             + [(f"{cell} f32", "timed_steps",
+                 dict(deck=deck_of("float32"), warm=warm, nsteps=steps,
+                      instrumented=instrumented, perturb=pert[cell]))
+                for cell, deck_of in decks.items()] + list(jobs)),
+        device="cuda", timeout=900)
+    t2 = time.time()
     out = {}
     for cell, deck_of in decks.items():
         fl = (floors or {}).get(cell)
-        ref64, tal64, ref32 = refs[cell]
-        r64 = [r[cell] for r in ranks64]
-        r32 = launch.run("incflo_torch.parallel.workers:timed_steps",
-                         SHARD_RANKS, dict(deck=deck_of("float32"), warm=warm,
-                                           nsteps=steps,
-                                           instrumented=instrumented,
-                                           perturb=pert[cell]),
-                         device="cuda", timeout=900)
-        t2 = time.time()
+        ref64, tal64, band, stalled = refs[cell]
+        r64 = [r[f"{cell} f64"] for r in ranks]
+        r32 = [r[f"{cell} f32"] for r in ranks]
         worst64 = dict.fromkeys(SHARD_MG_FIELDS, 0.0)
         for i, (a, b) in enumerate(zip(r64[0]["states"], ref64)):
             for f, e in mg_state_errs(a, b, fl).items():
@@ -3462,7 +3534,10 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
                 raise AssertionError(f"{cell} 2 ranks f64, rank {rank}: "
                                      f"tallies {r['tallies']}, 1 rank "
                                      f"{tal64[:steps64 + 1]}")
-        own32 = mg_state_errs(ref32[-1], ref64[-1], fl)
+        own32 = dict.fromkeys(SHARD_MG_FIELDS, 0.0)
+        for b in band:
+            for f, e in mg_state_errs(b, ref64[-1], fl).items():
+                own32[f] = max(own32[f], e)
         shard32 = mg_state_errs(r32[0]["state"], ref64[-1], fl)
         bound32 = {f: TOL_SHARD_F32_FACTOR * own32[f]
                    + TOL_SHARD_F32_ULPS * ulp for f in SHARD_MG_FIELDS}
@@ -3471,7 +3546,37 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
                 raise AssertionError(
                     f"{cell} 2 ranks f32 after {warm + steps} steps: {f} is "
                     f"{shard32[f]:.3e} from the float64 run, the 1-rank f32 "
-                    f"run {own32[f]:.3e} (bound {bound32[f]:.3e})")
+                    f"run {own32[f]:.3e} (bound {bound32[f]:.3e}; "
+                    f"{len(band)} 1-rank starts)")
+        stall = None
+        if stalled is not None:
+            sim32, worst = stalled
+            for rank, r in enumerate(r32):
+                if not r["nodal_solves"] or any(
+                        q > worst or it >= m
+                        for q, it, m in r["nodal_solves"]):
+                    raise AssertionError(
+                        f"{cell} 2 ranks f32, rank {rank}: nodal solves "
+                        f"ended at {r['nodal_solves']} (bound {worst:.3f} x "
+                        f"tolerance, the 1-rank runs' worst)")
+            # the plain nodal operator: an EB deck's exact one is another
+            res_over_tol = cycles = div = None
+            if sim32.eb is None:
+                res_over_tol, cycles, div, _ = vd_projection_check(
+                    sim32, state.sim_from_numpy(
+                        r32[0]["state"], "cuda", torch.float32), mg, torch)
+                if not res_over_tol <= 1.0:
+                    raise AssertionError(f"{cell} 2 ranks f32: the "
+                                         f"re-projection stopped at "
+                                         f"{res_over_tol:.2f} x tolerance")
+            stall = {"starts": len(band),
+                     "one_rank_worst_res_over_tol": worst,
+                     "nodal_res_over_tol": [q for q, _, _ in
+                                            r32[0]["nodal_solves"]],
+                     "nodal_cycles": [it for _, it, _ in
+                                      r32[0]["nodal_solves"]],
+                     "reprojection_res_over_tol": res_over_tol,
+                     "reprojection_cycles": cycles, "max_div_u": div}
         per_step = []
         for rank, r in enumerate(r32):
             got = {k: v / steps for k, v in r["smoother_launches"].items()}
@@ -3481,6 +3586,10 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
                                      f"{steps} steps")
             per_step.append(got)
         stencil = [r["stencil_slab_calls"] / steps for r in r32]
+        slab_2d = [{k: v / steps for k, v in r["slab_2d_calls"].items()}
+                   for r in r32]
+        godunov = [{k: v for k, v in r["launches"].items() if v}
+                   for r in r32]
         setup = [r["setup_s"] for r in r32]
         ms = max(r["ms_per_step"] for r in r32)
         inst = max(r["instrumented_ms_per_step"] for r in r32)
@@ -3498,19 +3607,36 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
               "(2 ranks / 1 rank) "
               + ", ".join(f"{f} {shard32[f]:.2e} / {own32[f]:.2e}"
                           for f in SHARD_MG_FIELDS)
+              + ("" if stall is None else
+                 f" (the 1-rank: the largest over {stall['starts']} starts "
+                 f"one rounding apart, its nodal solves stagnating above "
+                 f"their tolerance, at worst "
+                 f"{stall['one_rank_worst_res_over_tol']:.3f} x; rank 0's "
+                 f"nodal solves "
+                 f"{[round(q, 3) for q in stall['nodal_res_over_tol']]} x "
+                 f"tol in {stall['nodal_cycles']} V-cycles"
+                 + ("" if stall["reprojection_res_over_tol"] is None else
+                    f", the final velocity re-projected to "
+                    f"{stall['reprojection_res_over_tol']:.2f} x tol in "
+                    f"{stall['reprojection_cycles']} V-cycles, max|div u| "
+                    f"{stall['max_div_u']:.3e}") + ")")
               + "; smoother launches a step per rank "
               + "; ".join(str({k: v for k, v in p.items() if v})
                           for p in per_step)
               + (f"; 27-point EB nodal slab sweeps a step per rank "
                  f"{stencil}" if any(stencil) else "")
+              + (f"; 2D slab sweeps a step per rank {slab_2d}"
+                 if any(any(c.values()) for c in slab_2d) else "")
+              + (f"; Godunov launches per rank {godunov}"
+                 if any(godunov) else "")
               + f"; setup s per rank {[round(v, 2) for v in setup]}"
               + f"; instrumented {inst:.3f} ms/step, exchanges per step "
               + ", ".join(f"{k} {v['calls_per_step']:.0f} calls "
                           f"{v['bytes_per_step'] / 1e6:.3f} MB "
                           f"{v['ms_per_step']:.3f} ms"
                           for k, v in comm.items())
-              + f"; the cells' 1-rank runs {t1 - t0:.1f} s, spawns up to "
-              f"here {t2 - t1:.1f} s", flush=True)
+              + f"; the cells' 1-rank runs {t1 - t0:.1f} s, the spawn "
+              f"{t2 - t1:.1f} s", flush=True)
         out[cell] = {"ranks": SHARD_RANKS, "mesh": r32[0]["mesh"],
                      "ms_per_step": ms, "steps": steps, "warmup": warm,
                      "instrumented_ms_per_step": inst, "comm": comm,
@@ -3518,15 +3644,18 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
                      "launches_per_rank": [r["smoother_launches"]
                                            for r in r32],
                      "stencil_slab_calls_per_step": stencil,
+                     "slab_2d_calls_per_step": slab_2d,
+                     "godunov_launches_per_rank": [r["launches"]
+                                                   for r in r32],
                      "setup_s": setup,
                      "counts": [r["counts"] for r in r32],
                      "f64_max_rel_err": worst64, "f64_tol": TOL_SHARD_F64,
                      "tallies": tal64[:steps64 + 1],
                      "f32_rel_err_vs_f64": shard32,
                      "f32_one_rank_rel_err_vs_f64": own32,
-                     "f32_bound": bound32, "floors": fl,
-                     "seconds_all_cells": t2 - t0}
-    return out
+                     "f32_bound": bound32, "f32_stall": stall,
+                     "floors": fl, "seconds_all_cells": t2 - t0}
+    return out, ranks
 
 
 # the 2-rank cells of an x that ends in boundaries: bench's channel
@@ -3578,8 +3707,8 @@ def phase_sharded_xwalls(incflo_torch, sk, mg, torch):
     forms = slab_forms(sk, mg, torch,
                        list(zip(SLAB_FAMILIES, (tracer, nodal))),
                        "sharded_xwalls", 43)
-    cells = sharded_cells(incflo_torch, torch, SHARD_XWALL_DECKS,
-                          "sharded_xwalls", SHARD_XWALL_FLOORS)
+    cells, _ = sharded_cells(incflo_torch, torch, SHARD_XWALL_DECKS,
+                             "sharded_xwalls", SHARD_XWALL_FLOORS)
     return {"slab_forms": forms, "cells": cells}
 
 
@@ -3633,12 +3762,145 @@ def phase_sharded_eb(incflo_torch, sk, mg, torch):
                     for op in eb_operators_f32(mg, torch, sims[cell])]
     forms = slab_forms(sk, mg, torch, solvers, "sharded_eb", 47)
     del solvers
-    cells = sharded_cells(incflo_torch, torch, SHARD_EB_DECKS, "sharded_eb",
-                          perturbs={"poiseuille_cyl_bingham":
-                                    eb_perturbation},
-                          families=("cell_smooth_slab",), warm=0,
-                          sims32=sims)
+    cells, _ = sharded_cells(incflo_torch, torch, SHARD_EB_DECKS,
+                             "sharded_eb", perturbs={
+                                 "poiseuille_cyl_bingham": eb_perturbation},
+                             families=("cell_smooth_slab",), warm=0,
+                             sims32=sims)
     return {"slab_forms": forms, "cells": cells}
+
+
+def eb_cylinder_2d_deck(n, dtype):
+    """incflo_tpu's sharded 2D EB deck (tests/test_sharding.py:172-205)
+    at n x n: fully periodic 4 x 4 box, the fluid inside a cylinder of
+    radius 1 at (2, 2), driven by delp (2, 0), mu 1, fixed dt 0.01,
+    MOL-EB, Crank-Nicolson diffusion."""
+    return deck_header(dtype) + f"""
+amr.n_cell = {n} {n}
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 4. 4.
+geometry.is_periodic = 1 1
+incflo.delp = 2. 0.
+incflo.geometry = "cylinder"
+cylinder.internal_flow = true
+cylinder.radius = 1.
+cylinder.direction = 2
+cylinder.center = 2. 2. 0.
+incflo.mu = 1.
+incflo.fixed_dt = 0.01
+incflo.use_godunov = false
+incflo.diffusion_type = 1
+incflo.do_initial_proj = 0
+"""
+
+
+# the 2-rank cells of the 2D decks and the Godunov options: bench's tgv2d
+# at its bench width (128^2, x slabs of 64) by MOL and by Godunov,
+# incflo_tpu's 2D EB cylinder at 128^2, rt2d at 64x128 (2D V-cycles on
+# slabs with y walls; its f32 nodal V-cycles stagnate above their
+# tolerance, so its f32 witness takes the band of sharded_cells),
+# shear3d 128x128x32 with use_mac_phi_in_godunov and with both options
+SHARD_2D_DECKS = {
+    "tgv2d": lambda dt: tgv2d_deck(128, dt),
+    "tgv2d_godunov": lambda dt: tgv2d_godunov_deck(128, dt),
+    "eb_cylinder": lambda dt: eb_cylinder_2d_deck(128, dt),
+    "rt2d": lambda dt: rt2d_deck(128, dt),
+    "shear3d_mac_phi": lambda dt: shear3d_deck(128, dt) + MAC_PHI,
+    "shear3d_both": lambda dt: shear3d_deck(128, dt) + MAC_PHI + UFT,
+}
+# the halo-slab Godunov kernels each cell launches in its timed steps on
+# every rank (every other Godunov kernel no time): the MAC-phi warm start
+# predicts by the plain chain and advects by advect_halo; forces in the
+# traces send predict and advect to the plain chain
+# (incflo_tpu/ops/godunov.py:475,648); the 2D chain is plain
+SHARD_2D_HALO = {"shear3d_mac_phi": ("advect_halo",)}
+# the 2D slab sweeps (multigrid.SLAB_2D) each cell makes on every rank,
+# and the cells that sweep the 9-point EB stencils on their slabs
+SHARD_2D_SWEEPS = {"eb_cylinder": ("cell",), "rt2d": ("cell", "nodal")}
+SHARD_2D_STENCIL = ("eb_cylinder",)
+
+
+def rt2d_sweep_cases(sim, nranks):
+    """The operators of rt2d's projections at the deck's width, float32,
+    from its initial density on a 1-rank Simulation: the MAC one
+    (beta = 1 / rho averaged to the faces) and the nodal one (sigma =
+    dt / rho), periodic x, Neumann y walls; each with a seeded x and b
+    and the calls at every level of its hierarchy
+    (workers.sweep_levels)."""
+    import numpy as np
+    from incflo_torch.ops import multigrid as mg
+    from incflo_torch.parallel import workers
+    per, neu = int(mg.SolverBC.PERIODIC), int(mg.SolverBC.NEUMANN)
+    s = sim.init_state()
+    rho = s.level.density.double().cpu().numpy()
+    f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+    rx = 0.5 * (rho + np.roll(rho, 1, 0))
+    ry = np.concatenate([rho[:, :1], 0.5 * (rho[:, 1:] + rho[:, :-1]),
+                         rho[:, -1:]], 1)
+    dx = tuple(sim.grid.dx)
+    mac = dict(kind="cell", dx=dx, bc_lo=(per, neu), bc_hi=(per, neu),
+               alpha=0.0, beta=1.0, acoef=None,
+               bcoef=[f32(np.concatenate([1 / rx, 1 / rx[:1]], 0)),
+                      f32(1 / ry)], ebc=None)
+    nodal = dict(kind="nodal", dx=dx, periodic=(True, False),
+                 bc_lo=(per, neu), bc_hi=(per, neu),
+                 sigma=f32(float(s.dt) / rho))
+    return [workers.sweep_levels(mac, nranks, 700),
+            workers.sweep_levels(nodal, nranks, 800)]
+
+
+def phase_sharded_2d(incflo_torch, torch):
+    """2D decks and the two Godunov options on the x-slab mesh: every
+    SHARD_2D_DECKS cell on 2 ranks sharing the card (sharded_cells: f64
+    init + 1 step against 1 rank, f32 against its witness bound, the f32
+    steps timed from init without a warm-up step).  Each rank must
+    launch the halo-slab kernels of SHARD_2D_HALO and no other Godunov
+    kernel, and make the 2D slab sweeps of SHARD_2D_SWEEPS and the
+    9-point EB slab sweeps of SHARD_2D_STENCIL.  In the same spawn the
+    2D cell and nodal sweeps of rt2d's projections (rt2d_sweep_cases)
+    at every slab level, float32 on the card: each rank's rows bit-equal
+    to the whole level's, one halo exchange a call
+    (workers.sweep_mismatches)."""
+    from incflo_torch.parallel import workers
+    rt2d = incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(
+        SHARD_2D_DECKS["rt2d"]("float32")))
+    cases = rt2d_sweep_cases(rt2d, SHARD_RANKS)
+    n_cell = list(rt2d.grid.n_cell)
+    cells, ranks = sharded_cells(
+        incflo_torch, torch, SHARD_2D_DECKS, "sharded_2d", families=(),
+        warm=0, sims32={"rt2d": rt2d},
+        jobs=[("rt2d sweeps", "solver_sweeps", dict(cases=cases))])
+    del rt2d
+    bad, n_slabs = workers.sweep_mismatches(
+        ranks, "rt2d sweeps", cases,
+        workers.solver_sweeps(None, cases, "cuda"))
+    if bad:
+        raise AssertionError(f"sharded_2d: rt2d's f32 slab sweeps differ "
+                             f"from the whole level's at {bad[:10]}")
+    calls = sum(len(lev) for c in ranks[0]["rt2d sweeps"]
+                for lev in c["levels"][:c["n_slab"]])
+    print(f"[sharded_2d] rt2d {n_cell} f32 2D slab sweeps of the MAC and nodal projections on the card: "
+          f"every rank's rows bit-equal to the whole level's at {n_slabs} "
+          f"slab levels (MAC rank 0, 1; nodal rank 0, 1), {calls} calls "
+          f"on rank 0, one halo exchange each", flush=True)
+    for cell, r in cells.items():
+        want = SHARD_2D_HALO.get(cell, ())
+        for rank, got in enumerate(r["godunov_launches_per_rank"]):
+            bad = {k: v for k, v in got.items() if (v > 0) != (k in want)}
+            if bad:
+                raise AssertionError(f"sharded_2d {cell} rank {rank}: Godunov "
+                                     f"launches {got}, want {want} alone")
+        for rank, calls in enumerate(r["slab_2d_calls_per_step"]):
+            if not all(calls[k] > 0 for k in SHARD_2D_SWEEPS.get(cell, ())):
+                raise AssertionError(f"sharded_2d {cell} rank {rank}: 2D slab "
+                                     f"sweeps a step {calls}")
+        if cell in SHARD_2D_STENCIL and not all(
+                c > 0 for c in r["stencil_slab_calls_per_step"]):
+            raise AssertionError(f"sharded_2d {cell}: 9-point EB slab sweeps "
+                                 f"{r['stencil_slab_calls_per_step']}")
+    return {"cells": cells, "rt2d_sweeps": {"n_cell": n_cell,
+                                            "slab_levels": n_slabs,
+                                            "calls_rank0": calls}}
 
 
 CLI_ARGS = ["max_step=4", "amr.check_int=2", "amr.plot_int=2"]
@@ -4457,6 +4719,8 @@ def main(argv):
     stamp("sharded x walls")
     ebslab = phase_sharded_eb(incflo_torch, sk, mg, torch)
     stamp("sharded embedded boundaries")
+    shard_2d = phase_sharded_2d(incflo_torch, torch)
+    stamp("sharded 2D and Godunov options")
 
     # `launches` is the count over the kernel's own main path: shear3d
     # n = 128 for the Godunov kernels (their count in shear3d_vd beside
@@ -4577,6 +4841,9 @@ def main(argv):
             "launches_per_rank": [c[k] for c in shard["launches_per_rank"]],
             "launches_per_step": PER_STEP_HALO[k],
             "launches_per_step_a9c": a9c_per_step(k),
+            "launches_mac_phi": [c[k] for c in shard_2d["cells"][
+                "shear3d_mac_phi"][
+                "godunov_launches_per_rank"]],
             "device_launches_per_call": t["device_launches"],
             "max_abs_err": r["max_abs_err"], "tol_f32": 0.0,
             "max_rel_err_f64": r["max_rel_err_f64"], "tol_f64": 1e-14,
@@ -4682,6 +4949,7 @@ def main(argv):
                       "sharded": shard, "sharded_mg": shard_mg,
                       "sharded_xwalls": xwalls["cells"],
                       "sharded_eb": ebslab["cells"],
+                      "sharded_2d": shard_2d,
                       "cli": cli,
                       "amr": {"main": list(amr_main.values()),
                               "levels": amr_levels, "cli": amr_cli},

@@ -21,7 +21,9 @@ checkpoint, per-rank checkpoints on a mesh (utils/io.py), derived fields
 (ops/derive.py), diagnostics (utils/diagnostics.py), and the driver
 `python -m incflo_torch.main <inputs> [key=value ...]` (main.py), AMR
 decks included.  AMR with embedded boundaries raises NotImplementedError
-naming ROADMAP A13b; a mesh runs shear3d's physics (A14).
+naming ROADMAP A13b.  Split over an x-slab mesh (parallel/, ROADMAP A14)
+every one-level deck runs, 2D and 3D, with or without embedded
+boundaries; AMR under a mesh raises.
 
 Float32 matrix products run in full precision: importing the package
 sets `torch.backends.cuda.matmul.allow_tf32 = False` and

@@ -17,9 +17,9 @@ and printed when the deck names none) or the dense fine level
 a torch.profiler chrome trace of the evolve loop there.  The kernels
 build into incflo_torch/_build/ at their first use.  Given a SlabMesh
 (parallel/mesh.py; the job `cli` of parallel/workers.py), every rank
-runs `run`: each writes its own checkpoint shard, and rank 0 alone
-prints and writes the plotfiles; an AMR deck under a mesh raises,
-naming ROADMAP A14.
+runs `run` on its x slab of any one-level deck, 2D or 3D: each writes
+its own checkpoint shard, and rank 0 alone prints and writes the
+plotfiles; an AMR deck under a mesh raises, naming ROADMAP A14.
 """
 
 from __future__ import annotations

@@ -718,9 +718,10 @@ def advect_comp_slab_plain(grid, q_p, mac_p, force_p, dt, icons: bool,
 
 def _check_slab(grid, field):
     if grid.ndim != 3 or not all(grid.periodic):
-        raise NotImplementedError(
+        raise ValueError(
             "the halo-slab Godunov kernels cover x slabs of 3D fully "
-            "periodic levels; other sharded decks come with ROADMAP A14")
+            "periodic levels; a 2D or walled slab takes the plain chain "
+            "(ops/godunov.py dispatches it to ops/godunov_walls.py)")
     if field.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"Godunov kernels take float32/float64, got "
                         f"{field.dtype}")

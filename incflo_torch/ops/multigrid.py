@@ -50,7 +50,10 @@ is even (its first x index keeps the global colour parity) and at least
 as wide as the halo of the calls on it (smoother_kernels.slab_depth: 4
 planes for a cell V-cycle's sweeps, 6 for a nodal one's, 18 and 50 for
 their bottoms); the smoothers there are the slab forms of the kernels
-(smoother_kernels.cell_smooth_slab / nodal_smooth_slab), their
+(smoother_kernels.cell_smooth_slab / nodal_smooth_slab) on a 3D level
+and, on a 2D level, the plain flux-form sweeps on the same extended slab
+(CellSolver / NodalSolver._smooth_slab_2d: one halo exchange of x and b
+a call, x open at the slab's edges, counted in SLAB_2D), their
 coefficients extended by the neighbours' planes once per hierarchy and
 depth.  The levels below go to every rank whole (SlabMesh.all_gather_x
 of the coefficients once, of the coarse residual in each V-cycle): each
@@ -91,16 +94,22 @@ COUNTS = {"cell_solves": 0, "cell_iters": 0, "nodal_solves": 0,
 NODAL_LOG = None
 # the same for each cell solve whose CG iterated (the best residual)
 CELL_LOG = None
-# the 27-point EB nodal smoother's calls on slab levels
+# the 27-point (9-point in 2D) EB nodal smoother's calls on slab levels
 # (EBNodalSolver._smooth_res: plain PyTorch, no kernel), since
 # reset_counts()
 STENCIL_SLAB = {"calls": 0}
+# the plain flux-form sweeps' calls on 2D slab levels (CellSolver and
+# NodalSolver._smooth_res: plain PyTorch, one halo exchange a call),
+# since reset_counts()
+SLAB_2D = {"cell": 0, "nodal": 0}
 
 
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
     STENCIL_SLAB["calls"] = 0
+    for k in SLAB_2D:
+        SLAB_2D[k] = 0
 
 
 def host_bool(flag) -> bool:
@@ -276,6 +285,44 @@ def _chunks(n, nxl, want_residual):
     return out + [(n - per * len(out), want_residual)]
 
 
+def _open_x(codes_lo, codes_hi, mesh, periodic):
+    """The solver BCs of a 2D extended slab (the _smooth_slab_2d sweeps
+    of CellSolver and NodalSolver): y the level's; along x the level's
+    code on a side that is the level's own x face (SlabMesh.ends),
+    NEUMANN -- open: the edge rows, which are thrown away, see no
+    neighbour -- on every other side (smoother_kernels.slab_bc's
+    rule)."""
+    ends = mesh.ends(periodic)
+    lo = (codes_lo[0] if ends[0] else int(SolverBC.NEUMANN),)
+    hi = (codes_hi[0] if ends[1] else int(SolverBC.NEUMANN),)
+    return lo + tuple(codes_lo[1:]), hi + tuple(codes_hi[1:])
+
+
+def _slab_sweeps_2d(mesh, x, b, n, want_residual, cells, periodic, kind,
+                    level_of):
+    """The 2D flux-form sweeps on a slab level (CellSolver and
+    NodalSolver._smooth_slab_2d): per call one halo exchange of x and b,
+    as deep as the sweeps reach (smoother_kernels.slab_depth, lo even:
+    the colours keep the global parity), the sweeps on the extended slab
+    with x open (_open_x), the slab's rows kept -- the whole level's rows
+    bit for bit.  cells: the level's x cells on this rank;
+    level_of(lo, hi): dinv and the apply of the slab extended by (lo,
+    hi); kind: the SLAB_2D count."""
+    from incflo_torch.ops import smoother_kernels as sk
+    rows = x.shape[0]
+    res = None
+    for k, want in _chunks(n, cells, want_residual):
+        if k == 0 and not want:
+            continue
+        dinv, apply = level_of(*sk.slab_depth(k, want))
+        lo, _, xe, be = sk._slab_halo(mesh, x, b, k, want, cells, periodic)
+        xe, re = _rb_sweeps(xe, be, dinv, apply, k, want, 2)
+        SLAB_2D[kind] += 1
+        x = xe.narrow(0, lo, rows)
+        res = None if re is None else re.narrow(0, lo, rows)
+    return x, res
+
+
 class _SlabCoefs:
     """A slab level's smoother coefficients extended by the neighbours'
     x planes: exchanged once at the depth the first call needs and again
@@ -373,7 +420,13 @@ def _set_face(flux, axis, idx, val):
     return out
 
 
-def _fluxes_of_padded(xp, lev: CellLevel):
+def _fluxes_of_padded(xp, lev: CellLevel, xfaces=None):
+    """b*grad of the padded xp on the n+1 faces of every axis.  xfaces:
+    the x face coefficients as each cell's low and high face, two cell
+    arrays (an extended slab, CellSolver._smooth_slab_2d, whose face at
+    the level's periodic wrap is face 0 for one cell and face n for the
+    other); the x fluxes are then each cell's (low, high) pair, the same
+    products of the same values."""
     ndim = len(lev.dx)
     fluxes = []
     for ax in range(ndim):
@@ -384,6 +437,16 @@ def _fluxes_of_padded(xp, lev: CellLevel):
                 v = v.narrow(other, 1, v.shape[other] - 2)
         grad = (v.narrow(ax, 1, v.shape[ax] - 1)
                 - v.narrow(ax, 0, v.shape[ax] - 1)) * dxi      # n+1 faces
+        if ax == 0 and xfaces is not None:
+            n = grad.shape[0] - 1
+            flo = xfaces[0] * grad.narrow(0, 0, n)
+            fhi = xfaces[1] * grad.narrow(0, 1, n)
+            if _side_bc(lev, ax, 0) == SolverBC.NEUMANN:
+                flo = _set_face(flo, ax, 0, 0.0)
+            if _side_bc(lev, ax, 1) == SolverBC.NEUMANN:
+                fhi = _set_face(fhi, ax, -1, 0.0)
+            fluxes.append((flo, fhi))
+            continue
         flux = lev.bcoef[ax] * grad
         if _side_bc(lev, ax, 0) == SolverBC.NEUMANN:
             flux = _set_face(flux, ax, 0, 0.0)
@@ -411,8 +474,12 @@ def _apply_from_fluxes(x, lev: CellLevel, fluxes):
         out = out + lev.beta * lev.ebc * x
     for ax, flux in enumerate(fluxes):
         dxi = 1.0 / lev.dx[ax]
-        n = flux.shape[ax]
-        div = (flux.narrow(ax, 1, n - 1) - flux.narrow(ax, 0, n - 1)) * dxi
+        if isinstance(flux, tuple):         # each cell's (low, high) face
+            div = (flux[1] - flux[0]) * dxi
+        else:
+            n = flux.shape[ax]
+            div = (flux.narrow(ax, 1, n - 1)
+                   - flux.narrow(ax, 0, n - 1)) * dxi
         out = out - lev.beta * div
     return out
 
@@ -725,6 +792,8 @@ class CellSolver:
         dinvs, fhis, fwalls = self.smoother_coefs()
         lev = self.levels[li]
         if self.ndim != 3:
+            if lev.mesh is not None:
+                return self._smooth_slab_2d(x, b, li, n, want_residual)
             return _rb_sweeps(x, b, dinvs[li], lambda v: cell_apply(v, lev),
                               n, want_residual, self.ndim)
         bc = (lev.bc_lo, lev.bc_hi)
@@ -751,6 +820,42 @@ class CellSolver:
                                          ext[2:5], k, want, bc=bc, Fwall=fw,
                                          xwrap=xwrap)
         return x, res
+
+    def _smooth_slab_2d(self, x, b, li, n, want_residual):
+        """The 2D flux-form sweeps on slab level li (_slab_sweeps_2d).
+        The coefficients come extended by the neighbours' rows once a
+        hierarchy and depth (_SlabCoefs): dinv, the x faces as each
+        cell's low and high face (at a periodic wrap face 0 and face n
+        differ on the EB wall term's levels), the y faces, acoef and
+        ebc."""
+        lev = self.levels[li]
+        mesh = lev.mesh
+        periodic = lev.bc_lo[0] == SolverBC.PERIODIC
+        key = ("2d", li)
+        if key not in self._ext:
+            bx = lev.bcoef[0]
+            m = bx.shape[0] - 1
+            self._ext[key] = _SlabCoefs(mesh, [
+                self.smoother_coefs()[0][li], bx.narrow(0, 0, m),
+                bx.narrow(0, 1, m), lev.bcoef[1],
+                *(t for t in (lev.acoef, lev.ebc) if t is not None)],
+                periodic)
+        bc_lo, bc_hi = _open_x(lev.bc_lo, lev.bc_hi, mesh, periodic)
+
+        def level_of(lo, hi):
+            # dinv, the x faces (low, high), the y faces, [acoef], [ebc]
+            ext = self._ext[key].get(lo, hi)
+            rest = iter(ext[4:])
+            elev = dataclasses.replace(
+                lev, bc_lo=bc_lo, bc_hi=bc_hi,
+                acoef=None if lev.acoef is None else next(rest),
+                bcoef=(None, ext[3]),
+                ebc=None if lev.ebc is None else next(rest), mesh=None)
+            return ext[0], lambda v: _apply_from_fluxes(
+                v, elev, _fluxes_of_padded(_cell_pad(v, elev), elev,
+                                           (ext[1], ext[2])))
+        return _slab_sweeps_2d(mesh, x, b, n, want_residual, x.shape[0],
+                               periodic, "cell", level_of)
 
     def _xwrap(self, li):
         """The x wrap plane of slab level li (a periodic x whose face 0
@@ -1225,6 +1330,8 @@ class NodalSolver:
         PyTorch."""
         lev = self.levels[li]
         if self.ndim != 3:      # incflo_tpu's jnp sweep, multigrid.py:1022
+            if lev.mesh is not None:
+                return self._smooth_slab_2d(x, b, li, n, want_residual)
             return _rb_sweeps(x, b, self.dinvs[li],
                               lambda v: nodal_apply(v, lev), n,
                               want_residual, self.ndim)
@@ -1235,18 +1342,46 @@ class NodalSolver:
         if lev.mesh is None:
             return sk.nodal_smooth(x, b, self.sigmas[li], self.dinvs[li],
                                    lev.dx, n, want_residual, bc=bc)
-        if li not in self._ext:
-            per = lev.periodic[0]
-            self._ext[li] = (_SlabCoefs(lev.mesh, [self.dinvs[li]], per),
-                             _SlabCoefs(lev.mesh, [self.sigmas[li]], per))
+        dinvs, sigmas = self._slab_coefs(li)
         res = None
         for k, want in _chunks(n, lev.cells[0], want_residual):
             lo, hi = sk.slab_depth(k, want)
-            dinv, = self._ext[li][0].get(lo, hi)
-            sigma, = self._ext[li][1].get(lo, max(hi - 1, 0))
+            dinv, = dinvs.get(lo, hi)
+            sigma, = sigmas.get(lo, max(hi - 1, 0))
             x, res = sk.nodal_smooth_slab(lev.mesh, x, b, sigma, dinv,
                                           lev.dx, k, want, bc=bc)
         return x, res
+
+    def _slab_coefs(self, li):
+        """Slab level li's dinv and sigma, extended by the neighbours'
+        rows once a hierarchy and depth (_SlabCoefs)."""
+        if li not in self._ext:
+            per = self.levels[li].periodic[0]
+            mesh = self.levels[li].mesh
+            self._ext[li] = (_SlabCoefs(mesh, [self.dinvs[li]], per),
+                             _SlabCoefs(mesh, [self.sigmas[li]], per))
+        return self._ext[li]
+
+    def _smooth_slab_2d(self, x, b, li, n, want_residual):
+        """The 2D nodal sweeps on slab level li (_slab_sweeps_2d): the
+        extended slab's nodes lo + rows + hi, its cells one fewer (sigma
+        extended by (lo, hi - 1))."""
+        lev = self.levels[li]
+        mesh = lev.mesh
+        per = lev.periodic[0]
+        dinvs, sigmas = self._slab_coefs(li)
+
+        def level_of(lo, hi):
+            key = ("2d", li, lo, hi)
+            if key not in self._ext:
+                bc_lo, bc_hi = _open_x(lev.bc_lo, lev.bc_hi, mesh, per)
+                self._ext[key] = NodalLevel(
+                    lev.dx, (False,) + lev.periodic[1:], bc_lo, bc_hi,
+                    sigmas.get(lo, max(hi - 1, 0))[0]).with_stencil()
+            elev = self._ext[key]
+            return dinvs.get(lo, hi)[0], lambda v: nodal_apply(v, elev)
+        return _slab_sweeps_2d(mesh, x, b, n, want_residual, lev.cells[0],
+                               per, "nodal", level_of)
 
     def _vcycle(self, x, b, li=0, want_residual=False):
         if self._whole is not None:

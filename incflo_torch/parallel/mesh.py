@@ -199,10 +199,9 @@ class SlabMesh:
     def local_grid(self, grid: Grid) -> SlabGrid:
         """This rank's slab of `grid`; raises where the level does not
         split into equal x slabs at least HALO cells wide."""
-        if grid.ndim != 3:
-            raise NotImplementedError(
-                "an x-slab mesh splits 3D levels; 2D levels come with "
-                "ROADMAP A14")
+        if grid.ndim not in (2, 3):
+            raise ValueError(f"an x-slab mesh splits 2D and 3D levels, "
+                             f"not {grid.ndim}D")
         nx = grid.n_cell[0]
         if nx % self.size:
             raise NotImplementedError(

@@ -39,8 +39,10 @@ def several(mesh, jobs):
 
 
 def _level_grid(n_cell, prob_hi):
+    """A fully periodic level of n_cell cells (2D or 3D) on [0, prob_hi]."""
     from incflo_torch.grid import Grid
-    return Grid(tuple(n_cell), (0.0,) * 3, tuple(prob_hi), (True,) * 3)
+    nd = len(n_cell)
+    return Grid(tuple(n_cell), (0.0,) * nd, tuple(prob_hi), (True,) * nd)
 
 
 def godunov(mesh, n_cell, prob_hi, vel, forces, q, umac, dt, use_ppm,
@@ -54,8 +56,8 @@ def godunov(mesh, n_cell, prob_hi, vel, forces, q, umac, dt, use_ppm,
     dev = mesh.device
     t = lambda a: torch.as_tensor(a).to(dev)
     slab = lambda a: mesh.slab(t(a)).contiguous()
-    umac_slab = [t(umac[0]).narrow(0, grid.x0, nxl + 1).contiguous(),
-                 slab(umac[1]), slab(umac[2])]
+    umac_slab = [t(umac[0]).narrow(0, grid.x0, nxl + 1).contiguous()] \
+        + [slab(u) for u in umac[1:]]
     pred = gk.predict_sharded(grid, slab(vel), slab(forces), dt, use_ppm)
     rate = gk.advect_sharded(grid, slab(q), umac_slab, slab(forces), dt,
                              iconserv, use_ppm)
@@ -122,7 +124,9 @@ def steps(mesh, deck, nsteps, start=None, perturb=None):
     whole-level states after init and after each step (rank 0 only), the
     tensor CG's iterations in each step, this rank's tallies of each
     step (ITER_KINDS; the first entry init's), its solver tallies,
-    Godunov and smoother launches, and its exchanges by kind (calls)."""
+    Godunov and smoother launches, the 27-point (9-point) EB nodal and
+    2D flux-form slab sweep calls (multigrid.STENCIL_SLAB, SLAB_2D), and
+    its exchanges by kind (calls)."""
     from incflo_torch import IncfloConfig, Simulation, state
     from incflo_torch.ops import godunov_kernels as gk
     from incflo_torch.ops import multigrid as mg
@@ -150,8 +154,34 @@ def steps(mesh, deck, nsteps, start=None, perturb=None):
             "launches": dict(gk.LAUNCHES),
             "smoother_launches": dict(sk.LAUNCHES),
             "stencil_slab_calls": mg.STENCIL_SLAB["calls"],
+            "slab_2d_calls": dict(mg.SLAB_2D),
             "comm": {k: v["calls"] for k, v in mesh.stats.items()},
             "mesh": mesh.describe()}
+
+
+def counted_steps(mesh, deck, nsteps, count=(), **kw):
+    """steps() with every call of the functions `count` of
+    ops/godunov_kernels counted on this rank (the kernel wrappers and
+    the plain chains: which ones a deck's dispatch reaches, whatever the
+    device); their calls by name under "calls"."""
+    from incflo_torch.ops import godunov_kernels as gk
+    calls = dict.fromkeys(count, 0)
+    saved = {name: getattr(gk, name) for name in count}
+
+    def counted(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+    try:
+        for name, fn in saved.items():
+            setattr(gk, name, counted(name, fn))
+        out = steps(mesh, deck, nsteps, **kw)
+    finally:
+        for name, fn in saved.items():
+            setattr(gk, name, fn)
+    out["calls"] = calls
+    return out
 
 
 def _perturbed(s, mesh, perturb):
@@ -315,7 +345,8 @@ def walled_godunov_chain(sim, vel, forces, q, dt):
     rho_g = sim.grow_rho(1.0 + 0.1 * vel[..., 0], ng)
     out = {f"umac{d}": u for d, u in enumerate(umac)}
     out["conv_u"] = sim.godunov.advect(vel_g, umac, f_g, dt, ng,
-                                       sim.vel_bcrec, [0] * 3, True)
+                                       sim.vel_bcrec, [0] * vel.shape[-1],
+                                       True)
     out["conv_r"] = sim.godunov.advect(rho_g[..., None], umac, None, dt, ng,
                                        sim.den_bcrec, [1], False)
     out["conv_t"] = sim.godunov.advect(rho_g[..., None]
@@ -335,28 +366,35 @@ def godunov_walls(mesh, deck, vel, forces, q, dt):
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
+def _solver(mesh, c, device="cpu"):
+    """A CellSolver ("cell": dx, bc_lo, bc_hi, alpha, beta, acoef or
+    None, bcoef with nx + 1 x faces, ebc or None) or NodalSolver
+    ("nodal": dx, periodic, bc_lo, bc_hi, sigma) of case c, from this
+    rank's rows of its whole-level coefficients on the mesh, or from the
+    whole level's on `device` where mesh is None; direct=False."""
+    from incflo_torch.ops import multigrid as mg
+    rows = (lambda a, extra=0: torch.as_tensor(a, device=device)) \
+        if mesh is None else (lambda a, extra=0: _rows(mesh, a, extra))
+    if c["kind"] == "cell":
+        opt = lambda k: None if c.get(k) is None else rows(c[k])
+        return mg.CellSolver(c["dx"], c["bc_lo"], c["bc_hi"], c["alpha"],
+                             c["beta"], opt("acoef"),
+                             [rows(b, 1 if ax == 0 else 0)
+                              for ax, b in enumerate(c["bcoef"])],
+                             ebc=opt("ebc"), direct=False, mesh=mesh)
+    return mg.NodalSolver(c["dx"], c["periodic"], c["bc_lo"], c["bc_hi"],
+                          rows(c["sigma"]), direct=False, mesh=mesh)
+
+
 def slab_solves(mesh, cases):
-    """Multigrid solves on this rank's slab: each case builds a CellSolver
-    ("cell": dx, bc_lo, bc_hi, alpha, beta, acoef or None, bcoef with
-    nx + 1 x faces) or a NodalSolver ("nodal": dx, periodic, bc_lo,
-    bc_hi, sigma) from its rows of the whole-level coefficients, with the
+    """Multigrid solves on this rank's slab: each case builds its solver
+    (_solver) from its rows of the whole-level coefficients, with the
     mesh, and solves its rows of rhs from its rows of x0 (or zero) with
     `kw`.  Returns per case this rank's rows of x, the residual, the
     iterations, the hierarchy's slab levels and its depth."""
-    from incflo_torch.ops import multigrid as mg
     out = []
     for c in cases:
-        if c["kind"] == "cell":
-            acoef = None if c["acoef"] is None else _rows(mesh, c["acoef"])
-            bcoef = [_rows(mesh, b, 1 if ax == 0 else 0)
-                     for ax, b in enumerate(c["bcoef"])]
-            solver = mg.CellSolver(c["dx"], c["bc_lo"], c["bc_hi"],
-                                   c["alpha"], c["beta"], acoef, bcoef,
-                                   direct=False, mesh=mesh)
-        else:
-            solver = mg.NodalSolver(c["dx"], c["periodic"], c["bc_lo"],
-                                    c["bc_hi"], _rows(mesh, c["sigma"]),
-                                    direct=False, mesh=mesh)
+        solver = _solver(mesh, c)
         x0 = None if c.get("x0") is None else _rows(mesh, c["x0"])
         x, res, it = solver.solve_info(_rows(mesh, c["rhs"]), x0=x0,
                                        **c.get("kw", {}))
@@ -365,6 +403,119 @@ def slab_solves(mesh, cases):
         out.append({"x": x.cpu().numpy(), "res": float(res), "iters": it,
                     "n_slab": solver.n_slab, "depth": depth})
     return out
+
+
+def solver_sweeps(mesh, cases, device="cpu"):
+    """The smoothers of multigrid solvers at every level: each case
+    builds its solver (_solver) on this rank's rows, or on the whole
+    level on `device` where mesh is None, and calls _smooth_res on level
+    li with the level's x and b (this rank's rows on a slab level, the
+    whole level's on one that runs whole) for each (nsweeps,
+    want_residual) of "calls", each call twice.  Returns per case the
+    slab levels (n_slab) and per level and call this rank's rows of x
+    and of the residual, the halo exchanges of the repeated call (its
+    coefficients already extended) and the 2D slab sweep calls it
+    counted (multigrid.SLAB_2D)."""
+    from incflo_torch.ops import multigrid as mg
+    out = []
+    for c in cases:
+        solver = _solver(mesh, c, device)
+        n_slab = solver.n_slab if mesh is not None else len(solver.levels)
+        levels = []
+        for li, lev in enumerate(c["levels"]):
+            whole = mesh is None or li >= n_slab
+            dev = device if mesh is None else mesh.device
+            t = (lambda a: torch.as_tensor(a, device=dev)) if whole \
+                else (lambda a: _rows(mesh, a))
+            x, b = t(lev["x"]), t(lev["b"])
+            got = []
+            for n, want in lev["calls"]:
+                solver._smooth_res(x, b, li, n, want)
+                halo = 0 if mesh is None else mesh.stats["halo"]["calls"]
+                calls = dict(mg.SLAB_2D)
+                xr, rr = solver._smooth_res(x, b, li, n, want)
+                got.append({
+                    "x": xr.cpu().numpy(),
+                    "res": None if rr is None else rr.cpu().numpy(),
+                    "halo": 0 if mesh is None
+                    else mesh.stats["halo"]["calls"] - halo,
+                    "slab_2d": {k: mg.SLAB_2D[k] - calls[k]
+                                for k in calls}})
+            levels.append(got)
+        out.append({"n_slab": n_slab, "levels": levels})
+    return out
+
+
+def sweep_levels(case, nranks, seed):
+    """case (of _solver; its coefficients' dtype is the sweeps') with a
+    seeded x and b at every level of its hierarchy and the calls whose
+    halo fits the nranks-rank slabs: k sweeps + the residual, k' sweeps
+    without, the residual alone."""
+    import numpy as np
+    solver = _solver(None, case)
+    dtype = np.asarray(case["sigma"] if case["kind"] == "nodal"
+                       else case["bcoef"][0]).dtype
+    rand = lambda shape, s: (-1.0 + 2.0 * np.random.default_rng(s).random(
+        shape)).astype(dtype)
+    levels = []
+    for li, lev in enumerate(solver.levels):
+        shape = tuple(solver.diags[li].shape)
+        cells = lev.cells[0] if case["kind"] == "nodal" else shape[0]
+        nxl = cells // nranks
+        levels.append(dict(x=rand(shape, seed + li),
+                           b=rand(shape, seed + 50 + li),
+                           calls=[(max((nxl - 2) // 2, 1), True),
+                                  (max(nxl // 2, 1), False), (0, True)]))
+    return dict(case, levels=levels)
+
+
+def sweep_mismatches(results, key, cases, whole):
+    """Where the ranks' solver_sweeps (results[rank][key]) differ from
+    the whole level's (whole): every slab level's rows of x and of the
+    residual must be the whole level's bit for bit, a repeated call make
+    one halo exchange and one 2D slab sweep call of its kind; a level
+    that runs whole must equal the whole level and exchange nothing.
+    Returns (the failures as (case, rank, level, call, what), the slab
+    levels of each case and rank)."""
+    import numpy as np
+    from incflo_torch.ops import multigrid as mg
+    per = int(mg.SolverBC.PERIODIC)
+    nranks = len(results)
+    bad, n_slabs = [], []
+    for k, c in enumerate(cases):
+        ends = c["kind"] == "nodal" and c["bc_lo"][0] != per
+        for r, res in enumerate(results):
+            got = res[key][k]
+            n_slab = got["n_slab"]
+            for li, (gl, wl) in enumerate(zip(got["levels"],
+                                              whole[k]["levels"])):
+                for j, (g, w) in enumerate(zip(gl, wl)):
+                    fail = lambda what: bad.append((k, r, li, j, what))
+                    if li >= n_slab:
+                        if not np.array_equal(g["x"], w["x"]):
+                            fail("x of a whole level")
+                        if g["halo"] != 0:
+                            fail(f"{g['halo']} halo exchanges")
+                        continue
+                    n = w["x"].shape[0]
+                    nxl = (n - ends) // nranks
+                    last = r == nranks - 1
+                    rows = slice(r * nxl, (r + 1) * nxl + (ends and last))
+                    if not np.array_equal(g["x"], w["x"][rows]):
+                        fail("x")
+                    if (g["res"] is None) != (w["res"] is None) or (
+                            w["res"] is not None
+                            and not np.array_equal(g["res"],
+                                                   w["res"][rows])):
+                        fail("residual")
+                    if g["halo"] != 1:
+                        fail(f"{g['halo']} halo exchanges")
+                    want = {"cell": int(c["kind"] == "cell"),
+                            "nodal": int(c["kind"] == "nodal")}
+                    if g["slab_2d"] != want:
+                        fail(f"2D slab sweep calls {g['slab_2d']}")
+            n_slabs.append(n_slab)
+    return bad, n_slabs
 
 
 def timed_steps(mesh, deck, warm, nsteps, instrumented, perturb=None):
@@ -376,7 +527,9 @@ def timed_steps(mesh, deck, warm, nsteps, instrumented, perturb=None):
     then `instrumented` steps with each exchange timed (SlabMesh.timed).
     Returns the whole-level state after the timed steps (rank 0 only),
     the launches and tallies of the timed steps (the 27-point EB nodal
-    smoother's slab calls among them), ms/step, the exchanges' calls,
+    smoother's and the 2D flux-form slab sweep calls among them), their
+    nodal solves that iterated (residual / tolerance, V-cycles, maxiter;
+    multigrid.NODAL_LOG), ms/step, the exchanges' calls,
     bytes and ms per step of the instrumented steps, and the seconds of
     the setup (the Simulation and its init)."""
     import time
@@ -400,13 +553,18 @@ def timed_steps(mesh, deck, warm, nsteps, instrumented, perturb=None):
     gk.reset_launches()
     sk.reset_launches()
     mg.reset_counts()
+    mg.NODAL_LOG = []
     t0 = time.perf_counter()
     s = sim.advance_n(s, nsteps)
     sync()
     ms = (time.perf_counter() - t0) / nsteps * 1e3
+    nodal = [(float(res) / float(tol), it, maxiter)
+             for res, tol, it, maxiter in mg.NODAL_LOG]
+    mg.NODAL_LOG = None
     launches, counts = dict(gk.LAUNCHES), dict(mg.COUNTS)
     smoother_launches = dict(sk.LAUNCHES)
     stencil_calls = mg.STENCIL_SLAB["calls"]
+    slab_2d_calls = dict(mg.SLAB_2D)
     final = state.sim_to_numpy(s, mesh)
     mesh.barrier()
     mesh.reset_stats()
@@ -423,8 +581,9 @@ def timed_steps(mesh, deck, warm, nsteps, instrumented, perturb=None):
     return {"state": final if mesh.rank == 0 else None, "ms_per_step": ms,
             "instrumented_ms_per_step": ms_inst, "launches": launches,
             "smoother_launches": smoother_launches, "counts": counts,
-            "stencil_slab_calls": stencil_calls, "setup_s": setup_s,
-            "comm": comm, "mesh": mesh.describe()}
+            "stencil_slab_calls": stencil_calls,
+            "slab_2d_calls": slab_2d_calls, "nodal_solves": nodal,
+            "setup_s": setup_s, "comm": comm, "mesh": mesh.describe()}
 
 
 def checkpoint(mesh, deck, nsteps, path, dense=None):

@@ -35,7 +35,8 @@ csrc/step2d.cu) when the deck qualifies (step2d_kernels.supported) and
 its fixed-trip tensor CG converges at the first dt; `_advance_impl` is
 the plain step.
 
-Sharded: given a mesh (parallel/mesh.py), a 3D one-level deck -- Godunov
+Sharded: given a mesh (parallel/mesh.py), a one-level deck, 2D or 3D --
+Godunov (PPM or PLM, with use_forces_in_trans and use_mac_phi_in_godunov)
 or MOL; each side of each axis periodic, a slip or no-slip wall, mass
 inflow, pressure inflow or pressure outflow; constant or variable
 density, tracers, Newtonian or non-Newtonian fluids, gravity or
@@ -47,23 +48,30 @@ x ends in boundaries the last rank also holds node nx of p) and advance
 / advance_n do what they do on one device: the ghost fills and operator
 pads exchange x halos (the x halo first, then the y and z fills, as on
 one device) and take the level's boundary forms at its own x faces on
-the end ranks (SlabGrid.x_edge), a fully periodic Godunov deck's chain
-runs the halo-slab kernels (godunov_kernels.predict_sharded /
-advect_sharded) and any other the plain walled chain or MOL on the
-slab's ghost-filled windows, the direct solves reduce-scatter their x
-contraction, the iterative ones run multigrid on the slab
-(ops/multigrid.py: the slab smoother kernels, with the level's x walls
-on the end ranks, the coarse levels whole on every rank), and
-compute_dt, the norms and the CG dots reduce over the ranks.  An EB deck
+the end ranks (SlabGrid.x_edge), a fully periodic 3D Godunov deck's
+chain runs the halo-slab kernels (godunov_kernels.predict_sharded /
+advect_sharded; with use_mac_phi_in_godunov predict takes the plain
+chain and advect the kernels, with use_forces_in_trans both take the
+plain chain, as on one rank) and any other the plain walled chain or
+MOL on the slab's ghost-filled windows, the direct solves reduce-scatter
+their x contraction, the iterative ones run multigrid on the slab
+(ops/multigrid.py: the slab smoother kernels on 3D levels and the plain
+flux-form sweeps on 2D ones, one halo exchange a call, with the level's
+x walls on the end ranks, the coarse levels whole on every rank), and
+compute_dt, the norms and the CG dots reduce over the ranks.  The
+MAC-phi face gradient of use_mac_phi_in_godunov takes its x pads from
+the neighbouring ranks.  The fused 2D step stays off under a mesh
+(_fused_step), as pallas_guard turns it off in incflo_tpu.  An EB deck
 builds the whole level's cut-cell geometry on every rank and keeps its
 slab of it (eb/ops.slab_arrays); whether it takes the EB path is the
 whole level's answer, so a rank whose slab has no cut cell still takes
 part in every exchange.  MOL-EB and the cut-cell operators run on the
-slab's windows, the 27-point EB nodal stencils are built whole on every
-rank and cut to the slab (EBNodalSolver.shard), the octant lattice of a
-variable-density deck is a 2 nxl-row slab of a NodalSolver on the mesh.
-Decks outside that scope (2D, AMR, the two Godunov options) raise under a
-mesh and name ROADMAP A14 (_unsupported_sharded).
+slab's windows, the 27-point (9-point in 2D) EB nodal stencils are built
+whole on every rank and cut to the slab (EBNodalSolver.shard), the
+octant lattice of a variable-density deck is a 2 nxl-row slab of a
+NodalSolver on the mesh.  AMR raises under a mesh and names ROADMAP A14
+(_unsupported_sharded), as do uneven and narrow slabs and the rfftn
+direct solve where the mesh and the solvers meet them.
 
 Scope of this port: 2D or 3D, with or without embedded boundaries:
 Godunov or MOL advection, each axis periodic or ending in a slip or
@@ -124,17 +132,8 @@ def _unsupported_sharded(cfg: IncfloConfig):
     or None (ROADMAP A14).  Uneven and narrow slabs and the rfftn direct
     solve raise where the mesh and the solvers meet them
     (parallel/mesh.py, spectral.py)."""
-    g = cfg.grid
-    checks = [
-        (cfg.max_level > 0, "AMR"),
-        (g.ndim != 3 and has_eb(cfg), "2D decks with embedded boundaries"),
-        (g.ndim != 3, "2D decks (the fused 2D step, MOL)"),
-        (cfg.godunov_use_forces_in_trans, "godunov_use_forces_in_trans"),
-        (cfg.use_mac_phi_in_godunov, "use_mac_phi_in_godunov"),
-    ]
-    for bad, what in checks:
-        if bad:
-            return what
+    if cfg.max_level > 0:
+        return "AMR"
     return None
 
 
@@ -171,7 +170,8 @@ class Simulation:
             if why is not None:
                 raise NotImplementedError(
                     f"incflo_torch does not run {why} split over a mesh yet "
-                    f"(ROADMAP A14); a mesh runs 3D one-level decks")
+                    f"(ROADMAP A14); a mesh runs one-level decks, 2D and "
+                    f"3D")
         if device is None and mesh is not None and torch.cuda.is_available():
             device = f"cuda:{mesh.rank % torch.cuda.device_count()}"
         device = torch.device("cuda" if device is None else device)
@@ -525,11 +525,12 @@ class Simulation:
         gmacphi, phi0 = None, mac_phi0
         if mac_phi_in:
             # mac_phi is stored pressure-like (2 phi / dt); the fluxes of
-            # the MAC operator are (1/rho) grad(mac_phi) on the faces
+            # the MAC operator are (1/rho) grad(mac_phi) on the faces (on
+            # a slab the x pads from the neighbouring ranks)
             bc_lo, bc_hi = mac_projection.projection_solver_bc(cfg.bc_kind,
                                                                grid)
             lev0 = mg.CellLevel(grid.dx, tuple(bc_lo), tuple(bc_hi), 0.0,
-                                1.0, None, tuple(beta))
+                                1.0, None, tuple(beta), mesh=self.mesh)
             gmacphi = [-f for f in mg.cell_fluxes(mac_phi0, lev0)]
             phi0 = mac_phi0 * (0.5 * dt)
         umac = self.godunov.predict(vel_g, vf_g, dt, ng, self.vel_bcrec,

@@ -8,11 +8,16 @@ bingham (64x64x16) decks on 2 ranks ("sharded_xwalls"), and embedded
 boundaries on the mesh: the slab forms at every level of channel_cyl's
 and poiseuille_cyl_bingham's MAC and cut-cell velocity hierarchies,
 channel_cyl (128x64x16) and poiseuille_cyl_bingham (64x64x16) on 2
-ranks ("sharded_eb").  Builds the kernel libraries first.
+ranks ("sharded_eb"), and 2D decks and the two Godunov options on the
+mesh: tgv2d 128^2 by MOL and by Godunov, the 2D EB cylinder at 128^2,
+rt2d 64x128 and shear3d 128x128x32 with use_mac_phi_in_godunov and with
+both options, on 2 ranks ("sharded_2d").  Builds the kernel libraries
+first.
 
     python scripts/slab_smoke.py                   # every slab phase
     python scripts/slab_smoke.py sharded_xwalls    # that phase alone
     python scripts/slab_smoke.py sharded_eb
+    python scripts/slab_smoke.py sharded_2d
 """
 
 import json
@@ -25,7 +30,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("slab", "sharded_mg", "sharded_xwalls", "sharded_eb")
+PHASES = ("slab", "sharded_mg", "sharded_xwalls", "sharded_eb",
+          "sharded_2d")
 
 
 def main(argv):
@@ -50,7 +56,8 @@ def main(argv):
            "sharded_xwalls": lambda: cs.phase_sharded_xwalls(
                incflo_torch, sk, mg, torch),
            "sharded_eb": lambda: cs.phase_sharded_eb(
-               incflo_torch, sk, mg, torch)}
+               incflo_torch, sk, mg, torch),
+           "sharded_2d": lambda: cs.phase_sharded_2d(incflo_torch, torch)}
     out = {}
     for p in phases:
         out[p] = run[p]()

@@ -65,15 +65,18 @@ JOB = "incflo_torch.parallel.workers:several"
 TIMEOUT = 120.0
 CLI_ARGS = ["max_step=2", "amr.check_int=2", "amr.plot_int=2",
             "amr.plt_vort=1", "amr.KE_int=1"]
-# decks that run on one device but not yet over a mesh (ROADMAP A14): the
-# reason the refusal names -> what the shear3d deck adds (a key it sets
-# replaces the deck's own line); variable density, tracers,
+# decks that once ran on one device but not over a mesh (ROADMAP A14):
+# the reason the refusal names -> what the shear3d deck adds (a key it
+# sets replaces the deck's own line); variable density, tracers,
 # non-Newtonian fluids, Boussinesq buoyancy and explicit diffusion run
 # split since multigrid runs on the slab (tests/test_torch_sharded_mg.py),
 # MOL, walls and inflow or outflow on x since the mesh takes an x that
-# ends in boundaries (tests/test_torch_sharded_xwalls.py), and embedded
+# ends in boundaries (tests/test_torch_sharded_xwalls.py), embedded
 # boundaries in 3D since the cut-cell arrays are cut to the slab
-# (IN_SCOPE; tests/test_torch_sharded_eb.py)
+# (tests/test_torch_sharded_eb.py), and the two Godunov options and 2D
+# decks with or without embedded boundaries since the 2D levels and the
+# MAC-phi operator run on the slab (tests/test_torch_sharded_2d.py): the
+# IN_SCOPE decks; AMR still raises
 X_WALLS = "geometry.is_periodic = 0 1 1\n"
 SCOPE_DECKS = {
     "MOL advection": "incflo.use_godunov = false\nincflo.cfl = 0.5\n",
@@ -92,12 +95,15 @@ SCOPE_DECKS = {
     "use_mac_phi_in_godunov": "incflo.use_mac_phi_in_godunov = true\n",
 }
 IN_SCOPE = ("MOL advection", "walls on x", "inflow or outflow on x",
-            "embedded boundaries")
+            "embedded boundaries", "godunov_use_forces_in_trans",
+            "use_mac_phi_in_godunov", "2D decks",
+            "2D decks with embedded boundaries")
 
 
-# decks of their own the mesh still refuses: a 2D deck, a 2D deck with
-# embedded boundaries, and a periodic axis above 256 cells, whose direct
-# solves take rfftn
+# decks of their own: a 2D deck and a 2D deck with embedded boundaries,
+# which the mesh runs (IN_SCOPE: 16 cells along x, slabs of 4 on 4
+# ranks), and a periodic axis above 256 cells, whose direct solves take
+# rfftn and which the mesh still refuses
 SCOPE_TEXTS = {
     "2D decks": bench._deck("tgv2d", 16, "float64")[0],
     "2D decks with embedded boundaries":

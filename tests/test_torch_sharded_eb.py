@@ -53,6 +53,7 @@ from incflo_torch.ops import multigrid as tmg
 from incflo_torch.parallel import launch
 from incflo_torch.parallel import workers
 from incflo_torch.utils import io as tio
+from test_torch_sharded_xwalls import check_run
 
 JOB = "incflo_torch.parallel.workers:several"
 TIMEOUT = 600.0
@@ -80,18 +81,19 @@ def _random(shape, seed, scale=1.0, offset=0.0):
     return offset + scale * np.random.default_rng(seed).random(shape)
 
 
-def form_inputs(name, seed):
-    """Seeded whole-level inputs of eb_operators on deck `name` (vel zero
-    in covered cells, umac on n + 1 faces of each axis) and, per level
-    of its 27-point nodal hierarchy, a seeded x and b with the calls
-    whose halo fits the nranks-rank slabs (every call on a level that
-    runs whole)."""
-    sim = tp.port_sim(DECKS[name])
+def form_inputs(name, seed, decks=DECKS):
+    """Seeded whole-level inputs of eb_operators on deck `name` of
+    `decks` (vel zero in covered cells, umac on n + 1 faces of each
+    axis) and, per level of its 27-point (9-point in 2D) nodal
+    hierarchy, a seeded x and b with the calls whose halo fits the
+    nranks-rank slabs (every call on a level that runs whole)."""
+    sim = tp.port_sim(decks[name])
     cells = sim.grid.cell_shape
-    vel = tp.masked_random(cells + (3,), sim.eb.fluid, seed)
-    dudt = _random(cells + (3,), seed + 1, 2.0, -1.0)
+    nd = sim.grid.ndim
+    vel = tp.masked_random(cells + (nd,), sim.eb.fluid, seed)
+    dudt = _random(cells + (nd,), seed + 1, 2.0, -1.0)
     umac = [_random(tuple(n + (a == d) for a, n in enumerate(cells)),
-                    seed + 2 + d, 2.0, -1.0) for d in range(3)]
+                    seed + 2 + d, 2.0, -1.0) for d in range(nd)]
     nodal = []
     for li, st in enumerate(sim._nodal_eb_hat.levels):
         shape = tuple(st.coefs.shape[1:])
@@ -134,10 +136,16 @@ def _whole_rows(a, layout, r, nranks, periodic, axis=0):
     return np.take(a, range(r * nxl, r * nxl + count), axis=axis)
 
 
-def check_forms(results, key, name, inputs):
+def check_forms(results, key, name, inputs, decks=DECKS):
     """Every rank's slab arrays and operators bit-equal to the whole
-    level's rows (eb_operators on a 1-rank Simulation)."""
-    sim = tp.port_sim(DECKS[name])
+    level's rows (eb_operators on a 1-rank Simulation of decks[name],
+    2D or 3D)."""
+    sim = tp.port_sim(decks[name])
+    nd = sim.grid.ndim
+    # a row vector along x, broadcast over the other axes of a cell
+    # array (lead: the axes before x)
+    along_x = lambda v, lead=0: v.reshape((1,) * lead + (-1,)
+                                          + (1,) * (nd - 1))
     t = torch.as_tensor
     cases = [dict(c, x=t(c["x"]), b=t(c["b"]))
              for c in inputs["nodal_cases"]]
@@ -155,7 +163,7 @@ def check_forms(results, key, name, inputs):
         assert np.array_equal(got["eta_g1"], _whole_rows(
             whole["eta_g1"], "ghost 1", r, nranks, per)), (key, r)
         for k in ("umac", "fluxes"):
-            for d in range(3):
+            for d in range(nd):
                 lay = "face" if d == 0 else "cell"
                 assert np.array_equal(got[k][d], _whole_rows(
                     whole[k][d], lay, r, nranks, per)), (key, r, k, d)
@@ -167,7 +175,7 @@ def check_forms(results, key, name, inputs):
             if f in ("vfrac_x1", "conn_cut_x1", "vfrac_oct_x1"):
                 continue
             if f in ("afrac", "face_cent"):
-                for d in range(3):
+                for d in range(nd):
                     assert np.array_equal(arrays[f][d], _whole_rows(
                         w[d], "face" if d == 0 else "cell", r, nranks,
                         per)), (key, r, f, d)
@@ -181,10 +189,10 @@ def check_forms(results, key, name, inputs):
         nx = sim.grid.n_cell[0]
         keep = np.ones(idx.shape) if per else ((idx >= 0) & (idx < nx))
         idx = idx % nx
-        vf = whole["arrays"]["vfrac"][idx] * keep[:, None, None]
+        vf = whole["arrays"]["vfrac"][idx] * along_x(keep)
         assert np.array_equal(arrays["vfrac_x1"], vf), (key, r)
         mc = (whole["arrays"]["nbr_conn"] * whole["arrays"]["cut"])[:, idx] \
-            * keep[None, :, None, None]
+            * along_x(keep, 1)
         assert np.array_equal(arrays["conn_cut_x1"], mc), (key, r)
         oct_ = whole["arrays"]["vfrac_oct"]
         m = 2 * nxl
@@ -281,10 +289,11 @@ def check_wrap(results, key, cases):
     return worst_without
 
 
-def one_rank(name, steps, perturb=None):
-    """The port on one rank from init (+ perturb): states after init and
-    each step, and the tallies of each step (the first init's)."""
-    sim = tp.port_sim(DECKS[name])
+def one_rank(name, steps, perturb=None, decks=DECKS):
+    """The port on one rank from init (+ perturb) of decks[name]: states
+    after init and each step, and the tallies of each step (the first
+    init's)."""
+    sim = tp.port_sim(decks[name])
     tmg.reset_counts()
     s = tp.own_start(sim, perturb)
     states = [tstate.sim_to_numpy(s)]
@@ -295,25 +304,6 @@ def one_rank(name, steps, perturb=None):
         tallies.append({k: tmg.COUNTS[k] - before[k] for k in KINDS})
         states.append(tstate.sim_to_numpy(s))
     return states, tallies
-
-
-def check_run(results, key, states, tol, tallies=None):
-    """Rank 0's whole-level states against `states`, each field relative
-    to the reference's max; every rank's tallies equal and, given, equal
-    to `tallies`."""
-    got = results[0][key]["states"]
-    assert len(got) == len(states)
-    for i, (a, b) in enumerate(zip(got, states)):
-        for f in FIELDS:
-            assert a[f].shape == np.asarray(b[f]).shape, (i, f)
-            scale = max(float(np.abs(b[f]).max()), 1e-300)
-            err = float(np.abs(a[f] - b[f]).max()) / scale
-            assert err <= tol, (key, i, f, err)
-        assert int(a["step"]) == i
-    ranks = [r[key]["tallies"] for r in results]
-    assert all(t == ranks[0] for t in ranks), ranks
-    if tallies is not None:
-        assert ranks[0] == tallies, (ranks[0], tallies)
 
 
 def perturbation(name):
@@ -399,7 +389,7 @@ def test_eb_deck_on_two_ranks_matches_one(two_ranks, name):
     states, tallies = one_rank(name, STEPS[name], perturbation(name))
     assert sum(t["nodal_cycles"] for t in tallies) > 0
     assert sum(t["cell_iters"] for t in tallies) > 0
-    check_run(two_ranks, name, states, 1e-11, tallies)
+    check_run(two_ranks, name, states, 1e-11, tallies=tallies)
 
 
 def test_eb_vd_on_two_ranks_matches_incflo_tpu(two_ranks):

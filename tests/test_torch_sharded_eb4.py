@@ -19,8 +19,9 @@ import pytest
 
 from incflo_torch.parallel import launch
 from test_torch_sharded_eb import (DECKS, JOB, TIMEOUT, check_forms,
-                                   check_run, check_wrap, form_inputs,
-                                   one_rank, with_calls, wrap_cases)
+                                   check_wrap, form_inputs, one_rank,
+                                   with_calls, wrap_cases)
+from test_torch_sharded_xwalls import check_run
 
 RANKS = 4
 STEPS = 2
@@ -73,4 +74,4 @@ def test_eb_channel_on_four_ranks_matches_one(four_ranks):
     rank, equal tallies in every step on every rank."""
     states, tallies = one_rank("channel", STEPS)
     assert sum(t["nodal_cycles"] for t in tallies) > 0
-    check_run(four_ranks, "channel", states, 1e-11, tallies)
+    check_run(four_ranks, "channel", states, 1e-11, tallies=tallies)
