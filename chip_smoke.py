@@ -72,7 +72,8 @@ Phases (any failure ends the run with a non-zero exit):
              (also density, tracer, mac_phi) at 32x32x8, and rt at
              16x16x32, and tgv2d at 32^2 (velocity, p, gp, mac_phi; in
              float64 the card takes the plain step); agreement to 1e-9
-             relative.  The decks of ROADMAP A9c and 3D MOL likewise,
+             relative.  The decks of ROADMAP A9c and 3D MOL likewise
+             over PATH_STEPS (2) steps,
              every field (velocity, density, tracer, p, gp, mac_phi) and
              dt to 1e-9, the solvers' iterations of both runs printed:
              channel (mass inflow, pressure outflow, no-slip y walls,
@@ -83,8 +84,9 @@ Phases (any failure ends the run with a non-zero exit):
              and shear3d_mol (3D MOL) at 32x32x8.  And tgv2d at 32^2
              with explicit diffusion in float32 through
              Simulation.advance on cuda: the plain step, no step2d
-             launch.  The decks of ROADMAP A8 and A11 likewise, every
-             field and dt to 1e-9 and the solvers' iterations equal:
+             launch.  The decks of ROADMAP A8 and A11 likewise
+             (PATH_STEPS steps), every field and dt to 1e-9 and the
+             solvers' iterations equal:
              tgv2d with Godunov at 32^2, plain, with
              use_mac_phi_in_godunov and with use_forces_in_trans;
              shear3d at 32x32x8 with use_mac_phi_in_godunov (its predict
@@ -209,7 +211,14 @@ Phases (any failure ends the run with a non-zero exit):
              Then shear3d n = 128 through Simulation(mesh=...) on 2
              spawned ranks (incflo_torch.parallel.launch): NCCL with one
              GPU a rank where the host has two, else gloo with both ranks
-             on cuda:0 (printed).  float64 init + 3 steps against the
+             on cuda:0 (printed).  Every 2-rank run of this phase
+             (sharded, sharded_mg, sharded_xwalls, sharded_eb, sharded_2d,
+             sharded_amr) shares one spawn of the ranks (run_sharded):
+             the ranks run every part's untimed jobs (float64, bit
+             equality) while this process runs the parts' 1-rank
+             references, then, behind a gate those open, every part's
+             timed jobs with the card to themselves; then each part
+             checks and prints its results.  float64 init + 3 steps against the
              1-rank step from the same start, to 1e-11 relative, with
              equal tensor-CG iterations; float32 2 warm-up + 5 timed
              steps, the launch counts zeroed just before them and read
@@ -229,10 +238,10 @@ Phases (any failure ends the run with a non-zero exit):
              level's kernel rows, one kernel node a call, kernel, plain
              and bound ms.  sharded_mg: rt (64x64x128, x slabs of 32)
              and shear3d_vd (128x128x32, slabs of 64) on 2 ranks sharing
-             the card, multigrid on the slabs: float64 init + 2 steps
+             the card, multigrid on the slabs: float64 init + 1 step
              against the 1-rank port to 1e-11 with equal CG iterations,
              V-cycles and tensor-CG iterations in every step on both
-             ranks; float32 2 warm-up + 3 timed steps (launch counts
+             ranks; float32 1 warm-up + 2 timed steps (launch counts
              zeroed just before them: both slab smoother kernels launched
              on every rank), held against a 1-rank float64 run beside
              the 1-rank float32 run (at most twice its error + 4 ulps);
@@ -271,6 +280,18 @@ Phases (any failure ends the run with a non-zero exit):
              and the 9-point EB slab sweeps a step per rank; rt2d's f32
              MAC and nodal sweeps at every slab level bit-equal to the
              whole level's rows on the card.
+             sharded_amr: both AMR drivers split over 2 ranks sharing
+             the card: rt_amr (64x64x128 with its 128x128x32 z slab
+             patch over the whole x range) float64 init + 1 step against
+             the 1-rank port to 1e-11 on every level with equal tallies
+             and dts on every rank, float32 init + 2 steps (a regrid
+             after the second) against the witness of sharded_mg; the
+             slab smoothers launched on every rank's base and patch;
+             ms/step, setup s, exchanges by kind, the launches a step
+             per rank by level.  Then in float64 against 1 rank:
+             shear3d_amr on a 32x32x32 base (the halo-slab Godunov
+             kernels on its split base), the box deck (its patch held
+             whole on every rank) and a dense rt2d deck.
 Then one JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 
@@ -671,9 +692,16 @@ def abs_err(a, b):
 # phases
 # ---------------------------------------------------------------------
 
-def phase_build(cuda_build, sources):
+def phase_build(cuda_build, sources, meanwhile=None):
+    """nvcc on every source at once (cuda_build.build_all, in a thread);
+    meanwhile() runs here until it ends."""
+    import concurrent.futures
     t0 = time.time()
-    paths = cuda_build.build_all(sources, ptxas_verbose=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        built = pool.submit(cuda_build.build_all, sources, True)
+        if meanwhile is not None:
+            meanwhile()
+        paths = built.result()
     s = time.time() - t0
     for path in paths.values():
         print(f"[build] {os.path.relpath(path, HERE)}", flush=True)
@@ -1451,27 +1479,57 @@ def vd_start(sim, start, torch):
     return s
 
 
+# the CPU halves of the "paths" runs by key, computed while nvcc builds
+# the kernels (cpu_paths_ahead)
+CPU_RUNS = {}
+
+
+def cpu_half(key, run):
+    """The CPU half of a paths run: the one computed ahead, else run()."""
+    return CPU_RUNS.pop(key) if key in CPU_RUNS else run()
+
+
+def paths_cfg(incflo_torch, name):
+    return incflo_torch.IncfloConfig.from_text(
+        rt_deck(32, "float64") if name == "rt"
+        else tgv2d_deck(32, "float64") if name == "tgv2d"
+        else shear3d_deck(32, "float64", name == "shear3d_vd"))
+
+
+def paths_cpu(incflo_torch, torch, name):
+    """phase_paths' CPU half: each start (numpy) and the state 3 steps
+    later on cpu."""
+    from incflo_torch import state as st
+    sim_c = incflo_torch.Simulation(paths_cfg(incflo_torch, name),
+                                    device="cpu")
+    out = []
+    for start in (("init_state", "perturbed_density")
+                  if name == "shear3d_vd" else ("init_state",)):
+        s_c = vd_start(sim_c, start, torch)
+        init = st.sim_to_numpy(s_c)
+        for _ in range(3):
+            s_c = sim_c.advance(s_c)
+        out.append((start, init, s_c))
+    return out
+
+
 def phase_paths(incflo_torch, torch, vd=False, rt=False, tgv=False):
     """The step on cuda (kernels) and on cpu (plain versions), f64 (so
     tgv2d takes its plain step on the card too: only float32 is fused)."""
     from incflo_torch import state as st
     name = "rt" if rt else "shear3d_vd" if vd else "tgv2d" if tgv \
         else "shear3d"
-    cfg = incflo_torch.IncfloConfig.from_text(
-        rt_deck(32, "float64") if rt else tgv2d_deck(32, "float64") if tgv
-        else shear3d_deck(32, "float64", vd))
-    sim_c = incflo_torch.Simulation(cfg, device="cpu")
-    sim_g = incflo_torch.Simulation(cfg, device="cuda")
+    cpu = cpu_half(("paths", name),
+                   lambda: paths_cpu(incflo_torch, torch, name))
+    sim_g = incflo_torch.Simulation(paths_cfg(incflo_torch, name),
+                                    device="cuda")
     fields = ("velocity", "p", "gp") + (
         ("density", "tracer", "mac_phi") if vd or rt else
         ("mac_phi",) if tgv else ())
     worst = 0.0
-    starts = ("init_state", "perturbed_density") if vd else ("init_state",)
-    for start in starts:
-        s_c = vd_start(sim_c, start, torch)
-        s_g = st.sim_from_numpy(st.sim_to_numpy(s_c), "cuda", torch.float64)
+    for start, init, s_c in cpu:
+        s_g = st.sim_from_numpy(init, "cuda", torch.float64)
         for _ in range(3):
-            s_c = sim_c.advance(s_c)
             s_g = sim_g.advance(s_g)
         torch.cuda.synchronize()
         for f in fields:
@@ -1486,36 +1544,46 @@ def phase_paths(incflo_torch, torch, vd=False, rt=False, tgv=False):
 
 
 A9C_FIELDS = ("velocity", "density", "tracer", "p", "gp", "mac_phi")
+# the steps of the A9c, 3D MOL, A8 and A11 "paths" runs on cuda and cpu
+PATH_STEPS = 2
 ITER_KINDS = ("cell_iters", "nodal_cycles", "tensor_cg_iters")
 
 
-def phase_paths_a9c(incflo_torch, mg, torch, name):
-    """An A9c or 3D MOL deck at its "paths" size, float64, 3 steps on
-    cuda (kernels) and on cpu (plain versions) from one state (bingham's
-    perturbed by probs.smooth_perturbation): every field and dt to 1e-9
-    relative; the solvers' iterations of both runs printed."""
+def paths_a9c_cpu(incflo_torch, mg, torch, name):
+    """phase_paths_a9c's CPU half: the start (numpy), the state
+    PATH_STEPS later on cpu and its solvers' iterations."""
     from incflo_torch import state as st
     from incflo_torch.probs import smooth_perturbation
     deck, n, _ = A9C_DECKS[name]
     cfg = incflo_torch.IncfloConfig.from_text(deck(n, "float64"))
     sim_c = incflo_torch.Simulation(cfg, device="cpu")
-    sim_g = incflo_torch.Simulation(cfg, device="cuda")
     s_c = sim_c.init_state()
     if name == "bingham":
         s_c = s_c._replace(level=s_c.level._replace(
             velocity=s_c.level.velocity + torch.as_tensor(
                 smooth_perturbation(cfg.grid, 11))))
-    s_g = st.sim_from_numpy(st.sim_to_numpy(s_c), "cuda", torch.float64)
-    iters = []
-    for sim, s in ((sim_c, s_c), (sim_g, s_g)):
-        mg.reset_counts()
-        s = sim.advance_n(s, 3)
-        torch.cuda.synchronize()
-        iters.append({k: mg.COUNTS[k] for k in ITER_KINDS})
-        if sim is sim_c:
-            s_c = s
-        else:
-            s_g = s
+    init = st.sim_to_numpy(s_c)
+    mg.reset_counts()
+    s_c = sim_c.advance_n(s_c, PATH_STEPS)
+    return init, s_c, {k: mg.COUNTS[k] for k in ITER_KINDS}
+
+
+def phase_paths_a9c(incflo_torch, mg, torch, name):
+    """An A9c or 3D MOL deck at its "paths" size, float64, PATH_STEPS on
+    cuda (kernels) and on cpu (plain versions) from one state (bingham's
+    perturbed by probs.smooth_perturbation): every field and dt to 1e-9
+    relative; the solvers' iterations of both runs printed."""
+    from incflo_torch import state as st
+    deck, n, _ = A9C_DECKS[name]
+    cfg = incflo_torch.IncfloConfig.from_text(deck(n, "float64"))
+    init, s_c, it_c = cpu_half(("a9c", name), lambda: paths_a9c_cpu(
+        incflo_torch, mg, torch, name))
+    sim_g = incflo_torch.Simulation(cfg, device="cuda")
+    s_g = st.sim_from_numpy(init, "cuda", torch.float64)
+    mg.reset_counts()
+    s_g = sim_g.advance_n(s_g, PATH_STEPS)
+    torch.cuda.synchronize()
+    iters = [it_c, {k: mg.COUNTS[k] for k in ITER_KINDS}]
     worst = 0.0
     for f in A9C_FIELDS + ("dt",):
         a = s_g.dt if f == "dt" else getattr(s_g.level, f)
@@ -1525,7 +1593,8 @@ def phase_paths_a9c(incflo_torch, mg, torch, name):
         if not e <= 1e-9:
             raise AssertionError(f"paths {name}: cuda and cpu steps disagree "
                                  f"in {f}: {e:.3e}")
-    print(f"[paths] {name} {cfg.grid.n_cell} f64, 3 steps: cuda vs cpu "
+    print(f"[paths] {name} {cfg.grid.n_cell} f64, {PATH_STEPS} steps: "
+          f"cuda vs cpu "
           f"worst relative {worst:.3e} (tol 1e-9) over "
           f"{', '.join(A9C_FIELDS)}, dt; iterations cpu {iters[0]}, cuda "
           f"{iters[1]}", flush=True)
@@ -2413,6 +2482,22 @@ class SmootherCalls:
 SMOOTHER_KERNELS = ("cell_kernel", "nodal_resident", "nodal_grid")
 
 
+def device_events(prof):
+    """([(name, device us)] of the profiled device activity summed by
+    name, the host's cudaLaunchCooperativeKernel calls), read from the
+    profiler's raw events.  key_averages() would first parse every host
+    op of the trace into an event tree, tens of seconds for one step of
+    a host-bound deck."""
+    from torch.autograd import DeviceType
+    dev, coop = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            coop += e.name() == "cudaLaunchCooperativeKernel"
+            continue
+        dev[e.name()] = dev.get(e.name(), 0.0) + e.duration_ns() * 1e-3
+    return list(dev.items()), coop
+
+
 def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
                   run=None, table=True):
     """Device time of `steps` steps by torch.profiler: the busy time per
@@ -2432,18 +2517,14 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         s = (run or sim.advance_n)(s, steps)
         torch.cuda.synchronize()
-    rows = prof.key_averages()
     if table:
+        rows = prof.key_averages()
         print(rows.table(sort_by="cuda_time_total", row_limit=30))
     groups = {"godunov": 0.0, "smoothers": 0.0, "step2d": 0.0,
               "matmul": 0.0, "other": 0.0}
     seen_smoothers = 0.0
-    for e in rows:
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us <= 0 or e.key.startswith("aten::"):
-            continue
-        k = e.key
+    device, coop = device_events(prof)
+    for k, us in device:
         if any(t in k for t in ("uad_kernel", "predict_", "advect_")):
             groups["godunov"] += us
         elif any(t in k for t in SMOOTHER_KERNELS):
@@ -2455,10 +2536,9 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
         else:
             groups["other"] += us
     note = ""
-    coop = [e.count for e in rows if e.key == "cudaLaunchCooperativeKernel"]
     if kernel_ms is not None and coop and groups["step2d"] == 0.0:
-        groups["step2d"] = kernel_ms * 1e3 * coop[0]
-        note = (f" (step2d not in the trace: {coop[0]} launches x "
+        groups["step2d"] = kernel_ms * 1e3 * coop
+        note = (f" (step2d not in the trace: {coop} launches x "
                 f"{kernel_ms:.4f} ms from graph replay)")
     smooth_ms, ncalls = smooth.device_ms()
     groups["smoothers"] = smooth_ms * 1e3
@@ -2623,35 +2703,41 @@ A8_A11_KERNELS = {
 CELL_STAGNATION_BOUND = {"channel_cyl": 1.0, "poiseuille_cyl_bingham": 1e5}
 
 
+def paths_a8_a11_cpu(incflo_torch, mg, torch, name):
+    """phase_paths_a8_a11's CPU half, as paths_a9c_cpu."""
+    from incflo_torch import state as st
+    from incflo_torch.probs import smooth_perturbation
+    cfg = incflo_torch.IncfloConfig.from_text(A8_A11_PATHS[name])
+    sim_c = incflo_torch.Simulation(cfg, device="cpu")
+    s_c = sim_c.init_state()
+    if name == "poiseuille_cyl_bingham":
+        p = torch.as_tensor(smooth_perturbation(cfg.grid, 11))
+        s_c = s_c._replace(level=s_c.level._replace(
+            velocity=s_c.level.velocity + p * sim_c.eb.fluid[..., None]))
+    init = st.sim_to_numpy(s_c)
+    mg.reset_counts()
+    s_c = sim_c.advance_n(s_c, PATH_STEPS)
+    return init, s_c, {k: mg.COUNTS[k] for k in ITER_KINDS}
+
+
 def phase_paths_a8_a11(incflo_torch, gk, mg, torch, name):
-    """An A8 / A11 deck, float64, 3 steps on cuda (kernels) and on cpu
+    """An A8 / A11 deck, float64, PATH_STEPS on cuda (kernels) and on cpu
     (plain versions) from one state (the Bingham cylinder's perturbed by
     probs.smooth_perturbation, zero in covered cells): every field and dt
     to 1e-9 relative and the solvers' iterations equal.  shear3d with
     use_mac_phi_in_godunov: its predict takes the plain chain (no uad or
     predict_d launch), its advect the kernel."""
     from incflo_torch import state as st
-    from incflo_torch.probs import smooth_perturbation
     cfg = incflo_torch.IncfloConfig.from_text(A8_A11_PATHS[name])
-    sim_c = incflo_torch.Simulation(cfg, device="cpu")
+    init, s_c, it_c = cpu_half(("a8_a11", name), lambda: paths_a8_a11_cpu(
+        incflo_torch, mg, torch, name))
     sim_g = incflo_torch.Simulation(cfg, device="cuda")
-    s_c = sim_c.init_state()
-    if name == "poiseuille_cyl_bingham":
-        p = torch.as_tensor(smooth_perturbation(cfg.grid, 11))
-        s_c = s_c._replace(level=s_c.level._replace(
-            velocity=s_c.level.velocity + p * sim_c.eb.fluid[..., None]))
-    s_g = st.sim_from_numpy(st.sim_to_numpy(s_c), "cuda", torch.float64)
-    iters = []
+    s_g = st.sim_from_numpy(init, "cuda", torch.float64)
     gk.reset_launches()
-    for sim, s in ((sim_c, s_c), (sim_g, s_g)):
-        mg.reset_counts()
-        s = sim.advance_n(s, 3)
-        torch.cuda.synchronize()
-        iters.append({k: mg.COUNTS[k] for k in ITER_KINDS})
-        if sim is sim_c:
-            s_c = s
-        else:
-            s_g = s
+    mg.reset_counts()
+    s_g = sim_g.advance_n(s_g, PATH_STEPS)
+    torch.cuda.synchronize()
+    iters = [it_c, {k: mg.COUNTS[k] for k in ITER_KINDS}]
     worst = 0.0
     for f in A9C_FIELDS + ("dt",):
         a = s_g.dt if f == "dt" else getattr(s_g.level, f)
@@ -2669,7 +2755,8 @@ def phase_paths_a8_a11(incflo_torch, gk, mg, torch, name):
             godunov["advect"] > 0 and godunov["uad"] == godunov["predict_d"]
             == 0):
         raise AssertionError(f"paths {name}: Godunov launches {godunov}")
-    print(f"[paths] {name} {cfg.grid.n_cell} f64, 3 steps: cuda vs cpu "
+    print(f"[paths] {name} {cfg.grid.n_cell} f64, {PATH_STEPS} steps: "
+          f"cuda vs cpu "
           f"worst relative {worst:.3e} (tol 1e-9) over "
           f"{', '.join(A9C_FIELDS)}, dt; iterations equal {iters[0]}; "
           f"Godunov kernel launches {godunov}", flush=True)
@@ -3105,24 +3192,22 @@ def phase_sharded_step(incflo_torch, gk, torch, n=128, steps64=3, warm=2,
     with equal tensor-CG iterations; float32 warm + steps timed steps (the
     halo-slab launch counts zeroed just before them) held against a
     1-rank float64 run beside the 1-rank float32 run, then instrumented
-    steps that time each exchange."""
+    steps that time each exchange.  A generator for run_sharded (as
+    sharded_cells)."""
     import numpy as np
-    from incflo_torch.parallel import launch
     deck64 = shear3d_deck(n, "float64")
     deck32 = shear3d_deck(n, "float32")
+    yield ([("f64", "steps", dict(deck=deck64, nsteps=steps64))],
+           [("f32", "timed_steps",
+             dict(deck=deck32, warm=warm, nsteps=steps,
+                  instrumented=instrumented))])
     ref64, trips64 = one_rank_steps(incflo_torch, torch, deck64,
                                     warm + steps)
     trips1 = trips64[:steps64]
     ref32, _ = one_rank_steps(incflo_torch, torch, deck32, warm + steps)
-    t0 = time.time()
-    r64 = launch.run("incflo_torch.parallel.workers:steps", SHARD_RANKS,
-                     dict(deck=deck64, nsteps=steps64), device="cuda",
-                     timeout=600)
-    r32 = launch.run("incflo_torch.parallel.workers:timed_steps",
-                     SHARD_RANKS, dict(deck=deck32, warm=warm, nsteps=steps,
-                                       instrumented=instrumented),
-                     device="cuda", timeout=600)
-    spawn_s = time.time() - t0
+    ranks = yield None
+    r64 = [r["f64"] for r in ranks]
+    r32 = [r["f32"] for r in ranks]
     print(f"[sharded] ranks: {r32[0]['mesh']}", flush=True)
     worst64 = {f: 0.0 for f in SHARD_FIELDS}
     for i, (a, b) in enumerate(zip(r64[0]["states"], ref64)):
@@ -3181,8 +3266,8 @@ def phase_sharded_step(incflo_torch, gk, torch, n=128, steps64=3, warm=2,
           + f"; per rank per step {PER_STEP_HALO} halo-slab wrapper calls "
           f"(one device launch each); instrumented "
           f"{inst:.3f} ms/step, of it exchanges (ms/step) "
-          + ", ".join(f"{k} {v:.3f}" for k, v in comm.items())
-          + f"; spawns {spawn_s:.1f} s", flush=True)
+          + ", ".join(f"{k} {v:.3f}" for k, v in comm.items()),
+          flush=True)
     return {"n": n, "ranks": SHARD_RANKS, "mesh": r32[0]["mesh"],
             "ms_per_step": ms, "steps": steps, "warmup": warm,
             "instrumented_ms_per_step": inst,
@@ -3192,7 +3277,7 @@ def phase_sharded_step(incflo_torch, gk, torch, n=128, steps64=3, warm=2,
             "cg_trips_per_step": trips1,
             "f32_rel_err_vs_f64": shard32,
             "f32_one_rank_rel_err_vs_f64": own32, "f32_bound": bound32,
-            "f32_rel_err_vs_one_rank_f32": err32, "spawn_s": spawn_s}
+            "f32_rel_err_vs_one_rank_f32": err32}
 
 
 # ---------------------------------------------------------------------
@@ -3436,8 +3521,8 @@ def mg_state_errs(a, b, floors=None):
 def phase_sharded_mg(incflo_torch, torch):
     """rt (64x64x128) and shear3d_vd (128x128x32) split over 2 ranks that
     share the card, multigrid on the slabs (sharded_cells)."""
-    return sharded_cells(incflo_torch, torch, SHARD_MG_DECKS,
-                         "sharded_mg")[0]
+    return (yield from sharded_cells(incflo_torch, torch, SHARD_MG_DECKS,
+                                     "sharded_mg"))[0]
 
 
 def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
@@ -3463,10 +3548,12 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
     1-rank Simulation giving a whole-level array that every run of the
     cell adds to its initial velocity; sims32: cell -> the deck's 1-rank
     float32 Simulation, built already.  Every rank must launch
-    each slab smoother kernel of `families` in the timed steps.  The
-    1-rank runs first; then one spawn of the ranks (workers.several)
-    runs every cell's float64 steps, then every cell's timed float32
-    steps, then `jobs` (more (key, name, kwargs) of workers).  Printed
+    each slab smoother kernel of `families` in the timed steps.  A
+    generator for run_sharded: it yields the ranks' jobs (untimed: every
+    cell's float64 steps and `jobs`, more (key, name, kwargs) of
+    workers; timed: every cell's float32 steps), then runs the 1-rank
+    references and yields None, then takes the jobs' results on every
+    rank.  Printed
     and returned beside the times: each rank's setup seconds (its
     Simulation and init), the 27-point EB nodal smoother's and the 2D
     flux-form slab sweep calls a step, and each rank's Godunov kernel
@@ -3474,18 +3561,31 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
     spawn)."""
     from incflo_torch import state
     from incflo_torch.ops import multigrid as mg
-    from incflo_torch.parallel import launch
     ulp = 1.1920928955078125e-07
+    sims32 = dict(sims32 or {})
+    pert = {}
+    for cell, deck_of in decks.items():
+        make = (perturbs or {}).get(cell)
+        if make is not None and cell not in sims32:
+            sims32[cell] = incflo_torch.Simulation(
+                incflo_torch.IncfloConfig.from_text(deck_of("float32")))
+        pert[cell] = None if make is None else make(sims32[cell])
+    yield ([(f"{cell} f64", "steps",
+             dict(deck=deck_of("float64"), nsteps=steps64,
+                  perturb=pert[cell]))
+            for cell, deck_of in decks.items()] + list(jobs),
+           [(f"{cell} f32", "timed_steps",
+             dict(deck=deck_of("float32"), warm=warm, nsteps=steps,
+                  instrumented=instrumented, perturb=pert[cell]))
+            for cell, deck_of in decks.items()])
     t0 = time.time()
-    refs, pert = {}, {}
+    refs = {}
     for cell, deck_of in decks.items():
         deck64 = deck_of("float64")
-        sim32 = (sims32 or {}).get(cell)
+        sim32 = sims32.pop(cell, None)
         if sim32 is None:
             sim32 = incflo_torch.Simulation(
                 incflo_torch.IncfloConfig.from_text(deck_of("float32")))
-        make = (perturbs or {}).get(cell)
-        pert[cell] = None if make is None else make(sim32)
         ref64, tal64, _ = one_rank_run(incflo_torch, torch, deck64,
                                        warm + steps, pert[cell])
         ref32, _, solves = one_rank_run(incflo_torch, torch, None,
@@ -3504,18 +3604,7 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
                       else None)
         del sim32
     t1 = time.time()
-    ranks = launch.run(
-        "incflo_torch.parallel.workers:several", SHARD_RANKS,
-        dict(jobs=[(f"{cell} f64", "steps",
-                    dict(deck=deck_of("float64"), nsteps=steps64,
-                         perturb=pert[cell]))
-                   for cell, deck_of in decks.items()]
-             + [(f"{cell} f32", "timed_steps",
-                 dict(deck=deck_of("float32"), warm=warm, nsteps=steps,
-                      instrumented=instrumented, perturb=pert[cell]))
-                for cell, deck_of in decks.items()] + list(jobs)),
-        device="cuda", timeout=900)
-    t2 = time.time()
+    ranks = yield None
     out = {}
     for cell, deck_of in decks.items():
         fl = (floors or {}).get(cell)
@@ -3635,8 +3724,8 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
                           f"{v['bytes_per_step'] / 1e6:.3f} MB "
                           f"{v['ms_per_step']:.3f} ms"
                           for k, v in comm.items())
-              + f"; the cells' 1-rank runs {t1 - t0:.1f} s, the spawn "
-              f"{t2 - t1:.1f} s", flush=True)
+              + f"; the cells' 1-rank runs {t1 - t0:.1f} s (beside the "
+              "ranks' untimed jobs)", flush=True)
         out[cell] = {"ranks": SHARD_RANKS, "mesh": r32[0]["mesh"],
                      "ms_per_step": ms, "steps": steps, "warmup": warm,
                      "instrumented_ms_per_step": inst, "comm": comm,
@@ -3654,7 +3743,7 @@ def sharded_cells(incflo_torch, torch, decks, tag, floors=None, steps64=1,
                      "f32_rel_err_vs_f64": shard32,
                      "f32_one_rank_rel_err_vs_f64": own32,
                      "f32_bound": bound32, "f32_stall": stall,
-                     "floors": fl, "seconds_all_cells": t2 - t0}
+                     "floors": fl, "one_rank_s_all_cells": t1 - t0}
     return out, ranks
 
 
@@ -3707,8 +3796,9 @@ def phase_sharded_xwalls(incflo_torch, sk, mg, torch):
     forms = slab_forms(sk, mg, torch,
                        list(zip(SLAB_FAMILIES, (tracer, nodal))),
                        "sharded_xwalls", 43)
-    cells, _ = sharded_cells(incflo_torch, torch, SHARD_XWALL_DECKS,
-                             "sharded_xwalls", SHARD_XWALL_FLOORS)
+    cells, _ = yield from sharded_cells(incflo_torch, torch,
+                                        SHARD_XWALL_DECKS, "sharded_xwalls",
+                                        SHARD_XWALL_FLOORS)
     return {"slab_forms": forms, "cells": cells}
 
 
@@ -3749,8 +3839,8 @@ def phase_sharded_eb(incflo_torch, sk, mg, torch):
     (64x64x16) MAC and cut-cell velocity hierarchies (slab_forms; the
     Bingham velocity levels with the x wrap plane of the EB wall term),
     then both decks on 2 ranks sharing the card (sharded_cells, the f32
-    steps timed from init without a warm-up step to hold the phase near
-    200 s; the 1-rank float32 Simulations built once for both parts):
+    steps timed from init without a warm-up step; the 1-rank float32
+    Simulations built once for both parts):
     their constant-density nodal projection is the plain 27-point EB
     solver, so they launch cell_smooth_slab alone, and the 27-point slab
     sweeps are counted apart."""
@@ -3762,11 +3852,10 @@ def phase_sharded_eb(incflo_torch, sk, mg, torch):
                     for op in eb_operators_f32(mg, torch, sims[cell])]
     forms = slab_forms(sk, mg, torch, solvers, "sharded_eb", 47)
     del solvers
-    cells, _ = sharded_cells(incflo_torch, torch, SHARD_EB_DECKS,
-                             "sharded_eb", perturbs={
-                                 "poiseuille_cyl_bingham": eb_perturbation},
-                             families=("cell_smooth_slab",), warm=0,
-                             sims32=sims)
+    cells, _ = yield from sharded_cells(
+        incflo_torch, torch, SHARD_EB_DECKS, "sharded_eb",
+        perturbs={"poiseuille_cyl_bingham": eb_perturbation},
+        families=("cell_smooth_slab",), warm=0, sims32=sims)
     return {"slab_forms": forms, "cells": cells}
 
 
@@ -3853,10 +3942,9 @@ def phase_sharded_2d(incflo_torch, torch):
     """2D decks and the two Godunov options on the x-slab mesh: every
     SHARD_2D_DECKS cell on 2 ranks sharing the card (sharded_cells: f64
     init + 1 step against 1 rank, f32 against its witness bound, the f32
-    steps timed from init without a warm-up step).  Each rank must
-    launch the halo-slab kernels of SHARD_2D_HALO and no other Godunov
-    kernel, and make the 2D slab sweeps of SHARD_2D_SWEEPS and the
-    9-point EB slab sweeps of SHARD_2D_STENCIL.  In the same spawn the
+    steps timed from init without a warm-up step).  Each rank must launch the halo-slab kernels of SHARD_2D_HALO and no other
+    Godunov kernel, and make the 2D slab sweeps of SHARD_2D_SWEEPS and
+    the 9-point EB slab sweeps of SHARD_2D_STENCIL.  In the same spawn the
     2D cell and nodal sweeps of rt2d's projections (rt2d_sweep_cases)
     at every slab level, float32 on the card: each rank's rows bit-equal
     to the whole level's, one halo exchange a call
@@ -3866,7 +3954,7 @@ def phase_sharded_2d(incflo_torch, torch):
         SHARD_2D_DECKS["rt2d"]("float32")))
     cases = rt2d_sweep_cases(rt2d, SHARD_RANKS)
     n_cell = list(rt2d.grid.n_cell)
-    cells, ranks = sharded_cells(
+    cells, ranks = yield from sharded_cells(
         incflo_torch, torch, SHARD_2D_DECKS, "sharded_2d", families=(),
         warm=0, sims32={"rt2d": rt2d},
         jobs=[("rt2d sweeps", "solver_sweeps", dict(cases=cases))])
@@ -3901,6 +3989,322 @@ def phase_sharded_2d(incflo_torch, torch):
     return {"cells": cells, "rt2d_sweeps": {"n_cell": n_cell,
                                             "slab_levels": n_slabs,
                                             "calls_rank0": calls}}
+
+
+# the AMR cells on the x-slab mesh (2 ranks sharing the card): rt_amr at
+# full width -- bench's rt (64x64x128, x slabs of 32) with one refined
+# level, its z slab patch of 128x128x32 over the whole x range split in
+# slabs of 64, regridded after step 2 -- and three small float64 cells:
+# shear3d_amr on a 32x32x32 base (the deck's z tag band needs 32 z cells
+# to leave coarse-fine faces; its fully periodic base level runs the
+# halo-slab Godunov kernels beside a split patch), the box deck (its patch
+# held whole on every rank) and rt2d on the dense fine level
+SHARD_AMR_MAIN = lambda dt: rt_deck(128, dt) + RT_AMR_KEYS
+SHARD_AMR_SMALL = {
+    "shear3d_amr": (lambda: shear3d_deck(32, "float64").replace(
+        "amr.n_cell = 32 32 8", "amr.n_cell = 32 32 32")
+        + SHEAR3D_AMR_KEYS, False),
+    "box": (lambda: AMR_BOX, False),
+    "dense": (lambda: AMR_RT2D.replace("amr.patch_mode = slab\n", ""), True)}
+# what each cell must launch on every rank, by tree level: the slab
+# smoothers on rt_amr's split base and patch, the halo-slab Godunov
+# kernels on shear3d_amr's split base and the slab smoothers on its patch
+SHARD_AMR_KERNELS = {"rt_amr": {0: SLAB_FAMILIES, 1: SLAB_FAMILIES},
+                     "shear3d_amr": {0: HALO_KERNELS, 1: SLAB_FAMILIES}}
+
+
+def one_rank_amr(incflo_torch, torch, deck, nsteps, dense=False,
+                 ulp_seed=None):
+    """An AMR deck on one rank on the card (the patch tree, or dense the
+    dense fine level) from init (ulp_seed: every level's velocity,
+    density and tracer then nudged one rounding, as one_rank_run does)
+    through nsteps steps: the whole trees after init and each step
+    ((tree record, per-level dicts); dense: (None, [fine level])), each
+    step's tallies and the steps' nodal solves that iterated."""
+    import numpy as np
+    from incflo_torch import state
+    from incflo_torch.amr import AMRSimulation
+    from incflo_torch.amr_patch import PatchState, SlabAMRSimulation
+    from incflo_torch.ops import multigrid as mg
+    cfg = incflo_torch.IncfloConfig.from_text(deck)
+    amr = (AMRSimulation if dense else SlabAMRSimulation)(cfg)
+    mg.reset_counts()
+    s = amr.init_state()
+    if ulp_seed is not None:
+        rng = np.random.default_rng(ulp_seed)
+        nudge = lambda a: a * (1 + torch.as_tensor(rng.integers(
+            -1, 2, tuple(a.shape)), device=a.device, dtype=a.dtype)
+            * torch.finfo(a.dtype).eps)
+        s = PatchState([st._replace(level=st.level._replace(**{
+            f: nudge(getattr(st.level, f))
+            for f in ("velocity", "density", "tracer")})) for st in s.levels])
+
+    def record():
+        if dense:
+            return None, [state.sim_to_numpy(s)]
+        return amr.tree_meta(), state.patch_to_numpy(amr, s)
+    states = [record()]
+    tallies = [{k: mg.COUNTS[k] for k in ITER_KINDS}]
+    mg.NODAL_LOG = []
+    try:
+        for _ in range(nsteps):
+            before = dict(mg.COUNTS)
+            s = amr.advance(s)
+            tallies.append({k: mg.COUNTS[k] - before[k]
+                            for k in ITER_KINDS})
+            states.append(record())
+        torch.cuda.synchronize()
+        solves = [(float(res) / float(tol), it, maxiter)
+                  for res, tol, it, maxiter in mg.NODAL_LOG]
+    finally:
+        mg.NODAL_LOG = None
+    return states, tallies, solves
+
+
+def tree_errs(a, b, cell):
+    """Each field's (and dt's) largest difference over the levels of two
+    whole trees (tree record, per-level dicts), relative to b's max;
+    their trees must be equal."""
+    if a[0] != b[0]:
+        raise AssertionError(f"sharded_amr {cell}: trees {a[0]} and "
+                             f"{b[0]} differ")
+    worst = dict.fromkeys(SHARD_MG_FIELDS, 0.0)
+    for la, lb in zip(a[1], b[1]):
+        for f, e in mg_state_errs(la, lb).items():
+            worst[f] = max(worst[f], e)
+    return worst
+
+
+def check_amr_f64(cell, ranks, key, ref, tallies):
+    """The ranks' float64 trees within TOL_SHARD_F64 of the 1-rank ones,
+    equal tallies and dt bits on every rank; returns the worst
+    errors."""
+    got = ranks[0][key]["states"]
+    worst = dict.fromkeys(SHARD_MG_FIELDS, 0.0)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        a = (a[0], a[1][:1]) if a[0] is None else a
+        for f, e in tree_errs(a, b, cell).items():
+            worst[f] = max(worst[f], e)
+            if not e <= TOL_SHARD_F64:
+                raise AssertionError(f"sharded_amr {cell} f64 state {i}: "
+                                     f"{f} differs from 1 rank by {e:.3e}")
+    for rank, r in enumerate(ranks):
+        if r[key]["tallies"] != tallies[:len(got)]:
+            raise AssertionError(f"sharded_amr {cell} f64 rank {rank}: "
+                                 f"tallies {r[key]['tallies']}, 1 rank "
+                                 f"{tallies}")
+        if r[key]["dts"] != ranks[0][key]["dts"]:
+            raise AssertionError(f"sharded_amr {cell}: the ranks' dts "
+                                 f"{[q[key]['dts'] for q in ranks]}")
+    return worst
+
+
+def amr_launches(cell, ranks, key, nsteps):
+    """Each rank's launches a step by tree level (the smoother and
+    Godunov kernels), checked against SHARD_AMR_KERNELS."""
+    out = []
+    for rank, r in enumerate(ranks):
+        per = {lev: {k: v / nsteps for t in (c["smoother"], c["godunov"])
+                     for k, v in t.items() if v}
+               for lev, c in sorted(r[key]["per_level"].items())}
+        for lev, want in SHARD_AMR_KERNELS.get(cell, {}).items():
+            if not all(per.get(lev, {}).get(k, 0) > 0 for k in want):
+                raise AssertionError(f"sharded_amr {cell} rank {rank} level "
+                                     f"{lev}: launches a step {per}, want "
+                                     f"{want}")
+        out.append(per)
+    return out
+
+
+def phase_sharded_amr(incflo_torch, torch):
+    """Both AMR drivers split over 2 ranks that share the card
+    (workers.amr_steps; a generator for run_sharded, as sharded_cells):
+    rt_amr at full width, float64 init + 1 step held to the 1-rank port
+    within TOL_SHARD_F64 with equal tallies and dts on every rank,
+    float32 init + 2 steps (a regrid after the second) held to the
+    witness of sharded_cells (2x the largest error of the 1-rank float32
+    runs from starts one rounding apart against the 1-rank float64 run,
+    + 4 ulps; the ranks' nodal solves end before maxiter and below their
+    tolerance or no further above it than the 1-rank runs' worst),
+    timed; the small SHARD_AMR_SMALL cells in float64 against 1 rank.
+    Every rank must launch the kernels of SHARD_AMR_KERNELS on each
+    level.  Prints ms/step (slowest rank), setup s per rank, exchanges a
+    step by kind and the launches a step per rank on the base and the
+    patch."""
+    ulp = 1.1920928955078125e-07
+    yield ([("rt_amr f64", "amr_steps",
+             dict(deck=SHARD_AMR_MAIN("float64"), nsteps=1))]
+           + [(f"{cell} f64", "amr_steps", dict(deck=deck(), nsteps=1,
+                                                dense=dense))
+              for cell, (deck, dense) in SHARD_AMR_SMALL.items()],
+           [("rt_amr f32", "amr_steps",
+             dict(deck=SHARD_AMR_MAIN("float32"), nsteps=2))])
+    t0 = time.time()
+    ref64, tal64, _ = one_rank_amr(incflo_torch, torch,
+                                   SHARD_AMR_MAIN("float64"), 2)
+    band, solves = [], []
+    for seed in (None,) + tuple(range(SHARD_F32_BAND)):
+        got, _, sv = one_rank_amr(incflo_torch, torch,
+                                  SHARD_AMR_MAIN("float32"), 2,
+                                  ulp_seed=seed)
+        band.append(got[-1])
+        solves += sv
+    # a solve that reaches its tolerance passes; one that stagnates above
+    # it may stop as far above it as the 1-rank runs' worst
+    worst_solve = max([1.0] + [q for q, _, _ in solves])
+    small = {cell: one_rank_amr(incflo_torch, torch, deck(), 1, dense)
+             for cell, (deck, dense) in SHARD_AMR_SMALL.items()}
+    t1 = time.time()
+    ranks = yield None
+    out = {"ranks": SHARD_RANKS, "mesh": ranks[0]["rt_amr f32"]["mesh"],
+           "cells": {}}
+    worst64 = check_amr_f64("rt_amr", ranks, "rt_amr f64", ref64, tal64)
+    r32 = [r["rt_amr f32"] for r in ranks]
+    own32 = dict.fromkeys(SHARD_MG_FIELDS, 0.0)
+    for b in band:
+        for f, e in tree_errs(b, ref64[-1], "rt_amr").items():
+            own32[f] = max(own32[f], e)
+    shard32 = tree_errs(r32[0]["states"][-1], ref64[-1], "rt_amr")
+    bound32 = {f: TOL_SHARD_F32_FACTOR * own32[f] + TOL_SHARD_F32_ULPS * ulp
+               for f in SHARD_MG_FIELDS}
+    for f in SHARD_MG_FIELDS:
+        if not shard32[f] <= bound32[f]:
+            raise AssertionError(
+                f"sharded_amr rt_amr 2 ranks f32 after 2 steps: {f} is "
+                f"{shard32[f]:.3e} from the float64 run, the 1-rank f32 runs "
+                f"{own32[f]:.3e} (bound {bound32[f]:.3e})")
+    for rank, r in enumerate(r32):
+        if not r["nodal_solves"] or any(q > worst_solve or it >= m
+                                        for q, it, m in r["nodal_solves"]):
+            raise AssertionError(f"sharded_amr rt_amr f32 rank {rank}: nodal "
+                                 f"solves ended at {r['nodal_solves']} (bound "
+                                 f"{worst_solve:.3f} x tolerance)")
+    steps = 2
+    per_step = amr_launches("rt_amr", ranks, "rt_amr f32", steps)
+    ms = max(r["ms_per_step"] for r in r32)
+    setup = [r["setup_s"] for r in r32]
+    comm = {k: max(r["comm"][k] for r in r32) / steps for k in r32[0]["comm"]}
+    bounds = [t[0]["bounds"][1:] for t in r32[0]["states"]]
+    card = card_line()
+    print(f"[sharded_amr] rt_amr f64 over {SHARD_RANKS} ranks: init + 1 step, "
+          f"worst rel err against 1 rank over both levels "
+          + ", ".join(f"{f} {e:.2e}" for f, e in worst64.items())
+          + f" (tol {TOL_SHARD_F64:g}); tallies {tal64[1:2]} on every rank",
+          flush=True)
+    print(f"[sharded_amr] rt_amr f32 over {SHARD_RANKS} ranks sharing the "
+          f"card: {ms:.3f} ms/step over {steps} steps from init (slowest "
+          f"rank; a regrid after step 2; patch bounds {bounds}); setup s per "
+          f"rank {[round(v, 2) for v in setup]}; rel err against the f64 run "
+          f"(2 ranks / 1-rank worst of {len(band)} starts one rounding apart) "
+          + ", ".join(f"{f} {shard32[f]:.2e} / {own32[f]:.2e}"
+                      for f in SHARD_MG_FIELDS)
+          + f"; rank 0's nodal solves "
+          f"{[round(q, 3) for q, _, _ in r32[0]['nodal_solves']]} x tol "
+          f"(1-rank worst {worst_solve:.3f}); exchanges a step (calls) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in comm.items())
+          + "; launches a step per rank by level "
+          + "; ".join(str(p) for p in per_step)
+          + f"; the 1-rank runs {t1 - t0:.1f} s (beside the ranks' "
+          f"untimed jobs); {card}", flush=True)
+    out["cells"]["rt_amr"] = {
+        "n_cell": list(incflo_torch.IncfloConfig.from_text(
+            SHARD_AMR_MAIN("float32")).grid.n_cell),
+        "ms_per_step": ms, "steps": steps,
+        "setup_s": setup, "comm_calls_per_step": comm, "bounds": bounds,
+        "launches_per_step_per_rank": per_step,
+        "f64_max_rel_err": worst64, "f64_tol": TOL_SHARD_F64,
+        "tallies": tal64[:2], "f32_rel_err_vs_f64": shard32,
+        "f32_one_rank_rel_err_vs_f64": own32, "f32_bound": bound32,
+        "nodal_res_over_tol": [q for q, _, _ in r32[0]["nodal_solves"]],
+        "one_rank_worst_res_over_tol": worst_solve, "card": card}
+    for cell, (_, dense) in SHARD_AMR_SMALL.items():
+        ref, tal, _ = small[cell]
+        key = f"{cell} f64"
+        worst = check_amr_f64(cell, ranks, key, ref, tal)
+        per_step = amr_launches(cell, ranks, key, 1)
+        split = ranks[0][key]["split"]
+        print(f"[sharded_amr] {cell} f64 over {SHARD_RANKS} ranks: init + 1 "
+              f"step, worst rel err against 1 rank "
+              + ", ".join(f"{f} {e:.2e}" for f, e in worst.items())
+              + f"; tallies {tal[1:]} on every rank; split entries "
+              f"{split[-1]}; launches a step per rank by level "
+              + "; ".join(str(p) for p in per_step), flush=True)
+        out["cells"][cell] = {"f64_max_rel_err": worst, "tallies": tal,
+                              "split": split,
+                              "launches_per_step_per_rank": per_step}
+    if ranks[0]["box f64"]["split"][-1] != [True, False]:
+        raise AssertionError(f"sharded_amr box: split entries "
+                             f"{ranks[0]['box f64']['split']}")
+    out["one_rank_s"] = t1 - t0
+    return out
+
+
+def run_sharded(phases, stamp):
+    """The sharded phases (name -> the phase's generator) with one spawn
+    of SHARD_RANKS ranks sharing the card.  Each phase first yields its
+    jobs for the ranks ((key, workers function, kwargs)) as (untimed,
+    timed): its float64 and bit-equality runs, and its timed float32
+    runs.  The spawn (workers.several) runs every phase's untimed jobs,
+    waits at a gate (workers.wait_for), then runs every phase's timed
+    jobs.  Meanwhile each phase runs its 1-rank references on the card
+    here and yields None; the gate opens when they are done, so nothing
+    else runs on the card while a timed job does.  Last each phase takes
+    its jobs' results on every rank, checks and prints them and returns
+    its result.  A failure here kills the ranks.  Returns {name:
+    result}."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+    import threading
+    from incflo_torch.parallel import launch
+    jobs = {name: next(gen) for name, gen in phases.items()}
+    stamp("the sharded phases' set-up")
+    key = lambda name, k: f"{name}: {k}"
+    gate = tempfile.mkdtemp(prefix="chip_smoke_gate_")
+    every = ([(key(name, k), fn, kw) for name, (untimed, _) in jobs.items()
+              for k, fn, kw in untimed]
+             + [("gate", "wait_for", dict(path=os.path.join(gate, "go")))]
+             + [(key(name, k), fn, kw) for name, (_, timed) in jobs.items()
+                for k, fn, kw in timed])
+    cancel = threading.Event()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    t0 = time.time()
+    try:
+        spawn = pool.submit(
+            launch.run, "incflo_torch.parallel.workers:several", SHARD_RANKS,
+            dict(jobs=every), device="cuda", timeout=900, cancel=cancel)
+        for name, gen in phases.items():
+            if next(gen) is not None:
+                raise RuntimeError(f"{name}: a third set of jobs")
+            stamp(f"{name} 1-rank references")
+        t1 = time.time()
+        open(os.path.join(gate, "go"), "w").close()
+        ranks = spawn.result()
+    except BaseException:
+        cancel.set()
+        raise
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(gate, ignore_errors=True)
+    print(f"[sharded] one spawn of {SHARD_RANKS} ranks ran the "
+          f"{len(every) - 1} jobs of {len(phases)} phases in "
+          f"{time.time() - t0:.1f} s: the 1-rank references here "
+          f"{t1 - t0:.1f} s beside the untimed jobs, the ranks waited "
+          f"{max(r['gate'] for r in ranks):.1f} s at the gate before the "
+          f"timed jobs", flush=True)
+    stamp("the sharded phases' spawn")
+    out = {}
+    for name, gen in phases.items():
+        mine = [{k: r[key(name, k)] for part in jobs[name]
+                 for k, _, _ in part} for r in ranks]
+        try:
+            gen.send(mine)
+        except StopIteration as done:
+            out[name] = done.value
+        else:
+            raise RuntimeError(f"{name}: a third set of jobs")
+        stamp(name)
+    return out
 
 
 CLI_ARGS = ["max_step=4", "amr.check_int=2", "amr.plot_int=2"]
@@ -4180,29 +4584,51 @@ def amr_state_errs(a, b):
     return worst
 
 
+def paths_amr_run(incflo_torch, mg, torch, name, dev):
+    """An AMR paths deck on `dev`: the trees' states and records after
+    init, 1 step and one regrid, and the step's iterations."""
+    from incflo_torch.amr_patch import SlabAMRSimulation
+    cfg = incflo_torch.IncfloConfig.from_text(AMR_PATHS[name])
+    amr = SlabAMRSimulation(cfg, device=dev)
+    s = amr.init_state()
+    states, trees = [s], [amr.tree_meta()]
+    before = dict(mg.COUNTS)
+    s = amr.advance(s)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    iters = [{k: mg.COUNTS[k] - before[k] for k in ITER_KINDS}]
+    states.append(s)
+    trees.append(amr.tree_meta())
+    states.append(amr.regrid(s))
+    trees.append(amr.tree_meta())
+    return states, trees, iters
+
+
+def cpu_paths_ahead(incflo_torch, mg, torch):
+    """Every CPU half of the paths runs (phase_paths, the A9c / 3D MOL,
+    A8 / A11 and AMR paths decks) into CPU_RUNS, for main() to run while
+    nvcc builds the kernels: the cpu runs need none of them."""
+    for name in ("shear3d", "shear3d_vd", "rt", "tgv2d"):
+        CPU_RUNS["paths", name] = paths_cpu(incflo_torch, torch, name)
+    for name in A9C_DECKS:
+        CPU_RUNS["a9c", name] = paths_a9c_cpu(incflo_torch, mg, torch, name)
+    for name in A8_A11_PATHS:
+        CPU_RUNS["a8_a11", name] = paths_a8_a11_cpu(incflo_torch, mg, torch,
+                                                    name)
+    for name in AMR_PATHS:
+        CPU_RUNS["amr", name] = paths_amr_run(incflo_torch, mg, torch, name,
+                                              "cpu")
+
+
 def phase_paths_amr(incflo_torch, mg, torch, name):
     """An AMR deck on cuda (kernels) and on cpu (plain versions), f64:
     each from its own init_state, 1 step (2 before the EB phase joined
     the run) and one regrid; the trees (axis, bounds, parents)
     identical, every entry's fields and dt to 1e-9 relative after init,
     the step and the regrid, the solvers' iterations equal."""
-    from incflo_torch.amr_patch import SlabAMRSimulation
-    cfg = incflo_torch.IncfloConfig.from_text(AMR_PATHS[name])
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        amr = SlabAMRSimulation(cfg, device=dev)
-        s = amr.init_state()
-        states, trees = [s], [amr.tree_meta()]
-        before = dict(mg.COUNTS)
-        s = amr.advance(s)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        iters = [{k: mg.COUNTS[k] - before[k] for k in ITER_KINDS}]
-        states.append(s)
-        trees.append(amr.tree_meta())
-        states.append(amr.regrid(s))
-        trees.append(amr.tree_meta())
-        runs[dev] = (states, trees, iters)
+    runs = {"cpu": cpu_half(("amr", name), lambda: paths_amr_run(
+        incflo_torch, mg, torch, name, "cpu")),
+        "cuda": paths_amr_run(incflo_torch, mg, torch, name, "cuda")}
     (sc, tc, ic), (sg, tg, ig) = runs["cpu"], runs["cuda"]
     if tc != tg:
         raise AssertionError(f"amr {name}: trees differ {tc} vs {tg}")
@@ -4216,44 +4642,6 @@ def phase_paths_amr(incflo_torch, mg, torch, name):
     if not worst <= 1e-9:
         raise AssertionError(f"amr {name}: cuda and cpu differ: {worst:.3e}")
     return worst
-
-
-class LevelLaunches:
-    """While active, the launches of every kernel counted per AMR level:
-    each Simulation._advance_impl and reproject call adds the launch
-    counts it made to the level of its tree entry."""
-
-    def __init__(self, amr, mods):
-        self.amr, self.mods = amr, mods
-        self.by_level = {}
-
-    def _counts(self):
-        out = {}
-        for m in self.mods:
-            out.update(m.LAUNCHES)
-        return out
-
-    def __enter__(self):
-        from incflo_torch.simulation import Simulation
-        self.cls = Simulation
-        self.saved = (Simulation._advance_impl, Simulation.reproject)
-        for name, fn in zip(("_advance_impl", "reproject"), self.saved):
-            setattr(Simulation, name, self._wrap(fn))
-        return self
-
-    def __exit__(self, *exc):
-        self.cls._advance_impl, self.cls.reproject = self.saved
-
-    def _wrap(self, fn):
-        def wrapper(sim, *args, **kw):
-            before = self._counts()
-            out = fn(sim, *args, **kw)
-            lev = self.amr.level_of[self.amr.sims.index(sim)]
-            tally = self.by_level.setdefault(lev, {})
-            for k, v in self._counts().items():
-                tally[k] = tally.get(k, 0) + v - before[k]
-            return out
-        return wrapper
 
 
 def amr_cells(amr):
@@ -4275,6 +4663,7 @@ def phase_main_amr(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
     solvers' tallies, finite fields, the next step's nodal solves; then
     one profiled step for the device idle share."""
     from incflo_torch.amr_patch import SlabAMRSimulation, choose_patch_mode
+    from incflo_torch.parallel import workers
     cfg = incflo_torch.IncfloConfig.from_text(AMR_MAIN[name]())
     mode = choose_patch_mode(cfg)
     if mode != "slab":
@@ -4290,7 +4679,8 @@ def phase_main_amr(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
     gk.reset_launches()
     sk.reset_launches()
     mg.reset_counts()
-    with LevelLaunches(amr, (gk, sk)) as per_level:
+    with workers.level_tallies(amr, {"godunov": gk.LAUNCHES,
+                                     "smoother": sk.LAUNCHES}) as per_level:
         for _ in range(warm):
             s = amr.advance(s)
             bounds.append(amr.tree_meta()["bounds"][1:])
@@ -4304,8 +4694,9 @@ def phase_main_amr(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
         t1 = time.perf_counter()
     total = warm + steps
     per_step = {k: (v - warm_counts[k]) / steps for k, v in mg.COUNTS.items()}
-    launches = {lev: {k: v for k, v in t.items() if v}
-                for lev, t in sorted(per_level.by_level.items())}
+    launches = {lev: {k: v for t in per_level[lev].values()
+                      for k, v in t.items() if v}
+                for lev in sorted(per_level)}
     per_level_step = {lev: {k: v / total for k, v in t.items()}
                       for lev, t in launches.items()}
     for lev, want in AMR_KERNELS[name].items():
@@ -4640,7 +5031,9 @@ def main(argv):
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {kind}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    build_s = phase_build(cuda_build, [gk.SOURCE, sk.SOURCE, s2.SOURCE])
+    build_s = phase_build(cuda_build, [gk.SOURCE, sk.SOURCE, s2.SOURCE],
+                          lambda: cpu_paths_ahead(incflo_torch, mg, torch))
+    stamp("build, the paths' cpu halves beside it")
     kres = phase_kernels(gk, sk, grid_of, torch)
     hres = phase_halo_kernels(gk, sk, grid_of, torch)
     sres = phase_smoothers(sk, mg, grid_of, torch)
@@ -4710,17 +5103,18 @@ def main(argv):
     stamp("cli")
     amr_main, amr_levels, amr_cli = phase_amr(incflo_torch, gk, sk, s2, mg,
                                               torch, stamp)
-    shard = phase_sharded_step(incflo_torch, gk, torch)
-    stamp("sharded")
     slab = phase_slab_smoothers(sk, mg, torch)
-    shard_mg = phase_sharded_mg(incflo_torch, torch)
-    stamp("sharded multigrid")
-    xwalls = phase_sharded_xwalls(incflo_torch, sk, mg, torch)
-    stamp("sharded x walls")
-    ebslab = phase_sharded_eb(incflo_torch, sk, mg, torch)
-    stamp("sharded embedded boundaries")
-    shard_2d = phase_sharded_2d(incflo_torch, torch)
-    stamp("sharded 2D and Godunov options")
+    stamp("slab smoothers")
+    sharded = run_sharded({
+        "sharded": phase_sharded_step(incflo_torch, gk, torch),
+        "sharded_mg": phase_sharded_mg(incflo_torch, torch),
+        "sharded_xwalls": phase_sharded_xwalls(incflo_torch, sk, mg, torch),
+        "sharded_eb": phase_sharded_eb(incflo_torch, sk, mg, torch),
+        "sharded_2d": phase_sharded_2d(incflo_torch, torch),
+        "sharded_amr": phase_sharded_amr(incflo_torch, torch)}, stamp)
+    shard, shard_mg, xwalls, ebslab, shard_2d, shard_amr = (
+        sharded[k] for k in ("sharded", "sharded_mg", "sharded_xwalls",
+                             "sharded_eb", "sharded_2d", "sharded_amr"))
 
     # `launches` is the count over the kernel's own main path: shear3d
     # n = 128 for the Godunov kernels (their count in shear3d_vd beside
@@ -4941,6 +5335,10 @@ def main(argv):
             for cell, r in amr_main.items()}
         entry["launches_cli"] = {r["run"]: r["launches"].get(entry["name"], 0)
                                  for r in cli}
+        entry["launches_per_step_sharded_amr"] = {
+            cell: [{lev: t.get(entry["name"], 0.0) for lev, t in p.items()}
+                   for p in r["launches_per_step_per_rank"]]
+            for cell, r in shard_amr["cells"].items()}
     print(json.dumps({"kernels": kernels, "levels": levels,
                       "levels_eb": levels_eb, "build_s": build_s,
                       "main": [main128, main256] + main_vd + [main_rt]
@@ -4950,6 +5348,7 @@ def main(argv):
                       "sharded_xwalls": xwalls["cells"],
                       "sharded_eb": ebslab["cells"],
                       "sharded_2d": shard_2d,
+                      "sharded_amr": shard_amr,
                       "cli": cli,
                       "amr": {"main": list(amr_main.values()),
                               "levels": amr_levels, "cli": amr_cli},

@@ -10,6 +10,13 @@ down to level l's resolution plus its mask).  The patch mode that saves
 cells is amr_patch.py.  With embedded boundaries the fine Simulation
 raises (ROADMAP A13b), so the forced cut-cell tags of incflo_tpu have no
 counterpart here.
+
+Given a SlabMesh (parallel/mesh.py) the fine level is split along x like
+any one-level deck, and every coarser level's view and mask are the
+rank's rows of that level: each level's slab must be a whole number of
+its cells, so the base nx must split over the ranks (else
+NotImplementedError naming ROADMAP A14).  The tags' x differences and
+the error buffer's x dilation read the neighbours' rows (halo_x).
 """
 
 from __future__ import annotations
@@ -36,13 +43,28 @@ def average_down(field: torch.Tensor, ratio: int, ndim: int) -> torch.Tensor:
     return out
 
 
-def _dilate(mask: torch.Tensor, n: int, grid: Grid) -> torch.Tensor:
-    """Grow a boolean mask by n cells (the error buffer)."""
+def _x_halo(mesh, t, periodic, beyond):
+    """t (a rank's rows of a level) with one row from each x neighbour;
+    beyond the level's own x faces beyond(edge row)."""
+    return mesh.halo_x(t, 1, periodic=periodic,
+                       ends=(lambda x: beyond(x.narrow(0, 0, 1)),
+                             lambda x: beyond(x.narrow(0, x.shape[0] - 1,
+                                                       1))))
+
+
+def _dilate(mask: torch.Tensor, n: int, grid: Grid,
+            mesh=None) -> torch.Tensor:
+    """Grow a boolean mask by n cells (the error buffer); on a mesh the
+    mask is the rank's rows, and x reads the neighbours' rows."""
     m = mask.to(torch.float32)
     for _ in range(n):
         acc = m
         for ax in range(grid.ndim):
-            if grid.periodic[ax]:
+            if ax == 0 and mesh is not None:
+                k = m.shape[0]
+                ext = _x_halo(mesh, m, grid.periodic[0], torch.zeros_like)
+                up, dn = ext.narrow(0, 0, k), ext.narrow(0, 2, k)
+            elif grid.periodic[ax]:
                 up = torch.roll(m, 1, dims=ax)
                 dn = torch.roll(m, -1, dims=ax)
             else:
@@ -57,10 +79,17 @@ def _dilate(mask: torch.Tensor, n: int, grid: Grid) -> torch.Tensor:
 
 class AMRSimulation:
     """Dense-fine driver of amr.max_level > 0 decks.  device as for
-    Simulation (None: the card)."""
+    Simulation (None: the card); mesh: the SlabMesh the fine level is
+    split over."""
 
-    def __init__(self, cfg: IncfloConfig, device=None):
+    def __init__(self, cfg: IncfloConfig, device=None, mesh=None):
+        if mesh is not None and cfg.grid.n_cell[0] % mesh.size:
+            raise NotImplementedError(
+                f"the base nx = {cfg.grid.n_cell[0]} does not split into "
+                f"{mesh.size} equal x slabs, so a coarse level's slab is no "
+                f"whole number of its cells (uneven slabs: ROADMAP A14)")
         self.cfg = cfg
+        self.mesh = mesh
         self.base_grid = cfg.grid
         self.max_level = cfg.max_level
         self.ratio = cfg.ref_ratio
@@ -69,10 +98,11 @@ class AMRSimulation:
                          cfg.grid.prob_lo, cfg.grid.prob_hi,
                          cfg.grid.periodic)
         self.fine_cfg = dataclasses.replace(cfg, grid=fine_grid)
-        self.sim = Simulation(self.fine_cfg, device=device)
+        self.sim = Simulation(self.fine_cfg, device=device, mesh=mesh)
         self.device = self.sim.device
         self.dtype = self.sim.dtype
         # masks[l] marks the region level l+1 covers, at level l's size
+        # (on a mesh the rank's rows of it)
         self.masks: List[Optional[torch.Tensor]] = [None] * self.max_level
 
     def level_grid(self, lev: int) -> Grid:
@@ -82,7 +112,8 @@ class AMRSimulation:
                     self.base_grid.periodic)
 
     def level_view(self, s: SimState, lev: int) -> LevelState:
-        """Level-l view of the solution (average_down of the fine data)."""
+        """Level-l view of the solution (average_down of the fine data;
+        on a mesh the rank's rows of it)."""
         r = self.ratio ** (self.max_level - lev)
         nd = self.base_grid.ndim
         lvl = s.level
@@ -100,19 +131,27 @@ class AMRSimulation:
     # ErrorEst (reference incflo_tagging.cpp)
     def _tag_impl(self, fine_density: torch.Tensor) -> List[torch.Tensor]:
         cfg = self.cfg
+        mesh = self.mesh
         masks = []
         for lev in range(self.max_level):
             g = self.level_grid(lev)
             r = self.ratio ** (self.max_level - lev)
             rho = average_down(fine_density, r, g.ndim)
-            tags = torch.zeros(g.cell_shape, dtype=torch.bool,
+            # the level's x rows this rank holds
+            x0 = 0 if mesh is None else mesh.rank * rho.shape[0]
+            tags = torch.zeros(rho.shape, dtype=torch.bool,
                                device=rho.device)
             if lev < len(cfg.rhoerr):
                 tags |= rho > cfg.rhoerr[lev]
             if lev < len(cfg.gradrhoerr):
                 thr = cfg.gradrhoerr[lev]
                 for ax in range(g.ndim):
-                    if g.periodic[ax]:
+                    if ax == 0 and mesh is not None:
+                        n = rho.shape[0]
+                        rp = _x_halo(mesh, rho, g.periodic[0], lambda e: e)
+                        dp = (rp.narrow(0, 2, n) - rho).abs()
+                        dm = (rho - rp.narrow(0, 0, n)).abs()
+                    elif g.periodic[ax]:
                         dp = (torch.roll(rho, -1, dims=ax) - rho).abs()
                         dm = (rho - torch.roll(rho, 1, dims=ax)).abs()
                     else:
@@ -123,16 +162,18 @@ class AMRSimulation:
                         dm = (rho - rp.narrow(ax, 0, n)).abs()
                     tags |= torch.maximum(dp, dm) > thr
             if cfg.tag_region:
-                inside = torch.ones(g.cell_shape, dtype=torch.bool,
+                inside = torch.ones(rho.shape, dtype=torch.bool,
                                     device=rho.device)
                 for ax in range(g.ndim):
-                    c = torch.as_tensor(g.cell_centers_1d(ax),
-                                        device=rho.device).reshape(
+                    c = g.cell_centers_1d(ax)
+                    if ax == 0:
+                        c = c[x0:x0 + rho.shape[0]]
+                    c = torch.as_tensor(c, device=rho.device).reshape(
                         [-1 if a == ax else 1 for a in range(g.ndim)])
                     inside &= (c >= cfg.tag_region_lo[ax]) \
                         & (c <= cfg.tag_region_hi[ax])
                 tags |= inside
-            masks.append(_dilate(tags, 2, g))   # n_error_buf-style buffer
+            masks.append(_dilate(tags, 2, g, mesh))   # the error buffer
         return masks
 
     def regrid(self, s: SimState):

@@ -39,6 +39,33 @@ kernels a patch runs are those of any walled level: the walled
 `cell_smooth` and `nodal_smooth` (Dirichlet at the CF faces) on 3D
 levels, and the plain walled Godunov chain (a CF face is never
 periodic), where incflo_tpu sweeps and advects its patches in jnp.
+
+Split over an x-slab mesh (parallel/mesh.py; incflo_tpu shards each
+level's arrays where an axis divides the mesh and replicates it
+elsewhere, incflo_tpu/parallel/mesh.py:44-57), the base level is split
+and each patch takes one of two forms, by its box alone:
+  split       a patch over its split parent's whole x range (a slab
+              patch along y or z, a box that spans x, any patch under
+              it that does too) takes the same mesh: rank r holds the
+              2 nxl patch rows over its own nxl parent rows.  Its
+              context is its slab's (the parent's ghost rows come from
+              the parent's own halo exchanges), its coarse-fine faces
+              lie on y and z, where the slab smoothers take them as
+              Dirichlet faces, and it averages down into its parent's
+              rows with no exchange;
+  replicated  any other patch (an x slab patch, a box with coarse-fine
+              x faces, a patch under a replicated one) is held whole on
+              every rank and runs with no mesh, the same bits on every
+              rank: its context is interpolated from its parent's fields
+              gathered whole in rank order (SlabMesh.all_gather_x) and
+              grown with the whole parent level's boundary conditions,
+              and its average_down writes each rank's rows of a split
+              parent.
+Every rank tags the same gathered densities and clusters them the same
+way, so every rank builds the same tree, and a regrid may move a patch
+between the forms.  The step's one dt is the least over the tree: a
+split level's compute_dt reduces over the ranks, and a replicated
+patch's is the same on every rank.
 """
 
 from __future__ import annotations
@@ -54,6 +81,7 @@ from incflo_torch.bcs import BCType
 from incflo_torch.config import IncfloConfig
 from incflo_torch.grid import Grid
 from incflo_torch.ops import multigrid as mg
+from incflo_torch.parallel.mesh import mesh_of
 from incflo_torch.simulation import Simulation
 from incflo_torch.state import LevelState, SimState
 
@@ -74,6 +102,30 @@ def _slab_box(lo: int, hi: int, axis: int, n_cell) -> Box:
 def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
         else np.asarray(t)
+
+
+def whole_grid(grid: Grid) -> Grid:
+    """The whole level of a rank's x slab (SlabGrid.full), else grid."""
+    return grid if mesh_of(grid) is None else grid.full
+
+
+def _rows(sim) -> Tuple[int, int]:
+    """(first, count) of the x cell rows of its level that sim holds:
+    its slab's on a mesh, else all of them."""
+    grid = sim.grid
+    return (grid.x0, grid.n_cell[0]) if sim.mesh is not None \
+        else (0, grid.n_cell[0])
+
+
+def _whole_ev(ev, grid: Grid, mesh):
+    """The ghost-value provider `ev` of a rank's slab for the whole
+    level `grid`: a patch's PatchEV with its interpolated parent window
+    gathered whole, ghost rows included (every rank the same bits); the
+    deck's physical ExtDirValues on the whole grid."""
+    if isinstance(ev, PatchEV):
+        return PatchEV(_whole_ev(ev.base, grid, mesh), ev.interior,
+                       mesh.all_gather_x(ev.full, ghosts=ev.ng), ev.ng)
+    return bcs.ExtDirValues(grid, ev.values, ev.probtype)
 
 
 # ---------------------------------------------------------------------
@@ -172,12 +224,18 @@ class PatchSim(Simulation):
 
     def __init__(self, cfg: IncfloConfig, interior,
                  parent_lo: Tuple[int, ...], parent: Simulation,
-                 face_domain):
-        super().__init__(cfg, device=parent.device)
+                 face_domain, mesh=None):
+        super().__init__(cfg, device=parent.device, mesh=mesh)
         self.cf_interior = frozenset(interior)   # {(axis, side)}
-        # parent cell index of the patch lo corner, per axis
+        # parent cell index of the patch lo corner, per axis (along x of
+        # a split patch that of its slab in its parent's slab: 0)
         self.parent_lo = tuple(parent_lo)
         self._parent = parent
+        # a patch held whole under a split parent reads the parent's
+        # fields gathered whole, on the whole parent level's grid
+        self._gathers = parent.mesh is not None and mesh is None
+        self._pgrid = whole_grid(parent.grid) if self._gathers \
+            else parent.grid
         self.face_domain = tuple(face_domain)
         # CF faces carry interpolated parent CELL data (FillPatch
         # semantics: stencils treat the ghosts as interior, not as a
@@ -213,9 +271,36 @@ class PatchSim(Simulation):
     def _grow_foex(self, x, g):
         """Parent ghost fill by first-order extrapolation (fields with no
         physical BC machinery: pressure-like ones)."""
-        rec = bcs.make_bcrecs(x.shape[-1], self._parent.grid.ndim) * 0 \
+        rec = bcs.make_bcrecs(x.shape[-1], self._pgrid.ndim) * 0 \
             + BCType.foextrap
-        return bcs.grow(x, g, self._parent.grid, rec)
+        return bcs.grow(x, g, self._pgrid, rec)
+
+    def _take(self, t, nodal=False):
+        """A parent field as the context reads it: the parent's own (its
+        slab, for a split patch), or gathered whole (_gathers); nodal:
+        the last rank holds node nx where x ends in boundaries."""
+        if not self._gathers:
+            return t
+        return self._parent.mesh.all_gather_x(
+            t, extra_last=nodal and not self._pgrid.periodic[0])
+
+    def _parent_growers(self):
+        """The parent's velocity, density and tracer ghost fills (each
+        (field with a component axis, ng)): its own, or -- for a patch
+        held whole under a split parent -- the whole parent level's, its
+        ghost-value providers gathered whole."""
+        par = self._parent
+        if not self._gathers:
+            return (par.grow_vel,
+                    lambda x, g: par.grow_rho(x[..., 0], g)[..., None],
+                    par.grow_tra)
+        grid = self._pgrid
+        recs = (par.vel_bcrec, par.den_bcrec, par.tra_bcrec)
+        evs = [_whole_ev(ev, grid, par.mesh)
+               for ev in (par.vel_ev, par.den_ev, par.tra_ev)]
+        return tuple((lambda x, g, rec=rec, ev=ev:
+                      bcs.grow(x, g, grid, rec, ev))
+                     for rec, ev in zip(recs, evs))
 
     def set_context(self, parent_lvl: LevelState,
                     parent_lvl_old: Optional[LevelState] = None):
@@ -228,20 +313,21 @@ class PatchSim(Simulation):
         closures (MAC/nodal/diffusion Dirichlet values) always come from
         the just-advanced parent_lvl."""
         nd = self.grid.ndim
-        par = self._parent
+        take = self._take
+        grow_vel, grow_rho, grow_tra = self._parent_growers()
         ghost_src = parent_lvl_old if parent_lvl_old is not None \
             else parent_lvl
-        vel_g_full = self._interp_full(ghost_src.velocity, par.grow_vel)
-        rho_g_full = self._interp_full(
-            ghost_src.density[..., None],
-            lambda x, g: par.grow_rho(x[..., 0], g)[..., None])
-        tra_g_full = self._interp_full(ghost_src.tracer, par.grow_tra)
+        vel_g_full = self._interp_full(take(ghost_src.velocity), grow_vel)
+        rho_g_full = self._interp_full(take(ghost_src.density)[..., None],
+                                       grow_rho)
+        tra_g_full = self._interp_full(take(ghost_src.tracer), grow_tra)
         if parent_lvl_old is not None:
-            vel_full = self._interp_full(parent_lvl.velocity, par.grow_vel)
-            tra_full = self._interp_full(parent_lvl.tracer, par.grow_tra)
+            vel_full = self._interp_full(take(parent_lvl.velocity),
+                                         grow_vel)
+            tra_full = self._interp_full(take(parent_lvl.tracer), grow_tra)
         else:
             vel_full, tra_full = vel_g_full, tra_g_full
-        mac_full = self._interp_full(parent_lvl.mac_phi[..., None],
+        mac_full = self._interp_full(take(parent_lvl.mac_phi)[..., None],
                                      self._grow_foex)
 
         self.vel_ev = PatchEV(self._base_evs[0], self.cf_interior,
@@ -326,9 +412,13 @@ class PatchSim(Simulation):
         hierarchy."""
         assert self._ctx_set
         base = self.init_from_parent(parent_state)
-        own = probs.init_fluid(self.cfg, self.grid, self.dtype, self.device)
-        lvl = base.level._replace(velocity=own.velocity,
-                                  density=own.density, tracer=own.tracer)
+        own = probs.init_fluid(self.cfg, self.cfg.grid, self.dtype,
+                               self.device)
+        cut = (lambda t: t) if self.mesh is None \
+            else (lambda t: self.mesh.slab(t).contiguous())
+        lvl = base.level._replace(velocity=cut(own.velocity),
+                                  density=cut(own.density),
+                                  tracer=cut(own.tracer))
         return base._replace(level=lvl)
 
     # -- regrid support (reference MakeNewLevelFromCoarse) -------------
@@ -344,36 +434,50 @@ class PatchSim(Simulation):
                               for a in range(nd))]
 
         plvl = parent_state.level
+        take = self._take
         lvl = LevelState(
             velocity=interior(self.vel_ev.full),
             density=interior(self.den_ev.full)[..., 0],
             tracer=interior(self.tra_ev.full),
-            gp=interior(self._interp_full(plvl.gp, self._grow_foex)),
+            gp=interior(self._interp_full(take(plvl.gp), self._grow_foex)),
             p=self._interp_nodal_p(plvl.p),
-            mac_phi=interior(self._interp_full(plvl.mac_phi[..., None],
-                                               self._grow_foex))[..., 0],
+            mac_phi=interior(self._interp_full(
+                take(plvl.mac_phi)[..., None], self._grow_foex))[..., 0],
         )
         return parent_state._replace(level=lvl)
 
     def _interp_nodal_p(self, p):
+        """The patch's nodes prolonged from a parent nodal field.  Along
+        x of a split patch the slab's nodes and, beyond them, the right
+        neighbour's first (the last rank of an x that ends in boundaries
+        holds node nx itself): the bounded prolongation of those nxl + 1
+        parent nodes gives the slab's 2 nxl child nodes and one more,
+        which only that last rank keeps."""
         nd = self.grid.ndim
         per = list(self.grid.periodic)
-        pw = p
-        for ax in range(nd):
+        pw = self._take(p, nodal=True)
+        pgrid = self._pgrid
+        split = self.mesh is not None
+        if split:
+            pw = self.mesh.halo_x(pw, 0, 1, periodic=pgrid.periodic[0])
+            per[0] = False
+        for ax in range(1 if split else 0, nd):
             if per[ax]:
                 # the patch covers the whole periodic axis: unique nodes,
                 # exact wraparound prolongation
                 continue
             lo = self.parent_lo[ax]
             npatch_c = self.grid.n_cell[ax] // 2
-            if self._parent.grid.periodic[ax]:
+            if pgrid.periodic[ax]:
                 idx = torch.arange(lo, lo + npatch_c + 1,
-                                   device=pw.device) \
-                    % self._parent.grid.n_cell[ax]
+                                   device=pw.device) % pgrid.n_cell[ax]
                 pw = torch.index_select(pw, ax, idx)
             else:
                 pw = mg._slice_axis(pw, ax, slice(lo, lo + npatch_c + 1))
-        return _nodal_prolong_window(pw, nd, per)
+        out = _nodal_prolong_window(pw, nd, per)
+        if split and not self.mesh.ends(self.grid.periodic[0])[1]:
+            out = out.narrow(0, 0, out.shape[0] - 1)
+        return out
 
 
 # ---------------------------------------------------------------------
@@ -655,18 +759,30 @@ def _overlap_volume(a: Box, b: Box) -> int:
 
 
 def _copy_overlap(init: SimState, old: SimState, box: Box,
-                  old_box: Box) -> SimState:
+                  old_box: Box, rows=None, old_rows=None) -> SimState:
     """Copy the overlapping fine region (parent-cell box intersection)
-    of the old fine state into the rebuilt one."""
+    of the old fine state into the rebuilt one.  rows, old_rows: (first,
+    count) of the x cell rows of its patch each state holds (a split
+    patch's slab), None for all of them."""
     nd = len(box[0])
     ov_lo = [max(box[0][d], old_box[0][d]) for d in range(nd)]
     ov_hi = [min(box[1][d], old_box[1][d]) for d in range(nd)]
     if any(ov_hi[d] <= ov_lo[d] for d in range(nd)):
         return init
-    dst = tuple(slice(2 * (ov_lo[d] - box[0][d]), 2 * (ov_hi[d] - box[0][d]))
-                for d in range(nd))
-    src = tuple(slice(2 * (ov_lo[d] - old_box[0][d]),
-                      2 * (ov_hi[d] - old_box[0][d])) for d in range(nd))
+    # the fine rows each state holds, in the parent's fine index frame
+    lo = [2 * box[0][d] for d in range(nd)]
+    olo = [2 * old_box[0][d] for d in range(nd)]
+    a = [2 * ov_lo[d] for d in range(nd)]
+    b = [2 * ov_hi[d] for d in range(nd)]
+    for held, start in ((rows, lo), (old_rows, olo)):
+        if held is not None:
+            start[0] += held[0]
+            a[0] = max(a[0], start[0])
+            b[0] = min(b[0], start[0] + held[1])
+    if b[0] <= a[0]:
+        return init
+    dst = tuple(slice(a[d] - lo[d], b[d] - lo[d]) for d in range(nd))
+    src = tuple(slice(a[d] - olo[d], b[d] - olo[d]) for d in range(nd))
 
     def cp(a, b):
         a = a.clone()
@@ -716,9 +832,11 @@ class SlabAMRSimulation:
     spans the whole domain except along the single axis where the tags
     localize; box mode clusters in all dimensions.
 
-    device as for Simulation (None: the card)."""
+    device as for Simulation (None: the card); mesh: the SlabMesh the
+    tree is split over (the module docstring: split and replicated
+    patches)."""
 
-    def __init__(self, cfg: IncfloConfig, device=None):
+    def __init__(self, cfg: IncfloConfig, device=None, mesh=None):
         assert cfg.max_level >= 1
         self.cfg = cfg
         self.base_grid = cfg.grid
@@ -726,7 +844,8 @@ class SlabAMRSimulation:
         self.max_patches = cfg.max_patches
         self.composite_sync = cfg.composite_sync
         self.box_mode = cfg.patch_mode == "box"
-        self.sim0 = Simulation(cfg, device=device)
+        self.mesh = mesh
+        self.sim0 = Simulation(cfg, device=device, mesh=mesh)
         self.device = self.sim0.device
         self.dtype = self.sim0.dtype
         self.axis = self._pick_axis()
@@ -745,7 +864,7 @@ class SlabAMRSimulation:
         children."""
         if not tags.any():
             return []
-        n_cell = parent_sim.grid.n_cell
+        n_cell = whole_grid(parent_sim.grid).n_cell
         if self.box_mode:
             return _choose_boxes(tags, n_cell, self.max_patches)
         slabs = _choose_slabs(tags, self.axis, n_cell[self.axis],
@@ -768,20 +887,26 @@ class SlabAMRSimulation:
     def _pick_axis(self) -> int:
         lvl = probs.init_fluid(self.cfg, self.cfg.grid, self.dtype,
                                self.device)
-        return self._best_axis(self._tag_level(_np(lvl.density), self.sim0))
+        return self._best_axis(compute_tags(self.cfg, _np(lvl.density),
+                                            self.cfg.grid,
+                                            eb=self.sim0.eb))
 
-    def _tag_level(self, rho: np.ndarray, parent_sim,
-                   lev: int = 0) -> np.ndarray:
+    def _tag_level(self, rho, parent_sim, lev: int = 0) -> np.ndarray:
         """ErrorEst of the level refined NEXT above parent_sim, in the
-        parent's own grid; `lev` selects the per-level threshold."""
-        return compute_tags(self.cfg, rho, parent_sim.grid,
+        parent's whole grid, from its density `rho` (a split parent's
+        slab is gathered whole, in rank order, so that every rank tags
+        the same bits); `lev` selects the per-level threshold."""
+        if parent_sim.mesh is not None:
+            rho = parent_sim.mesh.all_gather_x(rho)
+        return compute_tags(self.cfg, _np(rho), whole_grid(parent_sim.grid),
                             eb=parent_sim.eb, lev=lev)
 
     def _build_patch(self, parent_idx: int, box: Box) -> PatchSim:
         """A PatchSim over the parent-cell box [lo, hi) of
-        sims[parent_idx]."""
+        sims[parent_idx]: split over the parent's mesh where the box
+        spans the split parent's whole x range, else whole."""
         parent = self.sims[parent_idx]
-        pg = parent.grid
+        pg = whole_grid(parent.grid)
         nd = pg.ndim
         lo_t, hi_t = box
         n_f = []
@@ -815,8 +940,11 @@ class SlabAMRSimulation:
                   tuple(periodic), domain_lo=pg.origin,
                   domain_hi=pg.domain_hi if pg.domain_hi is not None
                   else pg.prob_hi)
+        split = parent.mesh is not None and lo_t[0] == 0 \
+            and hi_t[0] == pg.n_cell[0]
         return PatchSim(dataclasses.replace(self.cfg, grid=gf), interior,
-                        lo_t, parent, face_dom)
+                        lo_t, parent, face_dom,
+                        mesh=parent.mesh if split else None)
 
     def _indices_at_level(self, lev: int) -> List[int]:
         return [i for i, l in enumerate(self.level_of) if l == lev]
@@ -837,7 +965,7 @@ class SlabAMRSimulation:
         for lev in range(1, self.max_level + 1):
             for p in self._indices_at_level(lev - 1):
                 parent_state = states[p]
-                tags = self._tag_level(_np(parent_state.level.density),
+                tags = self._tag_level(parent_state.level.density,
                                        self.sims[p], lev=lev - 1)
                 for box in self._cluster(tags, self.sims[p]):
                     ps = self._add(p, box, lev)
@@ -849,9 +977,11 @@ class SlabAMRSimulation:
     def load_tree(self, meta, load) -> PatchState:
         """Rebuild the tree that `meta` records (a patch checkpoint's
         Patch.json: axis, bounds, parents, levels, nlevels) and each
-        entry's state from load(i, cfg) -> SimState of entry i.  A
-        pre-tree record (no "parents") is a chain of one patch a level;
-        legacy slab bounds [lo, hi] are boxes along the axis."""
+        entry's state from load(i, sim) -> SimState of entry i on its
+        Simulation sim (on a mesh the rows sim.mesh gives it: a split
+        level's slab, a replicated one whole).  A pre-tree record (no
+        "parents") is a chain of one patch a level; legacy slab bounds
+        [lo, hi] are boxes along the axis."""
         n = int(meta["nlevels"])
         parents = meta.get("parents", [-1] + list(range(0, n - 1)))
         levels = meta.get("levels", list(range(n)))
@@ -864,14 +994,14 @@ class SlabAMRSimulation:
 
         self._reset_tree()
         self.bounds = [as_box(meta["bounds"][0], self.base_grid.n_cell)]
-        states = [load(0, self.cfg)]
+        states = [load(0, self.sim0)]
         for i in range(1, n):
             p = int(parents[i])
             ps = self._add(p, as_box(meta["bounds"][i],
-                                     self.sims[p].grid.n_cell),
+                                     whole_grid(self.sims[p].grid).n_cell),
                            int(levels[i]))
             ps.set_context(states[p].level)
-            states.append(load(i, ps.cfg))
+            states.append(load(i, ps))
         for p in range(len(self.sims)):
             self.masks[p] = self._mask_of_children(p)
         return PatchState(states)
@@ -884,10 +1014,13 @@ class SlabAMRSimulation:
                 "nlevels": len(self.sims)}
 
     def _mask_of_children(self, p: int) -> Optional[np.ndarray]:
+        """The whole level's mask of the cells entry p's children cover
+        (the tree's record, the same on every rank; plotfiles write
+        it)."""
         kids = [i for i in range(1, len(self.sims)) if self.parent[i] == p]
         if not kids:
             return None
-        m = np.zeros(self.sims[p].grid.cell_shape, bool)
+        m = np.zeros(whole_grid(self.sims[p].grid).cell_shape, bool)
         for i in kids:
             lo_t, hi_t = self.bounds[i]
             m[tuple(slice(lo, hi) for lo, hi in zip(lo_t, hi_t))] = True
@@ -947,15 +1080,30 @@ class SlabAMRSimulation:
     def _sync_all(self, out):
         for i in range(len(self.sims) - 1, 0, -1):
             p = self.parent[i]
-            out[p] = self._sync_down(out[p], out[i], self.bounds[i])
+            out[p] = self._sync_down(out[p], out[i], self.bounds[i],
+                                     _rows(self.sims[i]),
+                                     _rows(self.sims[p]))
 
-    def _sync_down(self, cs: SimState, fs: SimState, bounds: Box) -> SimState:
+    def _sync_down(self, cs: SimState, fs: SimState, bounds: Box,
+                   rows, parent_rows) -> SimState:
+        """average_down of the fine state fs into the parent state cs
+        over the box.  rows, parent_rows: (first, count) of the x cell
+        rows each holds of its level (_rows: a slab or all of them):
+        each rank writes the parent rows it holds, with no exchange."""
         nd = self.base_grid.ndim
-        sl = tuple(slice(lo, hi) for lo, hi in zip(*bounds))
+        # the parent rows under the fine rows, and those the parent holds
+        start = bounds[0][0] + rows[0] // 2
+        a = max(start, parent_rows[0])
+        b = min(start + rows[1] // 2, parent_rows[0] + parent_rows[1])
+        if b <= a:
+            return cs
+        sl = (slice(a - parent_rows[0], b - parent_rows[0]),) + tuple(
+            slice(lo, hi) for lo, hi in zip(bounds[0][1:], bounds[1][1:]))
+        src = slice(a - start, b - start)
 
         def put(cfield, ffield):
             out = cfield.clone()
-            out[sl] = _avg_down_window(ffield, nd).to(cfield.dtype)
+            out[sl] = _avg_down_window(ffield, nd)[src].to(cfield.dtype)
             return out
 
         lvl, f = cs.level, fs.level
@@ -974,7 +1122,7 @@ class SlabAMRSimulation:
         interpolation (the reference's RemakeLevel /
         MakeNewLevelFromCoarse, incflo_regrid.cpp:8-119)."""
         states = list(state.levels)
-        tags0 = self._tag_level(_np(states[0].level.density), self.sim0)
+        tags0 = self._tag_level(states[0].level.density, self.sim0)
         new_axis = self._best_axis(tags0)
         axis_changed = (not self.box_mode) and new_axis != self.axis
         self.axis = new_axis
@@ -986,7 +1134,7 @@ class SlabAMRSimulation:
         for lev in range(1, self.max_level + 1):
             for p in self._indices_at_level(lev - 1):
                 parent_state = new_states[p]
-                tags = self._tag_level(_np(parent_state.level.density),
+                tags = self._tag_level(parent_state.level.density,
                                        self.sims[p], lev=lev - 1)
                 boxes = self._cluster(tags, self.sims[p])
                 src_p, frame_same = kept_src.get(p, (None, False))
@@ -1025,8 +1173,20 @@ class SlabAMRSimulation:
                         continue
                     init = ps.init_from_parent(parent_state)
                     if match is not None:
-                        init = _copy_overlap(init, states[match], box,
-                                             old_bounds[match])
+                        old, old_sim = states[match], old_sims[match]
+                        if old_sim.mesh is not None and ps.mesh is None:
+                            # a split patch's data for a replicated one
+                            old = old._replace(level=old.level._replace(
+                                **{f: old_sim.mesh.all_gather_x(
+                                    getattr(old.level, f)) for f in
+                                    ("velocity", "density", "tracer",
+                                     "gp")}))
+                            old_sim = None
+                        init = _copy_overlap(
+                            init, old, box, old_bounds[match],
+                            _rows(ps) if ps.mesh is not None else None,
+                            _rows(old_sim) if old_sim is not None
+                            and old_sim.mesh is not None else None)
                     new_states.append(init)
                     kept_src[i] = (match, False)
                 self.masks[p] = self._mask_of_children(p)

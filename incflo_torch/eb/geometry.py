@@ -30,6 +30,7 @@ cell flags (regular/cut/covered), EB normal/area, and centroids.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -330,6 +331,27 @@ def _simplex_fraction(corner_phi: np.ndarray, nd: int) -> np.ndarray:
     return np.where(all_neg, 1.0, np.where(all_pos, 0.0, vol))
 
 
+# a level of at least this many cells integrates its sub-box offsets on
+# a few threads (numpy's loops drop the GIL), THREADS offsets at a time;
+# each offset's fraction is the same array either way and the sums take
+# them in offset order, so the bits do not depend on the threads
+THREADED_CELLS = 1 << 16
+THREADS = 4
+
+
+def _in_order(fn, items, ncells):
+    """fn of each of items, yielded in order: on up to THREADS threads for
+    a level of ncells >= THREADED_CELLS, at most THREADS results held."""
+    nthreads = min(THREADS, os.cpu_count() or 1)
+    if ncells < THREADED_CELLS or nthreads < 2:
+        yield from map(fn, items)
+        return
+    items = list(items)
+    with concurrent.futures.ThreadPoolExecutor(nthreads) as pool:
+        for i in range(0, len(items), nthreads):
+            yield from pool.map(fn, items[i:i + nthreads])
+
+
 def _box_fraction_refined(node_phi: np.ndarray, s: int, nd: int) -> np.ndarray:
     """Fluid fraction of each box of the coarse lattice, where node_phi
     holds phi on the s-refined NODE lattice of shape (s*n1+1, ...): the
@@ -607,7 +629,10 @@ def _quad_fraction(face_nodes, s, d, t_axes, with_centroid=False):
     out = 0.0
     mom1 = 0.0
     mom2 = 0.0
-    for o1, o2 in itertools.product(range(s), repeat=2):
+
+    def fraction(offset):
+        o1, o2 = offset
+
         def sl(a1, a2):
             x = [slice(None)] * nd
             x[t1] = slice(o1 + a1, o1 + a1 + s * n1, s)
@@ -615,7 +640,10 @@ def _quad_fraction(face_nodes, s, d, t_axes, with_centroid=False):
             return face_nodes[tuple(x)]
         corner = np.stack([np.stack([sl(0, 0), sl(0, 1)], axis=-1),
                            np.stack([sl(1, 0), sl(1, 1)], axis=-1)], axis=-2)
-        f = _simplex_fraction(corner, 2)
+        return _simplex_fraction(corner, 2)
+    offsets = list(itertools.product(range(s), repeat=2))
+    fracs = _in_order(fraction, offsets, face_nodes.size // (s * s))
+    for (o1, o2), f in zip(offsets, fracs):
         out = out + f
         if with_centroid:
             mom1 = mom1 + f * ((o1 + 0.5) / s - 0.5)
@@ -634,13 +662,16 @@ def _centroids(node_phi, s, nd, vfrac):
     subcell fractions."""
     n = vfrac.shape
     num = np.zeros(n + (nd,))
-    for off in itertools.product(range(s), repeat=nd):
+
+    def fraction(off):
         sub = np.empty(n + (2,) * nd)
         for cs in itertools.product((0, 1), repeat=nd):
             idx = tuple(slice(off[d] + cs[d], off[d] + cs[d] + s * n[d], s)
                         for d in range(nd))
             sub[(...,) + cs] = node_phi[idx]
-        f = _simplex_fraction(sub, nd)
+        return _simplex_fraction(sub, nd)
+    offsets = list(itertools.product(range(s), repeat=nd))
+    for off, f in zip(offsets, _in_order(fraction, offsets, vfrac.size)):
         for d in range(nd):
             pos = (off[d] + 0.5) / s - 0.5   # subcell center offset
             num[..., d] += f * pos

@@ -17,9 +17,10 @@ and printed when the deck names none) or the dense fine level
 a torch.profiler chrome trace of the evolve loop there.  The kernels
 build into incflo_torch/_build/ at their first use.  Given a SlabMesh
 (parallel/mesh.py; the job `cli` of parallel/workers.py), every rank
-runs `run` on its x slab of any one-level deck, 2D or 3D: each writes
-its own checkpoint shard, and rank 0 alone prints and writes the
-plotfiles; an AMR deck under a mesh raises, naming ROADMAP A14.
+runs `run` on its x slab of any deck, 2D or 3D, one level or either AMR
+driver (every rank picks the same patch mode and builds the same tree):
+each writes its own checkpoint shards, and rank 0 alone prints, writes
+the plotfiles and the whole levels of a checkpoint.
 """
 
 from __future__ import annotations
@@ -116,9 +117,6 @@ def run(argv, mesh=None):
     # the drivers of incflo_tpu/main.py:83-123: a patch tree (slab or box,
     # auto-selected when the deck names none), the dense fine level, or
     # one level
-    if cfg.max_level > 0 and mesh is not None:
-        raise NotImplementedError("incflo_torch does not run AMR split "
-                                  "over a mesh yet (ROADMAP A14)")
     patch_mode = cfg.patch_mode
     if cfg.max_level > 0 and patch_mode == "":
         from incflo_torch import amr_patch
@@ -129,7 +127,7 @@ def run(argv, mesh=None):
     if patches:
         cfg.patch_mode = patch_mode     # record the resolved mode
         from incflo_torch.amr_patch import SlabAMRSimulation
-        amr = SlabAMRSimulation(cfg, device=device)
+        amr = SlabAMRSimulation(cfg, device=device, mesh=mesh)
         sim = amr.sim0
 
         def write_plot(path, s):
@@ -142,7 +140,7 @@ def run(argv, mesh=None):
             return io.read_checkpoint_patch(path, amr, cfg)
     elif cfg.max_level > 0:
         from incflo_torch.amr import AMRSimulation
-        amr = AMRSimulation(cfg, device=device)
+        amr = AMRSimulation(cfg, device=device, mesh=mesh)
         sim = amr.sim
         io_cfg = amr.fine_cfg
 

@@ -1409,7 +1409,9 @@ class NodalSolver:
         """(x, resnorm, cycles) with L x = rhs.  dirichlet_vals ((axis,
         side) -> node slab) makes those Dirichlet rows inhomogeneous: the
         identity rows converge to the given values (an AMR patch's
-        coarse-fine closure; incflo_tpu/ops/multigrid.py:1047-1066).
+        coarse-fine closure; incflo_tpu/ops/multigrid.py:1047-1066; on a
+        mesh those of y and z faces, the slab's rows of them, gathered
+        whole with rhs where the hierarchy runs whole).
         Constant sigma without them is solved directly (cycles = 1,
         resnorm not computed).  Otherwise V-cycles
         from x0 until the max-norm residual is under max(rtol*|rhs|, atol),
@@ -1424,9 +1426,12 @@ class NodalSolver:
             extra = not lev.periodic[0]
             xw = None if x0 is None else mesh.all_gather_x(x0,
                                                            extra_last=extra)
+            dw = None if dirichlet_vals is None else {
+                k: mesh.all_gather_x(v, extra_last=extra)
+                for k, v in dirichlet_vals.items()}
             x, res, it = self._whole.solve_info(
                 mesh.all_gather_x(rhs, extra_last=extra), xw, rtol, atol,
-                maxiter, dirichlet_vals)
+                maxiter, dw)
             return mesh.slab(x), res, it
         if self.singular:
             rhs = rhs - _mean(rhs, mesh)

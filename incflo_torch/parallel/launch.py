@@ -12,7 +12,8 @@ calls the job as job(mesh, **kwargs) and saves what it returns with
 torch.save; run() returns the ranks' results in rank order.  A rank that
 fails, or a run that is not over within `timeout` seconds, fails the
 whole run: every rank is killed and run() raises with the ranks' error
-output.  The job is named by its module and function, so a rank imports
+output; so does setting `cancel` (a threading.Event) from another
+thread while run() waits.  The job is named by its module and function, so a rank imports
 that module and incflo_torch alone (never the caller's module).
 
 Backends: device "cpu" runs gloo.  device None or "cuda" (the default:
@@ -54,9 +55,11 @@ def choose_backend(nranks: int, device: str) -> str:
 
 
 def run(job: str, nranks: int, kwargs: Optional[Dict[str, Any]] = None,
-        device: Optional[str] = None, timeout: float = 120.0) -> List[Any]:
+        device: Optional[str] = None, timeout: float = 120.0,
+        cancel=None) -> List[Any]:
     """job "module:function" on nranks ranks; returns their results.
-    device None means "cuda".  A CPU rank runs torch on one thread."""
+    device None means "cuda".  A CPU rank runs torch on one thread.
+    cancel: an Event whose setting kills the ranks (run() raises)."""
     device = "cuda" if device is None else device
     if device not in ("cpu", "cuda"):
         raise ValueError(f"launch: device must be 'cpu' or 'cuda', not "
@@ -90,7 +93,7 @@ def run(job: str, nranks: int, kwargs: Optional[Dict[str, Any]] = None,
                  str(spec), str(r)], stdout=log, stderr=subprocess.STDOUT,
                 env=env, cwd=str(ROOT)))
         try:
-            _join(procs, timeout, tmp)
+            _join(procs, timeout, tmp, cancel)
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -104,9 +107,11 @@ def run(job: str, nranks: int, kwargs: Optional[Dict[str, Any]] = None,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _join(procs, timeout, tmp):
+def _join(procs, timeout, tmp, cancel=None):
     deadline = time.monotonic() + timeout
     while True:
+        if cancel is not None and cancel.is_set():
+            raise RuntimeError("launch: cancelled")
         codes = [p.poll() for p in procs]
         bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
         if bad:

@@ -452,18 +452,27 @@ class SlabMesh:
                          dim=0)
 
     def all_gather_x(self, t: torch.Tensor, faces: bool = False,
-                     extra_last: bool = False) -> torch.Tensor:
+                     extra_last: bool = False, ghosts: int = 0
+                     ) -> torch.Tensor:
         """The whole level from every rank's slab, in rank order, on
         every rank (a collective), tallied as "all_gather".  faces: t
         holds the slab's nxl + 1 x faces (its own low faces and the right
         neighbour's first), and the result the level's nx + 1, the last
         from the last rank.  extra_last: the last rank holds one row more
         than the others (the nodes of an x that ends in boundaries); the
-        others send a row of padding, which is dropped."""
+        others send a row of padding, which is dropped.  ghosts: t holds
+        that many ghost rows on each x side, and the result the level's
+        rows between the first rank's low ghosts and the last rank's high
+        ones."""
         last = self.rank == self.size - 1
         if extra_last and not last and self.size > 1:
             t = torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
         parts = self._all_gather(t, "all_gather")
+        if ghosts:
+            n = parts[0].shape[0]
+            parts = [p.narrow(0, 0 if k == 0 else ghosts,
+                              n - ghosts * ((k > 0) + (k < len(parts) - 1)))
+                     for k, p in enumerate(parts)]
         if faces or extra_last:
             parts = [p.narrow(0, 0, p.shape[0] - 1) for p in parts[:-1]] \
                 + parts[-1:]

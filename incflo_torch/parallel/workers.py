@@ -4,6 +4,10 @@ the package, so a spawned rank imports incflo_torch and nothing else."""
 
 from __future__ import annotations
 
+import contextlib
+import os
+import time
+
 import torch
 
 
@@ -36,6 +40,19 @@ def several(mesh, jobs):
         key, name, kw = job if len(job) == 3 else (job[0],) + tuple(job)
         out[key] = globals()[name](mesh, **kw)
     return out
+
+
+def wait_for(mesh, path, timeout=900.0):
+    """Waits until the file `path` exists -- another process's word that
+    the jobs after this one may start -- at most `timeout` seconds, then
+    meets the other ranks.  Returns the seconds it waited."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"wait_for: no {path} after {timeout} s")
+        time.sleep(0.05)
+    mesh.barrier()
+    return time.monotonic() - t0
 
 
 def _level_grid(n_cell, prob_hi):
@@ -89,17 +106,27 @@ def solves(mesh, deck, rhs_cell, rhs_node, rhs_vec, beta):
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def scope_errors(mesh, decks, on_default_device=()):
-    """The error each deck raises when a Simulation splits it over this
-    mesh ((type name, message), or None if it builds); the decks named in
-    on_default_device are built without a device argument.  Under
-    "SlabMesh()": the same for a SlabMesh built without a device."""
+def scope_errors(mesh, decks, on_default_device=(), dense=()):
+    """The error each deck raises when its driver splits it over this
+    mesh ((type name, message), or None if it builds): a Simulation, or
+    for an AMR deck the patch tree (amr_patch.SlabAMRSimulation; for the
+    decks named in `dense` the dense fine level, amr.AMRSimulation); the
+    decks named in on_default_device are built without a device
+    argument.  Under "SlabMesh()": the same for a SlabMesh built without
+    a device."""
     from incflo_torch import IncfloConfig, Simulation
+    from incflo_torch.amr import AMRSimulation
+    from incflo_torch.amr_patch import SlabAMRSimulation
     from incflo_torch.parallel.mesh import SlabMesh
-    builds = {name: (lambda deck=deck, name=name: Simulation(
-        IncfloConfig.from_text(deck),
-        device=None if name in on_default_device else mesh.device,
-        mesh=mesh)) for name, deck in decks.items()}
+
+    def make(deck, name):
+        cfg = IncfloConfig.from_text(deck)
+        driver = Simulation if cfg.max_level == 0 else \
+            AMRSimulation if name in dense else SlabAMRSimulation
+        return driver(cfg, device=None if name in on_default_device
+                      else mesh.device, mesh=mesh)
+    builds = {name: (lambda deck=deck, name=name: make(deck, name))
+              for name, deck in decks.items()}
     builds["SlabMesh()"] = SlabMesh
     out = {}
     for name, build in builds.items():
@@ -157,6 +184,203 @@ def steps(mesh, deck, nsteps, start=None, perturb=None):
             "slab_2d_calls": dict(mg.SLAB_2D),
             "comm": {k: v["calls"] for k, v in mesh.stats.items()},
             "mesh": mesh.describe()}
+
+
+@contextlib.contextmanager
+def level_tallies(amr, tallies):
+    """A context in which each step and re-projection of an AMR driver's
+    levels (Simulation._advance_impl, reproject) adds, under its tree
+    level in the dict it yields (the dense driver's fine level: 0), what
+    it adds to the counters `tallies` ({name: dict of counts}: the
+    kernel launches, the 2D slab sweeps, ...)."""
+    from incflo_torch.simulation import Simulation
+    out = {}
+    saved = {name: getattr(Simulation, name)
+             for name in ("_advance_impl", "reproject")}
+
+    def counted(fn):
+        def wrapped(sim, *args, **kwargs):
+            before = {k: dict(t) for k, t in tallies.items()}
+            try:
+                return fn(sim, *args, **kwargs)
+            finally:
+                lev = out.setdefault(
+                    amr.level_of[amr.sims.index(sim)] if hasattr(
+                        amr, "level_of") else 0, {})
+                for k, t in tallies.items():
+                    got = lev.setdefault(k, dict.fromkeys(t, 0))
+                    for c in t:
+                        got[c] += t[c] - before[k][c]
+        return wrapped
+    try:
+        for name, fn in saved.items():
+            setattr(Simulation, name, counted(fn))
+        yield out
+    finally:
+        for name, fn in saved.items():
+            setattr(Simulation, name, fn)
+
+
+def amr_steps(mesh, deck, nsteps, dense=False, moved=None):
+    """An AMR deck split over the mesh: the patch tree
+    (amr_patch.SlabAMRSimulation) or, dense, the dense fine level
+    (amr.AMRSimulation), from its init through `nsteps` steps and then, for each dict of IncfloConfig fields in `moved`
+    (e.g. a moved tag region), a regrid with them.  Returns the whole
+    tree after init and after each step and each regrid, as (tree
+    record, per-entry dicts) -- dense: (None, [fine level, its masks])
+    -- on rank 0 only; this rank's tallies of each step (ITER_KINDS; the
+    first entry init's), each step's dt (a float: the same bits on every
+    rank), which entries are split (each state), the steps' exchanges by
+    kind (calls), and per tree level the smoother launches, Godunov launches
+    and 2D slab sweep calls of the steps and re-projections, the steps'
+    nodal solves that iterated (residual / tolerance, V-cycles, maxiter;
+    multigrid.NODAL_LOG); the host seconds of the setup (the driver and
+    its init) and of the steps (device synchronised)."""
+    import dataclasses
+    import time
+    from incflo_torch import IncfloConfig, state
+    from incflo_torch.amr import AMRSimulation
+    from incflo_torch.amr_patch import SlabAMRSimulation
+    from incflo_torch.ops import godunov_kernels as gk
+    from incflo_torch.ops import multigrid as mg
+    from incflo_torch.ops import smoother_kernels as sk
+    sync = (lambda: torch.cuda.synchronize(mesh.device)) \
+        if mesh.device.type == "cuda" else (lambda: None)
+    mg.reset_counts()
+    gk.reset_launches()
+    sk.reset_launches()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    cfg = IncfloConfig.from_text(deck)
+    amr = (AMRSimulation if dense else SlabAMRSimulation)(
+        cfg, device=mesh.device, mesh=mesh)
+    s = amr.init_state()
+    sync()
+    setup_s = time.perf_counter() - t0
+
+    def record():
+        if dense:
+            masks = [None if m is None else
+                     mesh.gather(m.to(torch.uint8)).bool().cpu().numpy()
+                     for m in amr.masks]
+            return None, [state.sim_to_numpy(s, mesh), masks]
+        return amr.tree_meta(), state.patch_to_numpy(amr, s)
+
+    def split():
+        return [amr.sim.mesh is not None] if dense else \
+            [sim.mesh is not None for sim in amr.sims]
+
+    states, forms = [record()], [split()]
+    tallies = [{k: mg.COUNTS[k] for k in ITER_KINDS}]
+    dts = []
+    mesh.barrier()
+    step_s = 0.0
+    mg.NODAL_LOG = []
+    with level_tallies(amr, {"smoother": sk.LAUNCHES,
+                             "godunov": gk.LAUNCHES,
+                             "slab_2d": mg.SLAB_2D}) as per_level:
+        comm = dict.fromkeys(mesh.stats, 0)
+        for _ in range(nsteps):
+            before = dict(mg.COUNTS)
+            calls = {k: v["calls"] for k, v in mesh.stats.items()}
+            t1 = time.perf_counter()
+            s = amr.advance(s)
+            sync()
+            step_s += time.perf_counter() - t1
+            for k, v in mesh.stats.items():
+                comm[k] += v["calls"] - calls[k]
+            tallies.append({k: mg.COUNTS[k] - before[k] for k in ITER_KINDS})
+            dts.append(float(s.dt))
+            states.append(record())
+            forms.append(split())
+    nodal = [(float(res) / float(tol), it, maxiter)
+             for res, tol, it, maxiter in mg.NODAL_LOG]
+    mg.NODAL_LOG = None
+    for fields in moved or ():
+        amr.cfg = dataclasses.replace(amr.cfg, **fields)
+        amr.sim0.cfg = amr.cfg
+        s = amr.regrid(s)
+        states.append(record())
+        forms.append(split())
+    return {"states": states if mesh.rank == 0 else None,
+            "tallies": tallies, "dts": dts, "split": forms,
+            "comm": comm, "per_level": per_level, "nodal_solves": nodal,
+            "setup_s": setup_s,
+            "ms_per_step": step_s / max(nsteps, 1) * 1e3,
+            "mesh": mesh.describe()}
+
+
+def context_of(amr, old, new):
+    """The coarse-fine context of every patch of a patch tree (amr, on
+    one rank or a rank of a mesh) rebuilt from the whole-level trees old
+    and new ((meta, per-entry dicts) of one tree at two times): each
+    patch's set_context from its parent's new state with the old one's
+    ghosts -- its interpolated windows (PatchEV.full: velocity, density,
+    tracer), the Dirichlet face values of its MAC, velocity and tracer
+    solves and its nodal Dirichlet values -- then its init_from_parent
+    and the parent state after its _sync_down.  Returns, per patch,
+    numpy arrays as this rank holds them (a split patch's slab, a
+    replicated one whole)."""
+    from incflo_torch import state
+    from incflo_torch.amr_patch import _rows
+    olds = state.patch_from_numpy(amr, *old).levels
+    news = state.patch_from_numpy(amr, *new).levels
+    faces = lambda d: {f"{ax} {side}": v for (ax, side), v in d.items()}
+    out = []
+    for i in range(1, len(amr.sims)):
+        sim, p = amr.sims[i], amr.parent[i]
+        sim.set_context(news[p].level, parent_lvl_old=olds[p].level)
+        init = sim.init_from_parent(news[p]).level
+        synced = amr._sync_down(news[p], news[i], amr.bounds[i],
+                                _rows(sim), _rows(amr.sims[p])).level
+        out.append(_numpy_tree({
+            "split": sim.mesh is not None,
+            "full": {"velocity": sim.vel_ev.full, "density": sim.den_ev.full,
+                     "tracer": sim.tra_ev.full},
+            "mac_bvals": faces(sim._mac_bvals),
+            "vel_bvals": faces(sim._vel_bvals),
+            "tra_bvals": faces(sim._tra_bvals),
+            "nodal_dvals": faces(sim._nodal_dvals),
+            "init": init._asdict(), "synced": synced._asdict()}))
+    return out
+
+
+def patch_context(mesh, deck, old, new):
+    """context_of a deck's patch tree split over the mesh."""
+    from incflo_torch import IncfloConfig
+    from incflo_torch.amr_patch import SlabAMRSimulation
+    amr = SlabAMRSimulation(IncfloConfig.from_text(deck),
+                            device=mesh.device, mesh=mesh)
+    return context_of(amr, old, new)
+
+
+def amr_checkpoint(mesh, deck, nsteps, path, whole=None):
+    """Per-rank patch-tree checkpoints (utils/io.py): the deck's init and
+    `nsteps` steps split over the mesh, written to `path` (each split
+    level one shard a rank, the replicated levels and the tree by rank
+    0), then read back onto this mesh and advanced one step; and, given
+    the directory `whole` of a one-rank checkpoint of the same tree, the
+    same restart from it.  Returns on rank 0 the whole trees ((meta,
+    per-entry dicts)) written, after the unbroken run's next step, and
+    read back and after its step for each restart."""
+    from incflo_torch import IncfloConfig, state
+    from incflo_torch.amr_patch import SlabAMRSimulation
+    from incflo_torch.utils import io
+    cfg = IncfloConfig.from_text(deck)
+    amr = SlabAMRSimulation(cfg, device=mesh.device, mesh=mesh)
+    s = amr.init_state()
+    for _ in range(nsteps):
+        s = amr.advance(s)
+    io.write_checkpoint_patch(path, s, amr, cfg)
+    mesh.barrier()
+    tree = lambda ps: (amr.tree_meta(), state.patch_to_numpy(amr, ps))
+    out = {"written": tree(s), "unbroken": tree(amr.advance(s))}
+    for key, src in (("restarted", path), ("whole_restarted", whole)):
+        if src is not None:
+            r = io.read_checkpoint_patch(src, amr, cfg)
+            out[key + "_read"] = tree(r)
+            out[key] = tree(amr.advance(r))
+    return out if mesh.rank == 0 else None
 
 
 def counted_steps(mesh, deck, nsteps, count=(), **kw):

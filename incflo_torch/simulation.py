@@ -69,9 +69,10 @@ part in every exchange.  MOL-EB and the cut-cell operators run on the
 slab's windows, the 27-point (9-point in 2D) EB nodal stencils are built
 whole on every rank and cut to the slab (EBNodalSolver.shard), the
 octant lattice of a variable-density deck is a 2 nxl-row slab of a
-NodalSolver on the mesh.  AMR raises under a mesh and names ROADMAP A14
-(_unsupported_sharded), as do uneven and narrow slabs and the rfftn
-direct solve where the mesh and the solvers meet them.
+NodalSolver on the mesh.  The AMR drivers split their levels over a mesh
+too (amr_patch.py, amr.py).  Uneven and narrow slabs and the rfftn
+direct solve raise naming ROADMAP A14 where the mesh and the solvers
+meet them (parallel/mesh.py, ops/spectral.py).
 
 Scope of this port: 2D or 3D, with or without embedded boundaries:
 Godunov or MOL advection, each axis periodic or ending in a slip or
@@ -91,8 +92,10 @@ direct solver, and the nodal solve never the prebuilt hat operator.
 peek_dt, reproject and _advance_impl(dt_force=) serve the drivers'
 one-dt hierarchy and composite sync.  incflo_tpu's _ctx / _swap_ctx
 (:938-953) only pass prebuilt solvers into jit as arguments; the port
-has no jit and keeps them as attributes.  AMR with embedded boundaries
-raises NotImplementedError naming ROADMAP A13b, AMR under a mesh A14.
+has no jit and keeps them as attributes.  A patch split over a mesh
+passes it here like any level; one held whole on every rank passes none.
+AMR with embedded boundaries raises NotImplementedError naming ROADMAP
+A13b, with or without a mesh.
 """
 
 from __future__ import annotations
@@ -127,16 +130,6 @@ def _unsupported(cfg: IncfloConfig):
     return None
 
 
-def _unsupported_sharded(cfg: IncfloConfig):
-    """What keeps a deck the port runs from running split over a mesh,
-    or None (ROADMAP A14).  Uneven and narrow slabs and the rfftn direct
-    solve raise where the mesh and the solvers meet them
-    (parallel/mesh.py, spectral.py)."""
-    if cfg.max_level > 0:
-        return "AMR"
-    return None
-
-
 # the weight of the old-time tracer Laplacian in the predictor's tracer
 # update, by diffusion type (incflo_tpu/simulation.py:403-405)
 LAP_WEIGHT = {DiffusionType.Explicit: 1.0,
@@ -165,13 +158,6 @@ class Simulation:
             raise NotImplementedError(
                 f"incflo_torch does not run {why[0]} yet "
                 f"(ROADMAP {why[1]})")
-        if mesh is not None:
-            why = _unsupported_sharded(cfg)
-            if why is not None:
-                raise NotImplementedError(
-                    f"incflo_torch does not run {why} split over a mesh yet "
-                    f"(ROADMAP A14); a mesh runs one-level decks, 2D and "
-                    f"3D")
         if device is None and mesh is not None and torch.cuda.is_available():
             device = f"cuda:{mesh.rank % torch.cuda.device_count()}"
         device = torch.device("cuda" if device is None else device)

@@ -13,9 +13,10 @@ components last), the same as incflo_tpu:
 `level_from_numpy` / `sim_from_numpy` take a dict of numpy arrays keyed
 by the field names (e.g. `np.asarray(jax_state.level.velocity)`), so a
 run can start from another package's state; the `*_to_numpy` pair goes
-the other way.  `patch_from_numpy` does the same for a patch AMR tree:
-the tree's record (axis, bounds, parents, levels) and one such dict per
-entry, as incflo_tpu's SlabAMRSimulation and its PatchState hold them.
+the other way.  `patch_from_numpy` / `patch_to_numpy` do the same for a
+patch AMR tree: the tree's record (axis, bounds, parents, levels) and
+one such dict per entry, as incflo_tpu's SlabAMRSimulation and its
+PatchState hold them.
 Given the SlabMesh of a level split along x (parallel/mesh.py),
 `*_from_numpy` keep the rank's x slab of whole-level arrays, and
 `*_to_numpy` gather the whole level from every rank's slab (a
@@ -111,8 +112,18 @@ def patch_from_numpy(amr, meta, levels, device=None, dtype=None):
     `meta` ({"axis", "bounds", "parents", "levels", "nlevels"}, the
     record of a patch checkpoint's Patch.json) and return the
     amr_patch.PatchState of the per-entry dicts `levels` (as for
-    sim_from_numpy), on amr's device and dtype unless given."""
+    sim_from_numpy: whole-level arrays), on amr's device and dtype unless
+    given.  On a mesh each split level keeps the rank's slab, and a
+    replicated one the whole level."""
     device = amr.device if device is None else device
     dtype = amr.dtype if dtype is None else dtype
     return amr.load_tree(
-        meta, lambda i, cfg: sim_from_numpy(levels[i], device, dtype))
+        meta, lambda i, sim: sim_from_numpy(levels[i], device, dtype,
+                                            sim.mesh))
+
+
+def patch_to_numpy(amr, ps):
+    """The per-entry whole-level dicts of a patch tree's state (as
+    sim_to_numpy): on a mesh the split levels gathered from every rank
+    (a collective), the replicated ones as each rank holds them."""
+    return [sim_to_numpy(s, sim.mesh) for sim, s in zip(amr.sims, ps.levels)]

@@ -392,17 +392,26 @@ def write_plotfile_amr(path: str, s: SimState, amrsim, cfg: IncfloConfig):
     """Multi-level plotfile of the dense-fine driver (amr.AMRSimulation):
     Level_l.npz holds the level-l view of the solution (average_down)
     plus its refinement mask; the Header lists the hierarchy like the
-    reference's WriteMultiLevelPlotfile (incflo_tpu/utils/io.py:348)."""
+    reference's WriteMultiLevelPlotfile (incflo_tpu/utils/io.py:348).  On
+    a mesh every rank calls it (the fields and masks are gathered) and
+    rank 0 writes."""
     from incflo_torch.amr import average_down
-    os.makedirs(path, exist_ok=True)
+    mesh = amrsim.mesh
     fine_fields = gather_plot_fields(s, amrsim.fine_cfg, amrsim.sim)
+    masks = amrsim.masks
+    if mesh is not None:
+        masks = [None if m is None else mesh.gather(m.to(torch.uint8)).bool()
+                 for m in masks]
+    if _rank(mesh) != 0:
+        return fine_fields
+    os.makedirs(path, exist_ok=True)
     nd = cfg.grid.ndim
     for lev in range(amrsim.max_level + 1):
         r = amrsim.ratio ** (amrsim.max_level - lev)
         out = {k: _numpy(average_down(torch.as_tensor(v), r, nd))
                if r > 1 else v for k, v in fine_fields.items()}
-        if lev < amrsim.max_level and amrsim.masks[lev] is not None:
-            out["refine_mask"] = _numpy(amrsim.masks[lev])
+        if lev < amrsim.max_level and masks[lev] is not None:
+            out["refine_mask"] = _numpy(masks[lev])
         np.savez(os.path.join(path, f"Level_{lev}.npz"), **out)
     hdr = {
         "version": "IncfloTPU-Plotfile-1",
@@ -426,16 +435,23 @@ def write_plotfile_patch(path: str, state, amr, cfg: IncfloConfig):
     """Plotfile of the patch tree: Level_i.npz holds entry i's OWN
     solution over its own (sub)domain and its placement (patch_lo /
     patch_hi in parent cells, refine_mask of its children); the Header
-    the tree."""
-    os.makedirs(path, exist_ok=True)
+    the tree.  On a mesh every rank calls it (the split levels' fields
+    are gathered) and rank 0 writes."""
+    lead = _rank(amr.mesh) == 0
+    if lead:
+        os.makedirs(path, exist_ok=True)
     for i, (sim, s) in enumerate(zip(amr.sims, state.levels)):
         fields = gather_plot_fields(s, sim.cfg, sim)
+        if not lead:
+            continue
         if i > 0:
             fields["patch_lo"] = np.asarray(amr.bounds[i][0])
             fields["patch_hi"] = np.asarray(amr.bounds[i][1])
         if amr.masks[i] is not None:
             fields["refine_mask"] = np.asarray(amr.masks[i])
         np.savez(os.path.join(path, f"Level_{i}.npz"), **fields)
+    if not lead:
+        return
     hdr = {
         "version": "IncfloTPU-Plotfile-1",
         "step": int(state.step), "time": float(state.t),
@@ -455,23 +471,33 @@ def write_plotfile_patch(path: str, state, amr, cfg: IncfloConfig):
 
 def write_checkpoint_patch(path: str, state, amr, cfg: IncfloConfig):
     """Checkpoint of every tree entry (patch_level_<i>/) and the tree
-    (Patch.json) that read_checkpoint_patch rebuilds."""
+    (Patch.json) that read_checkpoint_patch rebuilds.  On a mesh every
+    rank calls it: each split level is written per rank (one shard a
+    rank, write_checkpoint), and rank 0 alone writes the replicated
+    levels, whole, and the tree."""
+    lead = _rank(amr.mesh) == 0
     for i, s in enumerate(state.levels):
-        write_checkpoint(os.path.join(path, f"patch_level_{i}"), s,
-                         amr.sims[i].cfg)
-    with open(os.path.join(path, "Patch.json"), "w") as f:
-        json.dump(amr.tree_meta(), f)
+        sim = amr.sims[i]
+        if sim.mesh is not None or lead:
+            write_checkpoint(os.path.join(path, f"patch_level_{i}"), s,
+                             sim.cfg, sim.mesh)
+    if lead:
+        with open(os.path.join(path, "Patch.json"), "w") as f:
+            json.dump(amr.tree_meta(), f)
 
 
 def read_checkpoint_patch(path: str, amr, cfg: IncfloConfig):
     """Rebuild the tree recorded by write_checkpoint_patch (either
     package's; a pre-tree record is a chain of one patch a level, and
     legacy slab bounds [lo, hi] lie along the recorded axis) in `amr` and
-    load every entry's state onto amr's device."""
+    load every entry's state onto amr's device: on a mesh a split
+    level's slab and a replicated level whole, whatever the rank count
+    that wrote them."""
     with open(os.path.join(path, "Patch.json")) as f:
         meta = json.load(f)
-    return amr.load_tree(meta, lambda i, c: read_checkpoint(
-        os.path.join(path, f"patch_level_{i}"), c, amr.dtype, amr.device))
+    return amr.load_tree(meta, lambda i, sim: read_checkpoint(
+        os.path.join(path, f"patch_level_{i}"), sim.cfg, amr.dtype,
+        amr.device, sim.mesh))
 
 
 def write_job_info(path: str, cfg: IncfloConfig, device="cpu"):

@@ -11,13 +11,17 @@ channel_cyl (128x64x16) and poiseuille_cyl_bingham (64x64x16) on 2
 ranks ("sharded_eb"), and 2D decks and the two Godunov options on the
 mesh: tgv2d 128^2 by MOL and by Godunov, the 2D EB cylinder at 128^2,
 rt2d 64x128 and shear3d 128x128x32 with use_mac_phi_in_godunov and with
-both options, on 2 ranks ("sharded_2d").  Builds the kernel libraries
-first.
+both options, on 2 ranks ("sharded_2d"), and both AMR drivers on the
+mesh: rt_amr (64x64x128 with its 128x128x32 patch) and three small
+float64 AMR cells on 2 ranks ("sharded_amr").  Builds the kernel
+libraries first; the sharded phases share one spawn of the ranks
+(chip_smoke.run_sharded).
 
     python scripts/slab_smoke.py                   # every slab phase
     python scripts/slab_smoke.py sharded_xwalls    # that phase alone
     python scripts/slab_smoke.py sharded_eb
     python scripts/slab_smoke.py sharded_2d
+    python scripts/slab_smoke.py sharded_amr
 """
 
 import json
@@ -31,7 +35,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 PHASES = ("slab", "sharded_mg", "sharded_xwalls", "sharded_eb",
-          "sharded_2d")
+          "sharded_2d", "sharded_amr")
 
 
 def main(argv):
@@ -51,17 +55,25 @@ def main(argv):
     from incflo_torch.ops import step2d_kernels as s2
     t0 = time.time()
     cs.phase_build(cuda_build, [gk.SOURCE, sk.SOURCE, s2.SOURCE])
-    run = {"slab": lambda: cs.phase_slab_smoothers(sk, mg, torch),
-           "sharded_mg": lambda: cs.phase_sharded_mg(incflo_torch, torch),
-           "sharded_xwalls": lambda: cs.phase_sharded_xwalls(
-               incflo_torch, sk, mg, torch),
-           "sharded_eb": lambda: cs.phase_sharded_eb(
-               incflo_torch, sk, mg, torch),
-           "sharded_2d": lambda: cs.phase_sharded_2d(incflo_torch, torch)}
+    sharded = {"sharded_mg": lambda: cs.phase_sharded_mg(incflo_torch, torch),
+               "sharded_xwalls": lambda: cs.phase_sharded_xwalls(
+                   incflo_torch, sk, mg, torch),
+               "sharded_eb": lambda: cs.phase_sharded_eb(
+                   incflo_torch, sk, mg, torch),
+               "sharded_2d": lambda: cs.phase_sharded_2d(incflo_torch,
+                                                         torch),
+               "sharded_amr": lambda: cs.phase_sharded_amr(incflo_torch,
+                                                           torch)}
+
+    def stamp(what):
+        print(f"[time] {what} done at {time.time() - t0:.1f} s", flush=True)
     out = {}
-    for p in phases:
-        out[p] = run[p]()
-        print(f"[time] {p} done at {time.time() - t0:.1f} s", flush=True)
+    if "slab" in phases:
+        out["slab"] = cs.phase_slab_smoothers(sk, mg, torch)
+        stamp("slab")
+    gens = {p: sharded[p]() for p in phases if p in sharded}
+    if gens:
+        out.update(cs.run_sharded(gens, stamp))
     print(json.dumps(out))
     print(cs.card_line())
     return 0

@@ -2,7 +2,8 @@
 compute_eb_data for both bench.py cylinders (channel_cyl at 32 x 16 x 8,
 poiseuille_cyl_bingham at 16 x 16 x 8) and a 2D circle -- volume and
 area fractions, flags, EB area and normal, cell and face centroids,
-octant fractions and wall distances within 1e-12 -- and the port's own
+octant fractions and wall distances within 1e-12 -- the same bits from
+the threaded sub-box integrals as from one thread, the port's own
 build of the C++ box integrator (csrc/eb_geometry.cpp) against its numpy
 form, a build failure that raises with the compiler's message, the
 static cut-cell arrays of build_eb_arrays, and the STL surface writer.
@@ -42,6 +43,27 @@ def test_eb_data_matches_incflo_tpu(geometry):
         assert np.abs(jd.face_cent[d] - td.face_cent[d]).max() <= 1e-12
     flags = np.asarray(td.flags)
     assert (flags == tgeom.CUT).any() and (flags == tgeom.COVERED).any()
+
+
+def test_threaded_sub_box_integrals_give_the_same_bits(geometry,
+                                                      monkeypatch):
+    """A level of THREADED_CELLS cells or more integrates its centroids'
+    and face fractions' sub-box offsets on threads: the same EBData bits
+    as one thread (the threshold lowered so these small levels take the
+    threaded path)."""
+    import incflo_torch
+    name = geometry[0]
+    cfg = incflo_torch.IncfloConfig.from_text(DECKS[name])
+    phi_if = tgeom.make_eb_geometry(cfg.eb_geometry, cfg.pp, cfg.grid)
+    monkeypatch.setattr(tgeom, "THREADED_CELLS", 1 << 62)
+    one = tgeom.compute_eb_data(phi_if, cfg.grid)
+    monkeypatch.setattr(tgeom, "THREADED_CELLS", 1)
+    threaded = tgeom.compute_eb_data(phi_if, cfg.grid)
+    for f in FIELDS:
+        assert np.array_equal(getattr(one, f), getattr(threaded, f)), f
+    for d in range(cfg.grid.ndim):
+        assert np.array_equal(one.afrac[d], threaded.afrac[d])
+        assert np.array_equal(one.face_cent[d], threaded.face_cent[d])
 
 
 def test_eb_arrays_match_incflo_tpu(geometry):

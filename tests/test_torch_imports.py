@@ -189,15 +189,19 @@ def test_amr_decks_take_incflo_tpus_patch_mode(config, extra):
 
 
 def test_amr_under_a_mesh_names_a14(tmp_path):
-    """An AMR deck on a mesh raises and names ROADMAP A14, in Simulation
-    and in the CLI driver."""
-    from incflo_torch import main
+    """Both AMR drivers split over a mesh (tests/test_torch_sharded_amr.py);
+    an AMR deck whose base nx does not split into equal slabs over the
+    mesh's ranks raises and names ROADMAP A14 (uneven slabs), in
+    Simulation, in both drivers and in the CLI driver."""
+    from incflo_torch import amr, amr_patch, main
     from incflo_torch.parallel.mesh import SlabMesh
     mesh = SlabMesh.__new__(SlabMesh)
-    mesh.device, mesh.rank = torch.device("cpu"), 0
+    mesh.device, mesh.rank, mesh.size = torch.device("cpu"), 0, 3
     extra = "amr.max_level = 1\n"
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        incflo_torch.Simulation(_cfg(extra), device="cpu", mesh=mesh)
+    for driver in (incflo_torch.Simulation, amr_patch.SlabAMRSimulation,
+                   amr.AMRSimulation):
+        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+            driver(_cfg(extra), device="cpu", mesh=mesh)
     deck = tmp_path / "inputs"
     deck.write_text(bench._deck("shear3d", 16, "float64")[0] + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):

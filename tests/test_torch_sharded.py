@@ -75,8 +75,10 @@ CLI_ARGS = ["max_step=2", "amr.check_int=2", "amr.plot_int=2",
 # boundaries in 3D since the cut-cell arrays are cut to the slab
 # (tests/test_torch_sharded_eb.py), and the two Godunov options and 2D
 # decks with or without embedded boundaries since the 2D levels and the
-# MAC-phi operator run on the slab (tests/test_torch_sharded_2d.py): the
-# IN_SCOPE decks; AMR still raises
+# MAC-phi operator run on the slab (tests/test_torch_sharded_2d.py), and
+# AMR since both AMR drivers split their levels
+# (tests/test_torch_sharded_amr.py): the IN_SCOPE decks.  AMR with
+# embedded boundaries still raises, naming ROADMAP A13b, not A14
 X_WALLS = "geometry.is_periodic = 0 1 1\n"
 SCOPE_DECKS = {
     "MOL advection": "incflo.use_godunov = false\nincflo.cfl = 0.5\n",
@@ -94,10 +96,14 @@ SCOPE_DECKS = {
         "incflo.godunov_use_forces_in_trans = true\n",
     "use_mac_phi_in_godunov": "incflo.use_mac_phi_in_godunov = true\n",
 }
+SCOPE_DECKS["AMR with embedded boundaries"] = \
+    SCOPE_DECKS["AMR"] + SCOPE_DECKS["embedded boundaries"]
 IN_SCOPE = ("MOL advection", "walls on x", "inflow or outflow on x",
-            "embedded boundaries", "godunov_use_forces_in_trans",
+            "AMR", "embedded boundaries", "godunov_use_forces_in_trans",
             "use_mac_phi_in_godunov", "2D decks",
             "2D decks with embedded boundaries")
+# what a deck out of scope names: the ROADMAP item
+ITEM = {"AMR with embedded boundaries": "A13b"}
 
 
 # decks of their own: a 2D deck and a 2D deck with embedded boundaries,
@@ -516,15 +522,16 @@ def test_cli_on_two_ranks_matches_one(two_ranks, io_dirs, tmp_path,
                                   *SCOPE_DECKS])
 def test_out_of_scope_decks_raise_and_name_the_item(four_ranks, deck):
     """A deck out of the mesh's scope raises NotImplementedError naming
-    ROADMAP A14 and what it lacks; the IN_SCOPE decks, which it once
-    refused, build over the 4-rank mesh."""
+    ROADMAP A14 (AMR with embedded boundaries A13b, with or without a
+    mesh) and what it lacks; the IN_SCOPE decks, which it once refused,
+    build over the 4-rank mesh (an AMR deck its patch tree)."""
     for res in four_ranks[0]:
         err = res["scope_errors"][deck]
         if deck in IN_SCOPE:
             assert err is None, err
             continue
         assert err is not None and err[0] == "NotImplementedError", err
-        assert "ROADMAP A14" in err[1], err
+        assert f"ROADMAP {ITEM.get(deck, 'A14')}" in err[1], err
         if deck not in ("nx % R", "nxl < 4"):
             assert deck in err[1], err
 
@@ -558,6 +565,34 @@ def test_launch_without_a_device_raises_without_a_card():
         launch.run(JOB, 2, dict(jobs=[]), timeout=TIMEOUT)
     with pytest.raises(RuntimeError, match="torch.cuda is not available"):
         launch.run(JOB, 2, dict(jobs=[]), device="cuda", timeout=TIMEOUT)
+
+
+def test_launch_gate_opens_and_cancel_kills_the_ranks(tmp_path):
+    """workers.wait_for holds every rank until its file exists; setting
+    launch.run's cancel event kills ranks that wait and run() raises."""
+    import concurrent.futures
+    import threading
+    import time
+    go = tmp_path / "go"
+    jobs = [("gate", "wait_for", dict(path=str(go)))]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ran = pool.submit(launch.run, JOB, 2, dict(jobs=jobs), device="cpu",
+                          timeout=TIMEOUT)
+        time.sleep(0.5)
+        go.touch()
+        waited = [r["gate"] for r in ran.result()]
+    assert len(waited) == 2 and all(w >= 0.0 for w in waited), waited
+    cancel = threading.Event()
+    jobs = [("gate", "wait_for", dict(path=str(tmp_path / "never")))]
+    t0 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ran = pool.submit(launch.run, JOB, 2, dict(jobs=jobs), device="cpu",
+                          timeout=TIMEOUT, cancel=cancel)
+        time.sleep(1.0)
+        cancel.set()
+        with pytest.raises(RuntimeError, match="cancelled"):
+            ran.result()
+    assert time.monotonic() - t0 < TIMEOUT
 
 
 def test_oversize_level_raises_value_error():
