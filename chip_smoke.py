@@ -169,37 +169,52 @@ Phases (any failure ends the run with a non-zero exit):
              finite); tgv2d at 128^2 f32 with plt_error_u (one step2d
              launch a step, six finite Norm lines).  One line a run with
              the driver's ms/step beside the card's name and power limit.
-  5b. amr   ROADMAP A13, patch AMR (incflo_torch/amr_patch.py).  paths:
-             the CPU parity decks of tests/test_torch_amr_*.py (the
-             two-level RT2D slab with fixed dt, the Taylor-vortex band at
-             n = 32, the probtype-21 box) and the 3D RT slab deck of
-             tests/test_amr_patch.py:309-326 at 16x16x32, on cuda and on
-             cpu in float64, each from its own init_state, 2 steps and
-             one regrid: the same trees, every entry's fields and dt to
-             1e-9, equal iterations.  main, float32 through
-             SlabAMRSimulation.advance, 2 warm-up + 5 timed steps: rt_amr
-             (bench's rt 64x64x128 with amr.max_level = 1, gradrhoerr
-             0.1, regrid every 2 steps, at cfl 0.5: a 128x128x32 z slab)
-             and shear3d_amr (bench's shear3d 128x128x32 with a tagged
-             band z in [0.10, 0.15]: a 256x256x32 slab); the patch mode
-             resolves to slab along z; ms/step, the cells per level, the
-             bounds after each step, the launches a step of each kernel
-             per level (counters zeroed before the warm-up, read after
-             the timed steps: shear3d_amr's base level the Godunov kernels
-             1 / 3 / 3 a step and nothing else, every other level the
-             walled smoothers and nothing else), the solvers' tallies,
-             finite fields, the next step's nodal solves within the bounds
-             of AMR_NODAL_BOUNDS, one profiled step.  levels: every level
-             of the patches' MAC, velocity, tracer and nodal hierarchies
-             that one more step builds (Dirichlet faces on both z sides,
-             b seeded on the nodal Dirichlet rows), at the V-cycles'
-             calls: the walled smoothers bit-equal to their plain
-             versions in float32 (through the solvers' _smooth_res) and
-             within 1e-13 in float64, one kernel node a call, kernel,
-             plain and bound ms.  cli: incflo_torch.main on rt_amr's deck,
-             max_step = 4 with a patch checkpoint and a plotfile every 2
-             steps, the patch mode auto-selected, then a restart from
-             chk00002 whose chk00004 is bit-equal to the unbroken one.
+  5b. amr   ROADMAP A13 and A13b, patch AMR (incflo_torch/amr_patch.py),
+             with embedded boundaries too.  paths: the CPU parity decks of
+             tests/test_torch_amr_*.py (the two-level RT2D slab with fixed
+             dt, the Taylor-vortex band at n = 32, the probtype-21 box),
+             the 3D RT slab deck of tests/test_amr_patch.py:309-326 at
+             16x16x32, and bench's channel_cyl with its cylinder and
+             amr.max_level = 1 at 32x16x8, on cuda and on cpu in float64,
+             each from its own init_state, 1 step (the EB deck 2, the
+             second regridding) and one regrid: the same trees, every
+             entry's fields and dt to 1e-9, equal iterations.  main,
+             float32 through SlabAMRSimulation.advance: rt_amr (bench's rt
+             64x64x128 with amr.max_level = 1, gradrhoerr 0.1, regrid
+             every 2 steps, at cfl 0.5: a 128x128x32 z slab) and
+             shear3d_amr (bench's shear3d 128x128x32 with a tagged band z
+             in [0.10, 0.15]: a 256x256x32 slab), 2 warm-up + 5 timed
+             steps each; channel_cyl_amr (the "amr_eb" cell: bench's
+             channel_cyl 128x64x16 with amr.max_level = 1, regrid every 2
+             steps; the cut cells tag a band of x around the cylinder, a
+             48x128x32 slab with cut cells of its own), 1 warm-up + 2
+             timed steps; the patch mode resolves to slab along each
+             cell's axis (mode and band printed); ms/step, setup s, the
+             cells per level, the bounds after each step, the launches a
+             step of each kernel per level (counters zeroed before the
+             warm-up, read after the timed steps: shear3d_amr's base level
+             the Godunov kernels 1 / 3 / 3 a step and nothing else,
+             channel_cyl_amr's EB base level the walled cell smoother
+             only, every other level the walled smoothers and nothing
+             else), the solvers' tallies, finite fields with covered cells
+             at rest; one more step, profiled, its nodal solves within
+             the bounds of AMR_NODAL_BOUNDS (a cell's own in
+             AMR_NODAL_BOUNDS_OF).  levels: every level of the patches'
+             MAC, velocity, tracer and nodal hierarchies that the
+             profiled step builds (Dirichlet faces on both sides of the
+             slab axis, b seeded on the nodal Dirichlet rows; on the EB
+             patch the cut-cell coefficients with the wall term and the
+             vfrac-weighted nodal sigma), at the V-cycles' calls: the
+             walled smoothers bit-equal to their plain versions in
+             float32 (through the solvers' _smooth_res) and within 1e-13
+             in float64, one kernel node a call, kernel, plain and bound
+             ms.  cli: incflo_torch.main on rt_amr's deck, max_step = 4
+             with a patch checkpoint and a plotfile every 2 steps, and on
+             channel_cyl_amr's at 32x16x8 in float64, max_step = 2 with
+             both every step; the patch mode auto-selected, then a
+             restart from the middle step whose last checkpoint is
+             bit-equal to the unbroken one (the EB geometry rebuilt from
+             the deck).
   6. sharded the x-slab mesh of incflo_torch/parallel and the halo-slab
              Godunov kernels (B8).  First the kernels in one process (after
              phase 2): the shear3d n = 128 level cut into 2 slabs (nxl 64)
@@ -292,6 +307,16 @@ Phases (any failure ends the run with a non-zero exit):
              shear3d_amr on a 32x32x32 base (the halo-slab Godunov
              kernels on its split base), the box deck (its patch held
              whole on every rank) and a dense rt2d deck.
+             sharded_amr_eb: float64 init + 1 step on 2 ranks against 1
+             rank: amr_eb's deck at 64x32x8 (the base split, the patch
+             held whole with its whole geometry; within 1e-11, or, where
+             its nodal solves stop at maxiter, with equal stops on both
+             ranks and within the error of 1-rank runs from starts one
+             rounding apart), shear3d 127x128x32 (nx does not split: the
+             level held whole on every rank, bit-equal to 1 rank, no
+             exchange), shear3d 264x8x8 (an axis above 256 cells: V-cycles
+             on the slabs in place of the rfftn solve, within 1e-11 of the
+             port on a 1-rank mesh of this process, equal tallies).
 Then one JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 
@@ -305,6 +330,7 @@ outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -401,6 +427,8 @@ TALLIES = {
                "tensor_cg_iters": 4.0, "host_syncs": 92.4},
     "shear3d_amr": {"cell_iters": 11.8, "nodal_cycles": 9.0,
                     "tensor_cg_iters": 0.0, "host_syncs": 28.8},
+    "channel_cyl_amr": {"cell_iters": 60.5, "nodal_cycles": 144.5,
+                        "tensor_cg_iters": 4.0, "host_syncs": 255.0},
 }
 VD_KEYS = """
 incflo.constant_density = false
@@ -2510,11 +2538,14 @@ def phase_profile(sim, s, torch, n, wall_ms, steps=5, kernel_ms=None,
     each call made in the profiled steps is timed under graph replay
     (SmootherCalls), and what the profiler saw of them, the resident
     launches, is printed beside it; the line says so.  `run(s, k)` takes
-    the steps (sim.advance_n unless given)."""
+    the steps (sim.advance_n unless given).  Host ops are traced only for
+    the table: on a host-bound step of a hundred thousand torch ops
+    tracing them cost several times the step."""
     from torch.profiler import ProfilerActivity, profile
     from incflo_torch.ops import smoother_kernels as sk
-    with SmootherCalls(sk) as smooth, profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if table
+                                            else [])
+    with SmootherCalls(sk) as smooth, profile(activities=activities) as prof:
         s = (run or sim.advance_n)(s, steps)
         torch.cuda.synchronize()
     if table:
@@ -4239,6 +4270,176 @@ def phase_sharded_amr(incflo_torch, torch):
     return out
 
 
+# ROADMAP A13b and A14's last cells on 2 ranks, float64 init + 1 step
+# against 1 rank: amr_eb's deck at 64x32x8 (the base split, the x band
+# patch held whole on every rank with its whole geometry); shear3d at
+# bench width with nx = 127, which does not split into 2 slabs (the level
+# held whole on every rank: bit-equal to 1 rank, no exchange); shear3d
+# 264x8x8, whose direct solves take rfftn on one device and V-cycles on
+# the slabs under a mesh (against the port on a 1-rank mesh)
+SHARD_AMR_EB = lambda: amr_eb_deck(64, "float64")
+SHARD_WHOLE = lambda: shear3d_deck(128, "float64").replace(
+    "amr.n_cell = 128 128 32", "amr.n_cell = 127 128 32").replace(
+    "geometry.prob_hi = 1. 1. 0.25", "geometry.prob_hi = 0.9921875 1. 0.25")
+SHARD_RFFTN = lambda: shear3d_deck(32, "float64").replace(
+    "amr.n_cell = 32 32 8", "amr.n_cell = 264 8 8").replace(
+    "geometry.prob_hi = 1. 1. 0.25", "geometry.prob_hi = 8.25 0.25 0.25")
+# on each rank, by tree level: the base split (cell_smooth_slab for its
+# EB MAC, velocity and tracer solves; its exact octant nodal projection
+# the 27-point slab sweeps, plain PyTorch), the patch whole (the walled
+# smoothers)
+SHARD_AMR_KERNELS["channel_cyl_amr"] = {0: ("cell_smooth_slab",),
+                                        1: (WALLED, WALLED_NODAL)}
+
+
+def one_rank_mesh_steps(deck, nsteps):
+    """workers.steps on a 1-rank mesh of this process (a gloo process
+    group of one, joined through a FileStore in a temporary directory)
+    on the card: the port on 1 rank in the form a mesh gives it (an
+    rfftn deck's V-cycles on the slab)."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from incflo_torch.parallel import workers
+    from incflo_torch.parallel.mesh import SlabMesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh1_")
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=600))
+    try:
+        return workers.steps(SlabMesh(device="cuda"), deck, nsteps)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_sharded_amr_eb(incflo_torch, torch):
+    """The last cells of ROADMAP A13b and A14 on 2 ranks that share the
+    card, float64 init + 1 step against 1 rank (a generator for
+    run_sharded, untimed jobs only): amr_eb's deck at 64x32x8 within
+    TOL_SHARD_F64 of 1 rank with equal tallies and dts on both ranks --
+    where its nodal solves stop at maxiter (channel_cyl's at small sizes,
+    ROADMAP C), with equal stops on both ranks and within the error of
+    1-rank runs from starts one rounding apart if that is larger; the
+    shear3d level that does not split, held whole, bit-equal to 1 rank
+    with no exchange; the rfftn deck on the slabs' V-cycles within
+    TOL_SHARD_F64 of a 1-rank mesh with equal tallies."""
+    import numpy as np
+    yield ([("channel_cyl_amr f64", "amr_steps",
+             dict(deck=SHARD_AMR_EB(), nsteps=1)),
+            ("whole f64", "steps", dict(deck=SHARD_WHOLE(), nsteps=1)),
+            ("rfftn f64", "steps", dict(deck=SHARD_RFFTN(), nsteps=1))], [])
+    t0 = time.time()
+    amr_ref, amr_tal, amr_solves = one_rank_amr(incflo_torch, torch,
+                                                SHARD_AMR_EB(), 1)
+    whole_ref, whole_tal, _ = one_rank_run(incflo_torch, torch,
+                                           SHARD_WHOLE(), 1)
+    rfftn_ref = one_rank_mesh_steps(SHARD_RFFTN(), 1)
+    t1 = time.time()
+    ranks = yield None
+    out = {"ranks": SHARD_RANKS, "one_rank_s": t1 - t0, "cells": {}}
+    key = "channel_cyl_amr f64"
+    got = ranks[0][key]["states"]
+    worst = dict.fromkeys(SHARD_MG_FIELDS, 0.0)
+    for a, b in zip(got, amr_ref):
+        for f, e in tree_errs(a, b, "channel_cyl_amr").items():
+            worst[f] = max(worst[f], e)
+    stops = [[it for _, it, _ in r[key]["nodal_solves"]] for r in ranks]
+    at_maxiter = any(it >= m for _, it, m in amr_solves)
+    band = None
+    if not all(e <= TOL_SHARD_F64 for e in worst.values()):
+        if not at_maxiter:
+            raise AssertionError(f"sharded_amr_eb channel_cyl_amr: 2 ranks "
+                                 f"differ from 1 by {worst}")
+        band = dict.fromkeys(SHARD_MG_FIELDS, 0.0)
+        for seed in range(SHARD_F32_BAND):
+            nudged, _, _ = one_rank_amr(incflo_torch, torch, SHARD_AMR_EB(),
+                                        1, ulp_seed=seed)
+            for f, e in tree_errs(nudged[-1], amr_ref[-1],
+                                  "channel_cyl_amr").items():
+                band[f] = max(band[f], e)
+        bad = {f: (worst[f], band[f]) for f in SHARD_MG_FIELDS
+               if not worst[f] <= max(TOL_SHARD_F64, band[f])}
+        if bad:
+            raise AssertionError(f"sharded_amr_eb channel_cyl_amr: 2 ranks "
+                                 f"against 1 beyond the 1-rank band: {bad}")
+    if any(s != stops[0] for s in stops):
+        raise AssertionError(f"sharded_amr_eb channel_cyl_amr: the ranks' "
+                             f"nodal solves stop at {stops}")
+    for rank, r in enumerate(ranks):
+        if r[key]["tallies"] != amr_tal or r[key]["dts"] != \
+                ranks[0][key]["dts"]:
+            raise AssertionError(f"sharded_amr_eb channel_cyl_amr rank "
+                                 f"{rank}: tallies {r[key]['tallies']}, 1 "
+                                 f"rank {amr_tal}")
+    split = ranks[0][key]["split"]
+    if split[-1] != [True, False]:
+        raise AssertionError(f"sharded_amr_eb channel_cyl_amr: split "
+                             f"{split}")
+    per_step = amr_launches("channel_cyl_amr", ranks, key, 1)
+    print(f"[sharded_amr_eb] channel_cyl_amr 64x32x8 f64 over {SHARD_RANKS} "
+          f"ranks: init + 1 step, base split, patch "
+          f"{got[-1][0]['bounds'][1]} held whole; worst rel err against 1 "
+          f"rank " + ", ".join(f"{f} {e:.2e}" for f, e in worst.items())
+          + f" (tol {TOL_SHARD_F64:g}"
+          + ("" if band is None else ", or the 1-rank band "
+             + ", ".join(f"{f} {e:.2e}" for f, e in band.items()))
+          + f"); nodal stops {stops[0]} on every rank (1-rank residual / "
+          f"tol {[float(f'{q:.3g}') for q, _, _ in amr_solves]}); tallies "
+          f"{amr_tal[1:]} on every rank; launches a step per rank by level "
+          + "; ".join(str(p) for p in per_step), flush=True)
+    out["cells"]["channel_cyl_amr"] = {
+        "f64_max_rel_err": worst, "f64_tol": TOL_SHARD_F64,
+        "one_rank_band": band, "nodal_stops": stops[0],
+        "one_rank_nodal_res_over_tol": [q for q, _, _ in amr_solves],
+        "tallies": amr_tal, "split": split,
+        "launches_per_step_per_rank": per_step}
+    key = "whole f64"
+    for rank, r in enumerate(ranks):
+        res = r[key]
+        if res["split"] or any(res["comm"].values()) \
+                or res["tallies"] != whole_tal:
+            raise AssertionError(f"sharded_amr_eb whole rank {rank}: split "
+                                 f"{res['split']}, exchanges {res['comm']}, "
+                                 f"tallies {res['tallies']} / {whole_tal}")
+    for i, (a, b) in enumerate(zip(ranks[0][key]["states"], whole_ref)):
+        bad = [f for f in SHARD_MG_FIELDS if not np.array_equal(a[f], b[f])]
+        if bad:
+            raise AssertionError(f"sharded_amr_eb whole state {i}: {bad} "
+                                 f"differ from 1 rank")
+    launches = [r[key]["launches"] for r in ranks]
+    print(f"[sharded_amr_eb] shear3d 127x128x32 f64 over {SHARD_RANKS} "
+          f"ranks: held whole on every rank, init + 1 step bit-equal to 1 "
+          f"rank, no exchange, tallies {whole_tal[1:]}; Godunov launches "
+          f"per rank {launches}", flush=True)
+    out["cells"]["whole"] = {"bit_equal": True, "tallies": whole_tal,
+                             "godunov_launches_per_rank": launches}
+    key = "rfftn f64"
+    worst = dict.fromkeys(SHARD_MG_FIELDS, 0.0)
+    for a, b in zip(ranks[0][key]["states"], rfftn_ref["states"]):
+        for f, e in mg_state_errs(a, b).items():
+            worst[f] = max(worst[f], e)
+    tal = rfftn_ref["tallies"]
+    if not all(e <= TOL_SHARD_F64 for e in worst.values()) \
+            or any(r[key]["tallies"] != tal or not r[key]["split"]
+                   for r in ranks) or not tal[1]["nodal_cycles"] > 0:
+        raise AssertionError(f"sharded_amr_eb rfftn: 2 ranks against a "
+                             f"1-rank mesh {worst}, tallies "
+                             f"{[r[key]['tallies'] for r in ranks]} / {tal}")
+    slab = [r[key]["smoother_launches"] for r in ranks]
+    print(f"[sharded_amr_eb] shear3d 264x8x8 f64 over {SHARD_RANKS} ranks: "
+          f"V-cycles on the slabs in place of the rfftn solve, init + 1 "
+          f"step, worst rel err against a 1-rank mesh "
+          + ", ".join(f"{f} {e:.2e}" for f, e in worst.items())
+          + f" (tol {TOL_SHARD_F64:g}); tallies {tal[1:]} on every rank; "
+          f"smoother launches per rank {slab}; the 1-rank runs "
+          f"{t1 - t0:.1f} s (beside the ranks' untimed jobs)", flush=True)
+    out["cells"]["rfftn"] = {"f64_max_rel_err": worst, "tallies": tal,
+                             "smoother_launches_per_rank": slab}
+    return out
+
+
 def run_sharded(phases, stamp):
     """The sharded phases (name -> the phase's generator) with one spawn
     of SHARD_RANKS ranks sharing the card.  Each phase first yields its
@@ -4530,8 +4731,23 @@ incflo.mu_s = 0.001
 incflo.gradrhoerr = 0.1
 incflo.cfl = 0.5
 """
+AMR_EB_KEYS = "amr.max_level = 1\namr.regrid_int = 2\n"
+
+
+def amr_eb_deck(n, dtype):
+    """bench's channel_cyl with its cylinder (channel_cyl_deck) and one
+    refined level, regridded every 2 steps (ROADMAP A13b): the cut cells
+    tag a band of x around the cylinder, which choose_patch_mode makes a
+    slab patch with cut cells of its own."""
+    return channel_cyl_deck(n, dtype) + AMR_EB_KEYS
+
+
 AMR_PATHS = {"rt2d slab": AMR_RT2D, "tgv slab": AMR_TGV, "box": AMR_BOX,
-             "rt3d slab 16x16x32": AMR_RT3D}
+             "rt3d slab 16x16x32": AMR_RT3D,
+             "channel_cyl 32x16x8": amr_eb_deck(32, "float64")}
+# the steps of a paths deck before its regrid (1 unless named): the EB
+# deck takes 2, the second with a regrid of its own inside
+AMR_PATH_STEPS = {"channel_cyl 32x16x8": 2}
 # the full-width cells: bench's rt (64x64x128) and shear3d (128x128x32)
 # with one refined level, regridded every 2 steps.  rt_amr runs at
 # cfl 0.5, the cfl of tests/test_amr_patch.py's 3D RT slab deck: at
@@ -4547,22 +4763,43 @@ SHEAR3D_AMR_KEYS = ("amr.max_level = 1\namr.patch_mode = slab\n"
                     "incflo.tag_region_hi = 1. 1. 0.15\namr.regrid_int = 2\n")
 AMR_MAIN = {"rt_amr": lambda: rt_deck(128, "float32") + RT_AMR_KEYS,
             "shear3d_amr": lambda: shear3d_deck(128, "float32")
-            + SHEAR3D_AMR_KEYS}
+            + SHEAR3D_AMR_KEYS,
+            "channel_cyl_amr": lambda: amr_eb_deck(128, "float32")}
+# each cell's slab axis (choose_patch_mode picks slab for all three), its
+# warm-up and its timed steps: channel_cyl_amr's band lies along x, and
+# its steps take seconds on the host (PERF.md), so it times 2
+AMR_RUN = {"rt_amr": (2, 2, 5), "shear3d_amr": (2, 2, 5),
+           "channel_cyl_amr": (0, 1, 2)}
 # the kernels each level of a cell launches (every other kernel no time):
 # shear3d's periodic base level the Godunov kernels (its solves are
-# direct), rt's walled base level the walled smoothers; every patch the
-# walled smoothers (Dirichlet coarse-fine faces on both z sides) and the
-# plain walled Godunov chain
+# direct), rt's walled base level the walled smoothers, channel_cyl's EB
+# base level the walled cell smoother (its nodal projection is the exact
+# octant operator's 27-point stencils, plain PyTorch on both devices as
+# in incflo_tpu); every patch the walled smoothers (Dirichlet coarse-fine
+# faces on both sides of the slab axis; on channel_cyl's patch the
+# cut-cell solves and the vfrac-weighted nodal weak form) and the plain
+# walled Godunov chain (MOL on the EB deck)
 AMR_KERNELS = {"rt_amr": {0: (WALLED, WALLED_NODAL),
                           1: (WALLED, WALLED_NODAL)},
                "shear3d_amr": {0: tuple(PER_STEP),
-                               1: (WALLED, WALLED_NODAL)}}
+                               1: (WALLED, WALLED_NODAL)},
+               "channel_cyl_amr": {0: (WALLED,), 1: (WALLED, WALLED_NODAL)}}
+# the CLI's decks, each with its checkpoint interval k: max_step = 2k, a
+# patch checkpoint and a plotfile every k steps, a restart from step k.
+# The EB deck at its paths size (its steps take seconds at any size)
+AMR_CLI = {"rt_amr": (AMR_MAIN["rt_amr"], 2),
+           "channel_cyl_amr": (lambda: amr_eb_deck(32, "float64"), 1)}
+# the paths deck and the cell of AMR with embedded boundaries, which
+# scripts/slab_smoke.py runs alone as "amr_eb"
+AMR_EB = ("channel_cyl 32x16x8", "channel_cyl_amr")
 # the bounds, in tolerances, of the nodal solves of an AMR step, by role
-# (a level's in-step projection comes first, its composite-sync
-# re-projection second).  In f32 the V-cycles stop on stagnation above
-# the tolerance, as the bubble's and rt2d's do (ROADMAP C): rt's base
-# level at 3.6 x, a patch level at 13-15 x (on an H100; the f64 solve of
-# the same shear3d_amr patch converges, 0.19 x on the CPU).  A
+# (a level's first nodal solve of the step is its "step" solve; its later
+# ones, the composite sync's re-projection and on a MOL deck the
+# corrector's projection, are "sync").  In f32 the V-cycles stop on
+# stagnation above the tolerance, as the bubble's and rt2d's do (ROADMAP
+# C): rt's base level at 3.6 x, a patch level at 13-15 x (on an H100;
+# the f64 solve of the same shear3d_amr patch converges, 0.19 x on the
+# CPU).  A
 # correction solve of the composite sync starts from zero against
 # nonzero Dirichlet values and may end after one V-cycle far above its
 # tolerance (4.7e5 x on rt_amr's patch), in incflo_tpu as in the port
@@ -4570,6 +4807,13 @@ AMR_KERNELS = {"rt_amr": {0: (WALLED, WALLED_NODAL),
 AMR_NODAL_BOUNDS = {("base", "step"): 5.0, ("patch", "step"): 20.0,
                     ("base", "sync"): float("inf"),
                     ("patch", "sync"): float("inf")}
+# a cell's own bounds where they differ: channel_cyl_amr's EB base level
+# solves by the exact octant operator, whose f32 V-cycles stagnate at
+# 20.6-31.2 x its tolerance beside the patch (52, 53 and 45 V-cycles of
+# 100 on an H100), where the one-level channel_cyl's converge in 4; in
+# f64 at 32x16x8 and 64x32x8 they run to maxiter, in incflo_tpu as in
+# the port with equal iterations (ROADMAP C, known flaws)
+AMR_NODAL_BOUNDS_OF = {"channel_cyl_amr": {("base", "step"): 40.0}}
 
 
 def amr_state_errs(a, b):
@@ -4586,19 +4830,21 @@ def amr_state_errs(a, b):
 
 def paths_amr_run(incflo_torch, mg, torch, name, dev):
     """An AMR paths deck on `dev`: the trees' states and records after
-    init, 1 step and one regrid, and the step's iterations."""
+    init, each of its AMR_PATH_STEPS and one regrid, and each step's
+    iterations."""
     from incflo_torch.amr_patch import SlabAMRSimulation
     cfg = incflo_torch.IncfloConfig.from_text(AMR_PATHS[name])
     amr = SlabAMRSimulation(cfg, device=dev)
     s = amr.init_state()
-    states, trees = [s], [amr.tree_meta()]
-    before = dict(mg.COUNTS)
-    s = amr.advance(s)
-    if dev == "cuda":
-        torch.cuda.synchronize()
-    iters = [{k: mg.COUNTS[k] - before[k] for k in ITER_KINDS}]
-    states.append(s)
-    trees.append(amr.tree_meta())
+    states, trees, iters = [s], [amr.tree_meta()], []
+    for _ in range(AMR_PATH_STEPS.get(name, 1)):
+        before = dict(mg.COUNTS)
+        s = amr.advance(s)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        iters.append({k: mg.COUNTS[k] - before[k] for k in ITER_KINDS})
+        states.append(s)
+        trees.append(amr.tree_meta())
     states.append(amr.regrid(s))
     trees.append(amr.tree_meta())
     return states, trees, iters
@@ -4606,26 +4852,35 @@ def paths_amr_run(incflo_torch, mg, torch, name, dev):
 
 def cpu_paths_ahead(incflo_torch, mg, torch):
     """Every CPU half of the paths runs (phase_paths, the A9c / 3D MOL,
-    A8 / A11 and AMR paths decks) into CPU_RUNS, for main() to run while
-    nvcc builds the kernels: the cpu runs need none of them."""
-    for name in ("shear3d", "shear3d_vd", "rt", "tgv2d"):
-        CPU_RUNS["paths", name] = paths_cpu(incflo_torch, torch, name)
-    for name in A9C_DECKS:
-        CPU_RUNS["a9c", name] = paths_a9c_cpu(incflo_torch, mg, torch, name)
-    for name in A8_A11_PATHS:
-        CPU_RUNS["a8_a11", name] = paths_a8_a11_cpu(incflo_torch, mg, torch,
-                                                    name)
-    for name in AMR_PATHS:
-        CPU_RUNS["amr", name] = paths_amr_run(incflo_torch, mg, torch, name,
-                                              "cpu")
+    A8 / A11 and AMR paths decks) into CPU_RUNS, for main() to
+    run while nvcc builds the kernels: the cpu runs need none of them.
+    On two intra-op threads: these levels are small, and torch's default
+    of one thread a core ran the EB AMR paths deck about eight times slower
+    than two threads on an 8-core host (and nvcc shares the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    try:
+        for name in ("shear3d", "shear3d_vd", "rt", "tgv2d"):
+            CPU_RUNS["paths", name] = paths_cpu(incflo_torch, torch, name)
+        for name in A9C_DECKS:
+            CPU_RUNS["a9c", name] = paths_a9c_cpu(incflo_torch, mg, torch,
+                                                  name)
+        for name in A8_A11_PATHS:
+            CPU_RUNS["a8_a11", name] = paths_a8_a11_cpu(incflo_torch, mg,
+                                                        torch, name)
+        for name in AMR_PATHS:
+            CPU_RUNS["amr", name] = paths_amr_run(incflo_torch, mg, torch,
+                                                  name, "cpu")
+    finally:
+        torch.set_num_threads(threads)
 
 
 def phase_paths_amr(incflo_torch, mg, torch, name):
     """An AMR deck on cuda (kernels) and on cpu (plain versions), f64:
-    each from its own init_state, 1 step (2 before the EB phase joined
-    the run) and one regrid; the trees (axis, bounds, parents)
-    identical, every entry's fields and dt to 1e-9 relative after init,
-    the step and the regrid, the solvers' iterations equal."""
+    each from its own init_state, its AMR_PATH_STEPS and one regrid; the
+    trees (axis, bounds, parents) identical, every entry's fields and dt
+    to 1e-9 relative after init, each step and the regrid, the solvers'
+    iterations equal."""
     runs = {"cpu": cpu_half(("amr", name), lambda: paths_amr_run(
         incflo_torch, mg, torch, name, "cpu")),
         "cuda": paths_amr_run(incflo_torch, mg, torch, name, "cuda")}
@@ -4635,7 +4890,8 @@ def phase_paths_amr(incflo_torch, mg, torch, name):
     if ic != ig:
         raise AssertionError(f"amr {name}: iterations differ {ic} vs {ig}")
     worst = max(amr_state_errs(a, b) for a, b in zip(sg, sc))
-    print(f"[paths] amr {name}: cuda vs cpu f64, init + 1 step + regrid, "
+    print(f"[paths] amr {name}: cuda vs cpu f64, init + {len(ig)} step(s)"
+          f" + regrid, "
           f"{len(tg[-1]['bounds'])} entries, bounds {tg[-1]['bounds'][1:]},"
           f" worst relative {worst:.3e} (tol 1e-9); iterations {ig}",
           flush=True)
@@ -4655,15 +4911,19 @@ def amr_cells(amr):
     return out
 
 
-def phase_main_amr(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
+def phase_main_amr(incflo_torch, gk, sk, mg, torch, name):
     """An AMR cell at full width, f32, through SlabAMRSimulation.advance
-    on the card: ms/step, the cells per level, the bounds after each
-    regrid, the launches a step of each kernel per level (counters zeroed
-    just before the warm-up, read just after the timed steps), the
-    solvers' tallies, finite fields, the next step's nodal solves; then
-    one profiled step for the device idle share."""
+    on the card, its warm-up and timed steps from AMR_RUN: the patch mode
+    chosen automatically (it must be slab, along the cell's axis), ms/step
+    and setup s, the cells per level, the bounds after each regrid, the
+    launches a step of each kernel per level (counters zeroed just before
+    the warm-up, read just after the timed steps), the solvers' tallies,
+    finite fields with covered cells at rest; then one more step,
+    profiled for the device idle share, whose nodal solves are held to
+    AMR_NODAL_BOUNDS and whose patch solvers it returns."""
     from incflo_torch.amr_patch import SlabAMRSimulation, choose_patch_mode
     from incflo_torch.parallel import workers
+    axis, warm, steps = AMR_RUN[name]
     cfg = incflo_torch.IncfloConfig.from_text(AMR_MAIN[name]())
     mode = choose_patch_mode(cfg)
     if mode != "slab":
@@ -4673,8 +4933,17 @@ def phase_main_amr(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
     s = amr.init_state()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_setup
-    if amr.axis != 2:
-        raise AssertionError(f"{name}: slab axis {amr.axis}, expected z")
+    if amr.axis != axis:
+        raise AssertionError(f"{name}: slab axis {amr.axis}, expected "
+                             f"{'xyz'[axis]}")
+    # an EB deck's patches are tagged from the cut cells: each holds some
+    if amr.sim0.eb is not None and any(sim.eb is None
+                                       for sim in amr.sims[1:]):
+        raise AssertionError(f"{name}: a patch without cut cells: "
+                             f"{amr.tree_meta()}")
+    band = {"axis": "xyz"[amr.axis], "bounds": amr.bounds[1:],
+            "cut_cells": [0 if sim.eb is None else int(sim.eb.cut.sum())
+                          for sim in amr.sims[1:]]}
     bounds = [amr.tree_meta()["bounds"][1:]]
     gk.reset_launches()
     sk.reset_launches()
@@ -4711,19 +4980,30 @@ def phase_main_amr(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
                                  f"{got}, expected {PER_STEP}")
     check_one_launch(sk, name)
     check_tallies(name, per_step)
-    for st in s.levels:
+    for sim, st in zip(amr.sims, s.levels):
         for f in A9C_FIELDS:
             if not bool(torch.isfinite(getattr(st.level, f)).all()):
                 raise AssertionError(f"{name}: non-finite {f}")
+        if sim.eb is not None:
+            covered = sim.eb.covered > 0.5
+            if bool(covered.any()) and \
+                    bool(st.level.velocity[covered].abs().max() > 0):
+                raise AssertionError(f"{name}: a covered cell moves")
     ms = (t1 - t0) / steps * 1e3
     cells = amr_cells(amr)
-    box = [s]
+    # one more step, profiled for the device idle share: its nodal solves
+    # with their shapes, and the patch solvers it builds, which
+    # phase_levels_amr holds to their plain versions
+    prof = {}
 
-    def one_step():
-        box[0] = amr.advance(box[0])
-        torch.cuda.synchronize()
-    shaped, cell = shaped_nodal_solves(mg, one_step)
-    s = box[0]
+    def run(st, k):
+        with patch_solvers(mg, amr) as prof["solvers"]:
+            for _ in range(k):
+                st = amr.advance(st)
+        return st
+    shaped, cell = shaped_nodal_solves(mg, lambda: prof.update(
+        profile=phase_profile(amr.sim0, s, torch, name, ms, steps=1,
+                              run=run, table=False)))
     solves = [sv for _, sv in shaped]
     base = amr.sim0.grid.node_shape
     seen, roles = set(), []
@@ -4731,7 +5011,8 @@ def phase_main_amr(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
         roles.append(("base" if shape == base else "patch",
                       "sync" if shape in seen else "step"))
         seen.add(shape)
-    bounds_n = [AMR_NODAL_BOUNDS[r] for r in roles]
+    bounds_n = [AMR_NODAL_BOUNDS_OF.get(name, {}).get(r, AMR_NODAL_BOUNDS[r])
+                for r in roles]
     if not any(r == ("patch", "step") for r in roles) or any(
             r > b or it >= m for (r, it, m), b in zip(solves, bounds_n)):
         raise AssertionError(f"{name}: the step's nodal solves ended at "
@@ -4743,17 +5024,21 @@ def phase_main_amr(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
     tally = ", ".join(f"{k} {per_step[k]:.1f}" for k in
                       ("cell_iters", "cell_solves", "nodal_cycles",
                        "nodal_solves", "tensor_cg_iters", "host_syncs"))
-    print(f"[main] {name} f32: {ms:.3f} ms/step over {steps} steps after "
-          f"{warm} warm-up (setup {setup_s:.1f} s); cells per level "
+    print(f"[main] {name} {cfg.grid.n_cell} f32: patch mode {mode} (auto), "
+          f"band along {band['axis']} {band['bounds']} with cut cells of its"
+          f" own {band['cut_cells']}; {ms:.3f} ms/step over {steps} steps "
+          f"after {warm} warm-up (setup {setup_s:.1f} s); cells per level "
           f"{cells}; bounds after each step {bounds}; per step: {tally}; "
           f"launches a step per level {per_level_step}; the next step's "
           f"nodal solves: residual / tol {[round(r, 3) for r, _, _ in solves]}"
-          f" in {[it for _, it, _ in solves]} V-cycles ({roles}); its "
+          f" in {[it for _, it, _ in solves]} V-cycles (maxiter "
+          f"{cfg.nodal_mg_maxiter}; {roles}); its "
           f"cell CG solves: "
           f"best residual / tol {[float(f'{r:.3g}') for r, _, _ in cell]} in"
           f" {[it for _, it, _ in cell]} iterations; t={float(s.t):.6f} "
           f"dt={float(s.dt):.6e}; {card}", flush=True)
     out = {"deck": name, "n_cell": list(cfg.grid.n_cell),
+           "patch_mode": mode, "band": band,
            "cells_per_level": cells, "ms_per_step": ms, "steps": steps,
            "warmup": warm, "setup_s": setup_s, "bounds": bounds,
            "per_step": per_step, "launches_per_level": launches,
@@ -4762,41 +5047,47 @@ def phase_main_amr(incflo_torch, gk, sk, mg, torch, name, warm=2, steps=5):
            "nodal_res_over_tol": [r for r, _, _ in solves],
            "nodal_cycles": [it for _, it, _ in solves],
            "cell_res_over_tol": [r for r, _, _ in cell],
-           "cell_cg_iters": [it for _, it, _ in cell], "card": card}
-
-    def run(st, k):
-        for _ in range(k):
-            st = amr.advance(st)
-        return st
-    out["profile"] = phase_profile(amr.sim0, s, torch, name, ms, steps=1,
-                                   run=run, table=False)
-    return out, amr, s
+           "cell_cg_iters": [it for _, it, _ in cell], "card": card,
+           "profile": prof["profile"]}
+    return out, prof["solvers"]
 
 
 def shaped_nodal_solves(mg, run):
-    """logged_solves(mg, run) with each iterated nodal solve's node shape:
-    ([(shape, (residual / tol, V-cycles, maxiter))], cell solves)."""
+    """logged_solves(mg, run) with each iterated nodal solve's node shape
+    (NodalSolver's and EBNodalSolver's, the exact octant operator of an
+    EB level): ([(shape, (residual / tol, V-cycles, maxiter))], cell
+    solves)."""
     shapes = []
-    info = mg.NodalSolver.solve_info
+    classes = (mg.NodalSolver, mg.EBNodalSolver)
+    infos = [c.solve_info for c in classes]
 
-    def wrapped(self, rhs, **kw):
-        n = len(mg.NODAL_LOG)
-        out = info(self, rhs, **kw)
-        if len(mg.NODAL_LOG) > n:
-            shapes.append(tuple(rhs.shape))
-        return out
-    mg.NodalSolver.solve_info = wrapped
+    def shaped(info):
+        def wrapped(self, rhs, *a, **kw):
+            n = len(mg.NODAL_LOG)
+            out = info(self, rhs, *a, **kw)
+            if len(mg.NODAL_LOG) > n:
+                shapes.append(tuple(rhs.shape))
+            return out
+        return wrapped
+    for c, info in zip(classes, infos):
+        c.solve_info = shaped(info)
     try:
         solves, cell = logged_solves(mg, run)
     finally:
-        mg.NodalSolver.solve_info = info
+        for c, info in zip(classes, infos):
+            c.solve_info = info
+    if len(shapes) != len(solves):
+        raise AssertionError(f"{len(solves)} nodal solves logged, "
+                             f"{len(shapes)} shapes")
     return list(zip(shapes, solves)), cell
 
 
-def patch_solvers(mg, amr, s, torch):
-    """The cell and nodal solvers one more step builds on the patches
-    (those whose fine level has a Dirichlet side on both ends of z), by
-    the first of each kind (MAC, velocity, tracer; nodal)."""
+@contextlib.contextmanager
+def patch_solvers(mg, amr):
+    """Within: the cell and nodal solvers the steps build on the patches
+    (those whose fine level has a Dirichlet side on both ends of the slab
+    axis, the coarse-fine faces), by the first of each kind (MAC,
+    velocity, tracer; nodal), collected into the dict it yields."""
     found = {}
     cell_info, nodal_info = mg.CellSolver.solve_info, \
         mg.NodalSolver.solve_info
@@ -4804,8 +5095,8 @@ def patch_solvers(mg, amr, s, torch):
     nodes = {sim.grid.node_shape for sim in amr.sims[1:]}
 
     def cf(lev):
-        return (lev.bc_lo[2] == mg.SolverBC.DIRICHLET
-                and lev.bc_hi[2] == mg.SolverBC.DIRICHLET)
+        return (lev.bc_lo[amr.axis] == mg.SolverBC.DIRICHLET
+                and lev.bc_hi[amr.axis] == mg.SolverBC.DIRICHLET)
 
     def cell(self, rhs, **kw):
         lev = self.levels[0]
@@ -4821,26 +5112,25 @@ def patch_solvers(mg, amr, s, torch):
         return nodal_info(self, rhs, **kw)
     mg.CellSolver.solve_info, mg.NodalSolver.solve_info = cell, nodal
     try:
-        amr.advance(s)
-        torch.cuda.synchronize()
+        yield found
     finally:
         mg.CellSolver.solve_info, mg.NodalSolver.solve_info = \
             cell_info, nodal_info
-    return found
 
 
-def phase_levels_amr(sk, mg, torch, name, amr, s):
+def phase_levels_amr(sk, mg, torch, name, solvers):
     """The walled smoothers at every level of the patch hierarchies that
-    one more step of `name` builds (MAC, velocity, tracer and nodal, the
-    coarse-fine faces Dirichlet on both z sides, the nodal Dirichlet rows
-    inhomogeneous: b holds seeded values there), at the call their
-    V-cycles make: bit-equal to the plain version in float32 through the
-    solvers' own _smooth_res, within 1e-13 in float64 on the same
-    coefficients, one kernel node a call (CUDA graph); kernel, plain and
-    bound ms."""
+    the profiled step of `name` built (`solvers`, from phase_main_amr:
+    MAC, velocity, tracer and nodal, the coarse-fine faces Dirichlet on
+    both sides of the slab axis, the nodal Dirichlet rows inhomogeneous:
+    b holds seeded values there; on an EB patch the cut-cell
+    coefficients with the wall term and the vfrac-weighted nodal sigma),
+    at the call their V-cycles make: bit-equal to the plain version in
+    float32 through the solvers' own _smooth_res, within 1e-13 in
+    float64 on the same coefficients, one kernel node a call (CUDA
+    graph); kernel, plain and bound ms."""
     import numpy as np
     saved = save_launches(sk)
-    solvers = patch_solvers(mg, amr, s, torch)
     if set(solvers) != {"mac", "velocity", "tracer", "nodal"} and \
             set(solvers) != {"mac", "velocity", "nodal"}:
         raise AssertionError(f"{name}: patch solvers found {list(solvers)}")
@@ -4908,86 +5198,100 @@ def phase_levels_amr(sk, mg, torch, name, amr, s):
     return rows
 
 
-def phase_cli_amr(incflo_torch, gk, sk, s2, torch):
-    """The CLI driver on rt_amr's deck at full width, f32, on the card:
-    the patch mode auto-selected (slab), max_step = 4 with a patch
-    checkpoint and a plotfile every 2 steps, then a restart from
-    chk00002 whose chk00004 (every patch level and the tree) is bit-equal
-    to the unbroken one; every plotfile field finite."""
+def phase_cli_amr(incflo_torch, gk, sk, s2, torch, name):
+    """The CLI driver on an AMR_CLI deck on the card: the patch mode
+    auto-selected (slab), max_step = 2k with a patch checkpoint and a
+    plotfile every k steps, then a restart from step k (an EB deck's
+    cut-cell geometry rebuilt from the deck) whose last checkpoint (every
+    patch level and the tree) is bit-equal to the unbroken one; the walled
+    smoothers launched and no Godunov kernel; every plotfile field
+    finite."""
     import tempfile
     import numpy as np
     from incflo_torch import main
+    deck_text, k = AMR_CLI[name]
+    argv = [f"max_step={2 * k}", f"amr.check_int={k}", f"amr.plot_int={k}"]
+    chk = lambda d, step: os.path.join(d, f"chk{step:05d}")
     rows = []
     card = card_line()
     with tempfile.TemporaryDirectory(prefix="incflo_amr_cli_") as root:
-        deck = os.path.join(root, "rt_amr")
+        deck = os.path.join(root, name)
         with open(deck, "w") as f:
-            f.write(AMR_MAIN["rt_amr"]())
+            f.write(deck_text())
         unbroken = os.path.join(root, "unbroken")
         restart = os.path.join(root, "restart")
-        for tag, cwd, argv, steps in (
-                ("rt_amr", unbroken, CLI_ARGS, 4),
-                ("rt_amr restart", restart, CLI_ARGS + [
-                    "amr.restart=" + os.path.join(unbroken, "chk00002")], 2)):
+        for tag, cwd, args, steps in (
+                (name, unbroken, argv, 2 * k),
+                (f"{name} restart", restart,
+                 argv + ["amr.restart=" + chk(unbroken, k)], k)):
             launches, text, ms, wall = cli_run(main, (gk, sk, s2), torch,
-                                               deck, cwd, argv, tag)
-            if tag == "rt_amr" and \
+                                               deck, cwd, args, tag)
+            if tag == name and \
                     "amr.patch_mode auto-selected: slab" not in text:
                 raise AssertionError(f"cli {tag}: no slab auto-selection:\n"
                                      f"{text}")
             if not launches[WALLED] > 0 or not launches[WALLED_NODAL] > 0 \
-                    or any(launches[k] for k in PER_STEP):
+                    or any(launches[g] for g in PER_STEP):
                 raise AssertionError(f"cli {tag}: launches {launches}")
             rows.append({"run": tag, "steps": steps, "ms_per_step": ms,
                          "wall_s": wall, "launches": launches})
-            print(f"[cli] {tag} f32: {ms:.3f} ms/step (the driver's, writes "
-                  f"included) over {steps} steps, {wall:.2f} s in all; "
-                  f"launches {launches}; {card}", flush=True)
-        a = os.path.join(unbroken, "chk00004")
-        b = os.path.join(restart, "chk00004")
+            print(f"[cli] {tag}: {ms:.3f} ms/step (the driver's, writes "
+                  f"included) over {steps} steps, "
+                  f"{wall:.2f} s in all; launches {launches}; {card}",
+                  flush=True)
+        a, b = chk(unbroken, 2 * k), chk(restart, 2 * k)
         names = sorted(os.path.relpath(os.path.join(r, f), a)
                        for r, _, fs in os.walk(a) for f in fs)
         if "Patch.json" not in names or len(names) < 5:
-            raise AssertionError(f"cli rt_amr: chk00004 holds {names}")
+            raise AssertionError(f"cli {name}: {a} holds {names}")
         for f in names:
             pa, pb = os.path.join(a, f), os.path.join(b, f)
             bad = npz_equal(pa, pb) if f.endswith(".npz") else (
                 [] if open(pa).read() == open(pb).read() else [f])
             if bad:
-                raise AssertionError(f"cli rt_amr: the restarted chk00004 "
-                                     f"differs in {f}: {bad}")
-        for cwd, plts in ((unbroken, ("plt00000", "plt00002", "plt00004")),
-                          (restart, ("plt00004",))):
-            for plt in plts:
+                raise AssertionError(f"cli {name}: the restarted "
+                                     f"{os.path.basename(a)} differs in {f}: "
+                                     f"{bad}")
+        plt = lambda step: f"plt{step:05d}"
+        for cwd, plts in ((unbroken, (plt(0), plt(k), plt(2 * k))),
+                          (restart, (plt(2 * k),))):
+            for p in plts:
                 for lv in ("Level_0.npz", "Level_1.npz"):
-                    z = np.load(os.path.join(cwd, plt, lv))
-                    bad = [k for k in z.files if not np.isfinite(z[k]).all()]
+                    z = np.load(os.path.join(cwd, p, lv))
+                    bad = [v for v in z.files if not np.isfinite(z[v]).all()]
                     if bad:
-                        raise AssertionError(f"cli rt_amr {plt} {lv}: "
+                        raise AssertionError(f"cli {name} {p} {lv}: "
                                              f"non-finite {bad}")
-        print(f"[cli] rt_amr: the restarted chk00004 ({len(names)} files, "
-              f"every patch level) is bit-equal to the unbroken one; every "
-              f"plotfile field finite", flush=True)
+        print(f"[cli] {name}: the restarted {os.path.basename(a)} "
+              f"({len(names)} files, every patch level) is bit-equal to the "
+              f"unbroken one; every plotfile field finite", flush=True)
     return rows
 
 
-def phase_amr(incflo_torch, gk, sk, s2, mg, torch, stamp):
-    """ROADMAP A13 on the card: the AMR paths cuda vs cpu, the two
-    full-width cells, the patch levels' smoothers, the restart and the
-    CLI."""
+def phase_amr(incflo_torch, gk, sk, s2, mg, torch, stamp, names=None):
+    """ROADMAP A13 and A13b on the card: the AMR paths decks cuda vs cpu,
+    the full-width cells, each cell's patch levels' smoothers against
+    their plain versions, the CLI with its restart; `names` keeps only
+    those paths decks and cells (scripts/slab_smoke.py amr_eb)."""
+    keep = [n for n in (*AMR_PATHS, *AMR_MAIN) if names is None or n in names]
     for name in AMR_PATHS:
-        phase_paths_amr(incflo_torch, mg, torch, name)
-    stamp("amr paths")
-    main, levels = {}, []
+        if name in keep:
+            phase_paths_amr(incflo_torch, mg, torch, name)
+            stamp(f"amr paths {name}")
+    main, levels, cli = {}, [], []
     for name in AMR_MAIN:
-        r, amr, s = phase_main_amr(incflo_torch, gk, sk, mg, torch, name)
-        main[name] = r
+        if name not in keep:
+            continue
+        main[name], solvers = phase_main_amr(incflo_torch, gk, sk, mg,
+                                             torch, name)
         stamp(f"amr main {name}")
-        levels += phase_levels_amr(sk, mg, torch, name, amr, s)
+        levels += phase_levels_amr(sk, mg, torch, name, solvers)
         stamp(f"amr levels {name}")
-        del amr, s
-    cli = phase_cli_amr(incflo_torch, gk, sk, s2, torch)
-    stamp("amr cli")
+        del solvers
+    for name in AMR_CLI:
+        if name in keep:
+            cli += phase_cli_amr(incflo_torch, gk, sk, s2, torch, name)
+            stamp(f"amr cli {name}")
     return main, levels, cli
 
 
@@ -5111,10 +5415,12 @@ def main(argv):
         "sharded_xwalls": phase_sharded_xwalls(incflo_torch, sk, mg, torch),
         "sharded_eb": phase_sharded_eb(incflo_torch, sk, mg, torch),
         "sharded_2d": phase_sharded_2d(incflo_torch, torch),
-        "sharded_amr": phase_sharded_amr(incflo_torch, torch)}, stamp)
-    shard, shard_mg, xwalls, ebslab, shard_2d, shard_amr = (
+        "sharded_amr": phase_sharded_amr(incflo_torch, torch),
+        "sharded_amr_eb": phase_sharded_amr_eb(incflo_torch, torch)}, stamp)
+    shard, shard_mg, xwalls, ebslab, shard_2d, shard_amr, shard_amr_eb = (
         sharded[k] for k in ("sharded", "sharded_mg", "sharded_xwalls",
-                             "sharded_eb", "sharded_2d", "sharded_amr"))
+                             "sharded_eb", "sharded_2d", "sharded_amr",
+                             "sharded_amr_eb"))
 
     # `launches` is the count over the kernel's own main path: shear3d
     # n = 128 for the Godunov kernels (their count in shear3d_vd beside
@@ -5338,7 +5644,8 @@ def main(argv):
         entry["launches_per_step_sharded_amr"] = {
             cell: [{lev: t.get(entry["name"], 0.0) for lev, t in p.items()}
                    for p in r["launches_per_step_per_rank"]]
-            for cell, r in shard_amr["cells"].items()}
+            for cell, r in list(shard_amr["cells"].items())
+            + [("channel_cyl_amr", shard_amr_eb["cells"]["channel_cyl_amr"])]}
     print(json.dumps({"kernels": kernels, "levels": levels,
                       "levels_eb": levels_eb, "build_s": build_s,
                       "main": [main128, main256] + main_vd + [main_rt]
@@ -5349,6 +5656,7 @@ def main(argv):
                       "sharded_eb": ebslab["cells"],
                       "sharded_2d": shard_2d,
                       "sharded_amr": shard_amr,
+                      "sharded_amr_eb": shard_amr_eb,
                       "cli": cli,
                       "amr": {"main": list(amr_main.values()),
                               "levels": amr_levels, "cli": amr_cli},

@@ -20,10 +20,13 @@ plotfiles in incflo_tpu's on-disk format, restart from either package's
 checkpoint, per-rank checkpoints on a mesh (utils/io.py), derived fields
 (ops/derive.py), diagnostics (utils/diagnostics.py), and the driver
 `python -m incflo_torch.main <inputs> [key=value ...]` (main.py), AMR
-decks included.  AMR with embedded boundaries raises NotImplementedError
-naming ROADMAP A13b.  Split over an x-slab mesh (parallel/, ROADMAP A14)
-every one-level deck runs, 2D and 3D, with or without embedded
-boundaries; AMR under a mesh raises.
+decks included; AMR with embedded boundaries too (each patch builds its
+own cut-cell geometry, the cut cells are tagged for refinement).  Split
+over an x-slab mesh (parallel/) every deck runs, 2D and 3D, one level or
+either AMR driver, with or without embedded boundaries; a level that
+does not split into equal slabs at least 4 cells wide is held whole on
+every rank, and a solve whose direct form is rfftn runs V-cycles on the
+slabs.
 
 Float32 matrix products run in full precision: importing the package
 sets `torch.backends.cuda.matmul.allow_tf32 = False` and

@@ -8,15 +8,21 @@ per-level refinement masks on the regrid_int cadence, and plotfiles
 expose the multi-level hierarchy (level l = the fine solution averaged
 down to level l's resolution plus its mask).  The patch mode that saves
 cells is amr_patch.py.  With embedded boundaries the fine Simulation
-raises (ROADMAP A13b), so the forced cut-cell tags of incflo_tpu have no
-counterpart here.
+builds the fine level's cut-cell geometry, and TagCutCells
+(incflo_tpu/amr.py:175-180) ORs its cut cells, averaged down to each
+level, into that level's mask before the error buffer.
 
 Given a SlabMesh (parallel/mesh.py) the fine level is split along x like
 any one-level deck, and every coarser level's view and mask are the
-rank's rows of that level: each level's slab must be a whole number of
-its cells, so the base nx must split over the ranks (else
-NotImplementedError naming ROADMAP A14).  The tags' x differences and
-the error buffer's x dilation read the neighbours' rows (halo_x).
+rank's rows of that level (its cut cells from the fine slab's): each
+level's slab must be a whole number of its cells, so where the base
+level does not split over the ranks (SlabMesh.splits) the fine level is
+held whole on every rank
+(a Simulation with no mesh: it runs as on one device), as incflo_tpu
+replicates an axis that does not divide its mesh.  The tags' x
+differences and the error buffer's x dilation read the neighbours' rows
+(halo_x).  `mesh` is the run's mesh (who writes the files); `sim.mesh`
+the fine level's, None where it is held whole.
 """
 
 from __future__ import annotations
@@ -83,11 +89,6 @@ class AMRSimulation:
     split over."""
 
     def __init__(self, cfg: IncfloConfig, device=None, mesh=None):
-        if mesh is not None and cfg.grid.n_cell[0] % mesh.size:
-            raise NotImplementedError(
-                f"the base nx = {cfg.grid.n_cell[0]} does not split into "
-                f"{mesh.size} equal x slabs, so a coarse level's slab is no "
-                f"whole number of its cells (uneven slabs: ROADMAP A14)")
         self.cfg = cfg
         self.mesh = mesh
         self.base_grid = cfg.grid
@@ -98,11 +99,15 @@ class AMRSimulation:
                          cfg.grid.prob_lo, cfg.grid.prob_hi,
                          cfg.grid.periodic)
         self.fine_cfg = dataclasses.replace(cfg, grid=fine_grid)
-        self.sim = Simulation(self.fine_cfg, device=device, mesh=mesh)
+        # the fine level is split where the base level splits (each
+        # level's rows then average down within a rank), else held whole
+        split = mesh is not None and mesh.splits(cfg.grid)
+        self.sim = Simulation(self.fine_cfg, device=device,
+                              mesh=mesh if split else None)
         self.device = self.sim.device
         self.dtype = self.sim.dtype
         # masks[l] marks the region level l+1 covers, at level l's size
-        # (on a mesh the rank's rows of it)
+        # (on a split fine level the rank's rows of it)
         self.masks: List[Optional[torch.Tensor]] = [None] * self.max_level
 
     def level_grid(self, lev: int) -> Grid:
@@ -131,7 +136,8 @@ class AMRSimulation:
     # ErrorEst (reference incflo_tagging.cpp)
     def _tag_impl(self, fine_density: torch.Tensor) -> List[torch.Tensor]:
         cfg = self.cfg
-        mesh = self.mesh
+        mesh = self.sim.mesh
+        eb = self.sim.eb
         masks = []
         for lev in range(self.max_level):
             g = self.level_grid(lev)
@@ -173,6 +179,10 @@ class AMRSimulation:
                     inside &= (c >= cfg.tag_region_lo[ax]) \
                         & (c <= cfg.tag_region_hi[ax])
                 tags |= inside
+            if eb is not None:
+                # TagCutCells (forced on with EB)
+                tags |= average_down((eb.cut > 0.5).to(torch.float32), r,
+                                     g.ndim) > 0.0
             masks.append(_dilate(tags, 2, g, mesh))   # the error buffer
         return masks
 

@@ -40,6 +40,14 @@ kernels a patch runs are those of any walled level: the walled
 levels, and the plain walled Godunov chain (a CF face is never
 periodic), where incflo_tpu sweeps and advects its patches in jnp.
 
+With embedded boundaries (incflo_tpu's ordinary path): the cut cells
+are tagged on every level (compute_tags; incflo_tagging.cpp:133-140),
+each patch builds its own cut-cell geometry on its grid (a patch whose
+box holds no cut cell has none), its initial velocity and tracer are
+zero in its covered cells, and its nodal projection takes the
+vfrac-weighted weak form with its Dirichlet coarse-fine values
+(Simulation.apply_projection); the base keeps the exact octant operator.
+
 Split over an x-slab mesh (parallel/mesh.py; incflo_tpu shards each
 level's arrays where an axis divides the mesh and replicates it
 elsewhere, incflo_tpu/parallel/mesh.py:44-57), the base level is split
@@ -61,8 +69,11 @@ and each patch takes one of two forms, by its box alone:
               grown with the whole parent level's boundary conditions,
               and its average_down writes each rank's rows of a split
               parent.
-Every rank tags the same gathered densities and clusters them the same
-way, so every rank builds the same tree, and a regrid may move a patch
+A split patch cuts its cut-cell arrays to its slab, a replicated one
+holds its whole geometry, and a base that does not split is held whole
+with the whole tree.  Every rank tags the same gathered densities (and
+cut cells) and clusters them the same way, so every rank builds the same
+tree, and a regrid may move a patch
 between the forms.  The step's one dt is the least over the tree: a
 split level's compute_dt reduces over the ranks, and a replicated
 patch's is the same on every rank.
@@ -115,6 +126,16 @@ def _rows(sim) -> Tuple[int, int]:
     grid = sim.grid
     return (grid.x0, grid.n_cell[0]) if sim.mesh is not None \
         else (0, grid.n_cell[0])
+
+
+def _whole_eb(sim):
+    """sim's cut-cell arrays with the whole level's cut mask (a split
+    level's slabs of it gathered in rank order), as compute_tags reads
+    them; None without cut cells."""
+    eb = sim.eb
+    if eb is None or sim.mesh is None:
+        return eb
+    return dataclasses.replace(eb, cut=sim.mesh.all_gather_x(eb.cut))
 
 
 def _whole_ev(ev, grid: Grid, mesh):
@@ -419,6 +440,10 @@ class PatchSim(Simulation):
         lvl = base.level._replace(velocity=cut(own.velocity),
                                   density=cut(own.density),
                                   tracer=cut(own.tracer))
+        if self.eb is not None:     # covered cells start at rest
+            f = self.eb.fluid[..., None]
+            lvl = lvl._replace(velocity=lvl.velocity * f,
+                               tracer=lvl.tracer * f)
         return base._replace(level=lvl)
 
     # -- regrid support (reference MakeNewLevelFromCoarse) -------------
@@ -889,17 +914,18 @@ class SlabAMRSimulation:
                                self.device)
         return self._best_axis(compute_tags(self.cfg, _np(lvl.density),
                                             self.cfg.grid,
-                                            eb=self.sim0.eb))
+                                            eb=_whole_eb(self.sim0)))
 
     def _tag_level(self, rho, parent_sim, lev: int = 0) -> np.ndarray:
         """ErrorEst of the level refined NEXT above parent_sim, in the
-        parent's whole grid, from its density `rho` (a split parent's
-        slab is gathered whole, in rank order, so that every rank tags
-        the same bits); `lev` selects the per-level threshold."""
+        parent's whole grid, from its density `rho` and its cut cells (a
+        split parent's slabs are gathered whole, in rank order, so that
+        every rank tags the same bits); `lev` selects the per-level
+        threshold."""
         if parent_sim.mesh is not None:
             rho = parent_sim.mesh.all_gather_x(rho)
         return compute_tags(self.cfg, _np(rho), whole_grid(parent_sim.grid),
-                            eb=parent_sim.eb, lev=lev)
+                            eb=_whole_eb(parent_sim), lev=lev)
 
     def _build_patch(self, parent_idx: int, box: Box) -> PatchSim:
         """A PatchSim over the parent-cell box [lo, hi) of

@@ -20,7 +20,10 @@ build into incflo_torch/_build/ at their first use.  Given a SlabMesh
 runs `run` on its x slab of any deck, 2D or 3D, one level or either AMR
 driver (every rank picks the same patch mode and builds the same tree):
 each writes its own checkpoint shards, and rank 0 alone prints, writes
-the plotfiles and the whole levels of a checkpoint.
+the plotfiles and the whole levels of a checkpoint.  A level that does
+not split over the ranks is held whole on every rank
+(parallel/mesh.py), and rank 0 writes its checkpoint whole, which any
+rank count reads back.
 """
 
 from __future__ import annotations
@@ -151,14 +154,20 @@ def run(argv, mesh=None):
         sim = Simulation(cfg, device=device, mesh=mesh)
 
         def write_plot(path, s):
-            io.write_plotfile(path, s, cfg, sim)
+            if sim.mesh is not None or lead:
+                io.write_plotfile(path, s, cfg, sim)
     driver = sim if amr is None else amr
+    # the one level's (the dense driver's fine level's) mesh: None where
+    # it is held whole on every rank
+    level_mesh = sim.mesh
     if not patches:
         def write_chk(path, s):
-            io.write_checkpoint(path, s, io_cfg, mesh)
+            if level_mesh is not None or lead:
+                io.write_checkpoint(path, s, io_cfg, level_mesh)
 
         def read_chk(path):
-            s = io.read_checkpoint(path, io_cfg, sim.dtype, device, mesh)
+            s = io.read_checkpoint(path, io_cfg, sim.dtype, device,
+                                   level_mesh)
             if amr is not None:
                 amr.regrid(s)
             return s
@@ -274,13 +283,13 @@ def run(argv, mesh=None):
         if cfg.verbose > 0:
             say(f"Step {step} : t = {t:.12g}, dt = {dt:.12g} "
                 f"[{wallclock.time()-step_t0:.3f}s]")
-        if cfg.verbose > 1:
-            diagnostics.print_max_values(s.level, t, mesh)
+        if cfg.verbose > 1 and (level_mesh is not None or lead):
+            diagnostics.print_max_values(s.level, t, level_mesh)
         if cfg.KE_int > 0 and step % cfg.KE_int == 0:
-            ke = diagnostics.kinetic_energy(s.level, sim.grid, mesh)
+            ke = diagnostics.kinetic_energy(s.level, sim.grid, level_mesh)
             say(f"Time, Kinetic Energy: {t}, {ke}")
         if cfg.steady_state and diagnostics.steady_state_reached(
-                prev_level, s.level, dt, cfg.steady_state_tol, mesh):
+                prev_level, s.level, dt, cfg.steady_state_tol, level_mesh):
             say(f"Steady state reached at step {step}, t = {t}")
             break
 

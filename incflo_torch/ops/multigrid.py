@@ -43,7 +43,8 @@ side: _pad, _side_bc; a nodal slab there holds node nx on the last rank,
 _nodes_unique), and its norms, means and CG dots are global.  A constant-coefficient solver is the whole level's
 direct solver cut to the slab (CellSolver.shard, NodalSolver.shard;
 spectral.shard_symbol).  Multigrid runs on the slab (a solver built with
-mesh=, or shard() of one without a direct solve): the hierarchy's depth
+mesh=, or shard() of one without a direct solve or with the rfftn one,
+which does not cut to a slab): the hierarchy's depth
 comes from the whole level's extents, so it is the one rank's hierarchy;
 its levels are slabs, coarsened rank by rank, as long as a level's slab
 is even (its first x index keeps the global colour parity) and at least
@@ -739,7 +740,8 @@ class CellSolver:
         """This whole-level solver cut to the rank's x slab: the fine
         level's coefficients on the slab's cells and faces (nxl + 1 x
         faces).  A direct solver keeps the symbol's x transforms on the
-        slab's columns; any other runs multigrid on the slab."""
+        slab's columns; any other, and one whose symbol is the rfftn form
+        (spectral.shard_symbol), runs multigrid on the slab."""
         from incflo_torch.ops import spectral
         lev = self.levels[0]
         nxl = (lev.bcoef[0].shape[0] - 1) // mesh.size   # nx + 1 x faces
@@ -748,7 +750,9 @@ class CellSolver:
         acoef, ebc = rows(lev.acoef, nxl), rows(lev.ebc, nxl)
         bcoef = tuple(rows(b, nxl + (1 if ax == 0 else 0))
                       for ax, b in enumerate(lev.bcoef))
-        if self.symbol is None:
+        sym = None if self.symbol is None \
+            else spectral.shard_symbol(self.symbol, mesh)
+        if sym is None:
             return CellSolver(lev.dx, lev.bc_lo, lev.bc_hi, lev.alpha,
                               lev.beta, acoef, bcoef, nu1=self.nu1,
                               nu2=self.nu2, nu_bottom=self.nu_bottom,
@@ -759,7 +763,7 @@ class CellSolver:
         out.diags = [cell_diag(local)]
         out._coefs = None
         out._ext = {}
-        out.symbol = spectral.shard_symbol(self.symbol, mesh)
+        out.symbol = sym
         return out
 
     def with_beta(self, beta):
@@ -1301,11 +1305,14 @@ class NodalSolver:
         """This whole-level solver cut to the rank's x slab (its nxl
         unique x nodes): a direct solver keeps the symbol's x transforms
         on the slab's columns (sigma padded by the neighbours' cells);
-        any other runs multigrid on the slab."""
+        any other, and one whose symbol is the rfftn form, runs
+        multigrid on the slab."""
         from incflo_torch.ops import spectral
         lev = self.levels[0]
         nxl = lev.cells[0] // mesh.size
-        if self.symbol is None:
+        sym = None if self.symbol is None \
+            else spectral.shard_symbol(self.symbol, mesh)
+        if sym is None:
             return NodalSolver(lev.dx, lev.periodic, lev.bc_lo, lev.bc_hi,
                                self.sigmas[0].narrow(0, mesh.rank * nxl, nxl),
                                nu1=self.nu1, nu2=self.nu2,
@@ -1318,7 +1325,7 @@ class NodalSolver:
         out.levels = [local]
         out.sigmas = out.diags = out.dinvs = None
         out._ext = {}
-        out.symbol = spectral.shard_symbol(self.symbol, mesh)
+        out.symbol = sym
         return out
 
     # -- smoother and V-cycle ------------------------------------------

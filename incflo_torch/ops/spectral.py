@@ -25,7 +25,9 @@ division stay local, and the zero mode of a singular solve lies on rank
 Fourier basis of a periodic x, the eigenvectors of a walled or
 inflow/outflow x (a non-symmetric Dirichlet row's included), whose
 columns a rank takes are its cells' positions and modes.  The rfftn
-form raises under a mesh (ROADMAP A14).
+form has no sharded symbol: under a mesh its level's solves run
+V-cycles on the slab, as incflo_tpu's spectral.usable makes them run
+under its mesh (incflo_tpu/ops/spectral.py:57-71).
 
 Matrix products run in full float32 or float64: incflo_torch sets
 `torch.backends.cuda.matmul.allow_tf32 = False` and float32 matmul
@@ -302,15 +304,14 @@ def _contract(h, m, axis):
     return torch.movedim(out, -1, axis)
 
 
-def shard_symbol(sym: Symbol, mesh) -> Symbol:
+def shard_symbol(sym: Symbol, mesh) -> Optional[Symbol]:
     """The whole level's symbol cut to the rank's x slab: the slab's rows
     of the eigenvalues and of the zero-mode mask, and the slab's columns
     of the x transforms (a position j of the forward transform, a mode k
-    of the inverse)."""
+    of the inverse).  None for the rfftn form, which does not cut: the
+    caller solves by V-cycles on the slab."""
     if sym.fwd is None:
-        raise NotImplementedError(
-            "the rfftn direct solve (axes above 256 cells) on a level split "
-            "over a mesh is not ported yet (ROADMAP A14)")
+        return None
     nxl = sym.cells[0] // mesh.size
     x0 = mesh.rank * nxl
     cols = lambda m: m.narrow(1, x0, nxl).contiguous()

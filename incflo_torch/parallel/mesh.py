@@ -14,6 +14,16 @@ outflow has nx + 1 x nodes, and the last rank also holds node nx (the
 owner layout: every node has one owner, so dots, norms and means count
 each node once).
 
+A level whose nx does not split into R equal slabs at least HALO cells
+wide (SlabMesh.splits) is held whole on every rank: the Simulation on it
+takes no mesh, so its solves, reductions and kernels run as on one
+device, the same bits on every rank, with no exchange.  It is
+incflo_tpu's replicated axis (incflo_tpu/parallel/mesh.py:44-57), which
+incflo_tpu takes only where an axis does not divide its mesh: it shards
+down to one cell a device, but the port's Godunov halo needs HALO
+cells.  The drivers above a level
+keep the run's mesh, to say which rank writes its files.
+
 The level's x is periodic or ends in boundaries on both sides.  Where
 it ends in boundaries, the first rank's low side and the last rank's
 high side are the level's own x faces (SlabGrid.x_edge, SlabMesh.ends):
@@ -73,7 +83,7 @@ from incflo_torch.grid import Grid
 
 # x halo rows of a slab for the Godunov chain (pallas_godunov.HALO; kHalo
 # in csrc/godunov.cu): the CTU chain's reach, and so the narrowest slab a
-# mesh accepts
+# mesh splits a level into
 HALO = 4
 _KINDS = ("halo", "all_reduce", "reduce_scatter", "all_gather", "gather")
 _HEADER_TAG = 1 << 20
@@ -196,22 +206,23 @@ class SlabMesh:
     def reset_stats(self) -> None:
         self.stats = {k: {"calls": 0, "bytes": 0, "s": 0.0} for k in _KINDS}
 
+    def splits(self, grid: Grid) -> bool:
+        """Whether `grid`'s level splits into R equal x slabs at least
+        HALO cells wide.  A level that does not is held whole on every
+        rank (the module docstring): its Simulation takes no mesh."""
+        nx = grid.n_cell[0]
+        return nx % self.size == 0 and nx // self.size >= HALO
+
     def local_grid(self, grid: Grid) -> SlabGrid:
-        """This rank's slab of `grid`; raises where the level does not
-        split into equal x slabs at least HALO cells wide."""
+        """This rank's slab of `grid`, a level that splits (splits)."""
         if grid.ndim not in (2, 3):
             raise ValueError(f"an x-slab mesh splits 2D and 3D levels, "
                              f"not {grid.ndim}D")
+        if not self.splits(grid):
+            raise ValueError(f"nx = {grid.n_cell[0]} does not split into "
+                             f"{self.size} slabs of at least {HALO} cells")
         nx = grid.n_cell[0]
-        if nx % self.size:
-            raise NotImplementedError(
-                f"nx = {nx} does not split into {self.size} equal x slabs "
-                f"(uneven slabs: ROADMAP A14)")
         nxl = nx // self.size
-        if nxl < HALO:
-            raise NotImplementedError(
-                f"x slabs of {nxl} cells are narrower than the {HALO}-cell "
-                f"Godunov halo (narrow slabs: ROADMAP A14)")
         return SlabGrid(n_cell=(nxl,) + tuple(grid.n_cell[1:]),
                         prob_lo=grid.prob_lo, prob_hi=grid.prob_hi,
                         periodic=grid.periodic, domain_lo=grid.domain_lo,

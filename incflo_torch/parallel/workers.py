@@ -147,8 +147,10 @@ ITER_KINDS = ("cell_iters", "nodal_cycles", "tensor_cg_iters")
 def steps(mesh, deck, nsteps, start=None, perturb=None):
     """The deck's init (or the whole-level state `start`, carried over
     rank by rank; perturb: a whole-level array added to the velocity
-    after init) and `nsteps` steps on this rank's slab.  Returns the
-    whole-level states after init and after each step (rank 0 only), the
+    after init) and `nsteps` steps on this rank's slab (or on the whole
+    level, where it does not split and is held whole on every rank).
+    Returns the whole-level states after init and after each step (rank
+    0 only), whether the level is split, the
     tensor CG's iterations in each step, this rank's tallies of each
     step (ITER_KINDS; the first entry init's), its solver tallies,
     Godunov and smoother launches, the 27-point (9-point) EB nodal and
@@ -165,17 +167,18 @@ def steps(mesh, deck, nsteps, start=None, perturb=None):
     sk.reset_launches()
     mesh.reset_stats()
     s = sim.init_state() if start is None else state.sim_from_numpy(
-        start, mesh.device, sim.dtype, mesh)
+        start, mesh.device, sim.dtype, sim.mesh)
     if perturb is not None:
-        s = _perturbed(s, mesh, perturb)
-    states = [state.sim_to_numpy(s, mesh)]
+        s = _perturbed(s, sim.mesh, perturb)
+    states = [state.sim_to_numpy(s, sim.mesh)]
     tallies = [{k: mg.COUNTS[k] for k in ITER_KINDS}]
     for _ in range(nsteps):
         before = dict(mg.COUNTS)
         s = sim.advance(s)
         tallies.append({k: mg.COUNTS[k] - before[k] for k in ITER_KINDS})
-        states.append(state.sim_to_numpy(s, mesh))
+        states.append(state.sim_to_numpy(s, sim.mesh))
     return {"states": states if mesh.rank == 0 else None,
+            "split": sim.mesh is not None,
             "cg_trips": [t["tensor_cg_iters"] for t in tallies[1:]],
             "tallies": tallies, "counts": dict(mg.COUNTS),
             "launches": dict(gk.LAUNCHES),
@@ -260,10 +263,11 @@ def amr_steps(mesh, deck, nsteps, dense=False, moved=None):
 
     def record():
         if dense:
-            masks = [None if m is None else
-                     mesh.gather(m.to(torch.uint8)).bool().cpu().numpy()
+            fine = amr.sim.mesh
+            masks = [None if m is None else m.cpu().numpy() if fine is None
+                     else fine.gather(m.to(torch.uint8)).bool().cpu().numpy()
                      for m in amr.masks]
-            return None, [state.sim_to_numpy(s, mesh), masks]
+            return None, [state.sim_to_numpy(s, fine), masks]
         return amr.tree_meta(), state.patch_to_numpy(amr, s)
 
     def split():
@@ -409,11 +413,13 @@ def counted_steps(mesh, deck, nsteps, count=(), **kw):
 
 
 def _perturbed(s, mesh, perturb):
-    """s with this rank's rows of the whole-level array `perturb`, in the
-    state's dtype, added to its velocity."""
+    """s with this rank's rows of the whole-level array `perturb` (all of
+    them where mesh is None: a level held whole), in the state's dtype,
+    added to its velocity."""
     v = s.level.velocity
-    return s._replace(level=s.level._replace(
-        velocity=v + _rows(mesh, perturb).to(v.dtype)))
+    p = torch.as_tensor(perturb).to(v.device) if mesh is None \
+        else _rows(mesh, perturb)
+    return s._replace(level=s.level._replace(velocity=v + p.to(v.dtype)))
 
 
 def _rows(mesh, a, extra=0):

@@ -70,9 +70,14 @@ slab's windows, the 27-point (9-point in 2D) EB nodal stencils are built
 whole on every rank and cut to the slab (EBNodalSolver.shard), the
 octant lattice of a variable-density deck is a 2 nxl-row slab of a
 NodalSolver on the mesh.  The AMR drivers split their levels over a mesh
-too (amr_patch.py, amr.py).  Uneven and narrow slabs and the rfftn
-direct solve raise naming ROADMAP A14 where the mesh and the solvers
-meet them (parallel/mesh.py, ops/spectral.py).
+too (amr_patch.py, amr.py).  A level whose nx does not split into equal
+slabs at least parallel.mesh.HALO cells wide is held whole on every rank
+(SlabMesh.splits says which: the Simulation takes no mesh for it and
+runs as on one device, with no exchange), as incflo_tpu
+replicates an axis that does not divide its mesh.  Under a mesh a solve
+whose direct form is the rfftn one (an axis above 256 cells) runs
+V-cycles on the slab, as incflo_tpu's spectral.usable makes it
+(ops/spectral.py).
 
 Scope of this port: 2D or 3D, with or without embedded boundaries:
 Godunov or MOL advection, each axis periodic or ending in a slip or
@@ -94,8 +99,11 @@ one-dt hierarchy and composite sync.  incflo_tpu's _ctx / _swap_ctx
 (:938-953) only pass prebuilt solvers into jit as arguments; the port
 has no jit and keeps them as attributes.  A patch split over a mesh
 passes it here like any level; one held whole on every rank passes none.
-AMR with embedded boundaries raises NotImplementedError naming ROADMAP
-A13b, with or without a mesh.
+With embedded boundaries a patch builds its own cut-cell geometry on its
+grid (incflo_tpu/simulation.py:40-48), and its nodal projection, whose
+coarse-fine faces take Dirichlet values, takes the vfrac-weighted weak
+form: the exact octant operator has no Dirichlet threading
+(incflo_tpu/simulation.py:518-527).
 """
 
 from __future__ import annotations
@@ -121,15 +129,6 @@ def has_eb(cfg: IncfloConfig) -> bool:
     return cfg.eb_geometry not in ("", "all_regular", "null")
 
 
-def _unsupported(cfg: IncfloConfig):
-    """(reason, ROADMAP item) for a deck outside this port, else None:
-    AMR with embedded boundaries needs the vfrac nodal path with
-    coarse-fine Dirichlet values (incflo_tpu/simulation.py:518-527)."""
-    if cfg.max_level > 0 and has_eb(cfg):
-        return ("AMR with embedded boundaries", "A13b")
-    return None
-
-
 # the weight of the old-time tracer Laplacian in the predictor's tracer
 # update, by diffusion type (incflo_tpu/simulation.py:403-405)
 LAP_WEIGHT = {DiffusionType.Explicit: 1.0,
@@ -153,11 +152,6 @@ class Simulation:
         if cfg.grid.ndim not in (2, 3):
             raise ValueError(f"incflo_torch runs 2D and 3D decks, not "
                              f"{cfg.grid.ndim}D")
-        why = _unsupported(cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"incflo_torch does not run {why[0]} yet "
-                f"(ROADMAP {why[1]})")
         if device is None and mesh is not None and torch.cuda.is_available():
             device = f"cuda:{mesh.rank % torch.cuda.device_count()}"
         device = torch.device("cuda" if device is None else device)
@@ -166,9 +160,12 @@ class Simulation:
                                "requested but torch.cuda is not available")
         self.device = device
         self.dtype = getattr(torch, cfg.dtype)
-        self.mesh = mesh
-        # the rank's x slab on a mesh, else the whole level
+        # the rank's x slab on a mesh, else the whole level; a level that
+        # does not split over the mesh is held whole, with no mesh
+        if mesh is not None and not mesh.splits(cfg.grid):
+            mesh = None
         self.grid = cfg.grid if mesh is None else mesh.local_grid(cfg.grid)
+        self.mesh = mesh
         # embedded boundaries: the static cut-cell arrays (eb/ops.py),
         # computed on the host and kept on the device; None where there
         # is no cut cell.  On a mesh every rank builds the whole level's
@@ -612,10 +609,12 @@ class Simulation:
         boundaries one of incflo_tpu's three cut-cell forms
         (simulation.py:519-605): the prebuilt EBNodalSolver of a
         constant-density deck, else the regular NodalSolver on the 2x
-        octant lattice, else (no octant data) the vfrac-weighted
-        operator; covered cells end at zero velocity.  A coarse-fine
-        override (a patch) makes its faces Dirichlet with the values of
-        _nodal_bc_args, solved by V-cycles on an operator built here."""
+        octant lattice, else (no octant data, or Dirichlet values at
+        coarse-fine faces, which the exact operator does not thread) the
+        vfrac-weighted operator; covered cells end at zero velocity.  A
+        coarse-fine override (a patch) makes its faces Dirichlet with the
+        values of _nodal_bc_args, solved by V-cycles on an operator built
+        here."""
         grid = self.grid
         eb = self.eb
         override, dvals = self._nodal_bc_args()
@@ -630,7 +629,7 @@ class Simulation:
             inflow_scale = 1.0 - small_dt_flag
         sigma = scaling / rho_proj
         phi0 = None if incremental else p
-        if eb is not None and eb.vfrac_oct is not None:
+        if eb is not None and eb.vfrac_oct is not None and dvals is None:
             phi, gphi = self._eb_exact_projection(vel_in, inflow_scale,
                                                   sigma, scaling, phi0)
             return self._projected(vel, sigma, gphi, phi, p, gp, incremental)

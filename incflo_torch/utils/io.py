@@ -399,8 +399,9 @@ def write_plotfile_amr(path: str, s: SimState, amrsim, cfg: IncfloConfig):
     mesh = amrsim.mesh
     fine_fields = gather_plot_fields(s, amrsim.fine_cfg, amrsim.sim)
     masks = amrsim.masks
-    if mesh is not None:
-        masks = [None if m is None else mesh.gather(m.to(torch.uint8)).bool()
+    if amrsim.sim.mesh is not None:     # a split fine level's rows
+        masks = [None if m is None
+                 else amrsim.sim.mesh.gather(m.to(torch.uint8)).bool()
                  for m in masks]
     if _rank(mesh) != 0:
         return fine_fields

@@ -13,15 +13,22 @@ mesh: tgv2d 128^2 by MOL and by Godunov, the 2D EB cylinder at 128^2,
 rt2d 64x128 and shear3d 128x128x32 with use_mac_phi_in_godunov and with
 both options, on 2 ranks ("sharded_2d"), and both AMR drivers on the
 mesh: rt_amr (64x64x128 with its 128x128x32 patch) and three small
-float64 AMR cells on 2 ranks ("sharded_amr").  Builds the kernel
-libraries first; the sharded phases share one spawn of the ranks
-(chip_smoke.run_sharded).
+float64 AMR cells on 2 ranks ("sharded_amr"), and the last cells of
+ROADMAP A13b and A14 on 2 ranks: channel_cyl with one refined level at
+64x32x8, a shear3d level held whole, the rfftn deck's V-cycles on the
+slabs ("sharded_amr_eb").  "amr_eb" runs the EB part of chip_smoke's
+AMR phase on one card (its paths deck, the channel_cyl_amr cell, its
+patch levels' smoothers, its CLI restart); it is not a slab phase and
+runs only when named (ALONE).  Builds the kernel libraries first; the
+sharded phases share one spawn of the ranks (chip_smoke.run_sharded).
 
     python scripts/slab_smoke.py                   # every slab phase
     python scripts/slab_smoke.py sharded_xwalls    # that phase alone
     python scripts/slab_smoke.py sharded_eb
     python scripts/slab_smoke.py sharded_2d
     python scripts/slab_smoke.py sharded_amr
+    python scripts/slab_smoke.py sharded_amr_eb
+    python scripts/slab_smoke.py amr_eb            # chip_smoke's 5b, EB
 """
 
 import json
@@ -35,7 +42,9 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 PHASES = ("slab", "sharded_mg", "sharded_xwalls", "sharded_eb",
-          "sharded_2d", "sharded_amr")
+          "sharded_2d", "sharded_amr", "sharded_amr_eb", "amr_eb")
+# the phases that run only when named
+ALONE = ("amr_eb",)
 
 
 def main(argv):
@@ -43,7 +52,7 @@ def main(argv):
     if not torch.cuda.is_available():
         print("slab_smoke: needs a card", file=sys.stderr)
         return 2
-    phases = argv or PHASES
+    phases = argv or [p for p in PHASES if p not in ALONE]
     if any(p not in PHASES for p in phases):
         print(f"slab_smoke: phases are {', '.join(PHASES)}", file=sys.stderr)
         return 2
@@ -63,11 +72,16 @@ def main(argv):
                "sharded_2d": lambda: cs.phase_sharded_2d(incflo_torch,
                                                          torch),
                "sharded_amr": lambda: cs.phase_sharded_amr(incflo_torch,
-                                                           torch)}
+                                                           torch),
+               "sharded_amr_eb": lambda: cs.phase_sharded_amr_eb(
+                   incflo_torch, torch)}
 
     def stamp(what):
         print(f"[time] {what} done at {time.time() - t0:.1f} s", flush=True)
     out = {}
+    if "amr_eb" in phases:
+        out["amr_eb"] = cs.phase_amr(incflo_torch, gk, sk, s2, mg, torch,
+                                     stamp, names=cs.AMR_EB)
     if "slab" in phases:
         out["slab"] = cs.phase_slab_smoothers(sk, mg, torch)
         stamp("slab")

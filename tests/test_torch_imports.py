@@ -1,7 +1,7 @@
 """incflo_torch stands alone: it imports neither JAX nor incflo_tpu, it
-runs on the card unless the CPU is asked for, and decks outside its
-slice raise and name the ROADMAP item that ports them (AMR with
-embedded boundaries A13b, AMR under a mesh A14)."""
+runs on the card unless the CPU is asked for, and it builds every deck
+it once refused naming a ROADMAP item (AMR with embedded boundaries,
+A13b; a level that does not split over a mesh, A14)."""
 
 import ast
 import pathlib
@@ -158,7 +158,8 @@ def test_amr_decks_take_incflo_tpus_patch_mode(config, extra):
     """The same decks with amr.max_level = 1 resolve to the patch mode
     incflo_tpu's choose_patch_mode picks and build that driver on the
     CPU: the patch tree (slab or box) or the dense fine level; an EB
-    deck raises and names ROADMAP A13b."""
+    deck, which once raised naming ROADMAP A13b, builds both, each level
+    with its cut cells."""
     from incflo_tpu import amr_patch as jap
     from incflo_tpu.config import IncfloConfig as JConfig
     from incflo_torch import amr, amr_patch
@@ -168,9 +169,14 @@ def test_amr_decks_take_incflo_tpus_patch_mode(config, extra):
     mode = amr_patch.choose_patch_mode(cfg)
     assert mode == jap.choose_patch_mode(JConfig.from_text(text))
     if config in ("channel_cyl", "poiseuille_cyl_bingham"):
-        for driver in (amr_patch.SlabAMRSimulation, amr.AMRSimulation):
-            with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-                driver(cfg, device="cpu")
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            tree = amr_patch.SlabAMRSimulation(cfg, device="cpu")
+            dense = amr.AMRSimulation(cfg, device="cpu")
+        assert tree.sim0.eb is not None and dense.sim.eb is not None
+        assert dense.sim.grid.n_cell == tuple(2 * n
+                                              for n in cfg.grid.n_cell)
     elif mode in ("slab", "box"):
         import jax.numpy as jnp
         from incflo_tpu import probs as jprobs
@@ -188,24 +194,32 @@ def test_amr_decks_take_incflo_tpus_patch_mode(config, extra):
         assert mode == "slab"
 
 
-def test_amr_under_a_mesh_names_a14(tmp_path):
-    """Both AMR drivers split over a mesh (tests/test_torch_sharded_amr.py);
-    an AMR deck whose base nx does not split into equal slabs over the
-    mesh's ranks raises and names ROADMAP A14 (uneven slabs), in
-    Simulation, in both drivers and in the CLI driver."""
+def test_amr_under_a_mesh_names_a14(tmp_path, monkeypatch):
+    """A deck whose base nx does not split into equal slabs over a
+    mesh's ranks (16 cells on 3), which once raised naming ROADMAP A14,
+    runs with that level held whole on every rank: Simulation drops the
+    mesh and steps bit-equal to one device, both AMR drivers build it
+    whole (parallel/mesh.py, tests/test_torch_sharded_amr_eb.py), and
+    the CLI driver runs it."""
     from incflo_torch import amr, amr_patch, main
     from incflo_torch.parallel.mesh import SlabMesh
     mesh = SlabMesh.__new__(SlabMesh)
     mesh.device, mesh.rank, mesh.size = torch.device("cpu"), 0, 3
     extra = "amr.max_level = 1\n"
-    for driver in (incflo_torch.Simulation, amr_patch.SlabAMRSimulation,
-                   amr.AMRSimulation):
-        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-            driver(_cfg(extra), device="cpu", mesh=mesh)
+    sim = incflo_torch.Simulation(_cfg(extra), device="cpu", mesh=mesh)
+    assert sim.mesh is None and sim.grid == _cfg(extra).grid
+    one = incflo_torch.Simulation(_cfg(extra), device="cpu")
+    a, b = sim.advance(sim.init_state()), one.advance(one.init_state())
+    for f in ("velocity", "p", "gp", "mac_phi"):
+        assert torch.equal(getattr(a.level, f), getattr(b.level, f)), f
+    tree = amr_patch.SlabAMRSimulation(_cfg(extra), device="cpu", mesh=mesh)
+    assert tree.mesh is mesh and tree.sim0.mesh is None
+    dense = amr.AMRSimulation(_cfg(extra), device="cpu", mesh=mesh)
+    assert dense.mesh is mesh and dense.sim.mesh is None
     deck = tmp_path / "inputs"
     deck.write_text(bench._deck("shear3d", 16, "float64")[0] + extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        main.run([str(deck), "max_step=1"], mesh=mesh)
+    monkeypatch.chdir(tmp_path)
+    assert main.run([str(deck), "max_step=1"], mesh=mesh) == 0
 
 
 @pytest.mark.parametrize("config,extra", SLICE_DECKS)

@@ -75,10 +75,13 @@ CLI_ARGS = ["max_step=2", "amr.check_int=2", "amr.plot_int=2",
 # boundaries in 3D since the cut-cell arrays are cut to the slab
 # (tests/test_torch_sharded_eb.py), and the two Godunov options and 2D
 # decks with or without embedded boundaries since the 2D levels and the
-# MAC-phi operator run on the slab (tests/test_torch_sharded_2d.py), and
+# MAC-phi operator run on the slab (tests/test_torch_sharded_2d.py),
 # AMR since both AMR drivers split their levels
-# (tests/test_torch_sharded_amr.py): the IN_SCOPE decks.  AMR with
-# embedded boundaries still raises, naming ROADMAP A13b, not A14
+# (tests/test_torch_sharded_amr.py), and AMR with embedded boundaries,
+# a level that does not split into equal slabs at least 4 cells wide
+# (held whole on every rank) and the rfftn direct solve (V-cycles on the
+# slabs) since the last slice of A13b and A14
+# (tests/test_torch_sharded_amr_eb.py): the IN_SCOPE decks, every one
 X_WALLS = "geometry.is_periodic = 0 1 1\n"
 SCOPE_DECKS = {
     "MOL advection": "incflo.use_godunov = false\nincflo.cfl = 0.5\n",
@@ -101,15 +104,14 @@ SCOPE_DECKS["AMR with embedded boundaries"] = \
 IN_SCOPE = ("MOL advection", "walls on x", "inflow or outflow on x",
             "AMR", "embedded boundaries", "godunov_use_forces_in_trans",
             "use_mac_phi_in_godunov", "2D decks",
-            "2D decks with embedded boundaries")
-# what a deck out of scope names: the ROADMAP item
-ITEM = {"AMR with embedded boundaries": "A13b"}
+            "2D decks with embedded boundaries", "nx % R", "nxl < 4",
+            "rfftn", "AMR with embedded boundaries")
 
 
-# decks of their own: a 2D deck and a 2D deck with embedded boundaries,
-# which the mesh runs (IN_SCOPE: 16 cells along x, slabs of 4 on 4
-# ranks), and a periodic axis above 256 cells, whose direct solves take
-# rfftn and which the mesh still refuses
+# decks of their own: a 2D deck and a 2D deck with embedded boundaries
+# (16 cells along x, slabs of 4 on 4 ranks), and a periodic axis above
+# 256 cells, whose direct solves take rfftn on one device and V-cycles
+# on the slabs under the mesh
 SCOPE_TEXTS = {
     "2D decks": bench._deck("tgv2d", 16, "float64")[0],
     "2D decks with embedded boundaries":
@@ -521,19 +523,15 @@ def test_cli_on_two_ranks_matches_one(two_ranks, io_dirs, tmp_path,
 @pytest.mark.parametrize("deck", ["nx % R", "nxl < 4", *SCOPE_TEXTS,
                                   *SCOPE_DECKS])
 def test_out_of_scope_decks_raise_and_name_the_item(four_ranks, deck):
-    """A deck out of the mesh's scope raises NotImplementedError naming
-    ROADMAP A14 (AMR with embedded boundaries A13b, with or without a
-    mesh) and what it lacks; the IN_SCOPE decks, which it once refused,
-    build over the 4-rank mesh (an AMR deck its patch tree)."""
+    """The decks the mesh once refused, naming ROADMAP A14 (AMR with
+    embedded boundaries A13b) and what they lacked, build over the
+    4-rank mesh: every deck is IN_SCOPE now (an AMR deck its patch tree;
+    18 and 12 cells along x, which do not split into 4 slabs at least 4
+    cells wide, held whole on every rank)."""
+    assert deck in IN_SCOPE
     for res in four_ranks[0]:
         err = res["scope_errors"][deck]
-        if deck in IN_SCOPE:
-            assert err is None, err
-            continue
-        assert err is not None and err[0] == "NotImplementedError", err
-        assert f"ROADMAP {ITEM.get(deck, 'A14')}" in err[1], err
-        if deck not in ("nx % R", "nxl < 4"):
-            assert deck in err[1], err
+        assert err is None, err
 
 
 def test_sharded_simulation_needs_a_card_unless_cpu_is_asked(four_ranks):

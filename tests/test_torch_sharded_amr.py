@@ -236,7 +236,7 @@ def contexts():
 def spawn(io_dir, contexts):
     """One spawn of 2 gloo ranks, started in a thread: every deck's steps
     (workers.amr_steps), the patch contexts, rt2d's per-rank checkpoint
-    with its restarts, the CLI on rt2d, the decks that still raise."""
+    with its restarts, the CLI on rt2d, the decks that once raised."""
     jobs = [(name, "amr_steps", dict(deck=DECKS[name], nsteps=STEPS[name],
                                      dense=name == "dense",
                                      moved=MOVED if name == "box" else None))
@@ -465,17 +465,13 @@ def test_cli_runs_an_amr_deck_on_two_ranks(two_ranks, io_dir, tmp_path,
 
 
 def test_amr_with_eb_on_a_mesh_still_raises(two_ranks):
-    """AMR with embedded boundaries split over the mesh raises naming
-    ROADMAP A13b, from both drivers; the dense driver refuses a base nx
-    that does not split over the ranks naming A14."""
+    """AMR with embedded boundaries split over the mesh, which once
+    raised naming ROADMAP A13b, builds in both drivers, and so does the
+    dense driver on a base nx that does not split over the ranks, which
+    once raised naming A14 (its fine level held whole); they run in
+    tests/test_torch_sharded_amr_eb.py."""
     for res in two_ranks:
         errs = res["scope"]
         for name in ("AMR with embedded boundaries",
-                     "dense AMR with embedded boundaries"):
-            err = errs[name]
-            assert err is not None and err[0] == "NotImplementedError", err
-            assert "ROADMAP A13b" in err[1] and \
-                "AMR with embedded boundaries" in err[1], err
-        err = errs["dense nx % R"]
-        assert err is not None and err[0] == "NotImplementedError", err
-        assert "ROADMAP A14" in err[1], err
+                     "dense AMR with embedded boundaries", "dense nx % R"):
+            assert errs[name] is None, (name, errs[name])

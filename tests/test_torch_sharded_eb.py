@@ -136,6 +136,23 @@ def _whole_rows(a, layout, r, nranks, periodic, axis=0):
     return np.take(a, range(r * nxl, r * nxl + count), axis=axis)
 
 
+def _assert_rows_equal(got, want, what):
+    """got bit-equal to want; else the message names `what` (the case,
+    the rank, the field), the largest absolute difference and its
+    index."""
+    if np.array_equal(got, want):
+        return
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape}, whole level's "
+                             f"rows {want.shape}")
+    diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    diff[np.isnan(got) != np.isnan(want)] = np.inf
+    i = np.unravel_index(int(np.nanargmax(diff)), diff.shape)
+    raise AssertionError(f"{what}: largest absolute difference "
+                         f"{diff[i]!r} at index {i} (rank's {got[i]!r}, "
+                         f"whole level's {want[i]!r})")
+
+
 def check_forms(results, key, name, inputs, decks=DECKS):
     """Every rank's slab arrays and operators bit-equal to the whole
     level's rows (eb_operators on a 1-rank Simulation of decks[name],
@@ -157,9 +174,9 @@ def check_forms(results, key, name, inputs, decks=DECKS):
         got = res[key]
         for k in ("rate", "rate_redistributed", "redistributed", "small",
                   "strainrate"):
-            assert np.array_equal(
-                got[k], _whole_rows(whole[k], "cell", r, nranks, per)), \
-                (key, r, k)
+            _assert_rows_equal(got[k], _whole_rows(whole[k], "cell", r,
+                                                   nranks, per),
+                               (key, f"rank {r}", k))
         assert np.array_equal(got["eta_g1"], _whole_rows(
             whole["eta_g1"], "ghost 1", r, nranks, per)), (key, r)
         for k in ("umac", "fluxes"):

@@ -31,6 +31,8 @@ z with constant density, where the prebuilt cell solvers solve directly
 with walls and the prebuilt nodal operator iterates V-cycles.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -320,12 +322,13 @@ def test_rt_init_matches_reference_profile():
 
 
 def test_unsupported_walled_decks_name_the_roadmap():
-    """Walled decks outside the slice go on raising and name their item:
-    since A8 and A11 the 2D inflow channel and channel_cyl with its
-    cylinder run (tests/test_torch_channel2d.py,
+    """Walled decks once outside the slice, which raised naming their
+    item, build: since A8 and A11 the 2D inflow channel and channel_cyl
+    with its cylinder run (tests/test_torch_channel2d.py,
     tests/test_torch_eb_step.py); since A13 the channel's AMR form builds
-    its base level, and only channel_cyl's (AMR with embedded boundaries)
-    raises, naming A13b."""
+    its base level, and since A13b channel_cyl's (AMR with embedded
+    boundaries) builds its base with its cut cells
+    (tests/test_torch_amr_eb.py)."""
     amr = "amr.max_level = 1\n"
     text = bench._deck("tgv2d", 16, "float64")[0] + """
 geometry.is_periodic = 0 1
@@ -340,6 +343,8 @@ xhi.pressure = 0.
         incflo_torch.IncfloConfig.from_text(text + amr), device="cpu")
     assert sim.cfg.max_level == 1 and sim.grid.n_cell == (16, 16)
     text = bench._deck("channel_cyl", 16, "float64")[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        incflo_torch.Simulation(
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # MOL-EB dispatch
+        sim = incflo_torch.Simulation(
             incflo_torch.IncfloConfig.from_text(text + amr), device="cpu")
+    assert sim.cfg.max_level == 1 and sim.eb is not None

@@ -38,7 +38,6 @@ from incflo_tpu.ops import pallas_guard, pallas_step2d
 from incflo_tpu.simulation import Simulation as JSim
 
 import incflo_torch
-from incflo_torch import simulation as tsim
 from incflo_torch import state as tstate
 from incflo_torch.ops import step2d_kernels as s2
 
@@ -161,12 +160,9 @@ SUPPORTED_CASES = {
 
 
 @pytest.mark.parametrize("case", list(SUPPORTED_CASES))
-def test_supported_matches_pallas_step2d(case, interpret, monkeypatch):
+def test_supported_matches_pallas_step2d(case, interpret):
     deck, n, dtype, extra, want = SUPPORTED_CASES[case]
     text = _text(deck, n, dtype, extra)
-    # decks the port refuses (2D walls, 2D variable density) are built
-    # anyway, so that supported() itself is what answers
-    monkeypatch.setattr(tsim, "_unsupported", lambda cfg: None)
     sim = incflo_torch.Simulation(incflo_torch.IncfloConfig.from_text(text),
                                   device="cpu")
     jsim = JSim(JConfig.from_text(text))
@@ -202,11 +198,10 @@ SCOPE_CASES = {
 
 
 @pytest.mark.parametrize("case", list(SCOPE_CASES))
-def test_fused_step_scope(case, monkeypatch):
+def test_fused_step_scope(case):
     """out_of_scope names why the kernel cannot run a deck; FusedStep
     raises with that reason, and supported() also wants float32."""
     deck, n, dtype, extra, why = SCOPE_CASES[case]
-    monkeypatch.setattr(tsim, "_unsupported", lambda cfg: None)
     sim = incflo_torch.Simulation(
         incflo_torch.IncfloConfig.from_text(_text(deck, n, dtype, extra)),
         device="cpu")
