@@ -95,6 +95,7 @@ from incflo_torch.ops import multigrid as mg
 from incflo_torch.parallel.mesh import mesh_of
 from incflo_torch.simulation import Simulation
 from incflo_torch.state import LevelState, SimState
+from incflo_torch.utils import tracing
 
 BLOCK = 4          # box bounds snap to this many coarse cells
 NG_CTX = 4         # interp ghost depth kept in the context arrays
@@ -1067,10 +1068,11 @@ class SlabAMRSimulation:
 
     def _advance_impl(self, states: List[SimState]) -> List[SimState]:
         # one dt for the whole hierarchy (no subcycling)
-        dt = self.sim0.peek_dt(states[0])
-        for i in range(1, len(self.sims)):
-            self.sims[i].set_context(states[self.parent[i]].level)
-            dt = torch.minimum(dt, self.sims[i].peek_dt(states[i]))
+        with tracing.span("dt"):
+            dt = self.sim0.peek_dt(states[0])
+            for i in range(1, len(self.sims)):
+                self.sims[i].set_context(states[self.parent[i]].level)
+                dt = torch.minimum(dt, self.sims[i].peek_dt(states[i]))
         out = [self.sim0._advance_impl(states[0], dt_force=dt)]
         for i in range(1, len(self.sims)):
             # the new parent state closes the implicit solves; the OLD

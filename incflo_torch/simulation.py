@@ -87,6 +87,12 @@ and diffusion; Newtonian or non-Newtonian fluids (power law, Bingham,
 Herschel-Bulkley, de Souza Mendes-Dutra); explicit, Crank-Nicolson or
 implicit diffusion.
 
+Phases: with utils/tracing.SPANS on, the step records a span for each of
+its phases (tracing.PHASES: dt, forces, predict, mac, advect, diffuse,
+nodal; MOL's corrector a second set), and __init__ one for the build of
+the constant-density solvers (static_solvers); off, each is one test.
+The fused step records none.
+
 AMR: a deck with amr.max_level > 0 builds its base level here, as
 incflo_tpu's does; the drivers are amr.py (dense fine level) and
 amr_patch.py (patch tree).  A patch (amr_patch.PatchSim) overrides the
@@ -122,6 +128,7 @@ from incflo_torch.ops import multigrid as mg
 from incflo_torch.ops import rheology
 from incflo_torch.ops.stencil import inner
 from incflo_torch.state import LevelState, SimState
+from incflo_torch.utils import tracing
 
 
 def has_eb(cfg: IncfloConfig) -> bool:
@@ -223,10 +230,11 @@ class Simulation:
         self._mac_solver = self._nodal_hat = self._diff_proto = None
         self._nodal_eb_hat = None
         if self.PREBUILD and cfg.constant_density:
-            if self.eb is None:
-                self._build_static_solvers()
-            else:
-                self._build_static_eb_solvers(eb_whole)
+            with tracing.span("static_solvers"):
+                if self.eb is None:
+                    self._build_static_solvers()
+                else:
+                    self._build_static_eb_solvers(eb_whole)
 
     # ------------------------------------------------------------------
     def _full(self, shape, val):
@@ -496,57 +504,61 @@ class Simulation:
         cfg = self.cfg
         grid = self.grid
         ng = cfg.nghost_state()
-        vel_g = self.grow_vel(vel, ng)
-        rho_g = self.grow_rho(rho, ng)
         mac_phi_in = cfg.use_mac_phi_in_godunov
-        vf_g = self._vel_forces_g(rho, tra, gp, divtau_o,
-                                  include_gp=not mac_phi_in)
+        with tracing.span("predict"):
+            vel_g = self.grow_vel(vel, ng)
+            rho_g = self.grow_rho(rho, ng)
+            vf_g = self._vel_forces_g(rho, tra, gp, divtau_o,
+                                      include_gp=not mac_phi_in)
 
-        rho_g1 = inner(rho_g, ng - 1, grid.ndim)
-        beta = mac_projection.inv_rho_on_faces(rho_g1, grid)
+            rho_g1 = inner(rho_g, ng - 1, grid.ndim)
+            beta = mac_projection.inv_rho_on_faces(rho_g1, grid)
 
-        gmacphi, phi0 = None, mac_phi0
-        if mac_phi_in:
-            # mac_phi is stored pressure-like (2 phi / dt); the fluxes of
-            # the MAC operator are (1/rho) grad(mac_phi) on the faces (on
-            # a slab the x pads from the neighbouring ranks)
-            bc_lo, bc_hi = mac_projection.projection_solver_bc(cfg.bc_kind,
-                                                               grid)
-            lev0 = mg.CellLevel(grid.dx, tuple(bc_lo), tuple(bc_hi), 0.0,
-                                1.0, None, tuple(beta), mesh=self.mesh)
-            gmacphi = [-f for f in mg.cell_fluxes(mac_phi0, lev0)]
-            phi0 = mac_phi0 * (0.5 * dt)
-        umac = self.godunov.predict(vel_g, vf_g, dt, ng, self.vel_bcrec,
-                                    gmacphi=gmacphi)
-        cf = self._mac_bc_args()
-        umac, mac_phi = mac_projection.project_mac_velocities(
-            umac, beta, grid, cfg.bc_kind, phi0=phi0,
-            rtol=cfg.mac_mg_rtol, atol=cfg.mac_mg_atol,
-            maxiter=cfg.mac_mg_maxiter,
-            prebuilt_solver=None if cf else self._mac_solver,
-            direct=False, **cf)
-        if mac_phi_in:
-            mac_phi = mac_phi * (2.0 / dt)
-            vf_g = self._vel_forces_g(rho, tra, gp, divtau_o)
-        conv_u = self.godunov.advect(vel_g, umac, vf_g, dt, ng,
-                                     self.vel_bcrec, [0] * grid.ndim, True)
-        if cfg.constant_density:
-            conv_r = torch.zeros_like(rho)
-        else:
-            conv_r = self.godunov.advect(rho_g[..., None], umac, None, dt,
-                                         ng, self.den_bcrec, [1],
-                                         False)[..., 0]
-        if cfg.advect_tracer:
-            tf = self.compute_tra_forces(rho)
-            if cfg.godunov_include_diff_in_forcing and laps_o is not None:
-                tf = tf + laps_o
-            tf_g = self.grow_force(tf)
-            rhotrac = rho_g[..., None] * self.grow_tra(tra, ng)
-            conv_t = self.godunov.advect(rhotrac, umac, tf_g, dt, ng,
-                                         self.tra_bcrec, [1] * cfg.ntrac,
-                                         False)
-        else:
-            conv_t = torch.zeros_like(tra)
+            gmacphi, phi0 = None, mac_phi0
+            if mac_phi_in:
+                # mac_phi is stored pressure-like (2 phi / dt); the fluxes
+                # of the MAC operator are (1/rho) grad(mac_phi) on the
+                # faces (on a slab the x pads from the neighbouring ranks)
+                bc_lo, bc_hi = mac_projection.projection_solver_bc(
+                    cfg.bc_kind, grid)
+                lev0 = mg.CellLevel(grid.dx, tuple(bc_lo), tuple(bc_hi), 0.0,
+                                    1.0, None, tuple(beta), mesh=self.mesh)
+                gmacphi = [-f for f in mg.cell_fluxes(mac_phi0, lev0)]
+                phi0 = mac_phi0 * (0.5 * dt)
+            umac = self.godunov.predict(vel_g, vf_g, dt, ng, self.vel_bcrec,
+                                        gmacphi=gmacphi)
+        with tracing.span("mac"):
+            cf = self._mac_bc_args()
+            umac, mac_phi = mac_projection.project_mac_velocities(
+                umac, beta, grid, cfg.bc_kind, phi0=phi0,
+                rtol=cfg.mac_mg_rtol, atol=cfg.mac_mg_atol,
+                maxiter=cfg.mac_mg_maxiter,
+                prebuilt_solver=None if cf else self._mac_solver,
+                direct=False, **cf)
+        with tracing.span("advect"):
+            if mac_phi_in:
+                mac_phi = mac_phi * (2.0 / dt)
+                vf_g = self._vel_forces_g(rho, tra, gp, divtau_o)
+            conv_u = self.godunov.advect(vel_g, umac, vf_g, dt, ng,
+                                         self.vel_bcrec, [0] * grid.ndim,
+                                         True)
+            if cfg.constant_density:
+                conv_r = torch.zeros_like(rho)
+            else:
+                conv_r = self.godunov.advect(rho_g[..., None], umac, None,
+                                             dt, ng, self.den_bcrec, [1],
+                                             False)[..., 0]
+            if cfg.advect_tracer:
+                tf = self.compute_tra_forces(rho)
+                if cfg.godunov_include_diff_in_forcing and laps_o is not None:
+                    tf = tf + laps_o
+                tf_g = self.grow_force(tf)
+                rhotrac = rho_g[..., None] * self.grow_tra(tra, ng)
+                conv_t = self.godunov.advect(rhotrac, umac, tf_g, dt, ng,
+                                             self.tra_bcrec,
+                                             [1] * cfg.ntrac, False)
+            else:
+                conv_t = torch.zeros_like(tra)
         return conv_u, conv_r, conv_t, mac_phi
 
     def convective_term_mol(self, vel, rho, tra, mac_phi0):
@@ -560,24 +572,28 @@ class Simulation:
         grid = self.grid
         eb = self.eb
         ng = cfg.nghost_state()
-        vel_g = self.grow_vel(vel, ng)
-        rho_g = self.grow_rho(rho, ng)
         if eb is not None:
             from incflo_torch.eb import mol as ebmol
             from incflo_torch.eb import ops as ebops
-            umac = ebmol.predict_vels_on_faces_eb(vel_g, grid, ng,
-                                                  self.vel_bcrec, eb)
-        else:
-            umac = mol.predict_vels_on_faces(vel_g, grid, ng, self.vel_bcrec)
-        beta = mac_projection.inv_rho_on_faces(inner(rho_g, ng - 1, grid.ndim),
-                                               grid)
-        cf = self._mac_bc_args()
-        umac, mac_phi = mac_projection.project_mac_velocities(
-            umac, beta, grid, cfg.bc_kind, phi0=mac_phi0,
-            rtol=cfg.mac_mg_rtol, atol=cfg.mac_mg_atol,
-            maxiter=cfg.mac_mg_maxiter,
-            prebuilt_solver=None if cf else self._mac_solver,
-            direct=False, eb=eb, **cf)
+        with tracing.span("predict"):
+            vel_g = self.grow_vel(vel, ng)
+            rho_g = self.grow_rho(rho, ng)
+            if eb is not None:
+                umac = ebmol.predict_vels_on_faces_eb(vel_g, grid, ng,
+                                                      self.vel_bcrec, eb)
+            else:
+                umac = mol.predict_vels_on_faces(vel_g, grid, ng,
+                                                 self.vel_bcrec)
+            beta = mac_projection.inv_rho_on_faces(
+                inner(rho_g, ng - 1, grid.ndim), grid)
+        with tracing.span("mac"):
+            cf = self._mac_bc_args()
+            umac, mac_phi = mac_projection.project_mac_velocities(
+                umac, beta, grid, cfg.bc_kind, phi0=mac_phi0,
+                rtol=cfg.mac_mg_rtol, atol=cfg.mac_mg_atol,
+                maxiter=cfg.mac_mg_maxiter,
+                prebuilt_solver=None if cf else self._mac_solver,
+                direct=False, eb=eb, **cf)
 
         def rate(q_g, bcrec):
             if eb is None:
@@ -588,16 +604,17 @@ class Simulation:
             return ebops.redistribute(
                 ebops.eb_convective_rate(fluxes, grid, eb), grid, eb)
 
-        conv_u = rate(vel_g, self.vel_bcrec)
-        if cfg.constant_density:
-            conv_r = torch.zeros_like(rho)
-        else:
-            conv_r = rate(rho_g[..., None], self.den_bcrec)[..., 0]
-        if cfg.advect_tracer:
-            conv_t = rate(rho_g[..., None] * self.grow_tra(tra, ng),
-                          self.tra_bcrec)
-        else:
-            conv_t = torch.zeros_like(tra)
+        with tracing.span("advect"):
+            conv_u = rate(vel_g, self.vel_bcrec)
+            if cfg.constant_density:
+                conv_r = torch.zeros_like(rho)
+            else:
+                conv_r = rate(rho_g[..., None], self.den_bcrec)[..., 0]
+            if cfg.advect_tracer:
+                conv_t = rate(rho_g[..., None] * self.grow_tra(tra, ng),
+                              self.tra_bcrec)
+            else:
+                conv_t = torch.zeros_like(tra)
         return conv_u, conv_r, conv_t, mac_phi, umac
 
     # ------------------------------------------------------------------
@@ -896,21 +913,22 @@ class Simulation:
         cn = cfg.diff_type == DiffusionType.Crank_Nicolson
         explicit = cfg.diff_type == DiffusionType.Explicit
 
-        vel_g = self.grow_vel(vel_o, ng)
-        eta_g1 = self._viscosity(vel_g, ng)
-        eta_faces = diffusion.eta_to_faces(eta_g1, grid, eb=self.eb)
+        with tracing.span("forces"):
+            vel_g = self.grow_vel(vel_o, ng)
+            eta_g1 = self._viscosity(vel_g, ng)
+            eta_faces = diffusion.eta_to_faces(eta_g1, grid, eb=self.eb)
 
-        divtau_o = None
-        if cfg.need_divtau() or cfg.use_tensor_correction:
-            divtau_o = diffusion.compute_divtau(vel_o, vel_g, rho_o,
-                                                eta_faces, eta_g1, cfg,
-                                                grid, ng, eb=self.eb)
-        laps_o = None
-        if cfg.advect_tracer:
-            tra_eta_faces = self._tracer_eta_faces()
-            if cfg.need_divtau():
-                laps_o = diffusion.compute_laps(tra_o, tra_eta_faces, cfg,
-                                                grid, eb=self.eb)
+            divtau_o = None
+            if cfg.need_divtau() or cfg.use_tensor_correction:
+                divtau_o = diffusion.compute_divtau(vel_o, vel_g, rho_o,
+                                                    eta_faces, eta_g1, cfg,
+                                                    grid, ng, eb=self.eb)
+            laps_o = None
+            if cfg.advect_tracer:
+                tra_eta_faces = self._tracer_eta_faces()
+                if cfg.need_divtau():
+                    laps_o = diffusion.compute_laps(tra_o, tra_eta_faces,
+                                                    cfg, grid, eb=self.eb)
         if cfg.use_godunov:
             conv_u, conv_r, conv_t, mac_phi = self.convective_term_godunov(
                 vel_o, rho_o, tra_o, old.mac_phi, old.gp, divtau_o, laps_o,
@@ -919,46 +937,50 @@ class Simulation:
             conv_u, conv_r, conv_t, mac_phi, umac = self.convective_term_mol(
                 vel_o, rho_o, tra_o, old.mac_phi)
 
-        # density update + half-time density
-        if cfg.constant_density:
-            rho_new, rho_nph = rho_o, rho_o
-        else:
-            rho_new = rho_o + dt * conv_r
-            rho_nph = 0.5 * (rho_o + rho_new)
+        with tracing.span("diffuse"):
+            # density update + half-time density
+            if cfg.constant_density:
+                rho_new, rho_nph = rho_o, rho_o
+            else:
+                rho_new = rho_o + dt * conv_r
+                rho_nph = 0.5 * (rho_o + rho_new)
 
-        # tracer update (for rho*s; then divide by rho_new)
-        tra_new = tra_o
-        if cfg.advect_tracer:
-            lap_w = LAP_WEIGHT[cfg.diff_type]
-            rhs = rho_o[..., None] * tra_o + dt * (
-                conv_t + self.compute_tra_forces(rho_nph))
-            if lap_w != 0.0 and laps_o is not None:
-                rhs = rhs + dt * lap_w * laps_o
-            tra_new = rhs / rho_new[..., None]
+            # tracer update (for rho*s; then divide by rho_new)
+            tra_new = tra_o
+            if cfg.advect_tracer:
+                lap_w = LAP_WEIGHT[cfg.diff_type]
+                rhs = rho_o[..., None] * tra_o + dt * (
+                    conv_t + self.compute_tra_forces(rho_nph))
+                if lap_w != 0.0 and laps_o is not None:
+                    rhs = rhs + dt * lap_w * laps_o
+                tra_new = rhs / rho_new[..., None]
+                if not explicit:
+                    tra_new = self._diffuse_tra(tra_new, rho_new,
+                                                tra_eta_faces, dt)
+
+            # velocity update
+            vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, old.gp)
+            dv = conv_u + vel_f
+            if explicit:
+                dv = dv + divtau_o
+            elif cn:
+                dv = dv + 0.5 * divtau_o
+            elif cfg.use_tensor_correction:
+                dv = dv + divtau_o   # difference of tensor and scalar divtau
+            vel_new = vel_o + dt * dv
             if not explicit:
-                tra_new = self._diffuse_tra(tra_new, rho_new, tra_eta_faces,
-                                            dt)
+                vel_new = self._diffuse_vel(vel_new, rho_new, eta_faces,
+                                            eta_g1, self._dt_diff(dt),
+                                            fixed_trips, cg)
 
-        # velocity update
-        vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, old.gp)
-        dv = conv_u + vel_f
-        if explicit:
-            dv = dv + divtau_o
-        elif cn:
-            dv = dv + 0.5 * divtau_o
-        elif cfg.use_tensor_correction:
-            dv = dv + divtau_o   # difference of tensor and scalar divtau
-        vel_new = vel_o + dt * dv
-        if not explicit:
-            vel_new = self._diffuse_vel(vel_new, rho_new, eta_faces, eta_g1,
-                                        self._dt_diff(dt), fixed_trips, cg)
-
-        vel_new, p_new, gp_new = self.apply_projection(
-            vel_new, vel_o, rho_nph, old.gp, old.p, dt, incremental,
-            small_dt_flag)
-        if self.eb is not None:
-            from incflo_torch.eb import ops as ebops
-            vel_new = ebops.correct_small_cells(vel_new, umac, grid, self.eb)
+        with tracing.span("nodal"):
+            vel_new, p_new, gp_new = self.apply_projection(
+                vel_new, vel_o, rho_nph, old.gp, old.p, dt, incremental,
+                small_dt_flag)
+            if self.eb is not None:
+                from incflo_torch.eb import ops as ebops
+                vel_new = ebops.correct_small_cells(vel_new, umac, grid,
+                                                    self.eb)
         new = LevelState(velocity=vel_new, density=rho_new, tracer=tra_new,
                          gp=gp_new, p=p_new, mac_phi=mac_phi)
         return new, dict(conv_u=conv_u, conv_r=conv_r, conv_t=conv_t,
@@ -983,60 +1005,65 @@ class Simulation:
         conv_u, conv_r, conv_t, mac_phi, umac = self.convective_term_mol(
             star.velocity, star.density, star.tracer, star.mac_phi)
 
-        vel_g = self.grow_vel(star.velocity, ng)
-        eta_g1 = self._viscosity(vel_g, ng)
-        eta_faces = diffusion.eta_to_faces(eta_g1, grid, eb=self.eb)
-        divtau = None
-        if explicit or cfg.use_tensor_correction:
-            divtau = diffusion.compute_divtau(star.velocity, vel_g,
-                                              star.density, eta_faces,
-                                              eta_g1, cfg, grid, ng,
-                                              eb=self.eb)
-        tra_eta_faces = self._tracer_eta_faces()
-        laps = None
-        if cfg.advect_tracer and explicit:
-            laps = diffusion.compute_laps(star.tracer, tra_eta_faces, cfg,
-                                          grid, eb=self.eb)
+        with tracing.span("forces"):
+            vel_g = self.grow_vel(star.velocity, ng)
+            eta_g1 = self._viscosity(vel_g, ng)
+            eta_faces = diffusion.eta_to_faces(eta_g1, grid, eb=self.eb)
+            divtau = None
+            if explicit or cfg.use_tensor_correction:
+                divtau = diffusion.compute_divtau(star.velocity, vel_g,
+                                                  star.density, eta_faces,
+                                                  eta_g1, cfg, grid, ng,
+                                                  eb=self.eb)
+            tra_eta_faces = self._tracer_eta_faces()
+            laps = None
+            if cfg.advect_tracer and explicit:
+                laps = diffusion.compute_laps(star.tracer, tra_eta_faces,
+                                              cfg, grid, eb=self.eb)
 
-        if cfg.constant_density:
-            rho_new, rho_nph = rho_o, rho_o
-        else:
-            rho_new = rho_o + dt * 0.5 * (conv_r + aux["conv_r"])
-            rho_nph = 0.5 * (rho_o + rho_new)
+        with tracing.span("diffuse"):
+            if cfg.constant_density:
+                rho_new, rho_nph = rho_o, rho_o
+            else:
+                rho_new = rho_o + dt * 0.5 * (conv_r + aux["conv_r"])
+                rho_nph = 0.5 * (rho_o + rho_new)
 
-        tra_new = tra_o
-        if cfg.advect_tracer:
-            rhs = rho_o[..., None] * tra_o + dt * (
-                0.5 * (conv_t + aux["conv_t"])
-                + self.compute_tra_forces(rho_nph))
+            tra_new = tra_o
+            if cfg.advect_tracer:
+                rhs = rho_o[..., None] * tra_o + dt * (
+                    0.5 * (conv_t + aux["conv_t"])
+                    + self.compute_tra_forces(rho_nph))
+                if explicit:
+                    rhs = rhs + dt * 0.5 * (aux["laps_o"] + laps)
+                elif cn:
+                    rhs = rhs + dt * 0.5 * aux["laps_o"]
+                tra_new = rhs / rho_new[..., None]
+                if not explicit:
+                    tra_new = self._diffuse_tra(tra_new, rho_new,
+                                                tra_eta_faces, dt)
+
+            vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, star.gp)
+            dv = 0.5 * (conv_u + aux["conv_u"]) + vel_f
             if explicit:
-                rhs = rhs + dt * 0.5 * (aux["laps_o"] + laps)
+                dv = dv + 0.5 * (aux["divtau_o"] + divtau)
             elif cn:
-                rhs = rhs + dt * 0.5 * aux["laps_o"]
-            tra_new = rhs / rho_new[..., None]
+                dv = dv + 0.5 * aux["divtau_o"]
+            elif cfg.use_tensor_correction:
+                dv = dv + divtau
+            vel_new = vel_o + dt * dv
             if not explicit:
-                tra_new = self._diffuse_tra(tra_new, rho_new, tra_eta_faces,
-                                            dt)
+                vel_new = self._diffuse_vel(vel_new, rho_new, eta_faces,
+                                            eta_g1, self._dt_diff(dt),
+                                            fixed_trips, cg)
 
-        vel_f = self.compute_vel_forces(rho_nph, tra_o, tra_new, star.gp)
-        dv = 0.5 * (conv_u + aux["conv_u"]) + vel_f
-        if explicit:
-            dv = dv + 0.5 * (aux["divtau_o"] + divtau)
-        elif cn:
-            dv = dv + 0.5 * aux["divtau_o"]
-        elif cfg.use_tensor_correction:
-            dv = dv + divtau
-        vel_new = vel_o + dt * dv
-        if not explicit:
-            vel_new = self._diffuse_vel(vel_new, rho_new, eta_faces, eta_g1,
-                                        self._dt_diff(dt), fixed_trips, cg)
-
-        vel_new, p_new, gp_new = self.apply_projection(
-            vel_new, vel_o, rho_nph, star.gp, old.p, dt, False,
-            small_dt_flag)
-        if self.eb is not None:
-            from incflo_torch.eb import ops as ebops
-            vel_new = ebops.correct_small_cells(vel_new, umac, grid, self.eb)
+        with tracing.span("nodal"):
+            vel_new, p_new, gp_new = self.apply_projection(
+                vel_new, vel_o, rho_nph, star.gp, old.p, dt, False,
+                small_dt_flag)
+            if self.eb is not None:
+                from incflo_torch.eb import ops as ebops
+                vel_new = ebops.correct_small_cells(vel_new, umac, grid,
+                                                    self.eb)
         return LevelState(velocity=vel_new, density=rho_new, tracer=tra_new,
                           gp=gp_new, p=p_new, mac_phi=mac_phi)
 
@@ -1077,12 +1104,10 @@ class Simulation:
         dt_force: the step's dt, given by an AMR driver (else
         compute_dt's)."""
         old = s.level
-        if dt_force is None:
-            dt = self.peek_dt(s)
-        else:
-            dt = dt_force
-        small_dt = torch.where((s.t > 0.0) & (dt < 0.1 * s.dt), 1.0,
-                               0.0).to(self.dtype)
+        with tracing.span("dt"):
+            dt = self.peek_dt(s) if dt_force is None else dt_force
+            small_dt = torch.where((s.t > 0.0) & (dt < 0.1 * s.dt), 1.0,
+                                   0.0).to(self.dtype)
         new, aux = self.apply_predictor(old, dt, False, small_dt,
                                         fixed_trips, cg)
         if not self.cfg.use_godunov:

@@ -32,6 +32,7 @@ from incflo_tpu import main as jmain
 
 import incflo_torch
 from incflo_torch import main as tmain
+from incflo_torch.utils import tracing
 
 TOL = 1e-10
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -239,8 +240,9 @@ def test_cli_describe_usage_and_missing_deck(tmp_path, capsys):
 
 def test_cli_eb_surface_and_profile_trace(tmp_path, monkeypatch):
     """incflo.write_eb_surface writes the STL of eb/surface.py, and
-    INCFLO_PROFILE_DIR a torch.profiler chrome trace of the evolve
-    loop."""
+    INCFLO_PROFILE_DIR a torch.profiler chrome trace of the build and
+    the evolve loop, the static solvers' build and the step's phases
+    among its ranges."""
     deck = tmp_path / "inputs"
     deck.write_text(bench._deck("tgv2d", 8, "float64")[0] + EB_CYLINDER)
     monkeypatch.setenv("INCFLO_PLATFORM", "cpu")
@@ -252,6 +254,10 @@ def test_cli_eb_surface_and_profile_trace(tmp_path, monkeypatch):
     assert stl.startswith("solid") and stl.count("facet normal") > 0
     trace = json.load(open(tmp_path / "prof" / "trace.rank0.json"))
     assert len(trace["traceEvents"]) > 0
+    names = {e.get("name") for e in trace["traceEvents"]}
+    want = {"static_solvers", *tracing.PHASES}
+    assert want <= names, want - names
+    assert tracing.SPANS is None
 
 
 def _chk_files(d):
